@@ -307,6 +307,6 @@ extern "C" int crf_mean_field_f32(
   return 0;
 }
 
-extern "C" const char* crf_error_string(int code) {
+extern "C" const char* crf_mean_field_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

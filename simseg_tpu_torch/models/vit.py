@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from simseg_tpu_torch.models.projection import gelu
 from simseg_tpu_torch.ops.attention import multi_head_attention
+from simseg_tpu_torch.ops.interpolate_pe import interpolate_pos_embed
 
 
 class Mlp(nn.Module):
@@ -83,7 +84,8 @@ class PatchEmbed(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """ViT returning (B, 1+N, D); position embeddings sized for img_size."""
+    """ViT returning (B, 1+N, D); position embeddings sized for img_size,
+    resampled for any other input size."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -106,13 +108,14 @@ class VisionTransformer(nn.Module):
         """images: (B, H, W, 3) NHWC float -> (B, 1+N, D)."""
         dtype = self.cls_token.dtype
         x = self.patch_embed(images.to(dtype))
+        pos_embed = self.pos_embed
         if x.shape[1] != self.num_patches:
-            raise ValueError(
-                f"{x.shape[1]} patches for a tower built for "
-                f"{self.num_patches}; position-embedding resampling is not "
-                "ported")
+            # another input size (multi-scale inference): resample the
+            # position grid bicubically in f32 (JAX ``vit.py:323-334``)
+            pos_embed = interpolate_pos_embed(pos_embed.float(),
+                                              x.shape[1]).to(dtype)
         cls = self.cls_token.expand(x.shape[0], -1, -1)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed
+        x = torch.cat([cls, x], dim=1) + pos_embed
         for block in self.blocks:
             x = block(x)
         return self.norm(x)

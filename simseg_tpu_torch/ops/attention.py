@@ -1,10 +1,14 @@
-"""Multi-head attention core (port of the plain path of
-``simseg_tpu/ops/attention.py:85-106``).
+"""Multi-head attention core (port of ``simseg_tpu/ops/attention.py``).
 
-The JAX package routes long bias-free bf16 sequences (T >= 1024) to its
-Pallas flash kernels; the segmentation main path (T = 325 image tokens,
-padded BERT text) never reaches them, so the port has only this path:
-matmul + softmax with q pre-scaled.
+Two lowerings, routed as the JAX package routes them (:108-182):
+- bias-free, non-float32 calls on a CUDA tensor with ``flash_supported``
+  (1024 <= T <= 1536, hd % 64 == 0: the 576-px ViT pass of multi-scale
+  segmentation) go to the hand-written kernel ``ops/flash_attention.py``;
+- everything else takes the plain path: matmul + softmax with q
+  pre-scaled. That includes the CPU (where the JAX package's
+  ``platform_dependent`` default is its einsum path too) and, until their
+  kernels are ported, the JAX rowblock (T > 1680) and stream (T > 4096)
+  bands.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from simseg_tpu_torch.ops import flash_attention
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,12 +36,17 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"model dim {d} not divisible by num_heads {num_heads}")
     hd = d // num_heads
     dtype = q.dtype
-    qh = q.reshape(b, tq, num_heads, hd).transpose(1, 2)   # (B, H, Tq, hd)
-    kh = k.reshape(b, tk, num_heads, hd).transpose(1, 2)
-    vh = v.reshape(b, tk, num_heads, hd).transpose(1, 2)
     # the 1/sqrt(hd) scale in q's own dtype, as the JAX version folds it
-    qh = qh * torch.tensor(float(hd), dtype=dtype, device=q.device).pow(-0.5)
+    qh = q.reshape(b, tq, num_heads, hd) * torch.tensor(
+        float(hd), dtype=dtype, device=q.device).pow(-0.5)
+    kh = k.reshape(b, tk, num_heads, hd)
+    vh = v.reshape(b, tk, num_heads, hd)
 
+    if q.device.type == "cuda" and flash_attention.flash_supported(
+            tq, tk, hd, dtype, attention_bias):
+        return flash_attention.flash_mha(qh, kh, vh).reshape(b, tq, d)
+
+    qh, kh, vh = (x.transpose(1, 2) for x in (qh, kh, vh))  # (B, H, T, hd)
     scores = torch.matmul(qh, kh.transpose(-2, -1))        # (B, H, Tq, Tk)
     if attention_bias is not None:
         scores = scores + attention_bias.to(scores.dtype)

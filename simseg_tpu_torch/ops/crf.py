@@ -1,6 +1,5 @@
-"""Mean-field dense CRF, plain PyTorch (port of the ``xla`` lane of
-``simseg_tpu/ops/crf.py:_mean_field_binary`` and of
-``dense_crf_batched_du``).
+"""Mean-field dense CRF (port of ``simseg_tpu/ops/crf.py:_mean_field_binary``
+and ``dense_crf_batched_du``, with their lane routing).
 
 Parity: the reference refines each candidate class's similarity map with
 pydensecrf on the host (``tools/seg_evaluation.py:31-54``): 2-label
@@ -16,8 +15,9 @@ difference ``d = q_fg - q_bg``:
 - B: box-mean splat to the stride-s grid, the symmetric-normalised
   bilateral kernel matrix over its N cells, nearest slice back.
 
-This is the reference the hand-written kernel (``ops/crf_fused.py``) is
-held against, and the path every CPU tensor takes. Float32 only.
+The dense lane is the reference the hand-written kernels
+(``ops/crf_fused.py``, ``ops/crf_pallas.py``) are held against, and the
+lane every CPU tensor takes unless told otherwise. Float32 only.
 """
 
 from __future__ import annotations
@@ -83,6 +83,26 @@ def bilateral_kernel_matrix(feat: torch.Tensor) -> torch.Tensor:
     return torch.exp(-0.5 * torch.clamp(d2, min=0.0))
 
 
+def _resolve_bilateral_impl(h: int, w: int, stride: int, on_cuda: bool) -> str:
+    """The CRF lane for an (h, w) map at a bilateral stride, chosen as JAX
+    ``_resolve_bilateral_impl`` (``simseg_tpu/ops/crf.py:115-132``) chooses
+    with ``on_tpu`` read as ``on_cuda``. Lanes (JAX name in brackets):
+    - ``"fused"`` (``fused``): the whole mean field in the CUDA kernel of
+      ``ops/crf_fused.py``, where ``fused_eligible`` holds;
+    - ``"dense"`` (``xla``): the (N, N) kernel matrix materialised once,
+      for N <= 4096 cells, and on the CPU;
+    - ``"stream"`` (``pallas``): K recomputed on every product by the CUDA
+      kernel of ``ops/crf_pallas.py``, for N > 4096.
+    """
+    if not on_cuda:
+        return "dense"
+    from simseg_tpu_torch.ops.crf_fused import fused_eligible
+
+    if fused_eligible(h, w, stride):
+        return "fused"
+    return "dense" if (h // stride) * (w // stride) <= 4096 else "stream"
+
+
 def dense_crf_batched_du(
     du: torch.Tensor,
     rgb: torch.Tensor,
@@ -93,17 +113,33 @@ def dense_crf_batched_du(
     bilateral_srgb: float = 13.0,
     bilateral_compat: float = 10.0,
     bilateral_stride: int = 4,
+    bilateral_impl: str = "auto",
 ) -> torch.Tensor:
     """Refine K binary maps per image from their unary difference.
 
     du:  (B, K, H, W) float32 ``log(p + 1e-8) - log(1 - p + 1e-8)``.
     rgb: (B, H, W, 3) images, 0..255 scale, any dtype.
+    bilateral_impl: ``"auto"`` (``_resolve_bilateral_impl`` on du's device),
+    ``"fused"``, ``"dense"`` or ``"stream"``.
     Returns (B, K, H, W) int32 masks (1 = foreground).
     """
     bb, kk, h, w = du.shape
     s = bilateral_stride
     if h % s or w % s:
         raise ValueError(f"map {h}x{w} not divisible by stride {s}")
+    impl = bilateral_impl
+    if impl == "auto":
+        impl = _resolve_bilateral_impl(h, w, s, du.device.type == "cuda")
+    if impl == "fused":
+        from simseg_tpu_torch.ops.crf_fused import mean_field_fused
+
+        return mean_field_fused(
+            du.float().contiguous(), rgb, num_iters=num_iters,
+            gaussian_sxy=gaussian_sxy, gaussian_compat=gaussian_compat,
+            bilateral_sxy=bilateral_sxy, bilateral_srgb=bilateral_srgb,
+            bilateral_compat=bilateral_compat, stride=s).to(torch.int32)
+    if impl not in ("dense", "stream"):
+        raise ValueError(f"unknown bilateral_impl {bilateral_impl!r}")
     du = du.float()
     dev = du.device
 
@@ -116,16 +152,31 @@ def dense_crf_batched_du(
     n_small = (h // s) * (w // s)
     feat = bilateral_features(cell_colours(rgb, s), bilateral_sxy,
                               bilateral_srgb, s)
-    kmat = bilateral_kernel_matrix(feat)                           # (B, N, N)
-    b_norm = torch.rsqrt(kmat.sum(dim=2) + 1e-20)                  # (B, N)
+    if impl == "stream":
+        from simseg_tpu_torch.ops.crf_pallas import bilateral_matvec_batched
+
+        degree = bilateral_matvec_batched(
+            feat, torch.ones((bb, n_small, 1), dtype=torch.float32, device=dev))
+        b_norm = torch.rsqrt(degree[..., 0] + 1e-20)               # (B, N)
+
+        def bilateral_apply(q: torch.Tensor) -> torch.Tensor:
+            # (B, K, N) -> (B, K, N): K (b_norm * q), never stored
+            qn = (q * b_norm[:, None, :]).transpose(1, 2)
+            return bilateral_matvec_batched(feat, qn).transpose(1, 2)
+    else:
+        kmat = bilateral_kernel_matrix(feat)                       # (B, N, N)
+        b_norm = torch.rsqrt(kmat.sum(dim=2) + 1e-20)              # (B, N)
+
+        def bilateral_apply(q: torch.Tensor) -> torch.Tensor:
+            return torch.matmul(q * b_norm[:, None, :], kmat.transpose(1, 2))
 
     def bilateral_message(d: torch.Tensor) -> torch.Tensor:
         # mean-splat with coarse-degree normalisation is the right
         # discretisation: the fine-grid degree is s^2 (K 1)_c, whose two
         # D^-1/2 factors cancel the s^2 of a sum-splat
         q = box_downsample(d, s).reshape(bb, kk, n_small)
-        m = torch.matmul(q * b_norm[:, None, :], kmat.transpose(1, 2))
-        m = (m * b_norm[:, None, :]).reshape(bb, kk, h // s, w // s)
+        m = (bilateral_apply(q) * b_norm[:, None, :]).reshape(
+            bb, kk, h // s, w // s)
         return nearest_upsample(m, s)
 
     def gaussian_message(d: torch.Tensor) -> torch.Tensor:

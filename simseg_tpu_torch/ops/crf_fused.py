@@ -7,24 +7,20 @@ On a CPU tensor it runs ``mean_field_fused_plain`` (the plain CRF of
 ``ops/crf.py`` composed with ``ops/morphology.closing``); on a CUDA tensor it
 launches ``csrc/crf_mean_field.cu`` or raises — there is no fallback.
 
-The kernel is built at first use with ``nvcc`` into a shared library with a
-plain C interface (``_build/`` beside this package, named by the source's
-hash) and loaded with ``ctypes``. ``LAUNCHES`` counts the kernel's launches.
+The kernel is built at first use by ``ops/cuda_build.py`` and loaded with
+``ctypes``. ``LAUNCHES`` counts the kernel's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from simseg_tpu_torch.ops import cuda_build
 from simseg_tpu_torch.ops.crf import (
     band_matrix,
     bilateral_features,
@@ -34,19 +30,26 @@ from simseg_tpu_torch.ops.crf import (
 )
 from simseg_tpu_torch.ops.morphology import closing
 
-__all__ = ["LAUNCHES", "bilateral_features", "build_library",
+__all__ = ["LAUNCHES", "bilateral_features", "fused_eligible",
            "gaussian_constants", "mean_field_fused", "mean_field_fused_plain"]
 
+_NAME = "crf_mean_field"  # csrc/crf_mean_field.cu
 _F_PAD = 8            # padded feature width (2 pos + 3 rgb)
 _MAX_CLASSES = 8      # kMaxClasses in the kernel
 _MAX_RADIUS = 16      # kMaxRadius in the kernel
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG, "csrc", "crf_mean_field.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
-
 # launches of the CUDA kernel (one per mean_field_fused call on the card)
 LAUNCHES = 0
+
+
+def fused_eligible(h: int, w: int, stride: int) -> bool:
+    """The grids the decode sends to the fused kernel: the TPU kernel's
+    VMEM limits (``simseg_tpu/ops/crf_fused.py:fused_eligible``, :126-132),
+    kept so that the port routes each shape as the JAX package does."""
+    if h % stride or w % stride:
+        return False
+    n = (h // stride) * (w // stride)
+    return n <= 1600 and h * w <= 512 * 512
 
 
 def gaussian_constants(h: int, w: int, gaussian_sxy: float):
@@ -71,49 +74,21 @@ def mean_field_fused_plain(du, rgb, num_iters=3, gaussian_sxy=3.0,
                            gaussian_compat=3.0, bilateral_sxy=40.0,
                            bilateral_srgb=13.0, bilateral_compat=10.0,
                            stride=8, closing_ksize=0) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: (B, K, H, W) float32 masks."""
+    """The kernel's function in plain PyTorch (the CRF's materialised-K
+    lane, on any device): (B, K, H, W) float32 masks."""
     masks = dense_crf_batched_du(
         du, rgb, num_iters=num_iters, gaussian_sxy=gaussian_sxy,
         gaussian_compat=gaussian_compat, bilateral_sxy=bilateral_sxy,
         bilateral_srgb=bilateral_srgb, bilateral_compat=bilateral_compat,
-        bilateral_stride=stride).float()
+        bilateral_stride=stride, bilateral_impl="dense").float()
     if closing_ksize > 1:
         masks = closing(masks, closing_ksize)
     return masks
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CRF kernel cannot be built")
-
-
-def build_library() -> str:
-    """Compile the kernel for sm_90a (once per source version); returns the
-    path of the shared library."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    path = os.path.join(_BUILD_DIR, f"libcrf_mean_field-{digest}.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path
-
-
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library())
+    lib = cuda_build.load_library(_NAME)
     fn = lib.crf_mean_field_f32
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, p, p, p, p,            # du, feat, taps, ah, aw
@@ -122,8 +97,6 @@ def _library() -> ctypes.CDLL:
                    p, p, p, p, p, p, p,      # d_work, q, m, bn, masks, out
                    p]                        # stream
     fn.restype = ctypes.c_int
-    lib.crf_error_string.argtypes = [ctypes.c_int]
-    lib.crf_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -183,9 +156,7 @@ def mean_field_fused(du: torch.Tensor, rgb: torch.Tensor, num_iters: int = 3,
         float(gaussian_compat), float(bilateral_compat), int(closing_ksize),
         d_work.data_ptr(), q.data_ptr(), m.data_ptr(), bn.data_ptr(),
         *mask_ptrs, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if status != 0:
-        raise RuntimeError("crf_mean_field_f32 failed: "
-                           + lib.crf_error_string(status).decode())
+    cuda_build.check_status(lib, _NAME, "crf_mean_field_f32", status)
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -10,8 +10,12 @@ batched:
 3. per candidate: patch/class-text similarity map, min-max normalised on the
    patch grid (normalisation commutes with the nearest upsample), unary
    difference ``du`` there, then x patch_size nearest upsample (:136-150)
-4. mean-field CRF + 7x7 closing (:153-159): ``ops/crf_fused.mean_field_fused``
-   — the CUDA kernel on the card, its plain version on the CPU
+4. mean-field CRF + 7x7 closing (:153-159), routed by shape as the JAX
+   decode routes it (``simseg_tpu/ops/seg_decode.py:200-222``): on the
+   card, where ``fused_eligible`` holds, one CUDA kernel runs both
+   (``ops/crf_fused.mean_field_fused``); elsewhere ``dense_crf_batched_du``
+   takes its auto lane (materialised K, or the streaming kernel past 4096
+   cells) and ``morphology.closing`` follows. Float32 throughout.
 5. score-weighted masks, argmax with first-occurrence ties (:160-177)
 """
 
@@ -21,8 +25,9 @@ from typing import Tuple
 
 import torch
 
-from simseg_tpu_torch.ops.crf_fused import mean_field_fused
-from simseg_tpu_torch.ops.morphology import nearest_upsample
+from simseg_tpu_torch.ops.crf import dense_crf_batched_du
+from simseg_tpu_torch.ops.crf_fused import fused_eligible, mean_field_fused
+from simseg_tpu_torch.ops.morphology import closing, nearest_upsample
 
 
 def shortlist(pooled: torch.Tensor, text_bank: torch.Tensor, top_cls_num: int,
@@ -102,10 +107,17 @@ def make_seg_decode_fn(num_classes: int, image_size: int, patch_size: int = 16,
         cand_idx, cand_scores, valid = shortlist(
             pooled, text_bank, top_cls_num, candidate_classes)
         du = nearest_upsample(
-            coarse_unary(dense, text_bank, cand_idx, grid), patch_size)
-        masks = mean_field_fused(du.contiguous(), raw_images,
-                                 num_iters=crf_iters, stride=bilateral_stride,
-                                 closing_ksize=morphology_ksize)
+            coarse_unary(dense, text_bank, cand_idx, grid),
+            patch_size).contiguous()
+        if du.device.type == "cuda" and fused_eligible(
+                image_size, image_size, bilateral_stride):
+            masks = mean_field_fused(du, raw_images, num_iters=crf_iters,
+                                     stride=bilateral_stride,
+                                     closing_ksize=morphology_ksize)
+        else:
+            masks = closing(dense_crf_batched_du(
+                du, raw_images, num_iters=crf_iters,
+                bilateral_stride=bilateral_stride).float(), morphology_ksize)
         return decode_tail(masks, cand_idx, cand_scores, valid)
 
     return decode

@@ -6,6 +6,7 @@ the same f32 arithmetic in a different order get rtol 1e-6.
 """
 
 import ast
+import hashlib
 import os
 import subprocess
 import sys
@@ -29,7 +30,7 @@ from simseg_tpu.utils.prompts import IMAGENET_TEMPLATES
 from simseg_tpu_torch import resolve_device
 from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer, make_test_vocab
 from simseg_tpu_torch.data.transforms import normalize_images
-from simseg_tpu_torch.ops import crf_fused
+from simseg_tpu_torch.ops import crf_fused, crf_pallas, cuda_build, flash_attention
 from simseg_tpu_torch.ops.attention import multi_head_attention, padding_bias
 from simseg_tpu_torch.ops.pooling import avg_pool, l2_normalize, topk_pool
 from simseg_tpu_torch.utils import prompts
@@ -123,6 +124,51 @@ def test_crf_wrapper_refuses_cuda_tensor_without_library(monkeypatch):
     with pytest.raises(OSError, match="cannot open shared object"):
         crf_fused.mean_field_fused(du, rgb, stride=4)
     assert crf_fused.LAUNCHES == launches
+
+
+def _missing_library():
+    raise OSError("lib.so: cannot open shared object file")
+
+
+def _no_plain(*a, **k):
+    raise AssertionError("fell back to the plain version")
+
+
+def test_flash_wrapper_refuses_cuda_tensor_without_library(monkeypatch):
+    monkeypatch.setattr(flash_attention, "_library", _missing_library)
+    monkeypatch.setattr(flash_attention, "flash_mha_plain", _no_plain)
+    q, k, v = (torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+               .as_subclass(_CudaLooking) for _ in range(3))
+    launches = flash_attention.LAUNCHES
+    with pytest.raises(OSError, match="cannot open shared object"):
+        flash_attention.flash_mha(q, k, v)
+    assert flash_attention.LAUNCHES == launches
+
+
+def test_bilateral_wrapper_refuses_cuda_tensor_without_library(monkeypatch):
+    monkeypatch.setattr(crf_pallas, "_library", _missing_library)
+    monkeypatch.setattr(crf_pallas, "bilateral_matvec_plain", _no_plain)
+    feat = torch.zeros(1, 16, 5).as_subclass(_CudaLooking)
+    q = torch.ones(1, 16, 1).as_subclass(_CudaLooking)
+    launches = crf_pallas.LAUNCHES
+    for fn, args in ((crf_pallas.bilateral_matvec_batched, (feat, q)),
+                     (crf_pallas.bilateral_matvec, (feat[0], q[0]))):
+        with pytest.raises(OSError, match="cannot open shared object"):
+            fn(*args)
+    assert crf_pallas.LAUNCHES == launches
+
+
+def test_kernel_libraries_are_named_by_their_source_hash(monkeypatch, tmp_path):
+    """Each .so is built once per source version, under its own name, and
+    a build that exists is not redone."""
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "_nvcc", _no_plain)
+    for name in ("crf_mean_field", "flash_attention", "bilateral_matvec"):
+        src = os.path.join(cuda_build.CSRC, f"{name}.cu")
+        digest = hashlib.sha256(open(src, "rb").read()).hexdigest()[:12]
+        built = tmp_path / f"lib{name}-{digest}.so"
+        built.write_bytes(b"")
+        assert cuda_build.build_library(name) == str(built)
 
 
 # --------------------------------------------------------- data and utils
