@@ -5,7 +5,7 @@
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
    CUDA; float32 matmuls must be full float32 (no TF32);
-2. builds the three hand-written kernels from ``simseg_tpu_torch/csrc``
+2. builds the four hand-written kernels from ``simseg_tpu_torch/csrc``
    with nvcc, one process per source, all started together;
 3. holds the CRF kernel against its plain PyTorch version on the card at
    the main path's shape (16 images, 5 candidate maps, 288 x 288, stride 8,
@@ -23,6 +23,13 @@ Phases (any failure raises, so the exit code is non-zero):
    cells (576 px, stride 8), C = 1 (the degree) and 5: max abs error over
    the plain result's largest entry <= 1e-4; kernel, plain and bound times,
    also for one image through the unbatched wrapper;
+3d. the attention backward kernel against its plain version on
+   (16, T, 12, 64) bf16 at T = 1297, 1024 and 1536, and at (32, 1297, 12,
+   64), the shape the training slice gives it; q, k, v and o from the
+   forward kernel with its log-sum-exp, random g: per gradient, max abs
+   error <= 2e-2 x the plain result's largest entry and mean abs error <=
+   1e-2 x its mean abs entry; backward, forward with and without lse, plain
+   backward and ``scaled_dot_product_attention`` backward times, and bound;
 4. drives the main path: zero-shot segmentation with the ViT-B/16 (288 px)
    and BERT-base towers in bf16, seeded random weights, the 21 PASCAL VOC
    classes, through ``evaluate_benchmark`` on 3 synthetic batches of 16;
@@ -41,7 +48,21 @@ Phases (any failure raises, so the exit code is non-zero):
    against the plain decode (>= 99.9%); images/s and a device profile;
 5. checkpoint loading: the seeded model's state dict at a 224-px grid,
    ``module.``-prefixed, loaded into the 288-px model: every entry
-   matched, ``pos_embed`` equal to its bicubic resampling.
+   matched, ``pos_embed`` equal to its bicubic resampling;
+6. the training slice: ``tasks/clip/train.train`` with the flagship
+   config (``TRAIN_OVERRIDES``, the optim, lr, model, pool, loss and bf16
+   sections of ``configs/clip/simseg.vit-b.yaml``) at a 576-px crop
+   (T = 1297), batch 32, 12 steps on a loader that repeats one batch of
+   synthetic scenes with captions: every loss finite and the last below the
+   first; 12 forward and 12 backward attention-kernel launches per step and
+   no CRF launch; the checkpoint resumed by a second ``train`` at step 12
+   with equal parameters and optimizer state; one step at batch 8 against
+   ``flash_train_supported`` patched to False (the forward kernel with the
+   plain backward): loss within 1e-2 relative, gradient cosine >= 0.99
+   for every image-tower parameter, peak memory of both; ms per step
+   (steps 3-12, the host work between steps included), images/s, idle
+   share and a device profile; then 12 steps at the YAML's own 224-px crop
+   (T = 197), where no attention kernel runs, at batch 32 and at 128.
 It then prints one JSON line of kernel numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -74,7 +95,53 @@ WIN_INPUT = 576                          # sliding-window slice
 WIN = 288
 WIN_STRIDE = 192
 GT = 500
-KERNELS = ("crf_mean_field", "flash_attention", "bilateral_matvec")
+KERNELS = ("crf_mean_field", "flash_attention", "flash_attention_bwd",
+           "bilateral_matvec")
+BWD_TS = (LONG_T, 1024, 1536)
+# the sections of configs/clip/simseg.vit-b.yaml that the training slice
+# reproduces (no YAML is read on the card; tests/test_torch_port_config.py
+# holds this list against the file)
+TRAIN_OVERRIDES = (
+    "optim.name=torch.optim.AdamW",
+    "optim.param={'betas': [0.9, 0.98], 'eps': 1e-6, 'weight_decay': 0.001}",
+    "optim.lr.name=cosine_schedule_with_warmup_min_lr_scale",
+    "optim.lr.init=1e-4",
+    "optim.lr.warmup_proportion=0.025",
+    "optim.lr.param={'num_cycles': 0.5, 'min_lr_scale': 0.1}",
+    "model.name=clip",
+    "model.max_length=25",
+    "model.image_encoder.name=vit_modelzoo",
+    "model.image_encoder.tag=vit_base_patch16_224_in21k",
+    "model.image_encoder.embedding_dim=768",
+    "model.image_encoder.pretrained=True",
+    "model.image_encoder.trainable=True",
+    "model.text_encoder.name=huggingface_modelzoo",
+    "model.text_encoder.tag=bert-base-uncased",
+    "model.text_encoder.embedding_dim=768",
+    "model.text_encoder.pretrained=True",
+    "model.text_encoder.trainable=True",
+    "model.text_encoder.target_token_idx=0",
+    "model.projection.name=simple",
+    "model.projection.dim=512",
+    "model.pool.name=loda",
+    "model.pool.loda.image_k=5",
+    "model.pool.loda.text_k=1",
+    "loss.name=NCE",
+    "loss.global_reduce=True",
+    "loss.nce_loss.gather_backward=True",
+    "loss.temperature.name=parameter",
+    "loss.temperature.value=0.02",
+    "dist.bf16=True",
+)
+TRAIN_SIZE = 576                          # the crop of the training slice
+TRAIN_BATCH = 32
+TRAIN_STEPS = 12
+COMPARE_BATCH = 8
+BATCHES_224 = (TRAIN_BATCH, 128)
+TRAIN_SLICE = (f"transforms.random_resize_crop.size={TRAIN_SIZE}",
+               f"transforms.input_size={TRAIN_SIZE}",
+               f"data.batch_size={TRAIN_BATCH}",
+               f"data.train_steps={TRAIN_STEPS}", "epoch=1")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
 # FLOP/s, bf16 dense tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -102,8 +169,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn, label: str, top: int = 8) -> None:
-    """Prints the device time of one call of fn, by kernel (torch.profiler)."""
+def device_profile(fn, label: str, top: int = 8) -> float:
+    """Prints the device time of one call of fn, by kernel (torch.profiler);
+    returns the total in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -120,6 +188,7 @@ def device_profile(fn, label: str, top: int = 8) -> None:
     for us, count, key in rows[:top]:
         print(f"  {us / 1e3:9.4f} ms {100 * us / total:5.1f}% x{count:<3d} "
               f"{key[:90]}", flush=True)
+    return total / 1e3
 
 
 def crf_bound_ms(b, k, h, w, s, radius, iters, rgb_bytes):
@@ -203,11 +272,16 @@ def check_crf_kernel(b):
         du, rgb, closing_ksize=CLOSING, **kw), reps)
     plain_ms = cuda_ms(lambda: crf_fused.mean_field_fused_plain(
         du, rgb, closing_ksize=CLOSING, **kw), reps // 4)
+    # the plain version is a chain of small launches: its event time follows
+    # the host, its device time does not
+    plain_device = device_profile(lambda: crf_fused.mean_field_fused_plain(
+        du, rgb, closing_ksize=CLOSING, **kw), f"crf plain b={b}", top=0)
     radius = crf_fused.gaussian_constants(SIZE, SIZE, 3.0)[0].shape[0] // 2
     bound, bound_by = crf_bound_ms(b, CLASSES_PER_IMAGE, SIZE, SIZE, STRIDE,
                                    radius, ITERS, rgb.numel() * rgb.element_size())
-    print(f"crf b={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound:.4f} ms ({bound_by})", flush=True)
+    print(f"crf b={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (device "
+          f"{plain_device:.4f} ms), bound {bound:.4f} ms ({bound_by})",
+          flush=True)
     device_profile(lambda: crf_fused.mean_field_fused(
         du, rgb, closing_ksize=CLOSING, **kw), f"crf kernel b={b}")
     return dict(max_abs_err=max_err, agreement=agree, ms=ms, plain_ms=plain_ms,
@@ -259,20 +333,23 @@ class SyntheticLoader:
 
 
 def counters():
-    """The launch counters of the three kernels' wrappers."""
+    """Kernel name -> (module, attribute) of its wrapper's launch count."""
     from simseg_tpu_torch.ops import crf_fused, crf_pallas, flash_attention
 
-    return {"crf_mean_field": crf_fused, "flash_attention": flash_attention,
-            "bilateral_matvec": crf_pallas}
+    return {"crf_mean_field": (crf_fused, "LAUNCHES"),
+            "flash_attention": (flash_attention, "LAUNCHES"),
+            "flash_attention_bwd": (flash_attention, "BWD_LAUNCHES"),
+            "bilateral_matvec": (crf_pallas, "LAUNCHES")}
 
 
 def reset_counts() -> None:
-    for module in counters().values():
-        module.LAUNCHES = 0
+    for module, attr in counters().values():
+        setattr(module, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: module.LAUNCHES for name, module in counters().items()}
+    return {name: getattr(module, attr)
+            for name, (module, attr) in counters().items()}
 
 
 def slice_setup():
@@ -386,6 +463,63 @@ def check_flash_kernel(t):
           flush=True)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=sdpa_ms)
+
+
+def check_flash_bwd_kernel(t, b=BATCH):
+    """Phase 3d at (b, t, 12, 64): returns the backward kernel's JSON fields
+    (no launches)."""
+    import torch.nn.functional as F
+
+    from simseg_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(t + b)
+    q, k, v, g = (torch.randn(b, t, HEADS, HEAD_DIM, device="cuda",
+                              generator=gen) for _ in range(4))
+    q, k, v, g = (x.to(torch.bfloat16) for x in (q * HEAD_DIM ** -0.5, k, v, g))
+    out, lse = fa._launch(q, k, v, with_lse=True)
+    got = fa.flash_mha_train_bwd(q, k, v, out, g, lse)
+    want = fa.flash_mha_train_bwd_plain(q, k, v, g)
+    max_err = 0.0
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = (x.float() - y.float()).abs()
+        ref = y.float().abs()
+        e_max, e_mean = err.max().item(), err.mean().item()
+        r_max, r_mean = ref.max().item(), ref.mean().item()
+        print(f"attention bwd B={b} T={t} {name}: max abs err {e_max:.3e} "
+              f"(plain max {r_max:.3e}), mean {e_mean:.3e} (plain mean "
+              f"{r_mean:.3e})", flush=True)
+        if e_max > 2e-2 * r_max or e_mean > 1e-2 * r_mean:
+            raise AssertionError(f"attention bwd B={b} T={t} {name}: error "
+                                 f"{e_max} / {e_mean}")
+        max_err = max(max_err, e_max)
+
+    ms = cuda_ms(lambda: fa.flash_mha_train_bwd(q, k, v, out, g, lse), 20)
+    fwd_lse_ms = cuda_ms(lambda: fa._launch(q, k, v, with_lse=True), 20)
+    fwd_ms = cuda_ms(lambda: fa._launch(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: fa.flash_mha_train_bwd_plain(q, k, v, g), 3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+
+    sdpa_f = cuda_ms(sdpa_fwd, 20)
+    sdpa_fb = cuda_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), gt), 20)
+    # the work: 10 B H T^2 hd tensor-core operations (dv, dp, dq, dk and the
+    # recomputed s); q, k, v, o, g and lse read once, dq, dk, dv written once
+    t_ops = 10 * b * HEADS * t * t * HEAD_DIM / BF16_FLOP_PER_S * 1e3
+    t_bytes = (8 * b * t * HEADS * HEAD_DIM * 2
+               + b * HEADS * t * 4) / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"attention bwd B={b} T={t}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, "
+          f"sdpa bwd {sdpa_fb - sdpa_f:.4f} ms (fwd+bwd {sdpa_fb:.4f}, fwd "
+          f"{sdpa_f:.4f}), bound {bound:.4f} ms ({bound_by}); forward kernel "
+          f"with lse {fwd_lse_ms:.4f} ms, without {fwd_ms:.4f} ms", flush=True)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=sdpa_fb - sdpa_f)
 
 
 def bilateral_bound_ms(b, n, used, c):
@@ -608,8 +742,225 @@ def check_checkpoint():
         raise AssertionError("pos_embed is not the resampled one")
 
 
+def train_cfg(ckpt_dir, *extra):
+    """The training slice's config: the default bank, ``TRAIN_OVERRIDES``,
+    then ``extra``; no YAML is read."""
+    from simseg_tpu_torch.config import new_base_cfg, update_cfg
+    from simseg_tpu_torch.tasks.clip.config import (task_cfg_init_fn,
+                                                    update_clip_config)
+
+    return update_cfg(task_cfg_init_fn, None,
+                      list(TRAIN_OVERRIDES) + [f"ckpt.dir={ckpt_dir}",
+                                               "log.interval_train=4", *extra],
+                      preprocess_fn=update_clip_config, target=new_base_cfg())
+
+
+def caption_batch(seed, b, size):
+    """(batch, tokenizer): b synthetic scenes of ``size`` px as uint8 with
+    one caption each, naming the classes of their discs."""
+    from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer, make_test_vocab
+    from simseg_tpu_torch.tasks.seg_eval import load_label_bank
+
+    classes = load_label_bank("pascal_voc")
+    images, labels = synthetic_scenes(np.random.default_rng(seed), b, size,
+                                      len(classes))
+    captions = []
+    for lab in labels:
+        names = [classes[c] for c in np.unique(lab) if c > 0]
+        captions.append("a photo of " + " and ".join(names or ["nothing"]))
+    tok = WordPieceTokenizer(make_test_vocab(
+        ["a", "photo", "of", "and", "nothing"] + classes))
+    return {"image": images, "caption": captions}, tok
+
+
+class StepTimer:
+    """Wraps ``CLIPRunner.batch_processor``: keeps each step's loss (on the
+    device) and CUDA events at the start and end of each step."""
+
+    def __init__(self):
+        self.losses, self.events = [], []
+
+    def patch(self):
+        from simseg_tpu_torch.core.runner import CLIPRunner
+
+        inner = CLIPRunner.batch_processor
+
+        def wrapped(runner, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(runner, batch)
+            end.record()
+            self.events.append((start, end))
+            self.losses.append(out["loss"])
+            return out
+
+        return unittest.mock.patch.object(CLIPRunner, "batch_processor", wrapped)
+
+    def ms_per_step(self, warmup=2):
+        """(whole, inside): mean ms per step from the start of step
+        ``warmup + 1`` to the end of the last, the hooks, the loader and
+        every host stall between steps included; and the mean of the same
+        steps' own times, inside ``batch_processor`` only."""
+        torch.cuda.synchronize()
+        timed = self.events[warmup:]
+        whole = timed[0][0].elapsed_time(timed[-1][1]) / len(timed)
+        inside = sum(a.elapsed_time(b) for a, b in timed) / len(timed)
+        return whole, inside
+
+
+def step_grads(model, batch):
+    """(loss, {name: grad}) of one forward/backward of the train loss."""
+    from simseg_tpu_torch.engine.train_step import clip_loss_fn
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = clip_loss_fn(model, batch)
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def compare_train_step(runner, batch):
+    """One step's loss and image-tower gradients with the backward kernel
+    against ``flash_train_supported`` patched to False; peak memory."""
+    import torch.nn.functional as F
+
+    from simseg_tpu_torch.ops import flash_attention
+
+    small = {k: v[:COMPARE_BATCH] for k, v in runner._prepare_batch(batch).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss_k, grads_k = step_grads(runner.model, small)
+    peak_k = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with unittest.mock.patch.object(flash_attention, "flash_train_supported",
+                                    lambda *a: False):
+        loss_p, grads_p = step_grads(runner.model, small)
+    peak_p = torch.cuda.max_memory_allocated()
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    image = [n for n in grads_k if n.startswith("image_encoder.")]
+    cos = {n: F.cosine_similarity(grads_k[n].flatten(), grads_p[n].flatten(),
+                                  dim=0).item() for n in image}
+    worst = min(cos, key=cos.get)
+    print(f"train: batch {COMPARE_BATCH} step, backward kernel vs "
+          f"flash_train_supported=False: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(relative {rel:.3e}); min gradient cosine {cos[worst]:.6f} "
+          f"({worst}) over {len(image)} image-tower tensors; peak memory "
+          f"{peak_k / 2**30:.3f} GiB vs {peak_p / 2**30:.3f} GiB", flush=True)
+    if rel > 1e-2 or cos[worst] < 0.99:
+        raise AssertionError(f"train step kernel vs plain: loss {rel}, "
+                             f"cosine {cos[worst]} ({worst})")
+
+
+def run_train_slice(tmp):
+    """Phase 6: returns the launch counts of the 576-px training run."""
+    from simseg_tpu_torch.checkpoint.native import has_checkpoint
+    from simseg_tpu_torch.tasks.clip.train import train
+
+    cfg = train_cfg(os.path.join(tmp, "ckpt"), *TRAIN_SLICE)
+    batch, tok = caption_batch(6, TRAIN_BATCH, TRAIN_SIZE)
+    loader = [batch] * TRAIN_STEPS
+    timer = StepTimer()
+    with timer.patch():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner = train(cfg, {"train": [loader]}, tokenizer=tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    losses = [x.item() for x in timer.losses]
+    print(f"train: {len(losses)} steps of {TRAIN_BATCH} at {TRAIN_SIZE} px in "
+          f"{wall:.3f} s (model build included); losses "
+          f"{[round(x, 5) for x in losses]}; launches {counts}", flush=True)
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on a repeated batch: {losses}")
+    per_step = 12 * TRAIN_STEPS   # the ViT's 12 layers; BERT's T = 25 is plain
+    if (counts["flash_attention"] != per_step
+            or counts["flash_attention_bwd"] != per_step
+            or counts["crf_mean_field"] or counts["bilateral_matvec"]):
+        raise AssertionError(f"training launches {counts}, want {per_step} "
+                             "forward and backward attention and no CRF")
+    if not has_checkpoint(cfg.ckpt.dir):
+        raise AssertionError("the training run wrote no checkpoint")
+
+    ms, inside = timer.ms_per_step()
+    print(f"train: {ms:.3f} ms per step of {TRAIN_BATCH} at {TRAIN_SIZE} px "
+          f"(CUDA events from step 3 to the end of step {TRAIN_STEPS}; "
+          f"{inside:.3f} ms inside batch_processor) = "
+          f"{TRAIN_BATCH / (ms / 1e3):.1f} images/s", flush=True)
+
+    # a second train() resumes from the checkpoint: step 12, same state
+    resumed = train(cfg, {"train": [loader]}, tokenizer=tok)
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        runner.model.state_dict().values(), resumed.model.state_dict().values()))
+    opt_a = runner.optimizer.base.state_dict()["state"]
+    opt_b = resumed.optimizer.base.state_dict()["state"]
+    same_opt = opt_a.keys() == opt_b.keys() and all(
+        torch.equal(opt_a[i][k].cpu(), opt_b[i][k].cpu())
+        for i in opt_a for k in opt_a[i])
+    print(f"train: resumed at epoch {resumed.epoch}, step {resumed.step}; "
+          f"parameters equal {same_params}, optimizer state equal {same_opt}",
+          flush=True)
+    if resumed.step != TRAIN_STEPS or not (same_params and same_opt):
+        raise AssertionError("resume did not restore the trained state")
+    del resumed
+
+    compare_train_step(runner, batch)
+    device_ms = device_profile(lambda: runner.batch_processor(batch),
+                               f"train step, batch {TRAIN_BATCH} at "
+                               f"{TRAIN_SIZE} px", top=14)
+    print(f"train: device {device_ms:.3f} ms of {ms:.3f} ms per step, idle "
+          f"share {1 - device_ms / ms:.3f}", flush=True)
+    del runner
+    torch.cuda.empty_cache()
+
+    for b in BATCHES_224:
+        run_train_224(tmp, tok, b)
+    return counts
+
+
+def run_train_224(tmp, tok, b):
+    """12 steps at the YAML's own 224-px crop (model at input_size 288),
+    batch b: no attention kernel runs; images/s, idle share and a device
+    profile."""
+    from simseg_tpu_torch.tasks.clip.train import train
+
+    steps = TRAIN_STEPS
+    cfg = train_cfg(os.path.join(tmp, f"ckpt224_{b}"),
+                    "transforms.random_resize_crop.size=224",
+                    "transforms.input_size=288", f"data.batch_size={b}",
+                    f"data.train_steps={steps}", "epoch=1")
+    batch, _ = caption_batch(7, b, 224)
+    timer = StepTimer()
+    with timer.patch():
+        reset_counts()
+        runner = train(cfg, {"train": [[batch] * steps]}, tokenizer=tok)
+        counts = read_counts()
+    losses = [x.item() for x in timer.losses]
+    ms, inside = timer.ms_per_step()
+    print(f"train 224 px batch {b}: losses {[round(x, 5) for x in losses]}; "
+          f"{ms:.3f} ms per step (steps 3-{steps}; {inside:.3f} ms inside "
+          f"batch_processor) = {b / (ms / 1e3):.1f} images/s; launches "
+          f"{counts}", flush=True)
+    if (len(losses) != steps or any(counts.values())
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"224-px training at batch {b}: launches "
+                             f"{counts}, losses {losses}")
+    device = device_profile(lambda: runner.batch_processor(batch),
+                            f"train step, batch {b} at 224 px", top=10)
+    print(f"train 224 px batch {b}: device {device:.3f} ms of {ms:.3f} ms "
+          f"per step, idle share {1 - device / ms:.3f}", flush=True)
+    del runner
+    torch.cuda.empty_cache()
+
+
 def build_all():
-    """Builds the three kernels with one nvcc process each, in parallel."""
+    """Builds the four kernels with one nvcc process each, in parallel."""
     from simseg_tpu_torch.ops import cuda_build
 
     def build(name):
@@ -639,12 +990,20 @@ def main() -> None:
     check_crf_kernel(BENCH_BATCH)
     attn = {t: check_flash_kernel(t) for t in ATTN_TS}
     bilateral = check_bilateral_kernel()
+    for t in BWD_TS:
+        check_flash_bwd_kernel(t)
+    # the training slice's shape: the JSON line's numbers
+    attn_bwd = check_flash_bwd_kernel(LONG_T, TRAIN_BATCH)
 
     model, tokenizer, classes = slice_setup()
     crf_launches = run_slice(model, tokenizer, classes)
     ms_counts = run_multiscale_slice(model, tokenizer, classes)
     win_counts = run_window_slice(model, tokenizer, classes)
     check_checkpoint()
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts = run_train_slice(tmp)
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",
@@ -655,6 +1014,10 @@ def main() -> None:
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
          "replaces": "simseg_tpu/ops/flash_attention.py:180",
          "launches": ms_counts["flash_attention"], **attn[LONG_T]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "simseg_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "simseg_tpu/ops/flash_attention.py:202",
+         "launches": train_counts["flash_attention_bwd"], **attn_bwd},
         {"name": "bilateral_matvec", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/bilateral_matvec.cu",
          "replaces": "simseg_tpu/ops/crf_pallas.py:125",

@@ -13,6 +13,12 @@ Layout conversions (flax -> torch):
 - Conv2d:    kernel (kh, kw, I, O) -> weight (O, I, kh, kw)
 - Embedding: embedding             -> weight
 - LayerNorm: scale / bias          -> weight / bias
+
+``flax_param_path`` maps the other way for names only: a key of the port's
+state dict -> the ``/``-joined path of the same leaf in the JAX package's
+``{'params': ...}`` tree, so that rules written against the JAX names
+(``optim.param_group_rules`` regexes, frozen patterns) select the same
+tensors in both packages.
 """
 
 from __future__ import annotations
@@ -141,3 +147,63 @@ def flax_params_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     if unmapped:
         raise ValueError(f"params without a slot in the port: {unmapped}")
     return out
+
+
+# -- names only, the other way: port key -> JAX path ------------------------
+
+_LN_INV = {"weight": "scale", "bias": "bias"}
+_DENSE_INV = {"weight": "kernel", "bias": "bias"}
+_HF_TO_BERT = {v: k for k, v in _BERT_LAYER.items()}
+_HF_MODS = "|".join(re.escape(m) for m in _HF_TO_BERT)
+
+
+def _bert_layer_path(m) -> str:
+    kind = _LN_INV if m[2].endswith("LayerNorm") else _DENSE_INV
+    return f"layer_{m[1]}/{_HF_TO_BERT[m[2]]}/{kind[m[3]]}"
+
+
+_INVERSE = {
+    "image_encoder": (
+        (r"^(cls_token|pos_embed)$", lambda m: m[1]),
+        (r"^patch_embed\.proj\.(weight|bias)$",
+         lambda m: f"patch_embed/{_DENSE_INV[m[1]]}"),
+        (r"^norm\.(weight|bias)$", lambda m: f"norm/{_LN_INV[m[1]]}"),
+        (r"^blocks\.(\d+)\.(norm1|norm2)\.(weight|bias)$",
+         lambda m: f"blocks_{m[1]}/{m[2]}/{_LN_INV[m[3]]}"),
+        (r"^blocks\.(\d+)\.(attn\.qkv|attn\.proj|mlp\.fc1|mlp\.fc2)\.(weight|bias)$",
+         lambda m: f"blocks_{m[1]}/{m[2].replace('.', '/')}/{_DENSE_INV[m[3]]}"),
+    ),
+    "text_encoder": (
+        (r"^embeddings\.(word|position|token_type)_embeddings\.weight$",
+         lambda m: f"{m[1]}_embeddings/embedding"),
+        (r"^embeddings\.LayerNorm\.(weight|bias)$",
+         lambda m: f"embeddings_norm/{_LN_INV[m[1]]}"),
+        (rf"^encoder\.layer\.(\d+)\.({_HF_MODS})\.(weight|bias)$",
+         _bert_layer_path),
+    ),
+    "image_projection": (
+        (r"^(linear|projection|fc)\.(weight|bias)$",
+         lambda m: f"{m[1]}/{_DENSE_INV[m[2]]}"),
+        (r"^layer_norm\.(weight|bias)$",
+         lambda m: f"layer_norm/{_LN_INV[m[1]]}"),
+    ),
+}
+_INVERSE["text_projection"] = _INVERSE["image_projection"]
+
+
+def flax_param_path(name: str) -> str:
+    """A key of the port's ``CLIPModel`` state dict -> the path of the same
+    parameter in the JAX package's variables, e.g.
+    ``image_encoder.model.model.blocks.0.attn.qkv.weight`` ->
+    ``params/image_encoder/blocks_0/attn/qkv/kernel``."""
+    if name == "loss.temperature":
+        return "params/temperature"
+    for scope, (prefix, _) in _SCOPES.items():
+        if not name.startswith(prefix):
+            continue
+        rest = name[len(prefix):]
+        for pattern, path_fn in _INVERSE[scope]:
+            m = re.match(pattern, rest)
+            if m:
+                return f"params/{scope}/{path_fn(m)}"
+    raise ValueError(f"no JAX path for the port parameter '{name}'")

@@ -22,7 +22,11 @@
 //     f32 and rescales its O accumulators by exp(m_old - m_new); O is
 //     divided by l at the end (the TPU kernel normalised p before its
 //     bf16 cast: the two differ at bf16 rounding);
-//   - key columns past Tk are masked out, query rows past Tq not stored.
+//   - key columns past Tk are masked out, query rows past Tq not stored;
+//   - with a non-null lse pointer, the training forward also writes each
+//     row's log-sum-exp m + log l in f32 to lse (B, H, Tq), which the
+//     backward (flash_attention_bwd.cu) uses to recompute p without a
+//     second pass over k; with a null pointer nothing more is written.
 // What bounds it on this card: 4 B H Tq Tk hd operations on the tensor
 // cores (about 0.084 ms per ViT-B layer at B = 16, T = 1297 at 989 TFLOP/s
 // bf16); q/k/v/o traffic is a tenth of that. wgmma, TMA and overlapping
@@ -89,10 +93,11 @@ __device__ void load_tile(bf16* dst, const bf16* src, long stride, int rows,
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int Tq,
-                     int Tk, long q_sb, long q_st, long q_sh, long k_sb, long k_st,
-                     long k_sh, long v_sb, long v_st, long v_sh, long o_sb,
-                     long o_st, long o_sh) {
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Tq, int Tk, long q_sb,
+                     long q_st, long q_sh, long k_sb, long k_st, long k_sh,
+                     long v_sb, long v_st, long v_sh, long o_sb, long o_st,
+                     long o_sh) {
   constexpr int KV = Tile<HD>::kKV;
   constexpr int LD = Tile<HD>::kLd;
   constexpr int NS = KV / 8;   // S tiles (16 x 8) per warp per k/v tile
@@ -221,6 +226,8 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= Tq) continue;
     const float inv = 1.f / l_run[r];
+    if (lse != nullptr && t == 0)
+      lse[((long)b * gridDim.y + h) * Tq + row] = m_run[r] + logf(l_run[r]);
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long)row * o_st + n * 8 + 2 * t) =
@@ -229,15 +236,16 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int HD>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-                   int Tq, int Tk, int H, const long long* st, cudaStream_t stream) {
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                   int B, int Tq, int Tk, int H, const long long* st,
+                   cudaStream_t stream) {
   const size_t bytes = Tile<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + kRows - 1) / kRows, H, B);
   flash_fwd_kernel<HD><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, Tq, Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      q, k, v, o, lse, Tq, Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
@@ -245,22 +253,25 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
 }  // namespace
 
 // strides: 12 element strides (batch, token, head) of q, k, v, o in turn;
-// the head-dim stride is 1
+// the head-dim stride is 1. lse: null, or (B, H, Tq) f32 written with each
+// row's log-sum-exp.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                                        void* o, int B, int Tq, int Tk, int H, int hd,
-                                        const long long* strides, void* stream_ptr) {
+                                        void* o, void* lse, int B, int Tq, int Tk,
+                                        int H, int hd, const long long* strides,
+                                        void* stream_ptr) {
   if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
+  float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   switch (hd) {
-    case 64: return (int)launch<64>(qp, kp, vp, op, B, Tq, Tk, H, strides, st);
-    case 128: return (int)launch<128>(qp, kp, vp, op, B, Tq, Tk, H, strides, st);
-    case 192: return (int)launch<192>(qp, kp, vp, op, B, Tq, Tk, H, strides, st);
-    case 256: return (int)launch<256>(qp, kp, vp, op, B, Tq, Tk, H, strides, st);
+    case 64: return (int)launch<64>(qp, kp, vp, op, lp, B, Tq, Tk, H, strides, st);
+    case 128: return (int)launch<128>(qp, kp, vp, op, lp, B, Tq, Tk, H, strides, st);
+    case 192: return (int)launch<192>(qp, kp, vp, op, lp, B, Tq, Tk, H, strides, st);
+    case 256: return (int)launch<256>(qp, kp, vp, op, lp, B, Tq, Tk, H, strides, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,7 +5,9 @@ Parity: reference ``simseg/models/backbones/mml/huggingface_builder.py:6-23``
 (HF ``BertModel`` without pooler): word + position + token-type embeddings
 and LayerNorm (eps 1e-12), post-LN layers with separate q/k/v projections,
 GELU intermediate, additive padding mask. Module names are HF's, so a
-reference state dict loads as it is. The MoE and int8 options and the
+reference state dict loads as it is. Compute runs in ``compute_dtype``
+(None: the parameters' dtype), parameters cast at use as flax does
+(``models/layers.py``). The MoE and int8 options and the
 HuggingFace AutoConfig lookup are not ported.
 """
 
@@ -16,16 +18,16 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from simseg_tpu_torch.models.projection import gelu
+from simseg_tpu_torch.models.layers import LayerNorm, Linear, gelu
 from simseg_tpu_torch.ops.attention import multi_head_attention, padding_bias
 
 
 class _SelfAttention(nn.Module):
     def __init__(self, dim: int) -> None:
         super().__init__()
-        self.query = nn.Linear(dim, dim)
-        self.key = nn.Linear(dim, dim)
-        self.value = nn.Linear(dim, dim)
+        self.query = Linear(dim, dim)
+        self.key = Linear(dim, dim)
+        self.value = Linear(dim, dim)
 
 
 class _DenseNorm(nn.Module):
@@ -33,8 +35,8 @@ class _DenseNorm(nn.Module):
 
     def __init__(self, in_dim: int, dim: int) -> None:
         super().__init__()
-        self.dense = nn.Linear(in_dim, dim)
-        self.LayerNorm = nn.LayerNorm(dim, eps=1e-12)
+        self.dense = Linear(in_dim, dim)
+        self.LayerNorm = LayerNorm(dim, eps=1e-12)
 
 
 class _Attention(nn.Module):
@@ -47,7 +49,7 @@ class _Attention(nn.Module):
 class _Intermediate(nn.Module):
     def __init__(self, dim: int, inter: int) -> None:
         super().__init__()
-        self.dense = nn.Linear(dim, inter)
+        self.dense = Linear(dim, inter)
 
 
 class BertLayer(nn.Module):
@@ -76,7 +78,7 @@ class _Embeddings(nn.Module):
         self.word_embeddings = nn.Embedding(vocab_size, dim)
         self.position_embeddings = nn.Embedding(max_position, dim)
         self.token_type_embeddings = nn.Embedding(type_vocab_size, dim)
-        self.LayerNorm = nn.LayerNorm(dim, eps=1e-12)
+        self.LayerNorm = LayerNorm(dim, eps=1e-12)
 
 
 class _Encoder(nn.Module):
@@ -96,19 +98,23 @@ class BertEncoder(nn.Module):
         self.encoder = _Encoder(
             [BertLayer(hidden_dim, num_heads, intermediate_dim)
              for _ in range(depth)])
+        # None: compute in the parameters' dtype
+        self.compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """input_ids: (B, T) int -> last hidden state (B, T, D)."""
+        """input_ids: (B, T) int -> last hidden state (B, T, D) in the
+        compute dtype."""
         emb = self.embeddings
+        dtype = self.compute_dtype or emb.word_embeddings.weight.dtype
         t = input_ids.shape[1]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         position_ids = torch.arange(t, device=input_ids.device)[None, :]
-        x = emb.LayerNorm(emb.word_embeddings(input_ids)
-                          + emb.position_embeddings(position_ids)
-                          + emb.token_type_embeddings(token_type_ids))
+        x = emb.LayerNorm(emb.word_embeddings(input_ids).to(dtype)
+                          + emb.position_embeddings(position_ids).to(dtype)
+                          + emb.token_type_embeddings(token_type_ids).to(dtype))
         bias = None
         if attention_mask is not None:
             bias = padding_bias(attention_mask, torch.float32)

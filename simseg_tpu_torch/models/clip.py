@@ -7,11 +7,17 @@ is the timm ViT, ``text_encoder.model.model`` the HF BERT, both two wrappers
 deep as in the reference; ``loss.temperature``), so the state dict that
 ``checkpoint/convert.py`` makes, or a reference ``.pth``, loads with
 ``strict=True``. Only ViT image towers are ported; the CNN towers are not.
+
+Mixed precision as in the JAX package: parameters stay float32 (the
+temperature always) and the towers compute in ``compute_dtype`` (bf16
+under ``dist.bf16``), weights cast at use; ``compute_dtype=None`` computes
+in the parameters' own dtype, so ``model.to(torch.bfloat16)`` still gives
+the bf16 inference lane.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -46,6 +52,8 @@ class CLIPModel(nn.Module):
         text_k: int = 1,
         temperature_name: str = "parameter",
         temperature_init: float = 0.02,
+        projection_dropout: float = 0.1,
+        compute_dtype: Optional[torch.dtype] = None,
     ) -> None:
         super().__init__()
         if "vit" not in image_tag:
@@ -55,13 +63,17 @@ class CLIPModel(nn.Module):
         bert = build_bert(text_tag, dict(text_arch or ()))
         self.image_encoder = _Wrapper(_Wrapper(vit))
         self.text_encoder = _Wrapper(_Wrapper(bert))
-        proj = {"simple": SimpleProjection, "complex": ComplexProjection}
-        if projection_name not in proj:
+        vit.compute_dtype = bert.compute_dtype = compute_dtype
+        if projection_name == "simple":
+            proj = SimpleProjection
+        elif projection_name == "complex":
+            def proj(in_dim, dim):
+                return ComplexProjection(in_dim, dim, projection_dropout)
+        else:
             raise NotImplementedError(f"projection '{projection_name}'")
-        self.image_projection = proj[projection_name](vit.embed_dim,
-                                                      projection_dim)
+        self.image_projection = proj(vit.embed_dim, projection_dim)
         text_dim = bert.embeddings.word_embeddings.embedding_dim
-        self.text_projection = proj[projection_name](text_dim, projection_dim)
+        self.text_projection = proj(text_dim, projection_dim)
         self.projection_name = projection_name
         self.pool_name = pool_name
         self.image_k = image_k
@@ -110,8 +122,9 @@ class CLIPModel(nn.Module):
         """Full (B, 1+N, D) sequence (seg eval needs CLS + patches)."""
         return self.vit(images)
 
-    def forward_image_project(self, image_features: torch.Tensor) -> torch.Tensor:
-        x = self.image_projection(image_features)
+    def forward_image_project(self, image_features: torch.Tensor,
+                              deterministic: bool = True) -> torch.Tensor:
+        x = self.image_projection(image_features, deterministic)
         if self.pool_name == "loda":
             x = topk_pool(x, self.image_k)
         elif self.pool_name == "avg":
@@ -133,9 +146,9 @@ class CLIPModel(nn.Module):
         return hidden[:, self.target_token_idx:]
 
     def forward_text_project(self, text_features: torch.Tensor,
-                             attention_mask: Optional[torch.Tensor]
-                             ) -> torch.Tensor:
-        x = self.text_projection(text_features)
+                             attention_mask: Optional[torch.Tensor],
+                             deterministic: bool = True) -> torch.Tensor:
+        x = self.text_projection(text_features, deterministic)
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, self.target_token_idx:]
@@ -146,3 +159,50 @@ class CLIPModel(nn.Module):
         if self.projection_name == "simple":
             x = l2_normalize(x)
         return x
+
+    # -- joint ----------------------------------------------------------------------
+    def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(image_emb, text_emb, temperature) of a batch with ``image``
+        (B, H, W, 3) float, ``input_ids`` and ``attention_mask`` (B, T)
+        (parity: JAX ``CLIPModel.__call__``, pipelines/clip.py:152-176)."""
+        img = self.forward_image_feature(batch["image"])
+        txt = self.forward_text_feature(batch["input_ids"],
+                                        batch["attention_mask"])
+        img = self.forward_image_project(img, deterministic)
+        txt = self.forward_text_project(txt, batch["attention_mask"],
+                                        deterministic)
+        return img, txt, self.temperature()
+
+
+def build_clip_model(cfg) -> CLIPModel:
+    """The CLIP model of a config tree (JAX ``build_clip_model``,
+    ``simseg_tpu/models/clip.py:221-284``), float32 parameters, computing in
+    bf16 when ``cfg.dist.bf16``."""
+    m = cfg.model
+
+    def arch(enc_cfg):
+        items = tuple(sorted(
+            (k, tuple(v) if isinstance(v, list) else v)
+            for k, v in dict(enc_cfg.get("arch", {}) or {}).items()
+            if v is not None))
+        return items or None
+
+    return CLIPModel(
+        image_tag=m.image_encoder.tag,
+        img_size=cfg.transforms.input_size,
+        image_arch=arch(m.image_encoder),
+        text_tag=m.text_encoder.tag,
+        text_arch=arch(m.text_encoder),
+        target_token_idx=m.text_encoder.target_token_idx,
+        projection_name=m.projection.name,
+        projection_dim=m.projection.dim,
+        projection_dropout=m.projection.get("complex_projection", {}).get(
+            "drop_out", 0.1),
+        pool_name=m.pool.name,
+        image_k=m.pool.loda.image_k,
+        text_k=m.pool.loda.text_k,
+        temperature_name=cfg.loss.temperature.name,
+        temperature_init=cfg.loss.temperature.value,
+        compute_dtype=torch.bfloat16 if cfg.dist.get("bf16", False) else None,
+    )

@@ -8,8 +8,10 @@ blocks with fused-qkv attention, final LayerNorm, LN eps 1e-6. Module and
 parameter names are timm's, so a reference state dict loads as it is.
 
 The JAX tower's ToMe, int8, MoE and remat options are not ported. Compute
-follows the parameters' dtype (``model.to(torch.bfloat16)`` for the bf16
-lane); GELU is exact in float32 and tanh-approximated otherwise.
+runs in ``compute_dtype`` (None: the parameters' dtype), with float32
+parameters cast at use as flax does (``models/layers.py``): float32 master
+weights and bf16 compute for training, or ``model.to(torch.bfloat16)`` for
+inference. GELU is exact in float32 and tanh-approximated otherwise.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from simseg_tpu_torch.models.projection import gelu
+from simseg_tpu_torch.models.layers import LayerNorm, Linear, gelu
 from simseg_tpu_torch.ops.attention import multi_head_attention
 from simseg_tpu_torch.ops.interpolate_pe import interpolate_pos_embed
 
@@ -29,8 +31,8 @@ from simseg_tpu_torch.ops.interpolate_pe import interpolate_pos_embed
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden_dim: int) -> None:
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, dim)
+        self.fc1 = Linear(dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))
@@ -42,8 +44,8 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int) -> None:
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.qkv(x).chunk(3, dim=-1)
@@ -53,9 +55,9 @@ class Attention(nn.Module):
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0) -> None:
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -80,7 +82,8 @@ class PatchEmbed(nn.Module):
                    .permute(0, 1, 3, 5, 2, 4)            # (B, gh, gw, C, p, p)
                    .reshape(b, gh * gw, c * p * p))
         weight = self.proj.weight.reshape(self.proj.out_channels, -1)
-        return F.linear(patches, weight, self.proj.bias)
+        return F.linear(patches, weight.to(images.dtype),
+                        self.proj.bias.to(images.dtype))
 
 
 class VisionTransformer(nn.Module):
@@ -102,19 +105,23 @@ class VisionTransformer(nn.Module):
         nn.init.normal_(self.pos_embed, std=0.02)
         self.blocks = nn.ModuleList(
             [Block(embed_dim, num_heads, mlp_ratio) for _ in range(depth)])
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
+        self.norm = LayerNorm(embed_dim, eps=1e-6)
+        # None: compute in the parameters' dtype
+        self.compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images: (B, H, W, 3) NHWC float -> (B, 1+N, D)."""
-        dtype = self.cls_token.dtype
+        """images: (B, H, W, 3) NHWC float -> (B, 1+N, D) in the compute
+        dtype."""
+        dtype = self.compute_dtype or self.cls_token.dtype
         x = self.patch_embed(images.to(dtype))
         pos_embed = self.pos_embed
         if x.shape[1] != self.num_patches:
-            # another input size (multi-scale inference): resample the
-            # position grid bicubically in f32 (JAX ``vit.py:323-334``)
-            pos_embed = interpolate_pos_embed(pos_embed.float(),
-                                              x.shape[1]).to(dtype)
-        cls = self.cls_token.expand(x.shape[0], -1, -1)
+            # another input size (multi-scale inference, a training crop
+            # smaller than input_size): resample the position grid
+            # bicubically in f32 (JAX ``vit.py:323-334``)
+            pos_embed = interpolate_pos_embed(pos_embed.float(), x.shape[1])
+        pos_embed = pos_embed.to(dtype)
+        cls = self.cls_token.to(dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + pos_embed
         for block in self.blocks:
             x = block(x)

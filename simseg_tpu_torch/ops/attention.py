@@ -1,14 +1,22 @@
 """Multi-head attention core (port of ``simseg_tpu/ops/attention.py``).
 
-Two lowerings, routed as the JAX package routes them (:108-182):
-- bias-free, non-float32 calls on a CUDA tensor with ``flash_supported``
-  (1024 <= T <= 1536, hd % 64 == 0: the 576-px ViT pass of multi-scale
-  segmentation) go to the hand-written kernel ``ops/flash_attention.py``;
+Three lowerings, routed as the JAX package routes them (:134-142, then
+:165-180), by ``attention_lane``:
+- a call that will be differentiated and passes ``flash_train_supported``
+  (bias-free, not float32, self-attention with 1024 <= T <= 1536, hd % 64
+  == 0: the 576-px ViT pass in training) goes to ``flash_mha_train``, whose
+  forward and backward are both hand-written kernels;
+- otherwise a call that passes ``flash_supported`` goes to ``flash_mha``
+  (the forward kernel; the 576-px pass of multi-scale segmentation);
 - everything else takes the plain path: matmul + softmax with q
   pre-scaled. That includes the CPU (where the JAX package's
   ``platform_dependent`` default is its einsum path too) and, until their
-  kernels are ported, the JAX rowblock (T > 1680) and stream (T > 4096)
-  bands.
+  kernels are ported, the JAX rowblock (1536 < T <= 4096 in training,
+  T > 1680 in inference) and stream (T > 4096) bands.
+
+"Will be differentiated" is the JAX ``attention_training()`` marker
+(:25-37); here autograd knows it: grad mode is on and q, k or v requires
+grad. Evaluation therefore runs under ``torch.no_grad()`` to keep its lane.
 """
 
 from __future__ import annotations
@@ -18,6 +26,18 @@ from typing import Optional
 import torch
 
 from simseg_tpu_torch.ops import flash_attention
+
+
+def attention_lane(b: int, num_heads: int, tq: int, tk: int, hd: int, dtype,
+                   attention_bias, training: bool) -> str:
+    """'train' (``flash_mha_train``), 'flash' (``flash_mha``) or 'plain':
+    the lane the JAX package takes on its accelerator for this call."""
+    if training and flash_attention.flash_train_supported(
+            b, num_heads, tq, tk, hd, dtype, attention_bias):
+        return "train"
+    if flash_attention.flash_supported(tq, tk, hd, dtype, attention_bias):
+        return "flash"
+    return "plain"
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -42,9 +62,15 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kh = k.reshape(b, tk, num_heads, hd)
     vh = v.reshape(b, tk, num_heads, hd)
 
-    if q.device.type == "cuda" and flash_attention.flash_supported(
-            tq, tk, hd, dtype, attention_bias):
-        return flash_attention.flash_mha(qh, kh, vh).reshape(b, tq, d)
+    training = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    lane = attention_lane(b, num_heads, tq, tk, hd, dtype, attention_bias,
+                          training)
+    if q.device.type == "cuda":
+        if lane == "train":
+            return flash_attention.flash_mha_train(qh, kh, vh).reshape(b, tq, d)
+        if lane == "flash":
+            return flash_attention.flash_mha(qh, kh, vh).reshape(b, tq, d)
 
     qh, kh, vh = (x.transpose(1, 2) for x in (qh, kh, vh))  # (B, H, T, hd)
     scores = torch.matmul(qh, kh.transpose(-2, -1))        # (B, H, Tq, Tk)
@@ -53,7 +79,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dtype == torch.float32:
         probs = torch.softmax(scores, dim=-1)
     else:
-        m = scores.amax(dim=-1, keepdim=True)
+        m = scores.amax(dim=-1, keepdim=True).detach()  # JAX stop_gradient
         e = torch.exp(scores - m)
         s = e.sum(dim=-1, keepdim=True, dtype=torch.float32)
         probs = (e / s.to(e.dtype)).to(dtype)

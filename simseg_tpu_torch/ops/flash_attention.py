@@ -1,15 +1,24 @@
-"""Fused bias-free attention as a hand-written CUDA kernel (port of
-``simseg_tpu/ops/flash_attention.py:flash_mha``).
+"""Fused bias-free attention as hand-written CUDA kernels (port of
+``simseg_tpu/ops/flash_attention.py``: ``flash_mha`` and
+``flash_mha_train``).
 
 ``flash_mha(qh, kh, vh)`` takes (B, T, H, hd) tensors with q pre-scaled by
 hd^-1/2 and returns softmax(q k^T) v in the same layout and q's dtype. On a
 CUDA tensor it launches ``csrc/flash_attention.cu`` or raises — there is no
 fallback; on a CPU tensor it runs ``flash_mha_plain``. Its backward
 recomputes through the plain version, as the JAX ``custom_vjp`` does
-(:179-198). ``LAUNCHES`` counts the kernel's launches.
+(:179-198).
 
-``flash_supported`` is the JAX gate, copied as it is: its band
-(1024 <= T <= 1536) was measured on a TPU, not on this card.
+``flash_mha_train`` is the training form (JAX :201-221): the same forward,
+which on the card also writes each row's log-sum-exp, and a backward that
+is a kernel too, ``csrc/flash_attention_bwd.cu`` (TPU ``_mha_bwd_pallas``).
+On the CPU both halves are plain: ``flash_mha_plain`` forward and
+``flash_mha_train_bwd_plain`` backward. ``LAUNCHES`` counts forward kernel
+launches, ``BWD_LAUNCHES`` backward ones (one per wrapper call each).
+
+``flash_supported`` and ``flash_train_supported`` are the JAX gates, copied
+as they are: their band (1024 <= T <= 1536) was measured on a TPU, not on
+this card.
 """
 
 from __future__ import annotations
@@ -21,16 +30,22 @@ import torch
 
 from simseg_tpu_torch.ops import cuda_build
 
-__all__ = ["LAUNCHES", "flash_mha", "flash_mha_plain", "flash_supported"]
+__all__ = ["BWD_LAUNCHES", "LAUNCHES", "flash_mha", "flash_mha_plain",
+           "flash_mha_train", "flash_mha_train_bwd_plain", "flash_supported",
+           "flash_train_supported"]
 
 _NAME = "flash_attention"  # csrc/flash_attention.cu
+_BWD_NAME = "flash_attention_bwd"  # csrc/flash_attention_bwd.cu
 _HEAD_DIMS = (64, 128, 192, 256)  # the kernel's template instances
 
 # the whole-T TPU kernel's VMEM ceiling (JAX ``_MAX_T``)
 _MAX_T = 1536
 
-# launches of the CUDA kernel (one per flash_mha call on the card)
+# launches of the forward kernel (one per forward call on the card)
 LAUNCHES = 0
+# launches of the backward kernels (one per flash_mha_train backward call
+# on the card: its delta, dq and dk/dv passes)
+BWD_LAUNCHES = 0
 
 
 def flash_supported(tq: int, tk: int, hd: int, dtype, attention_bias) -> bool:
@@ -44,6 +59,21 @@ def flash_supported(tq: int, tk: int, hd: int, dtype, attention_bias) -> bool:
     if not (1024 <= tq <= _MAX_T and 1024 <= tk <= _MAX_T):
         return False
     return hd % 64 == 0 and hd <= 256
+
+
+def flash_train_supported(b: int, h: int, tq: int, tk: int, hd: int, dtype,
+                          attention_bias) -> bool:
+    """JAX ``flash_train_supported`` (``simseg_tpu/ops/flash_attention.py
+    :813-835``): the gate of ``flash_mha_train`` in a differentiated
+    region — no bias, not float32, hd a multiple of 64 up to 256,
+    self-attention (Tq == Tk) with 1024 <= T <= 1536."""
+    if attention_bias is not None or dtype == torch.float32:
+        return False
+    if hd % 64 != 0 or hd > 256:
+        return False
+    if tq != tk:
+        return False
+    return 1024 <= tq <= _MAX_T
 
 
 def flash_mha_plain(qh: torch.Tensor, kh: torch.Tensor,
@@ -60,14 +90,47 @@ def flash_mha_plain(qh: torch.Tensor, kh: torch.Tensor,
     return out.to(qh.dtype)
 
 
+def flash_mha_train_bwd_plain(qh: torch.Tensor, kh: torch.Tensor,
+                              vh: torch.Tensor, g: torch.Tensor):
+    """The backward kernel's function in plain PyTorch, cast for cast as
+    JAX ``_mha_bwd_kernel`` (:91-124): p = softmax(q k^T) recomputed in
+    float32; dv = bf16(p)^T g, dp = g v^T, ds = bf16(p (dp - rowsum(p dp))),
+    dq = ds k, dk = ds^T q, every product accumulated in float32, each
+    gradient in its input's dtype. Returns (dq, dk, dv) as (B, T, H, hd)."""
+    g = g.to(qh.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float())
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    pc = p.to(vh.dtype).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", pc, g.float()).to(vh.dtype)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), vh.float())
+    ds = (p * (dp - (p * dp).sum(dim=-1, keepdim=True))).to(qh.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh.float()).to(qh.dtype)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh.float()).to(kh.dtype)
+    return dq, dk, dv
+
+
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load_library(_NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.flash_attention_fwd_bf16
-    fn.argtypes = [p, p, p, p,            # q, k, v, o
+    fn.argtypes = [p, p, p, p, p,         # q, k, v, o, lse (or null)
                    i, i, i, i, i,         # B, Tq, Tk, H, hd
                    p, p]                  # strides (12 int64), stream
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _bwd_library() -> ctypes.CDLL:
+    lib = cuda_build.load_library(_BWD_NAME)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.flash_attention_bwd_bf16
+    fn.argtypes = [p, p, p, p, p, p,      # q, k, v, o, g, lse
+                   p, p, p, p,            # delta scratch, dq, dk, dv
+                   i, i, i, i, i,         # B, Tq, Tk, H, hd
+                   p, p]                  # strides (24 int64), stream
     fn.restype = ctypes.c_int
     return lib
 
@@ -82,12 +145,15 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
-def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor) -> torch.Tensor:
+def _check_operands(qh: torch.Tensor, **others: torch.Tensor) -> None:
+    """What the kernels take: bfloat16, hd in 64/128/192/256, and k, v (and
+    o, g) shaped like q with Tk rows, on q's device."""
     b, tq, h, hd = qh.shape
-    tk = kh.shape[1]
-    for name, x in (("k", kh), ("v", vh)):
-        if x.shape != (b, tk, h, hd):
-            raise ValueError(f"{name} must be {(b, tk, h, hd)}, got {tuple(x.shape)}")
+    tk = others["k"].shape[1]
+    for name, x in others.items():
+        want = (b, tq if name in ("o", "g") else tk, h, hd)
+        if x.shape != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(x.shape)}")
         if x.dtype != qh.dtype or x.device != qh.device:
             raise ValueError(f"{name} is {x.dtype} on {x.device}; q is "
                              f"{qh.dtype} on {qh.device}")
@@ -95,19 +161,69 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor) -> torch.Tenso
         raise ValueError(f"the kernel takes bfloat16, got {qh.dtype}")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd}; the kernel takes {_HEAD_DIMS}")
+
+
+def _strides(*xs: torch.Tensor):
+    return (ctypes.c_longlong * (3 * len(xs)))(
+        *(s for x in xs for s in x.stride()[:3]))
+
+
+def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+            with_lse: bool = False):
+    """The forward kernel -> out, or (out, lse) with the (B, H, Tq) f32
+    per-row log-sum-exp when ``with_lse``."""
+    _check_operands(qh, k=kh, v=vh)
+    b, tq, h, hd = qh.shape
     lib = _library()
     qh, kh, vh = (_kernel_operand(x) for x in (qh, kh, vh))
     out = torch.empty((b, tq, h, hd), dtype=qh.dtype, device=qh.device)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for x in (qh, kh, vh, out) for s in x.stride()[:3]))
+    lse = (torch.empty((b, h, tq), dtype=torch.float32, device=qh.device)
+           if with_lse else None)
+    strides = _strides(qh, kh, vh, out)
     status = lib.flash_attention_fwd_bf16(
-        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), b, tq, tk,
-        h, hd, ctypes.addressof(strides),
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, tq, kh.shape[1], h, hd,
+        ctypes.addressof(strides),
         torch.cuda.current_stream(qh.device).cuda_stream)
     cuda_build.check_status(lib, _NAME, "flash_attention_fwd_bf16", status)
     global LAUNCHES
     LAUNCHES += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_mha_train_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                        out: torch.Tensor, g: torch.Tensor, lse: torch.Tensor):
+    """The backward kernel: (dq, dk, dv) of ``flash_mha_train`` from the
+    forward's inputs, its output ``out`` and its (B, H, Tq) f32 ``lse``, and
+    g = dL/d out (cast to q's dtype, as the JAX backward does). CUDA
+    tensors only: there is no plain fallback here."""
+    if qh.device.type != "cuda":
+        raise ValueError(f"the backward kernel runs on CUDA, got {qh.device}")
+    g = g.to(qh.dtype)
+    _check_operands(qh, k=kh, v=vh, o=out, g=g)
+    b, tq, h, hd = qh.shape
+    tk = kh.shape[1]
+    if lse.shape != (b, h, tq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {(b, h, tq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    lib = _bwd_library()
+    qh, kh, vh, out, g = (_kernel_operand(x) for x in (qh, kh, vh, out, g))
+    lse = lse.contiguous()
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=qh.device)
+    dq = torch.empty((b, tq, h, hd), dtype=qh.dtype, device=qh.device)
+    dk = torch.empty((b, tk, h, hd), dtype=qh.dtype, device=qh.device)
+    dv = torch.empty((b, tk, h, hd), dtype=qh.dtype, device=qh.device)
+    strides = _strides(qh, kh, vh, out, g, dq, dk, dv)
+    status = lib.flash_attention_bwd_bf16(
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, tq, tk, h, hd,
+        ctypes.addressof(strides),
+        torch.cuda.current_stream(qh.device).cuda_stream)
+    cuda_build.check_status(lib, _BWD_NAME, "flash_attention_bwd_bf16", status)
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
 
 
 class _FlashMHA(torch.autograd.Function):
@@ -139,3 +255,37 @@ def flash_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor) -> torch.Ten
     if qh.dim() != 4:
         raise ValueError(f"q must be (B, T, H, hd), got {tuple(qh.shape)}")
     return _FlashMHA.apply(qh, kh, vh)
+
+
+class _FlashMHATrain(torch.autograd.Function):
+    """Forward: the kernel with its log-sum-exp (CUDA) or the plain version
+    (CPU). Backward: the backward kernel from q, k, v, the output and the
+    log-sum-exp (CUDA), or ``flash_mha_train_bwd_plain`` (CPU)."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh):
+        if qh.device.type == "cpu":
+            ctx.save_for_backward(qh, kh, vh)
+            return flash_mha_plain(qh, kh, vh)
+        if qh.device.type != "cuda":
+            raise ValueError(f"no attention kernel for device {qh.device}")
+        out, lse = _launch(qh, kh, vh, with_lse=True)
+        ctx.save_for_backward(qh, kh, vh, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if len(ctx.saved_tensors) == 3:
+            return flash_mha_train_bwd_plain(*ctx.saved_tensors, g)
+        qh, kh, vh, out, lse = ctx.saved_tensors
+        return flash_mha_train_bwd(qh, kh, vh, out, g, lse)
+
+
+def flash_mha_train(qh: torch.Tensor, kh: torch.Tensor,
+                    vh: torch.Tensor) -> torch.Tensor:
+    """``flash_mha`` for a differentiated call: both passes are kernels on
+    the card (JAX ``flash_mha_train``). Saves q, k, v, the output and the
+    (B, H, Tq) f32 log-sum-exp; nothing of size T x T."""
+    if qh.dim() != 4:
+        raise ValueError(f"q must be (B, T, H, hd), got {tuple(qh.shape)}")
+    return _FlashMHATrain.apply(qh, kh, vh)

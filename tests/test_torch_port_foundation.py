@@ -163,7 +163,8 @@ def test_kernel_libraries_are_named_by_their_source_hash(monkeypatch, tmp_path):
     a build that exists is not redone."""
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(cuda_build, "_nvcc", _no_plain)
-    for name in ("crf_mean_field", "flash_attention", "bilateral_matvec"):
+    for name in ("crf_mean_field", "flash_attention", "flash_attention_bwd",
+                 "bilateral_matvec"):
         src = os.path.join(cuda_build.CSRC, f"{name}.cu")
         digest = hashlib.sha256(open(src, "rb").read()).hexdigest()[:12]
         built = tmp_path / f"lib{name}-{digest}.so"

@@ -9,7 +9,7 @@ their plain PyTorch versions, on the card. Imports neither JAX nor
 no CUDA device. Bars, CRF: >= 99.9% mask agreement (a pixel at the
 threshold may flip under another f32 summation order); the closing
 composition and the zero-iteration threshold are exact. Attention and the
-bilateral product: as stated at each test.
+bilateral product and the attention backward: as stated at each test.
 """
 
 import numpy as np
@@ -114,6 +114,48 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
         flash_attention.flash_mha(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="must be"):
         flash_attention.flash_mha(q, k[:, :, :, :32], v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,hd", [
+    (1, 64, 64, 1, 64), (2, 200, 200, 2, 128), (1, 1297, 1297, 3, 64),
+    (1, 130, 70, 2, 64), (1, 77, 77, 2, 192), (1, 65, 65, 1, 256)])
+def test_flash_bwd_kernel_matches_plain(cuda_device, b, tq, tk, h, hd):
+    """The training forward's log-sum-exp, and dq, dk, dv of the backward
+    kernel: per gradient max abs error <= 2e-2 x the plain result's largest
+    entry and mean <= 1e-2 x its mean abs entry (delta from the bf16 output,
+    p and ds rounded to bf16 after f32 sums in another order)."""
+    q, _, _ = _qkv(tq, b, tq, h, hd, cuda_device)
+    _, k, v = _qkv(tk + 1, b, tk, h, hd, cuda_device)
+    g = _qkv(tq + 2, b, tq, h, hd, cuda_device)[1]
+    out, lse = flash_attention._launch(q, k, v, with_lse=True)
+    want_lse = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                                            k.float()), dim=-1)
+    assert (lse - want_lse).abs().max().item() <= 1e-5 * want_lse.abs().max().item() + 1e-5
+    before = flash_attention.BWD_LAUNCHES
+    got = flash_attention.flash_mha_train_bwd(q, k, v, out, g, lse)
+    assert flash_attention.BWD_LAUNCHES == before + 1
+    for x, y in zip(got, flash_attention.flash_mha_train_bwd_plain(q, k, v, g)):
+        err, ref = (x.float() - y.float()).abs(), y.float().abs()
+        assert x.dtype == torch.bfloat16 and x.shape == y.shape
+        assert err.max() <= 2e-2 * ref.max() and err.mean() <= 1e-2 * ref.mean()
+
+
+@pytest.mark.cuda
+def test_flash_train_gradients_through_autograd(cuda_device):
+    """flash_mha_train under autograd launches both kernels once and its
+    gradients equal the backward kernel's own."""
+    q, k, v = (x.requires_grad_() for x in _qkv(3, 2, 1100, 2, 64, cuda_device))
+    g = torch.randn(2, 1100, 2, 64, device=cuda_device).to(torch.bfloat16)
+    fwd, bwd = flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES
+    out = flash_attention.flash_mha_train(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert (flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    _, lse = flash_attention._launch(q.detach(), k.detach(), v.detach(), with_lse=True)
+    want = flash_attention.flash_mha_train_bwd(q.detach(), k.detach(), v.detach(),
+                                               out.detach(), g, lse)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------- bilateral
