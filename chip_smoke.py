@@ -5,8 +5,8 @@
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
    CUDA; float32 matmuls must be full float32 (no TF32);
-2. builds the four hand-written kernels from ``simseg_tpu_torch/csrc``
-   with nvcc, one process per source, all started together;
+2. builds the four kernel sources of ``simseg_tpu_torch/csrc`` with nvcc,
+   one process per source, all started together;
 3. holds the CRF kernel against its plain PyTorch version on the card at
    the main path's shape (16 images, 5 candidate maps, 288 x 288, stride 8,
    unaries in the decode's form: a patch-grid ``du`` upsampled x16):
@@ -16,13 +16,18 @@ Phases (any failure raises, so the exit code is non-zero):
    images, the bench batch);
 3b. the attention kernel against its plain version on (16, T, 12, 64) bf16
    at T = 1297 (the 576-px ViT-B pass), 1024 and 1536 (the band's edges)
-   and 325 (the 288-px pass, timed for the record): max abs error <= 2e-2,
-   mean <= 2e-3; kernel, plain, ``scaled_dot_product_attention`` and bound
-   times;
-3c. the bilateral kernel against its plain version at 16 images x 5184
-   cells (576 px, stride 8), C = 1 (the degree) and 5: max abs error over
-   the plain result's largest entry <= 1e-4; kernel, plain and bound times,
-   also for one image through the unbatched wrapper;
+   and 325 (the 288-px pass, timed for the record), with the forward bars
+   (relative to the plain output, whose entries shrink as T^-1/2): max abs
+   error <= 2e-2 x its largest entry, mean <= 7e-3 x its mean abs entry,
+   scale error |1 - <out, plain> / <plain, plain>| <= 3e-5; two planted
+   faults must fail them (the kernel run without the last 64-key tile, and
+   on keys zero-padded to the tile, as an unmasked tail would read them);
+   kernel, plain, ``scaled_dot_product_attention`` and bound times;
+3c. the bilateral kernel against its plain version run in float64 at 16
+   images x 5184 cells (576 px, stride 8), C = 1 (the degree) and 5: max
+   abs error over the plain result's largest entry <= 1e-5 (the float32
+   plain version's error printed beside it); kernel, float32 plain and
+   bound times, also for one image through the unbatched wrapper;
 3d. the attention backward kernel against its plain version on
    (16, T, 12, 64) bf16 at T = 1297, 1024 and 1536, and at (32, 1297, 12,
    64), the shape the training slice gives it; q, k, v and o from the
@@ -30,6 +35,23 @@ Phases (any failure raises, so the exit code is non-zero):
    error <= 2e-2 x the plain result's largest entry and mean abs error <=
    1e-2 x its mean abs entry; backward, forward with and without lse, plain
    backward and ``scaled_dot_product_attention`` backward times, and bound;
+3e. the long-sequence lanes' forward on (16, T, 12, 64) bf16 at T = 1681,
+   2026, 4096 (row-block) and 4097, 5185 (streaming), the lane
+   ``attention_lane`` gives each, against that lane's plain version run
+   in slices of 2 images (its f32 scores at (16, 5185) would take 20.6 GB):
+   the forward bars and planted faults of 3b; kernel, plain, SDPA and
+   bound times;
+3f. their backward at (16, 1601) (the 640-px training crop, row-block),
+   (2, 4097) and (2, 5185) (streaming): the forward kernel's output and
+   log-sum-exp into the backward kernel, against the lane's plain forward
+   and ``flash_mha_long_bwd_plain``, with the bars of 3d; kernel, plain,
+   SDPA backward and bound times;
+3g. the decode-tail kernel at the main path's shape (16 images, 5
+   candidates with an invalid one, a negative score and a tie, 288 x 288,
+   stride 8, patch-grid unaries in the decode's form): pred and best_w
+   each equal to the mean-field kernel + ``decode_tail``'s on >= 99.99% of
+   pixels and to its plain version's on >= 99.9% (the counts of differing
+   entries printed); kernel, default-lane, plain and bound times;
 4. drives the main path: zero-shot segmentation with the ViT-B/16 (288 px)
    and BERT-base towers in bf16, seeded random weights, the 21 PASCAL VOC
    classes, through ``evaluate_benchmark`` on 3 synthetic batches of 16;
@@ -37,8 +59,9 @@ Phases (any failure raises, so the exit code is non-zero):
    the right shape, and that one batch's predictions agree with the plain
    decode on the card;
 4b. the multi-scale slice: the same model through ``evaluate_benchmark``
-   with ``scales=(1.0, 2.0)`` on 3 batches of 16; the attention and CRF
-   kernels must have run there; on one batch the 2.0-scale tower's dense
+   with ``scales=(1.0, 2.0)`` on 3 batches of 16; exactly 12 whole-T
+   attention launches per batch, no other attention lane, one CRF launch
+   per batch; on one batch the 2.0-scale tower's dense
    features with kernel attention against plain attention (per-token
    cosine >= 0.999) and the decode's predictions against the plain decode
    on the same features (>= 99.9%); images/s and a device profile;
@@ -46,6 +69,17 @@ Phases (any failure raises, so the exit code is non-zero):
    canvas) through ``evaluate_benchmark`` with 288-px windows at stride
    192: 4 bilateral launches per batch, none of the fused CRF; predictions
    against the plain decode (>= 99.9%); images/s and a device profile;
+4d. the long multi-scale slice: ``scales=(1.0, 2.5, 4.0)`` at 288 px on 3
+   batches of 16: the 720-px view (T = 2026) takes the row-block lane, the
+   1152-px view (T = 5185) the streaming lane, 12 calls of each per batch
+   and none of the whole-T lanes; on 4 images each long view's dense
+   features with kernel against plain attention (per-token cosine >=
+   0.999); predictions against the plain decode (>= 99.9%); images/s, idle
+   share and a device profile;
+4e. the fused-tail slice: ``crf_backend="fused_tail"`` single-scale at
+   288 px on 3 batches of 16: one tail launch per batch and no mean-field
+   launch; on the same batches predictions against the default lane
+   (>= 99.99%) and the plain decode (>= 99.9%); images/s, idle share;
 5. checkpoint loading: the seeded model's state dict at a 224-px grid,
    ``module.``-prefixed, loaded into the 288-px model: every entry
    matched, ``pos_embed`` equal to its bicubic resampling;
@@ -62,11 +96,22 @@ Phases (any failure raises, so the exit code is non-zero):
    for every image-tower parameter, peak memory of both; ms per step
    (steps 3-12, the host work between steps included), images/s, idle
    share and a device profile; then 12 steps at the YAML's own 224-px crop
-   (T = 197), where no attention kernel runs, at batch 32 and at 128.
+   (T = 197), where no attention kernel runs, at batch 32 and at 128
+   (finite, falling losses);
+6b. training in the row-block band: 12 steps at a 640-px crop (T = 1601,
+   where inference would take the plain path), batch 16: 12 row-block
+   forward and 12 backward launches per step and no whole-T launch; finite
+   losses, the last below the first; one step at batch 4 against the
+   same forward kernel with ``flash_mha_long_bwd_plain`` as the backward,
+   and against a witness with the image tower's attention in float32:
+   loss within 1e-2, image-tower gradient cosine >= 0.99 (the plain bf16
+   lane's distance from the witness printed beside); ms per step,
+   images/s, idle share.
 It then prints one JSON line of kernel numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -96,8 +141,25 @@ WIN = 288
 WIN_STRIDE = 192
 GT = 500
 KERNELS = ("crf_mean_field", "flash_attention", "flash_attention_bwd",
-           "bilateral_matvec")
+           "bilateral_matvec")   # the sources, one library each
 BWD_TS = (LONG_T, 1024, 1536)
+ROWBLOCK_T = 2026                         # the 720-px view, 2.5 x 288 px
+STREAM_T = 5185                           # the 1152-px view, 4.0 x 288 px
+LONG_FWD_TS = (1681, ROWBLOCK_T, 4096, 4097, STREAM_T)
+ROW_TRAIN_SIZE = 640                      # T = 1601: row-block in training
+ROW_TRAIN_BATCH = 16
+ROW_COMPARE_BATCH = 4
+LONG_BWD = ((ROW_TRAIN_BATCH, (ROW_TRAIN_SIZE // PATCH) ** 2 + 1), (2, 4097),
+            (2, STREAM_T))
+PLAIN_SLICE = 2                           # images per plain long-attention call
+LONG_SCALES = (1.0, 2.5, 4.0)
+# attention forward bars, relative to the plain output's largest and mean
+# absolute entry (|o| shrinks as T^-1/2, so an absolute bar would not), and
+# on the scale error (see attention_errors)
+FWD_MAX_REL = 2e-2
+FWD_MEAN_REL = 7e-3
+FWD_SCALE = 3e-5
+FWD_TILE = 64                             # the kernel's k/v tile
 # the sections of configs/clip/simseg.vit-b.yaml that the training slice
 # reproduces (no YAML is read on the card; tests/test_torch_port_config.py
 # holds this list against the file)
@@ -191,14 +253,13 @@ def device_profile(fn, label: str, top: int = 8) -> float:
     return total / 1e3
 
 
-def crf_bound_ms(b, k, h, w, s, radius, iters, rgb_bytes):
-    """Least time for the CRF's work: its inputs read once (du, rgb) and its
-    masks written once, over HBM bandwidth; its float32 operations over the
-    CUDA cores' peak. Operations: the kernel matrix once (5-d dot, distance,
-    exp, row sum), and per class and iteration the box splat, the K.q
-    product, the two Gaussian passes and the update."""
+def crf_bound_ms(b, k, h, w, s, radius, iters, nbytes):
+    """Least time for the CRF's work: ``nbytes``, its inputs read once and
+    its outputs written once, over HBM bandwidth; its float32 operations
+    over the CUDA cores' peak. Operations: the kernel matrix once (5-d dot,
+    distance, exp, row sum), and per class and iteration the box splat, the
+    K.q product, the two Gaussian passes and the update."""
     n = (h // s) * (w // s)
-    nbytes = 2 * b * k * h * w * 4 + rgb_bytes
     ops = b * (n * n * (2 * 5 + 5)
                + k * iters * (2 * n * n + h * w * (4 * (2 * radius + 1) + 8)))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -225,10 +286,17 @@ def synthetic_scenes(rng, b, size, num_classes):
 
 
 def decode_form_unary(rng, b, k, grid, factor):
-    """(b, k, grid*factor, grid*factor) du from smooth random patch-grid
-    similarity maps, min-max normalised, as the decode builds it."""
+    """(b, k, grid*factor, grid*factor) du: ``coarse_form_unary`` nearest-
+    upsampled, as the decode builds it."""
     from simseg_tpu_torch.ops.morphology import nearest_upsample
 
+    return nearest_upsample(coarse_form_unary(rng, b, k, grid),
+                            factor).contiguous()
+
+
+def coarse_form_unary(rng, b, k, grid):
+    """(b, k, grid, grid) patch-grid du on the card from smooth random
+    similarity maps, min-max normalised, as the decode builds it."""
     coarse = rng.normal(size=(b, k, grid + 2, grid + 2))
     coarse = (coarse[..., :-2, :-2] + coarse[..., 1:-1, 1:-1]
               + coarse[..., 2:, 2:])[..., :grid, :grid]
@@ -236,8 +304,7 @@ def decode_form_unary(rng, b, k, grid, factor):
     hi = coarse.max(axis=(-2, -1), keepdims=True)
     p = np.clip((coarse - lo) / np.maximum(hi - lo, 1e-12), 0, 1)
     du = np.log(p + 1e-8) - np.log(1 - p + 1e-8)
-    return nearest_upsample(torch.tensor(du, dtype=torch.float32).cuda(),
-                            factor).contiguous()
+    return torch.tensor(du, dtype=torch.float32).cuda()
 
 
 def check_crf_kernel(b):
@@ -277,8 +344,9 @@ def check_crf_kernel(b):
     plain_device = device_profile(lambda: crf_fused.mean_field_fused_plain(
         du, rgb, closing_ksize=CLOSING, **kw), f"crf plain b={b}", top=0)
     radius = crf_fused.gaussian_constants(SIZE, SIZE, 3.0)[0].shape[0] // 2
+    nbytes = 2 * du.numel() * 4 + rgb.numel() * rgb.element_size()
     bound, bound_by = crf_bound_ms(b, CLASSES_PER_IMAGE, SIZE, SIZE, STRIDE,
-                                   radius, ITERS, rgb.numel() * rgb.element_size())
+                                   radius, ITERS, nbytes)
     print(f"crf b={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (device "
           f"{plain_device:.4f} ms), bound {bound:.4f} ms ({bound_by})",
           flush=True)
@@ -337,19 +405,30 @@ def counters():
     from simseg_tpu_torch.ops import crf_fused, crf_pallas, flash_attention
 
     return {"crf_mean_field": (crf_fused, "LAUNCHES"),
+            "seg_decode_tail": (crf_fused, "TAIL_LAUNCHES"),
             "flash_attention": (flash_attention, "LAUNCHES"),
             "flash_attention_bwd": (flash_attention, "BWD_LAUNCHES"),
             "bilateral_matvec": (crf_pallas, "LAUNCHES")}
 
 
 def reset_counts() -> None:
+    from simseg_tpu_torch.ops import flash_attention
+
     for module, attr in counters().values():
         setattr(module, attr, 0)
+    for lane in flash_attention.LANE_CALLS:
+        flash_attention.LANE_CALLS[lane] = 0
 
 
 def read_counts() -> dict:
-    return {name: getattr(module, attr)
-            for name, (module, attr) in counters().items()}
+    """The launch counts, and the attention forward's by lane as
+    ``lane_<name>``."""
+    from simseg_tpu_torch.ops import flash_attention
+
+    counts = {name: getattr(module, attr)
+              for name, (module, attr) in counters().items()}
+    counts.update({f"lane_{k}": v for k, v in flash_attention.LANE_CALLS.items()})
+    return counts
 
 
 def slice_setup():
@@ -430,73 +509,161 @@ def run_slice(model, tokenizer, classes):
     return launches
 
 
-def check_flash_kernel(t):
-    """Phase 3b at T = t: returns the kernel's JSON fields (no launches)."""
+def seeded_qkv(seed, b, t, n=3):
+    """n (b, t, 12, 64) bf16 tensors on the card, the first (q) pre-scaled."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [torch.randn(b, t, HEADS, HEAD_DIM, device="cuda", generator=gen)
+          for _ in range(n)]
+    xs[0] = xs[0] * HEAD_DIM ** -0.5
+    return [x.to(torch.bfloat16) for x in xs]
+
+
+def attention_bound_ms(b, t, ops_per_elem, nbytes):
+    """Least time for attention work at (b, t, 12, 64): ops_per_elem x B H
+    T^2 hd bf16 tensor-core operations over 989 TFLOP/s, or nbytes over
+    HBM bandwidth."""
+    t_ops = ops_per_elem * b * HEADS * t * t * HEAD_DIM / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def lane_functions(lane):
+    """(kernel wrapper, its plain forward) of an attention lane."""
+    from simseg_tpu_torch.ops import flash_attention as fa
+
+    name = "flash_mha" if lane == "flash" else f"flash_mha_{lane}"
+    return getattr(fa, name), getattr(fa, f"{name}_plain")
+
+
+def long_lane(t, training):
+    """The lane ``attention_lane`` gives the ViT-B heads at T = t; it must
+    be a long-sequence lane."""
+    from simseg_tpu_torch.ops.attention import attention_lane
+
+    lane = attention_lane(BATCH, HEADS, t, t, HEAD_DIM, torch.bfloat16, None,
+                          training)
+    if lane not in ("rowblock", "stream"):
+        raise AssertionError(f"T={t} routes to {lane!r}, not a long lane")
+    return lane
+
+
+def attention_errors(out, want):
+    """(max abs error, (max abs error / max |want|, mean abs error /
+    mean |want|, |1 - <out, want> / <want, want>|)) of an attention output
+    against its plain version; the last, a scale error, is what a
+    systematic fault (a softmax sum off by a few keys) leaves when rounding
+    noise hides it from the first two."""
+    err = (out.float() - want.float()).abs()
+    ref = want.float().abs()
+    max_err = err.max().item()
+    rel = (max_err / ref.max().item(), err.mean().item() / ref.mean().item())
+    del err, ref
+    o, w = out.double(), want.double()
+    scale = abs(1 - (o * w).sum().item() / (w * w).sum().item())
+    return max_err, (*rel, scale)
+
+
+def within_fwd_bars(rel):
+    return (rel[0] <= FWD_MAX_REL and rel[1] <= FWD_MEAN_REL
+            and rel[2] <= FWD_SCALE)
+
+
+def check_flash_kernel(t, lane="flash"):
+    """Phases 3b / 3e at (16, t, 12, 64): returns the JSON fields (no
+    launches). The plain version of a long lane runs in slices of 2
+    images: its f32 scores at (16, 5185) would take 20.6 GB."""
     import torch.nn.functional as F
 
-    from simseg_tpu_torch.ops import flash_attention
+    kernel, plain = lane_functions(lane)
+    label = "attention" if lane == "flash" else f"attention {lane}"
+    q, k, v = seeded_qkv(t, BATCH, t)
+    step = BATCH if lane == "flash" else PLAIN_SLICE
 
-    gen = torch.Generator(device="cuda").manual_seed(t)
-    q, k, v = (torch.randn(BATCH, t, HEADS, HEAD_DIM, device="cuda",
-                           generator=gen) for _ in range(3))
-    q, k, v = (x.to(torch.bfloat16) for x in (q * HEAD_DIM ** -0.5, k, v))
-    got = flash_attention.flash_mha(q, k, v)
-    want = flash_attention.flash_mha_plain(q, k, v)
-    err = (got.float() - want.float()).abs()
-    max_err, mean_err = err.max().item(), err.mean().item()
-    print(f"attention T={t}: kernel vs plain max abs err {max_err:.3e}, "
-          f"mean {mean_err:.3e}", flush=True)
-    if max_err > 2e-2 or mean_err > 2e-3:
-        raise AssertionError(f"attention T={t}: error {max_err} / {mean_err}")
-    ms = cuda_ms(lambda: flash_attention.flash_mha(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: flash_attention.flash_mha_plain(q, k, v), 5)
+    def plain_all():
+        return [plain(q[i:i + step], k[i:i + step], v[i:i + step])
+                for i in range(0, BATCH, step)]
+
+    want = torch.cat(plain_all())
+    max_err, rel = attention_errors(kernel(q, k, v), want)
+    print(f"{label} T={t}: kernel vs plain max abs err {max_err:.3e}; "
+          f"relative max {rel[0]:.3e}, mean {rel[1]:.3e}, scale {rel[2]:.3e} "
+          f"(bars {FWD_MAX_REL:g}, {FWD_MEAN_REL:g}, {FWD_SCALE:g})",
+          flush=True)
+    if not within_fwd_bars(rel):
+        raise AssertionError(f"{label} T={t}: relative error {rel}")
+    # planted faults the bars must reject: a kernel that skips the last k/v
+    # tile, and one that leaves the zero-filled keys of a partial tile
+    # unmasked (scores 0, values 0)
+    cut = (t - 1) // FWD_TILE * FWD_TILE
+    faults = {"last k/v tile dropped": (k[:, :cut], v[:, :cut])}
+    if t % FWD_TILE:
+        pad = (0, 0, 0, 0, 0, FWD_TILE - t % FWD_TILE)
+        faults["partial tile unmasked"] = (F.pad(k, pad), F.pad(v, pad))
+    for fault, (fk, fv) in faults.items():
+        _, f_rel = attention_errors(kernel(q, fk, fv), want)
+        print(f"{label} T={t}: planted fault ({fault}): relative max "
+              f"{f_rel[0]:.3e}, mean {f_rel[1]:.3e}, scale {f_rel[2]:.3e}",
+              flush=True)
+        if within_fwd_bars(f_rel):
+            raise AssertionError(f"{label} T={t}: the bars pass a kernel "
+                                 f"with the fault '{fault}': {f_rel}")
+    del want, faults
+    ms = cuda_ms(lambda: kernel(q, k, v), 20)
+    plain_ms = cuda_ms(plain_all, 5 if lane == "flash" else 2)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, scale=1.0), 20)
     # the work: 4 B H T^2 hd tensor-core operations; q, k, v, o once each
-    t_ops = 4 * BATCH * HEADS * t * t * HEAD_DIM / BF16_FLOP_PER_S * 1e3
-    t_bytes = 4 * BATCH * t * HEADS * HEAD_DIM * 2 / HBM_BYTES_PER_S * 1e3
-    bound = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"attention T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})",
+    bound, bound_by = attention_bound_ms(
+        BATCH, t, 4, 4 * BATCH * t * HEADS * HEAD_DIM * 2)
+    print(f"{label} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+          f"{'' if step == BATCH else f' ({BATCH // step} calls of {step} images)'}"
+          f", sdpa {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})",
           flush=True)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=sdpa_ms)
 
 
-def check_flash_bwd_kernel(t, b=BATCH):
-    """Phase 3d at (b, t, 12, 64): returns the backward kernel's JSON fields
-    (no launches)."""
+def check_flash_bwd_kernel(t, b=BATCH, lane="train"):
+    """Phases 3d / 3f at (b, t, 12, 64): returns the backward kernel's JSON
+    fields (no launches). q, k, v and the output and log-sum-exp of the
+    forward kernel, random g; the whole-T lane's plain backward recomputes
+    everything from q, k, v, g, a long lane's runs on its plain forward's
+    output and log-sum-exp."""
     import torch.nn.functional as F
 
     from simseg_tpu_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(t + b)
-    q, k, v, g = (torch.randn(b, t, HEADS, HEAD_DIM, device="cuda",
-                              generator=gen) for _ in range(4))
-    q, k, v, g = (x.to(torch.bfloat16) for x in (q * HEAD_DIM ** -0.5, k, v, g))
-    out, lse = fa._launch(q, k, v, with_lse=True)
+    q, k, v, g = seeded_qkv(t + b, b, t, n=4)
+    out, lse = fa._launch(q, k, v, with_lse=True, lane=lane)
     got = fa.flash_mha_train_bwd(q, k, v, out, g, lse)
-    want = fa.flash_mha_train_bwd_plain(q, k, v, g)
+    if lane == "train":
+        def plain():
+            return fa.flash_mha_train_bwd_plain(q, k, v, g)
+    else:
+        p_out, p_lse = lane_functions(lane)[1](q, k, v, with_lse=True)
+
+        def plain():
+            return fa.flash_mha_long_bwd_plain(q, k, v, p_out, g, p_lse)
+    label = "attention bwd" if lane == "train" else f"attention {lane} bwd"
     max_err = 0.0
-    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+    for name, x, y in zip(("dq", "dk", "dv"), got, plain()):
         err = (x.float() - y.float()).abs()
         ref = y.float().abs()
         e_max, e_mean = err.max().item(), err.mean().item()
         r_max, r_mean = ref.max().item(), ref.mean().item()
-        print(f"attention bwd B={b} T={t} {name}: max abs err {e_max:.3e} "
+        print(f"{label} B={b} T={t} {name}: max abs err {e_max:.3e} "
               f"(plain max {r_max:.3e}), mean {e_mean:.3e} (plain mean "
               f"{r_mean:.3e})", flush=True)
         if e_max > 2e-2 * r_max or e_mean > 1e-2 * r_mean:
-            raise AssertionError(f"attention bwd B={b} T={t} {name}: error "
+            raise AssertionError(f"{label} B={b} T={t} {name}: error "
                                  f"{e_max} / {e_mean}")
         max_err = max(max_err, e_max)
 
     ms = cuda_ms(lambda: fa.flash_mha_train_bwd(q, k, v, out, g, lse), 20)
     fwd_lse_ms = cuda_ms(lambda: fa._launch(q, k, v, with_lse=True), 20)
     fwd_ms = cuda_ms(lambda: fa._launch(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: fa.flash_mha_train_bwd_plain(q, k, v, g), 3)
+    plain_ms = cuda_ms(plain, 3)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     gt = g.transpose(1, 2).contiguous()
@@ -508,12 +675,9 @@ def check_flash_bwd_kernel(t, b=BATCH):
     sdpa_fb = cuda_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), gt), 20)
     # the work: 10 B H T^2 hd tensor-core operations (dv, dp, dq, dk and the
     # recomputed s); q, k, v, o, g and lse read once, dq, dk, dv written once
-    t_ops = 10 * b * HEADS * t * t * HEAD_DIM / BF16_FLOP_PER_S * 1e3
-    t_bytes = (8 * b * t * HEADS * HEAD_DIM * 2
-               + b * HEADS * t * 4) / HBM_BYTES_PER_S * 1e3
-    bound = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"attention bwd B={b} T={t}: kernel {ms:.4f} ms, plain "
+    bound, bound_by = attention_bound_ms(
+        b, t, 10, 8 * b * t * HEADS * HEAD_DIM * 2 + b * HEADS * t * 4)
+    print(f"{label} B={b} T={t}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, "
           f"sdpa bwd {sdpa_fb - sdpa_f:.4f} ms (fwd+bwd {sdpa_fb:.4f}, fwd "
           f"{sdpa_f:.4f}), bound {bound:.4f} ms ({bound_by}); forward kernel "
@@ -549,12 +713,15 @@ def check_bilateral_kernel():
              else rng.uniform(-1.0, 1.0, (BATCH, n, c)))
         q = torch.from_numpy(q.astype(np.float32)).cuda()
         got = crf_pallas.bilateral_matvec_batched(feat, q)
-        want = crf_pallas.bilateral_matvec_plain(feat, q)
-        max_err = (got - want).abs().max().item()
+        want = crf_pallas.bilateral_matvec_plain(feat.double(), q.double())
+        max_err = (got.double() - want).abs().max().item()
         rel = max_err / want.abs().max().item()
-        print(f"bilateral C={c} N={n}: kernel vs plain max abs err "
-              f"{max_err:.3e}, relative {rel:.3e}", flush=True)
-        if rel > 1e-4:
+        want32 = crf_pallas.bilateral_matvec_plain(feat, q)
+        rel32 = ((got - want32).abs().max() / want32.abs().max()).item()
+        print(f"bilateral C={c} N={n}: kernel vs float64 plain max abs err "
+              f"{max_err:.3e}, relative {rel:.3e} (vs float32 plain "
+              f"{rel32:.3e})", flush=True)
+        if rel > 1e-5:
             raise AssertionError(f"bilateral C={c}: relative error {rel}")
         ms = cuda_ms(lambda: crf_pallas.bilateral_matvec_batched(feat, q), 20)
         plain_ms = cuda_ms(lambda: crf_pallas.bilateral_matvec_plain(feat, q), 3)
@@ -617,9 +784,11 @@ def drive_eval(label, loader, model, tokenizer, classes, **kw):
     return counts
 
 
-def check_decode(label, loader, model, text_bank, classes, size, **kw):
+def check_decode(label, loader, model, text_bank, classes, size,
+                 crf_backend="auto", **kw):
     """One batch: the decode's predictions against the plain decode on the
-    same features; then images/s and a device profile of the prediction."""
+    same features; then images/s, a device profile of the prediction and
+    the idle share."""
     from simseg_tpu_torch.ops.seg_decode import make_seg_decode_fn
     from simseg_tpu_torch.tasks.seg_eval import make_seg_features, make_seg_predict
 
@@ -627,7 +796,7 @@ def check_decode(label, loader, model, text_bank, classes, size, **kw):
     dense, pooled = make_seg_features(model, input_size=size, **kw)(images_u8)
     decode = make_seg_decode_fn(num_classes=len(classes), image_size=size,
                                 patch_size=PATCH, top_cls_num=10,
-                                bilateral_stride=STRIDE)
+                                bilateral_stride=STRIDE, crf_backend=crf_backend)
     with torch.no_grad():
         pred, best_w = decode(dense, pooled, text_bank, images_u8)
     pred_plain = plain_decode(dense, pooled, text_bank, images_u8, size)
@@ -643,16 +812,25 @@ def check_decode(label, loader, model, text_bank, classes, size, **kw):
         raise AssertionError(f"{label}: pred agreement {agree:.6f} < 0.999")
 
     predict = make_seg_predict(model, len(classes), 10, input_size=size,
-                               bilateral_stride=STRIDE, **kw)
+                               bilateral_stride=STRIDE, crf_backend=crf_backend,
+                               **kw)
     step_ms = cuda_ms(lambda: predict(images_u8, text_bank), 3)
-    device_profile(lambda: predict(images_u8, text_bank),
-                   f"{label} towers + decode, batch {BATCH}", top=12)
+    device = device_profile(lambda: predict(images_u8, text_bank),
+                            f"{label} towers + decode, batch {BATCH}", top=12)
     print(f"{label}: towers + decode {step_ms:.3f} ms per batch of {BATCH} "
-          f"= {BATCH / (step_ms / 1e3):.1f} images/s", flush=True)
+          f"= {BATCH / (step_ms / 1e3):.1f} images/s; device {device:.3f} ms, "
+          f"idle share {1 - device / step_ms:.3f}", flush=True)
 
 
-def run_multiscale_slice(model, tokenizer, classes):
-    """Phase 4b: returns the launch counts of its evaluate_benchmark run."""
+def run_multiscale_slice(label, model, tokenizer, classes, scales, seed,
+                         want_lanes, n_images):
+    """Phases 4b / 4d: ``evaluate_benchmark`` with ``scales``; the CRF
+    kernel must run once per batch and the attention forward exactly
+    ``want_lanes`` ({lane: launches}, every other lane 0). Then, on
+    n_images of one batch, each extra view's tower with kernel attention
+    (one launch per layer) against plain attention (per-token cosine >=
+    0.999), and the decode against the plain decode. Returns the launch
+    counts of the evaluate_benchmark run."""
     import torch.nn.functional as F
 
     from simseg_tpu_torch.data.transforms import normalize_images
@@ -660,41 +838,52 @@ def run_multiscale_slice(model, tokenizer, classes):
     from simseg_tpu_torch.ops.interpolate_pe import resize_bilinear
     from simseg_tpu_torch.tasks.seg_eval import zero_shot_classifier
 
-    scales = (1.0, 2.0)
-    loader = SyntheticLoader(3, BATCH, len(classes), seed=2)
-    counts = drive_eval("multi-scale", loader, model, tokenizer, classes,
+    loader = SyntheticLoader(3, BATCH, len(classes), seed=seed)
+    counts = drive_eval(label, loader, model, tokenizer, classes,
                         input_size=SIZE, scales=scales)
-    if counts["flash_attention"] < 1 or counts["crf_mean_field"] < 1:
-        raise AssertionError("the multi-scale slice did not run the attention "
-                             f"and CRF kernels: {counts}")
+    lanes = {k[5:]: v for k, v in counts.items() if k.startswith("lane_")}
+    if (lanes != {lane: want_lanes.get(lane, 0) for lane in lanes}
+            or counts["crf_mean_field"] != loader.batches):
+        raise AssertionError(f"{label}: attention lanes {lanes}, want "
+                             f"{want_lanes}, and one CRF launch per batch: "
+                             f"{counts}")
 
-    # the 2.0-scale tower with kernel attention against plain attention
-    images_u8 = torch.from_numpy(next(iter(loader))["image"]).cuda()
-    big = resize_bilinear(normalize_images(images_u8), 2 * SIZE, 2 * SIZE)
-
-    def dense_tokens():
+    def dense_tokens(view):
         with torch.no_grad():
-            patches = model.forward_image_tokens(big)[:, 1:]
+            patches = model.forward_image_tokens(view)[:, 1:]
             return model.project_image_tokens(patches).float()
 
-    before = flash_attention.LAUNCHES
-    dense_k = dense_tokens()
-    if flash_attention.LAUNCHES - before != 12:
-        raise AssertionError("the 576-px tower did not take the kernel in "
-                             "each of its 12 layers")
-    with unittest.mock.patch.object(flash_attention, "flash_supported",
-                                    lambda *a: False):
-        dense_p = dense_tokens()
-    cos = F.cosine_similarity(dense_k, dense_p, dim=-1).min().item()
-    print(f"multi-scale: 576-px tower kernel vs plain attention, min "
-          f"per-token cosine {cos:.6f} over {dense_k.shape[1]} tokens",
-          flush=True)
-    if cos < 0.999:
-        raise AssertionError(f"per-token cosine {cos:.6f} < 0.999")
+    images = normalize_images(torch.from_numpy(
+        next(iter(loader))["image"][:n_images]).cuda())
+    plain_gates = [unittest.mock.patch.object(flash_attention, gate,
+                                              lambda *a: False)
+                   for gate in ("flash_supported", "flash_rowblock_supported",
+                                "flash_stream_supported")]
+    for scale in scales:
+        if scale == 1.0:
+            continue
+        size = int(round(SIZE * scale / PATCH)) * PATCH
+        view = resize_bilinear(images, size, size)
+        before = flash_attention.LAUNCHES
+        dense_k = dense_tokens(view)
+        if flash_attention.LAUNCHES - before != 12:
+            raise AssertionError(f"the {size}-px tower did not take a kernel "
+                                 "in each of its 12 layers")
+        with contextlib.ExitStack() as stack:
+            for gate in plain_gates:
+                stack.enter_context(gate)
+            dense_p = dense_tokens(view)
+        cos = F.cosine_similarity(dense_k, dense_p, dim=-1).min().item()
+        print(f"{label}: {size}-px tower (T = {dense_k.shape[1] + 1}) kernel "
+              f"vs plain attention, min per-token cosine {cos:.6f} over "
+              f"{n_images} images", flush=True)
+        if cos < 0.999:
+            raise AssertionError(f"{size}-px per-token cosine {cos:.6f} < 0.999")
+        del dense_k, dense_p, view
+    torch.cuda.empty_cache()
 
     text_bank = zero_shot_classifier(model, classes, tokenizer, max_length=25)
-    check_decode("multi-scale", loader, model, text_bank, classes, SIZE,
-                 scales=scales)
+    check_decode(label, loader, model, text_bank, classes, SIZE, scales=scales)
     return counts
 
 
@@ -822,21 +1011,26 @@ def step_grads(model, batch):
     return loss.item(), grads
 
 
-def compare_train_step(runner, batch):
-    """One step's loss and image-tower gradients with the backward kernel
-    against ``flash_train_supported`` patched to False; peak memory."""
+def compare_train_step(runner, batch, n=COMPARE_BATCH, patch=None,
+                       label="flash_train_supported=False"):
+    """One step's loss and image-tower gradients at batch n with the
+    backward kernel against ``patch`` (default: ``flash_train_supported``
+    patched to False, the forward kernel with the plain backward); peak
+    memory."""
     import torch.nn.functional as F
 
     from simseg_tpu_torch.ops import flash_attention
 
-    small = {k: v[:COMPARE_BATCH] for k, v in runner._prepare_batch(batch).items()}
+    if patch is None:
+        patch = unittest.mock.patch.object(
+            flash_attention, "flash_train_supported", lambda *a: False)
+    small = {k: v[:n] for k, v in runner._prepare_batch(batch).items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     loss_k, grads_k = step_grads(runner.model, small)
     peak_k = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    with unittest.mock.patch.object(flash_attention, "flash_train_supported",
-                                    lambda *a: False):
+    with patch:
         loss_p, grads_p = step_grads(runner.model, small)
     peak_p = torch.cuda.max_memory_allocated()
     rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -844,8 +1038,8 @@ def compare_train_step(runner, batch):
     cos = {n: F.cosine_similarity(grads_k[n].flatten(), grads_p[n].flatten(),
                                   dim=0).item() for n in image}
     worst = min(cos, key=cos.get)
-    print(f"train: batch {COMPARE_BATCH} step, backward kernel vs "
-          f"flash_train_supported=False: loss {loss_k:.6f} vs {loss_p:.6f} "
+    print(f"train: batch {n} step, backward kernel vs {label}: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} "
           f"(relative {rel:.3e}); min gradient cosine {cos[worst]:.6f} "
           f"({worst}) over {len(image)} image-tower tensors; peak memory "
           f"{peak_k / 2**30:.3f} GiB vs {peak_p / 2**30:.3f} GiB", flush=True)
@@ -854,8 +1048,59 @@ def compare_train_step(runner, batch):
                              f"cosine {cos[worst]} ({worst})")
 
 
+def witness_train_step(runner, batch, n):
+    """Phase 6b's witness: one step at batch n with the image tower's
+    attention in float32 (plain; q, k, v cast up, the output cast back),
+    against which the row-block kernel lane and the plain bf16 lane
+    (``flash_rowblock_supported`` patched to False) each give their loss,
+    ``pos_embed`` gradient cosine and least image-tower gradient cosine.
+    The kernel lane's loss must be within 1e-2, and each image-tower
+    gradient's cosine >= 0.99 or no more than 0.01 below the plain bf16
+    lane's (``pos_embed``'s gradient, a sum over every token of every
+    image, is far from the witness under either bf16 lane)."""
+    import torch.nn.functional as F
+
+    from simseg_tpu_torch.models import vit
+    from simseg_tpu_torch.ops import attention
+    from simseg_tpu_torch.ops import flash_attention as fa
+
+    def f32_attention(q, k, v, num_heads, attention_bias=None):
+        return attention.multi_head_attention(
+            q.float(), k.float(), v.float(), num_heads,
+            attention_bias).to(q.dtype)
+
+    small = {k: v[:n] for k, v in runner._prepare_batch(batch).items()}
+    with unittest.mock.patch.object(vit, "multi_head_attention", f32_attention):
+        loss_w, grads_w = step_grads(runner.model, small)
+    image = [k for k in grads_w if k.startswith("image_encoder.")]
+    pos = next(k for k in image if k.endswith("pos_embed"))
+    lanes = {"plain bf16": unittest.mock.patch.object(
+                 fa, "flash_rowblock_supported", lambda *a: False),
+             "row-block kernel": contextlib.nullcontext()}
+    cos, rel = {}, {}
+    for name, ctx in lanes.items():
+        with ctx:
+            loss, grads = step_grads(runner.model, small)
+        rel[name] = abs(loss - loss_w) / abs(loss_w)
+        cos[name] = {k: F.cosine_similarity(
+            grads[k].flatten(), grads_w[k].flatten(), dim=0).item()
+            for k in image}
+        worst = min((k for k in image if k != pos), key=cos[name].get)
+        print(f"train: batch {n} step, {name} lane vs float32 attention: "
+              f"loss {loss:.6f} vs {loss_w:.6f} (relative {rel[name]:.3e}); "
+              f"pos_embed gradient cosine {cos[name][pos]:.6f}, norm ratio "
+              f"{grads[pos].norm() / grads_w[pos].norm():.4f}; min cosine "
+              f"of the others {cos[name][worst]:.6f} ({worst})", flush=True)
+    below = {k: c for k, c in cos["row-block kernel"].items()
+             if c < min(0.99, cos["plain bf16"][k] - 0.01)}
+    if rel["row-block kernel"] > 1e-2 or below:
+        raise AssertionError(f"train step kernel vs float32 attention: loss "
+                             f"{rel}, cosines below the bar {below}")
+
+
 def run_train_slice(tmp):
-    """Phase 6: returns the launch counts of the 576-px training run."""
+    """Phases 6 and 6b: returns the launch counts of the 576-px and the
+    640-px training runs."""
     from simseg_tpu_torch.checkpoint.native import has_checkpoint
     from simseg_tpu_torch.tasks.clip.train import train
 
@@ -919,23 +1164,36 @@ def run_train_slice(tmp):
     del runner
     torch.cuda.empty_cache()
 
-    for b in BATCHES_224:
-        run_train_224(tmp, tok, b)
-    return counts
+    for b in BATCHES_224:   # the YAML's own crop: no attention kernel
+        run_train_crop(tmp, tok, 7, 224, b, {}, input_size=288)
+    per_step = 12 * TRAIN_STEPS
+    row_counts = run_train_crop(
+        tmp, tok, 10, ROW_TRAIN_SIZE, ROW_TRAIN_BATCH,
+        {"flash_attention": per_step, "flash_attention_bwd": per_step,
+         "lane_rowblock": per_step}, compare=True)
+    return counts, row_counts
 
 
-def run_train_224(tmp, tok, b):
-    """12 steps at the YAML's own 224-px crop (model at input_size 288),
-    batch b: no attention kernel runs; images/s, idle share and a device
-    profile."""
+def run_train_crop(tmp, tok, seed, size, b, want, input_size=None,
+                   compare=False):
+    """Phases 6 (224 px) / 6b: 12 steps at a ``size``-px crop (the model at
+    ``input_size``, by default the crop), batch b, on one repeated batch:
+    finite losses, the last below the first, exactly the launches ``want``
+    ({count: n}, every other count 0); with ``compare``, one step at batch
+    4 against the same forward kernel with ``flash_mha_long_bwd_plain`` as
+    the backward; images/s, idle share and a device profile. Returns the
+    launch counts."""
+    from simseg_tpu_torch.ops import flash_attention as fa
     from simseg_tpu_torch.tasks.clip.train import train
 
     steps = TRAIN_STEPS
-    cfg = train_cfg(os.path.join(tmp, f"ckpt224_{b}"),
-                    "transforms.random_resize_crop.size=224",
-                    "transforms.input_size=288", f"data.batch_size={b}",
-                    f"data.train_steps={steps}", "epoch=1")
-    batch, _ = caption_batch(7, b, 224)
+    label = f"train {size} px batch {b}"
+    cfg = train_cfg(os.path.join(tmp, f"ckpt{size}_{b}"),
+                    f"transforms.random_resize_crop.size={size}",
+                    f"transforms.input_size={input_size or size}",
+                    f"data.batch_size={b}", f"data.train_steps={steps}",
+                    "epoch=1")
+    batch, _ = caption_batch(seed, b, size)
     timer = StepTimer()
     with timer.patch():
         reset_counts()
@@ -943,20 +1201,139 @@ def run_train_224(tmp, tok, b):
         counts = read_counts()
     losses = [x.item() for x in timer.losses]
     ms, inside = timer.ms_per_step()
-    print(f"train 224 px batch {b}: losses {[round(x, 5) for x in losses]}; "
+    print(f"{label}: losses {[round(x, 5) for x in losses]}; "
           f"{ms:.3f} ms per step (steps 3-{steps}; {inside:.3f} ms inside "
           f"batch_processor) = {b / (ms / 1e3):.1f} images/s; launches "
           f"{counts}", flush=True)
-    if (len(losses) != steps or any(counts.values())
-            or not all(np.isfinite(losses))):
-        raise AssertionError(f"224-px training at batch {b}: launches "
-                             f"{counts}, losses {losses}")
+    if (len(losses) != steps or not all(np.isfinite(losses))
+            or not losses[-1] < losses[0]
+            or counts != {k: want.get(k, 0) for k in counts}):
+        raise AssertionError(f"{label}: launches {counts}, want {want}; "
+                             f"losses {losses}")
+    if compare:
+        # the same forward kernel; the backward kernel against its plain
+        # version
+        compare_train_step(runner, batch, ROW_COMPARE_BATCH,
+                           unittest.mock.patch.object(
+                               fa, "flash_mha_train_bwd",
+                               fa.flash_mha_long_bwd_plain),
+                           "flash_mha_long_bwd_plain")
+        witness_train_step(runner, batch, ROW_COMPARE_BATCH)
     device = device_profile(lambda: runner.batch_processor(batch),
-                            f"train step, batch {b} at 224 px", top=10)
-    print(f"train 224 px batch {b}: device {device:.3f} ms of {ms:.3f} ms "
-          f"per step, idle share {1 - device / ms:.3f}", flush=True)
+                            f"train step, batch {b} at {size} px", top=10)
+    print(f"{label}: device {device:.3f} ms of {ms:.3f} ms per step, idle "
+          f"share {1 - device / ms:.3f}", flush=True)
     del runner
     torch.cuda.empty_cache()
+    return counts
+
+
+def check_tail_kernel():
+    """Phase 3g: returns the tail kernel's JSON fields (no launches)."""
+    from simseg_tpu_torch.ops import crf_fused
+    from simseg_tpu_torch.ops.morphology import nearest_upsample
+    from simseg_tpu_torch.ops.seg_decode import decode_tail
+
+    b, k = BATCH, CLASSES_PER_IMAGE
+    rng = np.random.default_rng(11)
+    du_c = coarse_form_unary(rng, b, k, SIZE // PATCH)
+    rgb = torch.from_numpy(synthetic_scenes(rng, b, SIZE, 21)[0]).cuda()
+    scores = rng.uniform(0.1, 0.5, (b, k)).astype(np.float32)
+    scores[:, 4] = 0.0                   # an invalid candidate
+    scores[:, 3] = -0.05                 # a negative score
+    scores[:, 2] = scores[:, 1]          # a tie
+    idx = np.stack([rng.permutation(np.arange(1, 21))[:k] for _ in range(b)])
+    scores = torch.from_numpy(scores).cuda()
+    idx = torch.from_numpy(idx.astype(np.int32)).cuda()
+    kw = dict(stride=STRIDE, num_iters=ITERS, closing_ksize=CLOSING)
+    ones = torch.ones_like(scores, dtype=torch.bool)
+
+    def tail():
+        return crf_fused.seg_decode_tail_fused(du_c, rgb, scores, idx, PATCH, **kw)
+
+    def lane():
+        masks = crf_fused.mean_field_fused(
+            nearest_upsample(du_c, PATCH).contiguous(), rgb, **kw)
+        return decode_tail(masks, idx, scores, ones)
+
+    def plain():
+        return crf_fused.seg_decode_tail_fused_plain(du_c, rgb, scores, idx,
+                                                     PATCH, **kw)
+
+    (pred, bw), (lp, lw), (pp, pw) = tail(), lane(), plain()
+    torch.cuda.synchronize()
+    n = pred.numel()
+    differ = {"pred": (int((pred != lp).sum()), int((pred != pp).sum())),
+              "best_w": (int((bw != lw).sum()), int((bw != pw).sum()))}
+    agree_lane = 1 - max(d[0] for d in differ.values()) / n
+    agree_plain = 1 - max(d[1] for d in differ.values()) / n
+    max_err = (bw - pw).abs().max().item()
+    print(f"decode tail: of {n} entries, differing from the mean-field "
+          f"kernel + decode_tail / from plain: "
+          + ", ".join(f"{k} {a} / {p}" for k, (a, p) in differ.items())
+          + f"; best_w max abs err vs plain {max_err}", flush=True)
+    if agree_lane < 0.9999 or agree_plain < 0.999:
+        raise AssertionError(f"decode tail: pred and best_w agreement "
+                             f"{agree_lane} (kernel lane) / {agree_plain} "
+                             f"(plain): {differ}")
+    ms = cuda_ms(tail, 20)
+    lane_ms = cuda_ms(lane, 20)
+    plain_ms = cuda_ms(plain, 5)
+    plain_device = device_profile(plain, "decode tail plain", top=0)
+    radius = crf_fused.gaussian_constants(SIZE, SIZE, 3.0)[0].shape[0] // 2
+    nbytes = (du_c.numel() * 4 + rgb.numel() * rgb.element_size()
+              + pred.numel() * 8 + 8 * b * k)
+    bound, bound_by = crf_bound_ms(b, k, SIZE, SIZE, STRIDE, radius, ITERS, nbytes)
+    print(f"decode tail: kernel {ms:.4f} ms, crf_mean_field + decode_tail "
+          f"{lane_ms:.4f} ms, plain {plain_ms:.4f} ms (device "
+          f"{plain_device:.4f} ms), bound {bound:.4f} ms ({bound_by})", flush=True)
+    device_profile(tail, "decode tail kernel")
+    return dict(max_abs_err=max_err, agreement_kernel_lane=agree_lane,
+                agreement_plain=agree_plain, ms=ms, default_lane_ms=lane_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=None)
+
+
+def run_fused_tail_slice(model, tokenizer, classes):
+    """Phase 4e: returns the launch counts of its evaluate_benchmark run."""
+    from simseg_tpu_torch.ops.seg_decode import make_seg_decode_fn
+    from simseg_tpu_torch.tasks.seg_eval import make_seg_features, zero_shot_classifier
+
+    loader = SyntheticLoader(3, BATCH, len(classes), seed=9)
+    counts = drive_eval("fused tail", loader, model, tokenizer, classes,
+                        input_size=SIZE, crf_backend="fused_tail")
+    if counts["seg_decode_tail"] != loader.batches or counts["crf_mean_field"]:
+        raise AssertionError("the fused-tail slice must launch the tail kernel "
+                             f"once per batch and no mean field: {counts}")
+
+    text_bank = zero_shot_classifier(model, classes, tokenizer, max_length=25)
+    features = make_seg_features(model, input_size=SIZE)
+    decode = {backend: make_seg_decode_fn(
+        num_classes=len(classes), image_size=SIZE, patch_size=PATCH,
+        top_cls_num=10, bilateral_stride=STRIDE, crf_backend=backend)
+        for backend in ("fused_tail", "auto")}
+    differ = plain_differ = total = 0
+    for batch in loader:
+        images_u8 = torch.from_numpy(batch["image"]).cuda()
+        dense, pooled = features(images_u8)
+        with torch.no_grad():
+            pred, best_w = decode["fused_tail"](dense, pooled, text_bank, images_u8)
+            pred_a, best_a = decode["auto"](dense, pooled, text_bank, images_u8)
+        pred_p = plain_decode(dense, pooled, text_bank, images_u8, SIZE)
+        if not torch.isfinite(best_w).all() or int(pred.max()) >= len(classes):
+            raise AssertionError("fused tail: bad decode output")
+        differ += int((pred != pred_a).sum())
+        plain_differ += int((pred != pred_p).sum())
+        total += pred.numel()
+    print(f"fused tail: pred vs the default lane {1 - differ / total:.6f} "
+          f"({differ} of {total} pixels differ), vs plain decode "
+          f"{1 - plain_differ / total:.6f}", flush=True)
+    if differ > 1e-4 * total or plain_differ > 1e-3 * total:
+        raise AssertionError(f"fused tail: {differ} / {plain_differ} of {total} "
+                             "pixels differ from the default lane / plain")
+    check_decode("fused tail", loader, model, text_bank, classes, SIZE,
+                 crf_backend="fused_tail")
+    return counts
 
 
 def build_all():
@@ -994,16 +1371,35 @@ def main() -> None:
         check_flash_bwd_kernel(t)
     # the training slice's shape: the JSON line's numbers
     attn_bwd = check_flash_bwd_kernel(LONG_T, TRAIN_BATCH)
+    fwd = {t: check_flash_kernel(t, long_lane(t, False)) for t in LONG_FWD_TS}
+    bwd = {(b, t): check_flash_bwd_kernel(t, b, long_lane(t, True))
+           for b, t in LONG_BWD}
+    # the JSON line's numbers: each lane at its slice's shape
+    long_fwd = {"rowblock": fwd[ROWBLOCK_T], "stream": fwd[STREAM_T]}
+    long_bwd = {lane: {"bwd_shape": [b, t, HEADS, HEAD_DIM],
+                       **{f"bwd_{k}": v for k, v in bwd[b, t].items()
+                          if k != "bound_by"}}
+                for lane, (b, t) in (("rowblock", LONG_BWD[0]),
+                                     ("stream", LONG_BWD[-1]))}
+    torch.cuda.empty_cache()
+    tail = check_tail_kernel()
 
     model, tokenizer, classes = slice_setup()
     crf_launches = run_slice(model, tokenizer, classes)
-    ms_counts = run_multiscale_slice(model, tokenizer, classes)
+    ms_counts = run_multiscale_slice("multi-scale", model, tokenizer, classes,
+                                     (1.0, 2.0), 2, {"flash": 36}, BATCH)
     win_counts = run_window_slice(model, tokenizer, classes)
+    # 4 images: the plain 1152-px tower holds (4, 12, 5185, 5185) bf16
+    # scores, 2.6 GB, several times over
+    long_counts = run_multiscale_slice(
+        "long multi-scale", model, tokenizer, classes, LONG_SCALES, 8,
+        {"rowblock": 36, "stream": 36}, 4)
+    tail_counts = run_fused_tail_slice(model, tokenizer, classes)
     check_checkpoint()
     del model
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        train_counts = run_train_slice(tmp)
+        train_counts, row_train_counts = run_train_slice(tmp)
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",
@@ -1022,6 +1418,24 @@ def main() -> None:
          "source": "simseg_tpu_torch/csrc/bilateral_matvec.cu",
          "replaces": "simseg_tpu/ops/crf_pallas.py:125",
          "launches": win_counts["bilateral_matvec"], **bilateral},
+        {"name": "seg_decode_tail", "route": "cuda",
+         "source": "simseg_tpu_torch/csrc/crf_mean_field.cu",
+         "replaces": "simseg_tpu/ops/crf_fused.py:425",
+         "launches": tail_counts["seg_decode_tail"], **tail},
+        {"name": "flash_attention (rowblock)", "route": "cuda",
+         "source": "simseg_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "simseg_tpu/ops/flash_attention.py:789",
+         "launches": long_counts["lane_rowblock"],
+         "train_launches": row_train_counts["lane_rowblock"],
+         "bwd_launches": row_train_counts["flash_attention_bwd"],
+         "shape": [BATCH, ROWBLOCK_T, HEADS, HEAD_DIM],
+         **long_fwd["rowblock"], **long_bwd["rowblock"]},
+        {"name": "flash_attention (stream)", "route": "cuda",
+         "source": "simseg_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "simseg_tpu/ops/flash_attention.py:536",
+         "launches": long_counts["lane_stream"],
+         "shape": [BATCH, STREAM_T, HEADS, HEAD_DIM],
+         **long_fwd["stream"], **long_bwd["stream"]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

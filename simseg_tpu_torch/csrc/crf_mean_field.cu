@@ -27,8 +27,23 @@
 //   - keeps d in HBM between iterations (ping-pong buffers) and runs the
 //     Gaussian on 32x32 output tiles with a radius-r halo in shared memory;
 //   - runs the closing as four separable uint8 passes.
-// Launches are all on the caller's stream; the host function returns the
-// first launch error as an int (0 = cudaSuccess) and allocates nothing.
+//
+// A second entry point, crf_decode_tail_f32, replaces the TPU kernel
+// simseg_tpu/ops/crf_fused.py:seg_decode_tail_fused (_decode_tail_kernel):
+// the same mean field and closing, with two more stages:
+//   - the unaries arrive on the patch grid, du_coarse (B, K, H/f, W/f), and
+//     are read at (y / f, x / f) wherever the fine map is needed: that is
+//     the nearest upsample by f, and no fine-grid du exists in HBM;
+//   - the K closed masks of an image are folded into a running best of
+//     mask * scores_eff[b, k] with a strict '>', so ties keep the first
+//     candidate (argmax's rule), and only pred (B, H, W) int32 (0 where the
+//     best weight is <= 0) and best_w (B, H, W) f32 are written.
+// It shares every device function with the mean field above, so its masks
+// are the default lane's bit for bit. Its bound: the mean field's
+// operations (du_coarse, rgb in; pred, best_w out are fewer bytes).
+//
+// Launches are all on the caller's stream; the host functions return the
+// first launch error as an int (0 = cudaSuccess) and allocate nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,10 +61,25 @@ constexpr int kRowsPerWarp = 4;
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
 constexpr int kCellTile = kThreads;  // cells staged per shared-memory tile
 
+// du of plane p at fine pixel (y, x): the fine map itself, or (kCoarse)
+// the patch-grid map of H/f x W/f read at (y / f, x / f), its nearest
+// upsample by f
+template <bool kCoarse>
+__device__ __forceinline__ float du_at(const float* __restrict__ du, long p, int y,
+                                       int x, int H, int W, int f) {
+  if (!kCoarse) return du[p * H * W + (long)y * W + x];
+  const int gw = W / f;
+  return du[(p * (H / f) + y / f) * gw + x / f];
+}
+
+template <bool kCoarse>
 __global__ void init_kernel(const float* __restrict__ du, float* __restrict__ d,
-                            long n) {
+                            long n, int H, int W, int f) {
   long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (i < n) d[i] = tanhf(du[i] * 0.5f);
+  if (i >= n) return;
+  const long plane = (long)H * W;
+  const long r = i % plane;
+  d[i] = tanhf(du_at<kCoarse>(du, i / plane, (int)(r / W), (int)(r % W), H, W, f) * 0.5f);
 }
 
 // q[p, c] = mean of d[p] over stride cell c (p indexes the B*K planes)
@@ -159,7 +189,9 @@ __global__ void bilateral_kernel(const float* __restrict__ feat,
 }
 
 // d_out = tanh((du + gc G(d_in) + bc m[cell]) / 2) on one kTile^2 tile of
-// plane p = blockIdx.z; m is (planes, N) on the stride-s grid.
+// plane p = blockIdx.z; m is (planes, N) on the stride-s grid; du as read
+// by du_at.
+template <bool kCoarse>
 __global__ void update_kernel(const float* __restrict__ d_in,
                               const float* __restrict__ du,
                               const float* __restrict__ m,
@@ -167,7 +199,7 @@ __global__ void update_kernel(const float* __restrict__ d_in,
                               const float* __restrict__ ah,
                               const float* __restrict__ aw,
                               float* __restrict__ d_out, int H, int W, int s,
-                              int radius, float gc, float bc) {
+                              int f, int radius, float gc, float bc) {
   __shared__ float s_in[kTile + 2 * kMaxRadius][kTile + 2 * kMaxRadius];
   __shared__ float s_rows[kTile + 2 * kMaxRadius][kTile];
   __shared__ float s_taps[2 * kMaxRadius + 1];
@@ -207,7 +239,7 @@ __global__ void update_kernel(const float* __restrict__ d_in,
     const float g = a * ah[y] * aw[x];
     const float mb = mp[(y / s) * ws + x / s];
     const long o = p * plane + (long)y * W + x;
-    d_out[o] = tanhf((du[o] + gc * g + bc * mb) * 0.5f);
+    d_out[o] = tanhf((du_at<kCoarse>(du, p, y, x, H, W, f) + gc * g + bc * mb) * 0.5f);
   }
 }
 
@@ -241,7 +273,106 @@ __global__ void window_kernel(const uint8_t* __restrict__ in, T* __restrict__ ou
   out[i] = T(a);
 }
 
+// pred[b, y, x] and best_w[b, y, x] over the K closed 0/1 masks of image b:
+// a running best of mask * scores[b, k] with a strict '>' (first
+// occurrence wins ties), pred = cand_idx[b, best k], or 0 where best <= 0
+__global__ void argmax_kernel(const uint8_t* __restrict__ mask,
+                              const float* __restrict__ scores,
+                              const int* __restrict__ cand_idx,
+                              int* __restrict__ pred, float* __restrict__ best_w,
+                              long n, int K, long plane) {
+  long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long b = i / plane;
+  const uint8_t* mp = mask + b * K * plane + i % plane;
+  float best = (float)mp[0] * scores[b * K];
+  int idx = cand_idx[b * K];
+  for (int k = 1; k < K; ++k) {
+    const float w = (float)mp[k * plane] * scores[b * K + k];
+    if (w > best) {
+      best = w;
+      idx = cand_idx[b * K + k];
+    }
+  }
+  pred[i] = best > 0.f ? idx : 0;
+  best_w[i] = best;
+}
+
 inline unsigned blocks_for(long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+#define CRF_CHECK()                                    \
+  if ((err = cudaGetLastError()) != cudaSuccess) return err
+
+// The bilateral degree, then num_iters mean-field updates from d0 =
+// tanh(du / 2), ping-ponging between buf_a and buf_b; *last is the buffer
+// that holds the final iterate.
+template <bool kCoarse>
+cudaError_t mean_field(const float* du, int f, const float* feat, const float* taps,
+                       const float* ah, const float* aw, int B, int K, int H, int W,
+                       int stride, int radius, int num_iters, float gc, float bc,
+                       float* buf_a, float* buf_b, float* q, float* m, float* bn,
+                       float** last, cudaStream_t st) {
+  cudaError_t err;
+  const long total = (long)B * K * H * W;
+  const int planes = B * K;
+  const int N = (H / stride) * (W / stride);
+  const dim3 bil_grid((N + kRowsPerBlock - 1) / kRowsPerBlock, B);
+  bilateral_kernel<<<bil_grid, kThreads, 0, st>>>(feat, nullptr, nullptr, bn, N, 1);
+  CRF_CHECK();
+
+  float* cur = buf_a;
+  float* nxt = buf_b;
+  init_kernel<kCoarse><<<blocks_for(total), kThreads, 0, st>>>(du, cur, total, H, W, f);
+  CRF_CHECK();
+  const dim3 upd_grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, planes);
+  for (int it = 0; it < num_iters; ++it) {
+    splat_kernel<<<blocks_for((long)planes * N), kThreads, 0, st>>>(cur, q, planes, H, W,
+                                                                   stride);
+    CRF_CHECK();
+    bilateral_kernel<<<bil_grid, kThreads, 0, st>>>(feat, q, bn, m, N, K);
+    CRF_CHECK();
+    update_kernel<kCoarse><<<upd_grid, kThreads, 0, st>>>(cur, du, m, taps, ah, aw, nxt,
+                                                          H, W, stride, f, radius, gc, bc);
+    CRF_CHECK();
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  *last = cur;
+  return cudaSuccess;
+}
+
+// out = the 0/1 masks of d > 0, closed by a k x k window when k > 1 (four
+// separable uint8 passes through mask_a and mask_b; out may be mask_a)
+template <typename T>
+cudaError_t threshold_close(const float* d, uint8_t* mask_a, uint8_t* mask_b, T* out,
+                            long total, int H, int W, int k, cudaStream_t st) {
+  cudaError_t err;
+  const unsigned nb = blocks_for(total);
+  if (k <= 1) {
+    threshold_kernel<T><<<nb, kThreads, 0, st>>>(d, out, total);
+    CRF_CHECK();
+    return cudaSuccess;
+  }
+  threshold_kernel<uint8_t><<<nb, kThreads, 0, st>>>(d, mask_a, total);
+  CRF_CHECK();
+  window_kernel<uint8_t><<<nb, kThreads, 0, st>>>(mask_a, mask_b, total, H, W, k, 1, 1);
+  CRF_CHECK();
+  window_kernel<uint8_t><<<nb, kThreads, 0, st>>>(mask_b, mask_a, total, H, W, k, 0, 1);
+  CRF_CHECK();
+  window_kernel<uint8_t><<<nb, kThreads, 0, st>>>(mask_a, mask_b, total, H, W, k, 1, 0);
+  CRF_CHECK();
+  window_kernel<T><<<nb, kThreads, 0, st>>>(mask_b, out, total, H, W, k, 0, 0);
+  CRF_CHECK();
+  return cudaSuccess;
+}
+
+#undef CRF_CHECK
+
+bool bad_shape(int B, int K, int H, int W, int stride, int radius, int num_iters) {
+  return B < 1 || K < 1 || K > kMaxClasses || radius < 0 || radius > kMaxRadius ||
+         stride < 1 || H % stride || W % stride || num_iters < 0;
+}
 
 }  // namespace
 
@@ -251,60 +382,46 @@ extern "C" int crf_mean_field_f32(
     int num_iters, float gaussian_compat, float bilateral_compat,
     int closing_ksize, float* d_work, float* q, float* m, float* bn,
     uint8_t* mask_a, uint8_t* mask_b, float* out, void* stream_ptr) {
-  if (B < 1 || K < 1 || K > kMaxClasses || radius < 0 || radius > kMaxRadius ||
-      stride < 1 || H % stride || W % stride || num_iters < 0)
+  if (bad_shape(B, K, H, W, stride, radius, num_iters)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream_ptr;
+  float* last = nullptr;
+  cudaError_t err = mean_field<false>(du, 1, feat, taps, ah, aw, B, K, H, W, stride,
+                                      radius, num_iters, gaussian_compat,
+                                      bilateral_compat, d_work, out, q, m, bn, &last, st);
+  if (err != cudaSuccess) return (int)err;
+  // the last iterate may sit in out: the threshold then runs in place
+  return (int)threshold_close<float>(last, mask_a, mask_b, out, (long)B * K * H * W, H,
+                                     W, closing_ksize, st);
+}
+
+// du_coarse (B, K, H/f, W/f), scores (B, K) f32 (0 for invalid candidates),
+// cand_idx (B, K) int32; scratch d_a, d_b (B, K, H, W) f32, q, m (B, K, N),
+// bn (B, N), mask_a, mask_b (B, K, H, W) uint8; out pred (B, H, W) int32,
+// best_w (B, H, W) f32.
+extern "C" int crf_decode_tail_f32(
+    const float* du_coarse, const float* feat, const float* taps, const float* ah,
+    const float* aw, const float* scores, const int* cand_idx, int B, int K, int H,
+    int W, int du_factor, int stride, int radius, int num_iters,
+    float gaussian_compat, float bilateral_compat, int closing_ksize, float* d_a,
+    float* d_b, float* q, float* m, float* bn, uint8_t* mask_a, uint8_t* mask_b,
+    int* pred, float* best_w, void* stream_ptr) {
+  if (bad_shape(B, K, H, W, stride, radius, num_iters) || du_factor < 1 ||
+      H % du_factor || W % du_factor)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream_ptr;
+  float* last = nullptr;
+  cudaError_t err = mean_field<true>(du_coarse, du_factor, feat, taps, ah, aw, B, K, H,
+                                     W, stride, radius, num_iters, gaussian_compat,
+                                     bilateral_compat, d_a, d_b, q, m, bn, &last, st);
+  if (err != cudaSuccess) return (int)err;
   const long total = (long)B * K * H * W;
-  const int planes = B * K;
-  const int N = (H / stride) * (W / stride);
-  cudaError_t err;
-#define CRF_CHECK()                                    \
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err
-
-  const dim3 bil_grid((N + kRowsPerBlock - 1) / kRowsPerBlock, B);
-  bilateral_kernel<<<bil_grid, kThreads, 0, st>>>(feat, nullptr, nullptr, bn, N, 1);
-  CRF_CHECK();
-
-  float* cur = d_work;
-  float* nxt = out;
-  init_kernel<<<blocks_for(total), kThreads, 0, st>>>(du, cur, total);
-  CRF_CHECK();
-  const dim3 upd_grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, planes);
-  for (int it = 0; it < num_iters; ++it) {
-    splat_kernel<<<blocks_for((long)planes * N), kThreads, 0, st>>>(cur, q, planes, H, W,
-                                                                   stride);
-    CRF_CHECK();
-    bilateral_kernel<<<bil_grid, kThreads, 0, st>>>(feat, q, bn, m, N, K);
-    CRF_CHECK();
-    update_kernel<<<upd_grid, kThreads, 0, st>>>(cur, du, m, taps, ah, aw, nxt, H, W,
-                                                 stride, radius, gaussian_compat,
-                                                 bilateral_compat);
-    CRF_CHECK();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-
-  const unsigned nb = blocks_for(total);
-  if (closing_ksize <= 1) {
-    threshold_kernel<float><<<nb, kThreads, 0, st>>>(cur, out, total);
-    CRF_CHECK();
-    return 0;
-  }
-  const int k = closing_ksize;
-  threshold_kernel<uint8_t><<<nb, kThreads, 0, st>>>(cur, mask_a, total);
-  CRF_CHECK();
-  window_kernel<uint8_t><<<nb, kThreads, 0, st>>>(mask_a, mask_b, total, H, W, k, 1, 1);
-  CRF_CHECK();
-  window_kernel<uint8_t><<<nb, kThreads, 0, st>>>(mask_b, mask_a, total, H, W, k, 0, 1);
-  CRF_CHECK();
-  window_kernel<uint8_t><<<nb, kThreads, 0, st>>>(mask_a, mask_b, total, H, W, k, 1, 0);
-  CRF_CHECK();
-  window_kernel<float><<<nb, kThreads, 0, st>>>(mask_b, out, total, H, W, k, 0, 0);
-  CRF_CHECK();
-#undef CRF_CHECK
-  return 0;
+  err = threshold_close<uint8_t>(last, mask_a, mask_b, mask_a, total, H, W,
+                                 closing_ksize, st);
+  if (err != cudaSuccess) return (int)err;
+  const long pixels = (long)B * H * W;
+  argmax_kernel<<<blocks_for(pixels), kThreads, 0, st>>>(mask_a, scores, cand_idx, pred,
+                                                        best_w, pixels, K, (long)H * W);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* crf_mean_field_error_string(int code) {

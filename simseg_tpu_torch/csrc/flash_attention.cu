@@ -2,7 +2,12 @@
 // and output, float32 scores, softmax statistics and accumulators.
 //
 // Replaces the TPU kernel simseg_tpu/ops/flash_attention.py:flash_mha
-// (_mha_pallas / _mha_kernel). For each (batch b, head h):
+// (_mha_pallas / _mha_kernel), and the forward halves of flash_mha_rowblock
+// (_rowblock_fwd_kernel, 1536 < T <= 4096) and flash_mha_stream
+// (_stream_fwd_kernel, T > 4096): the TPU needed those two only because its
+// whole (T, T) tile stops fitting VMEM past T = 1536; this kernel streams
+// k/v and has no T ceiling (shared memory is fixed, offsets are 64-bit).
+// For each (batch b, head h):
 //
 //   o[b, :, h] = softmax(q[b, :, h] k[b, :, h]^T) v[b, :, h]
 //

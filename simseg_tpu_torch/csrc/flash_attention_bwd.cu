@@ -2,7 +2,10 @@
 // o, g and gradients, float32 scores, probabilities and accumulators.
 //
 // Replaces the TPU kernel simseg_tpu/ops/flash_attention.py:flash_mha_train's
-// backward (_mha_bwd_pallas / _mha_bwd_kernel). For each (batch b, head h),
+// backward (_mha_bwd_pallas / _mha_bwd_kernel), and the backward halves of
+// flash_mha_rowblock (_rowblock_dq_kernel, _rowblock_dkdv_kernel) and
+// flash_mha_stream (_stream_dq_kernel, _stream_dkdv_kernel), whose split
+// and delta = rowsum(g * o) this design shares. For each (batch b, head h),
 // with q pre-scaled by hd^-1/2, p = softmax(q k^T) and g = dL/do:
 //
 //   dv = bf16(p)^T g        dp = g v^T

@@ -3,13 +3,18 @@
 counterpart's name).
 
 ``bilateral_matvec_batched(feat (B, N, F), q (B, N, C))`` returns
-out[b] = K_b q[b] with K_b[i, j] = exp(-0.5 max(|f_i|^2 + |f_j|^2 -
-2 f_i.f_j, 0)), the expanded distance the TPU kernel uses (:34-53,
-:100-121); ``bilateral_matvec`` is its B = 1 case. A ones column for q
-gives the degree K 1. On a CUDA tensor the wrapper launches
+out[b] = K_b q[b] with K_b[i, j] = exp(-0.5 |f_i - f_j|^2);
+``bilateral_matvec`` is its B = 1 case. A ones column for q gives the
+degree K 1. On a CUDA tensor the wrapper launches
 ``csrc/bilateral_matvec.cu`` or raises — there is no fallback; on a CPU
 tensor it runs ``bilateral_matvec_plain``. ``LAUNCHES`` counts the
 kernel's launches.
+
+The plain version keeps the TPU kernel's expanded distance
+max(|f_i|^2 + |f_j|^2 - 2 f_i.f_j, 0) (:34-53, :100-121), so that the CPU
+tests hold it against JAX; the CUDA kernel sums squared differences, which
+do not cancel in float32, and is held against the plain version run in
+float64.
 """
 
 from __future__ import annotations
@@ -36,12 +41,15 @@ LAUNCHES = 0
 
 
 def bilateral_matvec_plain(feat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, float32: (B, N, F), (B, N, C)
-    -> (B, N, C), over row tiles of 512 so that at most B x 512 x N floats
-    of K exist at once."""
-    feat, q = feat.float(), q.float()
+    """The kernel's function in plain PyTorch: (B, N, F), (B, N, C) ->
+    (B, N, C), over row tiles of 512 so that at most B x 512 x N floats of
+    K exist at once. Float32, or float64 where either input is float64
+    (the reference the kernel is held against on the card)."""
+    dtype = torch.promote_types(torch.promote_types(feat.dtype, q.dtype),
+                                torch.float32)
+    feat, q = feat.to(dtype), q.to(dtype)
     sq = (feat * feat).sum(dim=-1)                                # (B, N)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
     for i0 in range(0, feat.shape[1], _ROW_TILE):
         fi = feat[:, i0:i0 + _ROW_TILE]
         d2 = (sq[:, i0:i0 + _ROW_TILE, None] + sq[:, None, :]

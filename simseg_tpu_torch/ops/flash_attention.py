@@ -1,6 +1,6 @@
 """Fused bias-free attention as hand-written CUDA kernels (port of
-``simseg_tpu/ops/flash_attention.py``: ``flash_mha`` and
-``flash_mha_train``).
+``simseg_tpu/ops/flash_attention.py``: ``flash_mha``, ``flash_mha_train``,
+``flash_mha_rowblock`` and ``flash_mha_stream``).
 
 ``flash_mha(qh, kh, vh)`` takes (B, T, H, hd) tensors with q pre-scaled by
 hd^-1/2 and returns softmax(q k^T) v in the same layout and q's dtype. On a
@@ -13,12 +13,31 @@ recomputes through the plain version, as the JAX ``custom_vjp`` does
 which on the card also writes each row's log-sum-exp, and a backward that
 is a kernel too, ``csrc/flash_attention_bwd.cu`` (TPU ``_mha_bwd_pallas``).
 On the CPU both halves are plain: ``flash_mha_plain`` forward and
-``flash_mha_train_bwd_plain`` backward. ``LAUNCHES`` counts forward kernel
-launches, ``BWD_LAUNCHES`` backward ones (one per wrapper call each).
+``flash_mha_train_bwd_plain`` backward.
 
-``flash_supported`` and ``flash_train_supported`` are the JAX gates, copied
-as they are: their band (1024 <= T <= 1536) was measured on a TPU, not on
-this card.
+``flash_mha_rowblock`` and ``flash_mha_stream`` are the long-sequence
+lanes (JAX :536-558, :788-810). The TPU needed two more kernel pairs there
+only because the whole (T, T) tile stops fitting VMEM past T = 1536; the
+two CUDA kernels above stream 64-row k/v tiles through shared memory and
+have no T ceiling, so on the card both lanes launch them: the forward
+(with the log-sum-exp only when the call is differentiated, as the JAX
+primal path skips it) and the FlashAttention-2 backward, whose delta =
+rowsum(g * o) from the forward's output is the TPU rowblock and stream
+backward's own. On the CPU each lane runs its own plain pair:
+``flash_mha_rowblock_plain`` (the whole-T ``flash_mha_plain``: the TPU
+row-block kernel normalises p before its bf16 cast, as the whole-T one
+does) or ``flash_mha_stream_plain`` forward, and ``flash_mha_long_bwd_plain``
+backward.
+
+Counts: ``LAUNCHES`` forward kernel launches, ``BWD_LAUNCHES`` backward
+ones (one per wrapper call each, on the card), ``LANE_CALLS[lane]`` the
+forward launches of each lane ("flash", "train", "rowblock", "stream").
+
+``flash_supported``, ``flash_train_supported``, ``flash_rowblock_supported``
+and ``flash_stream_supported`` are the JAX gates, copied as they are: their
+bands (1024 <= T <= 1536 whole-T; 1536 < T <= 4096 row-block in training,
+1680 < T <= 4096 in inference; T > 4096 streaming) were measured on a TPU,
+not on this card, and are kept for parity.
 """
 
 from __future__ import annotations
@@ -30,9 +49,13 @@ import torch
 
 from simseg_tpu_torch.ops import cuda_build
 
-__all__ = ["BWD_LAUNCHES", "LAUNCHES", "flash_mha", "flash_mha_plain",
-           "flash_mha_train", "flash_mha_train_bwd_plain", "flash_supported",
-           "flash_train_supported"]
+__all__ = ["BWD_LAUNCHES", "LANE_CALLS", "LAUNCHES", "flash_mha",
+           "flash_mha_long_bwd_plain", "flash_mha_plain", "flash_mha_rowblock",
+           "flash_mha_rowblock_plain", "flash_mha_stream",
+           "flash_mha_stream_plain", "flash_mha_train",
+           "flash_mha_train_bwd", "flash_mha_train_bwd_plain",
+           "flash_rowblock_supported", "flash_stream_supported",
+           "flash_supported", "flash_train_supported"]
 
 _NAME = "flash_attention"  # csrc/flash_attention.cu
 _BWD_NAME = "flash_attention_bwd"  # csrc/flash_attention_bwd.cu
@@ -40,12 +63,19 @@ _HEAD_DIMS = (64, 128, 192, 256)  # the kernel's template instances
 
 # the whole-T TPU kernel's VMEM ceiling (JAX ``_MAX_T``)
 _MAX_T = 1536
+# the TPU row-block kernels' k/v-resident ceiling (JAX ``_ROWBLOCK_MAX_T``)
+_ROWBLOCK_MAX_T = 4096
+# the TPU's measured in-tower crossover of row-block against einsum in
+# inference (JAX ``_ROWBLOCK_MIN_INFER``)
+_ROWBLOCK_MIN_INFER = 1680
 
 # launches of the forward kernel (one per forward call on the card)
 LAUNCHES = 0
-# launches of the backward kernels (one per flash_mha_train backward call
-# on the card: its delta, dq and dk/dv passes)
+# launches of the backward kernels (one per flash_mha_train, rowblock or
+# stream backward call on the card: its delta, dq and dk/dv passes)
 BWD_LAUNCHES = 0
+# forward launches by lane
+LANE_CALLS = {"flash": 0, "train": 0, "rowblock": 0, "stream": 0}
 
 
 def flash_supported(tq: int, tk: int, hd: int, dtype, attention_bias) -> bool:
@@ -76,18 +106,55 @@ def flash_train_supported(b: int, h: int, tq: int, tk: int, hd: int, dtype,
     return 1024 <= tq <= _MAX_T
 
 
-def flash_mha_plain(qh: torch.Tensor, kh: torch.Tensor,
-                    vh: torch.Tensor) -> torch.Tensor:
+def _long_t_eligible(tq: int, tk: int, hd: int, dtype, attention_bias) -> bool:
+    """JAX ``_long_t_eligible`` (:864-870): no bias, not float32, hd a
+    multiple of 64 up to 256, self-attention."""
+    if attention_bias is not None or dtype == torch.float32:
+        return False
+    if hd % 64 != 0 or hd > 256:
+        return False
+    return tq == tk
+
+
+def flash_rowblock_supported(tq: int, tk: int, hd: int, dtype,
+                             attention_bias, training: bool = False) -> bool:
+    """JAX ``flash_rowblock_supported`` (:882-892): past the whole-T
+    ceiling up to 4096, entered at 1536 by a differentiated call and at
+    1680 in inference."""
+    if not _long_t_eligible(tq, tk, hd, dtype, attention_bias):
+        return False
+    floor = _MAX_T if training else _ROWBLOCK_MIN_INFER
+    return floor < tq <= _ROWBLOCK_MAX_T
+
+
+def flash_stream_supported(tq: int, tk: int, hd: int, dtype,
+                           attention_bias) -> bool:
+    """JAX ``flash_stream_supported`` (:895-904): T > 4096, in inference
+    and in training."""
+    if not _long_t_eligible(tq, tk, hd, dtype, attention_bias):
+        return False
+    return tq > _ROWBLOCK_MAX_T
+
+
+def flash_mha_plain(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                    with_lse: bool = False):
     """The kernel's function in plain PyTorch (JAX ``_reference_mha``,
     :167-176): float32 scores from the operands, max-subtracted softmax in
     float32, p cast to v's dtype, p v accumulated in float32, output in q's
-    dtype."""
+    dtype; with ``with_lse`` also the (B, H, Tq) f32 log-sum-exp. The TPU
+    row-block kernel (``_rowblock_fwd_kernel``, :616-633) computes the same
+    function with the same casts, so this is the row-block lane's plain
+    forward too."""
     s = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float())
     m = s.amax(dim=-1, keepdim=True).detach()
     e = torch.exp(s - m)
-    p = (e / e.sum(dim=-1, keepdim=True)).to(vh.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.float(), vh.float())
-    return out.to(qh.dtype)
+    l = e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", (e / l).to(vh.dtype).float(),
+                       vh.float()).to(qh.dtype)
+    return (out, (m + torch.log(l))[..., 0]) if with_lse else out
+
+
+flash_mha_rowblock_plain = flash_mha_plain
 
 
 def flash_mha_train_bwd_plain(qh: torch.Tensor, kh: torch.Tensor,
@@ -105,6 +172,48 @@ def flash_mha_train_bwd_plain(qh: torch.Tensor, kh: torch.Tensor,
     dv = torch.einsum("bhqk,bqhd->bkhd", pc, g.float()).to(vh.dtype)
     dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), vh.float())
     ds = (p * (dp - (p * dp).sum(dim=-1, keepdim=True))).to(qh.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh.float()).to(qh.dtype)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh.float()).to(kh.dtype)
+    return dq, dk, dv
+
+
+def flash_mha_stream_plain(qh: torch.Tensor, kh: torch.Tensor,
+                           vh: torch.Tensor, with_lse: bool = False):
+    """The streaming forward in plain PyTorch after JAX
+    ``_stream_fwd_kernel`` (:283-327): p is the UNnormalised e = exp(s - m)
+    cast to v's dtype, e v is accumulated in float32 and divided by l =
+    rowsum(e) at the end. The row's global max stands in for the kernel's
+    running max over 512-key tiles: the two differ at the bf16 rounding of
+    e; with ``with_lse`` also the (B, H, Tq) f32 log-sum-exp."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float())
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bhqd", e.to(vh.dtype).float(), vh.float())
+    out = (acc / l).transpose(1, 2).to(qh.dtype)
+    return (out, (m + torch.log(l))[..., 0]) if with_lse else out
+
+
+def flash_mha_long_bwd_plain(qh: torch.Tensor, kh: torch.Tensor,
+                             vh: torch.Tensor, out: torch.Tensor,
+                             g: torch.Tensor, lse: torch.Tensor):
+    """The row-block and streaming backward in plain PyTorch, cast for cast
+    as JAX ``_rowblock_dq_kernel`` / ``_rowblock_dkdv_kernel`` (:674-714;
+    the streaming pair is the same math): p = exp(s - lse) from the
+    forward's (B, H, Tq) f32 log-sum-exp, delta = rowsum(g * o) in float32
+    from the forward's output o, dv = bf16(p)^T g, dp = g v^T, ds =
+    bf16(p (dp - delta)), dq = ds k, dk = ds^T q, products accumulated in
+    float32, each gradient in its input's dtype. Returns (dq, dk, dv).
+    (The whole-T ``flash_mha_train_bwd_plain`` takes delta from rowsum(p
+    dp) instead.)"""
+    g = g.to(qh.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float())
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).float(),
+                      g.float()).to(vh.dtype)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), vh.float())
+    delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2)  # (B, H, Tq)
+    ds = (p * (dp - delta[..., None])).to(qh.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh.float()).to(qh.dtype)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh.float()).to(kh.dtype)
     return dq, dk, dv
@@ -169,9 +278,9 @@ def _strides(*xs: torch.Tensor):
 
 
 def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
-            with_lse: bool = False):
+            with_lse: bool = False, lane: str = "flash"):
     """The forward kernel -> out, or (out, lse) with the (B, H, Tq) f32
-    per-row log-sum-exp when ``with_lse``."""
+    per-row log-sum-exp when ``with_lse``; counted under ``lane``."""
     _check_operands(qh, k=kh, v=vh)
     b, tq, h, hd = qh.shape
     lib = _library()
@@ -188,13 +297,15 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     cuda_build.check_status(lib, _NAME, "flash_attention_fwd_bf16", status)
     global LAUNCHES
     LAUNCHES += 1
+    LANE_CALLS[lane] += 1
     return (out, lse) if with_lse else out
 
 
 def flash_mha_train_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                         out: torch.Tensor, g: torch.Tensor, lse: torch.Tensor):
-    """The backward kernel: (dq, dk, dv) of ``flash_mha_train`` from the
-    forward's inputs, its output ``out`` and its (B, H, Tq) f32 ``lse``, and
+    """The backward kernel: (dq, dk, dv) of ``flash_mha_train``,
+    ``flash_mha_rowblock`` or ``flash_mha_stream`` from the forward's
+    inputs, its output ``out`` and its (B, H, Tq) f32 ``lse``, and
     g = dL/d out (cast to q's dtype, as the JAX backward does). CUDA
     tensors only: there is no plain fallback here."""
     if qh.device.type != "cuda":
@@ -269,7 +380,7 @@ class _FlashMHATrain(torch.autograd.Function):
             return flash_mha_plain(qh, kh, vh)
         if qh.device.type != "cuda":
             raise ValueError(f"no attention kernel for device {qh.device}")
-        out, lse = _launch(qh, kh, vh, with_lse=True)
+        out, lse = _launch(qh, kh, vh, with_lse=True, lane="train")
         ctx.save_for_backward(qh, kh, vh, out, lse)
         return out
 
@@ -289,3 +400,61 @@ def flash_mha_train(qh: torch.Tensor, kh: torch.Tensor,
     if qh.dim() != 4:
         raise ValueError(f"q must be (B, T, H, hd), got {tuple(qh.shape)}")
     return _FlashMHATrain.apply(qh, kh, vh)
+
+
+_LONG_PLAIN = {"rowblock": flash_mha_rowblock_plain,
+               "stream": flash_mha_stream_plain}
+
+
+class _LongMHA(torch.autograd.Function):
+    """A long-sequence lane ("rowblock" or "stream"). Forward: the kernel
+    (CUDA), with the log-sum-exp only when an input needs a gradient, or
+    the lane's plain forward (CPU). Backward: the backward kernel (CUDA) or
+    ``flash_mha_long_bwd_plain`` (CPU), from q, k, v, the output and the
+    log-sum-exp; nothing of size T x T is saved."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, lane):
+        differentiated = any(ctx.needs_input_grad[:3])
+        if qh.device.type == "cpu":
+            out, lse = _LONG_PLAIN[lane](qh, kh, vh, with_lse=True)
+        elif qh.device.type == "cuda":
+            res = _launch(qh, kh, vh, with_lse=differentiated, lane=lane)
+            out, lse = res if differentiated else (res, None)
+        else:
+            raise ValueError(f"no attention kernel for device {qh.device}")
+        if differentiated:
+            ctx.save_for_backward(qh, kh, vh, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qh, kh, vh, out, lse = ctx.saved_tensors
+        if qh.device.type == "cpu":
+            grads = flash_mha_long_bwd_plain(qh, kh, vh, out, g, lse)
+        else:
+            grads = flash_mha_train_bwd(qh, kh, vh, out, g, lse)
+        return (*grads, None)
+
+
+def _long(qh, kh, vh, lane):
+    if qh.dim() != 4:
+        raise ValueError(f"q must be (B, T, H, hd), got {tuple(qh.shape)}")
+    return _LongMHA.apply(qh, kh, vh, lane)
+
+
+def flash_mha_rowblock(qh: torch.Tensor, kh: torch.Tensor,
+                       vh: torch.Tensor) -> torch.Tensor:
+    """The row-block lane (JAX ``flash_mha_rowblock``, 1536 or 1680 < T <=
+    4096): (B, T, H, hd) -> (B, Tq, H, hd) in q's dtype; the forward and
+    backward kernels on the card, ``flash_mha_rowblock_plain`` and
+    ``flash_mha_long_bwd_plain`` on the CPU."""
+    return _long(qh, kh, vh, "rowblock")
+
+
+def flash_mha_stream(qh: torch.Tensor, kh: torch.Tensor,
+                     vh: torch.Tensor) -> torch.Tensor:
+    """The streaming lane (JAX ``flash_mha_stream``, T > 4096): the same
+    kernels on the card, ``flash_mha_stream_plain`` and
+    ``flash_mha_long_bwd_plain`` on the CPU."""
+    return _long(qh, kh, vh, "stream")

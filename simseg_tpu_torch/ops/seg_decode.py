@@ -17,6 +17,15 @@ batched:
    takes its auto lane (materialised K, or the streaming kernel past 4096
    cells) and ``morphology.closing`` follows. Float32 throughout.
 5. score-weighted masks, argmax with first-occurrence ties (:160-177)
+
+``crf_backend="fused_tail"`` is the JAX decode's opt-in lane (:162-189):
+on the card, where ``fused_eligible`` holds, steps 4-5 and the nearest
+upsample of step 3 run in one kernel (``ops/crf_fused.seg_decode_tail_fused``)
+on the patch-grid unaries; elsewhere, and always on the CPU, it takes the
+unfused chain on the materialised-K lane, as the JAX lane's default branch
+does (its ``bilateral_impl="fused_tail"`` resolves to that lane). The JAX
+decode's other knobs (the pinned ``crf_backend`` lanes "xla", "pallas"
+and "fused", ``morphology_impl``, ``compute_dtype``) are not ported.
 """
 
 from __future__ import annotations
@@ -26,8 +35,12 @@ from typing import Tuple
 import torch
 
 from simseg_tpu_torch.ops.crf import dense_crf_batched_du
-from simseg_tpu_torch.ops.crf_fused import fused_eligible, mean_field_fused
+from simseg_tpu_torch.ops.crf_fused import (fused_eligible, mean_field_fused,
+                                            seg_decode_tail_fused)
 from simseg_tpu_torch.ops.morphology import closing, nearest_upsample
+
+# the decode lanes the port has of the JAX ``crf_backend`` knob
+_CRF_BACKENDS = ("auto", "fused_tail")
 
 
 def shortlist(pooled: torch.Tensor, text_bank: torch.Tensor, top_cls_num: int,
@@ -85,7 +98,7 @@ def decode_tail(masks: torch.Tensor, cand_idx: torch.Tensor,
 def make_seg_decode_fn(num_classes: int, image_size: int, patch_size: int = 16,
                        top_cls_num: int = 10, candidate_classes: int = 5,
                        crf_iters: int = 3, bilateral_stride: int = 8,
-                       morphology_ksize: int = 7):
+                       morphology_ksize: int = 7, crf_backend: str = "auto"):
     """Returns decode(dense, pooled, text_bank, raw_images) -> (pred, best_w):
 
     dense:      (B, N, D) per-token projected embeddings, L2-normalised
@@ -95,8 +108,12 @@ def make_seg_decode_fn(num_classes: int, image_size: int, patch_size: int = 16,
     pred:       (B, H, W) int32 class map (0 = background)
     best_w:     (B, H, W) f32 winning score * mask weight (0 where bg)
 
-    All inputs on one device; the CRF runs where they lie.
+    All inputs on one device; the CRF runs where they lie. crf_backend:
+    ``"auto"`` or ``"fused_tail"`` (see the module docstring).
     """
+    if crf_backend not in _CRF_BACKENDS:
+        raise ValueError(f"crf_backend {crf_backend!r}: the port has "
+                         f"{_CRF_BACKENDS}")
     grid = image_size // patch_size
     top_cls_num = min(top_cls_num, num_classes)
     candidate_classes = min(candidate_classes, top_cls_num)
@@ -106,11 +123,23 @@ def make_seg_decode_fn(num_classes: int, image_size: int, patch_size: int = 16,
             raise ValueError(f"{dense.shape[1]} tokens for a {grid}x{grid} grid")
         cand_idx, cand_scores, valid = shortlist(
             pooled, text_bank, top_cls_num, candidate_classes)
-        du = nearest_upsample(
-            coarse_unary(dense, text_bank, cand_idx, grid),
-            patch_size).contiguous()
-        if du.device.type == "cuda" and fused_eligible(
-                image_size, image_size, bilateral_stride):
+        du_coarse = coarse_unary(dense, text_bank, cand_idx, grid)
+        on_card = du_coarse.device.type == "cuda" and fused_eligible(
+            image_size, image_size, bilateral_stride)
+        if crf_backend == "fused_tail" and on_card:
+            scores_eff = torch.where(valid, cand_scores,
+                                     torch.zeros_like(cand_scores))
+            return seg_decode_tail_fused(
+                du_coarse, raw_images, scores_eff, cand_idx,
+                du_factor=patch_size, num_iters=crf_iters,
+                stride=bilateral_stride, closing_ksize=morphology_ksize)
+        du = nearest_upsample(du_coarse, patch_size).contiguous()
+        if crf_backend == "fused_tail":
+            masks = closing(dense_crf_batched_du(
+                du, raw_images, num_iters=crf_iters,
+                bilateral_stride=bilateral_stride,
+                bilateral_impl="dense").float(), morphology_ksize)
+        elif on_card:
             masks = mean_field_fused(du, raw_images, num_iters=crf_iters,
                                      stride=bilateral_stride,
                                      closing_ksize=morphology_ksize)

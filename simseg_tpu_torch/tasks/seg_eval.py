@@ -9,9 +9,11 @@ Parity: reference ``tools/seg_evaluation.py`` —
 
 The options the JAX version reads from its config tree are keywords here
 (``input_size``, ``mean``, ``std``, ``bilateral_stride``, ``max_length``,
-``top_cls_num``, and ``scales``, ``window_size``, ``window_stride`` for its
+``top_cls_num``, ``scales``, ``window_size``, ``window_stride`` for its
 ``seg_eval.scales`` / ``seg_eval.window`` multi-scale and sliding-window
-dense inference). int8 towers and multi-process sharding are not ported.
+dense inference, and ``crf_backend`` for ``seg_eval.crf_backend``, "auto"
+or "fused_tail", see ``ops/seg_decode.py``). int8 towers and multi-process
+sharding are not ported.
 """
 
 from __future__ import annotations
@@ -170,10 +172,12 @@ def make_seg_predict(model, num_classes: int, top_cls_num: int, *,
                      bilateral_stride: int = 8,
                      patch_size: Optional[int] = None,
                      scales: Sequence[float] = (1.0,), window_size: int = -1,
-                     window_stride: int = -1, device=None):
+                     window_stride: int = -1, crf_backend: str = "auto",
+                     device=None):
     """``predict(images_u8, text_bank) -> (pred, best_w)`` on ``device``
     (the model must be there): ``make_seg_features`` (the same keywords),
-    then the decode on the ``input_size`` canvas."""
+    then the decode on the ``input_size`` canvas (``crf_backend`` as
+    ``make_seg_decode_fn`` takes it)."""
     device = resolve_device(device)
     patch_size = patch_size or model.patch_size
     features = make_seg_features(
@@ -183,7 +187,7 @@ def make_seg_predict(model, num_classes: int, top_cls_num: int, *,
     decode = make_seg_decode_fn(
         num_classes=num_classes, image_size=input_size, patch_size=patch_size,
         top_cls_num=top_cls_num, candidate_classes=5,
-        bilateral_stride=bilateral_stride)
+        bilateral_stride=bilateral_stride, crf_backend=crf_backend)
 
     @torch.no_grad()
     def predict(images_u8: torch.Tensor, text_bank: torch.Tensor):
@@ -200,7 +204,7 @@ def make_seg_forward(model, num_classes: int, top_cls_num: int, canvas: int, *,
                      bilateral_stride: int = 8,
                      patch_size: Optional[int] = None,
                      scales: Sequence[float] = (1.0,), window_size: int = -1,
-                     window_stride: int = -1,
+                     window_stride: int = -1, crf_backend: str = "auto",
                      return_pred: bool = False, device=None):
     """``forward(images_u8, text_bank, labels_padded, gt_h, gt_w) ->
     (intersection, union[, resized preds])`` on ``device``:
@@ -212,7 +216,8 @@ def make_seg_forward(model, num_classes: int, top_cls_num: int, canvas: int, *,
                                bilateral_stride=bilateral_stride,
                                patch_size=patch_size, scales=scales,
                                window_size=window_size,
-                               window_stride=window_stride, device=device)
+                               window_stride=window_stride,
+                               crf_backend=crf_backend, device=device)
 
     @torch.no_grad()
     def forward(images_u8, text_bank, labels_padded, gt_h, gt_w):
@@ -263,7 +268,7 @@ def evaluate_benchmark(loader: Iterable[dict], model, tokenizer,
                        std: Sequence[float] = IMAGENET_STD,
                        bilateral_stride: int = 8, max_length: int = 25,
                        scales: Sequence[float] = (1.0,), window_size: int = -1,
-                       window_stride: int = -1,
+                       window_stride: int = -1, crf_backend: str = "auto",
                        device=None) -> Tuple[np.ndarray, float]:
     """Dataset mIoU. Returns (per-class IoU, mIoU). Moves ``model`` to
     ``device`` and into eval mode.
@@ -286,7 +291,8 @@ def evaluate_benchmark(loader: Iterable[dict], model, tokenizer,
                                input_size=input_size, mean=mean, std=std,
                                bilateral_stride=bilateral_stride,
                                scales=scales, window_size=window_size,
-                               window_stride=window_stride, device=device)
+                               window_stride=window_stride,
+                               crf_backend=crf_backend, device=device)
 
     full_batch = getattr(loader, "batch_size", None)
     total_i = np.zeros((num_classes,), np.float64)

@@ -8,8 +8,10 @@ their plain PyTorch versions, on the card. Imports neither JAX nor
 (``--noconftest``: tests/conftest.py configures JAX). Skipped where there is
 no CUDA device. Bars, CRF: >= 99.9% mask agreement (a pixel at the
 threshold may flip under another f32 summation order); the closing
-composition and the zero-iteration threshold are exact. Attention and the
-bilateral product and the attention backward: as stated at each test.
+composition and the zero-iteration threshold are exact. The decode tail:
+>= 99.9% of pred against its plain version, >= 99.99% against the
+mean-field kernel with the unfused tail (the same CRF code). Attention and
+the bilateral product and the attention backward: as stated at each test.
 """
 
 import numpy as np
@@ -17,7 +19,8 @@ import pytest
 import torch
 
 from simseg_tpu_torch.ops import crf_fused, crf_pallas, flash_attention
-from simseg_tpu_torch.ops.morphology import closing
+from simseg_tpu_torch.ops.morphology import closing, nearest_upsample
+from simseg_tpu_torch.ops.seg_decode import decode_tail
 
 
 @pytest.fixture
@@ -60,10 +63,56 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
     du, rgb = _case(0, 1, 9, 16, cuda_device)
     with pytest.raises(ValueError, match="<= 8"):
         crf_fused.mean_field_fused(du, rgb, stride=4)
+    scores = torch.ones(1, 9, device=cuda_device)
+    with pytest.raises(ValueError, match="<= 8"):
+        crf_fused.seg_decode_tail_fused(du[..., :4, :4], rgb[:, :16, :16], scores,
+                                        scores.int(), 4, stride=4)
     with pytest.raises(ValueError, match="contiguous"):
         crf_fused.mean_field_fused(du[:, :2].transpose(2, 3), rgb, stride=4)
     with pytest.raises(ValueError, match="rgb on"):
         crf_fused.mean_field_fused(du[:, :2], rgb.cpu(), stride=4)
+
+
+def _tail_case(seed, b, k, grid, factor, device):
+    """Decode-form patch-grid unaries (min-max normalised smooth maps),
+    images, scores with an invalid candidate, a negative one and a tie."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(b, k, grid + 2, grid + 2))
+    c = (c[..., :-2, :-2] + c[..., 1:-1, 1:-1] + c[..., 2:, 2:])[..., :grid, :grid]
+    lo, hi = c.min(axis=(-2, -1), keepdims=True), c.max(axis=(-2, -1), keepdims=True)
+    p = np.clip((c - lo) / np.maximum(hi - lo, 1e-12), 0, 1)
+    du_c = (np.log(p + 1e-8) - np.log(1 - p + 1e-8)).astype(np.float32)
+    rgb = rng.integers(0, 255, (b, grid * factor, grid * factor, 3)).astype(np.uint8)
+    scores = rng.uniform(0.1, 0.5, (b, k)).astype(np.float32)
+    scores[:, 0] = 0.0
+    if k > 2:
+        scores[:, 1] = -0.2
+        scores[:, -1] = scores[:, -2]
+    idx = rng.permutation(np.arange(1, 21))[:k][None].repeat(b, 0).astype(np.int32)
+    return [torch.from_numpy(x).to(device) for x in (du_c, rgb, scores, idx)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,b,k,grid,factor,stride,ck", [
+    (0, 1, 1, 8, 4, 4, 0), (1, 2, 4, 8, 4, 4, 7), (2, 2, 5, 18, 16, 8, 7),
+    (3, 1, 8, 10, 4, 8, 7)])
+def test_tail_kernel_matches_plain_and_the_kernel_lane(cuda_device, seed, b, k,
+                                                       grid, factor, stride, ck):
+    du_c, rgb, scores, idx = _tail_case(seed, b, k, grid, factor, cuda_device)
+    kw = dict(stride=stride, closing_ksize=ck)
+    before = crf_fused.TAIL_LAUNCHES
+    pred, best_w = crf_fused.seg_decode_tail_fused(du_c, rgb, scores, idx, factor, **kw)
+    assert crf_fused.TAIL_LAUNCHES == before + 1
+    assert pred.dtype == torch.int32 and best_w.dtype == torch.float32
+    want_p, want_w = crf_fused.seg_decode_tail_fused_plain(du_c, rgb, scores, idx,
+                                                           factor, **kw)
+    assert (pred == want_p).float().mean().item() >= 0.999
+    assert (best_w == want_w).float().mean().item() >= 0.999
+    masks = crf_fused.mean_field_fused(nearest_upsample(du_c, factor).contiguous(),
+                                       rgb, **kw)
+    lane_p, lane_w = decode_tail(masks, idx, scores, torch.ones_like(scores, dtype=torch.bool))
+    assert (pred == lane_p).float().mean().item() >= 0.9999
+    assert (best_w == lane_w).float().mean().item() >= 0.9999
 
 
 # --------------------------------------------------------------- attention
@@ -158,15 +207,56 @@ def test_flash_train_gradients_through_autograd(cuda_device):
         assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane,t", [(lane, t) for lane in ("rowblock", "stream")
+                                    for t in (1601, 2026, 4097)] + [("stream", 8192)])
+def test_long_lanes_match_their_plain_pairs(cuda_device, lane, t):
+    """A long lane's forward (no log-sum-exp, as in inference) and its
+    autograd forward and backward, against the lane's plain forward and
+    ``flash_mha_long_bwd_plain``. Forward, relative to the plain output
+    (|o| shrinks as T^-1/2): max abs error <= 2e-2 x its largest entry,
+    mean <= 7e-3 x its mean abs entry, and the scale error
+    |1 - <out, plain> / <plain, plain>| <= 3e-5 (an unmasked partial tile
+    moves it by 6e-3 or more). Per gradient: max <= 2e-2 x the plain
+    result's largest entry, mean <= 1e-2 x its mean abs entry (the bars of
+    the whole-T backward)."""
+    wrapper = getattr(flash_attention, f"flash_mha_{lane}")
+    plain = getattr(flash_attention, f"flash_mha_{lane}_plain")
+    q, k, v = _qkv(t, 1, t, 2, 64, cuda_device)
+    g = _qkv(t + 2, 1, t, 2, 64, cuda_device)[1]
+    calls = flash_attention.LANE_CALLS[lane]
+    with torch.no_grad():
+        out = wrapper(q, k, v)
+    assert flash_attention.LANE_CALLS[lane] == calls + 1
+    want, lse = plain(q, k, v, with_lse=True)
+    err, ref = (out.float() - want.float()).abs(), want.float().abs()
+    assert err.max() <= 2e-2 * ref.max() and err.mean() <= 7e-3 * ref.mean()
+    o, w = out.double(), want.double()
+    assert abs(1 - (o * w).sum() / (w * w).sum()) <= 3e-5
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    bwd = flash_attention.BWD_LAUNCHES
+    grads = torch.autograd.grad(wrapper(*leaves), leaves, g)
+    assert flash_attention.BWD_LAUNCHES == bwd + 1
+    for x, y in zip(grads, flash_attention.flash_mha_long_bwd_plain(q, k, v, want,
+                                                                    g, lse)):
+        err, ref = (x.float() - y.float()).abs(), y.float().abs()
+        assert x.dtype == torch.bfloat16 and x.shape == y.shape
+        assert err.max() <= 2e-2 * ref.max() and err.mean() <= 1e-2 * ref.mean()
+
+
 # --------------------------------------------------------------- bilateral
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,f,c", [(1, 100, 5, 1), (2, 1100, 5, 5),
                                      (3, 5184, 8, 3), (1, 257, 2, 8)])
 def test_bilateral_kernel_matches_plain(cuda_device, b, n, f, c):
-    """Relative error max|out - plain| / max|plain| <= 1e-4 (the expanded
-    distance cancels; both sides sum it in another order). Features up to
-    |f|^2 = 1500, the CRF's own range (colours over srgb = 13)."""
+    """Relative error max|out - plain| / max|plain| <= 1e-5 against the
+    plain version run in float64 (the kernel sums squared differences in
+    float32, which do not cancel; float32 rounding of the sums and exp
+    remain). Features up to |f|^2 = 1500, the CRF's own range (colours over
+    srgb = 13), where the expanded distance of the float32 plain version
+    cancels by up to 1.1e-4."""
     gen = torch.Generator().manual_seed(n + c)
     feat = torch.rand(b, n, f, generator=gen) * (1500.0 / f) ** 0.5
     feat = feat.to(cuda_device)
@@ -174,9 +264,9 @@ def test_bilateral_kernel_matches_plain(cuda_device, b, n, f, c):
     before = crf_pallas.LAUNCHES
     got = crf_pallas.bilateral_matvec_batched(feat, q)
     assert crf_pallas.LAUNCHES == before + 1
-    want = crf_pallas.bilateral_matvec_plain(feat, q)
-    rel = (got - want).abs().max() / want.abs().max()
-    assert got.shape == (b, n, c) and rel.item() <= 1e-4
+    want = crf_pallas.bilateral_matvec_plain(feat.double(), q.double())
+    rel = (got.double() - want).abs().max() / want.abs().max()
+    assert got.shape == (b, n, c) and rel.item() <= 1e-5
     one = crf_pallas.bilateral_matvec(feat[0], q[0])
     assert torch.equal(one, got[0])
 

@@ -100,8 +100,7 @@ def test_flash_train_supported_equals_jax(dtype, biased):
 
 
 _JAX_KERNELS = {"flash_mha_train": "train", "flash_mha": "flash",
-                # not ported yet: the port takes its plain path there
-                "flash_mha_rowblock": "plain", "flash_mha_stream": "plain"}
+                "flash_mha_rowblock": "rowblock", "flash_mha_stream": "stream"}
 
 
 def _jax_lane(monkeypatch, t, training, biased):
