@@ -24,28 +24,44 @@
 //   - p is recomputed from s as exp(s - lse), with the per-row log-sum-exp
 //     that the forward kernel wrote (flash_attention.cu), so no max or sum
 //     pass over the keys is needed;
-//   - the dq pass: one CTA of 4 warps per (b, h, 64 q rows); q and g rows
-//     resident in shared memory, k/v tiles of 64 rows streamed; each warp
-//     owns 16 q rows and keeps S, dP and its dq accumulators in registers;
-//   - the dk/dv pass: one CTA per (b, h, 64 key rows); k and v resident, q
-//     and g tiles (with their lse and delta) streamed; each warp owns 16 key
-//     rows and computes S^T = K Q^T and dP^T = V G^T, so P^T and dS^T come
-//     out of the accumulators already in the layout of an mma A operand;
-//   - every product is mma.sync m16n8k16 bf16 -> f32; the B operands of the
-//     accumulating products (g, q, k read along the key or query axis) are
-//     transposed on load by ldmatrix.trans;
-//   - each CTA accumulates 64 columns of the head dim, so registers do not
-//     grow with hd: for hd > 64 the grid has hd / 64 CTAs per row tile, each
-//     recomputing S and dP over the full hd;
+//   - the dq pass: q and g rows resident in shared memory, k/v tiles of 64
+//     rows streamed; S = Q K^T and dP = G V^T, ds in registers, dQ += dS K;
+//   - the dk/dv pass: k and v rows resident, q and g tiles (with their lse
+//     and delta) streamed; S^T = K Q^T and dP^T = V G^T, then
+//     dV += P^T G and dK += dS^T Q;
 //   - no atomics: every output element is written by one thread, once, so
 //     the result does not depend on the order of the blocks;
 //   - rows past Tq or Tk are bounds-checked (zero-filled in shared memory,
-//     masked out of p, not stored); there is no ceiling on T.
+//     masked out of p, not stored); there is no ceiling on T, and offsets
+//     are 64-bit.
+//
 // What bounds it on this card: 10 B H Tq Tk hd operations on the tensor
-// cores (about 0.21 ms per ViT-B layer at B = 16, T = 1297 at 989 TFLOP/s
-// bf16); q/k/v/o/g in and dq/dk/dv out are about a third of that in bytes.
-// This version recomputes S in both passes (14 B H T^2 hd in all) and does
-// not overlap loads with products; wgmma, TMA and pipelining are later work.
+// cores (0.42 ms per ViT-B layer at B = 32, T = 1297 at 989 TFLOP/s bf16);
+// q/k/v/o/g in and dq/dk/dv out are about a third of that in bytes. The
+// two-pass split recomputes S and dP in both passes, 14 B H T^2 hd in all,
+// which is its price for writing every output once. What the design does
+// about the rest:
+//   - every product is a warpgroup wgmma (m64n64k16, bf16 -> f32): each
+//     consumer warpgroup of 128 threads owns 64 resident rows, and the CTA's
+//     warpgroups share each streamed tile;
+//   - all tiles sit in shared memory in the 128-byte swizzled layout that
+//     wgmma reads without bank conflicts (hd > 64 as hd/64 slabs of 64
+//     columns). The score products read both operands from there
+//     K-major; the accumulating products take A (bf16 P, dS or their
+//     transposes) straight from the registers of the f32 accumulator that
+//     produced them, whose layout is wgmma's register A layout, and read B
+//     MN-major (wgmma's transpose bit) from the same tile that the score
+//     product read K-major. P and dS never touch shared memory;
+//   - streamed tiles go through a ring of two stages filled by cp.async
+//     (16-byte copies written straight into the swizzled layout), so the
+//     load of tile j + 1 runs while the warpgroups compute on tile j, with
+//     one barrier per tile;
+//   - each CTA accumulates 64 columns of the head dim, so registers do not
+//     grow with hd: for hd > 64 the grid has hd / 64 CTAs per row tile, each
+//     recomputing S and dP over the full hd.
+// What is left: a single recompute of S (dq summed across CTAs in a fixed
+// order, so that the result stays deterministic), TMA loads from a producer
+// warp with mbarriers in place of cp.async, and the forward kernel.
 //
 // The host function returns the first launch error as an int (0 =
 // cudaSuccess) and allocates nothing: delta's (B, H, Tq) f32 scratch comes
@@ -60,81 +76,15 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;              // rows per resident and per streamed tile
-constexpr int kWarps = kRows / 16;     // one warp per 16 resident rows
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;                // bf16 row padding (16 bytes)
-constexpr int kChunk = 64;             // head-dim columns accumulated per CTA
-constexpr int kDeltaWarps = 8;         // rows per block of the delta pass
+constexpr int kRows = 64;        // rows per warpgroup and per streamed tile
+constexpr int kChunk = 64;       // head-dim columns accumulated per CTA
+constexpr int kStages = 2;       // streamed tiles in flight
+constexpr int kSlab = kRows * 128;  // bytes of a 64-row, 64-column slab
+constexpr int kDeltaWarps = 8;   // rows per block of the delta pass
 
+// warpgroups per CTA (128 resident rows where shared memory allows)
 template <int HD>
-struct Tile {
-  static constexpr int kLd = HD + kPad;  // shared-memory row, bf16
-  // four (kRows, HD) bf16 tiles, then lse and delta of the streamed tile
-  static constexpr size_t kBytes =
-      4 * (size_t)kRows * kLd * sizeof(bf16) + 2 * kRows * sizeof(float);
-};
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// four 8x8 bf16 matrices, transposed: with lanes 0-15 addressing rows
-// r0..r0+15 at column c and lanes 16-31 the same rows at column c + 8, b0/b1
-// are the m16n8k16 B fragments of columns c..c+7 and b2/b3 of c+8..c+15,
-// for B[k][n] = tile[r0 + k][n]
-__device__ __forceinline__ void ldsm_x4_trans(const bf16* p, uint32_t* b) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"((uint32_t)__cvta_generic_to_shared(p)));
-}
-
-// the A fragment of rows [row0, row0 + 16) and columns [kk, kk + 16) of a
-// shared-memory tile with row length ld
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile, int ld,
-                                       int kk, int g, int t) {
-  a[0] = ld32(tile + g * ld + kk + 2 * t);
-  a[1] = ld32(tile + (g + 8) * ld + kk + 2 * t);
-  a[2] = ld32(tile + g * ld + kk + 8 + 2 * t);
-  a[3] = ld32(tile + (g + 8) * ld + kk + 8 + 2 * t);
-}
-
-// the 16 x 16 A fragment kk of a warp's 16 x 64 f32 accumulator rows,
-// rounded to bf16 (the accumulator layout is the A operand layout)
-__device__ __forceinline__ void pack_a(uint32_t* a, float (*acc)[4], int kk) {
-  a[0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
-  a[1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
-  a[2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-  a[3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-}
-
-// rows [0, valid) of a (kRows, HD) tile from global (row stride `stride`
-// elements, 16-byte aligned rows) into shared memory; rows past valid are 0
-template <int HD>
-__device__ void load_tile(bf16* dst, const bf16* src, long stride, int valid) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * Tile<HD>::kLd + c * 8) = v;
-  }
-}
+constexpr int warpgroups() { return HD <= 192 ? 2 : 1; }
 
 struct Strides {  // element strides (batch, token, head); head-dim stride 1
   long sb, st, sh;
@@ -144,6 +94,181 @@ __device__ __forceinline__ long offset(const Strides& s, int b, long t, int h) {
   return b * s.sb + t * s.st + h * s.sh;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// ---------------------------------------------------------------- layout
+// An (R, HD) bf16 tile is HD / 64 slabs of R rows x 128 bytes; slab s holds
+// columns [64 s, 64 s + 64). Within a slab, row r's 16-byte chunk c sits at
+// chunk c ^ (r % 8) (wgmma's and TMA's 128-byte swizzle, which repeats every
+// 8 rows = 1024 bytes, so every slab starts 1024-byte aligned).
+template <int R>
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address and
+// leading byte offset in 16-byte units, stride byte offset 1024 (the next
+// group of 8 rows)
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lead) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// operand of k16 step kk read K-major (rows x the head dim) from a tile of
+// R rows, starting at its row `row0` (a multiple of 64): the step is 32
+// bytes into its slab, where the hardware applies the swizzle to the
+// advanced address
+template <int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
+  return descriptor(tile + (kk >> 2) * (R * 128) + row0 * 128 + (kk & 3) * 32, 16);
+}
+
+// operand of k16 step kk read MN-major from a 64-row tile: B[k][n] =
+// tile[16 kk + k][c0 + n] for the 64 columns of slab c0 / 64; the step is 16
+// rows = 2048 bytes
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int c0, int kk) {
+  return descriptor(tile + (c0 / 64) * kSlab + kk * 2048, kSlab);
+}
+
+// ------------------------------------------------------------ async copies
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every copy of this thread has landed, and is visible to wgmma (the async
+// proxy) once the CTA has passed a barrier
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// rows [0, valid) of an (R, HD) tile from global (row stride `stride`
+// elements, 16-byte aligned rows) into swizzled shared memory; rows past
+// valid are zero-filled
+template <int R, int HD, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long stride,
+                                          int valid) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+  static_assert(R * kChunks % NT == 0, "whole rounds of copies");
+#pragma unroll
+  for (int it = 0; it < R * kChunks / NT; ++it) {
+    const int idx = threadIdx.x + it * NT;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool ok = r < valid;
+    cp_async16(dst + swizzled<R>(r, c), src + (ok ? r : 0) * stride + c * 8, ok);
+  }
+}
+
+// ------------------------------------------------------------------ wgmma
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// pins registers that an in-flight wgmma reads or writes: no use is moved
+// above the wait before it, and no register is reused before it
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pin(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define WG_ACC32(d)                                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+#define WG_REGS32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31}"
+
+// d (64 x 64 f32) = (accumulate ? d : 0) + A B, A (64 x 16) and B (16 x 64)
+// both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64 f32) += A B, A (64 x 16 bf16) in registers, B (16 x 64) read
+// MN-major from shared memory
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A fragment kk (columns 16 kk .. 16 kk + 15) of a 64 x 64 f32 accumulator,
+// rounded to bf16. Accumulator register 4 i + e holds row g + 8 (e / 2),
+// column 8 i + 2 t + e % 2 of the thread's warp's 16 rows (g = lane / 4,
+// t = lane % 4); register A holds the same rows and columns in pairs.
+__device__ __forceinline__ void pack_a(uint32_t* a, const float* acc, int kk) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = pack_bf16(acc[8 * kk + 2 * j], acc[8 * kk + 2 * j + 1]);
+}
+
+// column (within the 64 of an accumulator) and row half of register i
+__device__ __forceinline__ int acc_col(int i, int t) { return 8 * (i / 4) + 2 * t + (i & 1); }
+
+// stores 64 columns of the thread's rows row0 + g and row0 + g + 8 of an
+// accumulator as bf16, rows past T skipped
+__device__ __forceinline__ void store_rows(bf16* out, const Strides& s, int b, int h,
+                                           int row0, int T, int c0, const float* acc,
+                                           int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= T) continue;
+    bf16* p = out + offset(s, b, row, h) + c0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * i + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+  }
+}
+
+// ------------------------------------------------------------------ kernels
 // delta[(b * H + h) * T + i] = sum_d g[b, i, h, d] o[b, i, h, d] in f32
 template <int HD>
 __global__ void __launch_bounds__(kDeltaWarps * 32)
@@ -169,241 +294,254 @@ __global__ void __launch_bounds__(kDeltaWarps * 32)
   if (lane == 0) delta[row] = acc;
 }
 
-// dq for one (b, h, 64 q rows, 64 head-dim columns)
+// shared memory of a pass: two resident (WG x 64, HD) tiles, then kStages
+// stages of two streamed (64, HD) tiles and (for the dk/dv pass) 64 lse and
+// 64 delta values, each stage padded to keep the tiles 1024-byte aligned;
+// 1024 bytes of slack to align the base
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+struct Smem {
+  static constexpr int kWG = warpgroups<HD>();
+  static constexpr uint32_t kResident = kWG * kRows * HD * 2;
+  static constexpr uint32_t kTile = kRows * HD * 2;
+  static constexpr uint32_t kStage = 2 * kTile + 1024;
+  static_assert(2 * kRows * 4 <= 1024, "lse and delta fit the stage's pad");
+  static constexpr size_t kBytes = 2 * kResident + kStages * kStage + 1024;
+};
+
+__device__ __forceinline__ uint32_t aligned_base(const unsigned char* smem) {
+  return (smem_addr(smem) + 1023u) & ~1023u;
+}
+
+// dq for one (b, h, WG x 64 q rows, 64 head-dim columns)
+template <int HD>
+__global__ void __launch_bounds__(Smem<HD>::kWG * 128)
     dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ g,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int Tq, int Tk, Strides qs, Strides ks,
               Strides vs, Strides gs, Strides dqs) {
-  constexpr int LD = Tile<HD>::kLd;
-  constexpr int NS = kRows / 8;   // S tiles (16 x 8) per warp per k/v tile
-  constexpr int NC = kChunk / 8;  // dq tiles (16 x 8) per warp
+  using S = Smem<HD>;
+  constexpr int NT = S::kWG * 128;
+  constexpr int RR = S::kWG * kRows;  // resident rows
   constexpr int NCH = HD / kChunk;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sG = sQ + kRows * LD;
-  bf16* sK = sG + kRows * LD;
-  bf16* sV = sK + kRows * LD;
+  constexpr int KS = HD / 16;         // k16 steps over the head dim
+  extern __shared__ unsigned char smem[];
+  const uint32_t sQ = aligned_base(smem);
+  const uint32_t sG = sQ + S::kResident;
+  const uint32_t ring = sG + S::kResident;
 
-  const int q0 = (blockIdx.x / NCH) * kRows;
+  const int q0 = (blockIdx.x / NCH) * RR;
   const int c0 = (blockIdx.x % NCH) * kChunk;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int H = gridDim.y;
-  const int warp = threadIdx.x / 32;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
-  const int gr = lane / 4;  // fragment row (and row + 8)
-  const int t = lane % 4;   // fragment column pair 2t, 2t + 1
+  const int gr = lane / 4;  // accumulator row (and row + 8)
+  const int t = lane % 4;   // accumulator column pair 2t, 2t + 1
+  const int nt = (Tk + kRows - 1) / kRows;
 
-  load_tile<HD>(sQ, q + offset(qs, b, q0, h), qs.st, min(kRows, Tq - q0));
-  load_tile<HD>(sG, g + offset(gs, b, q0, h), gs.st, min(kRows, Tq - q0));
+  auto load_kv = [&](int j) {
+    const int kv0 = j * kRows;
+    const uint32_t st = ring + (j % kStages) * S::kStage;
+    load_tile<kRows, HD, NT>(st, k + offset(ks, b, kv0, h), ks.st, min(kRows, Tk - kv0));
+    load_tile<kRows, HD, NT>(st + S::kTile, v + offset(vs, b, kv0, h), vs.st,
+                             min(kRows, Tk - kv0));
+  };
+  load_tile<RR, HD, NT>(sQ, q + offset(qs, b, q0, h), qs.st, min(RR, Tq - q0));
+  load_tile<RR, HD, NT>(sG, g + offset(gs, b, q0, h), gs.st, min(RR, Tq - q0));
+  load_kv(0);
+  cp_async_commit();
 
+  const int row0 = q0 + wg * kRows + warp * 16;  // this warp's 16 rows
   const long stat0 = ((long)b * H + h) * Tq;
-  float lse_r[2], del_r[2];  // rows gr and gr + 8 of this warp
+  float lse_r[2], del_r[2];  // rows gr and gr + 8
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + gr + 8 * r;
+    const int row = row0 + gr + 8 * r;
     lse_r[r] = row < Tq ? lse[stat0 + row] : 0.f;
     del_r[r] = row < Tq ? delta[stat0 + row] : 0.f;
   }
 
-  float acc[NC][4];
+  float acc[32];
 #pragma unroll
-  for (int n = 0; n < NC; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const bf16* qw = sQ + warp * 16 * LD;
-  const bf16* gw = sG + warp * 16 * LD;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 
-  for (int kv0 = 0; kv0 < Tk; kv0 += kRows) {
-    const int valid = min(kRows, Tk - kv0);
-    __syncthreads();  // the previous tile is consumed; Q and G are ready
-    load_tile<HD>(sK, k + offset(ks, b, kv0, h), ks.st, valid);
-    load_tile<HD>(sV, v + offset(vs, b, kv0, h), vs.st, valid);
-    __syncthreads();
+  for (int j = 0; j < nt; ++j) {
+    const int valid = min(kRows, Tk - j * kRows);
+    cp_async_wait_all();
+    __syncthreads();  // tile j has landed; every warpgroup is done with j - 1
+    if (j + 1 < nt) load_kv(j + 1);
+    cp_async_commit();
+    const uint32_t sK = ring + (j % kStages) * S::kStage;
+    const uint32_t sV = sK + S::kTile;
 
-    // S = Q K^T and dP = G V^T: this warp's 16 q rows x 64 key columns
-    float s[NS][4], dp[NS][4];
+    // S = Q K^T and dP = G V^T: this warpgroup's 64 q rows x 64 key columns
+    float s[32], dp[32];
+    wg_fence();
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      uint32_t aq[4], ag[4];
-      load_a(aq, qw, LD, kk, gr, t);
-      load_a(ag, gw, LD, kk, gr, t);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        // B[k][j] = K[j][k] (resp. V): k contiguous along a row
-        const bf16* kr = sK + (n * 8 + gr) * LD + kk + 2 * t;
-        const bf16* vr = sV + (n * 8 + gr) * LD + kk + 2 * t;
-        mma_bf16(s[n], aq, ld32(kr), ld32(kr + 8));
-        mma_bf16(dp[n], ag, ld32(vr), ld32(vr + 8));
-      }
+    for (int kk = 0; kk < KS; ++kk) {
+      wgmma_ss(s, kmajor<RR>(sQ, wg * kRows, kk), kmajor<kRows>(sK, 0, kk), kk);
+      wgmma_ss(dp, kmajor<RR>(sG, wg * kRows, kk), kmajor<kRows>(sV, 0, kk), kk);
     }
+    wg_commit();
+    wg_wait();
+    pin<32>(s);
+    pin<32>(dp);
 
-    // p = exp(s - lse), 0 past Tk; ds = p (dp - delta), kept in s
+    // p = exp(s - lse), 0 past Tk; ds = p (dp - delta)
+    uint32_t a[16];
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = n * 8 + 2 * t + (e & 1) < valid
-                            ? __expf(s[n][e] - lse_r[e / 2]) : 0.f;
-        s[n][e] = p * (dp[n][e] - del_r[e / 2]);
-      }
-
-    // dq += bf16(ds) K[:, c0 : c0 + 64]
-#pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk) {
-      uint32_t a[4];
-      pack_a(a, s, kk);
-#pragma unroll
-      for (int n = 0; n < NC; n += 2) {
-        uint32_t bk[4];
-        ldsm_x4_trans(sK + (kk * 16 + (lane & 15)) * LD + c0 + n * 8 + (lane >> 4) * 8, bk);
-        mma_bf16(acc[n], a, bk[0], bk[1]);
-        mma_bf16(acc[n + 1], a, bk[2], bk[3]);
-      }
+    for (int i = 0; i < 32; ++i) {
+      const float p = acc_col(i, t) < valid ? __expf(s[i] - lse_r[(i >> 1) & 1]) : 0.f;
+      s[i] = p * (dp[i] - del_r[(i >> 1) & 1]);
     }
-  }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(a + 4 * kk, s, kk);
 
+    // dQ += bf16(dS) K[:, c0 : c0 + 64]
+    pin<32>(acc);
+    pin<16>(a);
+    wg_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + gr + 8 * r;
-    if (row >= Tq) continue;
-    bf16* out = dq + offset(dqs, b, row, h) + c0;
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a + 4 * kk, mnmajor(sK, c0, kk));
+    wg_commit();
+    wg_wait();
+    pin<32>(acc);
+    pin<16>(a);
   }
+  store_rows(dq, dqs, b, h, row0, Tq, c0, acc, gr, t);
 }
 
-// dk and dv for one (b, h, 64 key rows, 64 head-dim columns)
+// dk and dv for one (b, h, WG x 64 key rows, 64 head-dim columns)
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Smem<HD>::kWG * 128)
     dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ g,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk,
                 Strides qs, Strides ks, Strides vs, Strides gs, Strides dks,
                 Strides dvs) {
-  constexpr int LD = Tile<HD>::kLd;
-  constexpr int NS = kRows / 8;   // S^T tiles (16 x 8) per warp per q tile
-  constexpr int NC = kChunk / 8;  // dk, dv tiles (16 x 8) per warp
+  using S = Smem<HD>;
+  constexpr int NT = S::kWG * 128;
+  constexpr int RR = S::kWG * kRows;
   constexpr int NCH = HD / kChunk;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kRows * LD;
-  bf16* sQ = sV + kRows * LD;
-  bf16* sG = sQ + kRows * LD;
-  float* sL = reinterpret_cast<float*>(sG + kRows * LD);
-  float* sD = sL + kRows;
+  constexpr int KS = HD / 16;
+  extern __shared__ unsigned char smem[];
+  const uint32_t sK = aligned_base(smem);
+  const uint32_t sV = sK + S::kResident;
+  const uint32_t ring = sV + S::kResident;
+  // generic pointer to the same bytes, for the lse and delta reads
+  const unsigned char* gbase = smem + (sK - smem_addr(smem));
 
-  const int k0 = (blockIdx.x / NCH) * kRows;
+  const int k0 = (blockIdx.x / NCH) * RR;
   const int c0 = (blockIdx.x % NCH) * kChunk;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int H = gridDim.y;
-  const int warp = threadIdx.x / 32;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
   const int gr = lane / 4;
   const int t = lane % 4;
-
-  load_tile<HD>(sK, k + offset(ks, b, k0, h), ks.st, min(kRows, Tk - k0));
-  load_tile<HD>(sV, v + offset(vs, b, k0, h), vs.st, min(kRows, Tk - k0));
-
-  float adk[NC][4], adv[NC][4];
-#pragma unroll
-  for (int n = 0; n < NC; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
-  const bf16* kw = sK + warp * 16 * LD;
-  const bf16* vw = sV + warp * 16 * LD;
+  const int nt = (Tq + kRows - 1) / kRows;
   const long stat0 = ((long)b * H + h) * Tq;
 
-  for (int q0 = 0; q0 < Tq; q0 += kRows) {
-    const int valid = min(kRows, Tq - q0);
-    __syncthreads();  // the previous tile is consumed; K and V are ready
-    load_tile<HD>(sQ, q + offset(qs, b, q0, h), qs.st, valid);
-    load_tile<HD>(sG, g + offset(gs, b, q0, h), gs.st, valid);
-    for (int i = threadIdx.x; i < kRows; i += kThreads) {
-      // +inf makes p = exp(s - lse) exactly 0 for rows past Tq
-      sL[i] = i < valid ? lse[stat0 + q0 + i] : INFINITY;
-      sD[i] = i < valid ? delta[stat0 + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V G^T: this warp's 16 key rows x 64 q columns
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      uint32_t ak[4], av[4];
-      load_a(ak, kw, LD, kk, gr, t);
-      load_a(av, vw, LD, kk, gr, t);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const bf16* qr = sQ + (n * 8 + gr) * LD + kk + 2 * t;
-        const bf16* gr_ = sG + (n * 8 + gr) * LD + kk + 2 * t;
-        mma_bf16(s[n], ak, ld32(qr), ld32(qr + 8));
-        mma_bf16(dp[n], av, ld32(gr_), ld32(gr_ + 8));
+  // q and g tiles with their lse and delta; +inf makes p = exp(s - lse)
+  // exactly 0 for rows past Tq
+  auto load_qg = [&](int j) {
+    const int i0 = j * kRows, valid = min(kRows, Tq - i0);
+    const uint32_t st = ring + (j % kStages) * S::kStage;
+    load_tile<kRows, HD, NT>(st, q + offset(qs, b, i0, h), qs.st, valid);
+    load_tile<kRows, HD, NT>(st + S::kTile, g + offset(gs, b, i0, h), gs.st, valid);
+    const int i = threadIdx.x;
+    if (i < 2 * kRows) {
+      const int r = i % kRows;
+      const uint32_t dst = st + 2 * S::kTile + i * 4;
+      const float* src = (i < kRows ? lse : delta) + stat0 + i0 + r;
+      if (r < valid) {
+        cp_async4(dst, src);
+      } else {
+        *reinterpret_cast<float*>(const_cast<unsigned char*>(gbase) + (dst - sK)) =
+            i < kRows ? INFINITY : 0.f;
       }
     }
+  };
+  load_tile<RR, HD, NT>(sK, k + offset(ks, b, k0, h), ks.st, min(RR, Tk - k0));
+  load_tile<RR, HD, NT>(sV, v + offset(vs, b, k0, h), vs.st, min(RR, Tk - k0));
+  load_qg(0);
+  cp_async_commit();
 
-    // p^T = exp(s^T - lse) in s, ds^T = p^T (dp^T - delta) in dp; the q
-    // index is the column
+  float adk[32], adv[32];
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = n * 8 + 2 * t + (e & 1);
-        const float p = __expf(s[n][e] - sL[i]);
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - sD[i]);
-      }
+  for (int i = 0; i < 32; ++i) adk[i] = adv[i] = 0.f;
 
-    // dv += bf16(p^T) G[:, c0 : c0 + 64]; dk += bf16(ds^T) Q[:, c0 : c0 + 64]
+  for (int j = 0; j < nt; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j has landed; every warpgroup is done with j - 1
+    if (j + 1 < nt) load_qg(j + 1);
+    cp_async_commit();
+    const uint32_t sQ = ring + (j % kStages) * S::kStage;
+    const uint32_t sG = sQ + S::kTile;
+    const float* sL = reinterpret_cast<const float*>(gbase + (sQ + 2 * S::kTile - sK));
+    const float* sD = sL + kRows;
+
+    // S^T = K Q^T and dP^T = V G^T: this warpgroup's 64 key rows x 64 q
+    // columns
+    float s[32], dp[32];
+    wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk) {
-      uint32_t ap[4], ad[4];
-      pack_a(ap, s, kk);
-      pack_a(ad, dp, kk);
-      const int row = kk * 16 + (lane & 15);
-      const int col = c0 + (lane >> 4) * 8;
-#pragma unroll
-      for (int n = 0; n < NC; n += 2) {
-        uint32_t bg[4], bq[4];
-        ldsm_x4_trans(sG + row * LD + col + n * 8, bg);
-        ldsm_x4_trans(sQ + row * LD + col + n * 8, bq);
-        mma_bf16(adv[n], ap, bg[0], bg[1]);
-        mma_bf16(adv[n + 1], ap, bg[2], bg[3]);
-        mma_bf16(adk[n], ad, bq[0], bq[1]);
-        mma_bf16(adk[n + 1], ad, bq[2], bq[3]);
-      }
+    for (int kk = 0; kk < KS; ++kk) {
+      wgmma_ss(s, kmajor<RR>(sK, wg * kRows, kk), kmajor<kRows>(sQ, 0, kk), kk);
+      wgmma_ss(dp, kmajor<RR>(sV, wg * kRows, kk), kmajor<kRows>(sG, 0, kk), kk);
     }
+    wg_commit();
+    wg_wait();
+    pin<32>(s);
+    pin<32>(dp);
+
+    // p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta); the q index is the
+    // column
+    uint32_t ap[16], ad[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int c = acc_col(i, t);
+      const float2 l = *reinterpret_cast<const float2*>(sL + c);
+      const float2 d = *reinterpret_cast<const float2*>(sD + c);
+      const float p0 = __expf(s[i] - l.x), p1 = __expf(s[i + 1] - l.y);
+      s[i] = p0;
+      s[i + 1] = p1;
+      dp[i] = p0 * (dp[i] - d.x);
+      dp[i + 1] = p1 * (dp[i + 1] - d.y);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pack_a(ap + 4 * kk, s, kk);
+      pack_a(ad + 4 * kk, dp, kk);
+    }
+
+    // dV += bf16(P^T) G[:, c0 : c0 + 64]; dK += bf16(dS^T) Q[:, c0 : c0 + 64]
+    pin<32>(adv);
+    pin<32>(adk);
+    pin<16>(ap);
+    pin<16>(ad);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs(adv, ap + 4 * kk, mnmajor(sG, c0, kk));
+      wgmma_rs(adk, ad + 4 * kk, mnmajor(sQ, c0, kk));
+    }
+    wg_commit();
+    wg_wait();
+    pin<32>(adv);
+    pin<32>(adk);
+    pin<16>(ap);
+    pin<16>(ad);
   }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = k0 + warp * 16 + gr + 8 * r;
-    if (row >= Tk) continue;
-    bf16* outk = dk + offset(dks, b, row, h) + c0;
-    bf16* outv = dv + offset(dvs, b, row, h) + c0;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(outk + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(adk[n][2 * r], adk[n][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(outv + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(adv[n][2 * r], adv[n][2 * r + 1]);
-    }
-  }
+  const int row0 = k0 + wg * kRows + warp * 16;
+  store_rows(dk, dks, b, h, row0, Tk, c0, adk, gr, t);
+  store_rows(dv, dvs, b, h, row0, Tk, c0, adv, gr, t);
 }
 
 struct Args {
@@ -424,22 +562,24 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t bytes = Tile<HD>::kBytes;
+  using S = Smem<HD>;
+  const int bytes = (int)S::kBytes;
   err = cudaFuncSetAttribute(dq_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(dkdv_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   constexpr int NCH = HD / kChunk;
-  const dim3 grid_q(((a.Tq + kRows - 1) / kRows) * NCH, a.H, a.B);
-  dq_kernel<HD><<<grid_q, kThreads, bytes, stream>>>(
+  constexpr int RR = S::kWG * kRows;
+  const dim3 grid_q(((a.Tq + RR - 1) / RR) * NCH, a.H, a.B);
+  dq_kernel<HD><<<grid_q, S::kWG * 128, bytes, stream>>>(
       a.q, a.k, a.v, a.g, a.lse, a.delta, a.dq, a.Tq, a.Tk, a.qs, a.ks, a.vs,
       a.gs, a.dqs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_k(((a.Tk + kRows - 1) / kRows) * NCH, a.H, a.B);
-  dkdv_kernel<HD><<<grid_k, kThreads, bytes, stream>>>(
+  const dim3 grid_k(((a.Tk + RR - 1) / RR) * NCH, a.H, a.B);
+  dkdv_kernel<HD><<<grid_k, S::kWG * 128, bytes, stream>>>(
       a.q, a.k, a.v, a.g, a.lse, a.delta, a.dk, a.dv, a.Tq, a.Tk, a.qs, a.ks,
       a.vs, a.gs, a.dks, a.dvs);
   return cudaGetLastError();
