@@ -19,8 +19,9 @@
 // block) and took rowsum(p * dp) from it. This design is FlashAttention-2's
 // split, with nothing of size T x T stored anywhere:
 //   - a pre-pass computes delta = rowsum(g * o) in f32 from the bf16 output
-//     o of the forward, one warp per row. rowsum(p * dp) equals it in exact
-//     arithmetic; the two differ at bf16 rounding, as o is bf16;
+//     o of the forward, 8 lanes and 16-byte loads per row. rowsum(p * dp)
+//     equals it in exact arithmetic; the two differ at bf16 rounding, as o
+//     is bf16;
 //   - p is recomputed from s as exp(s - lse), with the per-row log-sum-exp
 //     that the forward kernel wrote (flash_attention.cu), so no max or sum
 //     pass over the keys is needed;
@@ -31,9 +32,9 @@
 //     dV += P^T G and dK += dS^T Q;
 //   - no atomics: every output element is written by one thread, once, so
 //     the result does not depend on the order of the blocks;
-//   - rows past Tq or Tk are bounds-checked (zero-filled in shared memory,
-//     masked out of p, not stored); there is no ceiling on T, and offsets
-//     are 64-bit.
+//   - rows past Tq or Tk are zero-filled by the loads, masked out of p (key
+//     columns past Tk) or given lse = +inf (query rows past Tq, so p = 0),
+//     and not stored; there is no ceiling on T, and offsets are 64-bit.
 //
 // What bounds it on this card: 10 B H Tq Tk hd operations on the tensor
 // cores (0.42 ms per ViT-B layer at B = 32, T = 1297 at 989 TFLOP/s bf16);
@@ -41,32 +42,37 @@
 // two-pass split recomputes S and dP in both passes, 14 B H T^2 hd in all,
 // which is its price for writing every output once. What the design does
 // about the rest:
-//   - every product is a warpgroup wgmma (m64n64k16, bf16 -> f32): each
-//     consumer warpgroup of 128 threads owns 64 resident rows, and the CTA's
-//     warpgroups share each streamed tile;
+//   - every product is a warpgroup wgmma (m64n64k16, bf16 -> f32): each of
+//     the CTA's consumer warpgroups owns 64 resident rows, and they share
+//     each streamed tile, which halves the stream's traffic per row;
 //   - all tiles sit in shared memory in the 128-byte swizzled layout that
 //     wgmma reads without bank conflicts (hd > 64 as hd/64 slabs of 64
-//     columns). The score products read both operands from there
-//     K-major; the accumulating products take A (bf16 P, dS or their
-//     transposes) straight from the registers of the f32 accumulator that
-//     produced them, whose layout is wgmma's register A layout, and read B
-//     MN-major (wgmma's transpose bit) from the same tile that the score
-//     product read K-major. P and dS never touch shared memory;
-//   - streamed tiles go through a ring of two stages filled by cp.async
-//     (16-byte copies written straight into the swizzled layout), so the
-//     load of tile j + 1 runs while the warpgroups compute on tile j, with
-//     one barrier per tile;
+//     columns). The score products read both operands from there K-major;
+//     the accumulating products take A (bf16 P, dS or their transposes)
+//     straight from the registers of the f32 accumulator that produced
+//     them, whose layout is wgmma's register A layout, and read B MN-major
+//     (wgmma's transpose bit) from the same tile that the score product read
+//     K-major. P and dS never touch shared memory;
+//   - one producer warp loads every tile with TMA (4-d tensor maps over
+//     (hd, H, T, B), so a ragged tile's rows past T come in as zeros, not
+//     as the next image's tokens) into a ring of stages that completes on
+//     mbarriers, while the consumer warpgroups compute on the stage before;
+//     setmaxnreg moves registers from the producer to the consumers. lse and
+//     delta rows are not 16-byte aligned at odd T, so the producer warp
+//     copies them with plain loads;
 //   - each CTA accumulates 64 columns of the head dim, so registers do not
 //     grow with hd: for hd > 64 the grid has hd / 64 CTAs per row tile, each
 //     recomputing S and dP over the full hd.
 // What is left: a single recompute of S (dq summed across CTAs in a fixed
-// order, so that the result stays deterministic), TMA loads from a producer
-// warp with mbarriers in place of cp.async, and the forward kernel.
+// order, so that the result stays deterministic), and the forward kernel.
 //
-// The host function returns the first launch error as an int (0 =
-// cudaSuccess) and allocates nothing: delta's (B, H, Tq) f32 scratch comes
-// from the caller. All launches are on the caller's stream.
+// The host function encodes the tensor maps per call (the driver's encoder
+// is looked up through the runtime, so no driver library is linked),
+// returns the first error as an int (0 = cudaSuccess) and allocates
+// nothing: delta's (B, H, Tq) f32 scratch comes from the caller. All
+// launches are on the caller's stream.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,15 +82,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;        // rows per warpgroup and per streamed tile
-constexpr int kChunk = 64;       // head-dim columns accumulated per CTA
-constexpr int kStages = 2;       // streamed tiles in flight
-constexpr int kSlab = kRows * 128;  // bytes of a 64-row, 64-column slab
-constexpr int kDeltaWarps = 8;   // rows per block of the delta pass
-
-// warpgroups per CTA (128 resident rows where shared memory allows)
-template <int HD>
-constexpr int warpgroups() { return HD <= 192 ? 2 : 1; }
+constexpr int kRows = 64;           // rows per warpgroup and per streamed tile
+constexpr int kChunk = 64;          // head-dim columns accumulated per CTA
+constexpr int kSlab = kRows * 128;  // bytes of a 64-row, 64-column slab (a TMA box)
+constexpr int kMaxThreads = 384;    // two consumer warpgroups and a producer
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kDeltaThreads = 256;  // 8 lanes per row in the delta pass
 
 struct Strides {  // element strides (batch, token, head); head-dim stride 1
   long sb, st, sh;
@@ -98,16 +102,142 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// ---------------------------------------------------------------- layout
-// An (R, HD) bf16 tile is HD / 64 slabs of R rows x 128 bytes; slab s holds
-// columns [64 s, 64 s + 64). Within a slab, row r's 16-byte chunk c sits at
-// chunk c ^ (r % 8) (wgmma's and TMA's 128-byte swizzle, which repeats every
-// 8 rows = 1024 bytes, so every slab starts 1024-byte aligned).
-template <int R>
-__device__ __forceinline__ uint32_t swizzled(int r, int c) {
-  return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+// Shared memory of a pass: two resident (kWG x 64, HD) tiles, then kStages
+// stages of two streamed (64, HD) tiles and (in the dk/dv pass) their 64
+// lse and 64 delta values in a 1024-byte pad that keeps every tile
+// 1024-byte aligned, then the mbarriers; 1024 bytes of slack to align the
+// base. An (R, HD) tile is HD / 64 slabs of R rows x 128 bytes; slab s holds
+// columns [64 s, 64 s + 64), and within it row r's 16-byte chunk c sits at
+// chunk c ^ (r % 8) (TMA's and wgmma's 128-byte swizzle, which repeats every
+// 8 rows = 1024 bytes).
+template <int HD>
+struct Smem {
+  static constexpr int kWG = HD <= 192 ? 2 : 1;       // consumer warpgroups
+  static constexpr int kStages = HD <= 128 ? 3 : 2;
+  static constexpr int kThreads = (kWG + 1) * 128;
+  static constexpr uint32_t kResident = kWG * kRows * HD * 2;
+  static constexpr uint32_t kTile = kRows * HD * 2;
+  static constexpr uint32_t kStage = 2 * kTile + 1024;
+  static constexpr uint32_t kRing = 2 * kResident;
+  static constexpr uint32_t kBars = kRing + kStages * kStage;
+  static constexpr size_t kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
+  static_assert(2 * kRows * 4 <= 1024, "lse and delta fit the stage's pad");
+  static_assert(kBytes <= 232448, "fits an H100 block");
+  static_assert(kThreads <= kMaxThreads, "within the launch bounds");
+
+  uint32_t base;
+  __device__ uint32_t stage(int j) const { return base + kRing + (j % kStages) * kStage; }
+  __device__ uint32_t full(int j) const { return base + kBars + 8 * (j % kStages); }
+  __device__ uint32_t empty(int j) const { return base + kBars + 8 * (kStages + j % kStages); }
+  __device__ uint32_t resident() const { return base + kBars + 16 * kStages; }
+};
+
+// ---------------------------------------------------------------- mbarriers
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
 }
 
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the mbarriers of a pass: one per stage filled (the producer's arrival
+// with the TMA bytes, and with `stats` its 32 lanes' after their lse and
+// delta stores), one per stage emptied (each consumer warp), one for the
+// resident tiles
+template <int HD>
+__device__ void init_barriers(const Smem<HD>& L, bool stats) {
+  for (int s = 0; s < Smem<HD>::kStages; ++s) {
+    mbar_init(L.full(s), stats ? 33 : 1);
+    mbar_init(L.empty(s), 4 * Smem<HD>::kWG);
+  }
+  mbar_init(L.resident(), 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// --------------------------------------------------------------------- TMA
+// box (64 columns, 1 head, 64 rows, 1 batch) at (c, h, t, b) into dst
+// (1024-byte aligned); rows past T arrive as zeros
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int c, int h,
+                                        int t, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(h), "r"(t), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// rows [t0, t0 + R) of (b, h) as an (R, HD) tile
+template <int R, int HD>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, int h, int t0,
+                                         int b, uint32_t bar) {
+#pragma unroll
+  for (int s = 0; s < HD / 64; ++s)
+#pragma unroll
+    for (int r = 0; r < R / kRows; ++r)
+      tma_box(dst + s * R * 128 + r * kSlab, map, 64 * s, h, t0 + kRows * r, b, bar);
+}
+
+// The producer warp: the two resident tiles (rows [res0, res0 + kWG x 64))
+// once, then streamed tiles j = 0 .. n - 1 (rows [64 j, 64 j + 64) of T
+// rows) into the ring as the consumers free it; with `stat`, the tile's 64
+// lse and delta values (lse = +inf past T) beside them.
+template <int HD>
+__device__ void produce(const Smem<HD>& L, unsigned char* gbase, const CUtensorMap* r0,
+                        const CUtensorMap* r1, int res0, const CUtensorMap* s0,
+                        const CUtensorMap* s1, int n, int T, int h, int b,
+                        const float* lse, const float* delta) {
+  using S = Smem<HD>;
+  constexpr int RR = S::kWG * kRows;
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) {
+    mbar_expect(L.resident(), 2 * S::kResident);
+    tma_tile<RR, HD>(L.base, r0, h, res0, b, L.resident());
+    tma_tile<RR, HD>(L.base + S::kResident, r1, h, res0, b, L.resident());
+  }
+  for (int j = 0; j < n; ++j) {
+    mbar_wait(L.empty(j), ((j / S::kStages) & 1) ^ 1);
+    const uint32_t st = L.stage(j);
+    if (lane == 0) {
+      mbar_expect(L.full(j), 2 * S::kTile);
+      tma_tile<kRows, HD>(st, s0, h, j * kRows, b, L.full(j));
+      tma_tile<kRows, HD>(st + S::kTile, s1, h, j * kRows, b, L.full(j));
+    }
+    if (lse != nullptr) {
+      float* stats = reinterpret_cast<float*>(gbase + (st + 2 * S::kTile - L.base));
+#pragma unroll
+      for (int r = lane; r < kRows; r += 32) {
+        const int i = j * kRows + r;
+        stats[r] = i < T ? lse[i] : INFINITY;
+        stats[kRows + r] = i < T ? delta[i] : 0.f;
+      }
+      mbar_arrive(L.full(j));
+    }
+  }
+}
+
+// ------------------------------------------------------------------ wgmma
 // wgmma shared-memory descriptor, 128-byte swizzle: start address and
 // leading byte offset in 16-byte units, stride byte offset 1024 (the next
 // group of 8 rows)
@@ -132,47 +262,6 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int c0, int kk) {
   return descriptor(tile + (c0 / 64) * kSlab + kk * 2048, kSlab);
 }
 
-// ------------------------------------------------------------ async copies
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// every copy of this thread has landed, and is visible to wgmma (the async
-// proxy) once the CTA has passed a barrier
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// rows [0, valid) of an (R, HD) tile from global (row stride `stride`
-// elements, 16-byte aligned rows) into swizzled shared memory; rows past
-// valid are zero-filled
-template <int R, int HD, int NT>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long stride,
-                                          int valid) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  static_assert(R * kChunks % NT == 0, "whole rounds of copies");
-#pragma unroll
-  for (int it = 0; it < R * kChunks / NT; ++it) {
-    const int idx = threadIdx.x + it * NT;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool ok = r < valid;
-    cp_async16(dst + swizzled<R>(r, c), src + (ok ? r : 0) * stride + c * 8, ok);
-  }
-}
-
-// ------------------------------------------------------------------ wgmma
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -186,7 +275,7 @@ __device__ __forceinline__ void wg_wait() {
 }
 
 // pins registers that an in-flight wgmma reads or writes: no use is moved
-// above the wait before it, and no register is reused before it
+// across the fence or wait beside it, and no register is reused before it
 template <int N>
 __device__ __forceinline__ void pin(float* r) {
 #pragma unroll
@@ -234,21 +323,41 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// the two score products of a tile: x (64 x 64) = X A^T and y = Y B^T over
+// the head dim, X and Y this warpgroup's 64 rows of the resident tiles, A
+// and B the streamed ones
+template <int HD>
+__device__ __forceinline__ void score_products(float* x, float* y, uint32_t rx, uint32_t ry,
+                                               int row0, uint32_t sa, uint32_t sb) {
+  constexpr int RR = Smem<HD>::kWG * kRows;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    wgmma_ss(x, kmajor<RR>(rx, row0, kk), kmajor<kRows>(sa, 0, kk), kk);
+    wgmma_ss(y, kmajor<RR>(ry, row0, kk), kmajor<kRows>(sb, 0, kk), kk);
+  }
+  wg_commit();
+  wg_wait();
+  pin<32>(x);
+  pin<32>(y);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// A fragment kk (columns 16 kk .. 16 kk + 15) of a 64 x 64 f32 accumulator,
-// rounded to bf16. Accumulator register 4 i + e holds row g + 8 (e / 2),
-// column 8 i + 2 t + e % 2 of the thread's warp's 16 rows (g = lane / 4,
-// t = lane % 4); register A holds the same rows and columns in pairs.
-__device__ __forceinline__ void pack_a(uint32_t* a, const float* acc, int kk) {
+// the four A fragments (columns 16 kk .. 16 kk + 15) of a 64 x 64 f32
+// accumulator, rounded to bf16. Accumulator register 4 i + e holds row
+// g + 8 (e / 2), column 8 i + 2 t + e % 2 of the thread's warp's 16 rows
+// (g = lane / 4, t = lane % 4); register A holds the same rows and columns
+// in pairs.
+__device__ __forceinline__ void pack_a(uint32_t* a, const float* acc) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) a[j] = pack_bf16(acc[8 * kk + 2 * j], acc[8 * kk + 2 * j + 1]);
+  for (int j = 0; j < 16; ++j) a[j] = pack_bf16(acc[2 * j], acc[2 * j + 1]);
 }
 
-// column (within the 64 of an accumulator) and row half of register i
+// column (within the 64 of an accumulator) of register i
 __device__ __forceinline__ int acc_col(int i, int t) { return 8 * (i / 4) + 2 * t + (i & 1); }
 
 // stores 64 columns of the thread's rows row0 + g and row0 + g + 8 of an
@@ -268,280 +377,269 @@ __device__ __forceinline__ void store_rows(bf16* out, const Strides& s, int b, i
   }
 }
 
+__device__ __forceinline__ uint32_t aligned_base(const unsigned char* smem) {
+  return (smem_addr(smem) + 1023u) & ~1023u;
+}
+
 // ------------------------------------------------------------------ kernels
 // delta[(b * H + h) * T + i] = sum_d g[b, i, h, d] o[b, i, h, d] in f32
 template <int HD>
-__global__ void __launch_bounds__(kDeltaWarps * 32)
+__global__ void __launch_bounds__(kDeltaThreads)
     delta_kernel(const bf16* __restrict__ g, const bf16* __restrict__ o,
                  float* __restrict__ delta, int T, int H, long rows, Strides gs,
                  Strides os) {
-  const long row = (long)blockIdx.x * kDeltaWarps + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
+  const long id = (long)blockIdx.x * kDeltaThreads + threadIdx.x;
+  const long row = id / 8 < rows ? id / 8 : rows - 1;  // a ragged last warp repeats a row
+  const int sub = threadIdx.x % 8;
   const int i = (int)(row % T);
   const int h = (int)((row / T) % H);
   const int b = (int)(row / ((long)T * H));
   const bf16* gp = g + offset(gs, b, i, h);
   const bf16* op = o + offset(os, b, i, h);
   float acc = 0.f;
-  for (int d = 2 * lane; d < HD; d += 64) {
-    const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gp + d));
-    const float2 ov = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(op + d));
-    acc += gv.x * ov.x + gv.y * ov.y;
+#pragma unroll
+  for (int c = sub; c < HD / 8; c += 8) {
+    const uint4 gv = *reinterpret_cast<const uint4*>(gp + 8 * c);
+    const uint4 ov = *reinterpret_cast<const uint4*>(op + 8 * c);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(g2[e]), y = __bfloat1622float2(o2[e]);
+      acc += x.x * y.x + x.y * y.y;
+    }
   }
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-  if (lane == 0) delta[row] = acc;
+  for (int m = 4; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (sub == 0 && id / 8 < rows) delta[row] = acc;
 }
 
-// shared memory of a pass: two resident (WG x 64, HD) tiles, then kStages
-// stages of two streamed (64, HD) tiles and (for the dk/dv pass) 64 lse and
-// 64 delta values, each stage padded to keep the tiles 1024-byte aligned;
-// 1024 bytes of slack to align the base
+// dq for one (b, h, kWG x 64 q rows, 64 head-dim columns)
 template <int HD>
-struct Smem {
-  static constexpr int kWG = warpgroups<HD>();
-  static constexpr uint32_t kResident = kWG * kRows * HD * 2;
-  static constexpr uint32_t kTile = kRows * HD * 2;
-  static constexpr uint32_t kStage = 2 * kTile + 1024;
-  static_assert(2 * kRows * 4 <= 1024, "lse and delta fit the stage's pad");
-  static constexpr size_t kBytes = 2 * kResident + kStages * kStage + 1024;
-};
-
-__device__ __forceinline__ uint32_t aligned_base(const unsigned char* smem) {
-  return (smem_addr(smem) + 1023u) & ~1023u;
-}
-
-// dq for one (b, h, WG x 64 q rows, 64 head-dim columns)
-template <int HD>
-__global__ void __launch_bounds__(Smem<HD>::kWG * 128)
-    dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ g,
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int Tq, int Tk, Strides qs, Strides ks,
-              Strides vs, Strides gs, Strides dqs) {
+              bf16* __restrict__ dq, int Tq, int Tk, Strides dqs) {
   using S = Smem<HD>;
-  constexpr int NT = S::kWG * 128;
   constexpr int RR = S::kWG * kRows;  // resident rows
   constexpr int NCH = HD / kChunk;
-  constexpr int KS = HD / 16;         // k16 steps over the head dim
   extern __shared__ unsigned char smem[];
-  const uint32_t sQ = aligned_base(smem);
-  const uint32_t sG = sQ + S::kResident;
-  const uint32_t ring = sG + S::kResident;
-
+  const S L{aligned_base(smem)};
   const int q0 = (blockIdx.x / NCH) * RR;
   const int c0 = (blockIdx.x % NCH) * kChunk;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int H = gridDim.y;
-  const int wg = threadIdx.x / 128;
-  const int warp = (threadIdx.x % 128) / 32;
-  const int lane = threadIdx.x % 32;
-  const int gr = lane / 4;  // accumulator row (and row + 8)
-  const int t = lane % 4;   // accumulator column pair 2t, 2t + 1
+  const long stat0 = ((long)b * gridDim.y + h) * Tq;
   const int nt = (Tk + kRows - 1) / kRows;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) init_barriers(L, false);
+  __syncthreads();
 
-  auto load_kv = [&](int j) {
-    const int kv0 = j * kRows;
-    const uint32_t st = ring + (j % kStages) * S::kStage;
-    load_tile<kRows, HD, NT>(st, k + offset(ks, b, kv0, h), ks.st, min(kRows, Tk - kv0));
-    load_tile<kRows, HD, NT>(st + S::kTile, v + offset(vs, b, kv0, h), vs.st,
-                             min(kRows, Tk - kv0));
-  };
-  load_tile<RR, HD, NT>(sQ, q + offset(qs, b, q0, h), qs.st, min(RR, Tq - q0));
-  load_tile<RR, HD, NT>(sG, g + offset(gs, b, q0, h), gs.st, min(RR, Tq - q0));
-  load_kv(0);
-  cp_async_commit();
-
-  const int row0 = q0 + wg * kRows + warp * 16;  // this warp's 16 rows
-  const long stat0 = ((long)b * H + h) * Tq;
-  float lse_r[2], del_r[2];  // rows gr and gr + 8
+  if (wg == S::kWG) {  // the producer warpgroup: one warp loads, three idle
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x % 128 < 32)
+      produce<HD>(L, nullptr, &mq, &mg, q0, &mk, &mv, nt, Tk, h, b, nullptr, nullptr);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int gr = lane / 4;  // accumulator row (and row + 8)
+    const int t = lane % 4;   // accumulator column pair 2t, 2t + 1
+    const int row0 = q0 + wg * kRows + warp * 16;  // this warp's 16 rows
+    float lse_r[2], del_r[2];  // rows gr and gr + 8
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + gr + 8 * r;
-    lse_r[r] = row < Tq ? lse[stat0 + row] : 0.f;
-    del_r[r] = row < Tq ? delta[stat0 + row] : 0.f;
-  }
-
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-
-  for (int j = 0; j < nt; ++j) {
-    const int valid = min(kRows, Tk - j * kRows);
-    cp_async_wait_all();
-    __syncthreads();  // tile j has landed; every warpgroup is done with j - 1
-    if (j + 1 < nt) load_kv(j + 1);
-    cp_async_commit();
-    const uint32_t sK = ring + (j % kStages) * S::kStage;
-    const uint32_t sV = sK + S::kTile;
-
-    // S = Q K^T and dP = G V^T: this warpgroup's 64 q rows x 64 key columns
-    float s[32], dp[32];
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      wgmma_ss(s, kmajor<RR>(sQ, wg * kRows, kk), kmajor<kRows>(sK, 0, kk), kk);
-      wgmma_ss(dp, kmajor<RR>(sG, wg * kRows, kk), kmajor<kRows>(sV, 0, kk), kk);
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + gr + 8 * r;
+      lse_r[r] = row < Tq ? lse[stat0 + row] : 0.f;
+      del_r[r] = row < Tq ? delta[stat0 + row] : 0.f;
     }
-    wg_commit();
-    wg_wait();
-    pin<32>(s);
-    pin<32>(dp);
-
-    // p = exp(s - lse), 0 past Tk; ds = p (dp - delta)
-    uint32_t a[16];
+    float acc[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float p = acc_col(i, t) < valid ? __expf(s[i] - lse_r[(i >> 1) & 1]) : 0.f;
-      s[i] = p * (dp[i] - del_r[(i >> 1) & 1]);
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    mbar_wait(L.resident(), 0);
+
+    for (int j = 0; j < nt; ++j) {
+      const int valid = min(kRows, Tk - j * kRows);
+      mbar_wait(L.full(j), (j / S::kStages) & 1);
+      const uint32_t sK = L.stage(j), sV = sK + S::kTile;
+
+      // S = Q K^T and dP = G V^T: this warpgroup's 64 q rows x 64 keys
+      float s[32], dp[32];
+      score_products<HD>(s, dp, L.base, L.base + S::kResident, wg * kRows, sK, sV);
+
+      // p = exp(s - lse), 0 past Tk; ds = p (dp - delta)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float p = acc_col(i, t) < valid ? __expf(s[i] - lse_r[(i >> 1) & 1]) : 0.f;
+        s[i] = p * (dp[i] - del_r[(i >> 1) & 1]);
+      }
+      uint32_t a[16];
+      pack_a(a, s);
+
+      // dQ += bf16(dS) K[:, c0 : c0 + 64]
+      pin<32>(acc);
+      pin<16>(a);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a + 4 * kk, mnmajor(sK, c0, kk));
+      wg_commit();
+      wg_wait();
+      pin<32>(acc);
+      pin<16>(a);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(L.empty(j));
     }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) pack_a(a + 4 * kk, s, kk);
-
-    // dQ += bf16(dS) K[:, c0 : c0 + 64]
-    pin<32>(acc);
-    pin<16>(a);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a + 4 * kk, mnmajor(sK, c0, kk));
-    wg_commit();
-    wg_wait();
-    pin<32>(acc);
-    pin<16>(a);
+    store_rows(dq, dqs, b, h, row0, Tq, c0, acc, gr, t);
   }
-  store_rows(dq, dqs, b, h, row0, Tq, c0, acc, gr, t);
 }
 
-// dk and dv for one (b, h, WG x 64 key rows, 64 head-dim columns)
+// dk and dv for one (b, h, kWG x 64 key rows, 64 head-dim columns)
 template <int HD>
-__global__ void __launch_bounds__(Smem<HD>::kWG * 128)
-    dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ g,
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    dkdv_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk,
-                Strides qs, Strides ks, Strides vs, Strides gs, Strides dks,
-                Strides dvs) {
+                Strides dks, Strides dvs) {
   using S = Smem<HD>;
-  constexpr int NT = S::kWG * 128;
   constexpr int RR = S::kWG * kRows;
   constexpr int NCH = HD / kChunk;
-  constexpr int KS = HD / 16;
   extern __shared__ unsigned char smem[];
-  const uint32_t sK = aligned_base(smem);
-  const uint32_t sV = sK + S::kResident;
-  const uint32_t ring = sV + S::kResident;
-  // generic pointer to the same bytes, for the lse and delta reads
-  const unsigned char* gbase = smem + (sK - smem_addr(smem));
-
+  const S L{aligned_base(smem)};
+  // generic pointer to the same bytes, for the lse and delta values
+  unsigned char* gbase = smem + (L.base - smem_addr(smem));
   const int k0 = (blockIdx.x / NCH) * RR;
   const int c0 = (blockIdx.x % NCH) * kChunk;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int H = gridDim.y;
-  const int wg = threadIdx.x / 128;
-  const int warp = (threadIdx.x % 128) / 32;
-  const int lane = threadIdx.x % 32;
-  const int gr = lane / 4;
-  const int t = lane % 4;
+  const long stat0 = ((long)b * gridDim.y + h) * Tq;
   const int nt = (Tq + kRows - 1) / kRows;
-  const long stat0 = ((long)b * H + h) * Tq;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) init_barriers(L, true);
+  __syncthreads();
 
-  // q and g tiles with their lse and delta; +inf makes p = exp(s - lse)
-  // exactly 0 for rows past Tq
-  auto load_qg = [&](int j) {
-    const int i0 = j * kRows, valid = min(kRows, Tq - i0);
-    const uint32_t st = ring + (j % kStages) * S::kStage;
-    load_tile<kRows, HD, NT>(st, q + offset(qs, b, i0, h), qs.st, valid);
-    load_tile<kRows, HD, NT>(st + S::kTile, g + offset(gs, b, i0, h), gs.st, valid);
-    const int i = threadIdx.x;
-    if (i < 2 * kRows) {
-      const int r = i % kRows;
-      const uint32_t dst = st + 2 * S::kTile + i * 4;
-      const float* src = (i < kRows ? lse : delta) + stat0 + i0 + r;
-      if (r < valid) {
-        cp_async4(dst, src);
-      } else {
-        *reinterpret_cast<float*>(const_cast<unsigned char*>(gbase) + (dst - sK)) =
-            i < kRows ? INFINITY : 0.f;
+  if (wg == S::kWG) {  // the producer warpgroup: one warp loads, three idle
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x % 128 < 32)
+      produce<HD>(L, gbase, &mk, &mv, k0, &mq, &mg, nt, Tq, h, b, lse + stat0,
+                  delta + stat0);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int gr = lane / 4;
+    const int t = lane % 4;
+    float adk[32], adv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) adk[i] = adv[i] = 0.f;
+    mbar_wait(L.resident(), 0);
+
+    for (int j = 0; j < nt; ++j) {
+      mbar_wait(L.full(j), (j / S::kStages) & 1);
+      const uint32_t sQ = L.stage(j), sG = sQ + S::kTile;
+      const float* sL = reinterpret_cast<const float*>(gbase + (sQ + 2 * S::kTile - L.base));
+      const float* sD = sL + kRows;
+
+      // S^T = K Q^T and dP^T = V G^T: this warpgroup's 64 keys x 64 q rows
+      float s[32], dp[32];
+      score_products<HD>(s, dp, L.base, L.base + S::kResident, wg * kRows, sQ, sG);
+
+      // p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta); the q row is the
+      // column
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int c = acc_col(i, t);
+        const float2 l = *reinterpret_cast<const float2*>(sL + c);
+        const float2 d = *reinterpret_cast<const float2*>(sD + c);
+        const float p0 = __expf(s[i] - l.x), p1 = __expf(s[i + 1] - l.y);
+        s[i] = p0;
+        s[i + 1] = p1;
+        dp[i] = p0 * (dp[i] - d.x);
+        dp[i + 1] = p1 * (dp[i + 1] - d.y);
       }
-    }
-  };
-  load_tile<RR, HD, NT>(sK, k + offset(ks, b, k0, h), ks.st, min(RR, Tk - k0));
-  load_tile<RR, HD, NT>(sV, v + offset(vs, b, k0, h), vs.st, min(RR, Tk - k0));
-  load_qg(0);
-  cp_async_commit();
+      uint32_t ap[16], ad[16];
+      pack_a(ap, s);
+      pack_a(ad, dp);
 
-  float adk[32], adv[32];
+      // dV += bf16(P^T) G[:, c0 : c0 + 64]; dK += bf16(dS^T) Q[:, c0 : c0 + 64]
+      pin<32>(adv);
+      pin<32>(adk);
+      pin<16>(ap);
+      pin<16>(ad);
+      wg_fence();
 #pragma unroll
-  for (int i = 0; i < 32; ++i) adk[i] = adv[i] = 0.f;
-
-  for (int j = 0; j < nt; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // tile j has landed; every warpgroup is done with j - 1
-    if (j + 1 < nt) load_qg(j + 1);
-    cp_async_commit();
-    const uint32_t sQ = ring + (j % kStages) * S::kStage;
-    const uint32_t sG = sQ + S::kTile;
-    const float* sL = reinterpret_cast<const float*>(gbase + (sQ + 2 * S::kTile - sK));
-    const float* sD = sL + kRows;
-
-    // S^T = K Q^T and dP^T = V G^T: this warpgroup's 64 key rows x 64 q
-    // columns
-    float s[32], dp[32];
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      wgmma_ss(s, kmajor<RR>(sK, wg * kRows, kk), kmajor<kRows>(sQ, 0, kk), kk);
-      wgmma_ss(dp, kmajor<RR>(sV, wg * kRows, kk), kmajor<kRows>(sG, 0, kk), kk);
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs(adv, ap + 4 * kk, mnmajor(sG, c0, kk));
+        wgmma_rs(adk, ad + 4 * kk, mnmajor(sQ, c0, kk));
+      }
+      wg_commit();
+      wg_wait();
+      pin<32>(adv);
+      pin<32>(adk);
+      pin<16>(ap);
+      pin<16>(ad);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(L.empty(j));
     }
-    wg_commit();
-    wg_wait();
-    pin<32>(s);
-    pin<32>(dp);
-
-    // p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta); the q index is the
-    // column
-    uint32_t ap[16], ad[16];
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int c = acc_col(i, t);
-      const float2 l = *reinterpret_cast<const float2*>(sL + c);
-      const float2 d = *reinterpret_cast<const float2*>(sD + c);
-      const float p0 = __expf(s[i] - l.x), p1 = __expf(s[i + 1] - l.y);
-      s[i] = p0;
-      s[i + 1] = p1;
-      dp[i] = p0 * (dp[i] - d.x);
-      dp[i + 1] = p1 * (dp[i + 1] - d.y);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pack_a(ap + 4 * kk, s, kk);
-      pack_a(ad + 4 * kk, dp, kk);
-    }
-
-    // dV += bf16(P^T) G[:, c0 : c0 + 64]; dK += bf16(dS^T) Q[:, c0 : c0 + 64]
-    pin<32>(adv);
-    pin<32>(adk);
-    pin<16>(ap);
-    pin<16>(ad);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs(adv, ap + 4 * kk, mnmajor(sG, c0, kk));
-      wgmma_rs(adk, ad + 4 * kk, mnmajor(sQ, c0, kk));
-    }
-    wg_commit();
-    wg_wait();
-    pin<32>(adv);
-    pin<32>(adk);
-    pin<16>(ap);
-    pin<16>(ad);
+    const int row0 = k0 + wg * kRows + warp * 16;
+    store_rows(dk, dks, b, h, row0, Tk, c0, adk, gr, t);
+    store_rows(dv, dvs, b, h, row0, Tk, c0, adv, gr, t);
   }
-  const int row0 = k0 + wg * kRows + warp * 16;
-  store_rows(dk, dks, b, h, row0, Tk, c0, adk, gr, t);
-  store_rows(dv, dvs, b, h, row0, Tk, c0, adv, gr, t);
+}
+
+// ------------------------------------------------------------------- host
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, looked up once through the runtime
+cudaError_t encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// a (B, T, H, hd) bf16 tensor read through its element strides as the 4-d
+// map (hd, H, T, B) with (64, 1, 64, 1) boxes in the 128-byte swizzle; a
+// dimension of size 1 gets the stride its predecessor implies (any
+// stride of it is never used)
+cudaError_t tensor_map(CUtensorMap* map, const bf16* ptr, int B, int T, int H, int hd,
+                       const Strides& s) {
+  EncodeTiled encode;
+  const cudaError_t err = encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const long given[3] = {s.sh, s.st, s.sb};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t implied = i == 0 ? dims[0] * 2 : strides[i - 1] * dims[i];
+    strides[i] = dims[i + 1] == 1 ? implied : (cuuint64_t)given[i] * 2;
+  }
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kRows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                              const_cast<bf16*>(ptr), dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 struct Args {
@@ -556,11 +654,18 @@ struct Args {
 template <int HD>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long rows = (long)a.B * a.H * a.Tq;
-  delta_kernel<HD><<<(unsigned)((rows + kDeltaWarps - 1) / kDeltaWarps),
-                     kDeltaWarps * 32, 0, stream>>>(a.g, a.o, a.delta, a.Tq, a.H,
-                                                    rows, a.gs, a.os);
+  delta_kernel<HD><<<(unsigned)((rows * 8 + kDeltaThreads - 1) / kDeltaThreads),
+                     kDeltaThreads, 0, stream>>>(a.g, a.o, a.delta, a.Tq, a.H, rows,
+                                                 a.gs, a.os);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+
+  CUtensorMap mq, mk, mv, mg;
+  if ((err = tensor_map(&mq, a.q, a.B, a.Tq, a.H, HD, a.qs)) != cudaSuccess ||
+      (err = tensor_map(&mk, a.k, a.B, a.Tk, a.H, HD, a.ks)) != cudaSuccess ||
+      (err = tensor_map(&mv, a.v, a.B, a.Tk, a.H, HD, a.vs)) != cudaSuccess ||
+      (err = tensor_map(&mg, a.g, a.B, a.Tq, a.H, HD, a.gs)) != cudaSuccess)
+    return err;
 
   using S = Smem<HD>;
   const int bytes = (int)S::kBytes;
@@ -573,15 +678,13 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int NCH = HD / kChunk;
   constexpr int RR = S::kWG * kRows;
   const dim3 grid_q(((a.Tq + RR - 1) / RR) * NCH, a.H, a.B);
-  dq_kernel<HD><<<grid_q, S::kWG * 128, bytes, stream>>>(
-      a.q, a.k, a.v, a.g, a.lse, a.delta, a.dq, a.Tq, a.Tk, a.qs, a.ks, a.vs,
-      a.gs, a.dqs);
+  dq_kernel<HD><<<grid_q, S::kThreads, bytes, stream>>>(mq, mk, mv, mg, a.lse, a.delta,
+                                                        a.dq, a.Tq, a.Tk, a.dqs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k(((a.Tk + RR - 1) / RR) * NCH, a.H, a.B);
-  dkdv_kernel<HD><<<grid_k, S::kWG * 128, bytes, stream>>>(
-      a.q, a.k, a.v, a.g, a.lse, a.delta, a.dk, a.dv, a.Tq, a.Tk, a.qs, a.ks,
-      a.vs, a.gs, a.dks, a.dvs);
+  dkdv_kernel<HD><<<grid_k, S::kThreads, bytes, stream>>>(
+      mq, mk, mv, mg, a.lse, a.delta, a.dk, a.dv, a.Tq, a.Tk, a.dks, a.dvs);
   return cudaGetLastError();
 }
 
@@ -591,7 +694,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // dL/do); lse: (B, H, Tq) f32 from the forward; delta: (B, H, Tq) f32
 // scratch; dq, dk, dv: (B, T, H, hd) bf16 outputs. strides: 24 element
 // strides (batch, token, head) of q, k, v, o, g, dq, dk, dv in turn; the
-// head-dim stride is 1.
+// head-dim stride is 1, and every row and stride is 16-byte aligned.
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                         const void* o, const void* g, const void* lse,
                                         void* delta, void* dq, void* dk, void* dv,
