@@ -43,8 +43,9 @@
 // which is its price for writing every output once. What the design does
 // about the rest:
 //   - every product is a warpgroup wgmma (m64n64k16, bf16 -> f32): each of
-//     the CTA's consumer warpgroups owns 64 resident rows, and they share
-//     each streamed tile, which halves the stream's traffic per row;
+//     the CTA's consumer warpgroups (three in the dq pass, two in the dk/dv
+//     pass at hd 64) owns 64 resident rows, and they share each streamed
+//     tile, which divides the stream's traffic per row as many times;
 //   - all tiles sit in shared memory in the 128-byte swizzled layout that
 //     wgmma reads without bank conflicts (hd > 64 as hd/64 slabs of 64
 //     columns). The score products read both operands from there K-major;
@@ -85,10 +86,16 @@ using bf16 = __nv_bfloat16;
 constexpr int kRows = 64;           // rows per warpgroup and per streamed tile
 constexpr int kChunk = 64;          // head-dim columns accumulated per CTA
 constexpr int kSlab = kRows * 128;  // bytes of a 64-row, 64-column slab (a TMA box)
-constexpr int kMaxThreads = 384;    // two consumer warpgroups and a producer
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
 constexpr int kDeltaThreads = 256;  // 8 lanes per row in the delta pass
+
+// consumer warpgroups per CTA of each pass, as many as shared memory and
+// registers allow: the dq pass keeps 96 accumulator registers a thread and
+// fits three in 160 registers; the dk/dv pass keeps 128 and spills at three
+template <int HD>
+struct Warpgroups {
+  static constexpr int kDq = HD <= 128 ? 3 : HD <= 192 ? 2 : 1;
+  static constexpr int kDkdv = HD <= 192 ? 2 : 1;
+};
 
 struct Strides {  // element strides (batch, token, head); head-dim stride 1
   long sb, st, sh;
@@ -102,28 +109,35 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Shared memory of a pass: two resident (kWG x 64, HD) tiles, then kStages
-// stages of two streamed (64, HD) tiles and (in the dk/dv pass) their 64
-// lse and 64 delta values in a 1024-byte pad that keeps every tile
+// The CTA of a pass with WG consumer warpgroups and one producer
+// warpgroup, and its shared memory: two resident (WG x 64, HD) tiles, then
+// kStages stages of two streamed (64, HD) tiles and (in the dk/dv pass)
+// their 64 lse and 64 delta values in a 1024-byte pad that keeps every tile
 // 1024-byte aligned, then the mbarriers; 1024 bytes of slack to align the
 // base. An (R, HD) tile is HD / 64 slabs of R rows x 128 bytes; slab s holds
 // columns [64 s, 64 s + 64), and within it row r's 16-byte chunk c sits at
 // chunk c ^ (r % 8) (TMA's and wgmma's 128-byte swizzle, which repeats every
-// 8 rows = 1024 bytes).
-template <int HD>
+// 8 rows = 1024 bytes). Registers: the kernel is compiled for kLaunch
+// threads of 65536 / kLaunch registers; setmaxnreg then lowers the
+// producer's to kProducerRegs and raises the consumers' to kConsumerRegs.
+template <int HD, int WG>
 struct Smem {
-  static constexpr int kWG = HD <= 192 ? 2 : 1;       // consumer warpgroups
-  static constexpr int kStages = HD <= 128 ? 3 : 2;
-  static constexpr int kThreads = (kWG + 1) * 128;
-  static constexpr uint32_t kResident = kWG * kRows * HD * 2;
+  static constexpr int kWG = WG;
+  static constexpr int kThreads = (WG + 1) * 128;
+  static constexpr int kLaunch = kThreads < 384 ? 384 : kThreads;
+  static constexpr int kProducerRegs = WG >= 3 ? 24 : 40;
+  static constexpr int kConsumerRegs =
+      (65536 - 128 * kProducerRegs) / (128 * WG) / 8 * 8 < 240
+          ? (65536 - 128 * kProducerRegs) / (128 * WG) / 8 * 8 : 240;
+  static constexpr uint32_t kResident = WG * kRows * HD * 2;
   static constexpr uint32_t kTile = kRows * HD * 2;
   static constexpr uint32_t kStage = 2 * kTile + 1024;
   static constexpr uint32_t kRing = 2 * kResident;
+  static constexpr int kStages = kRing + 3 * kStage + 7 * 8 + 1024 <= 232448 ? 3 : 2;
   static constexpr uint32_t kBars = kRing + kStages * kStage;
   static constexpr size_t kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
   static_assert(2 * kRows * 4 <= 1024, "lse and delta fit the stage's pad");
   static_assert(kBytes <= 232448, "fits an H100 block");
-  static_assert(kThreads <= kMaxThreads, "within the launch bounds");
 
   uint32_t base;
   __device__ uint32_t stage(int j) const { return base + kRing + (j % kStages) * kStage; }
@@ -166,11 +180,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
 // with the TMA bytes, and with `stats` its 32 lanes' after their lse and
 // delta stores), one per stage emptied (each consumer warp), one for the
 // resident tiles
-template <int HD>
-__device__ void init_barriers(const Smem<HD>& L, bool stats) {
-  for (int s = 0; s < Smem<HD>::kStages; ++s) {
+template <class S>
+__device__ void init_barriers(const S& L, bool stats) {
+  for (int s = 0; s < S::kStages; ++s) {
     mbar_init(L.full(s), stats ? 33 : 1);
-    mbar_init(L.empty(s), 4 * Smem<HD>::kWG);
+    mbar_init(L.empty(s), 4 * S::kWG);
   }
   mbar_init(L.resident(), 1);
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -201,14 +215,13 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, i
 
 // The producer warp: the two resident tiles (rows [res0, res0 + kWG x 64))
 // once, then streamed tiles j = 0 .. n - 1 (rows [64 j, 64 j + 64) of T
-// rows) into the ring as the consumers free it; with `stat`, the tile's 64
+// rows) into the ring as the consumers free it; with kStats, the tile's 64
 // lse and delta values (lse = +inf past T) beside them.
-template <int HD>
-__device__ void produce(const Smem<HD>& L, unsigned char* gbase, const CUtensorMap* r0,
+template <int HD, bool kStats, class S>
+__device__ void produce(const S& L, unsigned char* gbase, const CUtensorMap* r0,
                         const CUtensorMap* r1, int res0, const CUtensorMap* s0,
                         const CUtensorMap* s1, int n, int T, int h, int b,
                         const float* lse, const float* delta) {
-  using S = Smem<HD>;
   constexpr int RR = S::kWG * kRows;
   const int lane = threadIdx.x % 32;
   if (lane == 0) {
@@ -224,7 +237,7 @@ __device__ void produce(const Smem<HD>& L, unsigned char* gbase, const CUtensorM
       tma_tile<kRows, HD>(st, s0, h, j * kRows, b, L.full(j));
       tma_tile<kRows, HD>(st + S::kTile, s1, h, j * kRows, b, L.full(j));
     }
-    if (lse != nullptr) {
+    if constexpr (kStats) {
       float* stats = reinterpret_cast<float*>(gbase + (st + 2 * S::kTile - L.base));
 #pragma unroll
       for (int r = lane; r < kRows; r += 32) {
@@ -326,10 +339,9 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b
 // the two score products of a tile: x (64 x 64) = X A^T and y = Y B^T over
 // the head dim, X and Y this warpgroup's 64 rows of the resident tiles, A
 // and B the streamed ones
-template <int HD>
+template <int HD, int RR>
 __device__ __forceinline__ void score_products(float* x, float* y, uint32_t rx, uint32_t ry,
                                                int row0, uint32_t sa, uint32_t sb) {
-  constexpr int RR = Smem<HD>::kWG * kRows;
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
@@ -347,17 +359,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// the four A fragments (columns 16 kk .. 16 kk + 15) of a 64 x 64 f32
-// accumulator, rounded to bf16. Accumulator register 4 i + e holds row
-// g + 8 (e / 2), column 8 i + 2 t + e % 2 of the thread's warp's 16 rows
-// (g = lane / 4, t = lane % 4); register A holds the same rows and columns
-// in pairs.
-__device__ __forceinline__ void pack_a(uint32_t* a, const float* acc) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j) a[j] = pack_bf16(acc[2 * j], acc[2 * j + 1]);
-}
-
-// column (within the 64 of an accumulator) of register i
+// Accumulator register 4 i + e of a 64 x 64 f32 wgmma holds row g + 8 (e /
+// 2), column 8 i + 2 t + e % 2 of the thread's warp's 16 rows (g = lane /
+// 4, t = lane % 4). Register j of the four A fragments of the next product
+// (fragment kk: columns 16 kk .. 16 kk + 15) holds the same rows and
+// columns in bf16 pairs: a[j] = (acc[2 j], acc[2 j + 1]). acc_col is the
+// column of register i.
 __device__ __forceinline__ int acc_col(int i, int t) { return 8 * (i / 4) + 2 * t + (i & 1); }
 
 // stores 64 columns of the thread's rows row0 + g and row0 + g + 8 of an
@@ -416,12 +423,12 @@ __global__ void __launch_bounds__(kDeltaThreads)
 
 // dq for one (b, h, kWG x 64 q rows, 64 head-dim columns)
 template <int HD>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+__global__ void __launch_bounds__(Smem<HD, Warpgroups<HD>::kDq>::kLaunch, 1)
     dq_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
               const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int Tq, int Tk, Strides dqs) {
-  using S = Smem<HD>;
+  using S = Smem<HD, Warpgroups<HD>::kDq>;
   constexpr int RR = S::kWG * kRows;  // resident rows
   constexpr int NCH = HD / kChunk;
   extern __shared__ unsigned char smem[];
@@ -437,11 +444,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   __syncthreads();
 
   if (wg == S::kWG) {  // the producer warpgroup: one warp loads, three idle
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(S::kProducerRegs));
     if (threadIdx.x % 128 < 32)
-      produce<HD>(L, nullptr, &mq, &mg, q0, &mk, &mv, nt, Tk, h, b, nullptr, nullptr);
+      produce<HD, false>(L, nullptr, &mq, &mg, q0, &mk, &mv, nt, Tk, h, b, nullptr, nullptr);
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::kConsumerRegs));
     const int warp = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32;
     const int gr = lane / 4;  // accumulator row (and row + 8)
@@ -466,16 +473,18 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
       // S = Q K^T and dP = G V^T: this warpgroup's 64 q rows x 64 keys
       float s[32], dp[32];
-      score_products<HD>(s, dp, L.base, L.base + S::kResident, wg * kRows, sK, sV);
+      score_products<HD, RR>(s, dp, L.base, L.base + S::kResident, wg * kRows, sK, sV);
 
-      // p = exp(s - lse), 0 past Tk; ds = p (dp - delta)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const float p = acc_col(i, t) < valid ? __expf(s[i] - lse_r[(i >> 1) & 1]) : 0.f;
-        s[i] = p * (dp[i] - del_r[(i >> 1) & 1]);
-      }
+      // p = exp(s - lse), 0 past Tk; ds = p (dp - delta), packed as A
       uint32_t a[16];
-      pack_a(a, s);
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int c = acc_col(i, t);
+        const float l = lse_r[(i >> 1) & 1], d = del_r[(i >> 1) & 1];
+        const float p0 = c < valid ? __expf(s[i] - l) : 0.f;
+        const float p1 = c + 1 < valid ? __expf(s[i + 1] - l) : 0.f;
+        a[i / 2] = pack_bf16(p0 * (dp[i] - d), p1 * (dp[i + 1] - d));
+      }
 
       // dQ += bf16(dS) K[:, c0 : c0 + 64]
       pin<32>(acc);
@@ -496,13 +505,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
 // dk and dv for one (b, h, kWG x 64 key rows, 64 head-dim columns)
 template <int HD>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+__global__ void __launch_bounds__(Smem<HD, Warpgroups<HD>::kDkdv>::kLaunch, 1)
     dkdv_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk,
                 Strides dks, Strides dvs) {
-  using S = Smem<HD>;
+  using S = Smem<HD, Warpgroups<HD>::kDkdv>;
   constexpr int RR = S::kWG * kRows;
   constexpr int NCH = HD / kChunk;
   extern __shared__ unsigned char smem[];
@@ -520,12 +529,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   __syncthreads();
 
   if (wg == S::kWG) {  // the producer warpgroup: one warp loads, three idle
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(S::kProducerRegs));
     if (threadIdx.x % 128 < 32)
-      produce<HD>(L, gbase, &mk, &mv, k0, &mq, &mg, nt, Tq, h, b, lse + stat0,
+      produce<HD, true>(L, gbase, &mk, &mv, k0, &mq, &mg, nt, Tq, h, b, lse + stat0,
                   delta + stat0);
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::kConsumerRegs));
     const int warp = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32;
     const int gr = lane / 4;
@@ -543,24 +552,20 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
       // S^T = K Q^T and dP^T = V G^T: this warpgroup's 64 keys x 64 q rows
       float s[32], dp[32];
-      score_products<HD>(s, dp, L.base, L.base + S::kResident, wg * kRows, sQ, sG);
+      score_products<HD, RR>(s, dp, L.base, L.base + S::kResident, wg * kRows, sQ, sG);
 
-      // p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta); the q row is the
-      // column
+      // p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta), packed as A; the q
+      // row is the column
+      uint32_t ap[16], ad[16];
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
         const int c = acc_col(i, t);
         const float2 l = *reinterpret_cast<const float2*>(sL + c);
         const float2 d = *reinterpret_cast<const float2*>(sD + c);
         const float p0 = __expf(s[i] - l.x), p1 = __expf(s[i + 1] - l.y);
-        s[i] = p0;
-        s[i + 1] = p1;
-        dp[i] = p0 * (dp[i] - d.x);
-        dp[i + 1] = p1 * (dp[i + 1] - d.y);
+        ap[i / 2] = pack_bf16(p0, p1);
+        ad[i / 2] = pack_bf16(p0 * (dp[i] - d.x), p1 * (dp[i + 1] - d.y));
       }
-      uint32_t ap[16], ad[16];
-      pack_a(ap, s);
-      pack_a(ad, dp);
 
       // dV += bf16(P^T) G[:, c0 : c0 + 64]; dK += bf16(dS^T) Q[:, c0 : c0 + 64]
       pin<32>(adv);
@@ -667,23 +672,23 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       (err = tensor_map(&mg, a.g, a.B, a.Tq, a.H, HD, a.gs)) != cudaSuccess)
     return err;
 
-  using S = Smem<HD>;
-  const int bytes = (int)S::kBytes;
-  err = cudaFuncSetAttribute(dq_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dkdv_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
+  using Q = Smem<HD, Warpgroups<HD>::kDq>;
+  using K = Smem<HD, Warpgroups<HD>::kDkdv>;
   constexpr int NCH = HD / kChunk;
-  constexpr int RR = S::kWG * kRows;
-  const dim3 grid_q(((a.Tq + RR - 1) / RR) * NCH, a.H, a.B);
-  dq_kernel<HD><<<grid_q, S::kThreads, bytes, stream>>>(mq, mk, mv, mg, a.lse, a.delta,
-                                                        a.dq, a.Tq, a.Tk, a.dqs);
+  constexpr int RQ = Q::kWG * kRows, RK = K::kWG * kRows;  // resident rows
+  err = cudaFuncSetAttribute(dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Q::kBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)K::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q(((a.Tq + RQ - 1) / RQ) * NCH, a.H, a.B);
+  dq_kernel<HD><<<grid_q, Q::kThreads, Q::kBytes, stream>>>(mq, mk, mv, mg, a.lse, a.delta,
+                                                            a.dq, a.Tq, a.Tk, a.dqs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_k(((a.Tk + RR - 1) / RR) * NCH, a.H, a.B);
-  dkdv_kernel<HD><<<grid_k, S::kThreads, bytes, stream>>>(
+  const dim3 grid_k(((a.Tk + RK - 1) / RK) * NCH, a.H, a.B);
+  dkdv_kernel<HD><<<grid_k, K::kThreads, K::kBytes, stream>>>(
       mq, mk, mv, mg, a.lse, a.delta, a.dk, a.dv, a.Tq, a.Tk, a.dks, a.dvs);
   return cudaGetLastError();
 }
