@@ -336,19 +336,45 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// The consumer warpgroups of a CTA wait on the same stages, so left alone
+// they issue their products at the same moments and compute p and ds while
+// the tensor cores idle. Two warpgroups take turns instead (ping-pong): a
+// warpgroup waits for its turn (named barrier 1 + wg, at which the other
+// arrives), issues one batch of products and passes the turn on, so one
+// warpgroup's products run while the other computes. (Three warpgroups in
+// strict rotation measured slower than none: they run without turns.)
+template <int WG>
+__device__ __forceinline__ void turn_wait(int wg) {
+  if constexpr (WG == 2) {
+    if (wg == 0) asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    else asm volatile("bar.sync 2, 256;\n" ::: "memory");
+  }
+}
+
+template <int WG>
+__device__ __forceinline__ void turn_pass(int wg) {
+  if constexpr (WG == 2) {
+    if (wg == 0) asm volatile("bar.arrive 2, 256;\n" ::: "memory");
+    else asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+  }
+}
+
 // the two score products of a tile: x (64 x 64) = X A^T and y = Y B^T over
 // the head dim, X and Y this warpgroup's 64 rows of the resident tiles, A
 // and B the streamed ones
-template <int HD, int RR>
+template <int HD, int WG>
 __device__ __forceinline__ void score_products(float* x, float* y, uint32_t rx, uint32_t ry,
-                                               int row0, uint32_t sa, uint32_t sb) {
+                                               int wg, uint32_t sa, uint32_t sb) {
+  constexpr int RR = WG * kRows;
+  turn_wait<WG>(wg);
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    wgmma_ss(x, kmajor<RR>(rx, row0, kk), kmajor<kRows>(sa, 0, kk), kk);
-    wgmma_ss(y, kmajor<RR>(ry, row0, kk), kmajor<kRows>(sb, 0, kk), kk);
+    wgmma_ss(x, kmajor<RR>(rx, wg * kRows, kk), kmajor<kRows>(sa, 0, kk), kk);
+    wgmma_ss(y, kmajor<RR>(ry, wg * kRows, kk), kmajor<kRows>(sb, 0, kk), kk);
   }
   wg_commit();
+  turn_pass<WG>(wg);
   wg_wait();
   pin<32>(x);
   pin<32>(y);
@@ -464,6 +490,7 @@ __global__ void __launch_bounds__(Smem<HD, Warpgroups<HD>::kDq>::kLaunch, 1)
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    if (wg == S::kWG - 1) turn_pass<S::kWG>(wg);  // warpgroup 0 goes first
     mbar_wait(L.resident(), 0);
 
     for (int j = 0; j < nt; ++j) {
@@ -473,7 +500,7 @@ __global__ void __launch_bounds__(Smem<HD, Warpgroups<HD>::kDq>::kLaunch, 1)
 
       // S = Q K^T and dP = G V^T: this warpgroup's 64 q rows x 64 keys
       float s[32], dp[32];
-      score_products<HD, RR>(s, dp, L.base, L.base + S::kResident, wg * kRows, sK, sV);
+      score_products<HD, S::kWG>(s, dp, L.base, L.base + S::kResident, wg, sK, sV);
 
       // p = exp(s - lse), 0 past Tk; ds = p (dp - delta), packed as A
       uint32_t a[16];
@@ -489,10 +516,12 @@ __global__ void __launch_bounds__(Smem<HD, Warpgroups<HD>::kDq>::kLaunch, 1)
       // dQ += bf16(dS) K[:, c0 : c0 + 64]
       pin<32>(acc);
       pin<16>(a);
+      turn_wait<S::kWG>(wg);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a + 4 * kk, mnmajor(sK, c0, kk));
       wg_commit();
+      turn_pass<S::kWG>(wg);
       wg_wait();
       pin<32>(acc);
       pin<16>(a);
@@ -542,6 +571,7 @@ __global__ void __launch_bounds__(Smem<HD, Warpgroups<HD>::kDkdv>::kLaunch, 1)
     float adk[32], adv[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) adk[i] = adv[i] = 0.f;
+    if (wg == S::kWG - 1) turn_pass<S::kWG>(wg);  // warpgroup 0 goes first
     mbar_wait(L.resident(), 0);
 
     for (int j = 0; j < nt; ++j) {
@@ -552,7 +582,7 @@ __global__ void __launch_bounds__(Smem<HD, Warpgroups<HD>::kDkdv>::kLaunch, 1)
 
       // S^T = K Q^T and dP^T = V G^T: this warpgroup's 64 keys x 64 q rows
       float s[32], dp[32];
-      score_products<HD, RR>(s, dp, L.base, L.base + S::kResident, wg * kRows, sQ, sG);
+      score_products<HD, S::kWG>(s, dp, L.base, L.base + S::kResident, wg, sQ, sG);
 
       // p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta), packed as A; the q
       // row is the column
@@ -572,6 +602,7 @@ __global__ void __launch_bounds__(Smem<HD, Warpgroups<HD>::kDkdv>::kLaunch, 1)
       pin<32>(adk);
       pin<16>(ap);
       pin<16>(ad);
+      turn_wait<S::kWG>(wg);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -579,6 +610,7 @@ __global__ void __launch_bounds__(Smem<HD, Warpgroups<HD>::kDkdv>::kLaunch, 1)
         wgmma_rs(adk, ad + 4 * kk, mnmajor(sQ, c0, kk));
       }
       wg_commit();
+      turn_pass<S::kWG>(wg);
       wg_wait();
       pin<32>(adv);
       pin<32>(adk);
