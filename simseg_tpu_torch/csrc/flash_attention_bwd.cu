@@ -60,17 +60,19 @@
 //     mbarriers, while the consumer warpgroups compute on the stage before;
 //     setmaxnreg moves registers from the producer to the consumers. lse and
 //     delta rows are not 16-byte aligned at odd T, so the producer warp
-//     copies them with plain loads;
+//     copies them with plain loads. Two consumer warpgroups take turns at
+//     issuing their products (ping-pong), so one computes p and ds while
+//     the other's products run;
 //   - each CTA accumulates 64 columns of the head dim, so registers do not
 //     grow with hd: for hd > 64 the grid has hd / 64 CTAs per row tile, each
 //     recomputing S and dP over the full hd.
 // What is left: a single recompute of S (dq summed across CTAs in a fixed
 // order, so that the result stays deterministic), and the forward kernel.
 //
-// The host function encodes the tensor maps per call (the driver's encoder
-// is looked up through the runtime, so no driver library is linked),
-// returns the first error as an int (0 = cudaSuccess) and allocates
-// nothing: delta's (B, H, Tq) f32 scratch comes from the caller. All
+// The host function encodes the tensor maps per call (libcuda's
+// cuTensorMapEncodeTiled, looked up through the runtime, so the build links
+// no libcuda), returns the first error as an int (0 = cudaSuccess) and
+// allocates nothing: delta's (B, H, Tq) f32 scratch comes from the caller. All
 // launches are on the caller's stream.
 
 #include <cuda.h>
@@ -213,10 +215,11 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, i
       tma_box(dst + s * R * 128 + r * kSlab, map, 64 * s, h, t0 + kRows * r, b, bar);
 }
 
-// The producer warp: the two resident tiles (rows [res0, res0 + kWG x 64))
-// once, then streamed tiles j = 0 .. n - 1 (rows [64 j, 64 j + 64) of T
-// rows) into the ring as the consumers free it; with kStats, the tile's 64
-// lse and delta values (lse = +inf past T) beside them.
+// The producer: the two resident tiles (rows [res0, res0 + kWG x 64)) once,
+// then streamed tiles j = 0 .. n - 1 (rows [64 j, 64 j + 64) of T rows) into
+// the ring as the consumers free it; with kStats, a whole warp, which also
+// copies the tile's 64 lse and delta values (lse = +inf past T) beside
+// them, else one thread.
 template <int HD, bool kStats, class S>
 __device__ void produce(const S& L, unsigned char* gbase, const CUtensorMap* r0,
                         const CUtensorMap* r1, int res0, const CUtensorMap* s0,
@@ -469,9 +472,9 @@ __global__ void __launch_bounds__(Smem<HD, Warpgroups<HD>::kDq>::kLaunch, 1)
   if (threadIdx.x == 0) init_barriers(L, false);
   __syncthreads();
 
-  if (wg == S::kWG) {  // the producer warpgroup: one warp loads, three idle
+  if (wg == S::kWG) {  // the producer warpgroup: one thread loads
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(S::kProducerRegs));
-    if (threadIdx.x % 128 < 32)
+    if (threadIdx.x % 128 == 0)
       produce<HD, false>(L, nullptr, &mq, &mg, q0, &mk, &mv, nt, Tk, h, b, nullptr, nullptr);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::kConsumerRegs));
@@ -632,7 +635,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// the driver's cuTensorMapEncodeTiled, looked up once through the runtime
+// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
 cudaError_t encoder(EncodeTiled* fn) {
   static EncodeTiled cached = nullptr;
   if (cached == nullptr) {

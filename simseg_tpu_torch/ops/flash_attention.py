@@ -245,13 +245,17 @@ def _bwd_library() -> ctypes.CDLL:
 
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    """x as the kernel reads it: unit head-dim stride, 16-byte aligned
-    rows. The ViT's q, k, v already are (k and v are views into the fused
-    qkv output); anything else is copied once."""
+    """x as the kernels read it: unit head-dim stride, 16-byte aligned
+    rows and strides (the backward's TMA tensor maps take nothing else),
+    and no broadcast (zero-stride) batch, token or head dimension. The
+    ViT's q, k, v already are (views into the fused qkv output); anything
+    else is copied once, into a fresh (aligned) allocation: a contiguous
+    view at a misaligned offset is copied too."""
     if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(s % 8 == 0 for s in x.stride()[:3])):
+            and all(s % 8 == 0 and (s > 0 or n == 1)
+                    for s, n in zip(x.stride()[:3], x.shape[:3]))):
         return x
-    return x.contiguous()
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _check_operands(qh: torch.Tensor, **others: torch.Tensor) -> None:

@@ -168,7 +168,10 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,tq,tk,h,hd", [
     (1, 64, 64, 1, 64), (2, 200, 200, 2, 128), (1, 1297, 1297, 3, 64),
-    (1, 130, 70, 2, 64), (1, 77, 77, 2, 192), (1, 65, 65, 1, 256)])
+    (1, 130, 70, 2, 64), (1, 77, 77, 2, 192), (1, 65, 65, 1, 256),
+    # the tiles' edges: T below one 64-row tile, one past a 128-row
+    # (dk/dv) and a 192-row (dq) resident tile
+    (1, 17, 17, 2, 64), (2, 129, 129, 2, 64), (1, 193, 193, 2, 64)])
 def test_flash_bwd_kernel_matches_plain(cuda_device, b, tq, tk, h, hd):
     """The training forward's log-sum-exp, and dq, dk, dv of the backward
     kernel: per gradient max abs error <= 2e-2 x the plain result's largest
@@ -188,6 +191,42 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, b, tq, tk, h, hd):
         err, ref = (x.float() - y.float()).abs(), y.float().abs()
         assert x.dtype == torch.bfloat16 and x.shape == y.shape
         assert err.max() <= 2e-2 * ref.max() and err.mean() <= 1e-2 * ref.mean()
+
+
+def _bwd_case(b, t, h, hd, device):
+    """q, k, v as views into a fused (B, T, 3, H, hd) tensor (q pre-scaled
+    in place), g, and the forward kernel's output and log-sum-exp."""
+    gen = torch.Generator().manual_seed(t)
+    qkv = torch.randn(b, t, 3, h, hd, generator=gen)
+    qkv[:, :, 0] *= hd ** -0.5
+    qkv = qkv.to(device=device, dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    g = torch.randn(b, t, h, hd, generator=gen).to(device=device, dtype=torch.bfloat16)
+    out, lse = flash_attention._launch(q, k, v, with_lse=True)
+    return q, k, v, g, out, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,hd", [(2, 1297, 3, 64), (1, 300, 2, 128)])
+def test_flash_bwd_kernel_reads_fused_qkv_views(cuda_device, b, t, h, hd):
+    """q, k, v strided views into one fused tensor, as the ViT makes them,
+    read in place: the bars of test_flash_bwd_kernel_matches_plain."""
+    q, k, v, g, out, lse = _bwd_case(b, t, h, hd, cuda_device)
+    assert flash_attention._kernel_operand(k) is k
+    got = flash_attention.flash_mha_train_bwd(q, k, v, out, g, lse)
+    for x, y in zip(got, flash_attention.flash_mha_train_bwd_plain(q, k, v, g)):
+        err, ref = (x.float() - y.float()).abs(), y.float().abs()
+        assert err.max() <= 2e-2 * ref.max() and err.mean() <= 1e-2 * ref.mean()
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_is_deterministic(cuda_device):
+    """No atomics: every output element is written once, so two calls give
+    bit-equal gradients."""
+    q, k, v, g, out, lse = _bwd_case(2, 1297, 4, 64, cuda_device)
+    first = flash_attention.flash_mha_train_bwd(q, k, v, out, g, lse)
+    second = flash_attention.flash_mha_train_bwd(q, k, v, out, g, lse)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda

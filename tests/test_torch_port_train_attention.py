@@ -228,6 +228,33 @@ def test_train_backward_refuses_cuda_tensor_without_library(monkeypatch):
     assert flash_attention.BWD_LAUNCHES == launches
 
 
+def test_kernel_operand_keeps_fused_qkv_views_in_place():
+    """q, k, v as views into a fused (B, T, 3, H, hd) tensor, as the ViT
+    makes them, reach the kernels as they are: no copy per call."""
+    qkv = torch.zeros(2, 300, 3, 2, 64, dtype=torch.bfloat16)
+    for x in qkv.unbind(2):
+        assert flash_attention._kernel_operand(x) is x
+    flat = torch.zeros(2, 300, 3 * 128, dtype=torch.bfloat16)
+    for x in (c.unflatten(-1, (2, 64)) for c in flat.chunk(3, dim=-1)):
+        assert flash_attention._kernel_operand(x) is x
+
+
+@pytest.mark.parametrize("make", [
+    # token stride 132 elements: rows not 16-byte aligned
+    lambda: torch.zeros(2, 300, 132, dtype=torch.bfloat16)[..., :128].unflatten(-1, (2, 64)),
+    # head dim not unit-stride
+    lambda: torch.zeros(2, 300, 64, 2, dtype=torch.bfloat16).transpose(-1, -2),
+    # a batch and token dimension broadcast with stride 0 (an expanded g)
+    lambda: torch.zeros(1, 1, 2, 64, dtype=torch.bfloat16).expand(3, 300, 2, 64),
+    # base pointer 2 bytes past a 16-byte boundary
+    lambda: torch.zeros(2 * 300 * 128 + 1, dtype=torch.bfloat16)[1:].view(2, 300, 2, 64),
+])
+def test_kernel_operand_copies_what_the_kernels_cannot_read(make):
+    x = make()
+    got = flash_attention._kernel_operand(x)
+    assert got is not x and got.is_contiguous() and torch.equal(got, x)
+
+
 def test_backward_kernel_wrapper_takes_no_cpu_tensor():
     x = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="runs on CUDA"):
