@@ -13,230 +13,215 @@
 //
 // with q pre-scaled by hd^-1/2, on (B, T, H, hd) tensors read in place
 // through their strides (no fold to (B*H, T, hd), no transpose copies).
+// Scores, the running max m and sum l and the O accumulators are f32; O is
+// divided by l at the end (the TPU kernel normalised p before its bf16
+// cast: the two differ at bf16 rounding); key columns past Tk are masked,
+// query rows past Tq not stored. With a non-null lse pointer the kernel
+// also writes each row's log-sum-exp m + log l in f32 to lse (B, H, Tq),
+// which the backward (flash_attention_bwd.cu) uses to recompute p without a
+// second pass over k; with a null pointer nothing more is written.
 //
-// The TPU design kept the whole (T, T) f32 score tile of one (b, h) in
-// VMEM: 6.7 MB at T = 1297, against 227 KB of shared memory in an H100
-// block. This design streams k/v instead, with an online softmax:
-//   - one CTA of 4 warps per (b, h, 64-row q tile); each warp owns 16 q
-//     rows; k/v tiles of KV rows are staged in shared memory;
-//   - S = Q K^T and O += P V run on the tensor cores as mma.sync
-//     m16n8k16 bf16 products accumulating in f32; S, P and O never leave
-//     registers: the layout of an S accumulator tile is the layout of the
-//     P operand, so P is rounded to bf16 in place;
-//   - each thread keeps the running max m and sum l of its two rows in
-//     f32 and rescales its O accumulators by exp(m_old - m_new); O is
-//     divided by l at the end (the TPU kernel normalised p before its
-//     bf16 cast: the two differ at bf16 rounding);
-//   - key columns past Tk are masked out, query rows past Tq not stored;
-//   - with a non-null lse pointer, the training forward also writes each
-//     row's log-sum-exp m + log l in f32 to lse (B, H, Tq), which the
-//     backward (flash_attention_bwd.cu) uses to recompute p without a
-//     second pass over k; with a null pointer nothing more is written.
 // What bounds it on this card: 4 B H Tq Tk hd operations on the tensor
-// cores (about 0.084 ms per ViT-B layer at B = 16, T = 1297 at 989 TFLOP/s
-// bf16); q/k/v/o traffic is a tenth of that. wgmma, TMA and overlapping
-// the k/v loads with the products are later work.
+// cores (0.084 ms per ViT-B layer at B = 16, T = 1297 at 989 TFLOP/s bf16);
+// q/k/v/o traffic is a tenth of that. The TPU design kept the whole (T, T)
+// f32 score tile of one (b, h) in VMEM (6.7 MB at T = 1297, against 227 KB
+// of shared memory in an H100 block); this one streams k/v tiles past
+// resident q rows with an online softmax, and keeps the tensor cores fed:
+//   - every product is a warpgroup wgmma (bf16 -> f32). Each consumer
+//     warpgroup owns 64 q rows: S = Q K^T is an SS product (m64n128k16, or
+//     m64n64k16 at hd 192/256) reading both operands K-major from shared
+//     memory; the online softmax runs on the S accumulator in registers
+//     (exp2 with log2 e folded into the max subtraction; the row sums stay
+//     per thread until the end); P is rounded to bf16 in the accumulator's
+//     layout, which is wgmma's register A layout, and O += P V is an RS
+//     product (m64n64k16 per 64 columns of hd) reading V MN-major from the
+//     tile as loaded. S, P and O never touch shared memory;
+//   - k/v tiles of kN rows (128 at hd <= 128, 64 at hd 192/256, where O's
+//     registers grow) sit in shared memory in the 128-byte swizzle that
+//     wgmma reads without bank conflicts (hopper_sm90.cuh);
+//   - one warpgroup per CTA (64 q rows); its 128 threads load each k/v
+//     tile through registers into the swizzled layout, between two
+//     __syncthreads, so loads and products do not overlap.
+// What is left: TMA loads by a producer warp into a ring of stages, and
+// several consumer warpgroups sharing each k/v tile.
 //
-// The host function returns the launch error as an int (0 = cudaSuccess)
-// and allocates nothing; the launch is on the caller's stream.
+// The host function encodes the tensor maps per call, returns the first
+// error as an int (0 = cudaSuccess) and allocates nothing; the launch is on
+// the caller's stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper_sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+constexpr int kQRows = 64;  // q rows per consumer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kRows = 64;              // q rows per CTA
-constexpr int kWarps = kRows / 16;     // one warp per 16 q rows
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;                // bf16 row padding (16 bytes)
-
-// k/v rows per tile: fewer for wide heads, to keep O in registers
+// the design at each head dim: k/v rows per tile, consumer warpgroups per
+// CTA, and whether two of them take turns
 template <int HD>
-struct Tile {
-  static constexpr int kKV = HD <= 128 ? 64 : 32;
-  static constexpr int kLd = HD + kPad;  // shared-memory row, bf16
-  static constexpr size_t kBytes =
-      (size_t)(kRows + 2 * kKV) * kLd * sizeof(bf16);
+struct Design {
+  static constexpr int kN = HD <= 128 ? 128 : 64;
 };
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows [0, valid) of a (rows, HD) tile from global (row stride `stride`
-// elements, 16-byte aligned rows) into shared memory; rows past valid are 0
-template <int HD>
-__device__ void load_tile(bf16* dst, const bf16* src, long stride, int rows,
-                          int valid) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * Tile<HD>::kLd + c * 8) = v;
+// S (64 x N f32) = this warpgroup's 64 q rows x the tile's N keys
+template <int HD, int N, int WG>
+__device__ __forceinline__ void score_product(float* s, uint32_t sQ, uint32_t sK, int wg) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t a = kmajor<WG * kQRows>(sQ, wg * kQRows, kk);
+    const uint64_t b = kmajor<N>(sK, 0, kk);
+    if constexpr (N == 128) wgmma_ss128(s, a, b, kk);
+    else wgmma_ss(s, a, b, kk);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int Tq, int Tk, long q_sb,
-                     long q_st, long q_sh, long k_sb, long k_st, long k_sh,
-                     long v_sb, long v_st, long v_sh, long o_sb, long o_st,
-                     long o_sh) {
-  constexpr int KV = Tile<HD>::kKV;
-  constexpr int LD = Tile<HD>::kLd;
-  constexpr int NS = KV / 8;   // S tiles (16 x 8) per warp per k/v tile
-  constexpr int NO = HD / 8;   // O tiles (16 x 8) per warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kRows * LD;
-  bf16* sV = sK + KV * LD;
+// One k/v tile for one warpgroup: S = Q K^T; the online softmax (columns
+// from `valid` on masked when kMask); O = alpha O + bf16(P) V. m (natural
+// units) and l (this thread's share of the row sum) are the thread's rows
+// g and g + 8.
+template <int HD, int N, int WG, bool kTurns, bool kMask>
+__device__ __forceinline__ void attend_tile(uint32_t sQ, uint32_t sK, uint32_t sV, int wg,
+                                            int valid, int t, float* o, float* m, float* l) {
+  float s[N / 2];
+  if constexpr (kTurns) turn_wait<WG>(wg);
+  wg_fence();
+  score_product<HD, N, WG>(s, sQ, sK, wg);
+  wg_commit();
+  if constexpr (kTurns) turn_pass<WG>(wg);
+  wg_wait();
+  pin<N / 2>(s);
 
-  const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // fragment row (and row + 8)
-  const int t = lane % 4;   // fragment column pair 2t, 2t + 1
-  const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh;
-
-  load_tile<HD>(sQ, q + b * q_sb + h * q_sh + (long)q0 * q_st, q_st, kRows,
-                min(kRows, Tq - q0));
-
-  float acc_o[NO][4];
+  if constexpr (kMask) {
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_o[n][e] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-  float l_run[2] = {0.f, 0.f};
-  const bf16* qw = sQ + warp * 16 * LD;
-
-  for (int kv0 = 0; kv0 < Tk; kv0 += KV) {
-    const int valid = min(KV, Tk - kv0);
-    __syncthreads();  // the previous tile is consumed; Q is ready
-    load_tile<HD>(sK, kb + (long)kv0 * k_st, k_st, KV, valid);
-    load_tile<HD>(sV, vb + (long)kv0 * v_st, v_st, KV, valid);
-    __syncthreads();
-
-    // S = Q K^T: this warp's 16 rows x KV columns
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      uint32_t a[4];
-      a[0] = ld32(qw + g * LD + kk + 2 * t);
-      a[1] = ld32(qw + (g + 8) * LD + kk + 2 * t);
-      a[2] = ld32(qw + g * LD + kk + 8 + 2 * t);
-      a[3] = ld32(qw + (g + 8) * LD + kk + 8 + 2 * t);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        // B[k][j] = K[j][k]: k contiguous along a row of K
-        const bf16* kr = sK + (n * 8 + g) * LD + kk + 2 * t;
-        mma_bf16(s[n], a, ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (n * 8 + 2 * t + (e & 1) >= valid) s[n][e] = -INFINITY;
-        mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);  // finite: valid >= 1
-      alpha[r] = __expf(m_run[r] - m_new);         // 0 on the first tile
-      m_run[r] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = __expf(s[n][e] - m_run[e / 2]);
-        sum[e / 2] += s[n][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l_run[r] = l_run[r] * alpha[r] + sum[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_o[n][e] *= alpha[e / 2];
-
-    // O += P V, P as bf16 A fragments straight from the S accumulators
-#pragma unroll
-    for (int kk = 0; kk < KV / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        // B[k][j] = V[k][j] for two 8-column tiles, transposed on load:
-        // lanes 0-15 address rows kk*16 + 0..15 at column n*8, lanes
-        // 16-31 the same rows at column n*8 + 8
-        const bf16* vr = sV + (kk * 16 + (lane & 15)) * LD + n * 8 + (lane >> 4) * 8;
-        uint32_t b0, b1, b2, b3;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"((uint32_t)__cvta_generic_to_shared(vr)));
-        mma_bf16(acc_o[n], a, b0, b1);
-        mma_bf16(acc_o[n + 1], a, b2, b3);
-      }
-    }
+    for (int i = 0; i < N / 2; ++i)
+      if (acc_col(i, t) >= valid) s[i] = -INFINITY;
   }
-
-  // o = O / l for the rows below Tq, two bf16 per store
-  bf16* ob = o + b * o_sb + h * o_sh;
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float alpha[2], ml[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= Tq) continue;
-    const float inv = 1.f / l_run[r];
-    if (lse != nullptr && t == 0)
-      lse[((long)b * gridDim.y + h) * Tq + row] = m_run[r] + logf(l_run[r]);
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2((m[r] - mx[r]) * kLog2e);  // 0 on the first tile (m = -inf)
+    m[r] = mx[r];                             // finite: every tile has a valid key
+    ml[r] = mx[r] * kLog2e;
+  }
+  uint32_t p[N / 4];
+  float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long)row * o_st + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc_o[n][2 * r] * inv, acc_o[n][2 * r + 1] * inv);
+  for (int i = 0; i < N / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    const float p0 = ex2(fmaf(s[i], kLog2e, -ml[r]));
+    const float p1 = ex2(fmaf(s[i + 1], kLog2e, -ml[r]));
+    sum[r] += p0 + p1;
+    p[i / 2] = pack_bf16(p0, p1);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+  pin<HD / 2>(o);
+  pin<N / 4>(p);
+  if constexpr (kTurns) turn_wait<WG>(wg);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c) wgmma_rs(o + 32 * c, p + 4 * kk, mnmajor<N>(sV, 64 * c, kk));
+  wg_commit();
+  if constexpr (kTurns) turn_pass<WG>(wg);
+  wg_wait();
+  pin<HD / 2>(o);
+  pin<N / 4>(p);
+}
+
+// rows [0, valid) of an (R, HD) tile from global (row stride `stride`
+// elements) into shared memory in the 128-byte swizzle, by all 128
+// threads; rows past valid are 0
+template <int R, int HD>
+__device__ void load_swizzled(unsigned char* dst, const bf16* src, long stride, int valid) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < R * kChunks; idx += 128) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * stride + 8 * c);
+    *reinterpret_cast<uint4*>(dst + (c / 8) * R * 128 + r * 128 + (((c % 8) ^ (r % 8)) * 16)) = v;
+  }
+}
+
+template <int HD>
+struct Smem1 {
+  static constexpr int N = Design<HD>::kN;
+  static constexpr uint32_t kQ = kQRows * HD * 2;
+  static constexpr uint32_t kTile = N * HD * 2;
+  static constexpr size_t kBytes = kQ + 2 * kTile + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(128, 1)
+    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Tq, int Tk, Strides qs, Strides ks,
+                     Strides vs, Strides os) {
+  constexpr int N = Design<HD>::kN;
+  using S = Smem1<HD>;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  unsigned char* gbase = smem + (base - smem_addr(smem));
+  const int q0 = blockIdx.x * kQRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nt = (Tk + N - 1) / N;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const uint32_t sK = base + S::kQ, sV = sK + S::kTile;
+  load_swizzled<kQRows, HD>(gbase, q + offset(qs, b, q0, h), qs.st, min(kQRows, Tq - q0));
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int j = 0; j < nt; ++j) {
+    const int valid = min(N, Tk - j * N);
+    __syncthreads();  // the previous tile is consumed
+    load_swizzled<N, HD>(gbase + S::kQ, k + offset(ks, b, (long)j * N, h), ks.st, valid);
+    load_swizzled<N, HD>(gbase + S::kQ + S::kTile, v + offset(vs, b, (long)j * N, h), vs.st,
+                         valid);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    __syncthreads();
+    if (j < nt - 1)
+      attend_tile<HD, N, 1, false, false>(base, sK, sV, 0, N, t, acc, m, l);
+    else
+      attend_tile<HD, N, 1, false, true>(base, sK, sV, 0, valid, t, acc, m, l);
+  }
+  const int row0 = q0 + warp * 16;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + g + 8 * r;
+    if (row >= Tq) continue;
+    const float inv = 1.f / l[r];
+    if (lse != nullptr && t == 0)
+      lse[((long)b * gridDim.y + h) * Tq + row] = m[r] + logf(l[r]);
+    bf16* out = o + offset(os, b, row, h);
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(out + 64 * c + 8 * i + 2 * t) =
+            __floats2bfloat162_rn(acc[32 * c + 4 * i + 2 * r] * inv,
+                                  acc[32 * c + 4 * i + 2 * r + 1] * inv);
   }
 }
 
@@ -244,22 +229,24 @@ template <int HD>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
                    int B, int Tq, int Tk, int H, const long long* st,
                    cudaStream_t stream) {
-  const size_t bytes = Tile<HD>::kBytes;
+  Strides s[4];
+  for (int i = 0; i < 4; ++i)
+    s[i] = Strides{(long)st[3 * i], (long)st[3 * i + 1], (long)st[3 * i + 2]};
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem1<HD>::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<HD><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, lse, Tq, Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11]);
+  const dim3 grid((Tq + kQRows - 1) / kQRows, H, B);
+  flash_fwd_kernel<HD><<<grid, 128, Smem1<HD>::kBytes, stream>>>(q, k, v, o, lse, Tq, Tk, s[0],
+                                                                 s[1], s[2], s[3]);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // strides: 12 element strides (batch, token, head) of q, k, v, o in turn;
-// the head-dim stride is 1. lse: null, or (B, H, Tq) f32 written with each
-// row's log-sum-exp.
+// the head-dim stride is 1, and every row and stride of q, k, v is 16-byte
+// aligned (TMA). lse: null, or (B, H, Tq) f32 written with each row's
+// log-sum-exp.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                         void* o, void* lse, int B, int Tq, int Tk,
                                         int H, int hd, const long long* strides,

@@ -2,9 +2,9 @@
 
 Each source under ``simseg_tpu_torch/csrc`` has a plain C interface; it is
 compiled with ``nvcc`` for ``sm_90a`` at first use into a shared library
-in ``simseg_tpu_torch/_build/`` (gitignored), named by the source's hash,
-and loaded with ``ctypes``. Nothing is prebuilt, and nothing here runs at
-import time.
+in ``simseg_tpu_torch/_build/`` (gitignored), named by the hash of the
+source and of the ``csrc`` headers it includes, and loaded with ``ctypes``.
+Nothing is prebuilt, and nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -31,13 +32,36 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(name: str, csrc: str = CSRC) -> str:
+    """12 hex digits of the SHA-256 of ``<csrc>/<name>.cu`` followed by each
+    header of ``csrc`` that it includes (quoted ``#include``, transitively,
+    each once, in the order first met), so that an edited header builds a
+    new library. A source that includes none hashes as its bytes alone."""
+    h = hashlib.sha256()
+    pending, seen = [f"{name}.cu"], set()
+    while pending:
+        file = pending.pop(0)
+        path = os.path.join(csrc, file)
+        if file in seen or (seen and not os.path.exists(path)):
+            continue  # met before, or not a header of csrc
+        seen.add(file)
+        with open(path, "rb") as f:
+            data = f.read()
+        if len(seen) > 1:
+            h.update(file.encode() + b"\0")
+        h.update(data)
+        pending += [m.decode() for m in _INCLUDE.findall(data)]
+    return h.hexdigest()[:12]
+
+
 def build_library(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` (once per source version); returns the
-    path of the shared library."""
+    """Compile ``csrc/<name>.cu`` (once per version of it and its headers);
+    returns the path of the shared library."""
     source = os.path.join(CSRC, f"{name}.cu")
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    path = os.path.join(BUILD_DIR, f"lib{name}-{source_digest(name, CSRC)}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -160,13 +160,18 @@ def test_bilateral_wrapper_refuses_cuda_tensor_without_library(monkeypatch):
 
 def test_kernel_libraries_are_named_by_their_source_hash(monkeypatch, tmp_path):
     """Each .so is built once per source version, under its own name, and
-    a build that exists is not redone."""
+    a build that exists is not redone. The name hashes the source and, for
+    the attention kernels, the Hopper header they include."""
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(cuda_build, "_nvcc", _no_plain)
+    header = os.path.join(cuda_build.CSRC, "hopper_sm90.cuh")
     for name in ("crf_mean_field", "flash_attention", "flash_attention_bwd",
                  "bilateral_matvec"):
         src = os.path.join(cuda_build.CSRC, f"{name}.cu")
-        digest = hashlib.sha256(open(src, "rb").read()).hexdigest()[:12]
+        h = hashlib.sha256(open(src, "rb").read())
+        if name.startswith("flash_attention"):
+            h.update(b"hopper_sm90.cuh\0" + open(header, "rb").read())
+        digest = h.hexdigest()[:12]
         built = tmp_path / f"lib{name}-{digest}.so"
         built.write_bytes(b"")
         assert cuda_build.build_library(name) == str(built)
