@@ -39,11 +39,16 @@
 //   - k/v tiles of kN rows (128 at hd <= 128, 64 at hd 192/256, where O's
 //     registers grow) sit in shared memory in the 128-byte swizzle that
 //     wgmma reads without bank conflicts (hopper_sm90.cuh);
-//   - one warpgroup per CTA (64 q rows); its 128 threads load each k/v
-//     tile through registers into the swizzled layout, between two
-//     __syncthreads, so loads and products do not overlap.
-// What is left: TMA loads by a producer warp into a ring of stages, and
-// several consumer warpgroups sharing each k/v tile.
+//   - one producer warp loads q once and the k/v tiles by TMA (4-d tensor
+//     maps over (hd, H, T, B), so a ragged tile's rows past T arrive as
+//     zeros, not as the next image's tokens) into a ring of 2-4 stages that
+//     completes on mbarriers; the consumers free a stage once its PV
+//     product has read it. setmaxnreg moves registers from the producer to
+//     the consumers. Only the last k/v tile masks columns past Tk: the
+//     steady loop has no mask;
+//   - one consumer warpgroup per CTA (64 q rows).
+// What is left: several consumer warpgroups sharing each k/v tile, and
+// FlashAttention-3's intra-warpgroup pipelining.
 //
 // The host function encodes the tensor maps per call, returns the first
 // error as an int (0 = cudaSuccess) and allocates nothing; the launch is on
@@ -61,6 +66,45 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int HD>
 struct Design {
   static constexpr int kN = HD <= 128 ? 128 : 64;
+  static constexpr int kWG = 1;
+  static constexpr bool kTurns = false;
+};
+
+// whether tiles of `bytes` and the mbarriers of `stages` stages fit an
+// H100 block, with 1024 bytes of slack to align the base
+constexpr bool fits(uint32_t bytes, int stages) {
+  return bytes + (2 * stages + 1) * 8 + 1024 <= 232448;
+}
+
+// The CTA (WG consumer warpgroups and one producer warpgroup) and its
+// shared memory: the resident (WG x 64, HD) q tile, then kStages stages of
+// a (N, HD) k tile and a (N, HD) v tile, then the mbarriers; 1024 bytes of
+// slack to align the base. Registers: the kernel is compiled for kLaunch
+// threads of 65536 / kLaunch registers; setmaxnreg then lowers the
+// producer's to kProducerRegs and raises the consumers' to kConsumerRegs.
+template <int HD, int N, int WG>
+struct Smem {
+  static constexpr int kThreads = (WG + 1) * 128;
+  static constexpr int kLaunch = kThreads < 384 ? 384 : kThreads;
+  static constexpr int kProducerRegs = WG >= 3 ? 24 : 40;
+  static constexpr int kConsumerRegs =
+      (65536 - 128 * kProducerRegs) / (128 * WG) / 8 * 8 < 240
+          ? (65536 - 128 * kProducerRegs) / (128 * WG) / 8 * 8 : 240;
+  static constexpr uint32_t kQ = WG * kQRows * HD * 2;
+  static constexpr uint32_t kTile = N * HD * 2;
+  static constexpr uint32_t kStage = 2 * kTile;
+  static constexpr int kStages = fits(kQ + 4 * kStage, 4) ? 4
+                                 : fits(kQ + 3 * kStage, 3) ? 3 : 2;
+  static constexpr uint32_t kBars = kQ + kStages * kStage;
+  static constexpr size_t kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kTile % 1024 == 0, "every tile stays 1024-byte aligned");
+  static_assert(kBytes <= 232448, "fits an H100 block");
+
+  uint32_t base;
+  __device__ uint32_t stage(int j) const { return base + kQ + (j % kStages) * kStage; }
+  __device__ uint32_t full(int j) const { return base + kBars + 8 * (j % kStages); }
+  __device__ uint32_t empty(int j) const { return base + kBars + 8 * (kStages + j % kStages); }
+  __device__ uint32_t resident() const { return base + kBars + 16 * kStages; }
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -144,84 +188,93 @@ __device__ __forceinline__ void attend_tile(uint32_t sQ, uint32_t sK, uint32_t s
   pin<N / 4>(p);
 }
 
-// rows [0, valid) of an (R, HD) tile from global (row stride `stride`
-// elements) into shared memory in the 128-byte swizzle, by all 128
-// threads; rows past valid are 0
-template <int R, int HD>
-__device__ void load_swizzled(unsigned char* dst, const bf16* src, long stride, int valid) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < R * kChunks; idx += 128) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * stride + 8 * c);
-    *reinterpret_cast<uint4*>(dst + (c / 8) * R * 128 + r * 128 + (((c % 8) ^ (r % 8)) * 16)) = v;
-  }
-}
-
 template <int HD>
-struct Smem1 {
-  static constexpr int N = Design<HD>::kN;
-  static constexpr uint32_t kQ = kQRows * HD * 2;
-  static constexpr uint32_t kTile = N * HD * 2;
-  static constexpr size_t kBytes = kQ + 2 * kTile + 1024;
-};
-
-template <int HD>
-__global__ void __launch_bounds__(128, 1)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int Tq, int Tk, Strides qs, Strides ks,
-                     Strides vs, Strides os) {
+__global__ void __launch_bounds__(Smem<HD, Design<HD>::kN, Design<HD>::kWG>::kLaunch, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Tq, int Tk, Strides os) {
   constexpr int N = Design<HD>::kN;
-  using S = Smem1<HD>;
+  constexpr int WG = Design<HD>::kWG;
+  constexpr bool kTurns = Design<HD>::kTurns && WG == 2;
+  constexpr int RR = WG * kQRows;  // resident q rows
+  using S = Smem<HD, N, WG>;
   extern __shared__ unsigned char smem[];
-  const uint32_t base = aligned_base(smem);
-  unsigned char* gbase = smem + (base - smem_addr(smem));
-  const int q0 = blockIdx.x * kQRows;
+  const S L{aligned_base(smem)};
+  const int q0 = blockIdx.x * RR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int nt = (Tk + N - 1) / N;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const uint32_t sK = base + S::kQ, sV = sK + S::kTile;
-  load_swizzled<kQRows, HD>(gbase, q + offset(qs, b, q0, h), qs.st, min(kQRows, Tq - q0));
-  float acc[HD / 2];
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int j = 0; j < nt; ++j) {
-    const int valid = min(N, Tk - j * N);
-    __syncthreads();  // the previous tile is consumed
-    load_swizzled<N, HD>(gbase + S::kQ, k + offset(ks, b, (long)j * N, h), ks.st, valid);
-    load_swizzled<N, HD>(gbase + S::kQ + S::kTile, v + offset(vs, b, (long)j * N, h), vs.st,
-                         valid);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-    __syncthreads();
-    if (j < nt - 1)
-      attend_tile<HD, N, 1, false, false>(base, sK, sV, 0, N, t, acc, m, l);
-    else
-      attend_tile<HD, N, 1, false, true>(base, sK, sV, 0, valid, t, acc, m, l);
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(L.full(s), 1);           // the producer's arrival with the bytes
+      mbar_init(L.empty(s), 4 * WG);     // each consumer warp
+    }
+    mbar_init(L.resident(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int row0 = q0 + warp * 16;
+  __syncthreads();
+
+  if (wg == WG) {  // the producer warpgroup: one thread loads, the rest idle
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(S::kProducerRegs));
+    if (threadIdx.x % 128 == 0) {
+      mbar_expect(L.resident(), S::kQ);
+      tma_tile<RR, HD, RR>(L.base, &mq, h, q0, b, L.resident());
+      for (int j = 0; j < nt; ++j) {
+        mbar_wait(L.empty(j), ((j / S::kStages) & 1) ^ 1);
+        const uint32_t st = L.stage(j);
+        mbar_expect(L.full(j), S::kStage);
+        tma_tile<N, HD, N>(st, &mk, h, j * N, b, L.full(j));
+        tma_tile<N, HD, N>(st + S::kTile, &mv, h, j * N, b, L.full(j));
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::kConsumerRegs));
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;  // accumulator row (and row + 8)
+    const int t = lane % 4;  // accumulator column pair 2t, 2t + 1
+    float acc[HD / 2];       // O: HD / 64 slabs of 32 registers
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = row0 + g + 8 * r;
-    if (row >= Tq) continue;
-    const float inv = 1.f / l[r];
-    if (lse != nullptr && t == 0)
-      lse[((long)b * gridDim.y + h) * Tq + row] = m[r] + logf(l[r]);
-    bf16* out = o + offset(os, b, row, h);
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    if (kTurns && wg == WG - 1) turn_pass<WG>(wg);  // warpgroup 0 goes first
+    mbar_wait(L.resident(), 0);
+
+    int j = 0;
+    for (; j < nt - 1; ++j) {
+      mbar_wait(L.full(j), (j / S::kStages) & 1);
+      const uint32_t sK = L.stage(j);
+      attend_tile<HD, N, WG, kTurns, false>(L.base, sK, sK + S::kTile, wg, N, t, acc, m, l);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(L.empty(j));
+    }
+    mbar_wait(L.full(j), (j / S::kStages) & 1);
+    const uint32_t sK = L.stage(j);
+    attend_tile<HD, N, WG, kTurns, true>(L.base, sK, sK + S::kTile, wg, Tk - j * N, t, acc,
+                                         m, l);
+
+    // o = O / l for the rows below Tq, two bf16 per store
+    const int row0 = q0 + wg * kQRows + warp * 16;
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c)
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = row0 + g + 8 * r;
+      if (row >= Tq) continue;
+      const float inv = 1.f / l[r];
+      if (lse != nullptr && t == 0)
+        lse[((long)b * gridDim.y + h) * Tq + row] = m[r] + logf(l[r]);
+      bf16* out = o + offset(os, b, row, h);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(out + 64 * c + 8 * i + 2 * t) =
-            __floats2bfloat162_rn(acc[32 * c + 4 * i + 2 * r] * inv,
-                                  acc[32 * c + 4 * i + 2 * r + 1] * inv);
+      for (int c = 0; c < HD / 64; ++c)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(out + 64 * c + 8 * i + 2 * t) =
+              __floats2bfloat162_rn(acc[32 * c + 4 * i + 2 * r] * inv,
+                                    acc[32 * c + 4 * i + 2 * r + 1] * inv);
+    }
   }
 }
 
@@ -229,15 +282,24 @@ template <int HD>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
                    int B, int Tq, int Tk, int H, const long long* st,
                    cudaStream_t stream) {
+  constexpr int N = Design<HD>::kN;
+  constexpr int RR = Design<HD>::kWG * kQRows;
+  using S = Smem<HD, N, Design<HD>::kWG>;
   Strides s[4];
   for (int i = 0; i < 4; ++i)
     s[i] = Strides{(long)st[3 * i], (long)st[3 * i + 1], (long)st[3 * i + 2]};
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem1<HD>::kBytes);
+  CUtensorMap mq, mk, mv;
+  cudaError_t err;
+  if ((err = tensor_map(&mq, q, B, Tq, H, HD, s[0], RR)) != cudaSuccess ||
+      (err = tensor_map(&mk, k, B, Tk, H, HD, s[1], N)) != cudaSuccess ||
+      (err = tensor_map(&mv, v, B, Tk, H, HD, s[2], N)) != cudaSuccess)
+    return err;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)S::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + kQRows - 1) / kQRows, H, B);
-  flash_fwd_kernel<HD><<<grid, 128, Smem1<HD>::kBytes, stream>>>(q, k, v, o, lse, Tq, Tk, s[0],
-                                                                 s[1], s[2], s[3]);
+  const dim3 grid((Tq + RR - 1) / RR, H, B);
+  flash_fwd_kernel<HD><<<grid, S::kThreads, S::kBytes, stream>>>(mq, mk, mv, o, lse, Tq, Tk,
+                                                                  s[3]);
   return cudaGetLastError();
 }
 
