@@ -46,7 +46,8 @@
 //     product has read it. setmaxnreg moves registers from the producer to
 //     the consumers. Only the last k/v tile masks columns past Tk: the
 //     steady loop has no mask;
-//   - one consumer warpgroup per CTA (64 q rows).
+//   - two consumer warpgroups per CTA (128 q rows) share each streamed k/v
+//     tile, which halves the k/v traffic per q row.
 // What is left: several consumer warpgroups sharing each k/v tile, and
 // FlashAttention-3's intra-warpgroup pipelining.
 //
@@ -66,7 +67,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int HD>
 struct Design {
   static constexpr int kN = HD <= 128 ? 128 : 64;
-  static constexpr int kWG = 1;
+  static constexpr int kWG = 2;
   static constexpr bool kTurns = false;
 };
 
