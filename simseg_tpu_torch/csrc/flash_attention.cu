@@ -47,7 +47,9 @@
 //     the consumers. Only the last k/v tile masks columns past Tk: the
 //     steady loop has no mask;
 //   - two consumer warpgroups per CTA (128 q rows) share each streamed k/v
-//     tile, which halves the k/v traffic per q row.
+//     tile, which halves the k/v traffic per q row, and take turns at
+//     issuing their products (ping-pong), so one's softmax runs while the
+//     other's products do.
 // What is left: several consumer warpgroups sharing each k/v tile, and
 // FlashAttention-3's intra-warpgroup pipelining.
 //
@@ -68,7 +70,7 @@ template <int HD>
 struct Design {
   static constexpr int kN = HD <= 128 ? 128 : 64;
   static constexpr int kWG = 2;
-  static constexpr bool kTurns = false;
+  static constexpr bool kTurns = true;
 };
 
 // whether tiles of `bytes` and the mbarriers of `stages` stages fit an
