@@ -46,12 +46,16 @@
 //     product has read it. setmaxnreg moves registers from the producer to
 //     the consumers. Only the last k/v tile masks columns past Tk: the
 //     steady loop has no mask;
-//   - two consumer warpgroups per CTA (128 q rows) share each streamed k/v
-//     tile, which halves the k/v traffic per q row, and take turns at
-//     issuing their products (ping-pong), so one's softmax runs while the
-//     other's products do.
-// What is left: several consumer warpgroups sharing each k/v tile, and
-// FlashAttention-3's intra-warpgroup pipelining.
+//   - three consumer warpgroups per CTA at hd 64 (192 q rows; two at wider
+//     heads, whose O needs the registers) share each streamed k/v tile,
+//     which divides the k/v traffic per q row as many times and keeps one
+//     warpgroup's products running while the others compute their softmax.
+//     Two warpgroups taking strict turns at their products (ping-pong, as
+//     the backward's dk/dv pass does) measured no faster than two without,
+//     and slower than three, so they do not.
+// What is left: overlapping a warpgroup's next S product with its own
+// softmax (FlashAttention-3's intra-warpgroup pipelining), and a persistent
+// grid whose epilogue overlaps the next tile's loads.
 //
 // The host function encodes the tensor maps per call, returns the first
 // error as an int (0 = cudaSuccess) and allocates nothing; the launch is on
@@ -64,13 +68,12 @@ namespace {
 constexpr int kQRows = 64;  // q rows per consumer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-// the design at each head dim: k/v rows per tile, consumer warpgroups per
-// CTA, and whether two of them take turns
+// the design at each head dim: k/v rows per tile and consumer warpgroups
+// per CTA (three spill under their 160 registers past hd 64)
 template <int HD>
 struct Design {
   static constexpr int kN = HD <= 128 ? 128 : 64;
-  static constexpr int kWG = 2;
-  static constexpr bool kTurns = true;
+  static constexpr int kWG = HD == 64 ? 3 : 2;
 };
 
 // whether tiles of `bytes` and the mbarriers of `stages` stages fit an
@@ -132,15 +135,13 @@ __device__ __forceinline__ void score_product(float* s, uint32_t sQ, uint32_t sK
 // from `valid` on masked when kMask); O = alpha O + bf16(P) V. m (natural
 // units) and l (this thread's share of the row sum) are the thread's rows
 // g and g + 8.
-template <int HD, int N, int WG, bool kTurns, bool kMask>
+template <int HD, int N, int WG, bool kMask>
 __device__ __forceinline__ void attend_tile(uint32_t sQ, uint32_t sK, uint32_t sV, int wg,
                                             int valid, int t, float* o, float* m, float* l) {
   float s[N / 2];
-  if constexpr (kTurns) turn_wait<WG>(wg);
   wg_fence();
   score_product<HD, N, WG>(s, sQ, sK, wg);
   wg_commit();
-  if constexpr (kTurns) turn_pass<WG>(wg);
   wg_wait();
   pin<N / 2>(s);
 
@@ -178,14 +179,12 @@ __device__ __forceinline__ void attend_tile(uint32_t sQ, uint32_t sK, uint32_t s
 
   pin<HD / 2>(o);
   pin<N / 4>(p);
-  if constexpr (kTurns) turn_wait<WG>(wg);
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int c = 0; c < HD / 64; ++c) wgmma_rs(o + 32 * c, p + 4 * kk, mnmajor<N>(sV, 64 * c, kk));
   wg_commit();
-  if constexpr (kTurns) turn_pass<WG>(wg);
   wg_wait();
   pin<HD / 2>(o);
   pin<N / 4>(p);
@@ -199,7 +198,6 @@ __global__ void __launch_bounds__(Smem<HD, Design<HD>::kN, Design<HD>::kWG>::kLa
                      float* __restrict__ lse, int Tq, int Tk, Strides os) {
   constexpr int N = Design<HD>::kN;
   constexpr int WG = Design<HD>::kWG;
-  constexpr bool kTurns = Design<HD>::kTurns && WG == 2;
   constexpr int RR = WG * kQRows;  // resident q rows
   using S = Smem<HD, N, WG>;
   extern __shared__ unsigned char smem[];
@@ -242,21 +240,19 @@ __global__ void __launch_bounds__(Smem<HD, Design<HD>::kN, Design<HD>::kWG>::kLa
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    if (kTurns && wg == WG - 1) turn_pass<WG>(wg);  // warpgroup 0 goes first
     mbar_wait(L.resident(), 0);
 
     int j = 0;
     for (; j < nt - 1; ++j) {
       mbar_wait(L.full(j), (j / S::kStages) & 1);
       const uint32_t sK = L.stage(j);
-      attend_tile<HD, N, WG, kTurns, false>(L.base, sK, sK + S::kTile, wg, N, t, acc, m, l);
+      attend_tile<HD, N, WG, false>(L.base, sK, sK + S::kTile, wg, N, t, acc, m, l);
       __syncwarp();
       if (lane == 0) mbar_arrive(L.empty(j));
     }
     mbar_wait(L.full(j), (j / S::kStages) & 1);
     const uint32_t sK = L.stage(j);
-    attend_tile<HD, N, WG, kTurns, true>(L.base, sK, sK + S::kTile, wg, Tk - j * N, t, acc,
-                                         m, l);
+    attend_tile<HD, N, WG, true>(L.base, sK, sK + S::kTile, wg, Tk - j * N, t, acc, m, l);
 
     // o = O / l for the rows below Tq, two bf16 per store
     const int row0 = q0 + wg * kQRows + warp * 16;
