@@ -1,6 +1,7 @@
 """Build and run the PyTorch/CUDA port (``simseg_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --attention-trees DIR [DIR ...]   (compare_attention_trees)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
@@ -19,10 +20,12 @@ Phases (any failure raises, so the exit code is non-zero):
    and 325 (the 288-px pass, timed for the record), with the forward bars
    (relative to the plain output, whose entries shrink as T^-1/2): max abs
    error <= 2e-2 x its largest entry, mean <= 7e-3 x its mean abs entry,
-   scale error |1 - <out, plain> / <plain, plain>| <= 3e-5; two planted
-   faults must fail them (the kernel run without the last 64-key tile, and
-   on keys zero-padded to the tile, as an unmasked tail would read them);
-   kernel, plain, ``scaled_dot_product_attention`` and bound times;
+   scale error |1 - <out, plain> / <plain, plain>| <= 3e-5; a second call
+   bit-equal to the first; two planted faults must fail the bars (the
+   kernel run without its last 128-key tile, and on keys zero-padded to the
+   tile, as an unmasked tail would read them); kernel, plain,
+   ``scaled_dot_product_attention`` and bound times, the kernel's ratio to
+   SDPA and share of its bound; at T = 1297 its device time over 5 calls;
 3c. the bilateral kernel against its plain version run in float64 at 16
    images x 5184 cells (576 px, stride 8), C = 1 (the degree) and 5: max
    abs error over the plain result's largest entry <= 1e-5 (the float32
@@ -39,14 +42,16 @@ Phases (any failure raises, so the exit code is non-zero):
    on q, o, g and lse cut to whole 64-row tiles but one, dk and dv against
    the full plain result); backward, forward with and without lse, plain
    backward and ``scaled_dot_product_attention`` backward times, their
-   ratio, and bound; at (32, 1297) the device time of the delta, dq and
+   ratio, and bound, and the forward with lse's ratio to SDPA's forward and
+   share of its bound; at (32, 1297) the device time of the delta, dq and
    dk/dv passes over five calls;
 3e. the long-sequence lanes' forward on (16, T, 12, 64) bf16 at T = 1681,
    2026, 4096 (row-block) and 4097, 5185 (streaming), the lane
    ``attention_lane`` gives each, against that lane's plain version run
    in slices of 2 images (its f32 scores at (16, 5185) would take 20.6 GB):
-   the forward bars and planted faults of 3b; kernel, plain, SDPA and
-   bound times;
+   the forward bars, determinism check and planted faults of 3b; kernel,
+   plain, SDPA and bound times, ratio and share as in 3b; at T = 5185 the
+   kernel's device time over 5 calls;
 3f. their backward at (16, 1601) (the 640-px training crop, row-block),
    (2, 4097) and (2, 5185) (streaming): the forward kernel's output and
    log-sum-exp into the backward kernel, against the lane's plain forward
@@ -120,6 +125,7 @@ limit, and last ``{"ok": true, "device": {...}}``.
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -165,7 +171,7 @@ LONG_SCALES = (1.0, 2.5, 4.0)
 FWD_MAX_REL = 2e-2
 FWD_MEAN_REL = 7e-3
 FWD_SCALE = 3e-5
-FWD_TILE = 64                             # the kernel's k/v tile
+FWD_TILE = 128                            # the kernel's k/v tile at hd 64
 # attention backward bars, per gradient, relative to the plain result's
 # largest and mean absolute entry and on the scale error (see
 # attention_errors): the sound kernel's worst scale error over the shapes
@@ -589,10 +595,11 @@ def within_bwd_bars(rel):
             and rel[2] <= BWD_SCALE)
 
 
-def check_flash_kernel(t, lane="flash"):
+def check_flash_kernel(t, lane="flash", profile=False):
     """Phases 3b / 3e at (16, t, 12, 64): returns the JSON fields (no
     launches). The plain version of a long lane runs in slices of 2
-    images: its f32 scores at (16, 5185) would take 20.6 GB."""
+    images: its f32 scores at (16, 5185) would take 20.6 GB. With
+    ``profile``, the kernel's device time over five calls."""
     import torch.nn.functional as F
 
     kernel, plain = lane_functions(lane)
@@ -605,13 +612,18 @@ def check_flash_kernel(t, lane="flash"):
                 for i in range(0, BATCH, step)]
 
     want = torch.cat(plain_all())
-    max_err, rel = attention_errors(kernel(q, k, v), want)
+    got = kernel(q, k, v)
+    max_err, rel = attention_errors(got, want)
     print(f"{label} T={t}: kernel vs plain max abs err {max_err:.3e}; "
           f"relative max {rel[0]:.3e}, mean {rel[1]:.3e}, scale {rel[2]:.3e} "
           f"(bars {FWD_MAX_REL:g}, {FWD_MEAN_REL:g}, {FWD_SCALE:g})",
           flush=True)
     if not within_fwd_bars(rel):
         raise AssertionError(f"{label} T={t}: relative error {rel}")
+    if not torch.equal(got, kernel(q, k, v)):
+        raise AssertionError(f"{label} T={t}: two calls differ")
+    print(f"{label} T={t}: a second call gives a bit-equal output", flush=True)
+    del got
     # planted faults the bars must reject: a kernel that skips the last k/v
     # tile, and one that leaves the zero-filled keys of a partial tile
     # unmasked (scores 0, values 0)
@@ -629,6 +641,9 @@ def check_flash_kernel(t, lane="flash"):
             raise AssertionError(f"{label} T={t}: the bars pass a kernel "
                                  f"with the fault '{fault}': {f_rel}")
     del want, faults
+    if profile:  # five calls: the profiler may miss a window's first kernel
+        device_profile(lambda: [kernel(q, k, v) for _ in range(5)],
+                       f"{label} B={BATCH} T={t}, over 5 calls", top=3)
     ms = cuda_ms(lambda: kernel(q, k, v), 20)
     plain_ms = cuda_ms(plain_all, 5 if lane == "flash" else 2)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -639,7 +654,8 @@ def check_flash_kernel(t, lane="flash"):
         BATCH, t, 4, 4 * BATCH * t * HEADS * HEAD_DIM * 2)
     print(f"{label} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
           f"{'' if step == BATCH else f' ({BATCH // step} calls of {step} images)'}"
-          f", sdpa {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})",
+          f", sdpa {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
+          f"kernel / sdpa {ms / sdpa_ms:.3f}, share of bound {bound / ms:.3f}",
           flush=True)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=sdpa_ms)
@@ -730,7 +746,9 @@ def check_flash_bwd_kernel(t, b=BATCH, lane="train", profile=False):
           f"sdpa bwd {sdpa_fb - sdpa_f:.4f} ms (fwd+bwd {sdpa_fb:.4f}, fwd "
           f"{sdpa_f:.4f}), kernel / sdpa bwd {ms / (sdpa_fb - sdpa_f):.3f}, "
           f"bound {bound:.4f} ms ({bound_by}); forward kernel "
-          f"with lse {fwd_lse_ms:.4f} ms, without {fwd_ms:.4f} ms", flush=True)
+          f"with lse {fwd_lse_ms:.4f} ms, without {fwd_ms:.4f} ms, with lse / "
+          f"sdpa fwd {fwd_lse_ms / sdpa_f:.3f}, share of the forward's bound "
+          f"{attention_bound_ms(b, t, 4, 0)[0] / fwd_lse_ms:.3f}", flush=True)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=sdpa_fb - sdpa_f)
 
@@ -1400,9 +1418,114 @@ def build_all():
         print(f"build: {name}.cu in {sec:.2f} s", flush=True)
 
 
+FWD_TREE_SHAPES = ((BATCH, LONG_T, False), (BATCH, ROWBLOCK_T, False),
+                   (BATCH, STREAM_T, False), (TRAIN_BATCH, LONG_T, True))
+
+
+def compare_attention_trees(trees) -> None:
+    """``python3 chip_smoke.py --attention-trees DIR ...``: the attention
+    kernels of each tree (a checkout of this repository, e.g. an earlier
+    commit unpacked with ``git archive``), built with nvcc from its own
+    ``simseg_tpu_torch/csrc`` and launched through this tree's wrappers
+    (the C interfaces are the same), on the same inputs. The forward:
+    checked against the plain version at (2, 1297, 12, 64), then timed with
+    CUDA events in turns (the trees in order, then in reverse) at
+    ``FWD_TREE_SHAPES`` (the last with the log-sum-exp), beside SDPA and
+    the bound. The backward at (32, 1297, 12, 64), fed this tree's forward
+    output and log-sum-exp: timed the same way, its dq, dk, dv compared bit
+    for bit with the first tree's."""
+    import ctypes
+    import torch.nn.functional as F
+
+    from simseg_tpu_torch.ops import cuda_build
+    from simseg_tpu_torch.ops import flash_attention as fa
+
+    out_dir = tempfile.mkdtemp(prefix="attention_trees_")
+    getters = {"flash_attention": fa._library, "flash_attention_bwd": fa._bwd_library}
+
+    def build(job):
+        """The tree's library, its functions declared by the wrapper's own
+        loader (``fa._library`` or ``fa._bwd_library``, uncached)."""
+        i, name = job
+        csrc = os.path.join(trees[i], "simseg_tpu_torch", "csrc")
+        path = os.path.join(out_dir, f"lib{name}{i}.so")
+        proc = subprocess.run(
+            [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", csrc,
+             "-o", path, os.path.join(csrc, f"{name}.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {csrc}/{name}.cu:\n{proc.stderr}")
+        return path
+
+    jobs = [(i, name) for name in getters for i in range(len(trees))]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        paths = list(pool.map(build, jobs))
+    libs = {name: [] for name in getters}
+    for (_, name), path in zip(jobs, paths):
+        lib = ctypes.CDLL(path)
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        with unittest.mock.patch.object(cuda_build, "load_library", lambda _: lib):
+            libs[name].append(getters[name].__wrapped__())
+
+    def using(n, fn):
+        """fn() with tree n's libraries behind the wrappers."""
+        with unittest.mock.patch.object(fa, "_library", lambda: libs["flash_attention"][n]), \
+                unittest.mock.patch.object(fa, "_bwd_library",
+                                           lambda: libs["flash_attention_bwd"][n]):
+            return fn()
+
+    def in_turns(fn):
+        times = [[] for _ in trees]
+        for n in list(range(len(trees))) + list(reversed(range(len(trees)))):
+            times[n].append(using(n, lambda: cuda_ms(fn, 20)))
+        return times
+
+    q, k, v = seeded_qkv(LONG_T, 2, LONG_T)
+    want = fa.flash_mha_plain(q, k, v)
+    for n, tree in enumerate(trees):
+        _, rel = attention_errors(using(n, lambda: fa._launch(q, k, v)), want)
+        print(f"tree {tree}: forward (2, {LONG_T}) vs plain: relative max "
+              f"{rel[0]:.3e}, mean {rel[1]:.3e}, scale {rel[2]:.3e}", flush=True)
+        if not within_fwd_bars(rel):
+            raise AssertionError(f"tree {tree}: relative error {rel}")
+    for b, t, with_lse in FWD_TREE_SHAPES:
+        q, k, v = seeded_qkv(t, b, t)
+        times = in_turns(lambda: fa._launch(q, k, v, with_lse=with_lse))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=1.0), 20)
+        bound = attention_bound_ms(b, t, 4, 4 * b * t * HEADS * HEAD_DIM * 2)[0]
+        for tree, ts in zip(trees, times):
+            ms = min(ts)
+            print(f"tree {tree}: forward ({b}, {t})"
+                  f"{' with lse' if with_lse else ''}: {ts[0]:.4f} / {ts[1]:.4f} "
+                  f"ms, sdpa {sdpa_ms:.4f}, kernel / sdpa {ms / sdpa_ms:.3f}, "
+                  f"share of bound {bound / ms:.3f}", flush=True)
+        del q, k, v, qt, kt, vt
+    q, k, v, g = seeded_qkv(LONG_T + TRAIN_BATCH, TRAIN_BATCH, LONG_T, n=4)
+    out, lse = fa._launch(q, k, v, with_lse=True)
+
+    def backward():
+        return fa.flash_mha_train_bwd(q, k, v, out, g, lse)
+
+    first = using(0, backward)
+    times = in_turns(backward)
+    for n, (tree, ts) in enumerate(zip(trees, times)):
+        same = all(torch.equal(x, y) for x, y in zip(using(n, backward), first))
+        print(f"tree {tree}: backward ({TRAIN_BATCH}, {LONG_T}): {ts[0]:.4f} / "
+              f"{ts[1]:.4f} ms; dq, dk, dv bit-equal to the first tree's: {same}",
+              flush=True)
+    shutil.rmtree(out_dir)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke needs one")
+    if sys.argv[1:2] == ["--attention-trees"]:
+        print(f"card: {card_line()}", flush=True)
+        return compare_attention_trees(sys.argv[2:])
     import simseg_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     card = card_line()
@@ -1414,13 +1537,14 @@ def main() -> None:
 
     crf = check_crf_kernel(BATCH)
     check_crf_kernel(BENCH_BATCH)
-    attn = {t: check_flash_kernel(t) for t in ATTN_TS}
+    attn = {t: check_flash_kernel(t, profile=t == LONG_T) for t in ATTN_TS}
     bilateral = check_bilateral_kernel()
     for t in BWD_TS:
         check_flash_bwd_kernel(t)
     # the training slice's shape: the JSON line's numbers
     attn_bwd = check_flash_bwd_kernel(LONG_T, TRAIN_BATCH, profile=True)
-    fwd = {t: check_flash_kernel(t, long_lane(t, False)) for t in LONG_FWD_TS}
+    fwd = {t: check_flash_kernel(t, long_lane(t, False), profile=t == STREAM_T)
+           for t in LONG_FWD_TS}
     bwd = {(b, t): check_flash_bwd_kernel(t, b, long_lane(t, True))
            for b, t in LONG_BWD}
     # the JSON line's numbers: each lane at its slice's shape

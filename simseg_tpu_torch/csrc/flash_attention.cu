@@ -85,17 +85,9 @@ constexpr bool fits(uint32_t bytes, int stages) {
 // The CTA (WG consumer warpgroups and one producer warpgroup) and its
 // shared memory: the resident (WG x 64, HD) q tile, then kStages stages of
 // a (N, HD) k tile and a (N, HD) v tile, then the mbarriers; 1024 bytes of
-// slack to align the base. Registers: the kernel is compiled for kLaunch
-// threads of 65536 / kLaunch registers; setmaxnreg then lowers the
-// producer's to kProducerRegs and raises the consumers' to kConsumerRegs.
+// slack to align the base.
 template <int HD, int N, int WG>
-struct Smem {
-  static constexpr int kThreads = (WG + 1) * 128;
-  static constexpr int kLaunch = kThreads < 384 ? 384 : kThreads;
-  static constexpr int kProducerRegs = WG >= 3 ? 24 : 40;
-  static constexpr int kConsumerRegs =
-      (65536 - 128 * kProducerRegs) / (128 * WG) / 8 * 8 < 240
-          ? (65536 - 128 * kProducerRegs) / (128 * WG) / 8 * 8 : 240;
+struct Smem : WarpRoles<WG> {
   static constexpr uint32_t kQ = WG * kQRows * HD * 2;
   static constexpr uint32_t kTile = N * HD * 2;
   static constexpr uint32_t kStage = 2 * kTile;
@@ -107,6 +99,7 @@ struct Smem {
   static_assert(kBytes <= 232448, "fits an H100 block");
 
   uint32_t base;
+  __device__ explicit Smem(uint32_t b) : base(b) {}
   __device__ uint32_t stage(int j) const { return base + kQ + (j % kStages) * kStage; }
   __device__ uint32_t full(int j) const { return base + kBars + 8 * (j % kStages); }
   __device__ uint32_t empty(int j) const { return base + kBars + 8 * (kStages + j % kStages); }
@@ -207,14 +200,7 @@ __global__ void __launch_bounds__(Smem<HD, Design<HD>::kN, Design<HD>::kWG>::kLa
   const int b = blockIdx.z;
   const int nt = (Tk + N - 1) / N;
   const int wg = threadIdx.x / 128;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S::kStages; ++s) {
-      mbar_init(L.full(s), 1);           // the producer's arrival with the bytes
-      mbar_init(L.empty(s), 4 * WG);     // each consumer warp
-    }
-    mbar_init(L.resident(), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) init_barriers(L, false);
   __syncthreads();
 
   if (wg == WG) {  // the producer warpgroup: one thread loads, the rest idle

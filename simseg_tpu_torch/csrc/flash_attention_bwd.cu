@@ -69,12 +69,13 @@
 // What is left: a single recompute of S (dq summed across CTAs in a fixed
 // order, so that the result stays deterministic).
 //
-// The Hopper helpers (mbarriers, TMA, wgmma, turns, the tensor-map encoder)
-// are shared with the forward kernel in hopper_sm90.cuh. The host function
-// encodes the tensor maps per call (libcuda's cuTensorMapEncodeTiled, looked
-// up through the runtime, so the build links no libcuda), returns the first error as an int (0 = cudaSuccess) and
-// allocates nothing: delta's (B, H, Tq) f32 scratch comes from the caller. All
-// launches are on the caller's stream.
+// The Hopper helpers (warp roles, mbarriers, TMA, wgmma, the tensor-map
+// encoder) are shared with the forward kernel in hopper_sm90.cuh. The host
+// function encodes the tensor maps per call (libcuda's
+// cuTensorMapEncodeTiled, looked up through the runtime, so the build links
+// no libcuda), returns the first error as an int (0 = cudaSuccess) and
+// allocates nothing: delta's (B, H, Tq) f32 scratch comes from the caller.
+// All launches are on the caller's stream.
 
 #include "hopper_sm90.cuh"
 
@@ -99,18 +100,8 @@ struct Warpgroups {
 // their 64 lse and 64 delta values in a 1024-byte pad that keeps every tile
 // 1024-byte aligned, then the mbarriers; 1024 bytes of slack to align the
 // base. Tiles are laid out in the 128-byte swizzle (hopper_sm90.cuh).
-// Registers: the kernel is compiled for kLaunch
-// threads of 65536 / kLaunch registers; setmaxnreg then lowers the
-// producer's to kProducerRegs and raises the consumers' to kConsumerRegs.
 template <int HD, int WG>
-struct Smem {
-  static constexpr int kWG = WG;
-  static constexpr int kThreads = (WG + 1) * 128;
-  static constexpr int kLaunch = kThreads < 384 ? 384 : kThreads;
-  static constexpr int kProducerRegs = WG >= 3 ? 24 : 40;
-  static constexpr int kConsumerRegs =
-      (65536 - 128 * kProducerRegs) / (128 * WG) / 8 * 8 < 240
-          ? (65536 - 128 * kProducerRegs) / (128 * WG) / 8 * 8 : 240;
+struct Smem : WarpRoles<WG> {
   static constexpr uint32_t kResident = WG * kRows * HD * 2;
   static constexpr uint32_t kTile = kRows * HD * 2;
   static constexpr uint32_t kStage = 2 * kTile + 1024;
@@ -122,25 +113,12 @@ struct Smem {
   static_assert(kBytes <= 232448, "fits an H100 block");
 
   uint32_t base;
+  __device__ explicit Smem(uint32_t b) : base(b) {}
   __device__ uint32_t stage(int j) const { return base + kRing + (j % kStages) * kStage; }
   __device__ uint32_t full(int j) const { return base + kBars + 8 * (j % kStages); }
   __device__ uint32_t empty(int j) const { return base + kBars + 8 * (kStages + j % kStages); }
   __device__ uint32_t resident() const { return base + kBars + 16 * kStages; }
 };
-
-// the mbarriers of a pass: one per stage filled (the producer's arrival
-// with the TMA bytes, and with `stats` its 32 lanes' after their lse and
-// delta stores), one per stage emptied (each consumer warp), one for the
-// resident tiles
-template <class S>
-__device__ void init_barriers(const S& L, bool stats) {
-  for (int s = 0; s < S::kStages; ++s) {
-    mbar_init(L.full(s), stats ? 33 : 1);
-    mbar_init(L.empty(s), 4 * S::kWG);
-  }
-  mbar_init(L.resident(), 1);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
 
 // The producer: the two resident tiles (rows [res0, res0 + kWG x 64)) once,
 // then streamed tiles j = 0 .. n - 1 (rows [64 j, 64 j + 64) of T rows) into
@@ -177,6 +155,29 @@ __device__ void produce(const S& L, unsigned char* gbase, const CUtensorMap* r0,
       }
       mbar_arrive(L.full(j));
     }
+  }
+}
+
+// The consumer warpgroups of a CTA wait on the same stages, so left alone
+// they issue their products at the same moments and compute p and ds while
+// the tensor cores idle. Two warpgroups take turns instead (ping-pong): a
+// warpgroup waits for its turn (named barrier 1 + wg, at which the other
+// arrives), issues one batch of products and passes the turn on, so one
+// warpgroup's products run while the other computes. (Three warpgroups in
+// strict rotation measured slower than none: they run without turns.)
+template <int WG>
+__device__ __forceinline__ void turn_wait(int wg) {
+  if constexpr (WG == 2) {
+    if (wg == 0) asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    else asm volatile("bar.sync 2, 256;\n" ::: "memory");
+  }
+}
+
+template <int WG>
+__device__ __forceinline__ void turn_pass(int wg) {
+  if constexpr (WG == 2) {
+    if (wg == 0) asm volatile("bar.arrive 2, 256;\n" ::: "memory");
+    else asm volatile("bar.arrive 1, 256;\n" ::: "memory");
   }
 }
 

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA tile copies
-// through 4-d tensor maps, wgmma descriptors and products, the two-warpgroup
-// turns, and the host-side tensor-map encoder. Every tile these helpers
+// (flash_attention.cu, flash_attention_bwd.cu): the warp roles' registers,
+// mbarriers, TMA tile copies through 4-d tensor maps, wgmma descriptors and
+// products, and the host-side tensor-map encoder. Every tile these helpers
 // address sits in shared memory in the 128-byte swizzle: an (R, HD) bf16
 // tile is HD / 64 slabs of R rows x 128 bytes; slab s holds columns
 // [64 s, 64 s + 64), and within it row r's 16-byte chunk c sits at chunk
@@ -36,6 +36,21 @@ __device__ __forceinline__ uint32_t aligned_base(const unsigned char* smem) {
   return (smem_addr(smem) + 1023u) & ~1023u;
 }
 
+// A CTA of WG consumer warpgroups and one producer warpgroup. Registers:
+// the kernel is compiled for kLaunch threads of 65536 / kLaunch registers;
+// setmaxnreg then lowers the producer's to kProducerRegs and raises the
+// consumers' to kConsumerRegs.
+template <int WG>
+struct WarpRoles {
+  static constexpr int kWG = WG;
+  static constexpr int kThreads = (WG + 1) * 128;
+  static constexpr int kLaunch = kThreads < 384 ? 384 : kThreads;
+  static constexpr int kProducerRegs = WG >= 3 ? 24 : 40;
+  static constexpr int kConsumerRegs =
+      (65536 - 128 * kProducerRegs) / (128 * WG) / 8 * 8 < 240
+          ? (65536 - 128 * kProducerRegs) / (128 * WG) / 8 * 8 : 240;
+};
+
 // ---------------------------------------------------------------- mbarriers
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
@@ -64,6 +79,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// the mbarriers of a CTA's ring (S: its shared-memory layout): one per
+// stage filled (the producer's arrival with the TMA bytes, and with `stats`
+// its 32 lanes' after their own stores), one per stage emptied (each
+// consumer warp), one for the resident tiles
+template <class S>
+__device__ void init_barriers(const S& L, bool stats) {
+  for (int s = 0; s < S::kStages; ++s) {
+    mbar_init(L.full(s), stats ? 33 : 1);
+    mbar_init(L.empty(s), 4 * S::kWG);
+  }
+  mbar_init(L.resident(), 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // --------------------------------------------------------------------- TMA
@@ -207,29 +236,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // holds the same rows and columns in bf16 pairs: a[j] = (acc[2 j],
 // acc[2 j + 1]). acc_col is the column of register i.
 __device__ __forceinline__ int acc_col(int i, int t) { return 8 * (i / 4) + 2 * t + (i & 1); }
-
-// Consumer warpgroups of a CTA that wait on the same stages issue their
-// products at the same moments when left alone, and then all compute while
-// the tensor cores idle. Two warpgroups take turns instead (ping-pong): a
-// warpgroup waits for its turn (named barrier 1 + wg, at which the other
-// arrives), issues one batch of products and passes the turn on, so one
-// warpgroup's products run while the other computes. Other counts run
-// without turns.
-template <int WG>
-__device__ __forceinline__ void turn_wait(int wg) {
-  if constexpr (WG == 2) {
-    if (wg == 0) asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    else asm volatile("bar.sync 2, 256;\n" ::: "memory");
-  }
-}
-
-template <int WG>
-__device__ __forceinline__ void turn_pass(int wg) {
-  if constexpr (WG == 2) {
-    if (wg == 0) asm volatile("bar.arrive 2, 256;\n" ::: "memory");
-    else asm volatile("bar.arrive 1, 256;\n" ::: "memory");
-  }
-}
 
 // ------------------------------------------------------------------- host
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -127,10 +127,21 @@ def _qkv(seed, b, t, h, hd, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,tq,tk,h,hd", [
     (1, 64, 64, 1, 64), (2, 200, 200, 2, 128), (1, 1297, 1297, 3, 64),
-    (1, 100, 333, 2, 192), (1, 65, 130, 1, 256)])
+    (1, 100, 333, 2, 192), (1, 65, 130, 1, 256),
+    # the edges of the 128-key tile and of the 128-row CTA at hd 64
+    (1, 1, 1, 2, 64), (1, 17, 17, 2, 64), (1, 127, 127, 2, 64),
+    (1, 128, 128, 2, 64), (2, 129, 129, 2, 64), (1, 191, 191, 2, 64),
+    (1, 193, 193, 2, 64),
+    # Tq != Tk across a tile edge
+    (1, 300, 129, 2, 64), (1, 129, 257, 2, 64),
+    # wide heads: 64-key tiles at hd 192 and 256
+    (1, 129, 129, 2, 128), (1, 129, 65, 2, 192), (1, 257, 257, 2, 256)])
 def test_flash_kernel_matches_plain(cuda_device, b, tq, tk, h, hd):
     """Max abs error <= 2e-2 and mean <= 2e-3 (the kernel divides by the
-    softmax sum after its bf16 cast of p, the plain version before)."""
+    softmax sum after its bf16 cast of p, the plain version before); the
+    training form's log-sum-exp within 1e-5 x its largest entry (+ 1e-5) of
+    torch.logsumexp over the f32 scores, with the same output; a second call
+    bit-equal to the first (no atomics)."""
     assert not torch.backends.cuda.matmul.allow_tf32
     q, _, _ = _qkv(tq, b, tq, h, hd, cuda_device)
     _, k, v = _qkv(tk + 1, b, tk, h, hd, cuda_device)
@@ -141,15 +152,24 @@ def test_flash_kernel_matches_plain(cuda_device, b, tq, tk, h, hd):
     err = (got.float() - want.float()).abs()
     assert got.dtype == torch.bfloat16 and got.shape == (b, tq, h, hd)
     assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+    out, lse = flash_attention._launch(q, k, v, with_lse=True)
+    want_lse = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                                            k.float()), dim=-1)
+    assert lse.shape == (b, h, tq) and torch.equal(out, got)
+    assert (lse - want_lse).abs().max().item() <= 1e-5 * want_lse.abs().max().item() + 1e-5
+    assert torch.equal(flash_attention.flash_mha(q, k, v), got)
 
 
 @pytest.mark.cuda
 def test_flash_kernel_reads_strided_views(cuda_device):
-    """k and v as views into a fused qkv tensor, as the ViT makes them."""
+    """q, k and v as views into a fused qkv tensor, as the ViT makes them,
+    read in place (q pre-scaled in place)."""
     qkv = torch.randn(2, 300, 3 * 128, device=cuda_device).to(torch.bfloat16)
+    qkv[..., :128] *= 0.125
     q, k, v = (x.reshape(2, 300, 2, 64) for x in qkv.chunk(3, dim=-1))
-    got = flash_attention.flash_mha(q.contiguous() * 0.125, k, v)
-    want = flash_attention.flash_mha_plain(q.contiguous() * 0.125, k, v)
+    assert all(flash_attention._kernel_operand(x) is x for x in (q, k, v))
+    got = flash_attention.flash_mha(q, k, v)
+    want = flash_attention.flash_mha_plain(q, k, v)
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
 
 
