@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --attention-trees DIR [DIR ...]   (compare_attention_trees)
+    python3 chip_smoke.py --crf-trees DIR [DIR ...]         (compare_crf_trees)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
@@ -252,9 +253,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn, label: str, top: int = 8) -> float:
-    """Prints the device time of one call of fn, by kernel (torch.profiler);
-    returns the total in ms."""
+def device_rows(fn):
+    """(device ms, kernel launches, [(us, count, name)] by kernel, largest
+    first) of one call of fn, after a warm-up call (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -265,13 +266,27 @@ def device_profile(fn, label: str, top: int = 8) -> float:
     rows = sorted(((e.device_time_total, e.count, e.key)
                    for e in prof.key_averages() if e.device_time_total > 0),
                   reverse=True)
-    total = sum(r[0] for r in rows)
-    print(f"profile {label}: {total / 1e3:.4f} ms device time in "
-          f"{sum(r[1] for r in rows)} kernel launches", flush=True)
+    return sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows), rows
+
+
+def device_profile(fn, label: str, top: int = 8) -> float:
+    """Prints the device time of one call of fn, by kernel (torch.profiler);
+    returns the total in ms."""
+    total, launches, rows = device_rows(fn)
+    print(f"profile {label}: {total:.4f} ms device time in {launches} kernel "
+          "launches", flush=True)
     for us, count, key in rows[:top]:
-        print(f"  {us / 1e3:9.4f} ms {100 * us / total:5.1f}% x{count:<3d} "
+        print(f"  {us / 1e3:9.4f} ms {100 * us / 1e3 / total:5.1f}% x{count:<3d} "
               f"{key[:90]}", flush=True)
-    return total / 1e3
+    return total
+
+
+def crf_share(fn, label):
+    """Prints the CRF kernel's device ms and share of one call of fn."""
+    total, _, rows = device_rows(fn)
+    crf = sum(us for us, _, key in rows if "crf_kernel" in key) / 1e3
+    print(f"{label}: crf kernel {crf:.4f} ms of {total:.4f} ms device time "
+          f"per batch ({100 * crf / total:.1f}%)", flush=True)
 
 
 def crf_bound_ms(b, k, h, w, s, radius, iters, nbytes):
@@ -328,25 +343,63 @@ def coarse_form_unary(rng, b, k, grid):
     return torch.tensor(du, dtype=torch.float32).cuda()
 
 
+def crf_inputs(b):
+    """Phase 3's inputs at batch b: decode-form unaries and scenes."""
+    rng = np.random.default_rng(b)
+    du = decode_form_unary(rng, b, CLASSES_PER_IMAGE, SIZE // PATCH, PATCH)
+    rgb = torch.from_numpy(synthetic_scenes(rng, b, SIZE, 21)[0]).cuda()
+    return du, rgb
+
+
+def crf_faults(mean_field, du, rgb):
+    """Planted faults, as the masks a faulty kernel would give: the last
+    iteration dropped; the image cut into two bands of 144 rows that each
+    run alone (the Gaussian's halo rows and the other band's cells never
+    exchanged); the bilateral message dropped."""
+    kw = dict(stride=STRIDE, closing_ksize=CLOSING)
+    half = SIZE // 2
+    return {
+        "last iteration dropped": mean_field(du, rgb, num_iters=ITERS - 1, **kw),
+        "bands unexchanged": torch.cat(
+            [mean_field(du[:, :, rows].contiguous(), rgb[:, rows].contiguous(),
+                        num_iters=ITERS, **kw)
+             for rows in (slice(0, half), slice(half, SIZE))], dim=2),
+        "bilateral dropped": mean_field(du, rgb, num_iters=ITERS,
+                                        bilateral_compat=0.0, **kw)}
+
+
+def check_faults(label, faults, want, bar):
+    """Each planted fault's agreement with want must fall below bar."""
+    for name, got in faults.items():
+        agree = (got == want).float().mean().item()
+        print(f"{label}: planted fault '{name}': agreement {agree:.6f}",
+              flush=True)
+        if agree >= bar:
+            raise AssertionError(f"{label}: the bars pass the planted fault "
+                                 f"'{name}' ({agree:.6f} >= {bar})")
+
+
 def check_crf_kernel(b):
     """Phase 3 at batch b: returns the kernel's JSON fields (no launches)."""
     from simseg_tpu_torch.ops import crf_fused
     from simseg_tpu_torch.ops.morphology import closing
 
-    rng = np.random.default_rng(b)
-    du = decode_form_unary(rng, b, CLASSES_PER_IMAGE, SIZE // PATCH, PATCH)
-    rgb = torch.from_numpy(synthetic_scenes(rng, b, SIZE, 21)[0]).cuda()
+    du, rgb = crf_inputs(b)
     kw = dict(stride=STRIDE, num_iters=ITERS)
 
     masks = crf_fused.mean_field_fused(du, rgb, closing_ksize=CLOSING, **kw)
+    again = crf_fused.mean_field_fused(du, rgb, closing_ksize=CLOSING, **kw)
     plain = crf_fused.mean_field_fused_plain(du, rgb, closing_ksize=CLOSING, **kw)
     torch.cuda.synchronize()
     agree = (masks == plain).float().mean().item()
     max_err = (masks - plain).abs().max().item()
     print(f"crf b={b}: kernel vs plain mask agreement {agree:.6f}, "
-          f"max abs err {max_err}", flush=True)
+          f"max abs err {max_err}; two calls bit-equal "
+          f"{torch.equal(masks, again)}", flush=True)
     if agree < 0.999:
         raise AssertionError(f"kernel agrees with plain on {agree:.6f} < 0.999")
+    if not torch.equal(masks, again):
+        raise AssertionError("two kernel calls gave different masks")
     raw = crf_fused.mean_field_fused(du, rgb, closing_ksize=0, **kw)
     if not torch.equal(closing(raw, CLOSING), masks):
         raise AssertionError("closing inside the kernel != closing of its masks")
@@ -354,10 +407,14 @@ def check_crf_kernel(b):
                                       num_iters=0)
     if not torch.equal(zero, (du > 0).float()):
         raise AssertionError("zero iterations != unary threshold")
+    check_faults(f"crf b={b}", crf_faults(crf_fused.mean_field_fused, du, rgb),
+                 plain, 0.999)
+
+    def kernel():
+        return crf_fused.mean_field_fused(du, rgb, closing_ksize=CLOSING, **kw)
 
     reps = 20
-    ms = cuda_ms(lambda: crf_fused.mean_field_fused(
-        du, rgb, closing_ksize=CLOSING, **kw), reps)
+    ms = cuda_ms(kernel, reps)
     plain_ms = cuda_ms(lambda: crf_fused.mean_field_fused_plain(
         du, rgb, closing_ksize=CLOSING, **kw), reps // 4)
     # the plain version is a chain of small launches: its event time follows
@@ -368,13 +425,15 @@ def check_crf_kernel(b):
     nbytes = 2 * du.numel() * 4 + rgb.numel() * rgb.element_size()
     bound, bound_by = crf_bound_ms(b, CLASSES_PER_IMAGE, SIZE, SIZE, STRIDE,
                                    radius, ITERS, nbytes)
-    print(f"crf b={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (device "
-          f"{plain_device:.4f} ms), bound {bound:.4f} ms ({bound_by})",
-          flush=True)
-    device_profile(lambda: crf_fused.mean_field_fused(
-        du, rgb, closing_ksize=CLOSING, **kw), f"crf kernel b={b}")
-    return dict(max_abs_err=max_err, agreement=agree, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by)
+    device, kernels, _ = device_rows(kernel)
+    device_profile(kernel, f"crf kernel b={b}")
+    print(f"crf b={b}: kernel {ms:.4f} ms (device {device:.4f} ms, {kernels} "
+          f"CUDA kernels per call), plain {plain_ms:.4f} ms (device "
+          f"{plain_device:.4f} ms), bound {bound:.4f} ms ({bound_by}), share "
+          f"of bound {bound / ms:.3f}", flush=True)
+    return dict(max_abs_err=max_err, agreement=agree, ms=ms, device_ms=device,
+                kernels_per_call=kernels, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by)
 
 
 def seeded_clip(seed: int, img_size: int = SIZE):
@@ -525,6 +584,7 @@ def run_slice(model, tokenizer, classes):
     step_ms = cuda_ms(lambda: predict(images_u8, text_bank), 5)
     device_profile(lambda: predict(images_u8, text_bank),
                    f"towers + decode, batch {BATCH}", top=12)
+    crf_share(lambda: predict(images_u8, text_bank), "slice")
     print(f"slice: towers + decode {step_ms:.3f} ms per batch of {BATCH} "
           f"= {BATCH / (step_ms / 1e3):.1f} images/s", flush=True)
     return launches
@@ -884,6 +944,7 @@ def check_decode(label, loader, model, text_bank, classes, size,
     step_ms = cuda_ms(lambda: predict(images_u8, text_bank), 3)
     device = device_profile(lambda: predict(images_u8, text_bank),
                             f"{label} towers + decode, batch {BATCH}", top=12)
+    crf_share(lambda: predict(images_u8, text_bank), label)
     print(f"{label}: towers + decode {step_ms:.3f} ms per batch of {BATCH} "
           f"= {BATCH / (step_ms / 1e3):.1f} images/s; device {device:.3f} ms, "
           f"idle share {1 - device / step_ms:.3f}", flush=True)
@@ -1295,12 +1356,9 @@ def run_train_crop(tmp, tok, seed, size, b, want, input_size=None,
     return counts
 
 
-def check_tail_kernel():
-    """Phase 3g: returns the tail kernel's JSON fields (no launches)."""
-    from simseg_tpu_torch.ops import crf_fused
-    from simseg_tpu_torch.ops.morphology import nearest_upsample
-    from simseg_tpu_torch.ops.seg_decode import decode_tail
-
+def tail_inputs():
+    """Phase 3g's inputs: patch-grid unaries, scenes, scores with an invalid
+    candidate, a negative score and a tie, and class ids."""
     b, k = BATCH, CLASSES_PER_IMAGE
     rng = np.random.default_rng(11)
     du_c = coarse_form_unary(rng, b, k, SIZE // PATCH)
@@ -1310,8 +1368,18 @@ def check_tail_kernel():
     scores[:, 3] = -0.05                 # a negative score
     scores[:, 2] = scores[:, 1]          # a tie
     idx = np.stack([rng.permutation(np.arange(1, 21))[:k] for _ in range(b)])
-    scores = torch.from_numpy(scores).cuda()
-    idx = torch.from_numpy(idx.astype(np.int32)).cuda()
+    return (du_c, rgb, torch.from_numpy(scores).cuda(),
+            torch.from_numpy(idx.astype(np.int32)).cuda())
+
+
+def check_tail_kernel():
+    """Phase 3g: returns the tail kernel's JSON fields (no launches)."""
+    from simseg_tpu_torch.ops import crf_fused
+    from simseg_tpu_torch.ops.morphology import nearest_upsample
+    from simseg_tpu_torch.ops.seg_decode import decode_tail
+
+    b, k = BATCH, CLASSES_PER_IMAGE
+    du_c, rgb, scores, idx = tail_inputs()
     kw = dict(stride=STRIDE, num_iters=ITERS, closing_ksize=CLOSING)
     ones = torch.ones_like(scores, dtype=torch.bool)
 
@@ -1327,22 +1395,26 @@ def check_tail_kernel():
         return crf_fused.seg_decode_tail_fused_plain(du_c, rgb, scores, idx,
                                                      PATCH, **kw)
 
-    (pred, bw), (lp, lw), (pp, pw) = tail(), lane(), plain()
+    (pred, bw), (p2, w2), (lp, lw), (pp, pw) = tail(), tail(), lane(), plain()
     torch.cuda.synchronize()
     n = pred.numel()
     differ = {"pred": (int((pred != lp).sum()), int((pred != pp).sum())),
               "best_w": (int((bw != lw).sum()), int((bw != pw).sum()))}
     agree_lane = 1 - max(d[0] for d in differ.values()) / n
     agree_plain = 1 - max(d[1] for d in differ.values()) / n
+    same = torch.equal(pred, p2) and torch.equal(bw, w2)
     max_err = (bw - pw).abs().max().item()
     print(f"decode tail: of {n} entries, differing from the mean-field "
           f"kernel + decode_tail / from plain: "
           + ", ".join(f"{k} {a} / {p}" for k, (a, p) in differ.items())
-          + f"; best_w max abs err vs plain {max_err}", flush=True)
+          + f"; best_w max abs err vs plain {max_err}; two calls bit-equal "
+          f"{same}", flush=True)
     if agree_lane < 0.9999 or agree_plain < 0.999:
         raise AssertionError(f"decode tail: pred and best_w agreement "
                              f"{agree_lane} (kernel lane) / {agree_plain} "
                              f"(plain): {differ}")
+    if not same:
+        raise AssertionError("decode tail: two calls differ")
     ms = cuda_ms(tail, 20)
     lane_ms = cuda_ms(lane, 20)
     plain_ms = cuda_ms(plain, 5)
@@ -1351,12 +1423,16 @@ def check_tail_kernel():
     nbytes = (du_c.numel() * 4 + rgb.numel() * rgb.element_size()
               + pred.numel() * 8 + 8 * b * k)
     bound, bound_by = crf_bound_ms(b, k, SIZE, SIZE, STRIDE, radius, ITERS, nbytes)
-    print(f"decode tail: kernel {ms:.4f} ms, crf_mean_field + decode_tail "
-          f"{lane_ms:.4f} ms, plain {plain_ms:.4f} ms (device "
-          f"{plain_device:.4f} ms), bound {bound:.4f} ms ({bound_by})", flush=True)
+    device, kernels, _ = device_rows(tail)
     device_profile(tail, "decode tail kernel")
+    print(f"decode tail: kernel {ms:.4f} ms (device {device:.4f} ms, {kernels} "
+          f"CUDA kernels per call), crf_mean_field + decode_tail {lane_ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms (device {plain_device:.4f} ms), bound "
+          f"{bound:.4f} ms ({bound_by}), share of bound {bound / ms:.3f}",
+          flush=True)
     return dict(max_abs_err=max_err, agreement_kernel_lane=agree_lane,
-                agreement_plain=agree_plain, ms=ms, default_lane_ms=lane_ms,
+                agreement_plain=agree_plain, ms=ms, device_ms=device,
+                kernels_per_call=kernels, default_lane_ms=lane_ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 library_ms=None)
 
@@ -1520,12 +1596,94 @@ def compare_attention_trees(trees) -> None:
     shutil.rmtree(out_dir)
 
 
+def compare_crf_trees(trees) -> None:
+    """``python3 chip_smoke.py --crf-trees DIR ...``: the CRF kernel of each
+    tree (a checkout of this repository, e.g. an earlier commit unpacked
+    with ``git archive``), built with nvcc from its own
+    ``simseg_tpu_torch/csrc/crf_mean_field.cu`` and launched through that
+    tree's own ``ops/crf_fused.py`` (the C interface may differ between
+    trees), on phase 3's and 3g's inputs at (16, 5, 288 x 288, stride 8):
+    both entry points checked against the first tree's plain versions
+    (>= 99.9% of masks, of pred and of best_w), then timed with CUDA events
+    in turns (the trees in order, then in reverse), with each tree's
+    device time and CUDA kernels per call."""
+    import ctypes
+    import importlib.util
+
+    from simseg_tpu_torch.ops import cuda_build
+
+    out_dir = tempfile.mkdtemp(prefix="crf_trees_")
+
+    def build(i):
+        csrc = os.path.join(trees[i], "simseg_tpu_torch", "csrc")
+        path = os.path.join(out_dir, f"libcrf{i}.so")
+        proc = subprocess.run(
+            [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", csrc,
+             "-o", path, os.path.join(csrc, "crf_mean_field.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {csrc}/crf_mean_field.cu:\n"
+                               f"{proc.stderr}")
+        return path
+
+    with ThreadPoolExecutor(len(trees)) as pool:
+        paths = list(pool.map(build, range(len(trees))))
+    mods = []
+    for i, path in enumerate(paths):
+        spec = importlib.util.spec_from_file_location(
+            f"crf_fused_tree{i}",
+            os.path.join(trees[i], "simseg_tpu_torch", "ops", "crf_fused.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        lib = ctypes.CDLL(path)
+        err = lib.crf_mean_field_error_string
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        with unittest.mock.patch.object(cuda_build, "load_library", lambda _: lib):
+            lib = mod._library.__wrapped__()
+        mod._library = lambda lib=lib: lib
+        mods.append(mod)
+
+    du, rgb = crf_inputs(BATCH)
+    du_c, rgb_t, scores, idx = tail_inputs()
+    kw = dict(stride=STRIDE, num_iters=ITERS, closing_ksize=CLOSING)
+    calls = {"mean field": lambda mod: mod.mean_field_fused(du, rgb, **kw),
+             "decode tail": lambda mod: mod.seg_decode_tail_fused(
+                 du_c, rgb_t, scores, idx, PATCH, **kw)}
+    want = {"mean field": (mods[0].mean_field_fused_plain(du, rgb, **kw),),
+            "decode tail": mods[0].seg_decode_tail_fused_plain(
+                du_c, rgb_t, scores, idx, PATCH, **kw)}
+    for name, call in calls.items():
+        for tree, mod in zip(trees, mods):
+            got = call(mod)
+            got = got if isinstance(got, tuple) else (got,)
+            agree = min((g == w).float().mean().item()
+                        for g, w in zip(got, want[name]))
+            print(f"tree {tree}: {name} vs plain agreement {agree:.6f}",
+                  flush=True)
+            if agree < 0.999:
+                raise AssertionError(f"tree {tree}: {name} agreement {agree}")
+        times = [[] for _ in trees]
+        for n in list(range(len(trees))) + list(reversed(range(len(trees)))):
+            times[n].append(cuda_ms(lambda: call(mods[n]), 20))
+        for tree, mod, ts in zip(trees, mods, times):
+            device, kernels, _ = device_rows(lambda: call(mod))
+            print(f"tree {tree}: {name} ({BATCH}, {CLASSES_PER_IMAGE}, {SIZE}, "
+                  f"stride {STRIDE}): {ts[0]:.4f} / {ts[1]:.4f} ms, device "
+                  f"{device:.4f} ms in {kernels} CUDA kernels per call",
+                  flush=True)
+    shutil.rmtree(out_dir)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke needs one")
     if sys.argv[1:2] == ["--attention-trees"]:
         print(f"card: {card_line()}", flush=True)
         return compare_attention_trees(sys.argv[2:])
+    if sys.argv[1:2] == ["--crf-trees"]:
+        print(f"card: {card_line()}", flush=True)
+        return compare_crf_trees(sys.argv[2:])
     import simseg_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     card = card_line()

@@ -1,427 +1,765 @@
-// Mean-field dense CRF (binary label-difference form) + optional binary
-// closing, for Hopper (sm_90a), float32.
+// Mean-field dense CRF (binary label-difference form) + binary closing,
+// and the whole decode tail, for Hopper (sm_90a), float32.
 //
-// Replaces the TPU kernel simseg_tpu/ops/crf_fused.py:mean_field_fused
-// (_mean_field_kernel, _build_kmat, _mf_class). Per (image, class) map:
+// Replaces the TPU kernels simseg_tpu/ops/crf_fused.py:mean_field_fused
+// (_mean_field_kernel) and :seg_decode_tail_fused (_decode_tail_kernel).
+// Per (image, class) map:
 //
 //   d0 = tanh(du / 2)
 //   repeat num_iters:  d = tanh((du + gc * G(d) + bc * B(d)) / 2)
-//   mask = d > 0, then optionally a k x k closing (window max, then min,
-//   each over the taps that lie inside the image)
+//   mask = d > 0, then a k x k closing (window max, then min, each over
+//   the taps that lie inside the image)
 //
 // G is the separable truncated Gaussian normalised on both sides by
 // ah[y] * aw[x]; B splats d to the stride-s grid (box mean), applies the
 // symmetric-normalised bilateral kernel bn_i K_ij bn_j over the N cells of
-// the image, and slices back (nearest).
+// the image, and slices back (nearest). The tail entry point reads the
+// unaries on the patch grid at (y / f, x / f) (their nearest upsample by
+// f) and folds the K closed masks of a pixel into a running best of
+// mask * scores[b, k] with a strict '>' (argmax's first-occurrence rule):
+// pred = cand_idx of the best (0 where the best weight is <= 0), best_w.
 //
-// What bounds it on this card: at the main-path shape (B images of 288^2,
-// K = 5, s = 8, N = 1296) the floating-point work (~170 MFLOP per image,
-// CUDA cores, float32) and the HBM traffic of the fine-grid maps are of
-// the same order. The TPU design kept the whole (N, N) matrix and every
-// fine-grid map in VMEM; an SM has 227 KB of shared memory and one 288^2
-// float32 map alone takes 331 KB, so this design instead:
-//   - never stores K: each pass recomputes exp(-|f_i - f_j|^2 / 2) from the
-//     8-float features, one warp per 4 rows, the cells' features and
-//     weighted messages staged through shared memory in 256-cell tiles
-//     (degree pass once, then one pass per iteration for all K classes);
-//   - keeps d in HBM between iterations (ping-pong buffers) and runs the
-//     Gaussian on 32x32 output tiles with a radius-r halo in shared memory;
-//   - runs the closing as four separable uint8 passes.
-//
-// A second entry point, crf_decode_tail_f32, replaces the TPU kernel
-// simseg_tpu/ops/crf_fused.py:seg_decode_tail_fused (_decode_tail_kernel):
-// the same mean field and closing, with two more stages:
-//   - the unaries arrive on the patch grid, du_coarse (B, K, H/f, W/f), and
-//     are read at (y / f, x / f) wherever the fine map is needed: that is
-//     the nearest upsample by f, and no fine-grid du exists in HBM;
-//   - the K closed masks of an image are folded into a running best of
-//     mask * scores_eff[b, k] with a strict '>', so ties keep the first
-//     candidate (argmax's rule), and only pred (B, H, W) int32 (0 where the
-//     best weight is <= 0) and best_w (B, H, W) f32 are written.
-// It shares every device function with the mean field above, so its masks
-// are the default lane's bit for bit. Its bound: the mean field's
-// operations (du_coarse, rgb in; pred, best_w out are fewer bytes).
+// What bounds it on this card: at the main-path shape (16 images of 288^2,
+// K = 5, s = 8, N = 1296, radius 9, 3 iterations) the float32 work of the
+// bilateral passes (N^2 pairs per image and pass, for all K classes at
+// once) and of the Gaussian, and the HBM traffic of the fine maps (du read
+// and d written once per iteration, 26.5 MB each), are all a few tens of
+// microseconds; what a chain of small launches adds is far more. So:
+//   - the work is a sequence of phases (features and d0; the bilateral
+//     degree; per iteration the message and the update; the closing), each
+//     a loop over independent items, one block per item;
+//   - the features are computed from the image inside the kernel, and
+//     pre-scaled by sqrt(log2(e) / 2), so that K_ij = ex2(-|g_i - g_j|^2)
+//     (the difference form: no cancellation) with no further multiply;
+//   - the message: 64 rows per block, each thread one row and a quarter of
+//     the cells, which every lane of a warp reads at once from shared
+//     memory (broadcast), staged with bn_j q_j once per tile, the class
+//     count a template argument; splits summed in a fixed order;
+//   - the update: a tile of whole stride cells (up to 32 x 64) with a
+//     radius-r halo in shared memory, both Gaussian passes register-blocked
+//     8 outputs a thread with the taps in registers and the loops unrolled
+//     to the radius (a template argument); the tile's cell means of the new
+//     d (the next splat) are taken in the same item;
+//   - the closing: a band of 32 rows per image, all K maps in turn, the
+//     masks packed 32 pixels to a word (a warp ballot of d > 0), dilate and
+//     erode as separable OR / AND of shifted words in shared memory; the
+//     tail's argmax reads the K closed bands there;
+//   - 32-bit index math inside a map, no integer division per element.
 //
 // Launches are all on the caller's stream; the host functions return the
-// first launch error as an int (0 = cudaSuccess) and allocate nothing.
+// first launch error as an int (0 = cudaSuccess) and allocate nothing: the
+// caller passes one float32 workspace of crf_workspace_floats() floats.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kFeat = 8;          // padded feature width (2 pos + 3 rgb + 3 zero)
-constexpr int kUsedFeat = 5;
-constexpr int kMaxClasses = 8;
-constexpr int kMaxRadius = 16;
-constexpr int kTile = 32;         // Gaussian output tile edge
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-constexpr int kCellTile = kThreads;  // cells staged per shared-memory tile
+constexpr int kMaxClasses = 8;
+constexpr int kMaxRadius = 16;
+constexpr int kMaxTileH = 32;     // update tile rows (a multiple of s)
+constexpr int kMaxTileW = 64;     // update tile columns (a multiple of s)
+constexpr int kStrip = 8;         // Gaussian outputs per thread
+constexpr int kRows = 64;         // message rows per item
+constexpr int kSplits = kThreads / kRows;
+constexpr int kChunk = 512;       // message cells staged per tile
+constexpr int kBand = 32;         // closing rows per item
+constexpr int kSmemLimit = 232448;
+// sqrt(log2(e) / 2): exp(-|f_i - f_j|^2 / 2) = exp2(-|g_i - g_j|^2), g = c f
+constexpr float kFeatScale = 0.84932180028801904f;
 
-// du of plane p at fine pixel (y, x): the fine map itself, or (kCoarse)
-// the patch-grid map of H/f x W/f read at (y / f, x / f), its nearest
-// upsample by f
-template <bool kCoarse>
-__device__ __forceinline__ float du_at(const float* __restrict__ du, long p, int y,
-                                       int x, int H, int W, int f) {
-  if (!kCoarse) return du[p * H * W + (long)y * W + x];
-  const int gw = W / f;
-  return du[(p * (H / f) + y / f) * gw + x / f];
+struct Params {
+  const float* du;          // (B, K, H, W), or (B, K, H/f, W/f) for the tail
+  const void* rgb;          // (B, H, W, 3) uint8 or float32
+  const float* taps;        // 2 radius + 1
+  const float* ah;          // H
+  const float* aw;          // W
+  const float* scores;      // tail: (B, K)
+  const void* cand_idx;     // tail: (B, K) int32 or int64
+  float* feat;              // (B, N, 8) scaled features (5 used)
+  float* bn;                // (B, N)
+  float* q;                 // (B, K, N) cell means of d
+  float* m;                 // (B, K, N) messages
+  float* d[2];              // (B, K, H, W) iterates
+  float* out;               // mean field: (B, K, H, W) 0/1 masks
+  int* pred;                // tail: (B, H, W)
+  float* best_w;            // tail: (B, H, W)
+  int B, K, H, W, f, s, radius, iters, ck;
+  int rgb_u8, idx64;
+  float gc, bc, sxy, srgb;
+  int N, ws;                // cells, cells per row
+  int TH, TW, tiles_x, tiles, fused_splat;
+  int bands;
+};
+
+// ------------------------------------------------------------ the phases
+
+enum Kind { kFeat = 1, kInit = 2, kSplat = 4, kDegree = 8, kMessage = 16,
+            kUpdate = 32, kClose = 64 };
+
+struct Phase {
+  int kinds, it;
+};
+
+__host__ __device__ inline int num_phases(const Params& p) {
+  return p.iters > 0 ? 3 + p.iters * (p.fused_splat ? 2 : 3) : 2;
 }
 
-template <bool kCoarse>
-__global__ void init_kernel(const float* __restrict__ du, float* __restrict__ d,
-                            long n, int H, int W, int f) {
-  long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long plane = (long)H * W;
-  const long r = i % plane;
-  d[i] = tanhf(du_at<kCoarse>(du, i / plane, (int)(r / W), (int)(r % W), H, W, f) * 0.5f);
+// phase 0: features and d0 (with its cell means when the splat is fused);
+// phase 1: the degree (and the splat of d0 otherwise); then per iteration
+// the message, the update (and a splat); last the closing
+__host__ __device__ inline Phase phase_at(const Params& p, int ph) {
+  if (ph == 0) return {kInit | (p.iters > 0 ? kFeat : 0), 0};
+  if (ph == num_phases(p) - 1) return {kClose, 0};
+  if (ph == 1) return {kDegree | (p.fused_splat ? 0 : kSplat), -1};
+  const int per = p.fused_splat ? 2 : 3;
+  const int it = (ph - 2) / per, r = (ph - 2) - it * per;
+  return {r == 0 ? kMessage : r == 1 ? kUpdate : kSplat, it};
 }
 
-// q[p, c] = mean of d[p] over stride cell c (p indexes the B*K planes)
-__global__ void splat_kernel(const float* __restrict__ d, float* __restrict__ q,
-                             int planes, int H, int W, int s) {
-  const int ws = W / s;
-  const int n = (H / s) * ws;
-  long idx = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (idx >= (long)planes * n) return;
-  const int p = (int)(idx / n);
-  const int c = (int)(idx % n);
-  const float* src = d + (long)p * H * W + (long)(c / ws) * s * W + (c % ws) * s;
-  float acc = 0.f;
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ inline int items_of(const Params& p, int kind) {
+  const int planes = p.B * p.K;
+  switch (kind) {
+    case kFeat: return p.B * cdiv(p.N, kThreads);
+    case kInit: case kUpdate: return planes * p.tiles;
+    case kSplat: return planes * cdiv(p.N, kThreads);
+    case kDegree: case kMessage: return p.B * cdiv(p.N, kRows);
+    case kClose: return p.B * p.bands;
+  }
+  return 0;
+}
+
+__host__ __device__ inline int phase_items(const Params& p, int ph) {
+  const Phase phase = phase_at(p, ph);
+  int n = 0;
+  for (int kind = 1; kind <= kClose; kind <<= 1)
+    if (phase.kinds & kind) n += items_of(p, kind);
+  return n;
+}
+
+// ---------------------------------------------------------- device parts
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// scaled features of cells c0 .. c0 + kThreads - 1 of image b: box-mean
+// colour, cell-centre position (as ops/crf.py:bilateral_features)
+__device__ void feature_item(const Params& p, int b, int c0) {
+  const int c = c0 + threadIdx.x;
+  if (c >= p.N) return;
+  const int s = p.s, W = p.W;
+  const int cy = c / p.ws, cx = c - cy * p.ws;
+  const size_t img = (size_t)b * p.H * W;
+  float sum[3] = {0.f, 0.f, 0.f};
+  for (int y = 0; y < s; ++y) {
+    const size_t row = (img + (size_t)(cy * s + y) * W + cx * s) * 3;
+    for (int x = 0; x < 3 * s; x += 3)
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+        sum[ch] += p.rgb_u8 ? (float)__ldg((const uint8_t*)p.rgb + row + x + ch)
+                            : __ldg((const float*)p.rgb + row + x + ch);
+  }
+  const float area = (float)(s * s);
+  float* out = p.feat + ((size_t)b * p.N + c) * 8;
+  out[0] = ((cy + 0.5f) * s - 0.5f) / p.sxy * kFeatScale;
+  out[1] = ((cx + 0.5f) * s - 0.5f) / p.sxy * kFeatScale;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) out[2 + ch] = sum[ch] / area / p.srgb * kFeatScale;
+}
+
+// Bilateral product for image b over rows row0 .. row0 + 63:
+//   C == 0 (degree):  bn[b, i] = 1 / sqrt(sum_j K_ij + 1e-20)
+//   C == K (message): m[b, c, i] = bn_i sum_j K_ij bn_j q[b, c, j]
+template <int C>
+__device__ void message_item(const Params& p, int b, int row0, float* smem) {
+  constexpr int kNR = (1 + C + 3) / 4;     // float4s of g4 and the values
+  constexpr int kCell = 1 + kNR;           // float4s per staged cell
+  constexpr int kAcc = C > 0 ? C : 1;
+  float4* s_cells = reinterpret_cast<float4*>(smem);
+  float* s_red = smem + kChunk * kCell * 4;
+  const int N = p.N, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rl = ((warp & 1) << 5) | lane;
+  const int split = warp >> 1;
+  const int i = row0 + rl;
+  const float* fb = p.feat + (size_t)b * N * 8;
+  const float* bnb = p.bn + (size_t)b * N;
+  float gi[5];
+#pragma unroll
+  for (int t = 0; t < 5; ++t) gi[t] = i < N ? __ldcg(fb + (size_t)i * 8 + t) : 0.f;
+  float acc[kAcc];
+#pragma unroll
+  for (int c = 0; c < kAcc; ++c) acc[c] = 0.f;
+
+  for (int j0 = 0; j0 < N; j0 += kChunk) {
+    const int jn = min(kChunk, N - j0);
+    __syncthreads();
+    for (int jj = tid; jj < jn; jj += kThreads) {
+      const int j = j0 + jj;
+      const float* fj = fb + (size_t)j * 8;
+      float v[kNR * 4];
+#pragma unroll
+      for (int t = 0; t < kNR * 4; ++t) v[t] = 0.f;
+      v[0] = __ldcg(fj + 4);
+      if (C > 0) {
+        const float bj = __ldcg(bnb + j);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          v[1 + c] = __ldcg(p.q + ((size_t)b * C + c) * N + j) * bj;
+      }
+      s_cells[jj * kCell] = make_float4(__ldcg(fj), __ldcg(fj + 1), __ldcg(fj + 2),
+                                        __ldcg(fj + 3));
+#pragma unroll
+      for (int r = 0; r < kNR; ++r)
+        s_cells[jj * kCell + 1 + r] =
+            make_float4(v[4 * r], v[4 * r + 1], v[4 * r + 2], v[4 * r + 3]);
+    }
+    __syncthreads();
+    const int per = (jn + kSplits - 1) / kSplits;
+    const int lo = split * per, hi = min(jn, lo + per);
+#pragma unroll 2
+    for (int jj = lo; jj < hi; ++jj) {
+      const float4 fa = s_cells[jj * kCell];
+      float v[kNR * 4];
+#pragma unroll
+      for (int r = 0; r < kNR; ++r) {
+        const float4 t = s_cells[jj * kCell + 1 + r];
+        v[4 * r] = t.x;
+        v[4 * r + 1] = t.y;
+        v[4 * r + 2] = t.z;
+        v[4 * r + 3] = t.w;
+      }
+      const float e0 = gi[0] - fa.x, e1 = gi[1] - fa.y, e2 = gi[2] - fa.z;
+      const float e3 = gi[3] - fa.w, e4 = gi[4] - v[0];
+      const float d2 = fmaf(e4, e4, fmaf(e3, e3, fmaf(e2, e2, fmaf(e1, e1, e0 * e0))));
+      const float kij = ex2_approx(-d2);
+      if (C == 0) {
+        acc[0] += kij;
+      } else {
+#pragma unroll
+        for (int c = 0; c < kAcc; ++c) acc[c] = fmaf(kij, v[1 + c], acc[c]);
+      }
+    }
+  }
+  __syncthreads();
+  if (split > 0)
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) s_red[((split - 1) * kRows + rl) * kAcc + c] = acc[c];
+  __syncthreads();
+  if (split == 0 && i < N) {
+    for (int sp = 1; sp < kSplits; ++sp)
+#pragma unroll
+      for (int c = 0; c < kAcc; ++c) acc[c] += s_red[((sp - 1) * kRows + rl) * kAcc + c];
+    if (C == 0) {
+      p.bn[(size_t)b * N + i] = 1.f / sqrtf(acc[0] + 1e-20f);
+    } else {
+      const float bi = __ldcg(bnb + i);
+#pragma unroll
+      for (int c = 0; c < kAcc; ++c) p.m[((size_t)b * C + c) * N + i] = bi * acc[c];
+    }
+  }
+}
+
+// shared-memory layout of an update tile (floats), the same on the host
+struct TileLayout {
+  int thp, twp, pin, prow, in, rows, ah, aw, yi, yc, total;
+};
+
+__host__ __device__ inline TileLayout tile_layout(int TH, int TW, int radius) {
+  TileLayout l;
+  l.thp = cdiv(TH, kStrip) * kStrip;
+  l.twp = cdiv(TW, kStrip) * kStrip;
+  l.pin = (l.twp + 2 * radius) | 1;        // odd pitches: no bank conflicts
+  l.prow = l.twp + 1;
+  l.in = 0;
+  l.rows = l.in + (l.thp + 2 * radius) * l.pin;
+  l.ah = l.rows + (l.thp + 2 * radius) * l.prow;
+  l.aw = l.ah + l.thp + 2 * radius;
+  l.yi = l.aw + l.twp + 2 * radius;
+  l.yc = l.yi + l.thp;
+  l.total = l.yc + l.thp;
+  return l;
+}
+
+// One tile of plane pl: kInit: d_out = tanh(du / 2); else the update
+//   d_out = tanh((du + gc G(d_in) + bc m[cell]) / 2);
+// and, when write_q, the tile's cell means of d_out into q.
+template <int R, bool kCoarse, bool kInit>
+__device__ void update_item(const Params& p, int pl, int tile, const float* d_in,
+                            float* d_out, bool write_q, float* smem) {
+  constexpr int kSpan = 2 * R;
+  const int H = p.H, W = p.W, s = p.s;
+  const int tyi = tile / p.tiles_x, txi = tile - tyi * p.tiles_x;
+  const int y0 = tyi * p.TH, x0 = txi * p.TW;
+  const int th = min(p.TH, H - y0), tw = min(p.TW, W - x0);
+  const TileLayout l = tile_layout(p.TH, p.TW, R);
+  float* s_in = smem + l.in;
+  float* s_rows = smem + l.rows;
+  float* s_ah = smem + l.ah;
+  float* s_aw = smem + l.aw;
+  int* s_yi = reinterpret_cast<int*>(smem + l.yi);
+  int* s_yc = reinterpret_cast<int*>(smem + l.yc);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t pbase = (size_t)pl * H * W;
+  const int gw = W / p.f;
+  const size_t cbase = (size_t)pl * (H / p.f) * gw;
+
+  __syncthreads();  // the previous item is done with shared memory
+  for (int r = tid; r < th; r += kThreads) {
+    const int y = y0 + r;
+    s_yi[r] = (y / s) * p.ws;
+    if (kCoarse) s_yc[r] = (y / p.f) * gw;
+  }
+  if (!kInit) {
+    for (int r = tid; r < th + kSpan; r += kThreads) {
+      const int y = y0 - R + r;
+      s_ah[r] = y >= 0 && y < H ? __ldg(p.ah + y) : 0.f;
+    }
+    for (int c = tid; c < tw + kSpan; c += kThreads) {
+      const int x = x0 - R + c;
+      s_aw[c] = x >= 0 && x < W ? __ldg(p.aw + x) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  float tap[kSpan + 1];
+  if (!kInit) {
+#pragma unroll
+    for (int t = 0; t <= kSpan; ++t) tap[t] = __ldg(p.taps + t);
+    // the halo, normalised: ah[y] aw[x] d[y, x], zero outside the image
+    for (int r = warp; r < th + kSpan; r += kWarps) {
+      const int y = y0 - R + r;
+      const float a = s_ah[r];
+      const float* src = d_in + pbase + (size_t)(y < 0 ? 0 : y) * W;
+      for (int c = lane; c < tw + kSpan; c += 32) {
+        const int x = x0 - R + c;
+        float v = 0.f;
+        if (a != 0.f && x >= 0 && x < W) v = __ldcg(src + x) * a * s_aw[c];
+        s_in[r * l.pin + c] = v;
+      }
+    }
+    __syncthreads();
+    // along x: rows th + 2R (<= 64), strips of kStrip outputs
+    const int strips = cdiv(tw, kStrip);
+    for (int u = tid; u < 64 * strips; u += kThreads) {
+      const int r = u & 63, st = u >> 6;
+      if (r >= th + kSpan) continue;
+      const float* src = s_in + r * l.pin + st * kStrip;
+      float w[kStrip + kSpan];
+#pragma unroll
+      for (int k = 0; k < kStrip + kSpan; ++k) w[k] = src[k];
+#pragma unroll
+      for (int o = 0; o < kStrip; ++o) {
+        float a = 0.f;
+#pragma unroll
+        for (int t = 0; t <= kSpan; ++t) a = fmaf(tap[t], w[o + t], a);
+        s_rows[r * l.prow + st * kStrip + o] = a;
+      }
+    }
+    __syncthreads();
+  }
+
+  // along y and the update: columns tw (<= 64), strips of kStrip rows; the
+  // new d also goes to shared memory (over s_in) for the cell means
+  float* s_d = s_in;
+  const int ystrips = cdiv(th, kStrip);
+  for (int u = tid; u < 64 * ystrips; u += kThreads) {
+    const int xl = u & 63, ys = u >> 6;
+    if (xl >= tw) continue;
+    const int x = x0 + xl;
+    const int cx = x / s;
+    const int xc = kCoarse ? x / p.f : 0;
+    float g[kStrip];
+    if (!kInit) {
+      const float* src = s_rows + ys * kStrip * l.prow + xl;
+      float w[kStrip + kSpan];
+#pragma unroll
+      for (int k = 0; k < kStrip + kSpan; ++k)
+        w[k] = ys * kStrip + k < th + kSpan ? src[k * l.prow] : 0.f;
+      const float awx = s_aw[R + xl];
+#pragma unroll
+      for (int o = 0; o < kStrip; ++o) {
+        float a = 0.f;
+#pragma unroll
+        for (int t = 0; t <= kSpan; ++t) a = fmaf(tap[t], w[o + t], a);
+        g[o] = a * s_ah[R + ys * kStrip + o] * awx;
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < kStrip; ++o) {
+      const int ty = ys * kStrip + o;
+      if (ty >= th) break;
+      const int y = y0 + ty;
+      const float uv = kCoarse ? __ldg(p.du + cbase + s_yc[ty] + xc)
+                               : __ldg(p.du + pbase + y * W + x);
+      float dn;
+      if (kInit) {
+        dn = tanhf(uv * 0.5f);
+      } else {
+        const float mv = __ldcg(p.m + (size_t)pl * p.N + s_yi[ty] + cx);
+        dn = tanhf((uv + (p.gc * g[o] + p.bc * mv)) * 0.5f);
+      }
+      d_out[pbase + y * W + x] = dn;
+      if (write_q) s_d[ty * l.prow + xl] = dn;
+    }
+  }
+  if (!write_q) return;
+  __syncthreads();
+  const int ncx = tw / s, ncells = (th / s) * ncx;
+  const float area = (float)(s * s);
+  for (int c = tid; c < ncells; c += kThreads) {
+    const int cyl = c / ncx, cxl = c - cyl * ncx;
+    const float* src = s_d + cyl * s * l.prow + cxl * s;
+    float a = 0.f;
+    for (int y = 0; y < s; ++y)
+      for (int x = 0; x < s; ++x) a += src[y * l.prow + x];
+    p.q[(size_t)pl * p.N + (y0 / s + cyl) * p.ws + x0 / s + cxl] = a / area;
+  }
+}
+
+// q of cells c0 .. c0 + kThreads - 1 of plane pl from d (strides too wide
+// for a tile of whole cells)
+__device__ void splat_item(const Params& p, int pl, int c0, const float* d) {
+  const int c = c0 + threadIdx.x;
+  if (c >= p.N) return;
+  const int s = p.s, cy = c / p.ws, cx = c - cy * p.ws;
+  const float* src = d + (size_t)pl * p.H * p.W + (size_t)cy * s * p.W + cx * s;
+  float a = 0.f;
   for (int y = 0; y < s; ++y)
-    for (int x = 0; x < s; ++x) acc += src[(long)y * W + x];
-  q[idx] = acc / (float)(s * s);
+    for (int x = 0; x < s; ++x) a += __ldcg(src + y * p.W + x);
+  p.q[(size_t)pl * p.N + c] = a / (float)(s * s);
 }
 
-// Bilateral product for image b = blockIdx.y over rows i of this block:
-//   degree mode (q == nullptr): out[b, i] = 1 / sqrt(sum_j K_ij + 1e-20)
-//   message mode:               out[b, c, i] = bn_i sum_j K_ij bn_j q[b, c, j]
-// with K_ij = exp(-0.5 max(|f_i|^2 + |f_j|^2 - 2 f_i.f_j, 0)).
-__global__ void bilateral_kernel(const float* __restrict__ feat,
-                                 const float* __restrict__ q,
-                                 const float* __restrict__ bn,
-                                 float* __restrict__ out, int N, int C) {
-  __shared__ float s_feat[kUsedFeat + 1][kCellTile];  // 5 features + |f|^2
-  __shared__ float s_val[kMaxClasses][kCellTile];
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
-  const float* fb = feat + (long)b * N * kFeat;
+// the 32 mask bits of pixels pos .. pos + 31 of a packed row; words
+// outside the row read as fill
+__device__ __forceinline__ uint32_t word_at(const uint32_t* row, int q, int ww,
+                                            uint32_t fill) {
+  return q >= 0 && q < ww ? row[q] : fill;
+}
+__device__ __forceinline__ uint32_t bits_at(const uint32_t* row, int pos, int ww,
+                                            uint32_t fill) {
+  const int q = pos >> 5, r = pos & 31;
+  const uint32_t lo = word_at(row, q, ww, fill);
+  return r == 0 ? lo : (lo >> r) | (word_at(row, q + 1, ww, fill) << (32 - r));
+}
 
-  float fi[kRowsPerWarp][kUsedFeat];
-  float sqi[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = row0 + r;
-    sqi[r] = 0.f;
-#pragma unroll
-    for (int t = 0; t < kUsedFeat; ++t) {
-      fi[r][t] = i < N ? fb[(long)i * kFeat + t] : 0.f;
-      sqi[r] += fi[r][t] * fi[r][t];
-    }
-  }
-  float acc[kRowsPerWarp][kMaxClasses];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int c = 0; c < kMaxClasses; ++c) acc[r][c] = 0.f;
+__host__ __device__ inline int close_rows(int H, int ck) {
+  return imin(H, kBand + 2 * (ck - 1));
+}
 
-  for (int j0 = 0; j0 < N; j0 += kCellTile) {
+// rows y0 .. y0 + th - 1 of image b: threshold, closing and (kTail) the
+// argmax over the K maps, or (mean field) the K closed masks as floats
+template <bool kTail>
+__device__ void close_item(const Params& p, int b, int band, const float* d,
+                           uint32_t* smem) {
+  const int H = p.H, W = p.W, ww = (W + 31) >> 5, k = p.ck;
+  const int a = k >> 1, z = k - 1 - a;     // window [v - a, v + z]
+  const int y0 = band * kBand, th = min(kBand, H - y0);
+  const int r0 = max(0, y0 - 2 * a), r1 = min(H, y0 + th + 2 * z);
+  const int e0 = max(0, y0 - a), e1 = min(H, y0 + th + z);
+  const int rr = close_rows(H, k);
+  uint32_t* buf0 = smem;
+  uint32_t* buf1 = buf0 + rr * ww;
+  uint32_t* fin = buf1 + rr * ww;
+  const uint32_t tail_bits = (W & 31) ? ~((1u << (W & 31)) - 1u) : 0u;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  for (int c = 0; c < p.K; ++c) {
+    const size_t plane = ((size_t)b * p.K + c) * H * W;
+    uint32_t* done = fin + (kTail ? c * kBand * ww : 0);
+    const int t0 = k > 1 ? r0 : y0, t1 = k > 1 ? r1 : y0 + th;
+    uint32_t* tbuf = k > 1 ? buf0 : done;
     __syncthreads();
-    const int j = j0 + threadIdx.x;
-    float sq = 0.f;
-#pragma unroll
-    for (int t = 0; t < kUsedFeat; ++t) {
-      const float f = j < N ? fb[(long)j * kFeat + t] : 0.f;
-      s_feat[t][threadIdx.x] = f;
-      sq += f * f;
+    for (int t = warp; t < (t1 - t0) * ww; t += kWarps) {
+      const int r = t / ww, w = t - r * ww;
+      const int x = w * 32 + lane;
+      const bool v = x < W && __ldcg(d + plane + (size_t)(t0 + r) * W + x) > 0.f;
+      const uint32_t bits = __ballot_sync(0xffffffffu, v);
+      if (lane == 0) tbuf[r * ww + w] = bits;
     }
-    s_feat[kUsedFeat][threadIdx.x] = sq;
-    for (int c = 0; c < C; ++c) {
-      float v = 0.f;  // cells past N carry zero weight
-      if (j < N) v = q ? q[((long)b * C + c) * N + j] * bn[(long)b * N + j] : 1.f;
-      s_val[c][threadIdx.x] = v;
+    if (k > 1) {
+      __syncthreads();
+      for (int t = tid; t < (r1 - r0) * ww; t += kThreads) {   // dilate along x
+        const int r = t / ww, w = t - r * ww;
+        uint32_t acc = 0u;
+        for (int o = -a; o <= z; ++o) acc |= bits_at(buf0 + r * ww, w * 32 + o, ww, 0u);
+        buf1[t] = acc;
+      }
+      __syncthreads();
+      for (int t = tid; t < (e1 - e0) * ww; t += kThreads) {   // dilate along y
+        const int r = t / ww, w = t - r * ww, y = e0 + r;
+        uint32_t acc = 0u;
+        for (int yy = max(0, y - a); yy <= min(H - 1, y + z); ++yy)
+          acc |= buf1[(yy - r0) * ww + w];
+        if (w == ww - 1) acc |= tail_bits;  // past the image: erosion's identity
+        buf0[(y - r0) * ww + w] = acc;
+      }
+      __syncthreads();
+      for (int t = tid; t < (e1 - e0) * ww; t += kThreads) {   // erode along x
+        const int r = t / ww, w = t - r * ww;
+        const uint32_t* row = buf0 + (e0 - r0 + r) * ww;
+        uint32_t acc = 0xffffffffu;
+        for (int o = -a; o <= z; ++o) acc &= bits_at(row, w * 32 + o, ww, 0xffffffffu);
+        buf1[(e0 - r0 + r) * ww + w] = acc;
+      }
+      __syncthreads();
+      for (int t = tid; t < th * ww; t += kThreads) {          // erode along y
+        const int r = t / ww, w = t - r * ww, y = y0 + r;
+        uint32_t acc = 0xffffffffu;
+        for (int yy = max(0, y - a); yy <= min(H - 1, y + z); ++yy)
+          acc &= buf1[(yy - r0) * ww + w];
+        done[t] = acc;
+      }
     }
-    __syncthreads();
-    const int jn = min(kCellTile, N - j0);
-    for (int jj = lane; jj < jn; jj += 32) {
-      float fj[kUsedFeat];
-#pragma unroll
-      for (int t = 0; t < kUsedFeat; ++t) fj[t] = s_feat[t][jj];
-      const float sqj = s_feat[kUsedFeat][jj];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        float dot = 0.f;
-#pragma unroll
-        for (int t = 0; t < kUsedFeat; ++t) dot += fi[r][t] * fj[t];
-        const float d2 = sqi[r] + sqj - 2.f * dot;
-        const float k = expf(-0.5f * fmaxf(d2, 0.f));
-#pragma unroll
-        for (int c = 0; c < kMaxClasses; ++c)
-          if (c < C) acc[r][c] += k * s_val[c][jj];
+    if (!kTail) {
+      __syncthreads();
+      for (int t = warp; t < th * ww; t += kWarps) {
+        const int r = t / ww, w = t - r * ww;
+        const int x = w * 32 + lane;
+        if (x < W)
+          p.out[plane + (size_t)(y0 + r) * W + x] = (float)((done[t] >> lane) & 1u);
       }
     }
   }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = row0 + r;
-#pragma unroll
-    for (int c = 0; c < kMaxClasses; ++c) {
-      if (c >= C) continue;
-      float v = acc[r][c];
-      for (int off = 16; off > 0; off /= 2)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0 && i < N) {
-        if (q == nullptr)
-          out[(long)b * N + i] = 1.f / sqrtf(v + 1e-20f);
-        else
-          out[((long)b * C + c) * N + i] = bn[(long)b * N + i] * v;
+  if (!kTail) return;
+  __syncthreads();
+  const size_t img = (size_t)b * H * W;
+  for (int t = warp; t < th * ww; t += kWarps) {
+    const int r = t / ww, w = t - r * ww;
+    const int x = w * 32 + lane;
+    if (x >= W) continue;
+    float best = 0.f;
+    int idx = 0;
+    for (int c = 0; c < p.K; ++c) {
+      const float wgt = (float)((fin[c * kBand * ww + t] >> lane) & 1u) *
+                        __ldg(p.scores + b * p.K + c);
+      const int ci = p.idx64 ? (int)__ldg((const long long*)p.cand_idx + b * p.K + c)
+                             : __ldg((const int*)p.cand_idx + b * p.K + c);
+      if (c == 0 || wgt > best) {
+        best = wgt;
+        idx = ci;
       }
     }
+    const size_t o = img + (size_t)(y0 + r) * W + x;
+    p.pred[o] = best > 0.f ? idx : 0;
+    p.best_w[o] = best;
   }
 }
 
-// d_out = tanh((du + gc G(d_in) + bc m[cell]) / 2) on one kTile^2 tile of
-// plane p = blockIdx.z; m is (planes, N) on the stride-s grid; du as read
-// by du_at.
+// ------------------------------------------------------------ the kernel
+
+template <bool kCoarse, int R>
+__device__ void update_r(const Params& p, int pl, int tile, const float* din,
+                         float* dout, bool write_q, float* smem) {
+  update_item<R, kCoarse, false>(p, pl, tile, din, dout, write_q, smem);
+}
+
 template <bool kCoarse>
-__global__ void update_kernel(const float* __restrict__ d_in,
-                              const float* __restrict__ du,
-                              const float* __restrict__ m,
-                              const float* __restrict__ taps,
-                              const float* __restrict__ ah,
-                              const float* __restrict__ aw,
-                              float* __restrict__ d_out, int H, int W, int s,
-                              int f, int radius, float gc, float bc) {
-  __shared__ float s_in[kTile + 2 * kMaxRadius][kTile + 2 * kMaxRadius];
-  __shared__ float s_rows[kTile + 2 * kMaxRadius][kTile];
-  __shared__ float s_taps[2 * kMaxRadius + 1];
-  const int p = blockIdx.z;
-  const int y0 = blockIdx.y * kTile;
-  const int x0 = blockIdx.x * kTile;
-  const int span = kTile + 2 * radius;
-  const int ntaps = 2 * radius + 1;
-  const long plane = (long)H * W;
-  const float* dp = d_in + p * plane;
-
-  for (int t = threadIdx.x; t < ntaps; t += blockDim.x) s_taps[t] = taps[t];
-  // the halo outside the image is zero: the band matrices are truncated
-  for (int idx = threadIdx.x; idx < span * span; idx += blockDim.x) {
-    const int ty = idx / span, tx = idx % span;
-    const int y = y0 - radius + ty, x = x0 - radius + tx;
-    float v = 0.f;
-    if (y >= 0 && y < H && x >= 0 && x < W) v = dp[(long)y * W + x] * ah[y] * aw[x];
-    s_in[ty][tx] = v;
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < span * kTile; idx += blockDim.x) {
-    const int ty = idx / kTile, tx = idx % kTile;
-    float a = 0.f;
-    for (int t = 0; t < ntaps; ++t) a += s_taps[t] * s_in[ty][tx + t];
-    s_rows[ty][tx] = a;
-  }
-  __syncthreads();
-  const int ws = W / s;
-  const float* mp = m + (long)p * (H / s) * ws;
-  for (int idx = threadIdx.x; idx < kTile * kTile; idx += blockDim.x) {
-    const int ty = idx / kTile, tx = idx % kTile;
-    const int y = y0 + ty, x = x0 + tx;
-    if (y >= H || x >= W) continue;
-    float a = 0.f;
-    for (int t = 0; t < ntaps; ++t) a += s_taps[t] * s_rows[ty + t][tx];
-    const float g = a * ah[y] * aw[x];
-    const float mb = mp[(y / s) * ws + x / s];
-    const long o = p * plane + (long)y * W + x;
-    d_out[o] = tanhf((du_at<kCoarse>(du, p, y, x, H, W, f) + gc * g + bc * mb) * 0.5f);
+__device__ void update_dispatch(const Params& p, int pl, int tile, const float* din,
+                                float* dout, bool write_q, float* smem) {
+  switch (p.radius) {
+#define CRF_R(r) \
+  case r: update_r<kCoarse, r>(p, pl, tile, din, dout, write_q, smem); break;
+    CRF_R(0) CRF_R(1) CRF_R(2) CRF_R(3) CRF_R(4) CRF_R(5) CRF_R(6) CRF_R(7)
+    CRF_R(8) CRF_R(9) CRF_R(10) CRF_R(11) CRF_R(12) CRF_R(13) CRF_R(14)
+    CRF_R(15) CRF_R(16)
+#undef CRF_R
   }
 }
 
-// may run in place (d == out) when the last iterate already sits in out
-template <typename T>
-__global__ void threshold_kernel(const float* d, T* out, long n) {
-  long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (i < n) out[i] = d[i] > 0.f ? T(1) : T(0);
-}
-
-// One separable closing pass: max or min over [v - k/2, v + k - 1 - k/2]
-// along x (along_x) or y, over the taps inside the image only.
-template <typename T>
-__global__ void window_kernel(const uint8_t* __restrict__ in, T* __restrict__ out,
-                              long n, int H, int W, int k, int along_x,
-                              int is_max) {
-  long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long plane = (long)H * W;
-  const long base = i - i % plane;
-  const int y = (int)(i % plane / W), x = (int)(i % W);
-  const int lo = -(k / 2), hi = k - 1 - k / 2;
-  uint8_t a = is_max ? 0 : 1;
-  for (int t = lo; t <= hi; ++t) {
-    const int yy = along_x ? y : y + t;
-    const int xx = along_x ? x + t : x;
-    if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
-    const uint8_t v = in[base + (long)yy * W + xx];
-    a = is_max ? (v > a ? v : a) : (v < a ? v : a);
+__device__ void message_dispatch(const Params& p, int C, int b, int row0, float* smem) {
+  switch (C) {
+    case 0: message_item<0>(p, b, row0, smem); break;
+    case 1: message_item<1>(p, b, row0, smem); break;
+    case 2: message_item<2>(p, b, row0, smem); break;
+    case 3: message_item<3>(p, b, row0, smem); break;
+    case 4: message_item<4>(p, b, row0, smem); break;
+    case 5: message_item<5>(p, b, row0, smem); break;
+    case 6: message_item<6>(p, b, row0, smem); break;
+    case 7: message_item<7>(p, b, row0, smem); break;
+    case 8: message_item<8>(p, b, row0, smem); break;
   }
-  out[i] = T(a);
 }
 
-// pred[b, y, x] and best_w[b, y, x] over the K closed 0/1 masks of image b:
-// a running best of mask * scores[b, k] with a strict '>' (first
-// occurrence wins ties), pred = cand_idx[b, best k], or 0 where best <= 0
-__global__ void argmax_kernel(const uint8_t* __restrict__ mask,
-                              const float* __restrict__ scores,
-                              const int* __restrict__ cand_idx,
-                              int* __restrict__ pred, float* __restrict__ best_w,
-                              long n, int K, long plane) {
-  long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long b = i / plane;
-  const uint8_t* mp = mask + b * K * plane + i % plane;
-  float best = (float)mp[0] * scores[b * K];
-  int idx = cand_idx[b * K];
-  for (int k = 1; k < K; ++k) {
-    const float w = (float)mp[k * plane] * scores[b * K + k];
-    if (w > best) {
-      best = w;
-      idx = cand_idx[b * K + k];
+// item `item` of one phase: finds its kind by the phase's kinds in order
+template <bool kCoarse>
+__device__ void run_item(const Params& p, const Phase& phase, int item, float* smem) {
+  for (int kind = 1; kind <= kClose; kind <<= 1) {
+    if (!(phase.kinds & kind)) continue;
+    const int n = items_of(p, kind);
+    if (item >= n) {
+      item -= n;
+      continue;
+    }
+    switch (kind) {
+      case kFeat: {
+        const int per = cdiv(p.N, kThreads), b = item / per;
+        feature_item(p, b, (item - b * per) * kThreads);
+        __syncthreads();
+        break;
+      }
+      case kInit: {
+        const int pl = item / p.tiles;
+        update_item<0, kCoarse, true>(p, pl, item - pl * p.tiles, nullptr, p.d[0],
+                                      p.fused_splat && p.iters > 0, smem);
+        break;
+      }
+      case kSplat: {
+        const int per = cdiv(p.N, kThreads), pl = item / per;
+        splat_item(p, pl, (item - pl * per) * kThreads, p.d[(phase.it + 1) & 1]);
+        break;
+      }
+      case kDegree: case kMessage: {
+        const int per = cdiv(p.N, kRows), b = item / per;
+        message_dispatch(p, kind == kDegree ? 0 : p.K, b, (item - b * per) * kRows, smem);
+        break;
+      }
+      case kUpdate: {
+        const int pl = item / p.tiles, it = phase.it;
+        update_dispatch<kCoarse>(p, pl, item - pl * p.tiles, p.d[it & 1],
+                                 p.d[(it + 1) & 1], p.fused_splat && it + 1 < p.iters,
+                                 smem);
+        break;
+      }
+      case kClose: {
+        const int b = item / p.bands;
+        close_item<kCoarse>(p, b, item - b * p.bands, p.d[p.iters & 1],
+                            reinterpret_cast<uint32_t*>(smem));
+        break;
+      }
+    }
+    return;
+  }
+}
+
+// phases ph_lo .. ph_hi - 1, the items of each spread over the grid
+template <bool kCoarse>
+__global__ void __launch_bounds__(kThreads, 2)
+crf_kernel(const Params p, int ph_lo, int ph_hi) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  for (int ph = ph_lo; ph < ph_hi; ++ph) {
+    const Phase phase = phase_at(p, ph);
+    const int n = phase_items(p, ph);
+    for (int item = blockIdx.x; item < n; item += gridDim.x)
+      run_item<kCoarse>(p, phase, item, smem);
+  }
+}
+
+// --------------------------------------------------------------- the host
+
+// shared memory a call needs (bytes): the largest of an update tile, a
+// message tile (the degree's and the K-class one) and a closing band (the
+// tail keeps the K closed bands)
+inline int smem_need(int K, int H, int W, int TH, int TW, int radius, int iters,
+                     int ck, bool tail) {
+  int need = tile_layout(TH, TW, radius).total;
+  if (iters > 0) {
+    const int classes[2] = {0, K};
+    for (int C : classes) {
+      const int cell = 1 + (1 + C + 3) / 4;
+      need = imax(need, kChunk * cell * 4 + (kSplits - 1) * kRows * imax(C, 1));
     }
   }
-  pred[i] = best > 0.f ? idx : 0;
-  best_w[i] = best;
+  const int ww = (W + 31) / 32;
+  need = imax(need, 2 * close_rows(H, ck) * ww + (tail ? K : 1) * kBand * ww);
+  return need * 4;
 }
 
-inline unsigned blocks_for(long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+// fills p from the call's arguments and carves the workspace: feat (B, N,
+// 8), bn (B, N), q and m (B, K, N), two iterates (B, K, H, W)
+bool setup(Params& p, int B, int K, int H, int W, int f, int stride, int radius,
+           int iters, int ck, int TH, int TW, int smem, bool tail, float* work) {
+  if (B < 1 || K < 1 || K > kMaxClasses || H < 1 || W < 1 || radius < 0 ||
+      radius > kMaxRadius || stride < 1 || H % stride || W % stride || iters < 0 ||
+      f < 1 || H % f || W % f || (long long)H * W >= (1ll << 30) || TH < 1 ||
+      TH > kMaxTileH || TW < 1 || TW > kMaxTileW)
+    return false;
+  p.B = B, p.K = K, p.H = H, p.W = W, p.f = f, p.s = stride, p.radius = radius;
+  p.iters = iters;
+  p.ck = ck > 1 ? ck : 1;
+  p.ws = W / stride;
+  p.N = (H / stride) * p.ws;
+  p.TH = TH, p.TW = TW;
+  p.tiles_x = cdiv(W, TW);
+  p.tiles = cdiv(H, TH) * p.tiles_x;
+  p.fused_splat = TH % stride == 0 && TW % stride == 0;
+  p.bands = cdiv(H, kBand);
+  if (smem > kSmemLimit || smem < smem_need(K, H, W, TH, TW, radius, iters, p.ck, tail))
+    return false;
+  const size_t bn = (size_t)B * p.N, plane = (size_t)H * W;
+  p.feat = work;
+  p.bn = p.feat + bn * 8;
+  p.q = p.bn + bn;
+  p.m = p.q + bn * K;
+  p.d[0] = p.m + bn * K;
+  p.d[1] = p.d[0] + (size_t)B * K * plane;
+  return true;
+}
 
-#define CRF_CHECK()                                    \
-  if ((err = cudaGetLastError()) != cudaSuccess) return err
-
-// The bilateral degree, then num_iters mean-field updates from d0 =
-// tanh(du / 2), ping-ponging between buf_a and buf_b; *last is the buffer
-// that holds the final iterate.
 template <bool kCoarse>
-cudaError_t mean_field(const float* du, int f, const float* feat, const float* taps,
-                       const float* ah, const float* aw, int B, int K, int H, int W,
-                       int stride, int radius, int num_iters, float gc, float bc,
-                       float* buf_a, float* buf_b, float* q, float* m, float* bn,
-                       float** last, cudaStream_t st) {
-  cudaError_t err;
-  const long total = (long)B * K * H * W;
-  const int planes = B * K;
-  const int N = (H / stride) * (W / stride);
-  const dim3 bil_grid((N + kRowsPerBlock - 1) / kRowsPerBlock, B);
-  bilateral_kernel<<<bil_grid, kThreads, 0, st>>>(feat, nullptr, nullptr, bn, N, 1);
-  CRF_CHECK();
-
-  float* cur = buf_a;
-  float* nxt = buf_b;
-  init_kernel<kCoarse><<<blocks_for(total), kThreads, 0, st>>>(du, cur, total, H, W, f);
-  CRF_CHECK();
-  const dim3 upd_grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, planes);
-  for (int it = 0; it < num_iters; ++it) {
-    splat_kernel<<<blocks_for((long)planes * N), kThreads, 0, st>>>(cur, q, planes, H, W,
-                                                                   stride);
-    CRF_CHECK();
-    bilateral_kernel<<<bil_grid, kThreads, 0, st>>>(feat, q, bn, m, N, K);
-    CRF_CHECK();
-    update_kernel<kCoarse><<<upd_grid, kThreads, 0, st>>>(cur, du, m, taps, ah, aw, nxt,
-                                                          H, W, stride, f, radius, gc, bc);
-    CRF_CHECK();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
+cudaError_t launch(const Params& p, int smem, unsigned* barrier, cudaStream_t st) {
+  (void)barrier;
+  cudaError_t err = cudaFuncSetAttribute(
+      crf_kernel<kCoarse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  for (int ph = 0; ph < num_phases(p); ++ph) {
+    crf_kernel<kCoarse><<<phase_items(p, ph), kThreads, smem, st>>>(p, ph, ph + 1);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  *last = cur;
   return cudaSuccess;
-}
-
-// out = the 0/1 masks of d > 0, closed by a k x k window when k > 1 (four
-// separable uint8 passes through mask_a and mask_b; out may be mask_a)
-template <typename T>
-cudaError_t threshold_close(const float* d, uint8_t* mask_a, uint8_t* mask_b, T* out,
-                            long total, int H, int W, int k, cudaStream_t st) {
-  cudaError_t err;
-  const unsigned nb = blocks_for(total);
-  if (k <= 1) {
-    threshold_kernel<T><<<nb, kThreads, 0, st>>>(d, out, total);
-    CRF_CHECK();
-    return cudaSuccess;
-  }
-  threshold_kernel<uint8_t><<<nb, kThreads, 0, st>>>(d, mask_a, total);
-  CRF_CHECK();
-  window_kernel<uint8_t><<<nb, kThreads, 0, st>>>(mask_a, mask_b, total, H, W, k, 1, 1);
-  CRF_CHECK();
-  window_kernel<uint8_t><<<nb, kThreads, 0, st>>>(mask_b, mask_a, total, H, W, k, 0, 1);
-  CRF_CHECK();
-  window_kernel<uint8_t><<<nb, kThreads, 0, st>>>(mask_a, mask_b, total, H, W, k, 1, 0);
-  CRF_CHECK();
-  window_kernel<T><<<nb, kThreads, 0, st>>>(mask_b, out, total, H, W, k, 0, 0);
-  CRF_CHECK();
-  return cudaSuccess;
-}
-
-#undef CRF_CHECK
-
-bool bad_shape(int B, int K, int H, int W, int stride, int radius, int num_iters) {
-  return B < 1 || K < 1 || K > kMaxClasses || radius < 0 || radius > kMaxRadius ||
-         stride < 1 || H % stride || W % stride || num_iters < 0;
 }
 
 }  // namespace
 
+// du (B, K, H, W) f32; rgb (B, H, W, 3) uint8 (rgb_u8) or f32; taps, ah,
+// aw the Gaussian constants; tile_h x tile_w the update tile and smem the
+// shared memory per block (ops/crf_fused.py:launch_plan); work the
+// workspace (crf_workspace_floats in ops/crf_fused.py); barrier two zeroed
+// words; out (B, K, H, W) f32 0/1 masks.
 extern "C" int crf_mean_field_f32(
-    const float* du, const float* feat, const float* taps, const float* ah,
+    const float* du, const void* rgb, int rgb_u8, const float* taps, const float* ah,
     const float* aw, int B, int K, int H, int W, int stride, int radius,
-    int num_iters, float gaussian_compat, float bilateral_compat,
-    int closing_ksize, float* d_work, float* q, float* m, float* bn,
-    uint8_t* mask_a, uint8_t* mask_b, float* out, void* stream_ptr) {
-  if (bad_shape(B, K, H, W, stride, radius, num_iters)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream_ptr;
-  float* last = nullptr;
-  cudaError_t err = mean_field<false>(du, 1, feat, taps, ah, aw, B, K, H, W, stride,
-                                      radius, num_iters, gaussian_compat,
-                                      bilateral_compat, d_work, out, q, m, bn, &last, st);
-  if (err != cudaSuccess) return (int)err;
-  // the last iterate may sit in out: the threshold then runs in place
-  return (int)threshold_close<float>(last, mask_a, mask_b, out, (long)B * K * H * W, H,
-                                     W, closing_ksize, st);
+    int num_iters, float gaussian_compat, float bilateral_compat, float sxy,
+    float srgb, int closing_ksize, int tile_h, int tile_w, int smem, float* work,
+    unsigned* barrier, float* out, void* stream_ptr) {
+  Params p = {};
+  if (!setup(p, B, K, H, W, 1, stride, radius, num_iters, closing_ksize, tile_h,
+             tile_w, smem, false, work))
+    return (int)cudaErrorInvalidValue;
+  p.du = du, p.rgb = rgb, p.rgb_u8 = rgb_u8, p.taps = taps, p.ah = ah, p.aw = aw;
+  p.gc = gaussian_compat, p.bc = bilateral_compat, p.sxy = sxy, p.srgb = srgb;
+  p.out = out;
+  return (int)launch<false>(p, smem, barrier, (cudaStream_t)stream_ptr);
 }
 
-// du_coarse (B, K, H/f, W/f), scores (B, K) f32 (0 for invalid candidates),
-// cand_idx (B, K) int32; scratch d_a, d_b (B, K, H, W) f32, q, m (B, K, N),
-// bn (B, N), mask_a, mask_b (B, K, H, W) uint8; out pred (B, H, W) int32,
-// best_w (B, H, W) f32.
+// du_coarse (B, K, H/f, W/f) f32, scores (B, K) f32 (0 for invalid
+// candidates), cand_idx (B, K) int32 or (idx64) int64; the rest as above;
+// out pred (B, H, W) int32, best_w (B, H, W) f32.
 extern "C" int crf_decode_tail_f32(
-    const float* du_coarse, const float* feat, const float* taps, const float* ah,
-    const float* aw, const float* scores, const int* cand_idx, int B, int K, int H,
-    int W, int du_factor, int stride, int radius, int num_iters,
-    float gaussian_compat, float bilateral_compat, int closing_ksize, float* d_a,
-    float* d_b, float* q, float* m, float* bn, uint8_t* mask_a, uint8_t* mask_b,
-    int* pred, float* best_w, void* stream_ptr) {
-  if (bad_shape(B, K, H, W, stride, radius, num_iters) || du_factor < 1 ||
-      H % du_factor || W % du_factor)
+    const float* du_coarse, const void* rgb, int rgb_u8, const float* taps,
+    const float* ah, const float* aw, const float* scores, const void* cand_idx,
+    int idx64, int B, int K, int H, int W, int du_factor, int stride, int radius,
+    int num_iters, float gaussian_compat, float bilateral_compat, float sxy,
+    float srgb, int closing_ksize, int tile_h, int tile_w, int smem, float* work,
+    unsigned* barrier, int* pred, float* best_w, void* stream_ptr) {
+  Params p = {};
+  if (!setup(p, B, K, H, W, du_factor, stride, radius, num_iters, closing_ksize,
+             tile_h, tile_w, smem, true, work))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream_ptr;
-  float* last = nullptr;
-  cudaError_t err = mean_field<true>(du_coarse, du_factor, feat, taps, ah, aw, B, K, H,
-                                     W, stride, radius, num_iters, gaussian_compat,
-                                     bilateral_compat, d_a, d_b, q, m, bn, &last, st);
-  if (err != cudaSuccess) return (int)err;
-  const long total = (long)B * K * H * W;
-  err = threshold_close<uint8_t>(last, mask_a, mask_b, mask_a, total, H, W,
-                                 closing_ksize, st);
-  if (err != cudaSuccess) return (int)err;
-  const long pixels = (long)B * H * W;
-  argmax_kernel<<<blocks_for(pixels), kThreads, 0, st>>>(mask_a, scores, cand_idx, pred,
-                                                        best_w, pixels, K, (long)H * W);
-  return (int)cudaGetLastError();
+  p.du = du_coarse, p.rgb = rgb, p.rgb_u8 = rgb_u8, p.taps = taps, p.ah = ah;
+  p.aw = aw, p.scores = scores, p.cand_idx = cand_idx, p.idx64 = idx64;
+  p.gc = gaussian_compat, p.bc = bilateral_compat, p.sxy = sxy, p.srgb = srgb;
+  p.pred = pred, p.best_w = best_w;
+  return (int)launch<true>(p, smem, barrier, (cudaStream_t)stream_ptr);
 }
 
 extern "C" const char* crf_mean_field_error_string(int code) {

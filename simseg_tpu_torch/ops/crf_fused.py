@@ -13,6 +13,12 @@ unaries and returns the score-weighted argmax (pred, best weight), with the
 nearest upsample and the argmax inside the kernel (the second entry point of
 the same source). On a CPU tensor it runs ``seg_decode_tail_fused_plain``.
 
+On the card each call takes the images as they are (uint8 or float32; any
+other dtype is cast first), one workspace from ``torch.empty`` and no other
+device work: the features, the mean field, the closing and (tail) the argmax
+all run inside the kernel. ``launch_plan`` is how the kernel cuts a call
+(update tile, shared memory per block); ``csrc/crf_mean_field.cu`` checks it.
+
 The kernels are built at first use by ``ops/cuda_build.py`` and loaded with
 ``ctypes``. ``LAUNCHES`` counts the mean-field kernel's launches,
 ``TAIL_LAUNCHES`` the tail kernel's.
@@ -22,29 +28,35 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
-
 from simseg_tpu_torch.ops import cuda_build
 from simseg_tpu_torch.ops.crf import (
     band_matrix,
     bilateral_features,
-    cell_colours,
     dense_crf_batched_du,
     gaussian_taps,
 )
 from simseg_tpu_torch.ops.morphology import closing, nearest_upsample
 
-__all__ = ["LAUNCHES", "TAIL_LAUNCHES", "bilateral_features", "fused_eligible",
-           "gaussian_constants", "mean_field_fused", "mean_field_fused_plain",
-           "seg_decode_tail_fused", "seg_decode_tail_fused_plain"]
+__all__ = ["LAUNCHES", "SMEM_LIMIT", "TAIL_LAUNCHES", "LaunchPlan",
+           "bilateral_features", "fused_eligible", "gaussian_constants",
+           "launch_plan", "mean_field_fused", "mean_field_fused_plain",
+           "seg_decode_tail_fused", "seg_decode_tail_fused_plain",
+           "workspace_floats"]
 
 _NAME = "crf_mean_field"  # csrc/crf_mean_field.cu
-_F_PAD = 8            # padded feature width (2 pos + 3 rgb)
 _MAX_CLASSES = 8      # kMaxClasses in the kernel
 _MAX_RADIUS = 16      # kMaxRadius in the kernel
+# the kernel's cuts (csrc/crf_mean_field.cu): largest update tile, Gaussian
+# outputs per thread, message rows per block and their splits, message
+# cells per staged tile, closing rows per block; the shared memory a block
+# may take on sm_90
+_TILE_H, _TILE_W, _STRIP = 32, 64, 8
+_ROWS, _SPLITS, _CHUNK, _BAND = 64, 4, 512, 32
+SMEM_LIMIT = 232448
 
 # launches of the CUDA kernels (one per mean_field_fused, respectively
 # seg_decode_tail_fused, call on the card)
@@ -125,35 +137,95 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load_library(_NAME)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.crf_mean_field_f32
-    fn.argtypes = [p, p, p, p, p,            # du, feat, taps, ah, aw
+    fn.argtypes = [p, p, i, p, p, p,        # du, rgb, rgb is uint8, taps, ah, aw
                    i, i, i, i, i, i, i,      # B, K, H, W, stride, radius, iters
-                   f, f, i,                  # compat g, compat b, closing k
-                   p, p, p, p, p, p, p,      # d_work, q, m, bn, masks, out
-                   p]                        # stream
+                   f, f, f, f, i,            # compat g, compat b, sxy, srgb,
+                                             # closing k
+                   i, i, i,                  # tile h, tile w, shared bytes
+                   p, p, p, p]               # work, barrier, out, stream
     fn.restype = ctypes.c_int
     fn = lib.crf_decode_tail_f32
-    fn.argtypes = [p, p, p, p, p, p, p,      # du_coarse, feat, taps, ah, aw,
-                                             # scores, cand_idx
+    fn.argtypes = [p, p, i, p, p, p,        # du_coarse, rgb, uint8, taps, ah, aw
+                   p, p, i,                  # scores, cand_idx, cand_idx is int64
                    i, i, i, i, i, i, i, i,   # B, K, H, W, factor, stride,
                                              # radius, iters
-                   f, f, i,                  # compat g, compat b, closing k
-                   p, p, p, p, p, p, p,      # d_a, d_b, q, m, bn, masks
-                   p, p, p]                  # pred, best_w, stream
+                   f, f, f, f, i,            # compat g, compat b, sxy, srgb,
+                                             # closing k
+                   i, i, i,                  # tile h, tile w, shared bytes
+                   p, p, p, p, p]            # work, barrier, pred, best_w,
+                                             # stream
     fn.restype = ctypes.c_int
     return lib
 
 
-def _kernel_inputs(rgb, h, w, stride, gaussian_sxy, bilateral_sxy,
-                   bilateral_srgb, dev):
-    """(taps, ah, aw, radius, feat (B, N, 8)) as the kernels read them."""
+class LaunchPlan(NamedTuple):
+    """How the kernel cuts a call (the C side checks it): the update tile,
+    whether its cells are whole (the splat fused into the update), and the
+    shared memory per block."""
+    tile_h: int
+    tile_w: int
+    fused_splat: bool
+    smem_bytes: int
+
+
+def launch_plan(h: int, w: int, stride: int, radius: int, num_classes: int,
+                num_iters: int, closing_ksize: int, tail: bool = False) -> LaunchPlan:
+    """The kernel's plan for a call, mirroring ``smem_need`` and
+    ``tile_layout`` of ``csrc/crf_mean_field.cu``: update tiles of whole
+    stride cells up to 32 x 64 (past that, 32 or 64 and a separate splat),
+    and the largest of an update tile with its radius-r halo, a message
+    tile (the degree's and the K-class one) and a closing band."""
+    tile_h = stride * (_TILE_H // stride) if stride <= _TILE_H else _TILE_H
+    tile_w = stride * (_TILE_W // stride) if stride <= _TILE_W else _TILE_W
+    thp, twp = -(-tile_h // _STRIP) * _STRIP, -(-tile_w // _STRIP) * _STRIP
+    span = 2 * radius
+    need = ((thp + span) * (((twp + span) | 1) + twp + 1) + (thp + span)
+            + (twp + span) + 2 * thp)
+    if num_iters > 0:
+        for c in (0, num_classes):
+            need = max(need, _CHUNK * (1 + (c + 4) // 4) * 4
+                       + (_SPLITS - 1) * _ROWS * max(c, 1))
+    words = -(-w // 32)
+    k = max(closing_ksize, 1)
+    need = max(need, 2 * min(h, _BAND + 2 * (k - 1)) * words
+               + (num_classes if tail else 1) * _BAND * words)
+    return LaunchPlan(tile_h, tile_w,
+                      tile_h % stride == 0 and tile_w % stride == 0, 4 * need)
+
+
+def workspace_floats(b: int, k: int, h: int, w: int, stride: int) -> int:
+    """Floats of the kernel's workspace: features (B, N, 8), bn (B, N), q
+    and m (B, K, N), two iterates (B, K, H, W)."""
+    n = (h // stride) * (w // stride)
+    return b * n * 9 + 2 * b * k * n + 2 * b * k * h * w
+
+
+@functools.lru_cache(maxsize=None)
+def _barrier(device: torch.device, stream: int) -> torch.Tensor:
+    """Two zeroed words per (device, stream) for the kernel's grid barrier,
+    which leaves them as it found them; calls on one stream run in order."""
+    return torch.zeros(2, dtype=torch.int32, device=device)
+
+
+def _launch_inputs(du, rgb, h, w, stride, gaussian_sxy, num_iters,
+                   closing_ksize, tail):
+    """(taps, ah, aw, radius, rgb as the kernel reads it, plan, workspace,
+    barrier, stream) of a call on du's card."""
+    dev = du.device
     taps, ah, aw = _device_constants(h, w, float(gaussian_sxy), dev)
     radius = taps.shape[0] // 2
     if radius > _MAX_RADIUS:
         raise ValueError(f"Gaussian radius {radius} > {_MAX_RADIUS}")
-    feat = bilateral_features(cell_colours(rgb, stride), bilateral_sxy,
-                              bilateral_srgb, stride)
-    feat = F.pad(feat, (0, _F_PAD - feat.shape[-1])).contiguous()
-    return taps, ah, aw, radius, feat
+    if rgb.dtype not in (torch.uint8, torch.float32):
+        rgb = rgb.float()
+    rgb = rgb.contiguous()
+    b, kk = du.shape[:2]
+    plan = launch_plan(h, w, stride, radius, kk, num_iters, closing_ksize, tail)
+    work = torch.empty(workspace_floats(b, kk, h, w, stride),
+                       dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return (taps, ah, aw, radius, rgb, plan, work, _barrier(dev, stream),
+            stream)
 
 
 def mean_field_fused(du: torch.Tensor, rgb: torch.Tensor, num_iters: int = 3,
@@ -188,24 +260,17 @@ def mean_field_fused(du: torch.Tensor, rgb: torch.Tensor, num_iters: int = 3,
     if kk > _MAX_CLASSES:
         raise ValueError(f"{kk} maps per image; the kernel takes <= {_MAX_CLASSES}")
     lib = _library()
-    dev = du.device
-    taps, ah, aw, radius, feat = _kernel_inputs(
-        rgb, h, w, stride, gaussian_sxy, bilateral_sxy, bilateral_srgb, dev)
-    n = (h // stride) * (w // stride)
-    d_work = torch.empty_like(du)
-    q = torch.empty((b, kk, n), dtype=torch.float32, device=dev)
-    m = torch.empty_like(q)
-    bn = torch.empty((b, n), dtype=torch.float32, device=dev)
-    masks = [torch.empty(du.shape, dtype=torch.uint8, device=dev)
-             for _ in range(2 if closing_ksize > 1 else 0)]
+    taps, ah, aw, radius, rgb, plan, work, barrier, stream = _launch_inputs(
+        du, rgb, h, w, stride, gaussian_sxy, num_iters, closing_ksize, False)
     out = torch.empty_like(du)
-    mask_ptrs = [t.data_ptr() for t in masks] or [None, None]
-    status = lib.crf_mean_field_f32(
-        du.data_ptr(), feat.data_ptr(), taps.data_ptr(), ah.data_ptr(),
-        aw.data_ptr(), b, kk, h, w, stride, radius, num_iters,
-        float(gaussian_compat), float(bilateral_compat), int(closing_ksize),
-        d_work.data_ptr(), q.data_ptr(), m.data_ptr(), bn.data_ptr(),
-        *mask_ptrs, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(du.device):
+        status = lib.crf_mean_field_f32(
+            du.data_ptr(), rgb.data_ptr(), int(rgb.dtype == torch.uint8),
+            taps.data_ptr(), ah.data_ptr(), aw.data_ptr(), b, kk, h, w, stride,
+            radius, num_iters, float(gaussian_compat), float(bilateral_compat),
+            float(bilateral_sxy), float(bilateral_srgb), int(closing_ksize),
+            plan.tile_h, plan.tile_w, plan.smem_bytes, work.data_ptr(),
+            barrier.data_ptr(), out.data_ptr(), stream)
     cuda_build.check_status(lib, _NAME, "crf_mean_field_f32", status)
     global LAUNCHES
     LAUNCHES += 1
@@ -259,29 +324,26 @@ def seg_decode_tail_fused(du_coarse: torch.Tensor, rgb: torch.Tensor,
     if kk > _MAX_CLASSES:
         raise ValueError(f"{kk} maps per image; the kernel takes <= {_MAX_CLASSES}")
     lib = _library()
-    taps, ah, aw, radius, feat = _kernel_inputs(
-        rgb, h, w, stride, gaussian_sxy, bilateral_sxy, bilateral_srgb, dev)
     du_coarse = du_coarse.float().contiguous()
     scores_eff = scores_eff.float().contiguous()
-    cand_idx = cand_idx.to(torch.int32).contiguous()
-    n = (h // stride) * (w // stride)
-    d_a, d_b = (torch.empty((b, kk, h, w), dtype=torch.float32, device=dev)
-                for _ in range(2))
-    q = torch.empty((b, kk, n), dtype=torch.float32, device=dev)
-    m = torch.empty_like(q)
-    bn = torch.empty((b, n), dtype=torch.float32, device=dev)
-    mask_a, mask_b = (torch.empty((b, kk, h, w), dtype=torch.uint8, device=dev)
-                      for _ in range(2))
+    if cand_idx.dtype not in (torch.int32, torch.int64):
+        cand_idx = cand_idx.to(torch.int32)
+    cand_idx = cand_idx.contiguous()
+    taps, ah, aw, radius, rgb, plan, work, barrier, stream = _launch_inputs(
+        du_coarse, rgb, h, w, stride, gaussian_sxy, num_iters, closing_ksize,
+        True)
     pred = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     best_w = torch.empty((b, h, w), dtype=torch.float32, device=dev)
-    status = lib.crf_decode_tail_f32(
-        du_coarse.data_ptr(), feat.data_ptr(), taps.data_ptr(), ah.data_ptr(),
-        aw.data_ptr(), scores_eff.data_ptr(), cand_idx.data_ptr(), b, kk, h, w,
-        du_factor, stride, radius, num_iters, float(gaussian_compat),
-        float(bilateral_compat), int(closing_ksize), d_a.data_ptr(),
-        d_b.data_ptr(), q.data_ptr(), m.data_ptr(), bn.data_ptr(),
-        mask_a.data_ptr(), mask_b.data_ptr(), pred.data_ptr(),
-        best_w.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        status = lib.crf_decode_tail_f32(
+            du_coarse.data_ptr(), rgb.data_ptr(), int(rgb.dtype == torch.uint8),
+            taps.data_ptr(), ah.data_ptr(), aw.data_ptr(), scores_eff.data_ptr(),
+            cand_idx.data_ptr(), int(cand_idx.dtype == torch.int64), b, kk, h, w,
+            du_factor, stride, radius, num_iters, float(gaussian_compat),
+            float(bilateral_compat), float(bilateral_sxy),
+            float(bilateral_srgb), int(closing_ksize), plan.tile_h,
+            plan.tile_w, plan.smem_bytes, work.data_ptr(), barrier.data_ptr(),
+            pred.data_ptr(), best_w.data_ptr(), stream)
     cuda_build.check_status(lib, _NAME, "crf_decode_tail_f32", status)
     global TAIL_LAUNCHES
     TAIL_LAUNCHES += 1

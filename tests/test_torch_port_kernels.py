@@ -58,6 +58,59 @@ def test_kernel_matches_plain(cuda_device, seed, b, k, h, stride):
     assert torch.equal(zero, (du > 0).float())
 
 
+def _rect_case(seed, b, k, h, w, device):
+    rng = np.random.default_rng(seed)
+    p = np.clip(rng.uniform(0.02, 0.98, (b, k, h, w)), 0.0, 1.0)
+    du = (np.log(p + 1e-8) - np.log(1.0 - p + 1e-8)).astype(np.float32)
+    rgb = rng.integers(0, 255, (b, h, w, 3)).astype(np.uint8)
+    return torch.from_numpy(du).to(device), torch.from_numpy(rgb).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,b,k,h,w,stride,sxy,iters", [
+    (30, 2, 3, 96, 160, 8, 3.0, 3),     # H != W
+    (31, 2, 2, 200, 200, 8, 3.0, 3),    # H not a multiple of the tile
+    (32, 1, 2, 320, 320, 8, 3.0, 3),    # N = 1600, fused_eligible's edge
+    (33, 1, 3, 512, 512, 16, 3.0, 3),   # 512^2 at stride 16
+    (34, 1, 2, 512, 512, 64, 3.0, 3),   # stride past a whole-cell tile
+    (35, 2, 2, 96, 96, 8, 5.3, 3),      # radius ceil(3 x 5.3) = 16
+    (36, 1, 8, 64, 64, 4, 3.0, 3),      # K = 8, B = 1
+    (37, 2, 3, 64, 96, 8, 3.0, 0),      # no iteration
+    (38, 2, 3, 64, 96, 8, 3.0, 1)])     # one iteration
+def test_kernel_edges_match_plain(cuda_device, seed, b, k, h, w, stride, sxy, iters):
+    """The shapes a banded or tiled design has edges at, each against the
+    plain version (>= 99.9% of masks), with and without the closing, whose
+    composition is exact."""
+    du, rgb = _rect_case(seed, b, k, h, w, cuda_device)
+    kw = dict(stride=stride, gaussian_sxy=sxy, num_iters=iters)
+    for ck in (0, 7):
+        before = crf_fused.LAUNCHES
+        got = crf_fused.mean_field_fused(du, rgb, closing_ksize=ck, **kw)
+        assert crf_fused.LAUNCHES == before + 1
+        want = crf_fused.mean_field_fused_plain(du, rgb, closing_ksize=ck, **kw)
+        assert (got == want).float().mean().item() >= 0.999
+    raw = crf_fused.mean_field_fused(du, rgb, **kw)
+    closed = crf_fused.mean_field_fused(du, rgb, closing_ksize=7, **kw)
+    assert torch.equal(closing(raw, 7), closed)
+    if iters == 0:
+        assert torch.equal(raw, (du > 0).float())
+
+
+@pytest.mark.cuda
+def test_kernels_are_deterministic(cuda_device):
+    """Two calls of each entry point give the same bits."""
+    du, rgb = _case(40, 2, 5, 288, cuda_device)
+    one = crf_fused.mean_field_fused(du, rgb, stride=8, closing_ksize=7)
+    assert torch.equal(one, crf_fused.mean_field_fused(du, rgb, stride=8,
+                                                       closing_ksize=7))
+    du_c, rgb, scores, idx = _tail_case(41, 2, 5, 18, 16, cuda_device)
+    pred, best_w = crf_fused.seg_decode_tail_fused(du_c, rgb, scores, idx, 16,
+                                                   stride=8)
+    pred2, best_w2 = crf_fused.seg_decode_tail_fused(du_c, rgb, scores, idx, 16,
+                                                     stride=8)
+    assert torch.equal(pred, pred2) and torch.equal(best_w, best_w2)
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take(cuda_device):
     du, rgb = _case(0, 1, 9, 16, cuda_device)
@@ -73,16 +126,18 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
         crf_fused.mean_field_fused(du[:, :2], rgb.cpu(), stride=4)
 
 
-def _tail_case(seed, b, k, grid, factor, device):
-    """Decode-form patch-grid unaries (min-max normalised smooth maps),
-    images, scores with an invalid candidate, a negative one and a tie."""
+def _tail_case(seed, b, k, grid, factor, device, grid_w=None):
+    """Decode-form patch-grid unaries (min-max normalised smooth maps) on a
+    grid x grid_w grid (square by default), images, scores with an invalid
+    candidate, a negative one and a tie."""
     rng = np.random.default_rng(seed)
-    c = rng.normal(size=(b, k, grid + 2, grid + 2))
-    c = (c[..., :-2, :-2] + c[..., 1:-1, 1:-1] + c[..., 2:, 2:])[..., :grid, :grid]
+    gw = grid_w or grid
+    c = rng.normal(size=(b, k, grid + 2, gw + 2))
+    c = (c[..., :-2, :-2] + c[..., 1:-1, 1:-1] + c[..., 2:, 2:])[..., :grid, :gw]
     lo, hi = c.min(axis=(-2, -1), keepdims=True), c.max(axis=(-2, -1), keepdims=True)
     p = np.clip((c - lo) / np.maximum(hi - lo, 1e-12), 0, 1)
     du_c = (np.log(p + 1e-8) - np.log(1 - p + 1e-8)).astype(np.float32)
-    rgb = rng.integers(0, 255, (b, grid * factor, grid * factor, 3)).astype(np.uint8)
+    rgb = rng.integers(0, 255, (b, grid * factor, gw * factor, 3)).astype(np.uint8)
     scores = rng.uniform(0.1, 0.5, (b, k)).astype(np.float32)
     scores[:, 0] = 0.0
     if k > 2:
@@ -93,13 +148,17 @@ def _tail_case(seed, b, k, grid, factor, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,b,k,grid,factor,stride,ck", [
-    (0, 1, 1, 8, 4, 4, 0), (1, 2, 4, 8, 4, 4, 7), (2, 2, 5, 18, 16, 8, 7),
-    (3, 1, 8, 10, 4, 8, 7)])
+@pytest.mark.parametrize("seed,b,k,grid,factor,stride,ck,gw,iters", [
+    (0, 1, 1, 8, 4, 4, 0, None, 3), (1, 2, 4, 8, 4, 4, 7, None, 3),
+    (2, 2, 5, 18, 16, 8, 7, None, 3), (3, 1, 8, 10, 4, 8, 7, None, 3),
+    (4, 2, 5, 6, 16, 8, 7, 10, 3),    # H != W: 96 x 160
+    (5, 1, 3, 32, 16, 16, 7, None, 3),  # 512^2 at stride 16
+    (6, 2, 5, 18, 16, 8, 7, None, 0), (7, 2, 5, 18, 16, 8, 7, None, 1)])
 def test_tail_kernel_matches_plain_and_the_kernel_lane(cuda_device, seed, b, k,
-                                                       grid, factor, stride, ck):
-    du_c, rgb, scores, idx = _tail_case(seed, b, k, grid, factor, cuda_device)
-    kw = dict(stride=stride, closing_ksize=ck)
+                                                       grid, factor, stride, ck,
+                                                       gw, iters):
+    du_c, rgb, scores, idx = _tail_case(seed, b, k, grid, factor, cuda_device, gw)
+    kw = dict(stride=stride, closing_ksize=ck, num_iters=iters)
     before = crf_fused.TAIL_LAUNCHES
     pred, best_w = crf_fused.seg_decode_tail_fused(du_c, rgb, scores, idx, factor, **kw)
     assert crf_fused.TAIL_LAUNCHES == before + 1
