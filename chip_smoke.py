@@ -269,6 +269,22 @@ def device_rows(fn):
     return sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows), rows
 
 
+def launch_times(fn):
+    """Device microseconds of each CUDA kernel one call of fn launches, in
+    launch order, after a warm-up call (torch.profiler's trace events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [round(e.time_range.elapsed_us(), 1) for e in
+            sorted(kernels, key=lambda e: e.time_range.start)]
+
+
 def device_profile(fn, label: str, top: int = 8) -> float:
     """Prints the device time of one call of fn, by kernel (torch.profiler);
     returns the total in ms."""
@@ -1670,8 +1686,8 @@ def compare_crf_trees(trees) -> None:
             device, kernels, _ = device_rows(lambda: call(mod))
             print(f"tree {tree}: {name} ({BATCH}, {CLASSES_PER_IMAGE}, {SIZE}, "
                   f"stride {STRIDE}): {ts[0]:.4f} / {ts[1]:.4f} ms, device "
-                  f"{device:.4f} ms in {kernels} CUDA kernels per call",
-                  flush=True)
+                  f"{device:.4f} ms in {kernels} CUDA kernels per call; us by "
+                  f"launch {launch_times(lambda: call(mod))}", flush=True)
     shutil.rmtree(out_dir)
 
 

@@ -83,13 +83,14 @@ struct Params {
   float* q;                 // (B, K, N) cell means of d
   float* m;                 // (B, K, N) messages
   float* d[2];              // (B, K, H, W) iterates
+  uint32_t* bits;           // (B, K, H, ceil(W / 32)) the last iterate's d > 0
   float* out;               // mean field: (B, K, H, W) 0/1 masks
   int* pred;                // tail: (B, H, W)
   float* best_w;            // tail: (B, H, W)
   int B, K, H, W, f, s, radius, iters, ck;
   int rgb_u8, idx64;
   float gc, bc, sxy, srgb;
-  int N, ws;                // cells, cells per row
+  int N, ws, hs;            // cells, cells per row, cell rows
   int TH, TW, tiles_x, tiles, fused_splat;
   int bands;
 };
@@ -97,23 +98,29 @@ struct Params {
 // ------------------------------------------------------------ the phases
 
 enum Kind { kFeat = 1, kInit = 2, kSplat = 4, kDegree = 8, kMessage = 16,
-            kUpdate = 32, kClose = 64 };
+            kUpdate = 32, kZero = 64, kClose = 128 };
 
 struct Phase {
   int kinds, it;
 };
 
+// no iteration: zero the mask bits; d0 > 0 into them; the closing.
+// Else: the features and (whole-cell tiles) the cell means of d0; the
+// degree, zeroing the mask bits (and the cell means of d0 otherwise); per
+// iteration the message, the update (the last one writes the mask bits,
+// not d) and, for tiles not of whole cells, the cell means of d; the
+// closing. d0 = tanh(du / 2) is never stored: the first update and the
+// cell means of d0 read du.
 __host__ __device__ inline int num_phases(const Params& p) {
-  return p.iters > 0 ? 3 + p.iters * (p.fused_splat ? 2 : 3) : 2;
+  if (p.iters == 0) return 3;
+  return 3 + 2 * p.iters + (p.fused_splat ? 0 : p.iters - 1);
 }
 
-// phase 0: features and d0 (with its cell means when the splat is fused);
-// phase 1: the degree (and the splat of d0 otherwise); then per iteration
-// the message, the update (and a splat); last the closing
 __host__ __device__ inline Phase phase_at(const Params& p, int ph) {
-  if (ph == 0) return {kInit | (p.iters > 0 ? kFeat : 0), 0};
   if (ph == num_phases(p) - 1) return {kClose, 0};
-  if (ph == 1) return {kDegree | (p.fused_splat ? 0 : kSplat), -1};
+  if (p.iters == 0) return {ph == 0 ? kZero : kInit, -1};
+  if (ph == 0) return {kFeat | (p.fused_splat ? kInit : 0), -1};
+  if (ph == 1) return {kDegree | kZero | (p.fused_splat ? 0 : kSplat), -1};
   const int per = p.fused_splat ? 2 : 3;
   const int it = (ph - 2) / per, r = (ph - 2) - it * per;
   return {r == 0 ? kMessage : r == 1 ? kUpdate : kSplat, it};
@@ -126,10 +133,11 @@ __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int items_of(const Params& p, int kind) {
   const int planes = p.B * p.K;
   switch (kind) {
-    case kFeat: return p.B * cdiv(p.N, kThreads);
+    case kFeat: return p.B * p.hs;
     case kInit: case kUpdate: return planes * p.tiles;
     case kSplat: return planes * cdiv(p.N, kThreads);
     case kDegree: case kMessage: return p.B * cdiv(p.N, kRows);
+    case kZero: return planes;
     case kClose: return p.B * p.bands;
   }
   return 0;
@@ -151,29 +159,45 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
-// scaled features of cells c0 .. c0 + kThreads - 1 of image b: box-mean
-// colour, cell-centre position (as ops/crf.py:bilateral_features)
-__device__ void feature_item(const Params& p, int b, int c0) {
-  const int c = c0 + threadIdx.x;
-  if (c >= p.N) return;
-  const int s = p.s, W = p.W;
-  const int cy = c / p.ws, cx = c - cy * p.ws;
-  const size_t img = (size_t)b * p.H * W;
-  float sum[3] = {0.f, 0.f, 0.f};
-  for (int y = 0; y < s; ++y) {
-    const size_t row = (img + (size_t)(cy * s + y) * W + cx * s) * 3;
-    for (int x = 0; x < 3 * s; x += 3)
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch)
-        sum[ch] += p.rgb_u8 ? (float)__ldg((const uint8_t*)p.rgb + row + x + ch)
-                            : __ldg((const float*)p.rgb + row + x + ch);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// scaled features of the cells of cell row cy of image b (as
+// ops/crf.py:bilateral_features): the s rows summed per pixel and channel
+// (neighbouring threads on neighbouring bytes), then s columns per cell
+__device__ void feature_item(const Params& p, int b, int cy, float* smem) {
+  const int s = p.s, n3 = 3 * p.W;
+  const size_t base = ((size_t)b * p.H + (size_t)cy * s) * n3;
+  __syncthreads();
+  for (int j = threadIdx.x; j < n3; j += kThreads) {
+    float a = 0.f;
+#pragma unroll 4
+    for (int y = 0; y < s; ++y)
+      a += p.rgb_u8 ? (float)__ldg((const uint8_t*)p.rgb + base + (size_t)y * n3 + j)
+                    : __ldg((const float*)p.rgb + base + (size_t)y * n3 + j);
+    smem[j] = a;
   }
+  __syncthreads();
   const float area = (float)(s * s);
-  float* out = p.feat + ((size_t)b * p.N + c) * 8;
-  out[0] = ((cy + 0.5f) * s - 0.5f) / p.sxy * kFeatScale;
-  out[1] = ((cx + 0.5f) * s - 0.5f) / p.sxy * kFeatScale;
+  for (int cx = threadIdx.x; cx < p.ws; cx += kThreads) {
+    float sum[3] = {0.f, 0.f, 0.f};
+    for (int x = 0; x < s; ++x)
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) out[2 + ch] = sum[ch] / area / p.srgb * kFeatScale;
+      for (int ch = 0; ch < 3; ++ch) sum[ch] += smem[(cx * s + x) * 3 + ch];
+    float* out = p.feat + ((size_t)b * p.N + cy * p.ws + cx) * 8;
+    out[0] = ((cy + 0.5f) * s - 0.5f) / p.sxy * kFeatScale;
+    out[1] = ((cx + 0.5f) * s - 0.5f) / p.sxy * kFeatScale;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) out[2 + ch] = sum[ch] / area / p.srgb * kFeatScale;
+  }
 }
 
 // Bilateral product for image b over rows row0 .. row0 + 63:
@@ -270,120 +294,149 @@ __device__ void message_item(const Params& p, int b, int row0, float* smem) {
 
 // shared-memory layout of an update tile (floats), the same on the host
 struct TileLayout {
-  int thp, twp, pin, prow, in, rows, ah, aw, yi, yc, total;
+  int thp, twp, pin, prow, in, rows, ah, aw, hy, hx, yi, total;
 };
 
 __host__ __device__ inline TileLayout tile_layout(int TH, int TW, int radius) {
   TileLayout l;
+  const int span = 2 * radius;
   l.thp = cdiv(TH, kStrip) * kStrip;
   l.twp = cdiv(TW, kStrip) * kStrip;
-  l.pin = (l.twp + 2 * radius) | 1;        // odd pitches: no bank conflicts
+  l.pin = (l.twp + span) | 1;        // odd pitches: no bank conflicts
   l.prow = l.twp + 1;
   l.in = 0;
-  l.rows = l.in + (l.thp + 2 * radius) * l.pin;
-  l.ah = l.rows + (l.thp + 2 * radius) * l.prow;
-  l.aw = l.ah + l.thp + 2 * radius;
-  l.yi = l.aw + l.twp + 2 * radius;
-  l.yc = l.yi + l.thp;
-  l.total = l.yc + l.thp;
+  l.rows = l.in + (l.thp + span) * l.pin;
+  l.ah = l.rows + (l.thp + span) * l.prow;
+  l.aw = l.ah + l.thp + span;
+  l.hy = l.aw + l.twp + span;
+  l.hx = l.hy + l.thp + span;
+  l.yi = l.hx + l.twp + span;
+  l.total = l.yi + l.thp;
   return l;
 }
 
-// One tile of plane pl: kInit: d_out = tanh(du / 2); else the update
-//   d_out = tanh((du + gc G(d_in) + bc m[cell]) / 2);
-// and, when write_q, the tile's cell means of d_out into q.
+// One tile of plane pl. kInit (it = -1): d0 = tanh(du / 2), only its cell
+// means, or (no iteration) its mask bits du > 0. Else iteration it:
+//   d' = tanh((du + gc G(d) + bc m[cell]) / 2),
+// d read as tanh(du / 2) at it = 0; d' into the other iterate, or, at the
+// last iteration, d' > 0 into the mask bits; when the tile holds whole
+// cells and d' is needed again, the tile's cell means of d' into q.
 template <int R, bool kCoarse, bool kInit>
-__device__ void update_item(const Params& p, int pl, int tile, const float* d_in,
-                            float* d_out, bool write_q, float* smem) {
+__device__ void update_item(const Params& p, int pl, int tile, int it, float* smem) {
   constexpr int kSpan = 2 * R;
   const int H = p.H, W = p.W, s = p.s;
+  const bool from_du = kInit || it == 0;
+  const bool last = kInit ? p.iters == 0 : it == p.iters - 1;
+  const bool write_q = p.fused_splat && !last;
   const int tyi = tile / p.tiles_x, txi = tile - tyi * p.tiles_x;
   const int y0 = tyi * p.TH, x0 = txi * p.TW;
   const int th = min(p.TH, H - y0), tw = min(p.TW, W - x0);
+  const int rows = th + kSpan, cols = tw + kSpan;
   const TileLayout l = tile_layout(p.TH, p.TW, R);
   float* s_in = smem + l.in;
   float* s_rows = smem + l.rows;
   float* s_ah = smem + l.ah;
   float* s_aw = smem + l.aw;
+  int* s_hy = reinterpret_cast<int*>(smem + l.hy);
+  int* s_hx = reinterpret_cast<int*>(smem + l.hx);
   int* s_yi = reinterpret_cast<int*>(smem + l.yi);
-  int* s_yc = reinterpret_cast<int*>(smem + l.yc);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
   const size_t pbase = (size_t)pl * H * W;
   const int gw = W / p.f;
   const size_t cbase = (size_t)pl * (H / p.f) * gw;
 
   __syncthreads();  // the previous item is done with shared memory
-  for (int r = tid; r < th; r += kThreads) {
-    const int y = y0 + r;
-    s_yi[r] = (y / s) * p.ws;
-    if (kCoarse) s_yc[r] = (y / p.f) * gw;
+  // per halo row and column: inside the image (the normalisation, 0
+  // outside), and the patch-grid row offset and column (kCoarse)
+  for (int r = tid; r < rows; r += kThreads) {
+    const int y = y0 - R + r;
+    const bool in = y >= 0 && y < H;
+    s_ah[r] = in ? __ldg(p.ah + y) : 0.f;
+    if (kCoarse) s_hy[r] = in ? (y / p.f) * gw : 0;
   }
-  if (!kInit) {
-    for (int r = tid; r < th + kSpan; r += kThreads) {
-      const int y = y0 - R + r;
-      s_ah[r] = y >= 0 && y < H ? __ldg(p.ah + y) : 0.f;
-    }
-    for (int c = tid; c < tw + kSpan; c += kThreads) {
-      const int x = x0 - R + c;
-      s_aw[c] = x >= 0 && x < W ? __ldg(p.aw + x) : 0.f;
-    }
+  for (int c = tid; c < cols; c += kThreads) {
+    const int x = x0 - R + c;
+    const bool in = x >= 0 && x < W;
+    s_aw[c] = in ? __ldg(p.aw + x) : 0.f;
+    if (kCoarse) s_hx[c] = in ? x / p.f : 0;
   }
+  for (int r = tid; r < th; r += kThreads) s_yi[r] = ((y0 + r) / s) * p.ws;
   __syncthreads();
 
   float tap[kSpan + 1];
   if (!kInit) {
+    // the halo, zero outside the image: d, or du read on the patch grid
+    const bool coarse_du = kCoarse && from_du;
+    const float* src = from_du ? p.du + (kCoarse ? cbase : pbase) : p.d[it & 1] + pbase;
+    const int dr = kThreads / cols, dc = kThreads - dr * cols;
+    int r = tid / cols, c = tid - r * cols;
+    for (int i = tid; i < rows * cols; i += kThreads) {
+      const bool in = s_ah[r] != 0.f && s_aw[c] != 0.f;
+      const int off = coarse_du ? s_hy[r] + s_hx[c] : (y0 - R + r) * W + (x0 - R + c);
+      cp_async4(s_in + r * l.pin + c, in ? src + off : src, in ? 4 : 0);
+      r += dr;
+      c += dc;
+      if (c >= cols) {
+        c -= cols;
+        ++r;
+      }
+    }
 #pragma unroll
     for (int t = 0; t <= kSpan; ++t) tap[t] = __ldg(p.taps + t);
-    // the halo, normalised: ah[y] aw[x] d[y, x], zero outside the image
-    for (int r = warp; r < th + kSpan; r += kWarps) {
-      const int y = y0 - R + r;
-      const float a = s_ah[r];
-      const float* src = d_in + pbase + (size_t)(y < 0 ? 0 : y) * W;
-      for (int c = lane; c < tw + kSpan; c += 32) {
-        const int x = x0 - R + c;
-        float v = 0.f;
-        if (a != 0.f && x >= 0 && x < W) v = __ldcg(src + x) * a * s_aw[c];
-        s_in[r * l.pin + c] = v;
+    cp_async_wait_all();
+    __syncthreads();
+    // normalised: ah[y] aw[x] d[y, x], d = tanh(du / 2) at it = 0
+    r = tid / cols;
+    c = tid - r * cols;
+    for (int i = tid; i < rows * cols; i += kThreads) {
+      float* v = s_in + r * l.pin + c;
+      *v = (from_du ? tanhf(*v * 0.5f) : *v) * s_ah[r] * s_aw[c];
+      r += dr;
+      c += dc;
+      if (c >= cols) {
+        c -= cols;
+        ++r;
       }
     }
     __syncthreads();
     // along x: rows th + 2R (<= 64), strips of kStrip outputs
     const int strips = cdiv(tw, kStrip);
     for (int u = tid; u < 64 * strips; u += kThreads) {
-      const int r = u & 63, st = u >> 6;
-      if (r >= th + kSpan) continue;
-      const float* src = s_in + r * l.pin + st * kStrip;
+      const int rr = u & 63, st = u >> 6;
+      if (rr >= rows) continue;
+      const float* srow = s_in + rr * l.pin + st * kStrip;
       float w[kStrip + kSpan];
 #pragma unroll
-      for (int k = 0; k < kStrip + kSpan; ++k) w[k] = src[k];
+      for (int k = 0; k < kStrip + kSpan; ++k) w[k] = srow[k];
 #pragma unroll
       for (int o = 0; o < kStrip; ++o) {
         float a = 0.f;
 #pragma unroll
         for (int t = 0; t <= kSpan; ++t) a = fmaf(tap[t], w[o + t], a);
-        s_rows[r * l.prow + st * kStrip + o] = a;
+        s_rows[rr * l.prow + st * kStrip + o] = a;
       }
     }
     __syncthreads();
   }
 
-  // along y and the update: columns tw (<= 64), strips of kStrip rows; the
-  // new d also goes to shared memory (over s_in) for the cell means
-  float* s_d = s_in;
+  // along y and the update: columns tw (<= 64), strips of kStrip rows; a
+  // warp's lanes are 32 neighbouring columns of one strip
+  float* s_d = s_in;  // the new d, for the cell means
+  float* dst = last ? nullptr : p.d[(it + 1) & 1] + pbase;
+  uint32_t* bits = p.bits + (size_t)pl * H * ((W + 31) >> 5);
   const int ystrips = cdiv(th, kStrip);
   for (int u = tid; u < 64 * ystrips; u += kThreads) {
     const int xl = u & 63, ys = u >> 6;
-    if (xl >= tw) continue;
+    const bool active = xl < tw;
     const int x = x0 + xl;
     const int cx = x / s;
-    const int xc = kCoarse ? x / p.f : 0;
     float g[kStrip];
-    if (!kInit) {
+    if (!kInit && active) {
       const float* src = s_rows + ys * kStrip * l.prow + xl;
       float w[kStrip + kSpan];
 #pragma unroll
       for (int k = 0; k < kStrip + kSpan; ++k)
-        w[k] = ys * kStrip + k < th + kSpan ? src[k * l.prow] : 0.f;
+        w[k] = ys * kStrip + k < rows ? src[k * l.prow] : 0.f;
       const float awx = s_aw[R + xl];
 #pragma unroll
       for (int o = 0; o < kStrip; ++o) {
@@ -396,19 +449,33 @@ __device__ void update_item(const Params& p, int pl, int tile, const float* d_in
 #pragma unroll
     for (int o = 0; o < kStrip; ++o) {
       const int ty = ys * kStrip + o;
-      if (ty >= th) break;
+      if (ty >= th) break;  // the same for the whole warp
       const int y = y0 + ty;
-      const float uv = kCoarse ? __ldg(p.du + cbase + s_yc[ty] + xc)
-                               : __ldg(p.du + pbase + y * W + x);
-      float dn;
-      if (kInit) {
-        dn = tanhf(uv * 0.5f);
-      } else {
-        const float mv = __ldcg(p.m + (size_t)pl * p.N + s_yi[ty] + cx);
-        dn = tanhf((uv + (p.gc * g[o] + p.bc * mv)) * 0.5f);
+      float dn = 0.f;
+      bool fg = false;
+      if (active) {
+        const float uv = kCoarse ? __ldg(p.du + cbase + s_hy[R + ty] + s_hx[R + xl])
+                                 : __ldg(p.du + pbase + y * W + x);
+        if (kInit) {
+          dn = tanhf(uv * 0.5f);
+          fg = uv > 0.f;
+        } else {
+          const float mv = __ldcg(p.m + (size_t)pl * p.N + s_yi[ty] + cx);
+          dn = tanhf((uv + (p.gc * g[o] + p.bc * mv)) * 0.5f);
+          fg = dn > 0.f;
+        }
       }
-      d_out[pbase + y * W + x] = dn;
-      if (write_q) s_d[ty * l.prow + xl] = dn;
+      if (last) {
+        // the warp's 32 columns start at x - lane: at most two words
+        const uint32_t b = __ballot_sync(0xffffffffu, fg);
+        const int xb = x - lane, q = xb >> 5, sh = xb & 31;
+        uint32_t* row = bits + y * ((W + 31) >> 5);
+        if (lane == 0 && (b << sh)) atomicOr(row + q, b << sh);
+        if (lane == 0 && sh && (b >> (32 - sh))) atomicOr(row + q + 1, b >> (32 - sh));
+      } else if (active) {
+        if (!kInit) dst[y * W + x] = dn;
+        if (write_q) s_d[ty * l.prow + xl] = dn;
+      }
     }
   }
   if (!write_q) return;
@@ -425,16 +492,36 @@ __device__ void update_item(const Params& p, int pl, int tile, const float* d_in
   }
 }
 
-// q of cells c0 .. c0 + kThreads - 1 of plane pl from d (strides too wide
-// for a tile of whole cells)
-__device__ void splat_item(const Params& p, int pl, int c0, const float* d) {
+// q of cells c0 .. c0 + kThreads - 1 of plane pl (strides too wide for a
+// tile of whole cells): from d after iteration it, or d0 = tanh(du / 2)
+template <bool kCoarse>
+__device__ void splat_item(const Params& p, int pl, int c0, int it) {
   const int c = c0 + threadIdx.x;
   if (c >= p.N) return;
-  const int s = p.s, cy = c / p.ws, cx = c - cy * p.ws;
-  const float* src = d + (size_t)pl * p.H * p.W + (size_t)cy * s * p.W + cx * s;
+  const int s = p.s, f = p.f, W = p.W, cy = c / p.ws, cx = c - cy * p.ws;
   float a = 0.f;
-  for (int y = 0; y < s; ++y)
-    for (int x = 0; x < s; ++x) a += __ldcg(src + y * p.W + x);
+  if (it >= 0) {
+    const float* src = p.d[(it + 1) & 1] + (size_t)pl * p.H * W + (size_t)cy * s * W + cx * s;
+    for (int y = 0; y < s; ++y)
+      for (int x = 0; x < s; ++x) a += __ldcg(src + y * W + x);
+  } else if (!kCoarse) {
+    const float* src = p.du + (size_t)pl * p.H * W + (size_t)cy * s * W + cx * s;
+    for (int y = 0; y < s; ++y)
+      for (int x = 0; x < s; ++x) a += tanhf(__ldg(src + y * W + x) * 0.5f);
+  } else {
+    // the patch grid at (y / f, x / f), the quotients kept by counting
+    const int gw = W / f;
+    const float* src = p.du + (size_t)pl * (p.H / f) * gw;
+    int yq = cy * s / f, yr = cy * s - yq * f;
+    for (int y = 0; y < s; ++y) {
+      int xq = cx * s / f, xr = cx * s - xq * f;
+      for (int x = 0; x < s; ++x) {
+        a += tanhf(__ldg(src + yq * gw + xq) * 0.5f);
+        if (++xr == f) xr = 0, ++xq;
+      }
+      if (++yr == f) yr = 0, ++yq;
+    }
+  }
   p.q[(size_t)pl * p.N + c] = a / (float)(s * s);
 }
 
@@ -455,11 +542,11 @@ __host__ __device__ inline int close_rows(int H, int ck) {
   return imin(H, kBand + 2 * (ck - 1));
 }
 
-// rows y0 .. y0 + th - 1 of image b: threshold, closing and (kTail) the
-// argmax over the K maps, or (mean field) the K closed masks as floats
+// rows y0 .. y0 + th - 1 of image b: the closing of the mask bits and
+// (kTail) the argmax over the K maps, or (mean field) the K closed masks as
+// floats
 template <bool kTail>
-__device__ void close_item(const Params& p, int b, int band, const float* d,
-                           uint32_t* smem) {
+__device__ void close_item(const Params& p, int b, int band, uint32_t* smem) {
   const int H = p.H, W = p.W, ww = (W + 31) >> 5, k = p.ck;
   const int a = k >> 1, z = k - 1 - a;     // window [v - a, v + z]
   const int y0 = band * kBand, th = min(kBand, H - y0);
@@ -477,14 +564,9 @@ __device__ void close_item(const Params& p, int b, int band, const float* d,
     uint32_t* done = fin + (kTail ? c * kBand * ww : 0);
     const int t0 = k > 1 ? r0 : y0, t1 = k > 1 ? r1 : y0 + th;
     uint32_t* tbuf = k > 1 ? buf0 : done;
+    const uint32_t* src = p.bits + (((size_t)b * p.K + c) * H + t0) * ww;
     __syncthreads();
-    for (int t = warp; t < (t1 - t0) * ww; t += kWarps) {
-      const int r = t / ww, w = t - r * ww;
-      const int x = w * 32 + lane;
-      const bool v = x < W && __ldcg(d + plane + (size_t)(t0 + r) * W + x) > 0.f;
-      const uint32_t bits = __ballot_sync(0xffffffffu, v);
-      if (lane == 0) tbuf[r * ww + w] = bits;
-    }
+    for (int t = tid; t < (t1 - t0) * ww; t += kThreads) tbuf[t] = __ldcg(src + t);
     if (k > 1) {
       __syncthreads();
       for (int t = tid; t < (r1 - r0) * ww; t += kThreads) {   // dilate along x
@@ -556,18 +638,11 @@ __device__ void close_item(const Params& p, int b, int band, const float* d,
 
 // ------------------------------------------------------------ the kernel
 
-template <bool kCoarse, int R>
-__device__ void update_r(const Params& p, int pl, int tile, const float* din,
-                         float* dout, bool write_q, float* smem) {
-  update_item<R, kCoarse, false>(p, pl, tile, din, dout, write_q, smem);
-}
-
 template <bool kCoarse>
-__device__ void update_dispatch(const Params& p, int pl, int tile, const float* din,
-                                float* dout, bool write_q, float* smem) {
+__device__ void update_dispatch(const Params& p, int pl, int tile, int it, float* smem) {
   switch (p.radius) {
 #define CRF_R(r) \
-  case r: update_r<kCoarse, r>(p, pl, tile, din, dout, write_q, smem); break;
+  case r: update_item<r, kCoarse, false>(p, pl, tile, it, smem); break;
     CRF_R(0) CRF_R(1) CRF_R(2) CRF_R(3) CRF_R(4) CRF_R(5) CRF_R(6) CRF_R(7)
     CRF_R(8) CRF_R(9) CRF_R(10) CRF_R(11) CRF_R(12) CRF_R(13) CRF_R(14)
     CRF_R(15) CRF_R(16)
@@ -601,20 +676,18 @@ __device__ void run_item(const Params& p, const Phase& phase, int item, float* s
     }
     switch (kind) {
       case kFeat: {
-        const int per = cdiv(p.N, kThreads), b = item / per;
-        feature_item(p, b, (item - b * per) * kThreads);
-        __syncthreads();
+        const int b = item / p.hs;
+        feature_item(p, b, item - b * p.hs, smem);
         break;
       }
       case kInit: {
         const int pl = item / p.tiles;
-        update_item<0, kCoarse, true>(p, pl, item - pl * p.tiles, nullptr, p.d[0],
-                                      p.fused_splat && p.iters > 0, smem);
+        update_item<0, kCoarse, true>(p, pl, item - pl * p.tiles, -1, smem);
         break;
       }
       case kSplat: {
         const int per = cdiv(p.N, kThreads), pl = item / per;
-        splat_item(p, pl, (item - pl * per) * kThreads, p.d[(phase.it + 1) & 1]);
+        splat_item<kCoarse>(p, pl, (item - pl * per) * kThreads, phase.it);
         break;
       }
       case kDegree: case kMessage: {
@@ -623,16 +696,18 @@ __device__ void run_item(const Params& p, const Phase& phase, int item, float* s
         break;
       }
       case kUpdate: {
-        const int pl = item / p.tiles, it = phase.it;
-        update_dispatch<kCoarse>(p, pl, item - pl * p.tiles, p.d[it & 1],
-                                 p.d[(it + 1) & 1], p.fused_splat && it + 1 < p.iters,
-                                 smem);
+        const int pl = item / p.tiles;
+        update_dispatch<kCoarse>(p, pl, item - pl * p.tiles, phase.it, smem);
+        break;
+      }
+      case kZero: {
+        const int n = p.H * ((p.W + 31) >> 5);
+        for (int t = threadIdx.x; t < n; t += kThreads) p.bits[(size_t)item * n + t] = 0u;
         break;
       }
       case kClose: {
         const int b = item / p.bands;
-        close_item<kCoarse>(p, b, item - b * p.bands, p.d[p.iters & 1],
-                            reinterpret_cast<uint32_t*>(smem));
+        close_item<kCoarse>(p, b, item - b * p.bands, reinterpret_cast<uint32_t*>(smem));
         break;
       }
     }
@@ -671,11 +746,13 @@ inline int smem_need(int K, int H, int W, int TH, int TW, int radius, int iters,
   }
   const int ww = (W + 31) / 32;
   need = imax(need, 2 * close_rows(H, ck) * ww + (tail ? K : 1) * kBand * ww);
+  if (iters > 0) need = imax(need, 3 * W);  // a cell row's column sums
   return need * 4;
 }
 
 // fills p from the call's arguments and carves the workspace: feat (B, N,
-// 8), bn (B, N), q and m (B, K, N), two iterates (B, K, H, W)
+// 8), bn (B, N), q and m (B, K, N), two iterates (B, K, H, W), the mask
+// bits (B, K, H, ceil(W / 32)) words
 bool setup(Params& p, int B, int K, int H, int W, int f, int stride, int radius,
            int iters, int ck, int TH, int TW, int smem, bool tail, float* work) {
   if (B < 1 || K < 1 || K > kMaxClasses || H < 1 || W < 1 || radius < 0 ||
@@ -687,7 +764,8 @@ bool setup(Params& p, int B, int K, int H, int W, int f, int stride, int radius,
   p.iters = iters;
   p.ck = ck > 1 ? ck : 1;
   p.ws = W / stride;
-  p.N = (H / stride) * p.ws;
+  p.hs = H / stride;
+  p.N = p.hs * p.ws;
   p.TH = TH, p.TW = TW;
   p.tiles_x = cdiv(W, TW);
   p.tiles = cdiv(H, TH) * p.tiles_x;
@@ -702,6 +780,7 @@ bool setup(Params& p, int B, int K, int H, int W, int f, int stride, int radius,
   p.m = p.q + bn * K;
   p.d[0] = p.m + bn * K;
   p.d[1] = p.d[0] + (size_t)B * K * plane;
+  p.bits = reinterpret_cast<uint32_t*>(p.d[1] + (size_t)B * K * plane);
   return true;
 }
 

@@ -174,17 +174,19 @@ def launch_plan(h: int, w: int, stride: int, radius: int, num_classes: int,
     ``tile_layout`` of ``csrc/crf_mean_field.cu``: update tiles of whole
     stride cells up to 32 x 64 (past that, 32 or 64 and a separate splat),
     and the largest of an update tile with its radius-r halo, a message
-    tile (the degree's and the K-class one) and a closing band."""
+    tile (the degree's and the K-class one), a closing band and a cell
+    row's column sums."""
     tile_h = stride * (_TILE_H // stride) if stride <= _TILE_H else _TILE_H
     tile_w = stride * (_TILE_W // stride) if stride <= _TILE_W else _TILE_W
     thp, twp = -(-tile_h // _STRIP) * _STRIP, -(-tile_w // _STRIP) * _STRIP
     span = 2 * radius
-    need = ((thp + span) * (((twp + span) | 1) + twp + 1) + (thp + span)
-            + (twp + span) + 2 * thp)
+    need = ((thp + span) * (((twp + span) | 1) + twp + 1)
+            + 2 * (thp + span) + 2 * (twp + span) + thp)
     if num_iters > 0:
         for c in (0, num_classes):
             need = max(need, _CHUNK * (1 + (c + 4) // 4) * 4
                        + (_SPLITS - 1) * _ROWS * max(c, 1))
+        need = max(need, 3 * w)
     words = -(-w // 32)
     k = max(closing_ksize, 1)
     need = max(need, 2 * min(h, _BAND + 2 * (k - 1)) * words
@@ -195,9 +197,10 @@ def launch_plan(h: int, w: int, stride: int, radius: int, num_classes: int,
 
 def workspace_floats(b: int, k: int, h: int, w: int, stride: int) -> int:
     """Floats of the kernel's workspace: features (B, N, 8), bn (B, N), q
-    and m (B, K, N), two iterates (B, K, H, W)."""
+    and m (B, K, N), two iterates (B, K, H, W), the last one's mask bits
+    (B, K, H, ceil(W / 32)) words."""
     n = (h // stride) * (w // stride)
-    return b * n * 9 + 2 * b * k * n + 2 * b * k * h * w
+    return b * n * 9 + 2 * b * k * n + 2 * b * k * h * w + b * k * h * (-(-w // 32))
 
 
 @functools.lru_cache(maxsize=None)

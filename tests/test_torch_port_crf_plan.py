@@ -53,13 +53,16 @@ def test_plan_fits_every_eligible_shape_at_wide_strides():
 
 def test_main_path_plan():
     """288^2, stride 8, radius 9, K = 5: 32 x 64 tiles of whole cells; the
-    update tile (50 rows of 83 + 65 floats, its normalisations and row
-    indices) is the largest part."""
+    update tile (50 rows of 83 + 65 floats, its normalisations and halo
+    offsets by row and column, its rows' cell offsets) is the largest
+    part."""
     plan = crf_fused.launch_plan(288, 288, 8, 9, 5, 3, 7)
-    assert plan == crf_fused.LaunchPlan(32, 64, True, 4 * (50 * 148 + 50 + 82 + 64))
+    assert plan == crf_fused.LaunchPlan(
+        32, 64, True, 4 * (50 * 148 + 2 * 50 + 2 * 82 + 32))
     n = 36 * 36
     assert crf_fused.workspace_floats(16, 5, 288, 288, 8) == (
-        16 * n * 8 + 16 * n + 2 * 16 * 5 * n + 2 * 16 * 5 * 288 * 288)
+        16 * n * 8 + 16 * n + 2 * 16 * 5 * n + 2 * 16 * 5 * 288 * 288
+        + 16 * 5 * 288 * 9)
 
 
 def test_plan_constants_match_the_kernel_source():
