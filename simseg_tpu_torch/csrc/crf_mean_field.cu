@@ -87,6 +87,7 @@ struct Params {
   float* out;               // mean field: (B, K, H, W) 0/1 masks
   int* pred;                // tail: (B, H, W)
   float* best_w;            // tail: (B, H, W)
+  unsigned* barrier;        // two zeroed words: arrivals, releases
   int B, K, H, W, f, s, radius, iters, ck;
   int rgb_u8, idx64;
   float gc, bc, sxy, srgb;
@@ -715,13 +716,40 @@ __device__ void run_item(const Params& p, const Phase& phase, int item, float* s
   }
 }
 
-// phases ph_lo .. ph_hi - 1, the items of each spread over the grid
+// Every block of the grid arrives before any leaves (the grid is
+// co-resident: a cooperative launch). bar[0] counts arrivals and is back
+// to 0 at each release, bar[1] counts releases. The arrival is a
+// release-acquire add and the wait an acquire load at gpu scope, so every
+// write before the barrier is seen by every read after it.
+__device__ void grid_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned seen, arrived, now;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(bar + 1) : "memory");
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(arrived) : "l"(bar) : "memory");
+    if (arrived == gridDim.x - 1) {
+      asm volatile("st.relaxed.gpu.global.u32 [%0], 0;" ::"l"(bar) : "memory");
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar + 1) : "memory");
+    } else {
+      do {
+        __nanosleep(32);
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(now) : "l"(bar + 1) : "memory");
+      } while (now == seen);
+    }
+  }
+  __syncthreads();
+}
+
+// phases ph_lo .. ph_hi - 1, the items of each spread over the grid, a
+// grid barrier between two phases
 template <bool kCoarse>
 __global__ void __launch_bounds__(kThreads, 2)
 crf_kernel(const Params p, int ph_lo, int ph_hi) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   for (int ph = ph_lo; ph < ph_hi; ++ph) {
+    if (ph > ph_lo) grid_barrier(p.barrier);
     const Phase phase = phase_at(p, ph);
     const int n = phase_items(p, ph);
     for (int item = blockIdx.x; item < n; item += gridDim.x)
@@ -784,17 +812,28 @@ bool setup(Params& p, int B, int K, int H, int W, int f, int stride, int radius,
   return true;
 }
 
+// one cooperative launch of every phase: as many blocks as the card holds
+// at once
 template <bool kCoarse>
-cudaError_t launch(const Params& p, int smem, unsigned* barrier, cudaStream_t st) {
-  (void)barrier;
+cudaError_t launch(Params p, int smem, unsigned* barrier, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       crf_kernel<kCoarse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  for (int ph = 0; ph < num_phases(p); ++ph) {
-    crf_kernel<kCoarse><<<phase_items(p, ph), kThreads, smem, st>>>(p, ph, ph + 1);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  int dev, sms, per_sm;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, crf_kernel<kCoarse>,
+                                                           kThreads, smem)) !=
+          cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  p.barrier = barrier;
+  int lo = 0, hi = num_phases(p);
+  void* args[] = {&p, &lo, &hi};
+  return cudaLaunchCooperativeKernel((const void*)crf_kernel<kCoarse>,
+                                     dim3(sms * per_sm), dim3(kThreads), args,
+                                     (size_t)smem, st);
 }
 
 }  // namespace
