@@ -62,8 +62,8 @@ constexpr int kMaxRadius = 16;
 constexpr int kMaxTileH = 32;     // update tile rows (a multiple of s)
 constexpr int kMaxTileW = 64;     // update tile columns (a multiple of s)
 constexpr int kStrip = 8;         // Gaussian outputs per thread
-constexpr int kRows = 64;         // message rows per item
-constexpr int kSplits = kThreads / kRows;
+constexpr int kRows = 32;         // message rows per item, kRowsPerWarp a warp
+constexpr int kRowsPerWarp = kRows / kWarps;
 constexpr int kChunk = 512;       // message cells staged per tile
 constexpr int kBand = 32;         // closing rows per item
 constexpr int kSmemLimit = 232448;
@@ -82,7 +82,8 @@ struct Params {
   float* bn;                // (B, N)
   float* q;                 // (B, K, N) cell means of d
   float* m;                 // (B, K, N) messages
-  float* d[2];              // (B, K, H, W) iterates
+  float* d0;                // (B, K, H, W) iterates ah[y] aw[x] d: odd
+  float* d1;                //   iterations write d1, even ones d0
   uint32_t* bits;           // (B, K, H, ceil(W / 32)) the last iterate's d > 0
   float* out;               // mean field: (B, K, H, W) 0/1 masks
   int* pred;                // tail: (B, H, W)
@@ -92,7 +93,7 @@ struct Params {
   int rgb_u8, idx64;
   float gc, bc, sxy, srgb;
   int N, ws, hs;            // cells, cells per row, cell rows
-  int TH, TW, tiles_x, tiles, fused_splat;
+  int TH, TW, tiles_x, tiles, fused_splat, tail;
   int bands;
 };
 
@@ -105,13 +106,12 @@ struct Phase {
   int kinds, it;
 };
 
-// no iteration: zero the mask bits; d0 > 0 into them; the closing.
-// Else: the features and (whole-cell tiles) the cell means of d0; the
-// degree, zeroing the mask bits (and the cell means of d0 otherwise); per
-// iteration the message, the update (the last one writes the mask bits,
-// not d) and, for tiles not of whole cells, the cell means of d; the
-// closing. d0 = tanh(du / 2) is never stored: the first update and the
-// cell means of d0 read du.
+// no iteration: zero the mask bits; du > 0 into them; the closing.
+// Else: the features and the cell means of d0 = tanh(du / 2); the degree
+// and zeroing the mask bits; per iteration the message, the update (the
+// last one writes the mask bits, not d) and, for tiles not of whole cells,
+// the cell means of d; the closing. d0 is never stored: the first update
+// and the cell means of d0 read du.
 __host__ __device__ inline int num_phases(const Params& p) {
   if (p.iters == 0) return 3;
   return 3 + 2 * p.iters + (p.fused_splat ? 0 : p.iters - 1);
@@ -120,14 +120,17 @@ __host__ __device__ inline int num_phases(const Params& p) {
 __host__ __device__ inline Phase phase_at(const Params& p, int ph) {
   if (ph == num_phases(p) - 1) return {kClose, 0};
   if (p.iters == 0) return {ph == 0 ? kZero : kInit, -1};
-  if (ph == 0) return {kFeat | (p.fused_splat ? kInit : 0), -1};
-  if (ph == 1) return {kDegree | kZero | (p.fused_splat ? 0 : kSplat), -1};
+  if (ph == 0) return {kFeat | kSplat, -1};
+  if (ph == 1) return {kDegree | kZero, -1};
   const int per = p.fused_splat ? 2 : 3;
   const int it = (ph - 2) / per, r = (ph - 2) - it * per;
   return {r == 0 ? kMessage : r == 1 ? kUpdate : kSplat, it};
 }
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline float* iterate(const Params& p, int i) {
+  return (i & 1) ? p.d1 : p.d0;
+}
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
@@ -139,7 +142,7 @@ __host__ __device__ inline int items_of(const Params& p, int kind) {
     case kSplat: return planes * cdiv(p.N, kThreads);
     case kDegree: case kMessage: return p.B * cdiv(p.N, kRows);
     case kZero: return planes;
-    case kClose: return p.B * p.bands;
+    case kClose: return (p.tail ? p.B : p.B * p.K) * p.bands;
   }
   return 0;
 }
@@ -201,101 +204,97 @@ __device__ void feature_item(const Params& p, int b, int cy, float* smem) {
   }
 }
 
-// Bilateral product for image b over rows row0 .. row0 + 63:
+// Bilateral product for image b over rows row0 .. row0 + kRows - 1, each
+// warp kRowsPerWarp of them in registers, its lanes over the cells (each
+// lane its own staged cell: no bank conflict, and one shared load serves
+// kRowsPerWarp pairs):
 //   C == 0 (degree):  bn[b, i] = 1 / sqrt(sum_j K_ij + 1e-20)
 //   C == K (message): m[b, c, i] = bn_i sum_j K_ij bn_j q[b, c, j]
 template <int C>
 __device__ void message_item(const Params& p, int b, int row0, float* smem) {
-  constexpr int kNR = (1 + C + 3) / 4;     // float4s of g4 and the values
-  constexpr int kCell = 1 + kNR;           // float4s per staged cell
   constexpr int kAcc = C > 0 ? C : 1;
-  float4* s_cells = reinterpret_cast<float4*>(smem);
-  float* s_red = smem + kChunk * kCell * 4;
+  float* s_f = smem;                 // [5][kChunk] scaled features
+  float* s_v = smem + 5 * kChunk;    // [C][kChunk] bn_j q[b, c, j]
   const int N = p.N, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rl = ((warp & 1) << 5) | lane;
-  const int split = warp >> 1;
-  const int i = row0 + rl;
+  const int r0 = row0 + warp * kRowsPerWarp;
   const float* fb = p.feat + (size_t)b * N * 8;
   const float* bnb = p.bn + (size_t)b * N;
-  float gi[5];
+  float gi[kRowsPerWarp][5];
 #pragma unroll
-  for (int t = 0; t < 5; ++t) gi[t] = i < N ? __ldcg(fb + (size_t)i * 8 + t) : 0.f;
-  float acc[kAcc];
+  for (int r = 0; r < kRowsPerWarp; ++r)
 #pragma unroll
-  for (int c = 0; c < kAcc; ++c) acc[c] = 0.f;
+    for (int t = 0; t < 5; ++t)
+      gi[r][t] = r0 + r < N ? __ldcg(fb + (size_t)(r0 + r) * 8 + t) : 0.f;
+  float acc[kRowsPerWarp][kAcc];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) acc[r][c] = 0.f;
 
   for (int j0 = 0; j0 < N; j0 += kChunk) {
     const int jn = min(kChunk, N - j0);
     __syncthreads();
     for (int jj = tid; jj < jn; jj += kThreads) {
-      const int j = j0 + jj;
-      const float* fj = fb + (size_t)j * 8;
-      float v[kNR * 4];
+      const float* fj = fb + (size_t)(j0 + jj) * 8;
 #pragma unroll
-      for (int t = 0; t < kNR * 4; ++t) v[t] = 0.f;
-      v[0] = __ldcg(fj + 4);
+      for (int t = 0; t < 5; ++t) s_f[t * kChunk + jj] = __ldcg(fj + t);
       if (C > 0) {
-        const float bj = __ldcg(bnb + j);
+        const float bj = __ldcg(bnb + j0 + jj);
 #pragma unroll
         for (int c = 0; c < C; ++c)
-          v[1 + c] = __ldcg(p.q + ((size_t)b * C + c) * N + j) * bj;
+          s_v[c * kChunk + jj] = __ldcg(p.q + ((size_t)b * C + c) * N + j0 + jj) * bj;
       }
-      s_cells[jj * kCell] = make_float4(__ldcg(fj), __ldcg(fj + 1), __ldcg(fj + 2),
-                                        __ldcg(fj + 3));
-#pragma unroll
-      for (int r = 0; r < kNR; ++r)
-        s_cells[jj * kCell + 1 + r] =
-            make_float4(v[4 * r], v[4 * r + 1], v[4 * r + 2], v[4 * r + 3]);
     }
     __syncthreads();
-    const int per = (jn + kSplits - 1) / kSplits;
-    const int lo = split * per, hi = min(jn, lo + per);
 #pragma unroll 2
-    for (int jj = lo; jj < hi; ++jj) {
-      const float4 fa = s_cells[jj * kCell];
-      float v[kNR * 4];
+    for (int jj = lane; jj < jn; jj += 32) {
+      float fj[5], v[kAcc];
 #pragma unroll
-      for (int r = 0; r < kNR; ++r) {
-        const float4 t = s_cells[jj * kCell + 1 + r];
-        v[4 * r] = t.x;
-        v[4 * r + 1] = t.y;
-        v[4 * r + 2] = t.z;
-        v[4 * r + 3] = t.w;
-      }
-      const float e0 = gi[0] - fa.x, e1 = gi[1] - fa.y, e2 = gi[2] - fa.z;
-      const float e3 = gi[3] - fa.w, e4 = gi[4] - v[0];
-      const float d2 = fmaf(e4, e4, fmaf(e3, e3, fmaf(e2, e2, fmaf(e1, e1, e0 * e0))));
-      const float kij = ex2_approx(-d2);
-      if (C == 0) {
-        acc[0] += kij;
-      } else {
+      for (int t = 0; t < 5; ++t) fj[t] = s_f[t * kChunk + jj];
+      if (C > 0)
 #pragma unroll
-        for (int c = 0; c < kAcc; ++c) acc[c] = fmaf(kij, v[1 + c], acc[c]);
+        for (int c = 0; c < kAcc; ++c) v[c] = s_v[c * kChunk + jj];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float e0 = gi[r][0] - fj[0], e1 = gi[r][1] - fj[1], e2 = gi[r][2] - fj[2];
+        const float e3 = gi[r][3] - fj[3], e4 = gi[r][4] - fj[4];
+        const float d2 = fmaf(e4, e4, fmaf(e3, e3, fmaf(e2, e2, fmaf(e1, e1, e0 * e0))));
+        const float kij = ex2_approx(-d2);
+        if (C == 0) {
+          acc[r][0] += kij;
+        } else {
+#pragma unroll
+          for (int c = 0; c < kAcc; ++c) acc[r][c] = fmaf(kij, v[c], acc[r][c]);
+        }
       }
     }
   }
-  __syncthreads();
-  if (split > 0)
+  // the lanes' sums, in the same butterfly order on every call
 #pragma unroll
-    for (int c = 0; c < kAcc; ++c) s_red[((split - 1) * kRows + rl) * kAcc + c] = acc[c];
-  __syncthreads();
-  if (split == 0 && i < N) {
-    for (int sp = 1; sp < kSplits; ++sp)
+  for (int r = 0; r < kRowsPerWarp; ++r)
 #pragma unroll
-      for (int c = 0; c < kAcc; ++c) acc[c] += s_red[((sp - 1) * kRows + rl) * kAcc + c];
+    for (int c = 0; c < kAcc; ++c)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
+  if (lane != 0) return;
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int i = r0 + r;
+    if (i >= N) break;
     if (C == 0) {
-      p.bn[(size_t)b * N + i] = 1.f / sqrtf(acc[0] + 1e-20f);
+      p.bn[(size_t)b * N + i] = 1.f / sqrtf(acc[r][0] + 1e-20f);
     } else {
       const float bi = __ldcg(bnb + i);
 #pragma unroll
-      for (int c = 0; c < kAcc; ++c) p.m[((size_t)b * C + c) * N + i] = bi * acc[c];
+      for (int c = 0; c < kAcc; ++c) p.m[((size_t)b * C + c) * N + i] = bi * acc[r][c];
     }
   }
 }
 
 // shared-memory layout of an update tile (floats), the same on the host
 struct TileLayout {
-  int thp, twp, pin, prow, in, rows, ah, aw, hy, hx, yi, total;
+  int thp, twp, pin, prow, in, rows, ah, aw, taps, du, hy, hx, yi, total;
 };
 
 __host__ __device__ inline TileLayout tile_layout(int TH, int TW, int radius) {
@@ -309,25 +308,28 @@ __host__ __device__ inline TileLayout tile_layout(int TH, int TW, int radius) {
   l.rows = l.in + (l.thp + span) * l.pin;
   l.ah = l.rows + (l.thp + span) * l.prow;
   l.aw = l.ah + l.thp + span;
-  l.hy = l.aw + l.twp + span;
+  l.taps = l.aw + l.twp + span;
+  l.du = l.taps + 2 * kMaxRadius + 1;
+  l.hy = l.du + l.thp * l.twp;
   l.hx = l.hy + l.thp + span;
   l.yi = l.hx + l.twp + span;
   l.total = l.yi + l.thp;
   return l;
 }
 
-// One tile of plane pl. kInit (it = -1): d0 = tanh(du / 2), only its cell
-// means, or (no iteration) its mask bits du > 0. Else iteration it:
+// One tile of plane pl. Iteration it:
 //   d' = tanh((du + gc G(d) + bc m[cell]) / 2),
-// d read as tanh(du / 2) at it = 0; d' into the other iterate, or, at the
-// last iteration, d' > 0 into the mask bits; when the tile holds whole
-// cells and d' is needed again, the tile's cell means of d' into q.
+// d read as tanh(du / 2) at it = 0; d' into the next iterate, stored as
+// ah[y] aw[x] d' (the Gaussian's input), or, at the last iteration, d' > 0
+// into the mask bits; when the tile holds whole cells and d' is needed
+// again, the tile's cell means of d' into q.
+// kInit (no iteration): du > 0 into the mask bits.
 template <int R, bool kCoarse, bool kInit>
 __device__ void update_item(const Params& p, int pl, int tile, int it, float* smem) {
   constexpr int kSpan = 2 * R;
   const int H = p.H, W = p.W, s = p.s;
   const bool from_du = kInit || it == 0;
-  const bool last = kInit ? p.iters == 0 : it == p.iters - 1;
+  const bool last = kInit || it == p.iters - 1;
   const bool write_q = p.fused_splat && !last;
   const int tyi = tile / p.tiles_x, txi = tile - tyi * p.tiles_x;
   const int y0 = tyi * p.TH, x0 = txi * p.TW;
@@ -338,6 +340,8 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
   float* s_rows = smem + l.rows;
   float* s_ah = smem + l.ah;
   float* s_aw = smem + l.aw;
+  float* s_taps = smem + l.taps;
+  float* s_du = smem + l.du;
   int* s_hy = reinterpret_cast<int*>(smem + l.hy);
   int* s_hx = reinterpret_cast<int*>(smem + l.hx);
   int* s_yi = reinterpret_cast<int*>(smem + l.yi);
@@ -347,33 +351,52 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
   const size_t cbase = (size_t)pl * (H / p.f) * gw;
 
   __syncthreads();  // the previous item is done with shared memory
-  // per halo row and column: inside the image (the normalisation, 0
-  // outside), and the patch-grid row offset and column (kCoarse)
+  if (kCoarse) {    // patch-grid row offsets and columns of the halo
+    for (int r = tid; r < rows; r += kThreads) {
+      const int y = y0 - R + r;
+      s_hy[r] = y >= 0 && y < H ? (y / p.f) * gw : 0;
+    }
+    for (int c = tid; c < cols; c += kThreads) {
+      const int x = x0 - R + c;
+      s_hx[c] = x >= 0 && x < W ? x / p.f : 0;
+    }
+    __syncthreads();
+  }
+  // one batch of copies: the normalisations and taps, du's tile (fine
+  // unaries), the halo of d or du (zero outside the image)
   for (int r = tid; r < rows; r += kThreads) {
     const int y = y0 - R + r;
     const bool in = y >= 0 && y < H;
-    s_ah[r] = in ? __ldg(p.ah + y) : 0.f;
-    if (kCoarse) s_hy[r] = in ? (y / p.f) * gw : 0;
+    cp_async4(s_ah + r, in ? p.ah + y : p.ah, in ? 4 : 0);
   }
   for (int c = tid; c < cols; c += kThreads) {
     const int x = x0 - R + c;
     const bool in = x >= 0 && x < W;
-    s_aw[c] = in ? __ldg(p.aw + x) : 0.f;
-    if (kCoarse) s_hx[c] = in ? x / p.f : 0;
+    cp_async4(s_aw + c, in ? p.aw + x : p.aw, in ? 4 : 0);
   }
-  for (int r = tid; r < th; r += kThreads) s_yi[r] = ((y0 + r) / s) * p.ws;
-  __syncthreads();
-
-  float tap[kSpan + 1];
+  if (!kInit && tid <= kSpan) cp_async4(s_taps + tid, p.taps + tid, 4);
+  if (!kCoarse) {
+    const int dr = kThreads / tw, dc = kThreads - dr * tw;
+    int r = tid / tw, c = tid - r * tw;
+    for (int i = tid; i < th * tw; i += kThreads) {
+      cp_async4(s_du + r * l.twp + c, p.du + pbase + (y0 + r) * W + x0 + c, 4);
+      r += dr;
+      c += dc;
+      if (c >= tw) {
+        c -= tw;
+        ++r;
+      }
+    }
+  }
+  const int dr = kThreads / cols, dc = kThreads - dr * cols;
   if (!kInit) {
-    // the halo, zero outside the image: d, or du read on the patch grid
     const bool coarse_du = kCoarse && from_du;
-    const float* src = from_du ? p.du + (kCoarse ? cbase : pbase) : p.d[it & 1] + pbase;
-    const int dr = kThreads / cols, dc = kThreads - dr * cols;
+    const float* src = from_du ? p.du + (kCoarse ? cbase : pbase) : iterate(p, it) + pbase;
     int r = tid / cols, c = tid - r * cols;
     for (int i = tid; i < rows * cols; i += kThreads) {
-      const bool in = s_ah[r] != 0.f && s_aw[c] != 0.f;
-      const int off = coarse_du ? s_hy[r] + s_hx[c] : (y0 - R + r) * W + (x0 - R + c);
+      const int y = y0 - R + r, x = x0 - R + c;
+      const bool in = y >= 0 && y < H && x >= 0 && x < W;
+      const int off = coarse_du ? s_hy[r] + s_hx[c] : y * W + x;
       cp_async4(s_in + r * l.pin + c, in ? src + off : src, in ? 4 : 0);
       r += dr;
       c += dc;
@@ -382,16 +405,22 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
         ++r;
       }
     }
+  }
+  for (int r = tid; r < th; r += kThreads) s_yi[r] = ((y0 + r) / s) * p.ws;
+  cp_async_wait_all();
+  __syncthreads();
+
+  float tap[kSpan + 1];
+  if (!kInit) {
 #pragma unroll
-    for (int t = 0; t <= kSpan; ++t) tap[t] = __ldg(p.taps + t);
-    cp_async_wait_all();
-    __syncthreads();
-    // normalised: ah[y] aw[x] d[y, x], d = tanh(du / 2) at it = 0
-    r = tid / cols;
-    c = tid - r * cols;
+    for (int t = 0; t <= kSpan; ++t) tap[t] = s_taps[t];
+  }
+  if (!kInit && from_du) {
+    // d0 = tanh(du / 2), normalised (the iterates are stored so)
+    int r = tid / cols, c = tid - r * cols;
     for (int i = tid; i < rows * cols; i += kThreads) {
       float* v = s_in + r * l.pin + c;
-      *v = (from_du ? tanhf(*v * 0.5f) : *v) * s_ah[r] * s_aw[c];
+      *v = tanhf(*v * 0.5f) * s_ah[r] * s_aw[c];
       r += dr;
       c += dc;
       if (c >= cols) {
@@ -400,22 +429,25 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
       }
     }
     __syncthreads();
+  }
+  if (!kInit) {
     // along x: rows th + 2R (<= 64), strips of kStrip outputs
     const int strips = cdiv(tw, kStrip);
     for (int u = tid; u < 64 * strips; u += kThreads) {
       const int rr = u & 63, st = u >> 6;
       if (rr >= rows) continue;
       const float* srow = s_in + rr * l.pin + st * kStrip;
-      float w[kStrip + kSpan];
+      float w[kStrip + kSpan], a[kStrip];
 #pragma unroll
       for (int k = 0; k < kStrip + kSpan; ++k) w[k] = srow[k];
 #pragma unroll
-      for (int o = 0; o < kStrip; ++o) {
-        float a = 0.f;
+      for (int o = 0; o < kStrip; ++o) a[o] = 0.f;
 #pragma unroll
-        for (int t = 0; t <= kSpan; ++t) a = fmaf(tap[t], w[o + t], a);
-        s_rows[rr * l.prow + st * kStrip + o] = a;
-      }
+      for (int t = 0; t <= kSpan; ++t)
+#pragma unroll
+        for (int o = 0; o < kStrip; ++o) a[o] = fmaf(tap[t], w[o + t], a[o]);
+#pragma unroll
+      for (int o = 0; o < kStrip; ++o) s_rows[rr * l.prow + st * kStrip + o] = a[o];
     }
     __syncthreads();
   }
@@ -423,7 +455,7 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
   // along y and the update: columns tw (<= 64), strips of kStrip rows; a
   // warp's lanes are 32 neighbouring columns of one strip
   float* s_d = s_in;  // the new d, for the cell means
-  float* dst = last ? nullptr : p.d[(it + 1) & 1] + pbase;
+  float* dst = last ? nullptr : iterate(p, it + 1) + pbase;
   uint32_t* bits = p.bits + (size_t)pl * H * ((W + 31) >> 5);
   const int ystrips = cdiv(th, kStrip);
   for (int u = tid; u < 64 * ystrips; u += kThreads) {
@@ -438,14 +470,15 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
 #pragma unroll
       for (int k = 0; k < kStrip + kSpan; ++k)
         w[k] = ys * kStrip + k < rows ? src[k * l.prow] : 0.f;
+#pragma unroll
+      for (int o = 0; o < kStrip; ++o) g[o] = 0.f;
+#pragma unroll
+      for (int t = 0; t <= kSpan; ++t)
+#pragma unroll
+        for (int o = 0; o < kStrip; ++o) g[o] = fmaf(tap[t], w[o + t], g[o]);
       const float awx = s_aw[R + xl];
 #pragma unroll
-      for (int o = 0; o < kStrip; ++o) {
-        float a = 0.f;
-#pragma unroll
-        for (int t = 0; t <= kSpan; ++t) a = fmaf(tap[t], w[o + t], a);
-        g[o] = a * s_ah[R + ys * kStrip + o] * awx;
-      }
+      for (int o = 0; o < kStrip; ++o) g[o] *= s_ah[R + ys * kStrip + o] * awx;
     }
 #pragma unroll
     for (int o = 0; o < kStrip; ++o) {
@@ -456,9 +489,8 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
       bool fg = false;
       if (active) {
         const float uv = kCoarse ? __ldg(p.du + cbase + s_hy[R + ty] + s_hx[R + xl])
-                                 : __ldg(p.du + pbase + y * W + x);
+                                 : s_du[ty * l.twp + xl];
         if (kInit) {
-          dn = tanhf(uv * 0.5f);
           fg = uv > 0.f;
         } else {
           const float mv = __ldcg(p.m + (size_t)pl * p.N + s_yi[ty] + cx);
@@ -474,40 +506,53 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
         if (lane == 0 && (b << sh)) atomicOr(row + q, b << sh);
         if (lane == 0 && sh && (b >> (32 - sh))) atomicOr(row + q + 1, b >> (32 - sh));
       } else if (active) {
-        if (!kInit) dst[y * W + x] = dn;
+        dst[y * W + x] = dn * s_ah[R + ty] * s_aw[R + xl];
         if (write_q) s_d[ty * l.prow + xl] = dn;
       }
     }
   }
   if (!write_q) return;
+  // the cell means: each row's s columns, then each cell's s rows (the
+  // row sums over s_rows, which the Gaussian is done with)
   __syncthreads();
   const int ncx = tw / s, ncells = (th / s) * ncx;
+  for (int u = tid; u < th * ncx; u += kThreads) {
+    const int ty = u / ncx, cxl = u - ty * ncx;
+    const float* src = s_d + ty * l.prow + cxl * s;
+    float a = 0.f;
+    for (int x = 0; x < s; ++x) a += src[x];
+    s_rows[u] = a;
+  }
+  __syncthreads();
   const float area = (float)(s * s);
   for (int c = tid; c < ncells; c += kThreads) {
     const int cyl = c / ncx, cxl = c - cyl * ncx;
-    const float* src = s_d + cyl * s * l.prow + cxl * s;
     float a = 0.f;
-    for (int y = 0; y < s; ++y)
-      for (int x = 0; x < s; ++x) a += src[y * l.prow + x];
+    for (int y = 0; y < s; ++y) a += s_rows[(cyl * s + y) * ncx + cxl];
     p.q[(size_t)pl * p.N + (y0 / s + cyl) * p.ws + x0 / s + cxl] = a / area;
   }
 }
 
-// q of cells c0 .. c0 + kThreads - 1 of plane pl (strides too wide for a
-// tile of whole cells): from d after iteration it, or d0 = tanh(du / 2)
+// q of cells c0 .. c0 + kThreads - 1 of plane pl: the cell means of d0 =
+// tanh(du / 2) (it = -1), or, for strides too wide for a tile of whole
+// cells, of d after iteration it
 template <bool kCoarse>
 __device__ void splat_item(const Params& p, int pl, int c0, int it) {
   const int c = c0 + threadIdx.x;
   if (c >= p.N) return;
   const int s = p.s, f = p.f, W = p.W, cy = c / p.ws, cx = c - cy * p.ws;
   float a = 0.f;
-  if (it >= 0) {
-    const float* src = p.d[(it + 1) & 1] + (size_t)pl * p.H * W + (size_t)cy * s * W + cx * s;
-    for (int y = 0; y < s; ++y)
-      for (int x = 0; x < s; ++x) a += __ldcg(src + y * W + x);
+  if (it >= 0) {  // the iterate is stored normalised: ah[y] aw[x] d
+    const float* src = iterate(p, it + 1) + (size_t)pl * p.H * W + (size_t)cy * s * W + cx * s;
+    for (int y = 0; y < s; ++y) {
+      const float ah = __ldg(p.ah + cy * s + y);
+#pragma unroll 4
+      for (int x = 0; x < s; ++x) a += __ldcg(src + y * W + x) / (ah * __ldg(p.aw + cx * s + x));
+    }
   } else if (!kCoarse) {
     const float* src = p.du + (size_t)pl * p.H * W + (size_t)cy * s * W + cx * s;
     for (int y = 0; y < s; ++y)
+#pragma unroll 4
       for (int x = 0; x < s; ++x) a += tanhf(__ldg(src + y * W + x) * 0.5f);
   } else {
     // the patch grid at (y / f, x / f), the quotients kept by counting
@@ -543,11 +588,12 @@ __host__ __device__ inline int close_rows(int H, int ck) {
   return imin(H, kBand + 2 * (ck - 1));
 }
 
-// rows y0 .. y0 + th - 1 of image b: the closing of the mask bits and
-// (kTail) the argmax over the K maps, or (mean field) the K closed masks as
-// floats
+// rows y0 .. y0 + th - 1 of maps c_lo .. c_hi - 1 of image b: the closing
+// of the mask bits, then (kTail, all K maps) the argmax, or (mean field)
+// the closed masks as floats
 template <bool kTail>
-__device__ void close_item(const Params& p, int b, int band, uint32_t* smem) {
+__device__ void close_item(const Params& p, int b, int c_lo, int c_hi, int band,
+                           uint32_t* smem) {
   const int H = p.H, W = p.W, ww = (W + 31) >> 5, k = p.ck;
   const int a = k >> 1, z = k - 1 - a;     // window [v - a, v + z]
   const int y0 = band * kBand, th = min(kBand, H - y0);
@@ -560,7 +606,7 @@ __device__ void close_item(const Params& p, int b, int band, uint32_t* smem) {
   const uint32_t tail_bits = (W & 31) ? ~((1u << (W & 31)) - 1u) : 0u;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  for (int c = 0; c < p.K; ++c) {
+  for (int c = c_lo; c < c_hi; ++c) {
     const size_t plane = ((size_t)b * p.K + c) * H * W;
     uint32_t* done = fin + (kTail ? c * kBand * ww : 0);
     const int t0 = k > 1 ? r0 : y0, t1 = k > 1 ? r1 : y0 + th;
@@ -707,8 +753,14 @@ __device__ void run_item(const Params& p, const Phase& phase, int item, float* s
         break;
       }
       case kClose: {
-        const int b = item / p.bands;
-        close_item<kCoarse>(p, b, item - b * p.bands, reinterpret_cast<uint32_t*>(smem));
+        const int mp = item / p.bands, band = item - mp * p.bands;
+        uint32_t* words = reinterpret_cast<uint32_t*>(smem);
+        if (kCoarse) {
+          close_item<true>(p, mp, 0, p.K, band, words);
+        } else {
+          const int b = mp / p.K;
+          close_item<false>(p, b, mp - b * p.K, mp - b * p.K + 1, band, words);
+        }
         break;
       }
     }
@@ -745,7 +797,7 @@ __device__ void grid_barrier(unsigned* bar) {
 // grid barrier between two phases
 template <bool kCoarse>
 __global__ void __launch_bounds__(kThreads, 2)
-crf_kernel(const Params p, int ph_lo, int ph_hi) {
+crf_kernel(const __grid_constant__ Params p, int ph_lo, int ph_hi) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   for (int ph = ph_lo; ph < ph_hi; ++ph) {
@@ -766,11 +818,7 @@ inline int smem_need(int K, int H, int W, int TH, int TW, int radius, int iters,
                      int ck, bool tail) {
   int need = tile_layout(TH, TW, radius).total;
   if (iters > 0) {
-    const int classes[2] = {0, K};
-    for (int C : classes) {
-      const int cell = 1 + (1 + C + 3) / 4;
-      need = imax(need, kChunk * cell * 4 + (kSplits - 1) * kRows * imax(C, 1));
-    }
+    need = imax(need, kChunk * (5 + K));
   }
   const int ww = (W + 31) / 32;
   need = imax(need, 2 * close_rows(H, ck) * ww + (tail ? K : 1) * kBand * ww);
@@ -806,9 +854,10 @@ bool setup(Params& p, int B, int K, int H, int W, int f, int stride, int radius,
   p.bn = p.feat + bn * 8;
   p.q = p.bn + bn;
   p.m = p.q + bn * K;
-  p.d[0] = p.m + bn * K;
-  p.d[1] = p.d[0] + (size_t)B * K * plane;
-  p.bits = reinterpret_cast<uint32_t*>(p.d[1] + (size_t)B * K * plane);
+  p.d0 = p.m + bn * K;
+  p.d1 = p.d0 + (size_t)B * K * plane;
+  p.bits = reinterpret_cast<uint32_t*>(p.d1 + (size_t)B * K * plane);
+  p.tail = tail;
   return true;
 }
 

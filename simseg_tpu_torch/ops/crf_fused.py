@@ -51,11 +51,10 @@ _NAME = "crf_mean_field"  # csrc/crf_mean_field.cu
 _MAX_CLASSES = 8      # kMaxClasses in the kernel
 _MAX_RADIUS = 16      # kMaxRadius in the kernel
 # the kernel's cuts (csrc/crf_mean_field.cu): largest update tile, Gaussian
-# outputs per thread, message rows per block and their splits, message
-# cells per staged tile, closing rows per block; the shared memory a block
-# may take on sm_90
+# outputs per thread, message cells per staged tile, closing rows per
+# block; the shared memory a block may take on sm_90
 _TILE_H, _TILE_W, _STRIP = 32, 64, 8
-_ROWS, _SPLITS, _CHUNK, _BAND = 64, 4, 512, 32
+_CHUNK, _BAND = 512, 32
 SMEM_LIMIT = 232448
 
 # launches of the CUDA kernels (one per mean_field_fused, respectively
@@ -174,19 +173,17 @@ def launch_plan(h: int, w: int, stride: int, radius: int, num_classes: int,
     ``tile_layout`` of ``csrc/crf_mean_field.cu``: update tiles of whole
     stride cells up to 32 x 64 (past that, 32 or 64 and a separate splat),
     and the largest of an update tile with its radius-r halo, a message
-    tile (the degree's and the K-class one), a closing band and a cell
+    tile (features and K values of 512 cells), a closing band and a cell
     row's column sums."""
     tile_h = stride * (_TILE_H // stride) if stride <= _TILE_H else _TILE_H
     tile_w = stride * (_TILE_W // stride) if stride <= _TILE_W else _TILE_W
     thp, twp = -(-tile_h // _STRIP) * _STRIP, -(-tile_w // _STRIP) * _STRIP
     span = 2 * radius
     need = ((thp + span) * (((twp + span) | 1) + twp + 1)
-            + 2 * (thp + span) + 2 * (twp + span) + thp)
+            + 2 * (thp + span) + 2 * (twp + span) + thp
+            + 2 * _MAX_RADIUS + 1 + thp * twp)
     if num_iters > 0:
-        for c in (0, num_classes):
-            need = max(need, _CHUNK * (1 + (c + 4) // 4) * 4
-                       + (_SPLITS - 1) * _ROWS * max(c, 1))
-        need = max(need, 3 * w)
+        need = max(need, _CHUNK * (5 + num_classes), 3 * w)
     words = -(-w // 32)
     k = max(closing_ksize, 1)
     need = max(need, 2 * min(h, _BAND + 2 * (k - 1)) * words

@@ -54,11 +54,11 @@ def test_plan_fits_every_eligible_shape_at_wide_strides():
 def test_main_path_plan():
     """288^2, stride 8, radius 9, K = 5: 32 x 64 tiles of whole cells; the
     update tile (50 rows of 83 + 65 floats, its normalisations and halo
-    offsets by row and column, its rows' cell offsets) is the largest
-    part."""
+    offsets by row and column, its rows' cell offsets, the 33 taps' room
+    and the tile's unaries) is the largest part."""
     plan = crf_fused.launch_plan(288, 288, 8, 9, 5, 3, 7)
     assert plan == crf_fused.LaunchPlan(
-        32, 64, True, 4 * (50 * 148 + 2 * 50 + 2 * 82 + 32))
+        32, 64, True, 4 * (50 * 148 + 2 * 50 + 2 * 82 + 32 + 33 + 32 * 64))
     n = 36 * 36
     assert crf_fused.workspace_floats(16, 5, 288, 288, 8) == (
         16 * n * 8 + 16 * n + 2 * 16 * 5 * n + 2 * 16 * 5 * 288 * 288
@@ -76,8 +76,6 @@ def test_plan_constants_match_the_kernel_source():
     assert const("kMaxTileH") == crf_fused._TILE_H
     assert const("kMaxTileW") == crf_fused._TILE_W
     assert const("kStrip") == crf_fused._STRIP
-    assert const("kRows") == crf_fused._ROWS
-    assert const("kThreads") // const("kRows") == crf_fused._SPLITS
     assert const("kChunk") == crf_fused._CHUNK
     assert const("kBand") == crf_fused._BAND
     assert const("kSmemLimit") == crf_fused.SMEM_LIMIT
