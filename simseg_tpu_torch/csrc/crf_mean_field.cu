@@ -23,32 +23,42 @@
 // K = 5, s = 8, N = 1296, radius 9, 3 iterations) the float32 work of the
 // bilateral passes (N^2 pairs per image and pass, for all K classes at
 // once) and of the Gaussian, and the HBM traffic of the fine maps (du read
-// and d written once per iteration, 26.5 MB each), are all a few tens of
-// microseconds; what a chain of small launches adds is far more. So:
-//   - the work is a sequence of phases (features and d0; the bilateral
-//     degree; per iteration the message and the update; the closing), each
-//     a loop over independent items, one block per item;
+// and an iterate read and written per iteration, 26.5 MB each), are each
+// some tens of microseconds; a chain of small launches, per-element integer
+// division and byte-wide passes through HBM cost far more. So:
+//   - one cooperative launch runs every phase, a grid barrier between two:
+//     the features and d0 with its cell means; the degree (and zeroing the
+//     mask bits); per iteration the message and the update; the closing.
+//     Each phase is a loop over independent items, one block per item;
 //   - the features are computed from the image inside the kernel, and
 //     pre-scaled by sqrt(log2(e) / 2), so that K_ij = ex2(-|g_i - g_j|^2)
 //     (the difference form: no cancellation) with no further multiply;
-//   - the message: 64 rows per block, each thread one row and a quarter of
-//     the cells, which every lane of a warp reads at once from shared
-//     memory (broadcast), staged with bn_j q_j once per tile, the class
-//     count a template argument; splits summed in a fixed order;
+//   - the message: 40 rows per block, 5 per warp in registers, the lanes
+//     over the cells, staged 512 at a time with bn_j q_j for all K classes
+//     (a template argument), so one shared load serves 5 pairs; the lanes'
+//     sums in a fixed butterfly order;
 //   - the update: a tile of whole stride cells (up to 32 x 64) with a
-//     radius-r halo in shared memory, both Gaussian passes register-blocked
-//     8 outputs a thread with the taps in registers and the loops unrolled
-//     to the radius (a template argument); the tile's cell means of the new
-//     d (the next splat) are taken in the same item;
-//   - the closing: a band of 32 rows per image, all K maps in turn, the
-//     masks packed 32 pixels to a word (a warp ballot of d > 0), dilate and
-//     erode as separable OR / AND of shifted words in shared memory; the
-//     tail's argmax reads the K closed bands there;
-//   - 32-bit index math inside a map, no integer division per element.
+//     radius-r halo, copied in one cp.async batch with the tile's unaries,
+//     both Gaussian passes register-blocked 8 outputs a thread with the
+//     taps in registers and the loops unrolled to the radius (a template
+//     argument); the iterates are stored normalised (ah[y] aw[x] d, the
+//     Gaussian's input); the new d's cell means (the next splat) are taken
+//     in the same item; the last update writes d > 0 as mask bits;
+//   - tanh(u / 2) = 1 - 2 / (1 + e^u) with the fast exponential (absolute
+//     error about 1e-7);
+//   - the closing: a band of 32 rows, the masks 32 pixels to a word,
+//     dilate and erode as separable OR / AND of shifted words in shared
+//     memory; the tail's argmax reads the K closed bands there;
+//   - 32-bit index math inside a map, no integer division per element;
+//     every reduction in a fixed order, so two calls give the same bits.
+// Strides past 32, which no tile of whole cells takes, run in the same
+// launch with the cell means as a phase of their own.
 //
-// Launches are all on the caller's stream; the host functions return the
-// first launch error as an int (0 = cudaSuccess) and allocate nothing: the
-// caller passes one float32 workspace of crf_workspace_floats() floats.
+// Launches are on the caller's stream; the host functions return the launch
+// error as an int (0 = cudaSuccess) and allocate nothing: the caller passes
+// one float32 workspace (ops/crf_fused.py:workspace_floats) and the grid
+// barrier's two words, zeroed before their first call: the arrival count is
+// back to 0 after every barrier, and the release count is only compared.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,7 +72,7 @@ constexpr int kMaxRadius = 16;
 constexpr int kMaxTileH = 32;     // update tile rows (a multiple of s)
 constexpr int kMaxTileW = 64;     // update tile columns (a multiple of s)
 constexpr int kStrip = 8;         // Gaussian outputs per thread
-constexpr int kRows = 32;         // message rows per item, kRowsPerWarp a warp
+constexpr int kRows = 40;         // message rows per item, kRowsPerWarp a warp
 constexpr int kRowsPerWarp = kRows / kWarps;
 constexpr int kChunk = 512;       // message cells staged per tile
 constexpr int kBand = 32;         // closing rows per item
@@ -161,6 +171,12 @@ __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// tanh(u / 2) = 1 - 2 / (1 + e^u) with the fast exponential and division:
+// absolute error about 1e-7, and +-1 where e^u overflows or vanishes
+__device__ __forceinline__ float tanh_half(float u) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(u));
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
@@ -319,16 +335,15 @@ __host__ __device__ inline TileLayout tile_layout(int TH, int TW, int radius) {
 
 // One tile of plane pl. Iteration it:
 //   d' = tanh((du + gc G(d) + bc m[cell]) / 2),
-// d read as tanh(du / 2) at it = 0; d' into the next iterate, stored as
-// ah[y] aw[x] d' (the Gaussian's input), or, at the last iteration, d' > 0
-// into the mask bits; when the tile holds whole cells and d' is needed
-// again, the tile's cell means of d' into q.
+// the iterates stored as ah[y] aw[x] d (the Gaussian's input; d0 written
+// with the cell means of d0); d' into the next iterate, or, at the last
+// iteration, d' > 0 into the mask bits; when the tile holds whole cells
+// and d' is needed again, the tile's cell means of d' into q.
 // kInit (no iteration): du > 0 into the mask bits.
 template <int R, bool kCoarse, bool kInit>
 __device__ void update_item(const Params& p, int pl, int tile, int it, float* smem) {
   constexpr int kSpan = 2 * R;
   const int H = p.H, W = p.W, s = p.s;
-  const bool from_du = kInit || it == 0;
   const bool last = kInit || it == p.iters - 1;
   const bool write_q = p.fused_splat && !last;
   const int tyi = tile / p.tiles_x, txi = tile - tyi * p.tiles_x;
@@ -363,7 +378,7 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
     __syncthreads();
   }
   // one batch of copies: the normalisations and taps, du's tile (fine
-  // unaries), the halo of d or du (zero outside the image)
+  // unaries), the halo of the normalised iterate (zero outside the image)
   for (int r = tid; r < rows; r += kThreads) {
     const int y = y0 - R + r;
     const bool in = y >= 0 && y < H;
@@ -390,14 +405,12 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
   }
   const int dr = kThreads / cols, dc = kThreads - dr * cols;
   if (!kInit) {
-    const bool coarse_du = kCoarse && from_du;
-    const float* src = from_du ? p.du + (kCoarse ? cbase : pbase) : iterate(p, it) + pbase;
+    const float* src = iterate(p, it) + pbase;
     int r = tid / cols, c = tid - r * cols;
     for (int i = tid; i < rows * cols; i += kThreads) {
       const int y = y0 - R + r, x = x0 - R + c;
       const bool in = y >= 0 && y < H && x >= 0 && x < W;
-      const int off = coarse_du ? s_hy[r] + s_hx[c] : y * W + x;
-      cp_async4(s_in + r * l.pin + c, in ? src + off : src, in ? 4 : 0);
+      cp_async4(s_in + r * l.pin + c, in ? src + y * W + x : src, in ? 4 : 0);
       r += dr;
       c += dc;
       if (c >= cols) {
@@ -414,21 +427,6 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
   if (!kInit) {
 #pragma unroll
     for (int t = 0; t <= kSpan; ++t) tap[t] = s_taps[t];
-  }
-  if (!kInit && from_du) {
-    // d0 = tanh(du / 2), normalised (the iterates are stored so)
-    int r = tid / cols, c = tid - r * cols;
-    for (int i = tid; i < rows * cols; i += kThreads) {
-      float* v = s_in + r * l.pin + c;
-      *v = tanhf(*v * 0.5f) * s_ah[r] * s_aw[c];
-      r += dr;
-      c += dc;
-      if (c >= cols) {
-        c -= cols;
-        ++r;
-      }
-    }
-    __syncthreads();
   }
   if (!kInit) {
     // along x: rows th + 2R (<= 64), strips of kStrip outputs
@@ -494,7 +492,7 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
           fg = uv > 0.f;
         } else {
           const float mv = __ldcg(p.m + (size_t)pl * p.N + s_yi[ty] + cx);
-          dn = tanhf((uv + (p.gc * g[o] + p.bc * mv)) * 0.5f);
+          dn = tanh_half(uv + (p.gc * g[o] + p.bc * mv));
           fg = dn > 0.f;
         }
       }
@@ -534,8 +532,8 @@ __device__ void update_item(const Params& p, int pl, int tile, int it, float* sm
 }
 
 // q of cells c0 .. c0 + kThreads - 1 of plane pl: the cell means of d0 =
-// tanh(du / 2) (it = -1), or, for strides too wide for a tile of whole
-// cells, of d after iteration it
+// tanh(du / 2), which goes to the first iterate normalised (it = -1), or,
+// for strides too wide for a tile of whole cells, of d after iteration it
 template <bool kCoarse>
 __device__ void splat_item(const Params& p, int pl, int c0, int it) {
   const int c = c0 + threadIdx.x;
@@ -550,19 +548,29 @@ __device__ void splat_item(const Params& p, int pl, int c0, int it) {
       for (int x = 0; x < s; ++x) a += __ldcg(src + y * W + x) / (ah * __ldg(p.aw + cx * s + x));
     }
   } else if (!kCoarse) {
-    const float* src = p.du + (size_t)pl * p.H * W + (size_t)cy * s * W + cx * s;
-    for (int y = 0; y < s; ++y)
+    const size_t o = (size_t)pl * p.H * W + (size_t)cy * s * W + cx * s;
+    for (int y = 0; y < s; ++y) {
+      const float ah = __ldg(p.ah + cy * s + y);
 #pragma unroll 4
-      for (int x = 0; x < s; ++x) a += tanhf(__ldg(src + y * W + x) * 0.5f);
+      for (int x = 0; x < s; ++x) {
+        const float t = tanh_half(__ldg(p.du + o + y * W + x));
+        a += t;
+        p.d0[o + y * W + x] = t * ah * __ldg(p.aw + cx * s + x);
+      }
+    }
   } else {
     // the patch grid at (y / f, x / f), the quotients kept by counting
     const int gw = W / f;
     const float* src = p.du + (size_t)pl * (p.H / f) * gw;
+    const size_t o = (size_t)pl * p.H * W + (size_t)cy * s * W + cx * s;
     int yq = cy * s / f, yr = cy * s - yq * f;
     for (int y = 0; y < s; ++y) {
+      const float ah = __ldg(p.ah + cy * s + y);
       int xq = cx * s / f, xr = cx * s - xq * f;
       for (int x = 0; x < s; ++x) {
-        a += tanhf(__ldg(src + yq * gw + xq) * 0.5f);
+        const float t = tanh_half(__ldg(src + yq * gw + xq));
+        a += t;
+        p.d0[o + y * W + x] = t * ah * __ldg(p.aw + cx * s + x);
         if (++xr == f) xr = 0, ++xq;
       }
       if (++yr == f) yr = 0, ++yq;

@@ -202,8 +202,10 @@ def workspace_floats(b: int, k: int, h: int, w: int, stride: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _barrier(device: torch.device, stream: int) -> torch.Tensor:
-    """Two zeroed words per (device, stream) for the kernel's grid barrier,
-    which leaves them as it found them; calls on one stream run in order."""
+    """The kernel's grid barrier, two words per (device, stream), zeroed
+    once: the arrival count is back to 0 after every barrier, the release
+    count is only compared. Calls on one stream run in order, so they may
+    share them."""
     return torch.zeros(2, dtype=torch.int32, device=device)
 
 
