@@ -13,9 +13,13 @@ Phases (any failure raises, so the exit code is non-zero):
    the main path's shape (16 images, 5 candidate maps, 288 x 288, stride 8,
    unaries in the decode's form: a patch-grid ``du`` upsampled x16):
    mask agreement >= 99.9%, closing composed outside equal to closing
-   inside, zero iterations equal to the unary threshold; times both with
-   CUDA events, beside the least time the card could take (also at 64
-   images, the bench batch);
+   inside, zero iterations equal to the unary threshold, two calls bit-equal;
+   three planted faults must fall below the 99.9% bar (the last iteration
+   dropped; the image run as two bands of 144 rows that exchange neither
+   halo rows nor cells; the bilateral message dropped); times both with
+   CUDA events, prints the kernel's device time and CUDA kernels per call
+   (profile), beside the least time the card could take and the share of
+   it (also at 64 images, the bench batch);
 3b. the attention kernel against its plain version on (16, T, 12, 64) bf16
    at T = 1297 (the 576-px ViT-B pass), 1024 and 1536 (the band's edges)
    and 325 (the 288-px pass, timed for the record), with the forward bars
@@ -63,13 +67,15 @@ Phases (any failure raises, so the exit code is non-zero):
    stride 8, patch-grid unaries in the decode's form): pred and best_w
    each equal to the mean-field kernel + ``decode_tail``'s on >= 99.99% of
    pixels and to its plain version's on >= 99.9% (the counts of differing
-   entries printed); kernel, default-lane, plain and bound times;
+   entries printed), two calls bit-equal; kernel (events and device, CUDA
+   kernels per call), default-lane, plain and bound times, share of bound;
 4. drives the main path: zero-shot segmentation with the ViT-B/16 (288 px)
    and BERT-base towers in bf16, seeded random weights, the 21 PASCAL VOC
    classes, through ``evaluate_benchmark`` on 3 synthetic batches of 16;
    checks that the kernel ran there, that the results are finite and of
    the right shape, and that one batch's predictions agree with the plain
-   decode on the card;
+   decode on the card; the CRF kernel's share of a batch's device time
+   (also printed for 4b-4e);
 4b. the multi-scale slice: the same model through ``evaluate_benchmark``
    with ``scales=(1.0, 2.0)`` on 3 batches of 16; exactly 12 whole-T
    attention launches per batch, no other attention lane, one CRF launch
@@ -1618,8 +1624,9 @@ def compare_crf_trees(trees) -> None:
     with ``git archive``), built with nvcc from its own
     ``simseg_tpu_torch/csrc/crf_mean_field.cu`` and launched through that
     tree's own ``ops/crf_fused.py`` (the C interface may differ between
-    trees), on phase 3's and 3g's inputs at (16, 5, 288 x 288, stride 8):
-    both entry points checked against the first tree's plain versions
+    trees), on phase 3's and 3g's inputs at (16, 5, 288 x 288, stride 8),
+    the mean field also at 64 images: both entry points checked against
+    the first tree's plain versions
     (>= 99.9% of masks, of pred and of best_w), then timed with CUDA events
     in turns (the trees in order, then in reverse), with each tree's
     device time and CUDA kernels per call."""
@@ -1661,31 +1668,36 @@ def compare_crf_trees(trees) -> None:
         mods.append(mod)
 
     du, rgb = crf_inputs(BATCH)
+    du64, rgb64 = crf_inputs(BENCH_BATCH)
     du_c, rgb_t, scores, idx = tail_inputs()
     kw = dict(stride=STRIDE, num_iters=ITERS, closing_ksize=CLOSING)
-    calls = {"mean field": lambda mod: mod.mean_field_fused(du, rgb, **kw),
-             "decode tail": lambda mod: mod.seg_decode_tail_fused(
+    calls = {("mean field", BATCH): lambda mod: mod.mean_field_fused(du, rgb, **kw),
+             ("mean field", BENCH_BATCH): lambda mod: mod.mean_field_fused(
+                 du64, rgb64, **kw),
+             ("decode tail", BATCH): lambda mod: mod.seg_decode_tail_fused(
                  du_c, rgb_t, scores, idx, PATCH, **kw)}
-    want = {"mean field": (mods[0].mean_field_fused_plain(du, rgb, **kw),),
-            "decode tail": mods[0].seg_decode_tail_fused_plain(
-                du_c, rgb_t, scores, idx, PATCH, **kw)}
-    for name, call in calls.items():
+    want = dict(zip(calls, (
+        (mods[0].mean_field_fused_plain(du, rgb, **kw),),
+        (mods[0].mean_field_fused_plain(du64, rgb64, **kw),),
+        mods[0].seg_decode_tail_fused_plain(du_c, rgb_t, scores, idx, PATCH,
+                                            **kw))))
+    for (name, b), call in calls.items():
+        shape = f"{name} ({b}, {CLASSES_PER_IMAGE}, {SIZE}, stride {STRIDE})"
         for tree, mod in zip(trees, mods):
             got = call(mod)
             got = got if isinstance(got, tuple) else (got,)
             agree = min((g == w).float().mean().item()
-                        for g, w in zip(got, want[name]))
-            print(f"tree {tree}: {name} vs plain agreement {agree:.6f}",
+                        for g, w in zip(got, want[name, b]))
+            print(f"tree {tree}: {shape} vs plain agreement {agree:.6f}",
                   flush=True)
             if agree < 0.999:
-                raise AssertionError(f"tree {tree}: {name} agreement {agree}")
+                raise AssertionError(f"tree {tree}: {shape} agreement {agree}")
         times = [[] for _ in trees]
         for n in list(range(len(trees))) + list(reversed(range(len(trees)))):
             times[n].append(cuda_ms(lambda: call(mods[n]), 20))
         for tree, mod, ts in zip(trees, mods, times):
             device, kernels, _ = device_rows(lambda: call(mod))
-            print(f"tree {tree}: {name} ({BATCH}, {CLASSES_PER_IMAGE}, {SIZE}, "
-                  f"stride {STRIDE}): {ts[0]:.4f} / {ts[1]:.4f} ms, device "
+            print(f"tree {tree}: {shape}: {ts[0]:.4f} / {ts[1]:.4f} ms, device "
                   f"{device:.4f} ms in {kernels} CUDA kernels per call; us by "
                   f"launch {launch_times(lambda: call(mod))}", flush=True)
     shutil.rmtree(out_dir)
