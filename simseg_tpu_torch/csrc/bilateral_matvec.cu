@@ -3,8 +3,8 @@
 //   out[b, i, c] = sum_j K_b[i, j] q[b, j, c],
 //   K_b[i, j] = exp(-0.5 |f_i - f_j|^2)
 //
-// over the N cells of image b, with f the (B, N, 8) features (zero-padded
-// past the used ones) and C <= 8 columns of q. K is never stored.
+// over the N cells of image b, with f the (B, N, F) features (F <= 8) and
+// C <= 8 columns of q, read through its strides. K is never stored.
 //
 // Replaces the TPU kernels simseg_tpu/ops/crf_pallas.py:bilateral_matvec
 // (_kernel) and bilateral_matvec_batched (_kernel_batched); the first is
@@ -16,15 +16,15 @@
 // kernel sums the squared differences instead, which do not cancel.
 //
 // What bounds it on this card: operations on the CUDA cores. Every pair
-// (i, j) costs the 8-wide squared distance, one exp and C multiply-adds:
-// B N^2 pairs (430 M at B = 16, N = 5184), against N (8 + 2C) floats of
-// input and output per image. The design keeps the row side in registers
-// and walks the column side through shared memory:
-//   - one CTA of 128 threads per (b, 256-row tile), two rows per thread,
-//     the rows' features and C accumulators in registers;
-//   - 256-cell column tiles of features and q staged in shared
-//     memory, read by every thread of the block at the same address
-//     (broadcast, no bank conflicts).
+// (i, j) costs the F-wide squared distance, one exp2 and C multiply-adds:
+// B N^2 pairs (430 M at B = 16, N = 5184), against N (F + 2C) floats of
+// input and output per image. The features are scaled by sqrt(0.5 log2 e)
+// as they are loaded, so that K = exp2(-|g_i - g_j|^2) costs no multiply
+// per pair; the feature count is a template argument (5, the CRF's, or 8
+// with the columns past F zero). One CTA of 128 threads per (b, 256-row
+// tile), two rows per thread in registers; 256-cell column tiles of
+// features and q staged in shared memory and read by every thread of the
+// block at the same address (broadcast).
 // The host function returns the launch error as an int (0 = cudaSuccess)
 // and allocates nothing; the launch is on the caller's stream.
 
@@ -33,30 +33,40 @@
 
 namespace {
 
-constexpr int kFeat = 8;
+constexpr int kMaxFeat = 8;
 constexpr int kThreads = 128;
 constexpr int kRowsPerThread = 2;
 constexpr int kRowTile = kThreads * kRowsPerThread;
 constexpr int kColTile = 256;
+// sqrt(0.5 log2 e): exp(-0.5 |f_i - f_j|^2) = exp2(-|s f_i - s f_j|^2)
+constexpr float kScale = 0.849321800288019f;
 
-template <int C>
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int FK, int C>
 __global__ void __launch_bounds__(kThreads)
     bilateral_matvec_kernel(const float* __restrict__ feat,
-                            const float* __restrict__ q, float* __restrict__ out,
-                            int N) {
-  __shared__ __align__(16) float s_feat[kColTile][kFeat];
+                            const float* __restrict__ q, long long q_sb,
+                            long long q_sn, long long q_sc,
+                            float* __restrict__ out, int N, int F) {
+  __shared__ float s_feat[kColTile][FK];
   __shared__ float s_q[kColTile][C];
   const int b = blockIdx.y;
-  const float* fb = feat + (long)b * N * kFeat;
-  const float* qb = q + (long)b * N * C;
+  const float* fb = feat + (long long)b * N * F;
+  const float* qb = q + b * q_sb;
 
-  float fi[kRowsPerThread][kFeat];
+  float gi[kRowsPerThread][FK];
   float acc[kRowsPerThread][C];
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) {
     const int i = blockIdx.x * kRowTile + r * kThreads + threadIdx.x;
 #pragma unroll
-    for (int t = 0; t < kFeat; ++t) fi[r][t] = i < N ? fb[(long)i * kFeat + t] : 0.f;
+    for (int t = 0; t < FK; ++t)
+      gi[r][t] = i < N && t < F ? kScale * fb[(long long)i * F + t] : 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
   }
@@ -66,32 +76,32 @@ __global__ void __launch_bounds__(kThreads)
     for (int jj = threadIdx.x; jj < kColTile; jj += kThreads) {
       const int j = j0 + jj;
 #pragma unroll
-      for (int t = 0; t < kFeat; ++t) s_feat[jj][t] = j < N ? fb[(long)j * kFeat + t] : 0.f;
+      for (int t = 0; t < FK; ++t)
+        s_feat[jj][t] = j < N && t < F ? kScale * fb[(long long)j * F + t] : 0.f;
 #pragma unroll
-      for (int c = 0; c < C; ++c) s_q[jj][c] = j < N ? qb[(long)j * C + c] : 0.f;
+      for (int c = 0; c < C; ++c) s_q[jj][c] = j < N ? qb[j * q_sn + c * q_sc] : 0.f;
     }
     __syncthreads();
     const int jn = min(kColTile, N - j0);  // cells past N take no part
     for (int jj = 0; jj < jn; ++jj) {
-      const float4 fa = *reinterpret_cast<const float4*>(&s_feat[jj][0]);
-      const float4 fz = *reinterpret_cast<const float4*>(&s_feat[jj][4]);
-      float qj[C];
+      float gj[FK], qj[C];
+#pragma unroll
+      for (int t = 0; t < FK; ++t) gj[t] = s_feat[jj][t];
 #pragma unroll
       for (int c = 0; c < C; ++c) qj[c] = s_q[jj][c];
 #pragma unroll
       for (int r = 0; r < kRowsPerThread; ++r) {
-        // |f_i - f_j|^2 over the 8 columns (the zero padding adds 0)
-        float e = fi[r][0] - fa.x, d2 = e * e;
-        e = fi[r][1] - fa.y; d2 += e * e;
-        e = fi[r][2] - fa.z; d2 += e * e;
-        e = fi[r][3] - fa.w; d2 += e * e;
-        e = fi[r][4] - fz.x; d2 += e * e;
-        e = fi[r][5] - fz.y; d2 += e * e;
-        e = fi[r][6] - fz.z; d2 += e * e;
-        e = fi[r][7] - fz.w; d2 += e * e;
-        const float kv = __expf(-0.5f * d2);
+        // -|g_i - g_j|^2, summed in feature order
+        float d = gi[r][0] - gj[0];
+        float nd2 = __fmul_rn(-d, d);
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] += kv * qj[c];
+        for (int t = 1; t < FK; ++t) {
+          d = gi[r][t] - gj[t];
+          nd2 = fmaf(-d, d, nd2);
+        }
+        const float kv = ex2(nd2);
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(kv, qj[c], acc[r][c]);
       }
     }
   }
@@ -101,36 +111,50 @@ __global__ void __launch_bounds__(kThreads)
     const int i = blockIdx.x * kRowTile + r * kThreads + threadIdx.x;
     if (i >= N) continue;
 #pragma unroll
-    for (int c = 0; c < C; ++c) out[((long)b * N + i) * C + c] = acc[r][c];
+    for (int c = 0; c < C; ++c) out[((long long)b * N + i) * C + c] = acc[r][c];
   }
 }
 
-template <int C>
-cudaError_t launch(const float* feat, const float* q, float* out, int B, int N,
+template <int FK, int C>
+cudaError_t launch(const float* feat, const float* q, long long q_sb,
+                   long long q_sn, long long q_sc, float* out, int B, int N, int F,
                    cudaStream_t stream) {
   const dim3 grid((N + kRowTile - 1) / kRowTile, B);
-  bilateral_matvec_kernel<C><<<grid, kThreads, 0, stream>>>(feat, q, out, N);
+  bilateral_matvec_kernel<FK, C>
+      <<<grid, kThreads, 0, stream>>>(feat, q, q_sb, q_sn, q_sc, out, N, F);
   return cudaGetLastError();
+}
+
+template <int FK>
+cudaError_t by_columns(const float* feat, const float* q, long long q_sb,
+                       long long q_sn, long long q_sc, float* out, int B, int N,
+                       int F, int C, cudaStream_t st) {
+  switch (C) {
+    case 1: return launch<FK, 1>(feat, q, q_sb, q_sn, q_sc, out, B, N, F, st);
+    case 2: return launch<FK, 2>(feat, q, q_sb, q_sn, q_sc, out, B, N, F, st);
+    case 3: return launch<FK, 3>(feat, q, q_sb, q_sn, q_sc, out, B, N, F, st);
+    case 4: return launch<FK, 4>(feat, q, q_sb, q_sn, q_sc, out, B, N, F, st);
+    case 5: return launch<FK, 5>(feat, q, q_sb, q_sn, q_sc, out, B, N, F, st);
+    case 6: return launch<FK, 6>(feat, q, q_sb, q_sn, q_sc, out, B, N, F, st);
+    case 7: return launch<FK, 7>(feat, q, q_sb, q_sn, q_sc, out, B, N, F, st);
+    case 8: return launch<FK, 8>(feat, q, q_sb, q_sn, q_sc, out, B, N, F, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// feat (B, N, 8), q (B, N, C), out (B, N, C): contiguous float32
-extern "C" int bilateral_matvec_f32(const float* feat, const float* q, float* out,
-                                    int B, int N, int C, void* stream_ptr) {
-  if (B < 1 || B > 65535 || N < 1) return (int)cudaErrorInvalidValue;
+// feat (B, N, F) contiguous, F <= 8; q (B, N, C) float32 with element
+// strides q_sb, q_sn, q_sc; out (B, N, C) contiguous float32
+extern "C" int bilateral_matvec_f32(const float* feat, const float* q,
+                                    long long q_sb, long long q_sn, long long q_sc,
+                                    float* out, int B, int N, int F, int C,
+                                    void* stream_ptr) {
+  if (B < 1 || B > 65535 || N < 1 || F < 1 || F > kMaxFeat)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-  switch (C) {
-    case 1: return (int)launch<1>(feat, q, out, B, N, st);
-    case 2: return (int)launch<2>(feat, q, out, B, N, st);
-    case 3: return (int)launch<3>(feat, q, out, B, N, st);
-    case 4: return (int)launch<4>(feat, q, out, B, N, st);
-    case 5: return (int)launch<5>(feat, q, out, B, N, st);
-    case 6: return (int)launch<6>(feat, q, out, B, N, st);
-    case 7: return (int)launch<7>(feat, q, out, B, N, st);
-    case 8: return (int)launch<8>(feat, q, out, B, N, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (F == 5) return (int)by_columns<5>(feat, q, q_sb, q_sn, q_sc, out, B, N, F, C, st);
+  return (int)by_columns<kMaxFeat>(feat, q, q_sb, q_sn, q_sc, out, B, N, F, C, st);
 }
 
 extern "C" const char* bilateral_matvec_error_string(int code) {

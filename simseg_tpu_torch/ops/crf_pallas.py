@@ -23,7 +23,6 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from simseg_tpu_torch.ops import cuda_build
 
@@ -31,7 +30,7 @@ __all__ = ["LAUNCHES", "bilateral_matvec", "bilateral_matvec_batched",
            "bilateral_matvec_plain"]
 
 _NAME = "bilateral_matvec"  # csrc/bilateral_matvec.cu
-_F_PAD = 8       # kFeat in the kernel
+_MAX_F = 8       # kMaxFeat in the kernel
 _MAX_C = 8       # the kernel's template instances: C = 1..8
 _ROW_TILE = 512  # rows of K the plain version holds at a time
 
@@ -64,14 +63,17 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load_library(_NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.bilateral_matvec_f32
-    fn.argtypes = [p, p, p, i, i, i, p]   # feat, q, out, B, N, C, stream
+    ll = ctypes.c_longlong
+    # feat, q, q's strides (batch, cell, column), out, B, N, F, C, stream
+    fn.argtypes = [p, p, ll, ll, ll, p, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return lib
 
 
 def bilateral_matvec_batched(feat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """out[b, i] = sum_j exp(-0.5 |f_bi - f_bj|^2) q[b, j]: feat (B, N, F)
-    with F <= 8, q (B, N, C) -> (B, N, C) float32."""
+    with F <= 8, q (B, N, C) -> (B, N, C) float32. On the card q is read
+    through its strides (a transposed view costs no copy)."""
     if feat.dim() != 3 or q.dim() != 3 or q.shape[:2] != feat.shape[:2]:
         raise ValueError(f"feat (B, N, F) and q (B, N, C) expected, got "
                          f"{tuple(feat.shape)} and {tuple(q.shape)}")
@@ -83,16 +85,16 @@ def bilateral_matvec_batched(feat: torch.Tensor, q: torch.Tensor) -> torch.Tenso
         raise ValueError(f"no bilateral path for device {feat.device}")
     b, n, f = feat.shape
     c = q.shape[2]
-    if f > _F_PAD:
-        raise ValueError(f"{f} features; the kernel takes <= {_F_PAD}")
+    if not 1 <= f <= _MAX_F:
+        raise ValueError(f"{f} features; the kernel takes 1 to <= {_MAX_F}")
     if not 1 <= c <= _MAX_C:
         raise ValueError(f"{c} columns of q; the kernel takes 1..{_MAX_C}")
     lib = _library()
-    feat = F.pad(feat.float(), (0, _F_PAD - f)).contiguous()
-    q = q.float().contiguous()
+    feat = feat.float().contiguous()
+    q = q.float()
     out = torch.empty((b, n, c), dtype=torch.float32, device=q.device)
     status = lib.bilateral_matvec_f32(
-        feat.data_ptr(), q.data_ptr(), out.data_ptr(), b, n, c,
+        feat.data_ptr(), q.data_ptr(), *q.stride(), out.data_ptr(), b, n, f, c,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_status(lib, _NAME, "bilateral_matvec_f32", status)
     global LAUNCHES
