@@ -6,9 +6,11 @@ counterpart's name).
 out[b] = K_b q[b] with K_b[i, j] = exp(-0.5 |f_i - f_j|^2);
 ``bilateral_matvec`` is its B = 1 case. A ones column for q gives the
 degree K 1. On a CUDA tensor the wrapper launches
-``csrc/bilateral_matvec.cu`` or raises — there is no fallback; on a CPU
-tensor it runs ``bilateral_matvec_plain``. ``LAUNCHES`` counts the
-kernel's launches.
+``csrc/bilateral_matvec.cu`` once or raises — there is no fallback; on a
+CPU tensor it runs ``bilateral_matvec_plain``. ``LAUNCHES`` counts the
+kernel's launches. ``launch_plan`` is how the kernel cuts a call (warps per
+CTA, shared memory); the kernel refuses a plan that does not match its own
+count.
 
 The plain version keeps the TPU kernel's expanded distance
 max(|f_i|^2 + |f_j|^2 - 2 f_i.f_j, 0) (:34-53, :100-121), so that the CPU
@@ -21,22 +23,51 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from simseg_tpu_torch.ops import cuda_build
 
-__all__ = ["LAUNCHES", "bilateral_matvec", "bilateral_matvec_batched",
-           "bilateral_matvec_plain"]
+__all__ = ["LAUNCHES", "LaunchPlan", "bilateral_matvec",
+           "bilateral_matvec_batched", "bilateral_matvec_plain", "launch_plan"]
 
 _NAME = "bilateral_matvec"  # csrc/bilateral_matvec.cu
-_MAX_F = 8       # kMaxFeat in the kernel
-_MAX_C = 8       # the kernel's template instances: C = 1..8
+# the kernel's cuts (csrc/bilateral_matvec.cu): rows a warp holds (kRows = 6
+# a thread), column cells per staged tile, tile stages, columns of q per
+# group, features, warps per CTA
+_WARP_ROWS = 192
+_TILE = 64
+_STAGES = 2
+_GROUP = 8
+_MAX_F = 8
+_MAX_WARPS = 8
 _ROW_TILE = 512  # rows of K the plain version holds at a time
+_WARPS = 1       # warps per CTA
 
 # launches of the CUDA kernel (one per bilateral_matvec(_batched) call on
 # the card)
 LAUNCHES = 0
+
+
+class LaunchPlan(NamedTuple):
+    warps: int             # warps per CTA, 192 rows each
+    row_tiles: int
+    groups: int            # column groups of at most 8
+    grid: tuple            # (row_tiles, B, groups)
+    smem_bytes: int        # dynamic shared memory per CTA
+
+
+def launch_plan(b: int, n: int, f: int, c: int) -> LaunchPlan:
+    """The kernel's plan for B images of N cells, F features and C columns,
+    mirroring ``bilateral_matvec_f32``'s checks: 192-row CTAs, every column
+    in each."""
+    fk = 5 if f == 5 else _MAX_F
+    cw = min(c, _GROUP)
+    groups = -(-c // _GROUP)
+    row_tiles = -(-n // (_WARPS * _WARP_ROWS))
+    return LaunchPlan(_WARPS, row_tiles, groups, (row_tiles, b, groups),
+                      _STAGES * _TILE * (-(-(fk + cw) // 4) * 4) * 4)
 
 
 def bilateral_matvec_plain(feat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -64,8 +95,9 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.bilateral_matvec_f32
     ll = ctypes.c_longlong
-    # feat, q, q's strides (batch, cell, column), out, B, N, F, C, stream
-    fn.argtypes = [p, p, ll, ll, ll, p, i, i, i, i, p]
+    # feat, q, q's strides (batch, cell, column), out, B, N, F, C, warps,
+    # shared memory, stream
+    fn.argtypes = [p, p, ll, ll, ll, p] + [i] * 6 + [p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -73,7 +105,8 @@ def _library() -> ctypes.CDLL:
 def bilateral_matvec_batched(feat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """out[b, i] = sum_j exp(-0.5 |f_bi - f_bj|^2) q[b, j]: feat (B, N, F)
     with F <= 8, q (B, N, C) -> (B, N, C) float32. On the card q is read
-    through its strides (a transposed view costs no copy)."""
+    through its strides (a transposed view costs no copy) and the call is
+    one launch."""
     if feat.dim() != 3 or q.dim() != 3 or q.shape[:2] != feat.shape[:2]:
         raise ValueError(f"feat (B, N, F) and q (B, N, C) expected, got "
                          f"{tuple(feat.shape)} and {tuple(q.shape)}")
@@ -87,15 +120,18 @@ def bilateral_matvec_batched(feat: torch.Tensor, q: torch.Tensor) -> torch.Tenso
     c = q.shape[2]
     if not 1 <= f <= _MAX_F:
         raise ValueError(f"{f} features; the kernel takes 1 to <= {_MAX_F}")
-    if not 1 <= c <= _MAX_C:
-        raise ValueError(f"{c} columns of q; the kernel takes 1..{_MAX_C}")
+    if c < 1:
+        raise ValueError(f"{c} columns of q; the kernel takes >= 1")
     lib = _library()
     feat = feat.float().contiguous()
     q = q.float()
-    out = torch.empty((b, n, c), dtype=torch.float32, device=q.device)
+    dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = launch_plan(b, n, f, c)
+    out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     status = lib.bilateral_matvec_f32(
         feat.data_ptr(), q.data_ptr(), *q.stride(), out.data_ptr(), b, n, f, c,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        plan.warps, plan.smem_bytes, stream)
     cuda_build.check_status(lib, _NAME, "bilateral_matvec_f32", status)
     global LAUNCHES
     LAUNCHES += 1
