@@ -33,10 +33,16 @@
 //     the whole warp at one address as 128-bit broadcasts: 3 loads per 6
 //     pairs at F = C = 5;
 //   - 64-cell column tiles in a two-stage ring filled by cp.async while the
-//     other stage is computed; one-warp CTAs, one per 192 rows and image.
-// The plan (warps per CTA, shared memory) comes from
-// ops/crf_pallas.py:launch_plan; the host function refuses one that does
-// not match its own count. It returns the launch
+//     other stage is computed;
+//   - the columns split into S chunks across CTAs (S from N alone, so that
+//     an image's sums do not depend on the batch): each CTA writes its
+//     chunk's partial sums to the workspace, and the last CTA of a row tile
+//     to arrive (a counter per row tile, back to 0 after use) adds the S
+//     partials in chunk order. No atomics touch the sums, so two calls are
+//     bit-equal and image b's result is the same at any batch.
+// The plan (warps per CTA, S, the chunk size, shared memory, workspace and
+// counters) comes from ops/crf_pallas.py:launch_plan; the host function
+// refuses one that does not match its own count. It returns the launch
 // error as an int (0 = cudaSuccess) and allocates nothing; the launch is
 // on the caller's stream.
 
@@ -66,7 +72,9 @@ struct Params {
   const float* q;             // (B, N, C) through its strides
   long long q_sb, q_sn, q_sc;
   float* out;                 // (B, N, C) contiguous
-  int B, N, F, C, tiles;
+  float* part;                // (G, B, S, CW, N) partial sums when S > 1
+  int* count;                 // (G, B, row tiles) arrivals, 0 between calls
+  int B, N, F, C, S, cs, tiles;
 };
 
 // component k (a constant after unrolling) of a float4
@@ -120,19 +128,20 @@ __device__ __forceinline__ void stage_tile(const Params& p, float* rec, int b, i
   cp_async_commit();
 }
 
-// grid (row tiles, B, G), blockDim.x = 32 x warps: CTA rt takes rows
-// rt x warps x 192 ... against every cell
+// grid (row tiles x S, B, G), blockDim.x = 32 x warps: CTA (rt, s) takes
+// rows rt x warps x 192 ... and the cells of chunk s
 template <int FK, int CW>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     bilateral_matvec_kernel(const Params p) {
   constexpr int REC = record_floats(FK, CW);
   extern __shared__ __align__(16) float smem[];  // kStages x kTile x REC
-  const int rt = blockIdx.x;
+  __shared__ int s_last;
+  const int rt = blockIdx.x / p.S, s = blockIdx.x - rt * p.S;
   const int b = blockIdx.y, g = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int base = (rt * (blockDim.x >> 5) + warp) * kWarpRows;
   const bool active = base < p.N;  // a warp past N only stages tiles
-  const int j0 = 0, j1 = p.N;
+  const int j0 = s * p.cs, j1 = min(p.N, j0 + p.cs);
 
   float gi[kRows][FK], acc[kRows][CW];
   const float* fb = p.feat + (long long)b * p.N * p.F;
@@ -182,6 +191,48 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     }
   }
 
+  if (p.S > 1) {
+    // this chunk's partial sums, then the row tile's last CTA adds them
+    const long long tile0 = ((long long)g * p.B + b) * p.S;
+    if (active) {
+      float* ps = p.part + (tile0 + s) * CW * p.N;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = base + 32 * r + lane;
+        if (i >= p.N) continue;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) ps[(long long)c * p.N + i] = acc[r][c];
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int* cnt = p.count + ((long long)g * p.B + b) * p.tiles + rt;
+      s_last = atomicAdd(cnt, 1) == p.S - 1;
+      if (s_last) *cnt = 0;  // every CTA of the row tile has arrived
+    }
+    __syncthreads();
+    if (!s_last || !active) return;
+    __threadfence();
+    float sum[kRows][CW];
+    for (int k = 0; k < p.S; ++k) {
+      const float* pk = p.part + (tile0 + k) * CW * p.N;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = min(base + 32 * r + lane, p.N - 1);
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const float x = k == s ? acc[r][c] : __ldcg(pk + (long long)c * p.N + i);
+          sum[r][c] = k == 0 ? x : sum[r][c] + x;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc[r][c] = sum[r][c];
+  }
+
   if (!active) return;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -196,7 +247,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 
 template <int FK, int CW>
 cudaError_t launch(const Params& p, int warps, int groups, int smem, cudaStream_t st) {
-  const dim3 grid(p.tiles, p.B, groups);
+  const dim3 grid(p.tiles * p.S, p.B, groups);
   bilateral_matvec_kernel<FK, CW><<<grid, warps * 32, smem, st>>>(p);
   return cudaGetLastError();
 }
@@ -221,23 +272,33 @@ cudaError_t by_width(const Params& p, int cw, int warps, int groups, int smem,
 
 // feat (B, N, F) contiguous float32, F <= 8; q (B, N, C) float32 with
 // element strides q_sb, q_sn, q_sc; out (B, N, C) contiguous float32. The
-// plan (ops/crf_pallas.py:launch_plan): warps per CTA, smem bytes per CTA.
+// plan (ops/crf_pallas.py:launch_plan): warps per CTA, S chunks of
+// chunk_cells cells, smem bytes per CTA; work holds work_floats floats
+// and count count_ints zeroed ints (both unused when S = 1).
 extern "C" int bilateral_matvec_f32(const float* feat, const float* q, long long q_sb,
-                                    long long q_sn, long long q_sc, float* out, int B,
-                                    int N, int F, int C, int warps, int smem,
+                                    long long q_sn, long long q_sc, float* out,
+                                    float* work, long long work_floats, int* count,
+                                    long long count_ints, int B, int N, int F, int C,
+                                    int warps, int chunks, int chunk_cells, int smem,
                                     void* stream_ptr) {
   if (B < 1 || B > 65535 || N < 1 || F < 1 || F > kMaxFeat || C < 1 || warps < 1 ||
-      warps > kMaxWarps)
+      warps > kMaxWarps || chunk_cells < 1 || chunks < 1)
     return (int)cudaErrorInvalidValue;
   const int fk = F == 5 ? 5 : kMaxFeat;
   const int cw = C < kGroup ? C : kGroup;
   const int groups = (C + kGroup - 1) / kGroup;
   Params p = {};
   p.tiles = (N + warps * kWarpRows - 1) / (warps * kWarpRows);
-  if (groups > kMaxGroups || smem != kStages * kTile * record_floats(fk, cw) * 4)
+  if (groups > kMaxGroups || chunks != (N + chunk_cells - 1) / chunk_cells ||
+      (long long)p.tiles * chunks > 0x7fffffffLL ||
+      smem != kStages * kTile * record_floats(fk, cw) * 4)
+    return (int)cudaErrorInvalidValue;
+  if (chunks > 1 && (work_floats < (long long)groups * B * chunks * cw * N ||
+                     count_ints < (long long)groups * B * p.tiles))
     return (int)cudaErrorInvalidValue;
   p.feat = feat, p.q = q, p.q_sb = q_sb, p.q_sn = q_sn, p.q_sc = q_sc, p.out = out;
-  p.B = B, p.N = N, p.F = F, p.C = C;
+  p.part = work, p.count = count;
+  p.B = B, p.N = N, p.F = F, p.C = C, p.S = chunks, p.cs = chunk_cells;
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   if (fk == 5) return (int)by_width<5>(p, cw, warps, groups, smem, st);
   return (int)by_width<kMaxFeat>(p, cw, warps, groups, smem, st);

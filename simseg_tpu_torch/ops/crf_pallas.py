@@ -9,8 +9,8 @@ degree K 1. On a CUDA tensor the wrapper launches
 ``csrc/bilateral_matvec.cu`` once or raises — there is no fallback; on a
 CPU tensor it runs ``bilateral_matvec_plain``. ``LAUNCHES`` counts the
 kernel's launches. ``launch_plan`` is how the kernel cuts a call (warps per
-CTA, shared memory); the kernel refuses a plan that does not match its own
-count.
+CTA, the column split, shared memory, workspace); the kernel refuses a plan
+that does not match its own count.
 
 The plain version keeps the TPU kernel's expanded distance
 max(|f_i|^2 + |f_j|^2 - 2 f_i.f_j, 0) (:34-53, :100-121), so that the CPU
@@ -43,7 +43,10 @@ _GROUP = 8
 _MAX_F = 8
 _MAX_WARPS = 8
 _ROW_TILE = 512  # rows of K the plain version holds at a time
-_WARPS = 1       # warps per CTA
+# one warp per CTA; the column split aims at 4 warps per SM of an H100 (132
+# SMs) for one image, one per warp scheduler
+_WARPS = 1
+_FILL_WARPS = 4 * 132
 
 # launches of the CUDA kernel (one per bilateral_matvec(_batched) call on
 # the card)
@@ -53,21 +56,50 @@ LAUNCHES = 0
 class LaunchPlan(NamedTuple):
     warps: int             # warps per CTA, 192 rows each
     row_tiles: int
+    chunks: int            # S, the column chunks: a function of N alone
+    chunk_cells: int       # cells per chunk (the last may hold fewer)
     groups: int            # column groups of at most 8
-    grid: tuple            # (row_tiles, B, groups)
+    grid: tuple            # (row_tiles x chunks, B, groups)
     smem_bytes: int        # dynamic shared memory per CTA
+    workspace_floats: int  # partial sums (G, B, S, CW, N); 0 when S = 1
+    counters: int          # arrival counters (G, B, row tiles); 0 when S = 1
 
 
 def launch_plan(b: int, n: int, f: int, c: int) -> LaunchPlan:
     """The kernel's plan for B images of N cells, F features and C columns,
-    mirroring ``bilateral_matvec_f32``'s checks: 192-row CTAs, every column
-    in each."""
+    mirroring ``bilateral_matvec_f32``'s checks: 192-row CTAs; the columns
+    in S chunks of at least one tile, S so that one image's grid holds
+    ``_FILL_WARPS`` warps. S depends on N only, so image b's sums are taken
+    in the same order at every batch."""
     fk = 5 if f == 5 else _MAX_F
     cw = min(c, _GROUP)
     groups = -(-c // _GROUP)
     row_tiles = -(-n // (_WARPS * _WARP_ROWS))
-    return LaunchPlan(_WARPS, row_tiles, groups, (row_tiles, b, groups),
-                      _STAGES * _TILE * (-(-(fk + cw) // 4) * 4) * 4)
+    want = -(-_FILL_WARPS // -(-n // _WARP_ROWS))
+    chunk_cells = max(_TILE, -(-n // want))
+    chunks = -(-n // chunk_cells)
+    split = chunks > 1
+    return LaunchPlan(
+        _WARPS, row_tiles, chunks, chunk_cells, groups,
+        (row_tiles * chunks, b, groups),
+        _STAGES * _TILE * (-(-(fk + cw) // 4) * 4) * 4,
+        groups * b * chunks * cw * n if split else 0,
+        groups * b * row_tiles if split else 0)
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The kernel's arrival counters for calls on (device, stream), zeroed
+    when allocated: the last CTA of a row tile sets its counter back to 0,
+    so calls on one stream, which run in order, share them. Grown on
+    demand."""
+    have = _COUNTERS.get((device, stream))
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device, stream] = have
+    return have
 
 
 def bilateral_matvec_plain(feat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -95,9 +127,10 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.bilateral_matvec_f32
     ll = ctypes.c_longlong
-    # feat, q, q's strides (batch, cell, column), out, B, N, F, C, warps,
-    # shared memory, stream
-    fn.argtypes = [p, p, ll, ll, ll, p] + [i] * 6 + [p]
+    # feat, q, q's strides (batch, cell, column), out, workspace and its
+    # floats, counters and their count, B, N, F, C, warps, chunks, chunk
+    # cells, shared memory, stream
+    fn.argtypes = [p, p, ll, ll, ll, p, p, ll, p, ll] + [i] * 8 + [p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -129,9 +162,13 @@ def bilateral_matvec_batched(feat: torch.Tensor, q: torch.Tensor) -> torch.Tenso
     stream = torch.cuda.current_stream(dev).cuda_stream
     plan = launch_plan(b, n, f, c)
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
+    work = torch.empty(plan.workspace_floats, dtype=torch.float32, device=dev)
+    count = _counters(dev, stream, plan.counters)
     status = lib.bilateral_matvec_f32(
-        feat.data_ptr(), q.data_ptr(), *q.stride(), out.data_ptr(), b, n, f, c,
-        plan.warps, plan.smem_bytes, stream)
+        feat.data_ptr(), q.data_ptr(), *q.stride(), out.data_ptr(),
+        work.data_ptr(), work.numel(), count.data_ptr(), count.numel(), b, n,
+        f, c, plan.warps, plan.chunks, plan.chunk_cells, plan.smem_bytes,
+        stream)
     cuda_build.check_status(lib, _NAME, "bilateral_matvec_f32", status)
     global LAUNCHES
     LAUNCHES += 1
