@@ -291,6 +291,18 @@ def launch_times(fn):
             sorted(kernels, key=lambda e: e.time_range.start)]
 
 
+def busy_clock(fn, calls=3000) -> str:
+    """nvidia-smi's SM clock and power draw read while the card works
+    through ``calls`` queued calls of fn."""
+    for _ in range(calls):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    torch.cuda.synchronize()
+    return out.stdout.strip().splitlines()[0]
+
+
 def device_profile(fn, label: str, top: int = 8) -> float:
     """Prints the device time of one call of fn, by kernel (torch.profiler);
     returns the total in ms."""
@@ -303,12 +315,16 @@ def device_profile(fn, label: str, top: int = 8) -> float:
     return total
 
 
-def crf_share(fn, label):
-    """Prints the CRF kernel's device ms and share of one call of fn."""
+def kernel_share(fn, label, names=("crf_kernel", "bilateral_matvec_kernel")):
+    """Prints the device ms and share of one call of fn of each kernel whose
+    name holds one of ``names``."""
     total, _, rows = device_rows(fn)
-    crf = sum(us for us, _, key in rows if "crf_kernel" in key) / 1e3
-    print(f"{label}: crf kernel {crf:.4f} ms of {total:.4f} ms device time "
-          f"per batch ({100 * crf / total:.1f}%)", flush=True)
+    parts = []
+    for name in names:
+        ms = sum(us for us, _, key in rows if name in key) / 1e3
+        parts.append(f"{name} {ms:.4f} ms ({100 * ms / total:.1f}%)")
+    print(f"{label}: of {total:.4f} ms device time per batch: "
+          f"{', '.join(parts)}", flush=True)
 
 
 def crf_bound_ms(b, k, h, w, s, radius, iters, nbytes):
@@ -606,7 +622,7 @@ def run_slice(model, tokenizer, classes):
     step_ms = cuda_ms(lambda: predict(images_u8, text_bank), 5)
     device_profile(lambda: predict(images_u8, text_bank),
                    f"towers + decode, batch {BATCH}", top=12)
-    crf_share(lambda: predict(images_u8, text_bank), "slice")
+    kernel_share(lambda: predict(images_u8, text_bank), "slice")
     print(f"slice: towers + decode {step_ms:.3f} ms per batch of {BATCH} "
           f"= {BATCH / (step_ms / 1e3):.1f} images/s", flush=True)
     return launches
@@ -845,52 +861,120 @@ def bilateral_bound_ms(b, n, used, c):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_bilateral_kernel():
-    """Phase 3c: returns the JSON fields at C = 5 (the per-iteration call);
-    prints C = 1 (the degree), C = 5, and C = 5 for one image through the
-    unbatched wrapper."""
-    from simseg_tpu_torch.ops import crf_pallas
+def bilateral_inputs():
+    """Phase 3c's inputs: the (16, 5184, 5) features of 576-px synthetic
+    scenes at stride 8 (colours over srgb = 13, positions over sxy = 40),
+    the ones column (the degree), q at C = 5 uniform in [-1, 1] and the same
+    values as the transposed view the CRF's stream lane passes
+    (``ops/crf.py``: a (B, C, N) tensor viewed as (B, N, C))."""
     from simseg_tpu_torch.ops.crf import bilateral_features, cell_colours
 
     rng = np.random.default_rng(7)
     rgb = torch.from_numpy(synthetic_scenes(rng, BATCH, WIN_INPUT, 21)[0]).cuda()
     feat = bilateral_features(cell_colours(rgb, STRIDE), 40.0, 13.0, STRIDE)
+    n = feat.shape[1]
+    ones = torch.ones((BATCH, n, 1), dtype=torch.float32, device="cuda")
+    q5 = torch.from_numpy(rng.uniform(-1.0, 1.0, (BATCH, n, 5)).astype(
+        np.float32)).cuda()
+    return feat, ones, q5, q5.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def bilateral_rel(got, want):
+    """max |got - want| / max |want| (want the float64 plain result)."""
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+BILATERAL_BAR = 1e-5
+
+
+def check_bilateral_kernel():
+    """Phase 3c: returns the JSON fields at C = 5 (the per-iteration call,
+    q the stream lane's transposed view), with C = 1 (the degree) and one
+    image through the unbatched wrapper beside it."""
+    from simseg_tpu_torch.ops import crf_pallas
+
+    feat, ones, q5, q5t = bilateral_inputs()
     n, used = feat.shape[1], feat.shape[2]
     fields = {}
-    for c in (1, 5):
-        q = (np.ones((BATCH, n, 1)) if c == 1
-             else rng.uniform(-1.0, 1.0, (BATCH, n, c)))
-        q = torch.from_numpy(q.astype(np.float32)).cuda()
+    for c, q in ((1, ones), (5, q5t)):
         got = crf_pallas.bilateral_matvec_batched(feat, q)
+        again = crf_pallas.bilateral_matvec_batched(feat, q)
         want = crf_pallas.bilateral_matvec_plain(feat.double(), q.double())
         max_err = (got.double() - want).abs().max().item()
-        rel = max_err / want.abs().max().item()
-        want32 = crf_pallas.bilateral_matvec_plain(feat, q)
-        rel32 = ((got - want32).abs().max() / want32.abs().max()).item()
+        rel = bilateral_rel(got, want)
+        rel32 = bilateral_rel(crf_pallas.bilateral_matvec_plain(feat, q), want)
+        same = torch.equal(got, again)
         print(f"bilateral C={c} N={n}: kernel vs float64 plain max abs err "
-              f"{max_err:.3e}, relative {rel:.3e} (vs float32 plain "
-              f"{rel32:.3e})", flush=True)
-        if rel > 1e-5:
+              f"{max_err:.3e}, relative {rel:.3e} (float32 plain {rel32:.3e}); "
+              f"two calls bit-equal {same}", flush=True)
+        if rel > BILATERAL_BAR:
             raise AssertionError(f"bilateral C={c}: relative error {rel}")
-        ms = cuda_ms(lambda: crf_pallas.bilateral_matvec_batched(feat, q), 20)
+        if not same:
+            raise AssertionError(f"bilateral C={c}: two calls differ")
+        if c == 5:
+            if not torch.equal(got, crf_pallas.bilateral_matvec_batched(feat, q5)):
+                raise AssertionError("bilateral: q as a view != q contiguous")
+            # planted faults, each must exceed the bar: the plan's last
+            # column chunk dropped (q zero there), one feature dropped, the
+            # float32 expanded distance (the plain version's)
+            plan = crf_pallas.launch_plan(BATCH, n, used, c)
+            q_cut = q.clone()
+            q_cut[:, (plan.chunks - 1) * plan.chunk_cells:] = 0.0
+            faults = {
+                "last column chunk dropped": crf_pallas.bilateral_matvec_batched(
+                    feat, q_cut),
+                "one feature dropped": crf_pallas.bilateral_matvec_batched(
+                    feat[..., :used - 1], q),
+                "float32 expanded distance": crf_pallas.bilateral_matvec_plain(
+                    feat, q)}
+            for name, bad in faults.items():
+                rel_bad = bilateral_rel(bad, want)
+                print(f"bilateral C={c}: planted fault '{name}': relative "
+                      f"{rel_bad:.3e}", flush=True)
+                if rel_bad <= BILATERAL_BAR:
+                    raise AssertionError(f"bilateral: the bar passes the planted "
+                                         f"fault '{name}' ({rel_bad:.3e})")
+            got5 = got
+
+        def kernel():
+            return crf_pallas.bilateral_matvec_batched(feat, q)
+
+        ms = cuda_ms(kernel, 20)
+        device, kernels, _ = device_rows(kernel)
         plain_ms = cuda_ms(lambda: crf_pallas.bilateral_matvec_plain(feat, q), 3)
         bound, bound_by = bilateral_bound_ms(BATCH, n, used, c)
-        print(f"bilateral C={c}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({bound_by})", flush=True)
-        fields = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                      bound_ms=bound, bound_by=bound_by, library_ms=None)
+        print(f"bilateral C={c}: kernel {ms:.4f} ms (device {device:.4f} ms, "
+              f"{kernels} CUDA kernels per call), plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({bound_by}), share of bound {bound / ms:.3f}",
+              flush=True)
+        fields[c] = dict(max_abs_err=max_err, ms=ms, device_ms=device,
+                         kernels_per_call=kernels, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=bound_by,
+                         share_of_bound=bound / ms)
 
-    # the unbatched entry point (TPU row 3) on one image: the same kernel
-    one = crf_pallas.bilateral_matvec(feat[0], q[0])
-    if not torch.equal(one, got[0]):
+    # the unbatched entry point (TPU row 3) on one image: the same kernel,
+    # the same sums as the batched call's image 0
+    one = crf_pallas.bilateral_matvec(feat[0], q5t[0])
+    if not torch.equal(one, got5[0]):
         raise AssertionError("bilateral_matvec != bilateral_matvec_batched[0]")
-    ms = cuda_ms(lambda: crf_pallas.bilateral_matvec(feat[0], q[0]), 20)
+
+    def kernel_one():
+        return crf_pallas.bilateral_matvec(feat[0], q5t[0])
+
+    ms = cuda_ms(kernel_one, 20)
+    device, kernels, _ = device_rows(kernel_one)
     plain_ms = cuda_ms(lambda: crf_pallas.bilateral_matvec_plain(
-        feat[:1], q[:1]), 3)
+        feat[:1], q5t[:1]), 3)
     bound, bound_by = bilateral_bound_ms(1, n, used, 5)
-    print(f"bilateral one image C=5: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, bound {bound:.4f} ms ({bound_by})", flush=True)
-    return fields
+    print(f"bilateral one image C=5: kernel {ms:.4f} ms (device {device:.4f} ms, "
+          f"{kernels} CUDA kernels per call), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({bound_by}), share of bound {bound / ms:.3f}",
+          flush=True)
+    return dict(library_ms=None, **fields[5], c1_ms=fields[1]["ms"],
+                c1_device_ms=fields[1]["device_ms"],
+                c1_bound_ms=fields[1]["bound_ms"], one_image_ms=ms,
+                one_image_device_ms=device, one_image_kernels_per_call=kernels,
+                one_image_plain_ms=plain_ms, one_image_bound_ms=bound)
 
 
 def plain_decode(dense, pooled, text_bank, images_u8, size):
@@ -966,7 +1050,7 @@ def check_decode(label, loader, model, text_bank, classes, size,
     step_ms = cuda_ms(lambda: predict(images_u8, text_bank), 3)
     device = device_profile(lambda: predict(images_u8, text_bank),
                             f"{label} towers + decode, batch {BATCH}", top=12)
-    crf_share(lambda: predict(images_u8, text_bank), label)
+    kernel_share(lambda: predict(images_u8, text_bank), label)
     print(f"{label}: towers + decode {step_ms:.3f} ms per batch of {BATCH} "
           f"= {BATCH / (step_ms / 1e3):.1f} images/s; device {device:.3f} ms, "
           f"idle share {1 - device / step_ms:.3f}", flush=True)
@@ -1618,55 +1702,85 @@ def compare_attention_trees(trees) -> None:
     shutil.rmtree(out_dir)
 
 
-def compare_crf_trees(trees) -> None:
-    """``python3 chip_smoke.py --crf-trees DIR ...``: the CRF kernel of each
-    tree (a checkout of this repository, e.g. an earlier commit unpacked
-    with ``git archive``), built with nvcc from its own
-    ``simseg_tpu_torch/csrc/crf_mean_field.cu`` and launched through that
-    tree's own ``ops/crf_fused.py`` (the C interface may differ between
-    trees), on phase 3's and 3g's inputs at (16, 5, 288 x 288, stride 8),
-    the mean field also at 64 images: both entry points checked against
-    the first tree's plain versions
-    (>= 99.9% of masks, of pred and of best_w), then timed with CUDA events
-    in turns (the trees in order, then in reverse), with each tree's
-    device time and CUDA kernels per call."""
+def tree_modules(trees, source, module, ptxas=False):
+    """For each tree (a checkout of this repository, e.g. an earlier commit
+    unpacked with ``git archive``): its ``simseg_tpu_torch/csrc/<source>.cu``
+    built with nvcc (one process per tree, all started together) and its own
+    ``simseg_tpu_torch/ops/<module>.py`` imported with its ``_library``
+    serving that build, since the C interface may differ between trees.
+    Returns the modules and the directory of the builds (the caller removes
+    it); with ptxas, prints each kernel's registers and spills."""
     import ctypes
     import importlib.util
+    import re
 
     from simseg_tpu_torch.ops import cuda_build
 
-    out_dir = tempfile.mkdtemp(prefix="crf_trees_")
+    out_dir = tempfile.mkdtemp(prefix=f"{source}_trees_")
 
     def build(i):
         csrc = os.path.join(trees[i], "simseg_tpu_torch", "csrc")
-        path = os.path.join(out_dir, f"libcrf{i}.so")
+        path = os.path.join(out_dir, f"lib{source}{i}.so")
         proc = subprocess.run(
             [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", csrc,
-             "-o", path, os.path.join(csrc, "crf_mean_field.cu")],
+             *(["-Xptxas", "-v"] if ptxas else []), "-o", path,
+             os.path.join(csrc, f"{source}.cu")],
             capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {csrc}/crf_mean_field.cu:\n"
+            raise RuntimeError(f"nvcc failed on {csrc}/{source}.cu:\n"
                                f"{proc.stderr}")
-        return path
+        return path, proc.stderr
 
     with ThreadPoolExecutor(len(trees)) as pool:
-        paths = list(pool.map(build, range(len(trees))))
+        built = list(pool.map(build, range(len(trees))))
     mods = []
-    for i, path in enumerate(paths):
+    for i, (path, log) in enumerate(built):
+        if ptxas:
+            # "Compiling entry function '<mangled>'" ... "Used R registers";
+            # the template arguments of each instance, as ILi5ELi5E
+            kernels = re.findall(r"Compiling entry function '(\w+)'.*?"
+                                 r"(\d+) bytes spill stores, (\d+) bytes spill "
+                                 r"loads.*?Used (\d+) registers", log, re.S)
+            print(f"tree {trees[i]}: ptxas (instance: registers, spill "
+                  "stores/loads): " + "; ".join(
+                      f"{'/'.join(re.findall(r'Li(\d+)E', k)) or k[-24:]}: "
+                      f"{regs}, {st}/{ld}" for k, st, ld, regs in kernels),
+                  flush=True)
         spec = importlib.util.spec_from_file_location(
-            f"crf_fused_tree{i}",
-            os.path.join(trees[i], "simseg_tpu_torch", "ops", "crf_fused.py"))
+            f"{module}_tree{i}",
+            os.path.join(trees[i], "simseg_tpu_torch", "ops", f"{module}.py"))
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         lib = ctypes.CDLL(path)
-        err = lib.crf_mean_field_error_string
+        err = getattr(lib, f"{source}_error_string")
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         with unittest.mock.patch.object(cuda_build, "load_library", lambda _: lib):
             lib = mod._library.__wrapped__()
         mod._library = lambda lib=lib: lib
         mods.append(mod)
+    return mods, out_dir
 
+
+def in_turns(trees, fn):
+    """CUDA-event ms of fn(n) for each tree n, the trees in order and then
+    in reverse: [[a, b] per tree]."""
+    times = [[] for _ in trees]
+    for n in list(range(len(trees))) + list(reversed(range(len(trees)))):
+        times[n].append(cuda_ms(lambda: fn(n), 20))
+    return times
+
+
+def compare_crf_trees(trees) -> None:
+    """``python3 chip_smoke.py --crf-trees DIR ...``: the CRF kernel of each
+    tree (``tree_modules``: its ``csrc/crf_mean_field.cu`` launched through
+    its own ``ops/crf_fused.py``), on phase 3's and 3g's inputs at (16, 5,
+    288 x 288, stride 8), the mean field also at 64 images: both entry
+    points checked against the first tree's plain versions (>= 99.9% of
+    masks, of pred and of best_w), then timed with CUDA events in turns
+    (the trees in order, then in reverse), with each tree's device time and
+    CUDA kernels per call."""
+    mods, out_dir = tree_modules(trees, "crf_mean_field", "crf_fused")
     du, rgb = crf_inputs(BATCH)
     du64, rgb64 = crf_inputs(BENCH_BATCH)
     du_c, rgb_t, scores, idx = tail_inputs()
@@ -1692,14 +1806,62 @@ def compare_crf_trees(trees) -> None:
                   flush=True)
             if agree < 0.999:
                 raise AssertionError(f"tree {tree}: {shape} agreement {agree}")
-        times = [[] for _ in trees]
-        for n in list(range(len(trees))) + list(reversed(range(len(trees)))):
-            times[n].append(cuda_ms(lambda: call(mods[n]), 20))
+        times = in_turns(trees, lambda n: call(mods[n]))
         for tree, mod, ts in zip(trees, mods, times):
             device, kernels, _ = device_rows(lambda: call(mod))
             print(f"tree {tree}: {shape}: {ts[0]:.4f} / {ts[1]:.4f} ms, device "
                   f"{device:.4f} ms in {kernels} CUDA kernels per call; us by "
                   f"launch {launch_times(lambda: call(mod))}", flush=True)
+    shutil.rmtree(out_dir)
+
+
+def compare_bilateral_trees(trees) -> None:
+    """``python3 chip_smoke.py --bilateral-trees DIR ...``: the bilateral
+    kernel of each tree (``tree_modules``: its ``csrc/bilateral_matvec.cu``,
+    registers and spills printed, launched through its own
+    ``ops/crf_pallas.py``) on phase 3c's inputs at 16 images x 5184 cells:
+    C = 1 (the degree), C = 5 with q the stream lane's transposed view, and
+    C = 5 on one image through the unbatched wrapper. Each tree is checked
+    against the float64 plain version (relative error <= 1e-5) and for two
+    bit-equal calls, then timed with CUDA events in turns (the trees in
+    order, then in reverse), with its device time, CUDA kernels per call and
+    share of the bound."""
+    from simseg_tpu_torch.ops import crf_pallas
+
+    mods, out_dir = tree_modules(trees, "bilateral_matvec", "crf_pallas",
+                                 ptxas=True)
+    feat, ones, q5, q5t = bilateral_inputs()
+    n, used = feat.shape[1], feat.shape[2]
+    calls = {
+        f"C=1 ({BATCH}, {n})": (
+            lambda mod: mod.bilateral_matvec_batched(feat, ones),
+            (feat, ones), bilateral_bound_ms(BATCH, n, used, 1)[0]),
+        f"C=5 ({BATCH}, {n}) q a view": (
+            lambda mod: mod.bilateral_matvec_batched(feat, q5t),
+            (feat, q5t), bilateral_bound_ms(BATCH, n, used, 5)[0]),
+        f"C=5 one image (1, {n})": (
+            lambda mod: mod.bilateral_matvec(feat[0], q5[0]),
+            (feat[:1], q5[:1]), bilateral_bound_ms(1, n, used, 5)[0])}
+    for name, (call, (f, q), bound) in calls.items():
+        want = crf_pallas.bilateral_matvec_plain(f.double(), q.double())
+        for tree, mod in zip(trees, mods):
+            got = call(mod).reshape(want.shape)
+            rel = bilateral_rel(got, want)
+            same = torch.equal(got, call(mod).reshape(want.shape))
+            print(f"tree {tree}: {name} vs float64 plain relative {rel:.3e}, "
+                  f"two calls bit-equal {same}", flush=True)
+            if rel > BILATERAL_BAR or not same:
+                raise AssertionError(f"tree {tree}: {name}: relative {rel}, "
+                                     f"bit-equal {same}")
+        del want
+        times = in_turns(trees, lambda i: call(mods[i]))
+        for tree, mod, ts in zip(trees, mods, times):
+            device, kernels, _ = device_rows(lambda: call(mod))
+            print(f"tree {tree}: {name}: {ts[0]:.4f} / {ts[1]:.4f} ms, device "
+                  f"{device:.4f} ms in {kernels} CUDA kernels per call, bound "
+                  f"{bound:.4f} ms, share of bound {bound / min(ts):.3f}; SM "
+                  f"clock, power under load {busy_clock(lambda: call(mod))}",
+                  flush=True)
     shutil.rmtree(out_dir)
 
 
@@ -1712,6 +1874,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--crf-trees"]:
         print(f"card: {card_line()}", flush=True)
         return compare_crf_trees(sys.argv[2:])
+    if sys.argv[1:2] == ["--bilateral-trees"]:
+        print(f"card: {card_line()}", flush=True)
+        return compare_bilateral_trees(sys.argv[2:])
     import simseg_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     card = card_line()

@@ -33,18 +33,21 @@
 //     the whole warp at one address as 128-bit broadcasts: 3 loads per 6
 //     pairs at F = C = 5;
 //   - 64-cell column tiles in a two-stage ring filled by cp.async while the
-//     other stage is computed;
-//   - the columns split into S chunks across CTAs (S from N alone, so that
-//     an image's sums do not depend on the batch): each CTA writes its
-//     chunk's partial sums to the workspace, and the last CTA of a row tile
-//     to arrive (a counter per row tile, back to 0 after use) adds the S
-//     partials in chunk order. No atomics touch the sums, so two calls are
-//     bit-equal and image b's result is the same at any batch.
-// The plan (warps per CTA, S, the chunk size, shared memory, workspace and
-// counters) comes from ops/crf_pallas.py:launch_plan; the host function
-// refuses one that does not match its own count. It returns the launch
-// error as an int (0 = cudaSuccess) and allocates nothing; the launch is
-// on the caller's stream.
+//     other stage is computed, shared by the CTA's warps (four, 768 rows);
+//   - the columns split into S chunks across CTAs, S from N alone, so
+//     that the grid fills the card at one image and an image's sums do not
+//     depend on the batch: each CTA writes its chunk's partial sums to the
+//     workspace, and a second small kernel (bilateral_sum_kernel) adds the
+//     S partials of every output in chunk order. No atomics touch the sums,
+//     so two calls are bit-equal and image b's result is the same at any
+//     batch. (The last CTA of each row tile adding them through a counter
+//     measured 0.05 ms slower at (16, 5184): its S rounds of loads wait in
+//     the kernel's tail.)
+// The plan (warps per CTA, S, the chunk size, shared memory, workspace)
+// comes from ops/crf_pallas.py:launch_plan; the host function refuses one
+// that does not match its own count. It returns the launch error as an int
+// (0 = cudaSuccess) and allocates nothing; the launches are on the
+// caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,6 +62,7 @@ constexpr int kMaxFeat = 8;
 constexpr int kGroup = 8;              // columns of q per group, at most
 constexpr int kMaxWarps = 8;
 constexpr int kMaxGroups = 65535;
+constexpr int kSumThreads = 256;
 // sqrt(0.5 log2 e): exp(-0.5 |f_i - f_j|^2) = exp2(-|s f_i - s f_j|^2)
 constexpr float kScale = 0.849321800288019f;
 
@@ -73,7 +77,6 @@ struct Params {
   long long q_sb, q_sn, q_sc;
   float* out;                 // (B, N, C) contiguous
   float* part;                // (G, B, S, CW, N) partial sums when S > 1
-  int* count;                 // (G, B, row tiles) arrivals, 0 between calls
   int B, N, F, C, S, cs, tiles;
 };
 
@@ -135,7 +138,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     bilateral_matvec_kernel(const Params p) {
   constexpr int REC = record_floats(FK, CW);
   extern __shared__ __align__(16) float smem[];  // kStages x kTile x REC
-  __shared__ int s_last;
   const int rt = blockIdx.x / p.S, s = blockIdx.x - rt * p.S;
   const int b = blockIdx.y, g = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -191,49 +193,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     }
   }
 
-  if (p.S > 1) {
-    // this chunk's partial sums, then the row tile's last CTA adds them
-    const long long tile0 = ((long long)g * p.B + b) * p.S;
-    if (active) {
-      float* ps = p.part + (tile0 + s) * CW * p.N;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = base + 32 * r + lane;
-        if (i >= p.N) continue;
-#pragma unroll
-        for (int c = 0; c < CW; ++c) ps[(long long)c * p.N + i] = acc[r][c];
-      }
-    }
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int* cnt = p.count + ((long long)g * p.B + b) * p.tiles + rt;
-      s_last = atomicAdd(cnt, 1) == p.S - 1;
-      if (s_last) *cnt = 0;  // every CTA of the row tile has arrived
-    }
-    __syncthreads();
-    if (!s_last || !active) return;
-    __threadfence();
-    float sum[kRows][CW];
-    for (int k = 0; k < p.S; ++k) {
-      const float* pk = p.part + (tile0 + k) * CW * p.N;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = min(base + 32 * r + lane, p.N - 1);
-#pragma unroll
-        for (int c = 0; c < CW; ++c) {
-          const float x = k == s ? acc[r][c] : __ldcg(pk + (long long)c * p.N + i);
-          sum[r][c] = k == 0 ? x : sum[r][c] + x;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < CW; ++c) acc[r][c] = sum[r][c];
-  }
-
   if (!active) return;
+  if (p.S > 1) {  // this chunk's partial sums; bilateral_sum_kernel adds them
+    float* ps = p.part + ((((long long)g * p.B + b) * p.S + s) * CW) * p.N;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = base + 32 * r + lane;
+      if (i >= p.N) continue;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) ps[(long long)c * p.N + i] = acc[r][c];
+    }
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = base + 32 * r + lane;
@@ -245,10 +216,31 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
 }
 
+// out[b, i, g * 8 + c] = the S partial sums of part[g, b, :, c, i] added
+// in chunk order; grid (ceil(N / 256), CW, G x B)
+__global__ void __launch_bounds__(kSumThreads)
+    bilateral_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                         int B, int N, int C, int S, int CW) {
+  const int i = blockIdx.x * kSumThreads + threadIdx.x, c = blockIdx.y;
+  const int g = blockIdx.z / B, b = blockIdx.z - g * B;
+  if (i >= N || g * kGroup + c >= C) return;
+  const float* pk = part + ((long long)blockIdx.z * S * CW + c) * N + i;
+  const long long step = (long long)CW * N;
+  float sum = pk[0];
+#pragma unroll 4
+  for (int k = 1; k < S; ++k) sum += pk[k * step];
+  out[((long long)b * N + i) * C + g * kGroup + c] = sum;
+}
+
 template <int FK, int CW>
 cudaError_t launch(const Params& p, int warps, int groups, int smem, cudaStream_t st) {
   const dim3 grid(p.tiles * p.S, p.B, groups);
   bilateral_matvec_kernel<FK, CW><<<grid, warps * 32, smem, st>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.S == 1) return err;
+  const dim3 sum_grid((p.N + kSumThreads - 1) / kSumThreads, CW, groups * p.B);
+  bilateral_sum_kernel<<<sum_grid, kSumThreads, 0, st>>>(p.part, p.out, p.B, p.N, p.C,
+                                                          p.S, CW);
   return cudaGetLastError();
 }
 
@@ -274,13 +266,12 @@ cudaError_t by_width(const Params& p, int cw, int warps, int groups, int smem,
 // element strides q_sb, q_sn, q_sc; out (B, N, C) contiguous float32. The
 // plan (ops/crf_pallas.py:launch_plan): warps per CTA, S chunks of
 // chunk_cells cells, smem bytes per CTA; work holds work_floats floats
-// and count count_ints zeroed ints (both unused when S = 1).
+// (unused when S = 1).
 extern "C" int bilateral_matvec_f32(const float* feat, const float* q, long long q_sb,
                                     long long q_sn, long long q_sc, float* out,
-                                    float* work, long long work_floats, int* count,
-                                    long long count_ints, int B, int N, int F, int C,
-                                    int warps, int chunks, int chunk_cells, int smem,
-                                    void* stream_ptr) {
+                                    float* work, long long work_floats, int B, int N,
+                                    int F, int C, int warps, int chunks,
+                                    int chunk_cells, int smem, void* stream_ptr) {
   if (B < 1 || B > 65535 || N < 1 || F < 1 || F > kMaxFeat || C < 1 || warps < 1 ||
       warps > kMaxWarps || chunk_cells < 1 || chunks < 1)
     return (int)cudaErrorInvalidValue;
@@ -289,15 +280,14 @@ extern "C" int bilateral_matvec_f32(const float* feat, const float* q, long long
   const int groups = (C + kGroup - 1) / kGroup;
   Params p = {};
   p.tiles = (N + warps * kWarpRows - 1) / (warps * kWarpRows);
-  if (groups > kMaxGroups || chunks != (N + chunk_cells - 1) / chunk_cells ||
+  if (groups > kMaxGroups || (long long)groups * B > kMaxGroups ||
+      chunks != (N + chunk_cells - 1) / chunk_cells ||
       (long long)p.tiles * chunks > 0x7fffffffLL ||
-      smem != kStages * kTile * record_floats(fk, cw) * 4)
-    return (int)cudaErrorInvalidValue;
-  if (chunks > 1 && (work_floats < (long long)groups * B * chunks * cw * N ||
-                     count_ints < (long long)groups * B * p.tiles))
+      smem != kStages * kTile * record_floats(fk, cw) * 4 ||
+      (chunks > 1 && work_floats < (long long)groups * B * chunks * cw * N))
     return (int)cudaErrorInvalidValue;
   p.feat = feat, p.q = q, p.q_sb = q_sb, p.q_sn = q_sn, p.q_sc = q_sc, p.out = out;
-  p.part = work, p.count = count;
+  p.part = work;
   p.B = B, p.N = N, p.F = F, p.C = C, p.S = chunks, p.cs = chunk_cells;
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   if (fk == 5) return (int)by_width<5>(p, cw, warps, groups, smem, st);

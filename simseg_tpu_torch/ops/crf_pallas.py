@@ -6,9 +6,10 @@ counterpart's name).
 out[b] = K_b q[b] with K_b[i, j] = exp(-0.5 |f_i - f_j|^2);
 ``bilateral_matvec`` is its B = 1 case. A ones column for q gives the
 degree K 1. On a CUDA tensor the wrapper launches
-``csrc/bilateral_matvec.cu`` once or raises — there is no fallback; on a
-CPU tensor it runs ``bilateral_matvec_plain``. ``LAUNCHES`` counts the
-kernel's launches. ``launch_plan`` is how the kernel cuts a call (warps per
+``csrc/bilateral_matvec.cu`` (the product, then, where the columns are
+split, the fixed-order sum of the chunks' partial sums) or raises — there
+is no fallback; on a CPU tensor it runs ``bilateral_matvec_plain``.
+``LAUNCHES`` counts the calls that launched the kernel. ``launch_plan`` is how the kernel cuts a call (warps per
 CTA, the column split, shared memory, workspace); the kernel refuses a plan
 that does not match its own count.
 
@@ -35,17 +36,16 @@ __all__ = ["LAUNCHES", "LaunchPlan", "bilateral_matvec",
 _NAME = "bilateral_matvec"  # csrc/bilateral_matvec.cu
 # the kernel's cuts (csrc/bilateral_matvec.cu): rows a warp holds (kRows = 6
 # a thread), column cells per staged tile, tile stages, columns of q per
-# group, features, warps per CTA
+# group, features
 _WARP_ROWS = 192
 _TILE = 64
 _STAGES = 2
 _GROUP = 8
 _MAX_F = 8
-_MAX_WARPS = 8
 _ROW_TILE = 512  # rows of K the plain version holds at a time
-# one warp per CTA; the column split aims at 4 warps per SM of an H100 (132
-# SMs) for one image, one per warp scheduler
-_WARPS = 1
+# four warps per CTA, sharing each staged tile; the column split aims at 4
+# warps per SM of an H100 (132 SMs) for one image, one per warp scheduler
+_WARPS = 4
 _FILL_WARPS = 4 * 132
 
 # launches of the CUDA kernel (one per bilateral_matvec(_batched) call on
@@ -62,13 +62,13 @@ class LaunchPlan(NamedTuple):
     grid: tuple            # (row_tiles x chunks, B, groups)
     smem_bytes: int        # dynamic shared memory per CTA
     workspace_floats: int  # partial sums (G, B, S, CW, N); 0 when S = 1
-    counters: int          # arrival counters (G, B, row tiles); 0 when S = 1
 
 
 def launch_plan(b: int, n: int, f: int, c: int) -> LaunchPlan:
     """The kernel's plan for B images of N cells, F features and C columns,
-    mirroring ``bilateral_matvec_f32``'s checks: 192-row CTAs; the columns
-    in S chunks of at least one tile, S so that one image's grid holds
+    mirroring ``bilateral_matvec_f32``'s checks: CTAs of four 192-row warps
+    (the last row tile's warps past N only stage tiles); the columns in S
+    chunks of at least one tile, S so that one image's grid holds
     ``_FILL_WARPS`` warps. S depends on N only, so image b's sums are taken
     in the same order at every batch."""
     fk = 5 if f == 5 else _MAX_F
@@ -83,23 +83,7 @@ def launch_plan(b: int, n: int, f: int, c: int) -> LaunchPlan:
         _WARPS, row_tiles, chunks, chunk_cells, groups,
         (row_tiles * chunks, b, groups),
         _STAGES * _TILE * (-(-(fk + cw) // 4) * 4) * 4,
-        groups * b * chunks * cw * n if split else 0,
-        groups * b * row_tiles if split else 0)
-
-
-_COUNTERS: dict = {}
-
-
-def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The kernel's arrival counters for calls on (device, stream), zeroed
-    when allocated: the last CTA of a row tile sets its counter back to 0,
-    so calls on one stream, which run in order, share them. Grown on
-    demand."""
-    have = _COUNTERS.get((device, stream))
-    if have is None or have.numel() < n:
-        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device, stream] = have
-    return have
+        groups * b * chunks * cw * n if split else 0)
 
 
 def bilateral_matvec_plain(feat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -128,9 +112,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.bilateral_matvec_f32
     ll = ctypes.c_longlong
     # feat, q, q's strides (batch, cell, column), out, workspace and its
-    # floats, counters and their count, B, N, F, C, warps, chunks, chunk
-    # cells, shared memory, stream
-    fn.argtypes = [p, p, ll, ll, ll, p, p, ll, p, ll] + [i] * 8 + [p]
+    # floats, B, N, F, C, warps, chunks, chunk cells, shared memory, stream
+    fn.argtypes = [p, p, ll, ll, ll, p, p, ll] + [i] * 8 + [p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -138,8 +121,8 @@ def _library() -> ctypes.CDLL:
 def bilateral_matvec_batched(feat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """out[b, i] = sum_j exp(-0.5 |f_bi - f_bj|^2) q[b, j]: feat (B, N, F)
     with F <= 8, q (B, N, C) -> (B, N, C) float32. On the card q is read
-    through its strides (a transposed view costs no copy) and the call is
-    one launch."""
+    through its strides (a transposed view costs no copy) and nothing is
+    launched but the kernel and its chunk sum."""
     if feat.dim() != 3 or q.dim() != 3 or q.shape[:2] != feat.shape[:2]:
         raise ValueError(f"feat (B, N, F) and q (B, N, C) expected, got "
                          f"{tuple(feat.shape)} and {tuple(q.shape)}")
@@ -163,12 +146,10 @@ def bilateral_matvec_batched(feat: torch.Tensor, q: torch.Tensor) -> torch.Tenso
     plan = launch_plan(b, n, f, c)
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     work = torch.empty(plan.workspace_floats, dtype=torch.float32, device=dev)
-    count = _counters(dev, stream, plan.counters)
     status = lib.bilateral_matvec_f32(
         feat.data_ptr(), q.data_ptr(), *q.stride(), out.data_ptr(),
-        work.data_ptr(), work.numel(), count.data_ptr(), count.numel(), b, n,
-        f, c, plan.warps, plan.chunks, plan.chunk_cells, plan.smem_bytes,
-        stream)
+        work.data_ptr(), work.numel(), b, n, f, c, plan.warps, plan.chunks,
+        plan.chunk_cells, plan.smem_bytes, stream)
     cuda_build.check_status(lib, _NAME, "bilateral_matvec_f32", status)
     global LAUNCHES
     LAUNCHES += 1
