@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --attention-trees DIR [DIR ...]   (compare_attention_trees)
     python3 chip_smoke.py --crf-trees DIR [DIR ...]         (compare_crf_trees)
+    python3 chip_smoke.py --bilateral-trees DIR [DIR ...]   (compare_bilateral_trees)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
@@ -32,10 +33,15 @@ Phases (any failure raises, so the exit code is non-zero):
    ``scaled_dot_product_attention`` and bound times, the kernel's ratio to
    SDPA and share of its bound; at T = 1297 its device time over 5 calls;
 3c. the bilateral kernel against its plain version run in float64 at 16
-   images x 5184 cells (576 px, stride 8), C = 1 (the degree) and 5: max
-   abs error over the plain result's largest entry <= 1e-5 (the float32
-   plain version's error printed beside it); kernel, float32 plain and
-   bound times, also for one image through the unbatched wrapper;
+   images x 5184 cells (576 px, stride 8), C = 1 (the degree) and 5 (q
+   the transposed view the CRF's stream lane passes): max abs error over
+   the plain result's largest entry <= 1e-5 (the float32 plain version's
+   error printed beside it), two calls bit-equal, q as a view equal to q
+   contiguous, the unbatched call on one image equal to the batched call's
+   image 0; three planted faults must exceed the bar (the plan's last
+   column chunk dropped, one feature dropped, the float32 expanded
+   distance); kernel (events and device, CUDA kernels per call), float32
+   plain and bound times and the share of the bound, also for one image;
 3d. the attention backward kernel against its plain version on
    (16, T, 12, 64) bf16 at T = 1297, 1024 and 1536, and at (32, 1297, 12,
    64), the shape the training slice gives it; q, k, v and o from the
@@ -86,7 +92,9 @@ Phases (any failure raises, so the exit code is non-zero):
 4c. the sliding-window slice: 576-px images (GT 500 x 500 in VOC's 512
    canvas) through ``evaluate_benchmark`` with 288-px windows at stride
    192: 4 bilateral launches per batch, none of the fused CRF; predictions
-   against the plain decode (>= 99.9%); images/s and a device profile;
+   against the plain decode (>= 99.9%); images/s, a device profile and
+   the bilateral kernels' share of a batch (each slice prints the CRF and
+   bilateral kernels' shares);
 4d. the long multi-scale slice: ``scales=(1.0, 2.5, 4.0)`` at 288 px on 3
    batches of 16: the 720-px view (T = 2026) takes the row-block lane, the
    1152-px view (T = 5185) the streaming lane, 12 calls of each per batch
@@ -315,7 +323,8 @@ def device_profile(fn, label: str, top: int = 8) -> float:
     return total
 
 
-def kernel_share(fn, label, names=("crf_kernel", "bilateral_matvec_kernel")):
+def kernel_share(fn, label, names=("crf_kernel", "bilateral_matvec_kernel",
+                                   "bilateral_sum_kernel")):
     """Prints the device ms and share of one call of fn of each kernel whose
     name holds one of ``names``."""
     total, _, rows = device_rows(fn)

@@ -366,36 +366,52 @@ def test_long_lanes_match_their_plain_pairs(cuda_device, lane, t):
 # --------------------------------------------------------------- bilateral
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,f,c", [(1, 100, 5, 1), (2, 1100, 5, 5),
-                                     (3, 5184, 8, 3), (1, 257, 2, 8)])
-def test_bilateral_kernel_matches_plain(cuda_device, b, n, f, c):
+@pytest.mark.parametrize("b,n,f,c,view", [
+    (1, 100, 5, 1, False), (2, 1100, 5, 5, False), (3, 5184, 8, 3, False),
+    (1, 257, 2, 8, False), (1, 4097, 5, 5, False),
+    (16, 5184, 5, 5, True),    # q as the CRF's stream lane passes it
+    (2, 5184, 5, 16, False)])  # two column groups
+def test_bilateral_kernel_matches_plain(cuda_device, b, n, f, c, view):
     """Relative error max|out - plain| / max|plain| <= 1e-5 against the
     plain version run in float64 (the kernel sums squared differences in
-    float32, which do not cancel; float32 rounding of the sums and exp
+    float32, which do not cancel; float32 rounding of the sums and exp2
     remain). Features up to |f|^2 = 1500, the CRF's own range (colours over
     srgb = 13), where the expanded distance of the float32 plain version
-    cancels by up to 1.1e-4."""
+    cancels by up to 1.1e-4. Two calls bit-equal; the unbatched call
+    bit-equal to image 0 (the column split depends on N alone). ``view``:
+    q a (B, C, N) tensor transposed, read in place."""
     gen = torch.Generator().manual_seed(n + c)
     feat = torch.rand(b, n, f, generator=gen) * (1500.0 / f) ** 0.5
     feat = feat.to(cuda_device)
     q = torch.randn(b, n, c, generator=gen).to(cuda_device)
+    if view:
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
     before = crf_pallas.LAUNCHES
     got = crf_pallas.bilateral_matvec_batched(feat, q)
     assert crf_pallas.LAUNCHES == before + 1
     want = crf_pallas.bilateral_matvec_plain(feat.double(), q.double())
     rel = (got.double() - want).abs().max() / want.abs().max()
     assert got.shape == (b, n, c) and rel.item() <= 1e-5
+    assert torch.equal(got, crf_pallas.bilateral_matvec_batched(feat, q))
     one = crf_pallas.bilateral_matvec(feat[0], q[0])
     assert torch.equal(one, got[0])
 
 
 @pytest.mark.cuda
 def test_bilateral_kernel_refuses_what_it_cannot_take(cuda_device):
+    """F > 8 and a q on another device are refused; any C is taken, in
+    column groups of 8 (C = 9 and 16 against the float64 plain version at
+    the bar of ``test_bilateral_kernel_matches_plain``)."""
     feat = torch.zeros(1, 16, 9, device=cuda_device)
     with pytest.raises(ValueError, match="<= 8"):
         crf_pallas.bilateral_matvec_batched(feat, torch.ones(1, 16, 1, device=cuda_device))
-    with pytest.raises(ValueError, match="1..8"):
-        crf_pallas.bilateral_matvec_batched(feat[..., :5],
-                                            torch.ones(1, 16, 9, device=cuda_device))
+    gen = torch.Generator().manual_seed(9)
+    feat = (torch.rand(1, 300, 5, generator=gen) * 300.0 ** 0.5).to(cuda_device)
+    for c in (9, 16):
+        q = torch.randn(1, 300, c, generator=gen).to(cuda_device)
+        got = crf_pallas.bilateral_matvec_batched(feat, q)
+        want = crf_pallas.bilateral_matvec_plain(feat.double(), q.double())
+        rel = (got.double() - want).abs().max() / want.abs().max()
+        assert got.shape == (1, 300, c) and rel.item() <= 1e-5
     with pytest.raises(ValueError, match="q on"):
-        crf_pallas.bilateral_matvec_batched(feat[..., :5], torch.ones(1, 16, 1))
+        crf_pallas.bilateral_matvec_batched(feat, torch.ones(1, 300, 1))
