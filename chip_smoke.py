@@ -1829,8 +1829,8 @@ def compare_bilateral_trees(trees) -> None:
     kernel of each tree (``tree_modules``: its ``csrc/bilateral_matvec.cu``,
     registers and spills printed, launched through its own
     ``ops/crf_pallas.py``) on phase 3c's inputs at 16 images x 5184 cells:
-    C = 1 (the degree), C = 5 with q the stream lane's transposed view, and
-    C = 5 on one image through the unbatched wrapper. Each tree is checked
+    C = 1 (the degree), C = 5 with q the stream lane's transposed view and
+    contiguous, and C = 5 on one image through the unbatched wrapper. Each tree is checked
     against the float64 plain version (relative error <= 1e-5) and for two
     bit-equal calls, then timed with CUDA events in turns (the trees in
     order, then in reverse), with its device time, CUDA kernels per call and
@@ -1848,6 +1848,9 @@ def compare_bilateral_trees(trees) -> None:
         f"C=5 ({BATCH}, {n}) q a view": (
             lambda mod: mod.bilateral_matvec_batched(feat, q5t),
             (feat, q5t), bilateral_bound_ms(BATCH, n, used, 5)[0]),
+        f"C=5 ({BATCH}, {n}) q contiguous": (
+            lambda mod: mod.bilateral_matvec_batched(feat, q5),
+            (feat, q5), bilateral_bound_ms(BATCH, n, used, 5)[0]),
         f"C=5 one image (1, {n})": (
             lambda mod: mod.bilateral_matvec(feat[0], q5[0]),
             (feat[:1], q5[:1]), bilateral_bound_ms(1, n, used, 5)[0])}

@@ -169,7 +169,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     if (!active) continue;
     const float* rec = smem + (t % kStages) * kTile * REC;
     const int jn = min(kTile, j1 - jt);
-#pragma unroll 2
+    // two cells an iteration, but one at CW = 1 (the degree), which
+    // measured 5% faster so
+#pragma unroll(CW == 1 ? 1 : 2)
     for (int j = 0; j < jn; ++j) {
       float4 v[REC / 4];
 #pragma unroll

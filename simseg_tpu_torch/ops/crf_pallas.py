@@ -64,6 +64,7 @@ class LaunchPlan(NamedTuple):
     workspace_floats: int  # partial sums (G, B, S, CW, N); 0 when S = 1
 
 
+@functools.lru_cache(maxsize=256)
 def launch_plan(b: int, n: int, f: int, c: int) -> LaunchPlan:
     """The kernel's plan for B images of N cells, F features and C columns,
     mirroring ``bilateral_matvec_f32``'s checks: CTAs of four 192-row warps
