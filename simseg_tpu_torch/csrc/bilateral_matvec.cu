@@ -41,8 +41,8 @@
 //     S partials of every output in chunk order. No atomics touch the sums,
 //     so two calls are bit-equal and image b's result is the same at any
 //     batch. (The last CTA of each row tile adding them through a counter
-//     measured 0.05 ms slower at (16, 5184): its S rounds of loads wait in
-//     the kernel's tail.)
+//     measured slower at (16, 5184), PERF.md: it took registers from the
+//     product, and its S rounds of loads wait in the kernel's tail.)
 // The plan (warps per CTA, S, the chunk size, shared memory, workspace)
 // comes from ops/crf_pallas.py:launch_plan; the host function refuses one
 // that does not match its own count. It returns the launch error as an int
@@ -61,7 +61,7 @@ constexpr int kStages = 2;
 constexpr int kMaxFeat = 8;
 constexpr int kGroup = 8;              // columns of q per group, at most
 constexpr int kMaxWarps = 8;
-constexpr int kMaxGroups = 65535;
+constexpr int kMaxGroups = 65535;      // of G x B, grid z of the chunk sum
 constexpr int kSumThreads = 256;
 // sqrt(0.5 log2 e): exp(-0.5 |f_i - f_j|^2) = exp2(-|s f_i - s f_j|^2)
 constexpr float kScale = 0.849321800288019f;
@@ -282,7 +282,7 @@ extern "C" int bilateral_matvec_f32(const float* feat, const float* q, long long
   const int groups = (C + kGroup - 1) / kGroup;
   Params p = {};
   p.tiles = (N + warps * kWarpRows - 1) / (warps * kWarpRows);
-  if (groups > kMaxGroups || (long long)groups * B > kMaxGroups ||
+  if ((long long)groups * B > kMaxGroups ||
       chunks != (N + chunk_cells - 1) / chunk_cells ||
       (long long)p.tiles * chunks > 0x7fffffffLL ||
       smem != kStages * kTile * record_floats(fk, cw) * 4 ||

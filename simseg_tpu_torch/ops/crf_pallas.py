@@ -9,9 +9,10 @@ degree K 1. On a CUDA tensor the wrapper launches
 ``csrc/bilateral_matvec.cu`` (the product, then, where the columns are
 split, the fixed-order sum of the chunks' partial sums) or raises — there
 is no fallback; on a CPU tensor it runs ``bilateral_matvec_plain``.
-``LAUNCHES`` counts the calls that launched the kernel. ``launch_plan`` is how the kernel cuts a call (warps per
-CTA, the column split, shared memory, workspace); the kernel refuses a plan
-that does not match its own count.
+``LAUNCHES`` counts the calls that launched the kernel. ``launch_plan`` is
+how the kernel cuts a call (warps per CTA, the column split, shared
+memory, workspace); the kernel refuses a plan that does not match its own
+count.
 
 The plain version keeps the TPU kernel's expanded distance
 max(|f_i|^2 + |f_j|^2 - 2 f_i.f_j, 0) (:34-53, :100-121), so that the CPU
