@@ -1830,17 +1830,21 @@ def compare_bilateral_trees(trees) -> None:
     registers and spills printed, launched through its own
     ``ops/crf_pallas.py``) on phase 3c's inputs at 16 images x 5184 cells:
     C = 1 (the degree), C = 5 with q the stream lane's transposed view and
-    contiguous, and C = 5 on one image through the unbatched wrapper. Each tree is checked
-    against the float64 plain version (relative error <= 1e-5) and for two
-    bit-equal calls, then timed with CUDA events in turns (the trees in
-    order, then in reverse), with its device time, CUDA kernels per call and
-    share of the bound."""
+    contiguous, and C = 5 on one image through the unbatched wrapper. Each
+    tree is checked against the float64 plain version (relative error <=
+    1e-5) and for two bit-equal calls, then timed with CUDA events in
+    turns (the trees in order, then in reverse), with its device time, CUDA
+    kernels per call and share of the bound; the SM clock under load is
+    read once, on the last tree."""
     from simseg_tpu_torch.ops import crf_pallas
 
     mods, out_dir = tree_modules(trees, "bilateral_matvec", "crf_pallas",
                                  ptxas=True)
     feat, ones, q5, q5t = bilateral_inputs()
     n, used = feat.shape[1], feat.shape[2]
+    print("SM clock, power under load (the last tree, C = 5): "
+          f"{busy_clock(lambda: mods[-1].bilateral_matvec_batched(feat, q5t))}",
+          flush=True)
     calls = {
         f"C=1 ({BATCH}, {n})": (
             lambda mod: mod.bilateral_matvec_batched(feat, ones),
@@ -1871,8 +1875,7 @@ def compare_bilateral_trees(trees) -> None:
             device, kernels, _ = device_rows(lambda: call(mod))
             print(f"tree {tree}: {name}: {ts[0]:.4f} / {ts[1]:.4f} ms, device "
                   f"{device:.4f} ms in {kernels} CUDA kernels per call, bound "
-                  f"{bound:.4f} ms, share of bound {bound / min(ts):.3f}; SM "
-                  f"clock, power under load {busy_clock(lambda: call(mod))}",
+                  f"{bound:.4f} ms, share of bound {bound / min(ts):.3f}",
                   flush=True)
     shutil.rmtree(out_dir)
 

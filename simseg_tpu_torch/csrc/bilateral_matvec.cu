@@ -76,7 +76,7 @@ struct Params {
   const float* q;             // (B, N, C) through its strides
   long long q_sb, q_sn, q_sc;
   float* out;                 // (B, N, C) contiguous
-  float* part;                // (G, B, S, CW, N) partial sums when S > 1
+  float* part;                // (G, B, S, CW, N) partial sums
   int B, N, F, C, S, cs, tiles;
 };
 
@@ -169,9 +169,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     if (!active) continue;
     const float* rec = smem + (t % kStages) * kTile * REC;
     const int jn = min(kTile, j1 - jt);
-    // two cells an iteration, but one at CW = 1 (the degree), which
-    // measured 5% faster so
-#pragma unroll(CW == 1 ? 1 : 2)
+    // two cells an iteration, four at CW = 1 (the degree): with fewer, the
+    // compiler puts a cell's six MUFU.EX2 together at the loop's end, each
+    // before its dependent FFMA, and the degree measured 4-16% slower
+#pragma unroll(CW == 1 ? 4 : 2)
     for (int j = 0; j < jn; ++j) {
       float4 v[REC / 4];
 #pragma unroll
@@ -196,30 +197,19 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
 
   if (!active) return;
-  if (p.S > 1) {  // this chunk's partial sums; bilateral_sum_kernel adds them
-    float* ps = p.part + ((((long long)g * p.B + b) * p.S + s) * CW) * p.N;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = base + 32 * r + lane;
-      if (i >= p.N) continue;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) ps[(long long)c * p.N + i] = acc[r][c];
-    }
-    return;
-  }
+  // this chunk's partial sums; bilateral_sum_kernel adds them
+  float* ps = p.part + ((((long long)g * p.B + b) * p.S + s) * CW) * p.N;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = base + 32 * r + lane;
     if (i >= p.N) continue;
-    float* o = p.out + ((long long)b * p.N + i) * p.C + g * kGroup;
 #pragma unroll
-    for (int c = 0; c < CW; ++c)
-      if (g * kGroup + c < p.C) o[c] = acc[r][c];
+    for (int c = 0; c < CW; ++c) ps[(long long)c * p.N + i] = acc[r][c];
   }
 }
 
 // out[b, i, g * 8 + c] = the S partial sums of part[g, b, :, c, i] added
-// in chunk order; grid (ceil(N / 256), CW, G x B)
+// in chunk order (a copy at S = 1); grid (ceil(N / 256), CW, G x B)
 __global__ void __launch_bounds__(kSumThreads)
     bilateral_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
                          int B, int N, int C, int S, int CW) {
@@ -239,7 +229,7 @@ cudaError_t launch(const Params& p, int warps, int groups, int smem, cudaStream_
   const dim3 grid(p.tiles * p.S, p.B, groups);
   bilateral_matvec_kernel<FK, CW><<<grid, warps * 32, smem, st>>>(p);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.S == 1) return err;
+  if (err != cudaSuccess) return err;
   const dim3 sum_grid((p.N + kSumThreads - 1) / kSumThreads, CW, groups * p.B);
   bilateral_sum_kernel<<<sum_grid, kSumThreads, 0, st>>>(p.part, p.out, p.B, p.N, p.C,
                                                           p.S, CW);
@@ -267,8 +257,8 @@ cudaError_t by_width(const Params& p, int cw, int warps, int groups, int smem,
 // feat (B, N, F) contiguous float32, F <= 8; q (B, N, C) float32 with
 // element strides q_sb, q_sn, q_sc; out (B, N, C) contiguous float32. The
 // plan (ops/crf_pallas.py:launch_plan): warps per CTA, S chunks of
-// chunk_cells cells, smem bytes per CTA; work holds work_floats floats
-// (unused when S = 1).
+// chunk_cells cells, smem bytes per CTA; work holds work_floats floats,
+// the (G, B, S, CW, N) partial sums.
 extern "C" int bilateral_matvec_f32(const float* feat, const float* q, long long q_sb,
                                     long long q_sn, long long q_sc, float* out,
                                     float* work, long long work_floats, int B, int N,
@@ -286,7 +276,7 @@ extern "C" int bilateral_matvec_f32(const float* feat, const float* q, long long
       chunks != (N + chunk_cells - 1) / chunk_cells ||
       (long long)p.tiles * chunks > 0x7fffffffLL ||
       smem != kStages * kTile * record_floats(fk, cw) * 4 ||
-      (chunks > 1 && work_floats < (long long)groups * B * chunks * cw * N))
+      work_floats < (long long)groups * B * chunks * cw * N)
     return (int)cudaErrorInvalidValue;
   p.feat = feat, p.q = q, p.q_sb = q_sb, p.q_sn = q_sn, p.q_sc = q_sc, p.out = out;
   p.part = work;

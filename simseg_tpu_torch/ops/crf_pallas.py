@@ -6,8 +6,8 @@ counterpart's name).
 out[b] = K_b q[b] with K_b[i, j] = exp(-0.5 |f_i - f_j|^2);
 ``bilateral_matvec`` is its B = 1 case. A ones column for q gives the
 degree K 1. On a CUDA tensor the wrapper launches
-``csrc/bilateral_matvec.cu`` (the product, then, where the columns are
-split, the fixed-order sum of the chunks' partial sums) or raises — there
+``csrc/bilateral_matvec.cu`` (the product over column chunks, then the
+fixed-order sum of the chunks' partial sums) or raises — there
 is no fallback; on a CPU tensor it runs ``bilateral_matvec_plain``.
 ``LAUNCHES`` counts the calls that launched the kernel. ``launch_plan`` is
 how the kernel cuts a call (warps per CTA, the column split, shared
@@ -62,7 +62,7 @@ class LaunchPlan(NamedTuple):
     groups: int            # column groups of at most 8
     grid: tuple            # (row_tiles x chunks, B, groups)
     smem_bytes: int        # dynamic shared memory per CTA
-    workspace_floats: int  # partial sums (G, B, S, CW, N); 0 when S = 1
+    workspace_floats: int  # partial sums (G, B, S, CW, N)
 
 
 @functools.lru_cache(maxsize=256)
@@ -80,12 +80,11 @@ def launch_plan(b: int, n: int, f: int, c: int) -> LaunchPlan:
     want = -(-_FILL_WARPS // -(-n // _WARP_ROWS))
     chunk_cells = max(_TILE, -(-n // want))
     chunks = -(-n // chunk_cells)
-    split = chunks > 1
     return LaunchPlan(
         _WARPS, row_tiles, chunks, chunk_cells, groups,
         (row_tiles * chunks, b, groups),
         _STAGES * _TILE * (-(-(fk + cw) // 4) * 4) * 4,
-        groups * b * chunks * cw * n if split else 0)
+        groups * b * chunks * cw * n)
 
 
 def bilateral_matvec_plain(feat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

@@ -369,6 +369,7 @@ def test_long_lanes_match_their_plain_pairs(cuda_device, lane, t):
 @pytest.mark.parametrize("b,n,f,c,view", [
     (1, 100, 5, 1, False), (2, 1100, 5, 5, False), (3, 5184, 8, 3, False),
     (1, 257, 2, 8, False), (1, 4097, 5, 5, False),
+    (1, 50, 5, 9, False),      # one chunk (N <= 64), two column groups
     (16, 5184, 5, 5, True),    # q as the CRF's stream lane passes it
     (2, 5184, 5, 16, False)])  # two column groups
 def test_bilateral_kernel_matches_plain(cuda_device, b, n, f, c, view):
