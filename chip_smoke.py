@@ -132,7 +132,31 @@ Phases (any failure raises, so the exit code is non-zero):
    and against a witness with the image tower's attention in float32:
    loss within 1e-2, image-tower gradient cosine >= 0.99 (the plain bf16
    lane's distance from the witness printed beside); ms per step,
-   images/s, idle share.
+   images/s, idle share;
+7. bench.py's lanes: the flagship model with float32 parameters and bf16
+   compute through ``evaluate_benchmark`` on 3 synthetic batches of 64
+   (``BENCH_BATCH``) after a warm-up batch, in six lanes: float, ToMe
+   r = 16, ``tome_schedule`` (48, 0, 0) x 4, int8 and int8_static on both
+   towers, and bench.py's default, ToMe r = 16 with an int8_static image
+   tower (calibrated on the first 32 images). Per lane: one CRF launch per
+   batch, the tokens after each block against the merge plan (325 -> 133),
+   images/s (CUDA events), device ms, idle share and launches per batch,
+   pred agreement with the float lane (printed, not gated: the weights are
+   random). Also ``_int_mm`` against the bf16 ``torch.matmul`` at the
+   tower's GEMM shapes with their bounds, and one quantised linear of each
+   mode against the bf16 linear. Checks, each with a planted fault that
+   must fail it: 7a the int8 product bit-equal to the exact integer product
+   at (64·325 and 64·133, 768) × (768, 2304 / 3072) and (…, 3072) × (3072,
+   768) and under 16 rows (fault: the product in bf16); 7b the int8 and
+   int8_static image towers on the card against the CPU in float32 at batch
+   2 with the CPU's calibration: each quantised layer on the CPU's input,
+   codes equal on >= 99.99%, accumulators equal, tokens at cosine >= 0.999
+   (fault: one layer's codes from bf16-rounded weights); 7c the ToMe tower
+   on the card against the CPU in float32: gather maps >= 99.9%, tokens at
+   cosine >= 0.9999, two calls bit-equal (fault: tokens as the merge
+   metric); 7d ToMe r = 16 with ``scales=(1.0, 2.0)``, 3 batches of 16:
+   exactly 3 whole-T attention launches, the first block of each 576-px
+   pass (fault: the size bias given to the first block too).
 It then prints one JSON line of kernel numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -483,16 +507,19 @@ def check_crf_kernel(b):
                 bound_by=bound_by)
 
 
+# the flagship CLIP model: ViT-B/16, BERT-base, 512-d simple projection,
+# LoDA k = 5 / 1
+FLAGSHIP = dict(image_tag="vit_base_patch16_224_in21k", text_tag="bert-base-uncased",
+                projection_name="simple", projection_dim=512, pool_name="loda",
+                image_k=5, text_k=1)
+
+
 def seeded_clip(seed: int, img_size: int = SIZE):
-    """The flagship CLIP model (ViT-B/16, BERT-base, 512-d simple
-    projection, LoDA k=5) on the CPU in float32, with weights drawn from a
-    seeded generator."""
+    """The flagship CLIP model on the CPU in float32, with weights drawn from
+    a seeded generator."""
     from simseg_tpu_torch.models.clip import CLIPModel
 
-    model = CLIPModel(image_tag="vit_base_patch16_224_in21k", img_size=img_size,
-                      text_tag="bert-base-uncased", projection_name="simple",
-                      projection_dim=512, pool_name="loda", image_k=5,
-                      text_k=1)
+    model = CLIPModel(img_size=img_size, **FLAGSHIP)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in model.parameters():
@@ -1017,8 +1044,8 @@ def drive_eval(label, loader, model, tokenizer, classes, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    print(f"{label}: evaluate_benchmark on {loader.batches * BATCH} images in "
-          f"{wall:.3f} s (text bank included), mIoU {miou:.6f}, launches "
+    print(f"{label}: evaluate_benchmark on {loader.batches * loader.batch_size} "
+          f"images in {wall:.3f} s (text bank included), mIoU {miou:.6f}, launches "
           f"{counts}", flush=True)
     if iou.shape != (len(classes),) or not 0.0 <= miou <= 1.0 or not np.all(
             np.isnan(iou) | ((iou >= 0) & (iou <= 1))):
@@ -1594,6 +1621,436 @@ def run_fused_tail_slice(model, tokenizer, classes):
     return counts
 
 
+# -- phase 7: bench.py's lanes, token merging and int8 ------------------------
+
+INT8_OPS_PER_S = 1979e12
+LANE_BATCHES = 3
+# (label, image_arch, text_arch); bench.py's default is the last
+LANES = (
+    ("float", (), ()),
+    ("tome r=16", (("tome_r", 16),), ()),
+    ("tome schedule", (("tome_schedule", (48, 0, 0) * 4),), ()),
+    ("int8", (("quant", "int8"),), (("quant", "int8"),)),
+    ("int8_static", (("quant", "int8_static"),), (("quant", "int8_static"),)),
+    ("tome r=16 + int8_static image (bench.py)",
+     (("tome_r", 16), ("quant", "int8_static")), ()),
+)
+QUANT_CODE_BAR = 0.9999
+QUANT_TOWER_COS_BAR = 0.999
+TOKEN_COS_BAR = 0.9999
+GATHER_MAP_BAR = 0.999
+
+
+class FrozenLoader(SyntheticLoader):
+    """A ``SyntheticLoader`` whose batches are made once: every lane and
+    every pass (calibration, evaluation) reads the same arrays."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.frozen = list(super().__iter__())
+
+    def __iter__(self):
+        return iter(self.frozen)
+
+
+def lane_model(state, image_arch=(), text_arch=()):
+    """The flagship model on the card with float32 parameters ``state`` and
+    bf16 compute, ToMe and int8 as the arch tuples say."""
+    from simseg_tpu_torch.models.clip import CLIPModel
+
+    with torch.device("cuda"):
+        model = CLIPModel(img_size=SIZE, image_arch=image_arch or None,
+                          text_arch=text_arch or None,
+                          compute_dtype=torch.bfloat16, **FLAGSHIP)
+    model.load_state_dict(state, strict=True)
+    return model.eval()
+
+
+def expected_tokens(model):
+    """Tokens after each block, from the tower's merge plan: r clamped to
+    the A side less the CLS (``ops/tome.py:merge_counts``)."""
+    t, out = (SIZE // PATCH) ** 2 + 1, []
+    for r in model.vit.tome_plan:
+        t -= max(0, min(r, (t + 1) // 2 - 1))
+        out.append(t)
+    return out
+
+
+def tokens_per_block(model, fn):
+    """Tokens leaving each ViT block during one call of fn."""
+    seen = []
+
+    def hook(module, args, out):
+        seen.append((out[0] if isinstance(out, tuple) else out).shape[1])
+
+    hooks = [blk.register_forward_hook(hook) for blk in model.vit.blocks]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def run_lane(label, model, loader, tokenizer, classes, float_pred):
+    """One lane: a warm-up pass, then ``evaluate_benchmark`` on the loader's
+    batches with the counts set to 0 just before and read just after (one
+    CRF launch per batch); tokens per block against the plan; one batch's
+    prediction timed with CUDA events and profiled; its predictions against
+    the float lane's. Returns (pred, row)."""
+    from simseg_tpu_torch.tasks.seg_eval import make_seg_predict, zero_shot_classifier
+
+    warm = FrozenLoader(1, BENCH_BATCH, len(classes), seed=loader.seed)
+    drive_eval(f"lane {label} warm-up", warm, model, tokenizer, classes,
+               input_size=SIZE)
+    counts = drive_eval(f"lane {label}", loader, model, tokenizer, classes,
+                        input_size=SIZE)
+    if counts["crf_mean_field"] != loader.batches:
+        raise AssertionError(f"lane {label}: {counts['crf_mean_field']} CRF "
+                             f"launches for {loader.batches} batches")
+    text_bank = zero_shot_classifier(model, classes, tokenizer, max_length=25)
+    images_u8 = torch.from_numpy(loader.frozen[0]["image"]).cuda()
+    predict = make_seg_predict(model, len(classes), 10, input_size=SIZE,
+                               bilateral_stride=STRIDE)
+    out = {}
+    tokens = tokens_per_block(
+        model, lambda: out.update(pred=predict(images_u8, text_bank)[0]))
+    if tokens != expected_tokens(model):
+        raise AssertionError(f"lane {label}: tokens per block {tokens}, plan "
+                             f"{expected_tokens(model)}")
+    pred = out["pred"]
+    ms = cuda_ms(lambda: predict(images_u8, text_bank), 3)
+    device, launches, rows = device_rows(lambda: predict(images_u8, text_bank))
+    agree = 1.0 if float_pred is None else (pred == float_pred).float().mean().item()
+    row = dict(images_per_s=BENCH_BATCH / (ms / 1e3), event_ms=ms,
+               device_ms=device, idle=1 - device / ms, launches=launches,
+               crf_launches=counts["crf_mean_field"], tokens=tokens,
+               agree_float=agree)
+    print(f"lane {label}: {row['images_per_s']:.1f} images/s ({ms:.3f} ms "
+          f"per batch of {BENCH_BATCH}, CUDA events), device {device:.3f} ms "
+          f"per batch, idle share "
+          f"{row['idle']:.3f}, {launches} kernel launches per batch, CRF "
+          f"launches {counts['crf_mean_field']} in {loader.batches} batches, "
+          f"tokens after each block {tokens}, pred agreement with the float "
+          f"lane {agree:.6f}", flush=True)
+    for us, count, key in rows[:6]:
+        print(f"  {us / 1e3:9.4f} ms {100 * us / 1e3 / device:5.1f}% "
+              f"x{count:<4d} {key[:80]}", flush=True)
+    return pred, row
+
+
+def int8_gemm_times():
+    """``_int_mm`` against the bf16 ``torch.matmul`` at the image tower's
+    GEMM shapes (tokens of a batch of 64 at T = 325 and 133), each beside
+    its bound; the int8 weight passed as (N, K) contiguous transposed (the
+    port's layout) and as (K, N) contiguous; and one quantised linear
+    (quantise, product, dequantise) of each mode against the bf16 linear."""
+    import torch.nn.functional as F
+
+    from simseg_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for t in (325, 133):
+        rows = BENCH_BATCH * t
+        for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
+            x8 = torch.randint(-127, 128, (rows, k), dtype=torch.int8,
+                               device="cuda", generator=gen)
+            w8 = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                               device="cuda", generator=gen)
+            w8_kn = w8.t().contiguous()
+            xb, wb = x8.bfloat16(), w8.bfloat16()
+            t_nk = cuda_ms(lambda: torch._int_mm(x8, w8.t()), 20)
+            t_kn = cuda_ms(lambda: torch._int_mm(x8, w8_kn), 20)
+            t_bf = cuda_ms(lambda: torch.matmul(xb, wb.t()), 20)
+            ops = 2.0 * rows * k * n
+            b8 = 1e3 * max(ops / INT8_OPS_PER_S,
+                           (rows * k + n * k + 4 * rows * n) / HBM_BYTES_PER_S)
+            bb = 1e3 * max(ops / BF16_FLOP_PER_S,
+                           2 * (rows * k + n * k + rows * n) / HBM_BYTES_PER_S)
+            print(f"int8 GEMM ({rows}, {k}) x ({k}, {n}): _int_mm {t_nk:.4f} ms "
+                  f"(weight (N, K).t(); (K, N) contiguous {t_kn:.4f}), bound "
+                  f"{b8:.4f} ({100 * b8 / t_nk:.1f}%); bf16 matmul {t_bf:.4f} ms, "
+                  f"bound {bb:.4f} ({100 * bb / t_bf:.1f}%); int8 / bf16 "
+                  f"{t_nk / t_bf:.3f}", flush=True)
+    rows, k, n = BENCH_BATCH * 325, 768, 2304
+    x = torch.randn(rows, k, device="cuda", generator=gen).bfloat16()
+    w = torch.randn(n, k, device="cuda", generator=gen) * 0.02
+    bias = torch.zeros(n, device="cuda")
+    wq, sw = quant.quantize_colwise(w)
+    rcp = torch.full((k,), 127.0 / 4.0, device="cuda")
+    t_dyn = cuda_ms(lambda: quant.int8_matmul(x, wq, sw, bias), 20)
+    t_sta = cuda_ms(lambda: quant.int8_matmul_static(x, rcp, wq, sw, bias), 20)
+    wb, bb16 = w.bfloat16(), bias.bfloat16()
+    t_lin = cuda_ms(lambda: F.linear(x, wb, bb16), 20)
+    print(f"quantised linear ({rows}, {k}) -> {n}, bf16 in and out: int8 "
+          f"dynamic {t_dyn:.4f} ms, int8_static {t_sta:.4f} ms, bf16 "
+          f"F.linear {t_lin:.4f} ms", flush=True)
+
+
+def int_mm_exact(xq, wq):
+    """True where ``ops/quant.int8_mm`` equals the exact integer product
+    (float64 on the card: |sums| < 2^53)."""
+    from simseg_tpu_torch.ops import quant
+
+    got = quant.int8_mm(xq, wq)
+    want = torch.matmul(xq.double(), wq.double().t())
+    return bool(torch.equal(got.double(), want))
+
+
+def check_int_mm():
+    """7a: the int8 product on the card bit-equal to the exact integer
+    product at the image tower's shapes and under 16 rows; a planted fault,
+    the product taken in bf16 (the float fallback the port forbids), must
+    not be."""
+    from simseg_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shapes = [(BENCH_BATCH * t, k, n) for t in (325, 133)
+              for k, n in ((768, 2304), (768, 3072), (3072, 768))]
+    shapes += [(5, 768, 768), (16, 768, 2304)]
+    for rows, k, n in shapes:
+        xq = torch.randint(-127, 128, (rows, k), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        wq = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        if not int_mm_exact(xq, wq):
+            raise AssertionError(f"7a: the int8 product at ({rows}, {k}) x "
+                                 f"({k}, {n}) is not exact")
+    print(f"7a: the int8 product is exact at {len(shapes)} shapes "
+          f"{shapes}", flush=True)
+    rows, k, n = shapes[0]
+    xq = torch.randint(-127, 128, (rows, k), dtype=torch.int8, device="cuda",
+                       generator=gen)
+    wq = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda",
+                       generator=gen)
+    with unittest.mock.patch.object(
+            quant, "int8_mm",
+            lambda x, w: torch.matmul(x.bfloat16(), w.bfloat16().t()).int()):
+        passed = int_mm_exact(xq, wq)
+    print(f"7a: planted fault (the product in bf16) at ({rows}, {k}) x "
+          f"({k}, {n}): exact {passed}", flush=True)
+    if passed:
+        raise AssertionError("7a: the planted bf16 product passed")
+
+
+def tower_images(n, seed):
+    from simseg_tpu_torch.data.transforms import normalize_images
+
+    rng = np.random.default_rng(seed)
+    images, _ = synthetic_scenes(rng, n, SIZE, 21)
+    return normalize_images(torch.from_numpy(images))
+
+
+def min_token_cosine(a, b):
+    return torch.nn.functional.cosine_similarity(
+        a.double().cpu(), b.double().cpu(), dim=-1).min().item()
+
+
+def quant_layer_inputs(vit, images):
+    """(tokens, {name: input}) of ``vit`` on ``images``, the inputs of its
+    quantised layers recorded."""
+    from simseg_tpu_torch.ops import quant
+
+    inputs = {}
+    hooks = [layer.register_forward_pre_hook(
+        lambda m, args, name=name: inputs.__setitem__(name, args[0]))
+        for name, layer in quant.quant_layers(vit).items()]
+    try:
+        with torch.no_grad():
+            tokens = vit(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return tokens, inputs
+
+
+def product_io(layer, x):
+    """(int8 input codes, int32 accumulator) of ``layer``'s product on x."""
+    from simseg_tpu_torch.ops import quant
+
+    seen, real = [], quant.int8_mm
+
+    def record(xq, wq):
+        seen.append((xq, real(xq, wq)))
+        return seen[-1][1]
+
+    with unittest.mock.patch.object(quant, "int8_mm", record), torch.no_grad():
+        layer(x)
+    return seen[0]
+
+
+def compare_quant(cpu, card, images):
+    """The card's image tower against the CPU's: every quantised layer run on
+    the CPU tower's input to it (min share of equal int8 input codes; the
+    card's accumulators on the CPU's codes equal to the CPU's), and the
+    towers' tokens (min per-token cosine)."""
+    from simseg_tpu_torch.ops import quant
+
+    t_cpu, inputs = quant_layer_inputs(cpu.vit, images)
+    t_card, _ = quant_layer_inputs(card.vit, images.cuda())
+    card_layers = quant.quant_layers(card.vit)
+    equal, exact = 1.0, True
+    for name, layer in quant.quant_layers(cpu.vit).items():
+        q_cpu, acc_cpu = product_io(layer, inputs[name])
+        q_card, _ = product_io(card_layers[name], inputs[name].cuda())
+        equal = min(equal, (q_card.cpu() == q_cpu).float().mean().item())
+        exact &= torch.equal(quant.int8_mm(
+            q_cpu.cuda(), card_layers[name].weight_q).cpu(), acc_cpu)
+    return equal, exact, min_token_cosine(t_card, t_cpu), len(inputs)
+
+
+def check_quant_towers(state_cpu):
+    """7b: the int8 and int8_static image towers on the card against the same
+    code on the CPU, float32, batch 2, the calibration made on the CPU and
+    carried to the card with the model. Each quantised layer on the CPU
+    tower's input to it: int8 input codes equal on >= 99.99% of entries and
+    the int32 accumulators on the CPU's codes equal; the towers' tokens at
+    per-token cosine >= 0.999, not the layers' 0.9999: the two towers'
+    float32 products sum in other orders, an activation at a half step takes
+    the neighbouring code on one side, and its token's next products then
+    move by a step, a divergence that compounds over 48 products (0.99973 at
+    dynamic int8 on an NVIDIA H100 80GB HBM3, 700 W). A planted fault, one layer's
+    weight codes quantised from bf16-rounded master weights (what quantising
+    a model cast to bf16 gives), must fail the bars."""
+    import copy
+
+    from simseg_tpu_torch.models.clip import CLIPModel
+    from simseg_tpu_torch.ops import quant
+
+    calib, images = tower_images(2, 14), tower_images(2, 15)
+    for mode in ("int8", "int8_static"):
+        cpu = CLIPModel(img_size=SIZE, image_arch=(("quant", mode),),
+                        **FLAGSHIP).eval()
+        cpu.load_state_dict(state_cpu, strict=True)
+        quant.cache_quant_state(cpu, [lambda: cpu.forward_image_tokens(calib)])
+        card = copy.deepcopy(cpu).cuda()
+        equal, exact, cos, n = compare_quant(cpu, card, images)
+        print(f"7b {mode}: card vs CPU in float32, {n} quantised layers on "
+              f"the CPU's inputs: int8 input codes equal on >= {equal:.6f} of "
+              f"entries, accumulators equal {exact}; towers' min per-token "
+              f"cosine {cos:.7f}", flush=True)
+        if equal < QUANT_CODE_BAR or not exact or cos < QUANT_TOWER_COS_BAR:
+            raise AssertionError(f"7b {mode}: the quantised tower on the card "
+                                 "disagrees with the CPU")
+        layer = card.vit.blocks[1].attn.qkv
+        fold = (torch.clamp(layer.x_absmax, min=1e-6) / 127.0
+                if layer.static_acts else 1.0)
+        layer.weight_q, _ = quant.quantize_colwise(
+            layer.weight.detach().bfloat16().float() * fold)
+        equal_f, exact_f, cos_f, _ = compare_quant(cpu, card, images)
+        print(f"7b {mode}: planted fault (blocks.1 qkv codes from bf16-rounded "
+              f"weights): codes {equal_f:.6f}, accumulators equal {exact_f}, "
+              f"cosine {cos_f:.7f}", flush=True)
+        if (equal_f >= QUANT_CODE_BAR and exact_f
+                and cos_f >= QUANT_TOWER_COS_BAR):
+            raise AssertionError(f"7b {mode}: the planted fault passed")
+        del cpu, card
+    torch.cuda.empty_cache()
+
+
+def tome_run(model, images):
+    """(tokens, final gather map) of the ToMe image tower on ``images``."""
+    maps = []
+    hook = model.vit.blocks[-1].register_forward_hook(
+        lambda m, a, out: maps.append(out[2]))
+    try:
+        with torch.no_grad():
+            tokens = model.forward_image_tokens(images)
+    finally:
+        hook.remove()
+    return tokens, maps[0]
+
+
+def check_tome_tower(state_cpu):
+    """7c: the ToMe r = 16 image tower on the card against the CPU, float32,
+    batch 2: gather maps equal on >= 99.9% of entries, tokens at per-token
+    cosine >= 0.9999, two card calls bit-equal. A planted fault, the merge
+    metric taken from the tokens instead of the attention keys, must fail
+    the bars."""
+    import copy
+
+    from simseg_tpu_torch.models import vit as vit_module
+    from simseg_tpu_torch.models.clip import CLIPModel
+
+    images = tower_images(2, 16)
+    cpu = CLIPModel(img_size=SIZE, image_arch=(("tome_r", 16),), **FLAGSHIP).eval()
+    cpu.load_state_dict(state_cpu, strict=True)
+    card = copy.deepcopy(cpu).cuda()
+    t_cpu, m_cpu = tome_run(cpu, images)
+    t_card, m_card = tome_run(card, images.cuda())
+    t_again, m_again = tome_run(card, images.cuda())
+    maps = (m_card.cpu() == m_cpu).float().mean().item()
+    cos = min_token_cosine(t_card, t_cpu)
+    same = torch.equal(t_card, t_again) and torch.equal(m_card, m_again)
+    print(f"7c: ToMe tower card vs CPU in float32: gather maps equal on "
+          f"{maps:.6f} of entries, min per-token cosine {cos:.7f}; two card "
+          f"calls bit-equal {same}", flush=True)
+    if maps < GATHER_MAP_BAR or cos < TOKEN_COS_BAR or not same:
+        raise AssertionError("7c: the ToMe tower on the card disagrees")
+    real = vit_module.bipartite_merge
+    with unittest.mock.patch.object(
+            vit_module, "bipartite_merge",
+            lambda x, sizes, metric, r: real(x, sizes, x, r)):
+        t_f, m_f = tome_run(card, images.cuda())
+    maps_f = (m_f.cpu() == m_cpu).float().mean().item()
+    cos_f = min_token_cosine(t_f, t_cpu)
+    print(f"7c: planted fault (tokens as the merge metric): gather maps "
+          f"{maps_f:.6f}, cosine {cos_f:.7f}", flush=True)
+    if maps_f >= GATHER_MAP_BAR and cos_f >= TOKEN_COS_BAR:
+        raise AssertionError("7c: the planted fault passed")
+    del cpu, card
+
+
+def check_tome_routing(state, tokenizer, classes):
+    """7d: ToMe r = 16 with ``scales=(1.0, 2.0)``, 3 batches of 16: the first
+    block of each 576-px tower pass (T = 1297, no bias yet) takes the
+    attention kernel, every later block (biased) the plain path: exactly 3
+    whole-T launches, as JAX routes. A planted fault, the size bias given
+    to the first block too, must change the count."""
+    model = lane_model(state, (("tome_r", 16),))
+    loader = FrozenLoader(3, BATCH, len(classes), seed=17)
+    want = {"flash": loader.batches, "train": 0, "rowblock": 0, "stream": 0}
+
+    def lanes(label):
+        counts = drive_eval(label, loader, model, tokenizer, classes,
+                            input_size=SIZE, scales=(1.0, 2.0))
+        return {k[5:]: v for k, v in counts.items() if k.startswith("lane_")}, counts
+
+    got, counts = lanes("7d tome multi-scale")
+    if got != want or counts["crf_mean_field"] != loader.batches:
+        raise AssertionError(f"7d: attention lanes {got}, want {want}; "
+                             f"CRF {counts['crf_mean_field']}")
+    model.vit.blocks[0].tome_first = False
+    planted, _ = lanes("7d planted fault (bias in the first block)")
+    model.vit.blocks[0].tome_first = True
+    print(f"7d: attention lanes {got}; planted fault {planted}", flush=True)
+    if planted == want:
+        raise AssertionError("7d: the planted fault passed")
+    del model
+
+
+def run_lanes(tokenizer, classes):
+    """Phase 7: returns {lane label: row}."""
+    state_cpu = seeded_clip(0).state_dict()
+    state = {k: v.cuda() for k, v in state_cpu.items()}
+    check_int_mm()
+    int8_gemm_times()
+    loader = FrozenLoader(LANE_BATCHES, BENCH_BATCH, len(classes), seed=11)
+    float_pred, rows = None, {}
+    for label, image_arch, text_arch in LANES:
+        model = lane_model(state, image_arch, text_arch)
+        pred, rows[label] = run_lane(label, model, loader, tokenizer, classes,
+                                     float_pred)
+        if float_pred is None:
+            float_pred = pred
+        del model
+        torch.cuda.empty_cache()
+    check_quant_towers(state_cpu)
+    check_tome_tower(state_cpu)
+    check_tome_routing(state, tokenizer, classes)
+    return rows
+
+
 def build_all():
     """Builds the four kernels with one nvcc process each, in parallel."""
     from simseg_tpu_torch.ops import cuda_build
@@ -1939,6 +2396,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         train_counts, row_train_counts = run_train_slice(tmp)
+    torch.cuda.empty_cache()
+    run_lanes(tokenizer, classes)
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",

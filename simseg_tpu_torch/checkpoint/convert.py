@@ -8,6 +8,11 @@ the reference's timm/HF names — the layout of
 mapped (ViT, BERT, simple/complex projections, temperature); any other leaf
 raises rather than being dropped.
 
+``load_quant_state`` carries JAX's derived ``'quant'`` collection (the
+cached int8 weights and calibrated activation ranges of ``QuantDense``
+layers) into the port's ``QuantLinear`` buffers; ToMe and ``quant`` add no
+parameter, so their models' parameters map as any other's.
+
 Layout conversions (flax -> torch):
 - Linear:    kernel (in, out)      -> weight (out, in)
 - Conv2d:    kernel (kh, kw, I, O) -> weight (O, I, kh, kw)
@@ -147,6 +152,58 @@ def flax_params_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     if unmapped:
         raise ValueError(f"params without a slot in the port: {unmapped}")
     return out
+
+
+# -- the derived int8 state: JAX's 'quant' collection -> the port's buffers --
+
+# QuantDense variable -> (QuantLinear buffer, conversion)
+_QUANT_VARS = {"kernel_q": ("weight_q", lambda x: np.asarray(x, np.int8).T),
+               "w_scale": ("w_scale", lambda x: np.asarray(x, np.float32)),
+               "x_absmax": ("x_absmax", lambda x: np.asarray(x, np.float32))}
+
+
+def flax_quant_to_buffers(quant) -> Dict[str, torch.Tensor]:
+    """JAX's derived ``'quant'`` collection (``cache_quant_state``; leaves as
+    numpy arrays) -> ``{port buffer name: tensor}``: per ``QuantDense``,
+    ``kernel_q`` (K, N) int8 -> ``weight_q`` (N, K), ``w_scale`` (N,) and
+    ``x_absmax`` (K,) float32. Layer names follow the parameters' rules."""
+    out: Dict[str, torch.Tensor] = {}
+    for scope, subtree in quant.items():
+        if scope not in _SCOPES:
+            raise ValueError(f"quant state without a slot in the port: {scope}")
+        prefix, rules = _SCOPES[scope]
+        table = list(rules())
+        for path, leaf in _leaves(subtree):
+            kernel = "/".join(path[:-1] + ("kernel",))
+            for pattern, name_fn, _ in table:
+                m = re.match(pattern, kernel)
+                if m and path[-1] in _QUANT_VARS:
+                    buffer, convert = _QUANT_VARS[path[-1]]
+                    layer = (prefix + name_fn(m))[:-len("weight")]
+                    out[layer + buffer] = torch.from_numpy(
+                        np.array(convert(leaf)))
+                    break
+            else:
+                raise ValueError("quant state without a slot in the port: "
+                                 f"{scope}/{'/'.join(path)}")
+    return out
+
+
+def load_quant_state(model: torch.nn.Module, quant) -> None:
+    """Sets the int8 buffers of ``model``'s ``QuantLinear`` layers from JAX's
+    ``'quant'`` collection, on the layers' device; every quantised layer
+    must be covered (the static ones with their ``x_absmax``)."""
+    from simseg_tpu_torch.ops.quant import quant_layers
+
+    layers = quant_layers(model)
+    for name, value in flax_quant_to_buffers(quant).items():
+        layer_name, buffer = name.rsplit(".", 1)
+        layer = layers[layer_name]
+        setattr(layer, buffer, value.to(layer.weight.device))
+    missing = [n for n, layer in layers.items() if layer.weight_q is None
+               or (layer.static_acts and layer.x_absmax is None)]
+    if missing:
+        raise ValueError(f"quantised layers without JAX quant state: {missing}")
 
 
 # -- names only, the other way: port key -> JAX path ------------------------

@@ -7,8 +7,10 @@ and LayerNorm (eps 1e-12), post-LN layers with separate q/k/v projections,
 GELU intermediate, additive padding mask. Module names are HF's, so a
 reference state dict loads as it is. Compute runs in ``compute_dtype``
 (None: the parameters' dtype), parameters cast at use as flax does
-(``models/layers.py``). The MoE and int8 options and the
-HuggingFace AutoConfig lookup are not ported.
+(``models/layers.py``). ``quant`` makes the six products of every layer
+int8 (``ops/quant.py``); no activation scale spans tokens (per token, or
+calibrated per channel), so padded positions cannot perturb real ones. The MoE option and the HuggingFace
+AutoConfig lookup are not ported.
 """
 
 from __future__ import annotations
@@ -18,47 +20,50 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from simseg_tpu_torch.models.layers import LayerNorm, Linear, gelu
+from simseg_tpu_torch.models.layers import LayerNorm, gelu
 from simseg_tpu_torch.ops.attention import multi_head_attention, padding_bias
+from simseg_tpu_torch.ops.quant import linear_cls
 
 
 class _SelfAttention(nn.Module):
-    def __init__(self, dim: int) -> None:
+    def __init__(self, dim: int, linear) -> None:
         super().__init__()
-        self.query = Linear(dim, dim)
-        self.key = Linear(dim, dim)
-        self.value = Linear(dim, dim)
+        self.query = linear(dim, dim)
+        self.key = linear(dim, dim)
+        self.value = linear(dim, dim)
 
 
 class _DenseNorm(nn.Module):
     """HF's ``*Output`` modules: a Linear and a LayerNorm."""
 
-    def __init__(self, in_dim: int, dim: int) -> None:
+    def __init__(self, in_dim: int, dim: int, linear) -> None:
         super().__init__()
-        self.dense = Linear(in_dim, dim)
+        self.dense = linear(in_dim, dim)
         self.LayerNorm = LayerNorm(dim, eps=1e-12)
 
 
 class _Attention(nn.Module):
-    def __init__(self, dim: int) -> None:
+    def __init__(self, dim: int, linear) -> None:
         super().__init__()
-        self.self = _SelfAttention(dim)
-        self.output = _DenseNorm(dim, dim)
+        self.self = _SelfAttention(dim, linear)
+        self.output = _DenseNorm(dim, dim, linear)
 
 
 class _Intermediate(nn.Module):
-    def __init__(self, dim: int, inter: int) -> None:
+    def __init__(self, dim: int, inter: int, linear) -> None:
         super().__init__()
-        self.dense = Linear(dim, inter)
+        self.dense = linear(dim, inter)
 
 
 class BertLayer(nn.Module):
-    def __init__(self, dim: int, num_heads: int, intermediate_dim: int) -> None:
+    def __init__(self, dim: int, num_heads: int, intermediate_dim: int,
+                 quant: str = "none") -> None:
         super().__init__()
+        linear = linear_cls(quant)
         self.num_heads = num_heads
-        self.attention = _Attention(dim)
-        self.intermediate = _Intermediate(dim, intermediate_dim)
-        self.output = _DenseNorm(intermediate_dim, dim)
+        self.attention = _Attention(dim, linear)
+        self.intermediate = _Intermediate(dim, intermediate_dim, linear)
+        self.output = _DenseNorm(intermediate_dim, dim, linear)
 
     def forward(self, x: torch.Tensor,
                 bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -91,12 +96,13 @@ class BertEncoder(nn.Module):
     def __init__(self, vocab_size: int = 30522, hidden_dim: int = 768,
                  depth: int = 12, num_heads: int = 12,
                  intermediate_dim: int = 3072, max_position: int = 512,
-                 type_vocab_size: int = 2) -> None:
+                 type_vocab_size: int = 2, quant: str = "none") -> None:
         super().__init__()
+        self.quant = quant
         self.embeddings = _Embeddings(vocab_size, hidden_dim, max_position,
                                       type_vocab_size)
         self.encoder = _Encoder(
-            [BertLayer(hidden_dim, num_heads, intermediate_dim)
+            [BertLayer(hidden_dim, num_heads, intermediate_dim, quant)
              for _ in range(depth)])
         # None: compute in the parameters' dtype
         self.compute_dtype: Optional[torch.dtype] = None

@@ -7,62 +7,106 @@ patches): patch-embed conv, learned CLS and position embeddings, pre-LN
 blocks with fused-qkv attention, final LayerNorm, LN eps 1e-6. Module and
 parameter names are timm's, so a reference state dict loads as it is.
 
-The JAX tower's ToMe, int8, MoE and remat options are not ported. Compute
-runs in ``compute_dtype`` (None: the parameters' dtype), with float32
-parameters cast at use as flax does (``models/layers.py``): float32 master
-weights and bf16 compute for training, or ``model.to(torch.bfloat16)`` for
-inference. GELU is exact in float32 and tanh-approximated otherwise.
+Token merging (``tome_r``, ``tome_schedule``; ``ops/tome.py``) and int8
+post-training quantisation (``quant``; ``ops/quant.py``) are ported; the
+JAX tower's MoE and remat options are not. Compute runs in
+``compute_dtype`` (None: the parameters' dtype), with float32 parameters
+cast at use as flax does (``models/layers.py``): float32 master weights and
+bf16 compute for training and for the int8 lanes, or
+``model.to(torch.bfloat16)`` for float inference. GELU is exact in float32 and tanh-approximated otherwise.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from simseg_tpu_torch.models.layers import LayerNorm, Linear, gelu
+from simseg_tpu_torch.models.layers import LayerNorm, gelu
 from simseg_tpu_torch.ops.attention import multi_head_attention
 from simseg_tpu_torch.ops.interpolate_pe import interpolate_pos_embed
+from simseg_tpu_torch.ops.quant import linear_cls
+from simseg_tpu_torch.ops.tome import (bipartite_merge, size_bias, unmerge,
+                                       update_gather_map)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int) -> None:
+    def __init__(self, dim: int, hidden_dim: int, quant: str = "none") -> None:
         super().__init__()
-        self.fc1 = Linear(dim, hidden_dim)
-        self.fc2 = Linear(hidden_dim, dim)
+        linear = linear_cls(quant)
+        self.fc1 = linear(dim, hidden_dim)
+        self.fc2 = linear(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))
 
 
 class Attention(nn.Module):
-    """Self-attention with one fused qkv projection (timm layout)."""
+    """Self-attention with one fused qkv projection (timm layout). The qkv
+    and proj products quantise under ``quant``; the score and probability
+    products stay in the compute dtype."""
 
-    def __init__(self, dim: int, num_heads: int) -> None:
+    def __init__(self, dim: int, num_heads: int, quant: str = "none") -> None:
         super().__init__()
+        linear = linear_cls(quant)
         self.num_heads = num_heads
-        self.qkv = Linear(dim, 3 * dim)
-        self.proj = Linear(dim, dim)
+        self.qkv = linear(dim, 3 * dim)
+        self.proj = linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attention_bias=None,
+                return_keys: bool = False):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
-        return self.proj(multi_head_attention(q, k, v, self.num_heads))
+        out = self.proj(multi_head_attention(q, k, v, self.num_heads,
+                                             attention_bias))
+        if return_keys:
+            # the token-merging metric: the keys, mean over heads
+            b, t, d = k.shape
+            return out, k.reshape(b, t, self.num_heads,
+                                  d // self.num_heads).mean(dim=2)
+        return out
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0) -> None:
-        super().__init__()
-        self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads)
-        self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+    """Pre-LN block. In a token-merging tower (``tome_chain``) it takes and
+    returns the carry ``(x, sizes, gather_map)`` and, after the first merge
+    (``tome_first`` False), adds log(size) to the attention logits; with
+    ``tome_r`` > 0 it merges that many token pairs between attention and
+    MLP (JAX ``ViTBlock``). Before any merge the sizes are all ones, so no
+    bias is passed and the block stays eligible for the attention kernels,
+    whose gates all require ``attention_bias is None``."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 tome_r: int = 0, tome_chain: bool = False,
+                 tome_first: bool = False, quant: str = "none") -> None:
+        super().__init__()
+        self.tome_r, self.tome_chain, self.tome_first = (tome_r, tome_chain,
+                                                         tome_first)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
+        self.attn = Attention(dim, num_heads, quant)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), quant)
+
+    def forward(self, x):
+        in_chain = self.tome_chain or self.tome_r > 0
+        if not in_chain:
+            x = x + self.attn(self.norm1(x))
+            return x + self.mlp(self.norm2(x))
+        if not (isinstance(x, tuple) and len(x) == 3):
+            raise TypeError("Block(tome) takes the (x, sizes, gather_map) "
+                            f"carry tuple, got {type(x).__name__}")
+        x, sizes, gather_map = x
+        bias = None if self.tome_first else size_bias(sizes, x.dtype)
+        if self.tome_r > 0:
+            attn_out, keys = self.attn(self.norm1(x), bias, return_keys=True)
+            x, sizes, old2new = bipartite_merge(x + attn_out, sizes, keys,
+                                                self.tome_r)
+            gather_map = update_gather_map(gather_map, old2new)
+        else:
+            x = x + self.attn(self.norm1(x), bias)
+        return x + self.mlp(self.norm2(x)), sizes, gather_map
 
 
 class PatchEmbed(nn.Module):
@@ -92,9 +136,17 @@ class VisionTransformer(nn.Module):
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
-                 mlp_ratio: float = 4.0) -> None:
+                 mlp_ratio: float = 4.0, tome_r: int = 0,
+                 tome_schedule: Optional[Sequence[int]] = None,
+                 quant: str = "none") -> None:
         super().__init__()
         self.img_size = img_size
+        self.depth = depth
+        self.tome_r = int(tome_r)
+        self.tome_schedule = (None if tome_schedule is None
+                              else tuple(int(r) for r in tome_schedule))
+        self.quant = quant
+        plan = self.tome_plan
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.num_patches = (img_size // patch_size) ** 2
@@ -104,7 +156,11 @@ class VisionTransformer(nn.Module):
             torch.zeros(1, 1 + self.num_patches, embed_dim))
         nn.init.normal_(self.pos_embed, std=0.02)
         self.blocks = nn.ModuleList(
-            [Block(embed_dim, num_heads, mlp_ratio) for _ in range(depth)])
+            [Block(embed_dim, num_heads, mlp_ratio, tome_r=plan[i],
+                   tome_chain=self.tome_on,
+                   tome_first=self.tome_on and sum(plan[:i]) == 0,
+                   quant=quant)
+             for i in range(depth)])
         self.norm = LayerNorm(embed_dim, eps=1e-6)
         # None: compute in the parameters' dtype
         self.compute_dtype: Optional[torch.dtype] = None
@@ -123,9 +179,34 @@ class VisionTransformer(nn.Module):
         pos_embed = pos_embed.to(dtype)
         cls = self.cls_token.to(dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + pos_embed
+        if self.tome_on:
+            b, t = x.shape[:2]
+            carry = (x, torch.ones((b, t), device=x.device),
+                     torch.arange(t, device=x.device).expand(b, t))
+            for block in self.blocks:
+                carry = block(carry)
+            return unmerge(self.norm(carry[0]), carry[2])
         for block in self.blocks:
             x = block(x)
         return self.norm(x)
+
+    @property
+    def tome_on(self) -> bool:
+        return self.tome_r > 0 or bool(self.tome_schedule)
+
+    @property
+    def tome_plan(self) -> Tuple[int, ...]:
+        """Merges per block: the schedule, else ``tome_r`` in every block
+        (checked against the depth as the JAX tower does)."""
+        if self.tome_schedule:
+            sched = self.tome_schedule
+            if len(sched) != self.depth:
+                raise ValueError(f"tome_schedule has {len(sched)} entries for "
+                                 f"a depth-{self.depth} tower")
+            if any(r < 0 for r in sched):
+                raise ValueError(f"tome_schedule entries must be >= 0: {sched}")
+            return sched
+        return (max(self.tome_r, 0),) * self.depth
 
 
 # timm tag -> architecture (vit_builder.py instantiates these through

@@ -12,8 +12,8 @@ The options the JAX version reads from its config tree are keywords here
 ``top_cls_num``, ``scales``, ``window_size``, ``window_stride`` for its
 ``seg_eval.scales`` / ``seg_eval.window`` multi-scale and sliding-window
 dense inference, and ``crf_backend`` for ``seg_eval.crf_backend``, "auto"
-or "fused_tail", see ``ops/seg_decode.py``). int8 towers and multi-process
-sharding are not ported.
+or "fused_tail", see ``ops/seg_decode.py``). int8 towers are calibrated by
+``prepare_quant_params``; multi-process sharding is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from simseg_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD, normal
 from simseg_tpu_torch.ops.interpolate_pe import resize_bilinear
 from simseg_tpu_torch.ops.morphology import resize_nearest_to_padded
 from simseg_tpu_torch.ops.pooling import l2_normalize
+from simseg_tpu_torch.ops.quant import cache_quant_state
 from simseg_tpu_torch.ops.seg_decode import make_seg_decode_fn
 from simseg_tpu_torch.utils.metrics import intersect_and_union, miou_from_totals
 from simseg_tpu_torch.utils.prompts import openai_imagenet_template
@@ -43,9 +44,19 @@ _LABEL_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "label_category")
 
 
-def load_label_bank(name: str) -> list:
-    """Class names of a packaged label bank (``data/label_category``)."""
-    with open(os.path.join(_LABEL_DIR, f"{name}.txt")) as f:
+def load_label_bank(name: str, data_root: str = "data") -> list:
+    """Class names of a seg benchmark: ``<data_root>/label_category/<name>.txt``
+    (the reference reads it relative to the working directory,
+    tools/seg_evaluation.py:243-245), else the packaged copy of the
+    canonical bank (``pascal_voc``, ``pascal_context``, ``coco_stuff``)."""
+    path = os.path.join(data_root, "label_category", f"{name}.txt")
+    if not os.path.exists(path):
+        packaged = os.path.join(_LABEL_DIR, f"{name}.txt")
+        if os.path.exists(packaged):
+            logger.warning("label bank not found at %r; falling back to the "
+                           "packaged canonical %s bank", path, name)
+            path = packaged
+    with open(path) as f:
         return [line.strip() for line in f if line.strip()]
 
 
@@ -66,6 +77,60 @@ def zero_shot_classifier(model, classnames: Sequence[str], tokenizer,
         mean = emb.mean(dim=0)
         out.append(mean / torch.linalg.vector_norm(mean))
     return torch.stack(out)
+
+
+def prepare_quant_params(model, *, input_size: int,
+                         mean: Sequence[float] = IMAGENET_MEAN,
+                         std: Sequence[float] = IMAGENET_STD,
+                         calib_images_u8=None, tokenizer=None,
+                         classnames: Sequence[str] = (), max_length: int = 25,
+                         device=None):
+    """Rebuild the int8 towers' cached weights and, for ``int8_static``,
+    their activation calibration before evaluation (JAX
+    ``prepare_quant_params``, ``simseg_tpu/tasks/seg_eval.py:93-158``);
+    nothing for float towers. Returns ``model``, which must be on ``device``.
+
+    calib_images_u8: (N, S, S, 3) uint8 images, normalised here exactly as
+    the eval forward normalises them; needed for ``int8_static`` on the
+    image tower, while ``int8`` caches from a zeros image. The text tower
+    calibrates on the 80 prompts of the first 4 classes. The multi-process
+    broadcast of the JAX version is not ported (ROADMAP queue 1 item 13)."""
+    device = resolve_device(device)
+    img_q = model.vit.quant or "none"
+    txt_q = model.bert.quant or "none"
+    if img_q == "none" and txt_q == "none":
+        return model
+    calls = []
+    if img_q != "none":
+        if calib_images_u8 is not None:
+            images = normalize_images(
+                torch.as_tensor(np.asarray(calib_images_u8)).to(device), mean, std)
+        elif img_q == "int8_static":
+            raise ValueError(
+                "quant='int8_static' on the image tower needs calibration "
+                "images (pass calib_images_u8)")
+        else:
+            images = torch.zeros((1, input_size, input_size, 3), device=device)
+        calls.append(lambda: model.forward_image_tokens(images))
+    if txt_q != "none":
+        if tokenizer is not None and classnames:
+            texts = [t for cls in list(classnames)[:4]
+                     for t in openai_imagenet_template(cls)]
+            enc = tokenizer(texts, padding="max_length", truncation=True,
+                            max_length=max_length)
+            ids = torch.tensor(enc["input_ids"], dtype=torch.long, device=device)
+            mask = torch.tensor(enc["attention_mask"], dtype=torch.long,
+                                device=device)
+        elif txt_q == "int8_static":
+            raise ValueError(
+                "quant='int8_static' on the text tower needs the tokenizer "
+                "and classnames for prompt-bank calibration")
+        else:
+            ids = torch.zeros((1, max_length), dtype=torch.long, device=device)
+            mask = torch.ones((1, max_length), dtype=torch.long, device=device)
+        calls.append(lambda: model.forward_text_feature(ids, mask))
+    logger.info("Caching int8 weights (image=%s, text=%s)", img_q, txt_q)
+    return cache_quant_state(model, calls)
 
 
 def make_seg_features(model, *, input_size: int,
@@ -269,9 +334,14 @@ def evaluate_benchmark(loader: Iterable[dict], model, tokenizer,
                        bilateral_stride: int = 8, max_length: int = 25,
                        scales: Sequence[float] = (1.0,), window_size: int = -1,
                        window_stride: int = -1, crf_backend: str = "auto",
+                       calib_images: int = 32,
                        device=None) -> Tuple[np.ndarray, float]:
     """Dataset mIoU. Returns (per-class IoU, mIoU). Moves ``model`` to
-    ``device`` and into eval mode.
+    ``device`` and into eval mode, and rebuilds the int8 towers' cached
+    state (``prepare_quant_params``): an ``int8_static`` image tower
+    calibrates on the first ``calib_images`` images of ``loader`` (JAX's
+    ``SIMSEG_CALIB_IMAGES``, default 32), so the loader is read twice and a
+    one-shot iterator is refused.
 
     loader: any iterable of batch dicts with ``image`` uint8 (B, S, S, 3),
     ``mask_label`` (B, H, W) 255-padded, and optionally ``mask_h`` /
@@ -284,6 +354,26 @@ def evaluate_benchmark(loader: Iterable[dict], model, tokenizer,
     model = model.to(device).eval()
     num_classes = len(seg_categories)
     canvas = label_canvas(loader, dataset_name)
+    calib = None
+    if model.vit.quant == "int8_static":
+        # a running absmax over the first images: one batch under-covers the
+        # activation range (JAX ``evaluate_benchmark``)
+        if iter(loader) is loader:
+            raise ValueError("an int8_static image tower calibrates on the "
+                             "loader's first images and then evaluates it "
+                             "from the start: pass a re-iterable loader, not "
+                             "an iterator")
+        chunks, have = [], 0
+        for batch in loader:
+            chunks.append(np.asarray(batch["image"]))
+            have += chunks[-1].shape[0]
+            if have >= calib_images:
+                break
+        calib = np.concatenate(chunks, axis=0)[:calib_images]
+    prepare_quant_params(model, input_size=input_size, mean=mean, std=std,
+                         calib_images_u8=calib, tokenizer=tokenizer,
+                         classnames=seg_categories, max_length=max_length,
+                         device=device)
     logger.info("Building zero-shot classifier for %d classes", num_classes)
     text_bank = zero_shot_classifier(model, seg_categories, tokenizer,
                                      max_length=max_length, device=device)

@@ -71,6 +71,15 @@ def test_port_imports_leave_jax_and_simseg_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_guard_covers_every_port_module():
+    """The guard imports the modules found on disk, the token-merging and
+    int8 modules among them."""
+    mods = _port_modules()
+    assert {"simseg_tpu_torch.ops.tome", "simseg_tpu_torch.ops.quant",
+            "simseg_tpu_torch.models.vit", "simseg_tpu_torch.tasks.seg_eval"
+            } <= set(mods)
+
+
 def _imported_roots(path):
     tree = ast.parse(open(path).read())
     for node in ast.walk(tree):

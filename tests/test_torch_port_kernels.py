@@ -12,13 +12,23 @@ composition and the zero-iteration threshold are exact. The decode tail:
 >= 99.9% of pred against its plain version, >= 99.99% against the
 mean-field kernel with the unfused tail (the same CRF code). Attention and
 the bilateral product and the attention backward: as stated at each test.
+The int8 product (``torch._int_mm``, a library GEMM: JAX's is an XLA dot)
+is exact; a quantised or token-merging tower on the card is held against
+the same code on the CPU in float32 (a layer's int8 input codes equal on
+>= 99.99% of entries on the same input, gather maps on >= 99.9%,
+per-token cosine >= 0.9999, 0.999 for a quantised tower: float32 summation
+order can move an activation across a rounding boundary).
 """
+
+import copy
+import unittest.mock
 
 import numpy as np
 import pytest
 import torch
 
-from simseg_tpu_torch.ops import crf_fused, crf_pallas, flash_attention
+from simseg_tpu_torch.models.vit import build_vit
+from simseg_tpu_torch.ops import crf_fused, crf_pallas, flash_attention, quant
 from simseg_tpu_torch.ops.morphology import closing, nearest_upsample
 from simseg_tpu_torch.ops.seg_decode import decode_tail
 
@@ -416,3 +426,120 @@ def test_bilateral_kernel_refuses_what_it_cannot_take(cuda_device):
         assert got.shape == (1, 300, c) and rel.item() <= 1e-5
     with pytest.raises(ValueError, match="q on"):
         crf_pallas.bilateral_matvec_batched(feat, torch.ones(1, 300, 1))
+
+
+# ---------------------------------------------------- int8 and token merging
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n", [
+    (64 * 325, 768, 2304), (64 * 325, 3072, 768), (64 * 133, 768, 3072),
+    (5, 768, 768), (16, 768, 2304), (17, 64, 8)])
+def test_int8_product_is_exact(cuda_device, rows, k, n):
+    """The image tower's products at batch 64 (T = 325, and 133 after ToMe
+    r = 16) and calls of 16 rows or fewer (padded with zero rows) against
+    the exact integer product (float64: |sums| < 2^53)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + k + n)
+    xq = torch.randint(-127, 128, (rows, k), dtype=torch.int8,
+                       device=cuda_device, generator=gen)
+    wq = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                       device=cuda_device, generator=gen)
+    got = quant.int8_mm(xq, wq)
+    assert got.dtype == torch.int32 and got.shape == (rows, n)
+    assert torch.equal(got.double(), xq.double() @ wq.double().t())
+
+
+@pytest.mark.cuda
+def test_int8_product_refuses_what_the_card_cannot_take(cuda_device):
+    xq = torch.ones(20, 12, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_mm(xq, torch.ones(8, 12, dtype=torch.int8, device=cuda_device))
+
+
+def _tower_images(n, size, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(n, size, size, 3)).astype(np.float32))
+
+
+def _cosine(a, b):
+    return torch.nn.functional.cosine_similarity(
+        a.double().cpu(), b.double().cpu(), dim=-1).min().item()
+
+
+@pytest.mark.cuda
+def test_tome_tower_on_the_card(cuda_device):
+    """ViT-B/16 at 288 px, depth 3, r = 16, float32: the card against the
+    CPU, and two card calls bit-equal (the merge is a one-hot product, no
+    atomics); then in bf16 two calls bit-equal again."""
+    cpu = build_vit("vit_base_patch16_224", 288, dict(depth=3, tome_r=16)).eval()
+    card = copy.deepcopy(cpu).to(cuda_device)
+    images = _tower_images(2, 288, 1)
+    maps = {}
+
+    def run(model, x):
+        hook = model.blocks[-1].register_forward_hook(
+            lambda m, a, out: maps.update({x.device.type: out[2]}))
+        with torch.no_grad():
+            out = model(x)
+        hook.remove()
+        return out
+
+    want = run(cpu, images)
+    got = run(card, images.to(cuda_device))
+    assert (maps["cuda"].cpu() == maps["cpu"]).float().mean().item() >= 0.999
+    assert _cosine(got, want) >= 0.9999
+    assert torch.equal(got, run(card, images.to(cuda_device)))
+    card.compute_dtype = torch.bfloat16
+    with torch.no_grad():
+        first = card(images.to(cuda_device))
+        assert torch.equal(first, card(images.to(cuda_device)))
+
+
+def _layer_inputs(vit, images):
+    inputs = {}
+    hooks = [layer.register_forward_pre_hook(
+        lambda m, args, name=name: inputs.__setitem__(name, args[0]))
+        for name, layer in quant.quant_layers(vit).items()]
+    with torch.no_grad():
+        tokens = vit(images)
+    for h in hooks:
+        h.remove()
+    return tokens, inputs
+
+
+def _product_io(layer, x):
+    seen, real = [], quant.int8_mm
+
+    def record(xq, wq):
+        seen.append((xq, real(xq, wq)))
+        return seen[-1][1]
+
+    with unittest.mock.patch.object(quant, "int8_mm", record), torch.no_grad():
+        layer(x)
+    return seen[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int8_static"])
+def test_quant_tower_on_the_card_matches_the_cpu(cuda_device, mode):
+    """ViT-B/16 at 288 px, depth 2, float32, calibrated on the CPU and
+    carried to the card with the model. Each quantised layer on the CPU
+    tower's input to it: int8 input codes equal on >= 99.99% of entries,
+    the accumulators on the CPU's codes equal. The towers' tokens at
+    per-token cosine >= 0.999: a code that moves in one layer moves its
+    token's next products by a step (``chip_smoke.py:check_quant_towers``)."""
+    cpu = build_vit("vit_base_patch16_224", 288, dict(depth=2, quant=mode)).eval()
+    calib, images = _tower_images(2, 288, 2), _tower_images(2, 288, 3)
+    quant.cache_quant_state(cpu, [lambda: cpu(calib)])
+    card = copy.deepcopy(cpu).to(cuda_device)
+    want, inputs = _layer_inputs(cpu, images)
+    got, _ = _layer_inputs(card, images.to(cuda_device))
+    card_layers = quant.quant_layers(card)
+    assert len(inputs) == 2 * 4
+    for name, layer in quant.quant_layers(cpu).items():
+        q_cpu, acc_cpu = _product_io(layer, inputs[name])
+        q_card, _ = _product_io(card_layers[name], inputs[name].to(cuda_device))
+        assert (q_card.cpu() == q_cpu).float().mean().item() >= 0.9999, name
+        assert torch.equal(quant.int8_mm(q_cpu.to(cuda_device),
+                                         card_layers[name].weight_q).cpu(),
+                           acc_cpu), name
+    assert _cosine(got, want) >= 0.999
