@@ -4,6 +4,7 @@
     python3 chip_smoke.py --attention-trees DIR [DIR ...]   (compare_attention_trees)
     python3 chip_smoke.py --crf-trees DIR [DIR ...]         (compare_crf_trees)
     python3 chip_smoke.py --bilateral-trees DIR [DIR ...]   (compare_bilateral_trees)
+    python3 chip_smoke.py --entry-point                     (phases 1-2 and 8)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
@@ -157,8 +158,28 @@ Phases (any failure raises, so the exit code is non-zero):
    metric); 7d ToMe r = 16 with ``scales=(1.0, 2.0)``, 3 batches of 16:
    exactly 3 whole-T attention launches, the first block of each 576-px
    pass (fault: the size bias given to the first block too).
-It then prints one JSON line of kernel numbers, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.
+8. the segmentation-eval entry point: a VOC2012-layout directory of 40
+   palette scenes at VOC's image sizes (375 x 500, 500 x 333, ...), PNG
+   content under ``.jpg`` names (written by ``png_bytes``), one real 4:2:0
+   JPEG (``simseg_tpu_torch/data/_testdata/scene.jpg``), palette-PNG
+   labels of 320-511 px, a seeded ViT-B/16 + BERT-base ``.pth`` and a
+   WordPiece vocab; ``tools/seg_evaluation.main`` run in this process with
+   ``configs/clip/simseg.vit-b.yaml`` at ``data.batch_size_val=16`` on
+   the crf_backend lanes auto, fused_tail, fused, pallas and xla and with
+   ``seg_eval.scales=[1.0,2.0]``, each with its exact launch counts
+   (``ENTRY_WANT``) and one nvJPEG decode. Checks: the CLI's per-class IoU
+   bit-equal to ``evaluate_benchmark`` over the same decoded batches in
+   memory (planted fault: two images of a batch swapped after decode); the
+   committed JPEG through nvJPEG against PIL's pixels (>= 99% of channel
+   values within 2 levels, mean absolute difference <= 0.5 after the
+   resize to 288); the card's resize bit-equal to the CPU's on every
+   image; the fused, pallas, fused_tail and matmul-closing lanes' pred
+   against the xla lane's on >= 99.9% of pixels. Prints the CLI's and the
+   in-memory images/s, the host decode and card resize ms per batch and
+   the loader's share of the wall time.
+It then prints one JSON line of kernel numbers (``cli_launches``: the
+kernel's launches in phase 8's lane that takes it), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -2051,18 +2072,416 @@ def run_lanes(tokenizer, classes):
     return rows
 
 
+# -- phase 8: the segmentation-eval entry point ---------------------------------
+
+ENTRY_SCENES = 40
+ENTRY_BATCH = 16
+ENTRY_BATCHES = -(-ENTRY_SCENES // ENTRY_BATCH)
+# VOC2012's common image sizes (h, w); the GT label maps get their own sizes
+ENTRY_SIZES = ((375, 500), (500, 333), (333, 500), (500, 375), (281, 500),
+               (366, 500), (500, 400), (335, 500))
+ENTRY_JPEG_AT = 5                          # the committed JPEG's scene index
+ENTRY_LANES = (("auto", ()), ("fused_tail", ("seg_eval.crf_backend=fused_tail",)),
+               ("fused", ("seg_eval.crf_backend=fused",)),
+               ("pallas", ("seg_eval.crf_backend=pallas",)),
+               ("xla", ("seg_eval.crf_backend=xla",)),
+               ("scales (1.0, 2.0)", ("seg_eval.scales=[1.0,2.0]",)))
+# launches per lane over the split: {count: launches}, every other count 0
+ENTRY_WANT = {
+    "auto": {"crf_mean_field": ENTRY_BATCHES},
+    "fused_tail": {"seg_decode_tail": ENTRY_BATCHES},
+    "fused": {"crf_mean_field": ENTRY_BATCHES},
+    # the degree, then one product per mean-field iteration
+    "pallas": {"bilateral_matvec": (1 + ITERS) * ENTRY_BATCHES},
+    "xla": {},
+    # the 576-px pass: one whole-T launch per block
+    "scales (1.0, 2.0)": {"crf_mean_field": ENTRY_BATCHES,
+                          "flash_attention": 12 * ENTRY_BATCHES,
+                          "lane_flash": 12 * ENTRY_BATCHES},
+}
+ENTRY_LANE_BAR = 0.999
+NVJPEG_NEAR_BAR = 0.99       # share of channel values within 2 levels of PIL's
+NVJPEG_RESIZED_BAR = 0.5     # mean absolute difference after the resize
+
+
+def png_bytes(pixels, palette=None) -> bytes:
+    """The script's own PNG writer: (H, W, 3) RGB with every row Paeth-
+    filtered (PIL's encoder picks Paeth for nearly every row of such
+    scenes), or (H, W) palette indices with ``palette`` (n, 3), unfiltered
+    (as PIL writes palette images)."""
+    import struct
+    import zlib
+
+    h, w = pixels.shape[:2]
+    if palette is None:
+        x = pixels.reshape(h, w * 3).astype(np.int16)
+        a = np.pad(x, ((0, 0), (3, 0)))[:, :-3]
+        b = np.pad(x, ((1, 0), (0, 0)))[:-1]
+        c = np.pad(b, ((0, 0), (3, 0)))[:, :-3]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        rows, colour, ftype = ((x - pred) & 255).astype(np.uint8), 2, 4
+    else:
+        rows, colour, ftype = pixels.astype(np.uint8), 3, 0
+    raw = np.concatenate([np.full((h, 1), ftype, np.uint8), rows], 1).tobytes()
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(
+        b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+    if palette is not None:
+        out += chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    return out + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b"")
+
+
+def voc_palette() -> np.ndarray:
+    """PASCAL VOC's 256-entry label colour map."""
+    pal = np.zeros((256, 3), np.uint8)
+    for i in range(256):
+        c, r, g, b = i, 0, 0, 0
+        for j in range(8):
+            r |= ((c >> 0) & 1) << (7 - j)
+            g |= ((c >> 1) & 1) << (7 - j)
+            b |= ((c >> 2) & 1) << (7 - j)
+            c >>= 3
+        pal[i] = (r, g, b)
+    return pal
+
+
+def entry_scene(rng, size, gt, num_classes):
+    """A scene of three class discs on a background, with noise, at image
+    size ``size`` (h, w) and its label map at ``gt`` (h, w): the same
+    discs in relative coordinates, and a 255 (ignored) ring around each."""
+    discs = [(*rng.uniform(0.1, 0.9, 2), rng.uniform(0.12, 0.3),
+              int(rng.integers(1, num_classes)), rng.uniform(0, 255, 3))
+             for _ in range(3)]
+    h, w = size
+    yy, xx = np.mgrid[0:h, 0:w]
+    image = np.empty((h, w, 3), np.float32)
+    image[:] = rng.uniform(0, 255, 3)
+    gh, gw = gt
+    gy, gx = np.mgrid[0:gh, 0:gw]
+    label = np.zeros((gh, gw), np.uint8)
+    for cy, cx, r, cls, colour in discs:
+        image[(yy / h - cy) ** 2 + (xx / w - cx) ** 2 < r * r] = colour
+        d2 = (gy / gh - cy) ** 2 + (gx / gw - cx) ** 2
+        label[d2 < (r + 0.01) ** 2] = 255
+        label[d2 < r * r] = cls
+    image += rng.normal(0, 6, image.shape)
+    return np.clip(image, 0, 255).astype(np.uint8), label
+
+
+def write_entry_fixture(root, tokenizer, num_classes):
+    """The VOC2012 layout under ``root`` (PNG scenes under ``.jpg`` names,
+    one real JPEG, palette-PNG labels of 320-511 px), a seeded ViT-B/16 +
+    BERT-base ``.pth`` in the reference's layout and the WordPiece vocab;
+    returns (checkpoint, vocab file)."""
+    testdata = os.path.join("simseg_tpu_torch", "data", "_testdata")
+    rng = np.random.default_rng(2012)
+    voc = os.path.join(root, "VOCdevkit", "VOC2012")
+    for sub in ("JPEGImages", "SegmentationClass", "ImageSets/Segmentation"):
+        os.makedirs(os.path.join(voc, sub))
+    pal = voc_palette()
+    names = [f"2012_{i:06d}" for i in range(ENTRY_SCENES)]
+    for i, name in enumerate(names):
+        gt = tuple(int(v) for v in rng.integers(320, 512, 2))
+        image, label = entry_scene(rng, ENTRY_SIZES[i % len(ENTRY_SIZES)], gt,
+                                   num_classes)
+        if i == ENTRY_JPEG_AT:
+            with open(os.path.join(testdata, "scene.jpg"), "rb") as f:
+                data = f.read()
+        else:
+            data = png_bytes(image)
+        with open(os.path.join(voc, "JPEGImages", f"{name}.jpg"), "wb") as f:
+            f.write(data)
+        with open(os.path.join(voc, "SegmentationClass", f"{name}.png"), "wb") as f:
+            f.write(png_bytes(label, pal))
+    with open(os.path.join(voc, "ImageSets", "Segmentation", "val.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    ckpt = os.path.join(root, "simseg.vit-b.pth")
+    torch.save({"state_dict": seeded_clip(0).state_dict()}, ckpt)
+    vocab = os.path.join(root, "vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(sorted(tokenizer.vocab, key=tokenizer.vocab.get)) + "\n")
+    return ckpt, vocab
+
+
+class MemoryLoader:
+    """Decoded batches replayed in order, with the loader's ``batch_size``
+    and ``dataset`` (for the label canvas's pre-scan)."""
+
+    def __init__(self, batches, batch_size, dataset):
+        self.batches, self.batch_size, self.dataset = batches, batch_size, dataset
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def run_cli(label, argv):
+    """``seg_evaluation.main(argv)`` with the counts set to 0 just before it
+    and read just after; its ``evaluate_benchmark`` call is timed and its
+    arguments kept. Returns (iou, miou, counts, nvJPEG decodes, the call's
+    arguments and seconds, wall seconds)."""
+    from simseg_tpu_torch.data import image_io
+    from simseg_tpu_torch.tools import seg_evaluation as cli
+
+    real, call = cli.evaluate_benchmark, {}
+
+    def timed(loader, model, tokenizer, categories, top_cls_num, name, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(loader, model, tokenizer, categories, top_cls_num, name, **kw)
+        torch.cuda.synchronize()
+        call.update(loader=loader, model=model, tokenizer=tokenizer,
+                    categories=categories, kw=kw,
+                    seconds=time.perf_counter() - t0)
+        return out
+
+    reset_counts()
+    image_io.NVJPEG_DECODES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(cli, "evaluate_benchmark", timed):
+        results = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, decodes = read_counts(), image_io.NVJPEG_DECODES
+    iou, miou = results["pascal_voc"]
+    print(f"8 {label}: the CLI on {ENTRY_SCENES} images in {wall:.3f} s "
+          f"(model build and checkpoint load included), evaluate_benchmark "
+          f"{call['seconds']:.3f} s = {ENTRY_SCENES / call['seconds']:.1f} "
+          f"images/s (decode, resize and text bank included), mIoU "
+          f"{miou:.6f}; launches {counts}; nvJPEG decodes {decodes}",
+          flush=True)
+    if iou.shape != (21,) or not 0.0 <= miou <= 1.0:
+        raise AssertionError(f"8 {label}: bad mIoU result {iou} {miou}")
+    return iou, miou, counts, decodes, call, wall
+
+
+def check_entry_launches(label, counts, decodes):
+    want = ENTRY_WANT[label]
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    if bad or decodes != 1:
+        raise AssertionError(f"8 {label}: launches {bad} (want {want}), "
+                             f"nvJPEG decodes {decodes} (want 1)")
+
+
+def check_nvjpeg_and_resize(dataset):
+    """8: the committed JPEG through nvJPEG against PIL's pixels, and the
+    card's resize bit-equal to the CPU's on every fixture image."""
+    from simseg_tpu_torch.data.image_io import decode_rgb
+    from simseg_tpu_torch.data.transforms import pil_resize
+
+    testdata = os.path.join("simseg_tpu_torch", "data", "_testdata")
+    with open(os.path.join(testdata, "scene.jpg"), "rb") as f:
+        data = f.read()
+    want = np.load(os.path.join(testdata, "scene_pil.npy")).astype(np.int32)
+    got = decode_rgb(data, "cuda")
+    diff = np.abs(got.cpu().numpy().astype(np.int32) - want)
+    near = float((diff <= 2).mean())
+    resized = (pil_resize(got, (SIZE, SIZE)).cpu().numpy().astype(np.int32)
+               - pil_resize(torch.from_numpy(want.astype(np.uint8)),
+                            (SIZE, SIZE)).numpy())
+    resized_mean = float(np.abs(resized).mean())
+    print(f"8 nvJPEG vs PIL on the committed {want.shape[1]}x{want.shape[0]} "
+          f"4:2:0 JPEG: {near:.6f} of channel values within 2 levels (bar "
+          f">= {NVJPEG_NEAR_BAR}), max {int(diff.max())}, mean "
+          f"{diff.mean():.4f}; after the resize to {SIZE}: mean absolute "
+          f"difference {resized_mean:.4f} (bar <= {NVJPEG_RESIZED_BAR})",
+          flush=True)
+    if near < NVJPEG_NEAR_BAR or resized_mean > NVJPEG_RESIZED_BAR:
+        raise AssertionError(f"8: nvJPEG {near} within 2 levels, resized mean "
+                             f"{resized_mean}")
+    unequal = []
+    for name in dataset.names:
+        with open(os.path.join(dataset.image_path, name + ".jpg"), "rb") as f:
+            image = decode_rgb(f.read(), "cuda")
+        card = dataset.transforms(image).cpu()
+        if not torch.equal(card, dataset.transforms(image.cpu())):
+            unequal.append(name)
+    print(f"8 resize: card bit-equal to the CPU on "
+          f"{len(dataset.names) - len(unequal)}/{len(dataset.names)} images",
+          flush=True)
+    if unequal:
+        raise AssertionError(f"8: the card's resize differs on {unequal}")
+
+
+def host_times(dataset):
+    """8: ms per image of the host's decode (file read + decode_rgb to the
+    card) and of the resize on the card, each to its end, in turn over the
+    split; and, where PIL is installed, of PIL's decode of the same files
+    (``Image.open(...).convert("RGB")``, JAX's), as a yardstick (None
+    without PIL)."""
+    from simseg_tpu_torch.data.image_io import decode_rgb
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    pil = 0.0
+    if Image is not None:
+        for name in dataset.names:
+            t0 = time.perf_counter()
+            with Image.open(os.path.join(dataset.image_path, name + ".jpg")) as im:
+                np.asarray(im.convert("RGB"))
+            pil += time.perf_counter() - t0
+    decode = resize = 0.0
+    for name in dataset.names:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with open(os.path.join(dataset.image_path, name + ".jpg"), "rb") as f:
+            image = decode_rgb(f.read(), "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dataset.transforms(image)
+        torch.cuda.synchronize()
+        decode += t1 - t0
+        resize += time.perf_counter() - t1
+    n = len(dataset.names)
+    return (1e3 * decode / n, 1e3 * resize / n,
+            None if Image is None else 1e3 * pil / n)
+
+
+def lane_predictions(call, batches):
+    """8: on the decoded batches, each lane's predictions (``make_seg_predict``
+    per ``crf_backend``, and the decode with ``morphology_impl="matmul"``)
+    against the ``xla`` lane's: the share of equal pixels."""
+    from simseg_tpu_torch.ops.seg_decode import make_seg_decode_fn
+    from simseg_tpu_torch.tasks.seg_eval import (make_seg_features,
+                                                 make_seg_predict,
+                                                 zero_shot_classifier)
+
+    model, kw, classes = call["model"], call["kw"], call["categories"]
+    common = dict(input_size=kw["input_size"], mean=kw["mean"], std=kw["std"],
+                  bilateral_stride=kw["bilateral_stride"])
+    bank = zero_shot_classifier(model, classes, call["tokenizer"],
+                                max_length=kw["max_length"])
+    features = make_seg_features(model, input_size=kw["input_size"],
+                                 mean=kw["mean"], std=kw["std"])
+    matmul = make_seg_decode_fn(num_classes=len(classes),
+                                image_size=kw["input_size"], patch_size=PATCH,
+                                top_cls_num=10,
+                                bilateral_stride=kw["bilateral_stride"],
+                                morphology_impl="matmul")
+    preds = {lane: [] for lane in ("xla", "fused", "pallas", "fused_tail",
+                                   "matmul")}
+    for lane in preds:
+        if lane == "matmul":
+            continue
+        predict = make_seg_predict(model, len(classes), 10, crf_backend=lane,
+                                   **common)
+        preds[lane] = [predict(b["image"], bank)[0] for b in batches]
+    with torch.no_grad():
+        preds["matmul"] = [matmul(*features(b["image"]), bank, b["image"])[0]
+                           for b in batches]
+    agree = {}
+    for lane in ("fused", "pallas", "fused_tail", "matmul"):
+        same = sum(int((p == x).sum()) for p, x in zip(preds[lane], preds["xla"]))
+        agree[lane] = same / sum(x.numel() for x in preds["xla"])
+    print(f"8 lanes: pred agreement with the xla lane on {ENTRY_SCENES} "
+          f"images: {agree} (bar >= {ENTRY_LANE_BAR})", flush=True)
+    if min(agree.values()) < ENTRY_LANE_BAR:
+        raise AssertionError(f"8: lane agreement {agree}")
+
+
+def run_entry_point():
+    """Phase 8: returns {lane: launch counts}."""
+    from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer, make_test_vocab
+    from simseg_tpu_torch.tasks.seg_eval import evaluate_benchmark, load_label_bank
+    from simseg_tpu_torch.utils.prompts import IMAGENET_TEMPLATES
+
+    classes = load_label_bank("pascal_voc")
+    words = [w for t in IMAGENET_TEMPLATES for w in t.replace("{}", " ")
+             .replace(".", " ").split()] + classes
+    tokenizer = WordPieceTokenizer(make_test_vocab(words))
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ckpt, vocab = write_entry_fixture(root, tokenizer, len(classes))
+        print(f"8 fixture: {ENTRY_SCENES} scenes and the checkpoint written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        base = ["--cfg", os.path.join("configs", "clip", "simseg.vit-b.yaml"),
+                "--ckpt_path", ckpt, "--vocab_file", vocab,
+                f"data.data_path={root}/", f"data.batch_size_val={ENTRY_BATCH}"]
+        launches, first = {}, None
+        for label, extra in ENTRY_LANES:
+            iou, miou, counts, decodes, call, _ = run_cli(label, base + list(extra))
+            check_entry_launches(label, counts, decodes)
+            launches[label] = counts
+            if first is None:
+                first = (iou, miou, call)
+            del call
+            torch.cuda.empty_cache()
+        iou, miou, call = first
+        loader = call["loader"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = list(loader)
+        torch.cuda.synchronize()
+        loader_s = time.perf_counter() - t0
+        memory = MemoryLoader(batches, loader.batch_size, loader.dataset)
+        args = (call["model"], call["tokenizer"], call["categories"], 10,
+                "pascal_voc")
+        evaluate_benchmark(memory, *args, **call["kw"])     # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_iou, m_miou = evaluate_benchmark(memory, *args, **call["kw"])
+        torch.cuda.synchronize()
+        memory_s = time.perf_counter() - t0
+        same = np.array_equal(m_iou, iou, equal_nan=True) and m_miou == miou
+        swapped = [dict(b) for b in batches]
+        image = swapped[0]["image"].clone()
+        image[[0, 1]] = image[[1, 0]]
+        swapped[0]["image"] = image
+        p_iou, p_miou = evaluate_benchmark(
+            MemoryLoader(swapped, loader.batch_size, loader.dataset), *args,
+            **call["kw"])
+        planted = np.array_equal(p_iou, iou, equal_nan=True) and p_miou == miou
+        print(f"8 drift: in-memory evaluate_benchmark mIoU {m_miou:.6f} vs the "
+              f"CLI's {miou:.6f}, per-class IoU bit-equal {same}; planted fault "
+              f"(two images of batch 0 swapped after decode) mIoU "
+              f"{p_miou:.6f}, bit-equal {planted}", flush=True)
+        if not same:
+            raise AssertionError(f"8: the loader drifts: {m_iou} vs {iou}")
+        if planted:
+            raise AssertionError("8: the planted fault passed the drift check")
+        decode_ms, resize_ms, pil_ms = host_times(loader.dataset)
+        cli_s = call["seconds"]
+        print(f"8 entry point ({card_line()}): the CLI's evaluate_benchmark "
+              f"{ENTRY_SCENES / cli_s:.1f} images/s ({cli_s:.3f} s, decode and "
+              f"resize included), in memory {ENTRY_SCENES / memory_s:.1f} "
+              f"images/s ({memory_s:.3f} s); the loader alone {loader_s:.3f} s "
+              f"for the split; per batch of {ENTRY_BATCH}: host decode "
+              f"{decode_ms * ENTRY_BATCH:.1f} ms, resize on the card "
+              f"{resize_ms * ENTRY_BATCH:.1f} ms (PIL's decode of the same "
+              f"files on the host: "
+              f"{'not installed' if pil_ms is None else f'{pil_ms * ENTRY_BATCH:.1f} ms'}"
+              f"); the loader's share of the wall time "
+              f"{1 - memory_s / cli_s:.3f}", flush=True)
+        check_nvjpeg_and_resize(loader.dataset)
+        lane_predictions(call, batches)
+        del first, call, batches, memory, swapped
+    torch.cuda.empty_cache()
+    return launches
+
+
 def build_all():
-    """Builds the four kernels with one nvcc process each, in parallel."""
+    """Builds the four kernels and the nvJPEG binding with one nvcc process
+    each, in parallel."""
     from simseg_tpu_torch.ops import cuda_build
 
-    def build(name):
+    sources = [(name, ()) for name in KERNELS] + [("nvjpeg_decode", ("-lnvjpeg",))]
+
+    def build(job):
         t0 = time.perf_counter()
-        cuda_build.build_library(name)
+        cuda_build.build_library(*job)
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        seconds = list(pool.map(build, KERNELS))
-    for name, sec in zip(KERNELS, seconds):
+    with ThreadPoolExecutor(len(sources)) as pool:
+        seconds = list(pool.map(build, sources))
+    for (name, _), sec in zip(sources, seconds):
         print(f"build: {name}.cu in {sec:.2f} s", flush=True)
 
 
@@ -2351,6 +2770,12 @@ def main() -> None:
         return compare_bilateral_trees(sys.argv[2:])
     import simseg_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if sys.argv[1:2] == ["--entry-point"]:
+        print(f"card: {card_line()}", flush=True)
+        build_all()
+        run_entry_point()
+        return None
+
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
@@ -2398,16 +2823,21 @@ def main() -> None:
         train_counts, row_train_counts = run_train_slice(tmp)
     torch.cuda.empty_cache()
     run_lanes(tokenizer, classes)
+    entry = run_entry_point()
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/crf_mean_field.cu",
          "replaces": "simseg_tpu/ops/crf_fused.py:304",
-         "launches": crf_launches, "library_ms": None, **crf},
+         "launches": crf_launches,
+         "cli_launches": entry["auto"]["crf_mean_field"], "library_ms": None,
+         **crf},
         {"name": "flash_attention", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
          "replaces": "simseg_tpu/ops/flash_attention.py:180",
-         "launches": ms_counts["flash_attention"], **attn[LONG_T]},
+         "launches": ms_counts["flash_attention"],
+         "cli_launches": entry["scales (1.0, 2.0)"]["flash_attention"],
+         **attn[LONG_T]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "simseg_tpu/ops/flash_attention.py:202",
@@ -2415,11 +2845,13 @@ def main() -> None:
         {"name": "bilateral_matvec", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/bilateral_matvec.cu",
          "replaces": "simseg_tpu/ops/crf_pallas.py:125",
-         "launches": win_counts["bilateral_matvec"], **bilateral},
+         "launches": win_counts["bilateral_matvec"],
+         "cli_launches": entry["pallas"]["bilateral_matvec"], **bilateral},
         {"name": "seg_decode_tail", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/crf_mean_field.cu",
          "replaces": "simseg_tpu/ops/crf_fused.py:425",
-         "launches": tail_counts["seg_decode_tail"], **tail},
+         "launches": tail_counts["seg_decode_tail"],
+         "cli_launches": entry["fused_tail"]["seg_decode_tail"], **tail},
         {"name": "flash_attention (rowblock)", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
          "replaces": "simseg_tpu/ops/flash_attention.py:789",

@@ -18,20 +18,31 @@ a call is differentiated (``ops/attention.py``).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from simseg_tpu_torch.ops.losses import (mixup_nce, mse_embedding_loss,
                                          symmetric_info_nce, triplet_loss)
+from simseg_tpu_torch.utils import threefry
 
 
-def mixup_lambda(seed: int, step: int, alpha: float) -> float:
-    """Per-step Beta(alpha, alpha) mixup coefficient in [0.5, 1], drawn on
-    the host from (seed, step). JAX draws it with ``jax.random``; the two
-    give different numbers from the same seed."""
-    lam = float(np.random.default_rng([seed, step]).beta(alpha, alpha))
+# the fold tag of the draw (JAX ``MIXUP_FOLD_TAG``)
+MIXUP_FOLD_TAG = 0x7FFFFFFF
+
+
+def mixup_lambda(seed: Optional[int], step: int, alpha: float) -> float:
+    """Per-step Beta(alpha, alpha) mixup coefficient in [0.5, 1], JAX's
+    draw (``simseg_tpu/engine/train_step.py:56-66``) computed on the host
+    (``utils/threefry.py``): with ``runner.stable_random`` on, JAX's step
+    key ``fold_in(key(seed), step)`` folded with the tag; with it off
+    (``seed=None``), ``fold_in(key(0), step)``."""
+    if seed is not None:
+        k = threefry.fold_in(threefry.fold_in(threefry.key(seed), step),
+                             MIXUP_FOLD_TAG)
+    else:
+        k = threefry.fold_in(threefry.key(0), step)
+    lam = float(threefry.beta(k, alpha, alpha))
     return max(lam, 1.0 - lam)
 
 
@@ -54,7 +65,8 @@ def clip_loss_fn(
     mixes each image with its mirror in the batch, as the JAX step does on
     one device."""
     if loss_name == "MixUpNCE":
-        lam = mixup_lambda(seed, step, mixup_alpha_param)
+        lam = mixup_lambda(None if deterministic else seed, step,
+                           mixup_alpha_param)
         batch = dict(batch)
         batch["image"] = (lam * batch["image"]
                           + (1.0 - lam) * batch["image"].flip(0))

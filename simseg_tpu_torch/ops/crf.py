@@ -17,7 +17,10 @@ difference ``d = q_fg - q_bg``:
 
 The dense lane is the reference the hand-written kernels
 (``ops/crf_fused.py``, ``ops/crf_pallas.py``) are held against, and the
-lane every CPU tensor takes unless told otherwise. Float32 only.
+lane every CPU tensor takes unless told otherwise. It computes in float32,
+or with ``compute_dtype="bfloat16"`` in bf16 as JAX's bf16 lane does
+(fine-grid tensors rounded to bf16 after each step, products summed in
+float32); the kernel lanes are float32 and refuse bf16.
 """
 
 from __future__ import annotations
@@ -43,10 +46,23 @@ def band_matrix(n: int, taps: np.ndarray) -> np.ndarray:
     return np.where((d >= 0) & (d < k), taps[np.clip(d, 0, k - 1)], 0.0)
 
 
+# ROADMAP queue 1 item 4 names what is left of the bf16 lane
+BF16_KERNELS_TODO = ("the CRF kernels compute in float32; bf16 variants of "
+                     "them are ROADMAP queue 1 item 4")
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b summed in float32 and returned in a's dtype (JAX's einsum with
+    ``preferred_element_type=float32`` then ``astype``)."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
 def _sep_blur(x: torch.Tensor, band_h: torch.Tensor,
               band_w: torch.Tensor) -> torch.Tensor:
     """Unnormalised separable blur of (..., H, W): rows, then columns."""
-    return torch.matmul(band_h.T, torch.matmul(x, band_w))
+    return _mm(band_h.T, _mm(x, band_w))
 
 
 def box_downsample(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -114,6 +130,7 @@ def dense_crf_batched_du(
     bilateral_compat: float = 10.0,
     bilateral_stride: int = 4,
     bilateral_impl: str = "auto",
+    compute_dtype: str = "auto",
 ) -> torch.Tensor:
     """Refine K binary maps per image from their unary difference.
 
@@ -121,15 +138,24 @@ def dense_crf_batched_du(
     rgb: (B, H, W, 3) images, 0..255 scale, any dtype.
     bilateral_impl: ``"auto"`` (``_resolve_bilateral_impl`` on du's device),
     ``"fused"``, ``"dense"`` or ``"stream"``.
+    compute_dtype: ``"auto"`` or ``"float32"`` (float32), ``"bfloat16"``
+    (the dense lane only: the kernel lanes raise NotImplementedError).
     Returns (B, K, H, W) int32 masks (1 = foreground).
     """
     bb, kk, h, w = du.shape
     s = bilateral_stride
     if h % s or w % s:
         raise ValueError(f"map {h}x{w} not divisible by stride {s}")
+    if compute_dtype not in ("auto", "float32", "bfloat16"):
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    cdt = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
     impl = bilateral_impl
     if impl == "auto":
         impl = _resolve_bilateral_impl(h, w, s, du.device.type == "cuda")
+    if cdt == torch.bfloat16 and impl in ("fused", "stream"):
+        raise NotImplementedError(
+            f"compute_dtype='bfloat16' on the {impl!r} CRF lane: "
+            f"{BF16_KERNELS_TODO}")
     if impl == "fused":
         from simseg_tpu_torch.ops.crf_fused import mean_field_fused
 
@@ -140,14 +166,15 @@ def dense_crf_batched_du(
             bilateral_compat=bilateral_compat, stride=s).to(torch.int32)
     if impl not in ("dense", "stream"):
         raise ValueError(f"unknown bilateral_impl {bilateral_impl!r}")
-    du = du.float()
+    du = du.float().to(cdt)
     dev = du.device
 
     taps = gaussian_taps(gaussian_sxy)
     band_h, band_w = (torch.tensor(band_matrix(n, taps), dtype=torch.float32,
                                    device=dev) for n in (h, w))
     ones = torch.ones((h, w), dtype=torch.float32, device=dev)
-    g_norm = torch.rsqrt(_sep_blur(ones, band_h, band_w) + 1e-20)  # (H, W)
+    g_norm = torch.rsqrt(_sep_blur(ones, band_h, band_w) + 1e-20).to(cdt)
+    band_h, band_w = band_h.to(cdt), band_w.to(cdt)
 
     n_small = (h // s) * (w // s)
     feat = bilateral_features(cell_colours(rgb, s), bilateral_sxy,
@@ -165,10 +192,11 @@ def dense_crf_batched_du(
             return bilateral_matvec_batched(feat, qn).transpose(1, 2)
     else:
         kmat = bilateral_kernel_matrix(feat)                       # (B, N, N)
-        b_norm = torch.rsqrt(kmat.sum(dim=2) + 1e-20)              # (B, N)
+        b_norm = torch.rsqrt(kmat.sum(dim=2) + 1e-20).to(cdt)      # (B, N)
+        kmat = kmat.to(cdt)
 
         def bilateral_apply(q: torch.Tensor) -> torch.Tensor:
-            return torch.matmul(q * b_norm[:, None, :], kmat.transpose(1, 2))
+            return _mm(q * b_norm[:, None, :], kmat.transpose(1, 2))
 
     def bilateral_message(d: torch.Tensor) -> torch.Tensor:
         # mean-splat with coarse-degree normalisation is the right

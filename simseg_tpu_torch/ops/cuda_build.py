@@ -3,7 +3,9 @@
 Each source under ``simseg_tpu_torch/csrc`` has a plain C interface; it is
 compiled with ``nvcc`` for ``sm_90a`` at first use into a shared library
 in ``simseg_tpu_torch/_build/`` (gitignored), named by the hash of the
-source and of the ``csrc`` headers it includes, and loaded with ``ctypes``.
+source and of the ``csrc`` headers it includes, linked against the CUDA
+toolkit libraries its caller names (``-lnvjpeg``), and loaded with
+``ctypes``.
 Nothing is prebuilt, and nothing here runs at import time.
 """
 
@@ -57,9 +59,10 @@ def source_digest(name: str, csrc: str = CSRC) -> str:
     return h.hexdigest()[:12]
 
 
-def build_library(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` (once per version of it and its headers);
-    returns the path of the shared library."""
+def build_library(name: str, link: tuple = ()) -> str:
+    """Compile ``csrc/<name>.cu`` (once per version of it and its headers),
+    linked with the flags ``link`` (e.g. ``("-lnvjpeg",)``); returns the
+    path of the shared library."""
     source = os.path.join(CSRC, f"{name}.cu")
     path = os.path.join(BUILD_DIR, f"lib{name}-{source_digest(name, CSRC)}.so")
     if os.path.exists(path):
@@ -67,7 +70,7 @@ def build_library(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, source]
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, source, *link]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n"
@@ -77,10 +80,10 @@ def build_library(name: str) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, with its
-    ``<name>_error_string`` (CUDA error code -> message) declared."""
-    lib = ctypes.CDLL(build_library(name))
+def load_library(name: str, link: tuple = ()) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` (``build_library``), with its
+    ``<name>_error_string`` (error code -> message) declared."""
+    lib = ctypes.CDLL(build_library(name, link))
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p

@@ -7,6 +7,8 @@ Parity: reference post-CRF cleanup ``tools/seg_evaluation.py:156-161`` —
 like BORDER_CONSTANT of the identity element (dilate pads with -inf, erode
 with +inf), so each window runs over valid taps only. Nearest resize uses
 cv2's source-index rule ``src = floor(dst * in / out)``.
+``binary_closing_matmul`` is the same closing for 0/1 masks as counts from
+banded matrix products (JAX ``binary_closing_matmul``, :65).
 """
 
 from __future__ import annotations
@@ -44,6 +46,39 @@ def erode(x: torch.Tensor, ksize: int = 7) -> torch.Tensor:
 def closing(x: torch.Tensor, ksize: int = 7) -> torch.Tensor:
     """dilate then erode (the reference's cleanup pair)."""
     return erode(dilate(x, ksize), ksize)
+
+
+def _binary_band(n: int, ksize: int, device) -> torch.Tensor:
+    """(n, n) float32 0/1 band: B[w, v] = 1 iff w lies in the window of
+    output v, [v - pad, v + ksize - 1 - pad] (``_window_pass``'s window)."""
+    i = torch.arange(n, device=device)
+    d = i[:, None] - i[None, :]
+    pad = ksize // 2
+    return ((d >= -pad) & (d <= ksize - 1 - pad)).float()
+
+
+def binary_closing_matmul(x: torch.Tensor, ksize: int = 7) -> torch.Tensor:
+    """``closing`` of 0/1-valued x (..., H, W) through band products: a
+    window max of 0/1 values is (count > 0), a window min is (count ==
+    the window's valid taps), each count one (H, W) x (W, W) product per
+    axis. Exact for inputs in {0, 1}: the counts are integers <= ksize.
+    Returns x's dtype."""
+    *lead, h, w = x.shape
+    v = x.reshape(-1, h, w).float()
+    band_w, band_h = _binary_band(w, ksize, x.device), _binary_band(h, ksize, x.device)
+    cnt_w, cnt_h = band_w.sum(0), band_h.sum(0)
+
+    def rows(t):
+        return torch.matmul(t, band_w)
+
+    def cols(t):
+        return torch.matmul(band_h.T, t)
+
+    v = (rows(v) > 0.5).float()                          # dilate along W
+    v = (cols(v) > 0.5).float()                          # dilate along H
+    v = (rows(v) >= cnt_w - 0.5).float()                 # erode along W
+    v = cols(v) >= cnt_h[:, None] - 0.5                  # erode along H
+    return v.to(x.dtype).reshape(*lead, h, w)
 
 
 def nearest_upsample(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -15,17 +15,31 @@ batched:
    card, where ``fused_eligible`` holds, one CUDA kernel runs both
    (``ops/crf_fused.mean_field_fused``); elsewhere ``dense_crf_batched_du``
    takes its auto lane (materialised K, or the streaming kernel past 4096
-   cells) and ``morphology.closing`` follows. Float32 throughout.
+   cells) and the closing follows.
 5. score-weighted masks, argmax with first-occurrence ties (:160-177)
 
-``crf_backend="fused_tail"`` is the JAX decode's opt-in lane (:162-189):
-on the card, where ``fused_eligible`` holds, steps 4-5 and the nearest
-upsample of step 3 run in one kernel (``ops/crf_fused.seg_decode_tail_fused``)
-on the patch-grid unaries; elsewhere, and always on the CPU, it takes the
-unfused chain on the materialised-K lane, as the JAX lane's default branch
-does (its ``bilateral_impl="fused_tail"`` resolves to that lane). The JAX
-decode's other knobs (the pinned ``crf_backend`` lanes "xla", "pallas"
-and "fused", ``morphology_impl``, ``compute_dtype``) are not ported.
+The knobs are JAX's (``simseg_tpu/ops/seg_decode.py:130-223``), routed
+as JAX routes them on the TPU with the card in the TPU's place:
+
+- ``crf_backend``: ``"auto"`` (on the card, where ``fused_eligible``
+  holds and ``morphology_impl`` is ``"auto"`` too, the one-kernel CRF +
+  closing above; otherwise the CRF's own auto lane), ``"xla"`` (the plain
+  chain, the CRF's ``"dense"`` lane), ``"pallas"`` (the bilateral kernel,
+  the CRF's ``"stream"`` lane), ``"fused"`` (the mean-field kernel without
+  its closing, then the closing ``morphology_impl`` selects) and
+  ``"fused_tail"`` (on the card, where ``fused_eligible`` holds, steps
+  3-5 in one kernel, ``ops/crf_fused.seg_decode_tail_fused``, on the
+  patch-grid unaries; elsewhere the unfused chain on the dense lane, as
+  JAX's default branch runs it). On the CPU every kernel lane runs its
+  plain version.
+- ``morphology_impl``: ``"window"`` (``morphology.closing``),
+  ``"matmul"`` (``morphology.binary_closing_matmul``, exact on the 0/1
+  masks) or ``"auto"`` (matmul on the card, window elsewhere).
+- ``compute_dtype``: ``"auto"`` and ``"float32"`` compute in float32 (the
+  port's auto is float32 on every device: its kernels are float32);
+  ``"bfloat16"`` runs the plain chain in bf16 and raises
+  NotImplementedError on a kernel lane (``pallas``, ``fused``,
+  ``fused_tail``, or ``auto`` where it resolves to a kernel).
 """
 
 from __future__ import annotations
@@ -34,13 +48,18 @@ from typing import Tuple
 
 import torch
 
-from simseg_tpu_torch.ops.crf import dense_crf_batched_du
+from simseg_tpu_torch.ops.crf import BF16_KERNELS_TODO, dense_crf_batched_du
 from simseg_tpu_torch.ops.crf_fused import (fused_eligible, mean_field_fused,
                                             seg_decode_tail_fused)
-from simseg_tpu_torch.ops.morphology import closing, nearest_upsample
+from simseg_tpu_torch.ops.morphology import (binary_closing_matmul, closing,
+                                             nearest_upsample)
 
-# the decode lanes the port has of the JAX ``crf_backend`` knob
-_CRF_BACKENDS = ("auto", "fused_tail")
+CRF_BACKENDS = ("auto", "xla", "pallas", "fused", "fused_tail")
+MORPHOLOGY_IMPLS = ("auto", "window", "matmul")
+COMPUTE_DTYPES = ("auto", "float32", "bfloat16")
+# JAX's crf_backend names -> the CRF's lane names (ops/crf.py)
+_CRF_LANES = {"auto": "auto", "xla": "dense", "pallas": "stream",
+              "fused": "fused", "fused_tail": "dense"}
 
 
 def shortlist(pooled: torch.Tensor, text_bank: torch.Tensor, top_cls_num: int,
@@ -98,7 +117,10 @@ def decode_tail(masks: torch.Tensor, cand_idx: torch.Tensor,
 def make_seg_decode_fn(num_classes: int, image_size: int, patch_size: int = 16,
                        top_cls_num: int = 10, candidate_classes: int = 5,
                        crf_iters: int = 3, bilateral_stride: int = 8,
-                       morphology_ksize: int = 7, crf_backend: str = "auto"):
+                       morphology_ksize: int = 7,
+                       morphology_impl: str = "auto",
+                       crf_backend: str = "auto",
+                       compute_dtype: str = "auto"):
     """Returns decode(dense, pooled, text_bank, raw_images) -> (pred, best_w):
 
     dense:      (B, N, D) per-token projected embeddings, L2-normalised
@@ -108,25 +130,35 @@ def make_seg_decode_fn(num_classes: int, image_size: int, patch_size: int = 16,
     pred:       (B, H, W) int32 class map (0 = background)
     best_w:     (B, H, W) f32 winning score * mask weight (0 where bg)
 
-    All inputs on one device; the CRF runs where they lie. crf_backend:
-    ``"auto"`` or ``"fused_tail"`` (see the module docstring).
+    All inputs on one device; the CRF runs where they lie. The knobs
+    ``crf_backend``, ``morphology_impl`` and ``compute_dtype`` are JAX's
+    (see the module docstring).
     """
-    if crf_backend not in _CRF_BACKENDS:
-        raise ValueError(f"crf_backend {crf_backend!r}: the port has "
-                         f"{_CRF_BACKENDS}")
+    for name, value, allowed in (("crf_backend", crf_backend, CRF_BACKENDS),
+                                 ("morphology_impl", morphology_impl,
+                                  MORPHOLOGY_IMPLS),
+                                 ("compute_dtype", compute_dtype,
+                                  COMPUTE_DTYPES)):
+        if value not in allowed:
+            raise ValueError(f"{name} {value!r}: one of {allowed}")
+    bf16 = compute_dtype == "bfloat16"
+    if bf16 and crf_backend in ("pallas", "fused", "fused_tail"):
+        raise NotImplementedError(
+            f"compute_dtype='bfloat16' with crf_backend={crf_backend!r}: "
+            f"{BF16_KERNELS_TODO}")
     grid = image_size // patch_size
     top_cls_num = min(top_cls_num, num_classes)
     candidate_classes = min(candidate_classes, top_cls_num)
+    eligible = fused_eligible(image_size, image_size, bilateral_stride)
 
     def decode(dense, pooled, text_bank, raw_images):
         if dense.shape[1] != grid * grid:
             raise ValueError(f"{dense.shape[1]} tokens for a {grid}x{grid} grid")
+        on_card = dense.device.type == "cuda"
         cand_idx, cand_scores, valid = shortlist(
             pooled, text_bank, top_cls_num, candidate_classes)
         du_coarse = coarse_unary(dense, text_bank, cand_idx, grid)
-        on_card = du_coarse.device.type == "cuda" and fused_eligible(
-            image_size, image_size, bilateral_stride)
-        if crf_backend == "fused_tail" and on_card:
+        if crf_backend == "fused_tail" and on_card and eligible:
             scores_eff = torch.where(valid, cand_scores,
                                      torch.zeros_like(cand_scores))
             return seg_decode_tail_fused(
@@ -134,19 +166,28 @@ def make_seg_decode_fn(num_classes: int, image_size: int, patch_size: int = 16,
                 du_factor=patch_size, num_iters=crf_iters,
                 stride=bilateral_stride, closing_ksize=morphology_ksize)
         du = nearest_upsample(du_coarse, patch_size).contiguous()
-        if crf_backend == "fused_tail":
-            masks = closing(dense_crf_batched_du(
-                du, raw_images, num_iters=crf_iters,
-                bilateral_stride=bilateral_stride,
-                bilateral_impl="dense").float(), morphology_ksize)
-        elif on_card:
+        if (crf_backend == "auto" and morphology_impl == "auto" and on_card
+                and eligible):
+            if bf16:
+                raise NotImplementedError(
+                    "compute_dtype='bfloat16' where crf_backend='auto' takes "
+                    f"the mean-field kernel: {BF16_KERNELS_TODO}")
             masks = mean_field_fused(du, raw_images, num_iters=crf_iters,
                                      stride=bilateral_stride,
                                      closing_ksize=morphology_ksize)
-        else:
-            masks = closing(dense_crf_batched_du(
-                du, raw_images, num_iters=crf_iters,
-                bilateral_stride=bilateral_stride).float(), morphology_ksize)
-        return decode_tail(masks, cand_idx, cand_scores, valid)
+            return decode_tail(masks, cand_idx, cand_scores, valid)
+        # the unfused chain (JAX ``_unfused(on_tpu)``, with on_tpu read as
+        # on the card)
+        masks = dense_crf_batched_du(
+            du, raw_images, num_iters=crf_iters,
+            bilateral_stride=bilateral_stride,
+            bilateral_impl=_CRF_LANES[crf_backend],
+            compute_dtype=compute_dtype)
+        impl = (morphology_impl if morphology_impl != "auto"
+                else ("matmul" if on_card else "window"))
+        op = binary_closing_matmul if impl == "matmul" else closing
+        masks = masks.to(torch.bfloat16 if bf16 else torch.float32)
+        return decode_tail(op(masks, morphology_ksize).float(), cand_idx,
+                           cand_scores, valid)
 
     return decode

@@ -11,9 +11,11 @@ The options the JAX version reads from its config tree are keywords here
 (``input_size``, ``mean``, ``std``, ``bilateral_stride``, ``max_length``,
 ``top_cls_num``, ``scales``, ``window_size``, ``window_stride`` for its
 ``seg_eval.scales`` / ``seg_eval.window`` multi-scale and sliding-window
-dense inference, and ``crf_backend`` for ``seg_eval.crf_backend``, "auto"
-or "fused_tail", see ``ops/seg_decode.py``). int8 towers are calibrated by
-``prepare_quant_params``; multi-process sharding is not ported.
+dense inference, and ``crf_backend`` / ``compute_dtype`` for
+``seg_eval.crf_backend`` / ``seg_eval.crf_dtype``, see
+``ops/seg_decode.py``); ``tools/seg_evaluation.py`` reads them from the
+config. int8 towers are calibrated by ``prepare_quant_params``;
+multi-process sharding is not ported.
 """
 
 from __future__ import annotations
@@ -104,7 +106,7 @@ def prepare_quant_params(model, *, input_size: int,
     if img_q != "none":
         if calib_images_u8 is not None:
             images = normalize_images(
-                torch.as_tensor(np.asarray(calib_images_u8)).to(device), mean, std)
+                torch.as_tensor(calib_images_u8).to(device), mean, std)
         elif img_q == "int8_static":
             raise ValueError(
                 "quant='int8_static' on the image tower needs calibration "
@@ -238,11 +240,11 @@ def make_seg_predict(model, num_classes: int, top_cls_num: int, *,
                      patch_size: Optional[int] = None,
                      scales: Sequence[float] = (1.0,), window_size: int = -1,
                      window_stride: int = -1, crf_backend: str = "auto",
-                     device=None):
+                     compute_dtype: str = "auto", device=None):
     """``predict(images_u8, text_bank) -> (pred, best_w)`` on ``device``
     (the model must be there): ``make_seg_features`` (the same keywords),
-    then the decode on the ``input_size`` canvas (``crf_backend`` as
-    ``make_seg_decode_fn`` takes it)."""
+    then the decode on the ``input_size`` canvas (``crf_backend`` and
+    ``compute_dtype`` as ``make_seg_decode_fn`` takes them)."""
     device = resolve_device(device)
     patch_size = patch_size or model.patch_size
     features = make_seg_features(
@@ -252,7 +254,8 @@ def make_seg_predict(model, num_classes: int, top_cls_num: int, *,
     decode = make_seg_decode_fn(
         num_classes=num_classes, image_size=input_size, patch_size=patch_size,
         top_cls_num=top_cls_num, candidate_classes=5,
-        bilateral_stride=bilateral_stride, crf_backend=crf_backend)
+        bilateral_stride=bilateral_stride, crf_backend=crf_backend,
+        compute_dtype=compute_dtype)
 
     @torch.no_grad()
     def predict(images_u8: torch.Tensor, text_bank: torch.Tensor):
@@ -270,7 +273,8 @@ def make_seg_forward(model, num_classes: int, top_cls_num: int, canvas: int, *,
                      patch_size: Optional[int] = None,
                      scales: Sequence[float] = (1.0,), window_size: int = -1,
                      window_stride: int = -1, crf_backend: str = "auto",
-                     return_pred: bool = False, device=None):
+                     compute_dtype: str = "auto", return_pred: bool = False,
+                     device=None):
     """``forward(images_u8, text_bank, labels_padded, gt_h, gt_w) ->
     (intersection, union[, resized preds])`` on ``device``:
     ``make_seg_predict`` plus the per-image nearest resize to the GT size
@@ -282,7 +286,8 @@ def make_seg_forward(model, num_classes: int, top_cls_num: int, canvas: int, *,
                                patch_size=patch_size, scales=scales,
                                window_size=window_size,
                                window_stride=window_stride,
-                               crf_backend=crf_backend, device=device)
+                               crf_backend=crf_backend,
+                               compute_dtype=compute_dtype, device=device)
 
     @torch.no_grad()
     def forward(images_u8, text_bank, labels_padded, gt_h, gt_w):
@@ -334,18 +339,20 @@ def evaluate_benchmark(loader: Iterable[dict], model, tokenizer,
                        bilateral_stride: int = 8, max_length: int = 25,
                        scales: Sequence[float] = (1.0,), window_size: int = -1,
                        window_stride: int = -1, crf_backend: str = "auto",
-                       calib_images: int = 32,
+                       compute_dtype: str = "auto",
+                       calib_images: Optional[int] = None,
                        device=None) -> Tuple[np.ndarray, float]:
     """Dataset mIoU. Returns (per-class IoU, mIoU). Moves ``model`` to
     ``device`` and into eval mode, and rebuilds the int8 towers' cached
     state (``prepare_quant_params``): an ``int8_static`` image tower
-    calibrates on the first ``calib_images`` images of ``loader`` (JAX's
-    ``SIMSEG_CALIB_IMAGES``, default 32), so the loader is read twice and a
-    one-shot iterator is refused.
+    calibrates on the first ``calib_images`` images of ``loader`` (when
+    None, the environment's ``SIMSEG_CALIB_IMAGES``, default 32, as JAX
+    reads it), so the loader is read twice and a one-shot iterator is
+    refused.
 
     loader: any iterable of batch dicts with ``image`` uint8 (B, S, S, 3),
-    ``mask_label`` (B, H, W) 255-padded, and optionally ``mask_h`` /
-    ``mask_w``. When it has a ``batch_size``, a ragged last batch is padded
+    a numpy array or a tensor on any device, ``mask_label`` (B, H, W)
+    255-padded, and optionally ``mask_h`` / ``mask_w``. When it has a ``batch_size``, a ragged last batch is padded
     to it with all-255 labels, as the JAX version pads to its compiled shape.
     When it has a ``dataset`` with ``max_label_size()``, the label canvas is
     raised up front to the largest GT side, rounded up to 64.
@@ -363,13 +370,15 @@ def evaluate_benchmark(loader: Iterable[dict], model, tokenizer,
                              "loader's first images and then evaluates it "
                              "from the start: pass a re-iterable loader, not "
                              "an iterator")
+        if calib_images is None:
+            calib_images = int(os.environ.get("SIMSEG_CALIB_IMAGES", "32") or 32)
         chunks, have = [], 0
         for batch in loader:
-            chunks.append(np.asarray(batch["image"]))
+            chunks.append(torch.as_tensor(batch["image"]))
             have += chunks[-1].shape[0]
             if have >= calib_images:
                 break
-        calib = np.concatenate(chunks, axis=0)[:calib_images]
+        calib = torch.cat([c.to(device) for c in chunks])[:calib_images]
     prepare_quant_params(model, input_size=input_size, mean=mean, std=std,
                          calib_images_u8=calib, tokenizer=tokenizer,
                          classnames=seg_categories, max_length=max_length,
@@ -382,22 +391,23 @@ def evaluate_benchmark(loader: Iterable[dict], model, tokenizer,
                                bilateral_stride=bilateral_stride,
                                scales=scales, window_size=window_size,
                                window_stride=window_stride,
-                               crf_backend=crf_backend, device=device)
+                               crf_backend=crf_backend,
+                               compute_dtype=compute_dtype, device=device)
 
     full_batch = getattr(loader, "batch_size", None)
     total_i = np.zeros((num_classes,), np.float64)
     total_u = np.zeros((num_classes,), np.float64)
     count = 0
     for batch in loader:
-        images = np.asarray(batch["image"])
+        images = torch.as_tensor(batch["image"])
         labels = np.asarray(batch["mask_label"])
         b = images.shape[0]
         gt_h = np.asarray(batch.get("mask_h", [labels.shape[1]] * b), np.int64)
         gt_w = np.asarray(batch.get("mask_w", [labels.shape[2]] * b), np.int64)
         if full_batch and b < full_batch:
             pad = full_batch - b
-            images = np.concatenate(
-                [images, np.zeros((pad,) + images.shape[1:], images.dtype)])
+            images = torch.cat([images, images.new_zeros(
+                (pad,) + tuple(images.shape[1:]))])
             labels = np.concatenate(
                 [labels, np.full((pad,) + labels.shape[1:], 255, labels.dtype)])
             gt_h = np.concatenate([gt_h, np.ones(pad, np.int64)])
@@ -408,7 +418,7 @@ def evaluate_benchmark(loader: Iterable[dict], model, tokenizer,
         padded = np.full((labels.shape[0], canvas, canvas), 255, np.int64)
         padded[:, :labels.shape[1], :labels.shape[2]] = labels
         inter, union = forward(
-            torch.from_numpy(images), text_bank, torch.from_numpy(padded),
+            images, text_bank, torch.from_numpy(padded),
             torch.from_numpy(gt_h), torch.from_numpy(gt_w))
         total_i += inter.double().cpu().numpy()
         total_u += union.double().cpu().numpy()

@@ -129,8 +129,9 @@ def test_fused_tail_decode_matches_jax(name):
     assert torch.equal(pred, auto[0]) and torch.equal(best_w, auto[1])
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas", "stream", "fused"])
+@pytest.mark.parametrize("backend", ["stream", "dense", "tail", "Fused"])
 def test_unknown_crf_backend_raises(backend):
+    """Names outside JAX's set (the CRF-level lane names included)."""
     with pytest.raises(ValueError, match="fused_tail"):
         make_seg_decode_fn(num_classes=4, image_size=32, patch_size=8,
                            crf_backend=backend)

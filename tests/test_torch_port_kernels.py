@@ -17,7 +17,9 @@ is exact; a quantised or token-merging tower on the card is held against
 the same code on the CPU in float32 (a layer's int8 input codes equal on
 >= 99.99% of entries on the same input, gather maps on >= 99.9%,
 per-token cosine >= 0.9999, 0.999 for a quantised tower: float32 summation
-order can move an activation across a rounding boundary).
+order can move an activation across a rounding boundary). The nvJPEG
+decode: >= 99% of channel values within 2 levels of PIL's (the IDCTs
+round differently); the resize on the card equal to the CPU's.
 """
 
 import copy
@@ -543,3 +545,49 @@ def test_quant_tower_on_the_card_matches_the_cpu(cuda_device, mode):
                                          card_layers[name].weight_q).cpu(),
                            acc_cpu), name
     assert _cosine(got, want) >= 0.999
+
+
+# -- image decode and resize on the card ----------------------------------------
+
+@pytest.mark.cuda
+def test_nvjpeg_decode_matches_pil_pixels(cuda_device):
+    """The committed 4:2:0 JPEG through nvJPEG (planes) and libjpeg's
+    upsampling and colour conversion: >= 99% of channel values within 2
+    levels of PIL's decode (the IDCTs round differently), one decode
+    counted; a grey JPEG comes out replicated."""
+    import io
+    import os
+
+    from simseg_tpu_torch.data import image_io
+
+    testdata = os.path.join(os.path.dirname(image_io.__file__), "_testdata")
+    with open(os.path.join(testdata, "scene.jpg"), "rb") as f:
+        data = f.read()
+    want = np.load(os.path.join(testdata, "scene_pil.npy")).astype(np.int32)
+    before = image_io.NVJPEG_DECODES
+    got = image_io.decode_rgb(data, "cuda")
+    assert image_io.NVJPEG_DECODES == before + 1
+    assert got.device.type == "cuda" and got.shape == want.shape
+    diff = np.abs(got.cpu().numpy().astype(np.int32) - want)
+    assert (diff <= 2).mean() >= 0.99
+    try:
+        from PIL import Image
+    except ImportError:
+        return
+    grey = io.BytesIO()
+    Image.fromarray(want[..., 1].astype(np.uint8)).save(grey, format="JPEG")
+    out = image_io.decode_rgb(grey.getvalue(), "cuda").cpu()
+    assert torch.equal(out[..., 0], out[..., 2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,out,kind", [
+    ((375, 500), (288, 288), "bilinear"), ((500, 333), (288, 288), "bilinear"),
+    ((150, 200), (288, 288), "bicubic"), ((7, 800), (1, 3), "bilinear")])
+def test_resize_on_the_card_is_the_cpu_resize(cuda_device, size, out, kind):
+    from simseg_tpu_torch.data.transforms import pil_resize
+
+    rng = np.random.default_rng(sum(size))
+    img = torch.from_numpy(rng.integers(0, 256, (*size, 3), dtype=np.uint8))
+    assert torch.equal(pil_resize(img.cuda(), out, kind).cpu(),
+                       pil_resize(img, out, kind))
