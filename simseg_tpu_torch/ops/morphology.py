@@ -48,25 +48,29 @@ def closing(x: torch.Tensor, ksize: int = 7) -> torch.Tensor:
     return erode(dilate(x, ksize), ksize)
 
 
-def _binary_band(n: int, ksize: int, device) -> torch.Tensor:
-    """(n, n) float32 0/1 band: B[w, v] = 1 iff w lies in the window of
-    output v, [v - pad, v + ksize - 1 - pad] (``_window_pass``'s window)."""
+def _binary_band(n: int, ksize: int, device, dtype) -> torch.Tensor:
+    """(n, n) 0/1 band: B[w, v] = 1 iff w lies in the window of output v,
+    [v - pad, v + ksize - 1 - pad] (``_window_pass``'s window)."""
     i = torch.arange(n, device=device)
     d = i[:, None] - i[None, :]
     pad = ksize // 2
-    return ((d >= -pad) & (d <= ksize - 1 - pad)).float()
+    return ((d >= -pad) & (d <= ksize - 1 - pad)).to(dtype)
 
 
 def binary_closing_matmul(x: torch.Tensor, ksize: int = 7) -> torch.Tensor:
     """``closing`` of 0/1-valued x (..., H, W) through band products: a
     window max of 0/1 values is (count > 0), a window min is (count ==
     the window's valid taps), each count one (H, W) x (W, W) product per
-    axis. Exact for inputs in {0, 1}: the counts are integers <= ksize.
-    Returns x's dtype."""
+    axis. Exact for inputs in {0, 1}: the counts are integers <= ksize,
+    exact in bf16 too, so on the card the products take bf16 operands (the
+    tensor cores, as JAX's take the MXU); float32 on the CPU. Returns x's
+    dtype."""
     *lead, h, w = x.shape
-    v = x.reshape(-1, h, w).float()
-    band_w, band_h = _binary_band(w, ksize, x.device), _binary_band(h, ksize, x.device)
-    cnt_w, cnt_h = band_w.sum(0), band_h.sum(0)
+    dot = torch.bfloat16 if x.device.type == "cuda" else torch.float32
+    v = x.reshape(-1, h, w).to(dot)
+    band_w = _binary_band(w, ksize, x.device, dot)
+    band_h = _binary_band(h, ksize, x.device, dot)
+    cnt_w, cnt_h = band_w.float().sum(0), band_h.float().sum(0)
 
     def rows(t):
         return torch.matmul(t, band_w)
@@ -74,9 +78,9 @@ def binary_closing_matmul(x: torch.Tensor, ksize: int = 7) -> torch.Tensor:
     def cols(t):
         return torch.matmul(band_h.T, t)
 
-    v = (rows(v) > 0.5).float()                          # dilate along W
-    v = (cols(v) > 0.5).float()                          # dilate along H
-    v = (rows(v) >= cnt_w - 0.5).float()                 # erode along W
+    v = (rows(v) > 0.5).to(dot)                          # dilate along W
+    v = (cols(v) > 0.5).to(dot)                          # dilate along H
+    v = (rows(v) >= cnt_w - 0.5).to(dot)                 # erode along W
     v = cols(v) >= cnt_h[:, None] - 0.5                  # erode along H
     return v.to(x.dtype).reshape(*lead, h, w)
 

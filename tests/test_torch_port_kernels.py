@@ -591,3 +591,16 @@ def test_resize_on_the_card_is_the_cpu_resize(cuda_device, size, out, kind):
     img = torch.from_numpy(rng.integers(0, 256, (*size, 3), dtype=np.uint8))
     assert torch.equal(pil_resize(img.cuda(), out, kind).cpu(),
                        pil_resize(img, out, kind))
+
+
+@pytest.mark.cuda
+def test_binary_closing_matmul_on_the_card_is_the_window_closing(cuda_device):
+    """bf16 band products on the card: exact on 0/1 masks (counts <= 7)."""
+    from simseg_tpu_torch.ops.morphology import binary_closing_matmul
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.random((3, 5, 96, 80)) < 0.4).astype(np.float32))
+    for k in (7, 4):
+        got = binary_closing_matmul(x.cuda(), k)
+        assert got.dtype == torch.float32
+        assert torch.equal(got.cpu(), closing(x, k))
