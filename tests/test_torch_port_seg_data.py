@@ -7,7 +7,8 @@ package's ``build_seg_valid_loader`` (``simseg_tpu/data/datasets.py:146-253,
 Bar: bit-equal ``image``, ``mask_label``, ``mask_h`` / ``mask_w``, the
 ragged last batch, ``len`` and ``max_label_size``, with the identity
 resize at 288 px, a real bilinear resize and a bicubic resize + centre
-crop. Beside them: JPEG files decoded on the CPU (PIL, as JAX), a
+crop, and the same files in the PASCAL-Context and COCO-Stuff layouts.
+Beside them: JPEG files decoded on the CPU (PIL, as JAX), a
 ``torch.distributed``-free shard of one, and an error inside a decode
 thread reaching the consumer.
 """
@@ -122,3 +123,39 @@ def test_decode_error_reaches_the_consumer(fixture_root, tmp_path):
     _, cfg = _cfgs(root, *TRANSFORMS["identity288"])
     with pytest.raises(ValueError, match="unsupported image format"):
         list(build_seg_valid_loader(cfg, "pascal_voc", device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["pascal_context", "coco_stuff"])
+def test_other_layouts_match_jax(fixture_root, tmp_path, name):
+    """The fixture's files rearranged into the PASCAL-Context and
+    COCO-Stuff layouts (COCO-Stuff: names from a glob of the image
+    directory, labels ``<name>_labelTrainIds.png``): the same batches as
+    JAX's loader, and the split's size."""
+    voc = os.path.join(fixture_root, "VOCdevkit", "VOC2012")
+    with open(os.path.join(voc, "ImageSets", "Segmentation", "val.txt")) as f:
+        names = [line.rstrip() for line in f]
+    root = str(tmp_path / name)
+    if name == "pascal_context":
+        base = os.path.join(root, "VOCdevkit", "VOC2010")
+        img_dir = os.path.join(base, "JPEGImages")
+        label_dir = os.path.join(base, "SegmentationClassContext")
+        os.makedirs(os.path.join(base, "ImageSets", "SegmentationContext"))
+        with open(os.path.join(base, "ImageSets", "SegmentationContext",
+                               "val.txt"), "w") as f:
+            f.write("\n".join(names))
+        suffix = ""
+    else:
+        base = os.path.join(root, "coco_stuff164k")
+        img_dir = os.path.join(base, "images", "val2017")
+        label_dir = os.path.join(base, "annotations", "val2017")
+        suffix = "_labelTrainIds"
+    os.makedirs(img_dir)
+    os.makedirs(label_dir)
+    for n in names:
+        shutil.copy(os.path.join(voc, "JPEGImages", f"{n}.jpg"), img_dir)
+        shutil.copy(os.path.join(voc, "SegmentationClass", f"{n}.png"),
+                    os.path.join(label_dir, f"{n}{suffix}.png"))
+    jcfg, cfg = _cfgs(root, *TRANSFORMS["resize200"])
+    loader = build_seg_valid_loader(cfg, name, device="cpu")
+    assert len(loader.dataset) == len(names)
+    _assert_loaders_equal(jax_loader(jcfg, name), loader)
