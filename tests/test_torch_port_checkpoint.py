@@ -123,3 +123,23 @@ def test_convert_keys_first_rule_wins():
     state = {"a.x": 1, "ab.y": 2, "c.z": 3}
     assert convert_keys(state, ["a.->b.", "ab.->d.", "a->e"]) == {
         "b.x": 1, "d.y": 2, "c.z": 3}
+
+
+def test_load_pretrained_params_chooses_by_extension(files, tmp_path):
+    """A ``.pth`` through the bridge (pos_embed resampled, as
+    ``load_clip_checkpoint`` gives it); anything else as the port's own
+    checkpoint directory, or a ``ckpt.dir`` through its latest pointer
+    (JAX ``load_pretrained_params``)."""
+    from simseg_tpu_torch.checkpoint import load_pretrained_params
+    from simseg_tpu_torch.checkpoint.native import save_checkpoint
+
+    want = _port_model(_params(32, 2))
+    load_clip_checkpoint(files["plain"], want)
+    got = load_pretrained_params(files["plain"], _port_model(_params(32, 3)))
+    for key, value in want.state_dict().items():
+        assert torch.equal(got.state_dict()[key], value), key
+    path = save_checkpoint(str(tmp_path), "step_checkpoint", want)
+    for source in (path, str(tmp_path)):
+        port = load_pretrained_params(source, _port_model(_params(32, 4)))
+        for key, value in want.state_dict().items():
+            assert torch.equal(port.state_dict()[key], value), (source, key)
