@@ -100,7 +100,7 @@ def png_files(draw):
     return write_png(samples, depth, colour, ftypes, palette), colour, depth
 
 
-@settings(max_examples=150, deadline=None)
+@settings(max_examples=150, deadline=None, derandomize=True)
 @given(png_files())
 def test_png_reader_matches_pil(case):
     data, colour, depth = case
