@@ -5,6 +5,7 @@
     python3 chip_smoke.py --crf-trees DIR [DIR ...]         (compare_crf_trees)
     python3 chip_smoke.py --bilateral-trees DIR [DIR ...]   (compare_bilateral_trees)
     python3 chip_smoke.py --entry-point                     (phases 1-2 and 8)
+    python3 chip_smoke.py --train-entry                     (phases 1-2 and 9)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
@@ -177,14 +178,45 @@ Phases (any failure raises, so the exit code is non-zero):
    against the xla lane's on >= 99.9% of pixels. Prints the CLI's and the
    in-memory images/s, the host decode and card resize ms per batch and
    the loader's share of the wall time.
+9. the pretraining entry point: a cc3m-layout set (``synth``: 3100 train
+   rows, 64 valid images with 2 captions each; ``synth2``: 384 train rows;
+   unfiltered PNG at 240-500 px from ``png_bytes`` and the committed JPEG;
+   captions from a seeded word list with commas and quotes) and its
+   WordPiece vocab; ``tasks.clip.train.main(argv)`` in this process with
+   ``configs/clip/simseg.vit-b.yaml`` and dotted overrides only (batch 128,
+   batch_size_val 64, one decode thread, validation every 4 steps), from
+   ``random.seed`` / ``np.random.seed`` 12: run A, 8 steps at the YAML's
+   224-px crop with AutoAugment, no attention-kernel launch; run B, the
+   same at the 576-px crop (T = 1297), batch 32, 6 steps, exactly 12
+   forward and 12 backward kernel launches a step and none from its
+   288-px validation; run C, ``data.train_type=debias`` over two sets, 4
+   steps; timed passes of runs A and B without validation, with 1 and 8
+   decode threads, 24 steps, the last 8 timed, beside the same batches in
+   memory (16 steps, the last 8 timed). Checks: run A's
+   first two batches bit-equal to the port's CPU loader from the same
+   seeds (planted fault: two images swapped after decode); step 1's loss
+   within 1e-2 of the float32 CPU step on the same batch and seeded
+   weights; the lr sequence the schedule's; finite losses; the card's
+   retrieval table on run A's last validation equal to float64 numpy
+   ranks, and R@1 = 1 both ways on a planted gallery (text = image + 1e-3
+   noise); the retrieval CLI on a ``valid.parquet`` of the valid set
+   (where pyarrow is installed; else ``evaluate_benchmark`` over the CSV
+   loader) with run A's checkpoint equal to run A's last validation
+   within 1e-6. Prints images/s through the entry point and in memory on
+   the same batches, the loader's share, the idle share, seconds per
+   validation pass, the host's decode and transform ms per batch and the
+   launches.
 It then prints one JSON line of kernel numbers (``cli_launches``: the
-kernel's launches in phase 8's lane that takes it), the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.
+kernel's launches in phase 8's lane that takes it; ``train_entry_launches``:
+in phase 9's run B), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import csv
 import json
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -1265,11 +1297,11 @@ class StepTimer:
 
         inner = CLIPRunner.batch_processor
 
-        def wrapped(runner, batch):
+        def wrapped(runner, batch, device_batch=None):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = inner(runner, batch)
+            out = inner(runner, batch, device_batch)
             end.record()
             self.events.append((start, end))
             self.losses.append(out["loss"])
@@ -2104,16 +2136,19 @@ NVJPEG_NEAR_BAR = 0.99       # share of channel values within 2 levels of PIL's
 NVJPEG_RESIZED_BAR = 0.5     # mean absolute difference after the resize
 
 
-def png_bytes(pixels, palette=None) -> bytes:
+def png_bytes(pixels, palette=None, paeth=True, level=6) -> bytes:
     """The script's own PNG writer: (H, W, 3) RGB with every row Paeth-
     filtered (PIL's encoder picks Paeth for nearly every row of such
-    scenes), or (H, W) palette indices with ``palette`` (n, 3), unfiltered
-    (as PIL writes palette images)."""
+    scenes) or, with ``paeth`` False, unfiltered, or (H, W) palette indices
+    with ``palette`` (n, 3), unfiltered (as PIL writes palette images);
+    zlib at ``level``."""
     import struct
     import zlib
 
     h, w = pixels.shape[:2]
-    if palette is None:
+    if palette is None and not paeth:
+        rows, colour, ftype = pixels.reshape(h, w * 3).astype(np.uint8), 2, 0
+    elif palette is None:
         x = pixels.reshape(h, w * 3).astype(np.int16)
         a = np.pad(x, ((0, 0), (3, 0)))[:, :-3]
         b = np.pad(x, ((1, 0), (0, 0)))[:-1]
@@ -2134,7 +2169,7 @@ def png_bytes(pixels, palette=None) -> bytes:
         b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
     if palette is not None:
         out += chunk(b"PLTE", palette.astype(np.uint8).tobytes())
-    return out + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b"")
+    return out + chunk(b"IDAT", zlib.compress(raw, level)) + chunk(b"IEND", b"")
 
 
 def voc_palette() -> np.ndarray:
@@ -2467,6 +2502,547 @@ def run_entry_point():
     return launches
 
 
+# -- phase 9: the pretraining entry point ----------------------------------------
+
+ENTRY_YAML = os.path.join("configs", "clip", "simseg.vit-b.yaml")
+TRAIN_ENTRY_ROWS = {"synth": 3100, "synth2": 384}   # cc3m-layout train rows
+TRAIN_ENTRY_IMAGES = 64                    # valid images, 2 captions each
+TRAIN_ENTRY_SIDES = (240, 500)
+TRAIN_ENTRY_JPEG_EVERY = 97                # train rows that read the JPEG
+TRAIN_ENTRY_SEED = 12                      # random / np.random before a run
+TRAIN_ENTRY_WORDS = (
+    "a", "photo", "of", "the", "red", "blue", "green", "white", "dog", "cat",
+    "car", "tree", "man", "woman", "child", "on", "in", "with", "near",
+    "street", "beach", "field", "water", "sky", "house", "bird", "playing",
+    "running", "sitting", "small", "big", "two", "people", "under", "and",
+    ",", '"')
+TRAIN_ENTRY_COMMON = ("data.train_name=[synth]", "data.valid_name=[synth]",
+                      "data.batch_size=128", "data.batch_size_val=64",
+                      "epoch=1", "log.interval_train=4",
+                      "runner.val_interval_steps=4", "data.num_workers=1")
+# run -> (overrides after the common ones, train steps)
+TRAIN_ENTRY_RUNS = {
+    "A": ((), 8),
+    # the JAX config's own 576-px override: T = 1297, the attention kernels
+    "B": (("transforms.random_resize_crop.size=576",
+           "transforms.input_size=576", "data.batch_size=32"), 6),
+    "C": (("data.train_type=debias", "data.train_name=[synth,synth2]",
+           "data.enable_valid=False"), 4),
+}
+# the timed passes: runs A and B again without validation (a pass inside
+# the window would let the loader fill its queue), with 1 and 8 decode
+# threads, 24 steps, the last 8 timed: the batches the loader makes ahead
+# while the first steps warm up (its queue of 4 and 2 staged) are used up
+# by then (16 steps timed from step 9 still held some of them)
+TRAIN_ENTRY_TIMED = {f"{run}{n}": (run, n) for run in ("A", "B") for n in (1, 8)}
+TRAIN_ENTRY_TIMED_STEPS = 24
+TRAIN_ENTRY_TIMED_LAST = 8
+TRAIN_ENTRY_LOSS_BAR = 1e-2                # phase 6's step bar
+
+
+def synth_photo(rng, h, w):
+    """A coarse colour field, two discs and a little noise: cheap to make,
+    with edges and texture for AutoAugment's ops."""
+    grid = rng.integers(0, 256, (6, 6, 3))
+    img = grid[np.arange(h) * 6 // h][:, np.arange(w) * 6 // w].astype(np.int16)
+    yy, xx = np.arange(h)[:, None] / h, np.arange(w)[None] / w
+    for _ in range(2):
+        cy, cx, r = rng.uniform(0.2, 0.8), rng.uniform(0.2, 0.8), rng.uniform(0.1, 0.3)
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rng.integers(0, 256, 3)
+    img += rng.integers(-6, 7, (h, w, 1), dtype=np.int16)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def synth_caption(rng):
+    """4-10 seeded words; some with a comma, some with a quoted word."""
+    words = [w for w in TRAIN_ENTRY_WORDS if w not in (",", '"')]
+    cap = list(rng.choice(words, int(rng.integers(4, 11))))
+    if rng.random() < 0.3:
+        cap[int(rng.integers(0, len(cap)))] += ","
+    if rng.random() < 0.2:
+        i = int(rng.integers(0, len(cap)))
+        cap[i] = f'"{cap[i]}"'
+    return " ".join(cap)
+
+
+def write_train_entry_fixture(root):
+    """The cc3m layout under ``root``: ``<set>/{train,valid}_anno.csv``
+    (image, caption, image_id, caption_id) and the images under
+    ``<set>/{train,valid}/``, unfiltered PNG from ``png_bytes`` at 240-500
+    px a side, plus the committed JPEG; the WordPiece vocab. Returns the
+    vocab file."""
+    testdata = os.path.join("simseg_tpu_torch", "data", "_testdata")
+    rng = np.random.default_rng(2012)
+    jobs = []                               # (path, seed, h, w)
+
+    def rows_for(base, split, n, per_image):
+        os.makedirs(os.path.join(base, split))
+        shutil.copy(os.path.join(testdata, "scene.jpg"),
+                    os.path.join(base, split, "scene.jpg"))
+        rows = []
+        for i in range(n):
+            image = i // per_image
+            if split == "train" and i % TRAIN_ENTRY_JPEG_EVERY == 5:
+                name = "scene.jpg"
+            elif split == "valid" and image == 5:
+                name = "scene.jpg"
+            else:
+                name = f"{split}_{image:05d}.png"
+                if i % per_image == 0:
+                    h, w = (int(v) for v in rng.integers(*TRAIN_ENTRY_SIDES, 2))
+                    jobs.append((os.path.join(base, split, name),
+                                 int(rng.integers(2**31)), h, w))
+            rows.append([name, synth_caption(rng), image, i])
+        with open(os.path.join(base, f"{split}_anno.csv"), "w", newline="",
+                  encoding="utf-8") as f:
+            writer = csv.writer(f)
+            writer.writerow(["image", "caption", "image_id", "caption_id"])
+            writer.writerows(rows)
+
+    for name, n in TRAIN_ENTRY_ROWS.items():
+        rows_for(os.path.join(root, name), "train", n, 1)
+    rows_for(os.path.join(root, "synth"), "valid", 2 * TRAIN_ENTRY_IMAGES, 2)
+
+    def write(job):
+        path, seed, h, w = job
+        with open(path, "wb") as f:
+            f.write(png_bytes(synth_photo(np.random.default_rng(seed), h, w),
+                              paeth=False, level=1))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    from simseg_tpu_torch.data.tokenizer import make_test_vocab
+
+    vocab = os.path.join(root, "vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(make_test_vocab(TRAIN_ENTRY_WORDS)) + "\n")
+    return vocab
+
+
+def train_entry_argv(label, root, vocab):
+    """Run ``label``'s argv: a run of ``TRAIN_ENTRY_RUNS`` or a timed pass
+    of ``TRAIN_ENTRY_TIMED``; checkpoints under ``root``."""
+    run, threads = TRAIN_ENTRY_TIMED.get(label, (label, None))
+    extra, steps = TRAIN_ENTRY_RUNS[run]
+    if threads is not None:
+        extra = extra + (f"data.num_workers={threads}", "data.enable_valid=False")
+        steps = TRAIN_ENTRY_TIMED_STEPS
+    return (["--cfg", ENTRY_YAML, "--vocab_file", vocab,
+             f"data.data_path={root}/", f"ckpt.dir={root}/{label}",
+             f"data.train_steps={steps}", *TRAIN_ENTRY_COMMON, *extra])
+
+
+def parse_entry(argv):
+    from simseg_tpu_torch.config import new_base_cfg
+    from simseg_tpu_torch.tasks.clip.train import parse_args
+
+    cfg = new_base_cfg()
+    parse_args(argv, target=cfg)
+    return cfg
+
+
+def run_train_main(label, argv, keep=2):
+    """``tasks.clip.train.main(argv)`` from ``TRAIN_ENTRY_SEED``, the counts
+    set to 0 just before it and read just after. Records the first ``keep``
+    host batches, each step's loss, lr and CUDA events, each validation
+    pass's seconds (host clock, synchronised) and step, and the last pass's
+    embeddings, ids and table. Returns (runner, record, counts, wall s)."""
+    from simseg_tpu_torch.core import runner as runner_mod
+    from simseg_tpu_torch.core.train_hooks import RetrievalEvalHook
+    from simseg_tpu_torch.tasks.clip import train as entry
+
+    rec = {"batches": [], "losses": [], "lrs": [], "events": [], "val": [],
+           "last_val": None}
+    step_fn = runner_mod.CLIPRunner.batch_processor
+    val_fn = runner_mod.EpochRunner.val
+    after_val = RetrievalEvalHook.after_val_epoch
+
+    def step(runner, batch, device_batch=None):
+        if len(rec["batches"]) < keep:
+            rec["batches"].append(batch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn(runner, batch, device_batch)
+        end.record()
+        rec["events"].append((start, end))
+        rec["losses"].append(out["loss"])
+        rec["lrs"].append(out["lr"])
+        return out
+
+    def val(runner, loader, loader_idx=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val_fn(runner, loader, loader_idx)
+        torch.cuda.synchronize()
+        rec["val"].append((runner.step, time.perf_counter() - t0))
+
+    def keep_val(hook, runner):
+        emb = (torch.cat(hook._img), torch.cat(hook._txt),
+               np.concatenate(hook._iid), np.concatenate(hook._cid))
+        after_val(hook, runner)
+        rec["last_val"] = emb + (dict(runner.state.retrieval_summary),)
+
+    random.seed(TRAIN_ENTRY_SEED)
+    np.random.seed(TRAIN_ENTRY_SEED)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(runner_mod.CLIPRunner, "batch_processor", step), \
+            unittest.mock.patch.object(runner_mod.EpochRunner, "val", val), \
+            unittest.mock.patch.object(RetrievalEvalHook, "after_val_epoch",
+                                       keep_val):
+        runner = entry.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [x.item() for x in rec["losses"]]
+    rec["losses"] = losses
+    print(f"9 run {label}: main() in {wall:.3f} s (model build, loader, "
+          f"validation and checkpoint included), {len(losses)} steps, losses "
+          f"{[round(x, 5) for x in losses]}; validation passes "
+          f"{[(k, round(t, 3)) for k, t in rec['val']]} (after step, s); "
+          f"launches {counts}", flush=True)
+    if len(losses) != runner.train_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"9 run {label}: losses {losses}")
+    return runner, rec, counts, wall
+
+
+def entry_ms_per_step(rec, warmup=2):
+    """The mean ms per train step from the start of step ``warmup + 1`` to
+    the end of the last (CUDA events: loader stalls between steps count);
+    a run without validation."""
+    torch.cuda.synchronize()
+    if rec["val"]:
+        raise AssertionError("9: a timed pass ran validation")
+    timed = rec["events"][warmup:]
+    return timed[0][0].elapsed_time(timed[-1][1]) / len(timed)
+
+
+def ranks64(left, lgid, right, rgid):
+    """The first-match rank rule of ``utils/retrieval.py`` in float64 numpy."""
+    sim = left @ right.T
+    match = lgid[:, None] == rgid[None, :]
+    best = np.where(match, sim, -np.inf).max(1)
+    return np.where(match.any(1), (sim > best[:, None]).sum(1), -1)
+
+
+def retrieval64(img, txt, iid):
+    """(table, text-to-image ranks) of ``retrieval_summary`` in float64."""
+    order = np.argsort(iid, kind="stable")
+    uni, counts = np.unique(iid[order], return_counts=True)
+    gallery = img[order[np.cumsum(counts) - 1]]
+    i2t = ranks64(gallery, uni, txt, iid)
+    t2i = ranks64(txt, iid, gallery, uni)
+    out = {}
+    for name, r in (("i2t", i2t), ("t2i", t2i)):
+        for k in (1, 5, 10):
+            out[f"{name}_R@{k}"] = float(((r >= 0) & (r < k)).sum() / (r >= 0).sum())
+    out["rsum"] = 100.0 * sum(out.values())
+    return out, t2i
+
+
+def check_retrieval_ranking(last_val):
+    """9: the card's table on run A's last validation embeddings against
+    float64 numpy ranks; a planted gallery (text = its image + 1e-3 noise)
+    at R@1 = 1 both ways on the card and in float64."""
+    from simseg_tpu_torch.utils.retrieval import (IndexedEmb, first_match_ranks,
+                                                  retrieval_summary)
+
+    img, txt, iid, _, table = last_val
+    want, t2i = retrieval64(img.double().cpu().numpy(),
+                            txt.double().cpu().numpy(), iid)
+    gallery = IndexedEmb("image", iid, img).unique()
+    card_t2i = first_match_ranks(IndexedEmb("text", iid, txt), gallery)
+    moved = int((card_t2i != t2i).sum())
+    rng = np.random.default_rng(9)
+    base = rng.normal(size=(TRAIN_ENTRY_IMAGES, img.shape[1]))
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    pid = np.repeat(np.arange(TRAIN_ENTRY_IMAGES), 2)
+    ptxt = base[pid] + 1e-3 * rng.normal(size=(len(pid), img.shape[1]))
+    planted = retrieval_summary(torch.from_numpy(base[pid]).float().cuda(),
+                                torch.from_numpy(ptxt).float().cuda(), pid,
+                                np.arange(len(pid)))
+    planted64, _ = retrieval64(base[pid], ptxt, pid)
+    print(f"9 retrieval ({card_line()}): run A's last validation on the card "
+          f"{table}; float64 ranks give {want}; text-to-image ranks that "
+          f"differ {moved}/{len(t2i)}; planted gallery (text = image + 1e-3 "
+          f"noise) R@1 card i2t {planted['i2t_R@1']} t2i {planted['t2i_R@1']}, "
+          f"float64 {planted64['i2t_R@1']} {planted64['t2i_R@1']}", flush=True)
+    if any(abs(table[k] - want[k]) > 1e-9 for k in want):
+        raise AssertionError(f"9: retrieval table {table} vs float64 {want}")
+    if min(planted["i2t_R@1"], planted["t2i_R@1"], planted64["i2t_R@1"],
+           planted64["t2i_R@1"]) != 1.0:
+        raise AssertionError(f"9: planted gallery R@1 {planted} / {planted64}")
+
+
+def check_loader_drift(argv, rec, vocab):
+    """9: run A's first two batches as the entry point got them against the
+    port's loader on the CPU from the same seeds, bit for bit; a planted
+    fault (two images of batch 1 swapped after decode) must fail."""
+    from simseg_tpu_torch.data.datasets import build_clip_dataloaders
+    from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
+
+    cfg = parse_entry(argv)
+    random.seed(TRAIN_ENTRY_SEED)
+    np.random.seed(TRAIN_ENTRY_SEED)
+    loader = build_clip_dataloaders(
+        cfg, WordPieceTokenizer.from_vocab_file(vocab))["train"][0]
+    loader.set_epoch(0)
+    it = iter(loader)
+    cpu = [next(it) for _ in rec["batches"]]
+    it.close()
+
+    def same(a, b):
+        return (torch.equal(a["image"], b["image"])
+                and all(np.array_equal(a[k], b[k])
+                        for k in ("input_ids", "attention_mask")))
+
+    equal = [same(a, b) for a, b in zip(rec["batches"], cpu)]
+    swapped = dict(rec["batches"][0])
+    swapped["image"] = swapped["image"][[1, 0] + list(range(2, len(swapped["image"])))]
+    planted = same(swapped, cpu[0])
+    print(f"9 drift: run A's steps 1-2 (images {tuple(cpu[0]['image'].shape)} "
+          f"uint8, token ids) bit-equal to the CPU loader's {equal}; planted "
+          f"fault (two images swapped after decode) equal {planted}", flush=True)
+    if not all(equal):
+        raise AssertionError("9: the entry point's batches drift from the loader's")
+    if planted:
+        raise AssertionError("9: the planted fault passed the drift check")
+
+
+def check_first_step_loss(argv, rec):
+    """9: step 1's loss on the card against the port's float32 CPU step on
+    the recorded batch, from the same seeded initial weights."""
+    from simseg_tpu_torch.data.transforms import normalize_images
+    from simseg_tpu_torch.engine.train_step import clip_loss_fn
+    from simseg_tpu_torch.models.clip import build_clip_model
+
+    cfg = parse_entry(list(argv) + ["dist.bf16=False"])
+    torch.manual_seed(int(cfg.seed or 0))
+    model = build_clip_model(cfg)
+    batch = rec["batches"][0]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _ = clip_loss_fn(model, {
+            "image": normalize_images(batch["image"],
+                                      tuple(cfg.transforms.normalize.mean),
+                                      tuple(cfg.transforms.normalize.std)),
+            "input_ids": torch.as_tensor(batch["input_ids"]).long(),
+            "attention_mask": torch.as_tensor(batch["attention_mask"]).long()})
+    torch.set_num_threads(threads)
+    cpu, card = loss.item(), rec["losses"][0]
+    rel = abs(card - cpu) / abs(cpu)
+    print(f"9 step 1: loss on the card {card:.6f} (bf16 compute) vs the float32 "
+          f"CPU step {cpu:.6f} ({time.perf_counter() - t0:.1f} s), relative "
+          f"{rel:.3e} (bar {TRAIN_ENTRY_LOSS_BAR})", flush=True)
+    if rel > TRAIN_ENTRY_LOSS_BAR:
+        raise AssertionError(f"9: step 1 loss {card} vs {cpu}")
+
+
+def check_lr_sequence(runner, rec):
+    from simseg_tpu_torch.core.lr_schedule import build_schedule
+
+    schedule = build_schedule(runner.cfg, runner.total_steps)
+    want = [schedule(i) for i in range(len(rec["lrs"]))]
+    if rec["lrs"] != want:
+        raise AssertionError(f"9: lr sequence {rec['lrs']} vs {want}")
+
+
+def in_memory_train(argv, batches, ckpt, steps=16):
+    """The entry run's config on its own recorded batches, repeated, through
+    ``train`` with no loader and no validation: (ms per step over the last
+    ``TRAIN_ENTRY_TIMED_LAST`` steps, device ms of one step, images a
+    step)."""
+    from simseg_tpu_torch.tasks.clip.train import train
+
+    cfg = parse_entry(list(argv) + ["data.enable_valid=False",
+                                    "runner.val_interval_steps=-1",
+                                    f"data.train_steps={steps}",
+                                    f"ckpt.dir={ckpt}"])
+    loader = [batches[i % len(batches)] for i in range(steps)]
+    timer = StepTimer()
+    with timer.patch():
+        runner = train(cfg, {"train": [loader]})
+    ms, _ = timer.ms_per_step(steps - TRAIN_ENTRY_TIMED_LAST)
+    device = device_profile(lambda: runner.batch_processor(batches[0]),
+                            "9 in-memory train step", top=6)
+    b = len(batches[0]["image"])
+    del runner
+    torch.cuda.empty_cache()
+    return ms, device, b
+
+
+def host_batch_times(argv, vocab, n):
+    """ms for n train samples on one thread: file read + decode, the train
+    transforms, and the caption corruption + tokenisation."""
+    from simseg_tpu_torch.data.corruption import process_caption
+    from simseg_tpu_torch.data.datasets import build_clip_dataloaders
+    from simseg_tpu_torch.data.image_io import decode_rgb
+    from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
+
+    tok = WordPieceTokenizer.from_vocab_file(vocab)
+    cfg = parse_entry(argv)
+    ds = build_clip_dataloaders(cfg, tok)["train"][0].dataset.datasets[0]
+    decode = augment = text = 0.0
+    for i in range(n):
+        t0 = time.perf_counter()
+        with open(os.path.join(ds.image_base, ds.images[i]), "rb") as f:
+            image = decode_rgb(f.read(), "cpu")
+        t1 = time.perf_counter()
+        ds.transforms(image)
+        t2 = time.perf_counter()
+        tok([process_caption(tok, ds.captions[i], rng=random.Random(i))],
+            max_length=cfg.model.max_length)
+        decode += t1 - t0
+        augment += t2 - t1
+        text += time.perf_counter() - t2
+    return 1e3 * decode, 1e3 * augment, 1e3 * text
+
+
+def run_retrieval_cli(root, vocab, ckpt, want):
+    """9: the retrieval CLI on a ``valid.parquet`` of the valid set where
+    pyarrow is installed, else ``evaluate_benchmark`` over the CSV valid
+    loader; both on run A's checkpoint, against run A's last validation
+    table (the same weights, images and captions) within 1e-6."""
+    from simseg_tpu_torch.tools import retrieval_evaluation as cli
+
+    argv = ["--cfg", ENTRY_YAML, "--ckpt_path", ckpt, "--vocab_file", vocab,
+            f"data.data_path={root}/", "data.batch_size_val=64",
+            "data.num_workers=1"]
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except ImportError:
+        pa = None
+    t0 = time.perf_counter()
+    if pa is not None:
+        cols = {"imbytes": [], "caption": [], "image_id": [], "id": []}
+        with open(os.path.join(root, "synth", "valid_anno.csv"), newline="",
+                  encoding="utf-8") as f:
+            for row in csv.DictReader(f):
+                with open(os.path.join(root, "synth", "valid", row["image"]),
+                          "rb") as g:
+                    cols["imbytes"].append(g.read())
+                cols["caption"].append(row["caption"])
+                cols["image_id"].append(int(row["image_id"]))
+                cols["id"].append(int(row["caption_id"]))
+        os.makedirs(os.path.join(root, "synthpq"))
+        pq.write_table(pa.table(cols), os.path.join(root, "synthpq", "valid.parquet"))
+        table = cli.main(argv + ["data.valid_name=[synthpq]"])["synthpq"]
+        how = "the CLI's main() on valid.parquet (pyarrow)"
+    else:
+        from simseg_tpu_torch.checkpoint import load_pretrained_params
+        from simseg_tpu_torch.data.datasets import build_clip_dataloaders
+        from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
+        from simseg_tpu_torch.models.clip import build_clip_model
+
+        _, cfg = cli.parse_args(argv + ["data.valid_name=[synth]",
+                                        "data.train_name=[synth]"])
+        model = load_pretrained_params(ckpt, build_clip_model(cfg))
+        loader = build_clip_dataloaders(
+            cfg, WordPieceTokenizer.from_vocab_file(vocab))["val"][0]
+        table = cli.evaluate_benchmark(loader, model, cfg)
+        how = ("evaluate_benchmark over the CSV valid loader (pyarrow is not "
+               "installed, so no parquet)")
+    seconds = time.perf_counter() - t0
+    print(f"9 retrieval CLI ({card_line()}): {how} in {seconds:.3f} s: {table}; "
+          f"run A's last validation {want}", flush=True)
+    if any(abs(table[k] - want[k]) > 1e-6 for k in want):
+        raise AssertionError(f"9: the retrieval CLI {table} vs run A {want}")
+
+
+def module_check(name) -> str:
+    out = subprocess.run([sys.executable, "-c", f"import {name}; print("
+                          f"getattr({name}, '__version__', 'present'))"],
+                         capture_output=True, text=True)
+    return out.stdout.strip() if out.returncode == 0 else "missing"
+
+
+def run_train_entry():
+    """Phase 9: returns {run: launch counts}."""
+    print(f"9 host: pyarrow {module_check('pyarrow')}, PIL "
+          f"{module_check('PIL')}, pandas {module_check('pandas')}", flush=True)
+    card = card_line()
+    launches, batches, vals, timed = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        vocab = write_train_entry_fixture(root)
+        print(f"9 fixture: {sum(TRAIN_ENTRY_ROWS.values())} train rows and "
+              f"{TRAIN_ENTRY_IMAGES} valid images written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        argv = {k: train_entry_argv(k, root, vocab)
+                for k in list(TRAIN_ENTRY_RUNS) + list(TRAIN_ENTRY_TIMED)}
+
+        runner, rec, counts, _ = run_train_main("A", argv["A"])
+        launches["A"] = counts
+        if any(counts.values()):
+            raise AssertionError(f"9 run A: launches {counts}, want none at 224 px")
+        check_lr_sequence(runner, rec)
+        ckpt, last_val = runner.cfg.ckpt.dir, rec["last_val"]
+        batches["A"], vals["A"] = rec["batches"], [s for _, s in rec["val"]]
+        del runner
+        torch.cuda.empty_cache()
+        check_loader_drift(argv["A"], rec, vocab)
+        check_first_step_loss(argv["A"], rec)
+        check_retrieval_ranking(last_val)
+        run_retrieval_cli(root, vocab, ckpt, last_val[-1])
+        del rec, last_val
+
+        runner, rec, counts, _ = run_train_main("B", argv["B"])
+        launches["B"] = counts
+        steps = TRAIN_ENTRY_RUNS["B"][1]
+        want = {"flash_attention": 12 * steps, "flash_attention_bwd": 12 * steps,
+                "lane_train": 12 * steps}
+        if counts != {k: want.get(k, 0) for k in counts}:
+            raise AssertionError(f"9 run B: launches {counts}, want {want} (the "
+                                 "288-px validation takes no kernel)")
+        check_lr_sequence(runner, rec)
+        batches["B"], vals["B"] = rec["batches"], [s for _, s in rec["val"]]
+        del runner, rec
+        torch.cuda.empty_cache()
+
+        runner, rec, counts, _ = run_train_main("C", argv["C"], keep=0)
+        launches["C"] = counts
+        if any(counts.values()) or runner.step != TRAIN_ENTRY_RUNS["C"][1]:
+            raise AssertionError(f"9 run C: launches {counts}, step {runner.step}")
+        del runner, rec
+        torch.cuda.empty_cache()
+
+        for label in TRAIN_ENTRY_TIMED:
+            runner, rec, _, _ = run_train_main(label, argv[label], keep=0)
+            timed[label] = entry_ms_per_step(
+                rec, TRAIN_ENTRY_TIMED_STEPS - TRAIN_ENTRY_TIMED_LAST)
+            del runner, rec
+            torch.cuda.empty_cache()
+        memory = {run: in_memory_train(argv[run], batches[run],
+                                       os.path.join(root, f"{run}_memory"))
+                  for run in ("A", "B")}
+        host = {run: host_batch_times(argv[run], vocab, len(batches[run][0]["image"]))
+                for run in ("A", "B")}
+    for label, (run, threads) in TRAIN_ENTRY_TIMED.items():
+        ms, (mem, dev, b) = timed[label], memory[run]
+        print(f"9 run {run} timed, {threads} decode thread(s), batch {b} at "
+              f"{224 if run == 'A' else 576} px ({card}): the entry point "
+              f"{b / ms * 1e3:.1f} images/s ({ms:.3f} ms a step, the last "
+              f"{TRAIN_ENTRY_TIMED_LAST} of {TRAIN_ENTRY_TIMED_STEPS}), "
+              f"in memory {b / mem * 1e3:.1f} "
+              f"images/s ({mem:.3f} ms); the loader's share of the wall time "
+              f"{1 - mem / ms:.3f}; device {dev:.3f} ms a step, idle share "
+              f"{1 - dev / ms:.3f} through the entry point ({1 - dev / mem:.3f} "
+              f"in memory)", flush=True)
+    for run in ("A", "B"):
+        decode, augment, text = host[run]
+        print(f"9 run {run} ({card}): validation {[round(v, 3) for v in vals[run]]} "
+              f"s a pass (128 rows, 64 images); host, one thread, per batch of "
+              f"{len(batches[run][0]['image'])}: decode {decode:.1f} ms, train "
+              f"transforms {augment:.1f} ms, captions {text:.1f} ms", flush=True)
+    print(f"9 launches ({card}): {launches}", flush=True)
+    return launches
+
+
 def build_all():
     """Builds the four kernels and the nvJPEG binding with one nvcc process
     each, in parallel."""
@@ -2775,6 +3351,11 @@ def main() -> None:
         build_all()
         run_entry_point()
         return None
+    if sys.argv[1:2] == ["--train-entry"]:
+        print(f"card: {card_line()}", flush=True)
+        build_all()
+        run_train_entry()
+        return None
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
@@ -2824,6 +3405,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     run_lanes(tokenizer, classes)
     entry = run_entry_point()
+    train_entry = run_train_entry()
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",
@@ -2837,11 +3419,14 @@ def main() -> None:
          "replaces": "simseg_tpu/ops/flash_attention.py:180",
          "launches": ms_counts["flash_attention"],
          "cli_launches": entry["scales (1.0, 2.0)"]["flash_attention"],
+         "train_entry_launches": train_entry["B"]["flash_attention"],
          **attn[LONG_T]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "simseg_tpu/ops/flash_attention.py:202",
-         "launches": train_counts["flash_attention_bwd"], **attn_bwd},
+         "launches": train_counts["flash_attention_bwd"],
+         "train_entry_launches": train_entry["B"]["flash_attention_bwd"],
+         **attn_bwd},
         {"name": "bilateral_matvec", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/bilateral_matvec.cu",
          "replaces": "simseg_tpu/ops/crf_pallas.py:125",

@@ -17,8 +17,8 @@ device prefetch.
 
 from __future__ import annotations
 
-import itertools
-from typing import Any, Dict, List, Sequence
+import collections
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,8 +27,9 @@ from simseg_tpu_torch import resolve_device
 from simseg_tpu_torch.core.hooks import Hook, HookMode, LogMetrics, Priority
 from simseg_tpu_torch.core.lr_schedule import build_schedule
 from simseg_tpu_torch.core.optim import build_optimizer
+from simseg_tpu_torch.data.datasets import debias_batches, sequential_batches
 from simseg_tpu_torch.data.transforms import normalize_images
-from simseg_tpu_torch.engine.train_step import make_train_step
+from simseg_tpu_torch.engine.train_step import make_eval_step, make_train_step
 from simseg_tpu_torch.utils.collections import AttrDict
 
 _BATCH_KEYS = ("image", "input_ids", "attention_mask", "ignore_mask")
@@ -65,20 +66,19 @@ class EpochRunner(BaseRunner):
     def __init__(self, cfg, model: torch.nn.Module, dataloaders: Dict[str, Any],
                  device=None, tokenizer=None) -> None:
         super().__init__(cfg)
-        if dataloaders.get("val"):
-            raise NotImplementedError("validation during training (retrieval "
-                                      "eval) is not ported yet (ROADMAP queue "
-                                      "1 item 9)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.tokenizer = tokenizer
         self.train_loaders: Sequence = dataloaders.get("train") or []
+        self.val_loaders: Sequence = dataloaders.get("val") or []
         self.train_type = cfg.data.get("train_type", "shuffle")
 
         self.epoch = 0
         self.step = 0
         self.inner_step = 0
         self.max_epochs = cfg.epoch
+        self.val_interval = cfg.runner.val_interval
+        self.val_interval_steps = cfg.runner.val_interval_steps
 
         # steps math (parity: epoch_runner.py:39-65); a loader without a
         # length needs data.train_steps
@@ -104,7 +104,10 @@ class EpochRunner(BaseRunner):
     def build_step_fns(self) -> None:
         raise NotImplementedError
 
-    def batch_processor(self, batch) -> Dict[str, Any]:
+    def batch_processor(self, batch, device_batch=None) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def val_step(self, batch) -> None:
         raise NotImplementedError
 
     def init_hook(self) -> None:
@@ -114,9 +117,9 @@ class EpochRunner(BaseRunner):
         self.register_hook(LogHook(), Priority.VERY_LOW)
 
     # -- shared plumbing ------------------------------------------------------------
-    def _prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The step's tensors on the device: captions tokenized when the
-        batch has no ``input_ids``, uint8 images normalised there."""
+    def _host_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The step's tensors on the host: captions tokenized when the batch
+        has no ``input_ids``."""
         batch = dict(batch)
         if "input_ids" not in batch and "caption" in batch:
             if self.tokenizer is None:
@@ -125,9 +128,11 @@ class EpochRunner(BaseRunner):
                                  max_length=self.cfg.model.max_length)
             batch["input_ids"] = tok["input_ids"]
             batch["attention_mask"] = tok["attention_mask"]
-        out = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-               .to(self.device, non_blocking=True)
-               for k, v in batch.items() if k in _BATCH_KEYS}
+        return {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+                for k, v in batch.items() if k in _BATCH_KEYS}
+
+    def _finish_batch(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """uint8 images normalised and ids as int64, on the device."""
         if out["image"].dtype == torch.uint8:
             out["image"] = normalize_images(out["image"], self._norm_mean,
                                             self._norm_std)
@@ -136,6 +141,32 @@ class EpochRunner(BaseRunner):
                 out[k] = out[k].long()
         return out
 
+    def _prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The step's tensors on the device, uint8 images normalised there."""
+        return self._finish_batch({k: v.to(self.device, non_blocking=True)
+                                   for k, v in self._host_batch(batch).items()})
+
+    def _stage(self, batch: Dict[str, Any], stream) -> tuple:
+        """(device tensors, event): the batch's tensors pinned and copied on
+        ``stream``, the event recorded after the copies."""
+        host = {k: v.pin_memory() for k, v in self._host_batch(batch).items()}
+        with torch.cuda.stream(stream):
+            moved = {k: v.to(self.device, non_blocking=True)
+                     for k, v in host.items()}
+            event = torch.cuda.Event()
+            event.record(stream)
+        return moved, event
+
+    def _take_staged(self, staged) -> Dict[str, torch.Tensor]:
+        """A staged batch ready for the current stream."""
+        moved, event = staged
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(event)
+        for v in moved.values():
+            # the copy's memory belongs to the side stream's allocator pool
+            v.record_stream(current)
+        return self._finish_batch(moved)
+
     def _train_batch_iter(self):
         for loader in self.train_loaders:
             if hasattr(loader, "set_epoch"):
@@ -143,9 +174,9 @@ class EpochRunner(BaseRunner):
         if self.train_type == "shuffle":
             return iter(self.train_loaders[0])
         if self.train_type == "sequential":
-            return itertools.chain.from_iterable(self.train_loaders)
-        # 'debias' samples loaders by their sizes: with the dataset loader
-        # (ROADMAP queue 1 item 10)
+            return sequential_batches(self.train_loaders)
+        if self.train_type == "debias":
+            return debias_batches(self.train_loaders, seed=self.epoch)
         raise NotImplementedError(f"data.train_type '{self.train_type}'")
 
     # -- loops -------------------------------------------------------------------
@@ -154,13 +185,14 @@ class EpochRunner(BaseRunner):
         while self.epoch < self.max_epochs:
             self.train()
             self.epoch += 1
+            if (self.val_loaders and self.val_interval_steps < 0
+                    and self.epoch % self.val_interval == 0):
+                self._validate()
         self.call_hook("after_run")
 
-    def train(self) -> None:
-        self.model.train()
-        self.call_hook("_before_train_epoch")
-        start_inner = self.inner_step  # mid-epoch resume (clip_runner.py:267-278)
-        self.inner_step = 0
+    def _step_batch_stream(self, start_inner: int):
+        """(inner_step, batch) pairs honouring the train_steps cap and the
+        mid-epoch resume skip (clip_runner.py:267-278)."""
         for i, batch in enumerate(self._train_batch_iter()):
             if i >= self.train_steps:
                 # exactly train_steps steps when data.train_steps caps a
@@ -168,15 +200,76 @@ class EpochRunner(BaseRunner):
                 break
             if i < start_inner:
                 continue
+            yield i, batch
+
+    def _staged_stream(self, pairs, size: int):
+        """(inner_step, batch, staged) with the next ``size`` batches staged
+        on the card ahead of the step that reads them (JAX
+        ``_staged_stream``, ``simseg_tpu/core/runner.py:233-258``)."""
+        stream = torch.cuda.Stream(self.device)
+        ahead = collections.deque()
+        it = iter(pairs)
+
+        def put() -> bool:
+            try:
+                i, b = next(it)
+            except StopIteration:
+                return False
+            ahead.append((i, b, self._stage(b, stream)))
+            return True
+
+        for _ in range(size):
+            if not put():
+                break
+        while ahead:
+            put()
+            yield ahead.popleft()
+
+    def train(self) -> None:
+        self.model.train()
+        self.call_hook("_before_train_epoch")
+        start_inner = self.inner_step  # mid-epoch resume (clip_runner.py:267-278)
+        self.inner_step = 0
+        stream = self._step_batch_stream(start_inner)
+        prefetch = int(self.cfg.data.get("device_prefetch", 2))
+        if prefetch > 0 and self.device.type == "cuda":
+            stream = self._staged_stream(stream, prefetch)
+        else:
+            stream = ((i, b, None) for i, b in stream)
+        for i, batch, staged in stream:
             self.inner_step = i
             self.call_hook("_before_train_step")
-            self.outputs = self.batch_processor(batch)
+            device_batch = None if staged is None else self._take_staged(staged)
+            self.outputs = self.batch_processor(batch, device_batch)
             # count before the after-step hooks, so that a checkpoint records
             # the completed steps (parity: core/hooks/checkpoint.py:26)
             self.step += 1
             self.call_hook("_after_train_step")
+            if (self.val_interval_steps > 0
+                    and self.step % self.val_interval_steps == 0):
+                self._validate()
         self.inner_step = 0
         self.call_hook("_after_train_epoch")
+
+    def _validate(self) -> None:
+        for i, loader in enumerate(self.val_loaders):
+            self.val(loader, i)
+
+    def val(self, loader, loader_idx: int = 0) -> None:
+        """One pass over a validation loader (``data.val_steps`` > 0 caps
+        its batches)."""
+        self.state.val_loader_idx = loader_idx
+        val_steps = self.cfg.data.get("val_steps", -1)
+        self.state.val_steps = val_steps if val_steps > 0 else len(loader)
+        self.call_hook("_before_val_epoch")
+        for i, batch in enumerate(loader):
+            if 0 < val_steps <= i:
+                break
+            self.state.val_inner_step = i
+            self.call_hook("_before_val_step")
+            self.val_step(batch)
+            self.call_hook("_after_val_step")
+        self.call_hook("_after_val_epoch")
 
 
 class CLIPRunner(EpochRunner):
@@ -222,14 +315,34 @@ class CLIPRunner(EpochRunner):
             extra_losses=tuple(cfg.loss.get("extra_losses", []) or ()),
             seed=int(cfg.seed or 0),
         )
+        self._eval_fn = make_eval_step(self.model)
 
-    def batch_processor(self, batch) -> Dict[str, Any]:
+    def init_hook(self) -> None:
+        """parity: clip_runner.py:44-63 hook wiring."""
+        super().init_hook()
+        if self.val_loaders:
+            from simseg_tpu_torch.core.train_hooks import RetrievalEvalHook
+
+            self.register_hook(RetrievalEvalHook(), Priority.VERY_LOW)
+
+    def batch_processor(self, batch, device_batch: Optional[Dict] = None
+                        ) -> Dict[str, Any]:
         """One train step (parity: clip_runner.py:216-251); the metrics stay
-        on the device until a hook reads them."""
-        device_batch = self._prepare_batch(batch)
+        on the device until a hook reads them. ``device_batch``: the batch
+        already staged on the device, else prepared here."""
+        if device_batch is None:
+            device_batch = self._prepare_batch(batch)
         lr = self.lr_schedule(self.step)
         deterministic = self.cfg.runner.get("stable_random", "none") == "none"
         metrics = self._step_fn(device_batch, lr, self.step, deterministic)
         self.state.log_metrics.add_counter("samples",
                                            device_batch["image"].shape[0])
         return metrics
+
+    def val_step(self, batch) -> None:
+        """The batch's float32 embeddings (on the device) and ids into
+        ``outputs`` for the retrieval hook."""
+        img, txt = self._eval_fn(self._prepare_batch(batch))
+        self.outputs = {"image_emb": img, "text_emb": txt,
+                        "image_id": batch.get("image_id"),
+                        "caption_id": batch.get("caption_id")}

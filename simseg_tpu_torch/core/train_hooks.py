@@ -1,13 +1,14 @@
-"""Training hooks: logging and checkpointing (port of
-``simseg_tpu/core/train_hooks.py``: ``LogHook`` and ``CheckpointHook`` with
-the native backend; the retrieval, preemption, profile and wandb hooks are
-not ported yet).
+"""Training hooks: logging, checkpointing and retrieval validation (port
+of ``simseg_tpu/core/train_hooks.py``: ``LogHook``, ``CheckpointHook`` with
+the native backend and ``RetrievalEvalHook``; the preemption, profile and
+wandb hooks are not ported yet, ROADMAP queue 1 item 11).
 
 Parity: LogHook, reference ``core/hooks/log.py:64-146`` — a train line per
-interval with the step's metrics and step time; CheckpointHook,
-``core/hooks/checkpoint.py:80-187`` — step-interval and per-epoch
-checkpoints, auto-resume (mid-epoch included) and an external pretrained
-init.
+interval with the step's metrics and step time, validation progress;
+CheckpointHook, ``core/hooks/checkpoint.py:80-187`` — step-interval and
+per-epoch checkpoints, auto-resume (mid-epoch included) and an external
+pretrained init; RetrievalEvalHook, ``tasks/clip/hooks/eval.py:9-99`` —
+the validation embeddings collected, R@1/5/10 and RSUM at the end.
 """
 
 from __future__ import annotations
@@ -17,11 +18,13 @@ import time
 from typing import Any, Dict, List
 
 import numpy as np
+import torch
 
 from simseg_tpu_torch.checkpoint.native import (dump_config_snapshot,
                                                 has_checkpoint, load_checkpoint,
                                                 load_params, save_checkpoint)
 from simseg_tpu_torch.core.hooks import Hook
+from simseg_tpu_torch.utils.retrieval import retrieval_summary
 
 logger = logging.getLogger(__name__)
 
@@ -65,6 +68,19 @@ class LogHook(Hook):
                         f"{np.mean(self._step_times):.3f}s over "
                         f"{len(self._step_times)} steps")
         self._step_times = []
+
+    def after_val_epoch(self, runner) -> None:
+        """Restart the throughput window, so that the next train rate does
+        not count validation time."""
+        runner.state.log_metrics.pop_counter_rate("samples")
+
+    def after_val_step(self, runner) -> None:
+        """Validation progress (parity: log.py:111-123)."""
+        interval = runner.cfg.log.get("interval_val", 1)
+        i = runner.state.get("val_inner_step", 0)
+        if interval > 0 and (i + 1) % max(interval, 1) == 0:
+            logger.info(f"Val [{runner.state.get('val_loader_idx', 0)}]"
+                        f"[{i + 1}/{runner.state.get('val_steps', '?')}]")
 
 
 class CheckpointHook(Hook):
@@ -126,3 +142,39 @@ class CheckpointHook(Hook):
         meta["epoch"] = runner.epoch + 1
         meta["inner_step"] = 0
         self._save(runner, f"epoch_{runner.epoch + 1:03d}", meta)
+
+
+class RetrievalEvalHook(Hook):
+    """Collects each validation step's embeddings (on the device) and ids;
+    at the end of the pass, R@1/5/10 and RSUM over the rows whose image id
+    is not -1 (padding, eval.py:32-33), kept in
+    ``runner.state.retrieval_summary``. The gather across processes of the
+    JAX hook is not ported (ROADMAP queue 1 item 13)."""
+
+    def before_val_epoch(self, runner) -> None:
+        self._img, self._txt, self._iid, self._cid = [], [], [], []
+
+    def after_val_step(self, runner) -> None:
+        out = runner.outputs
+        self._img.append(out["image_emb"])
+        self._txt.append(out["text_emb"])
+        if out.get("image_id") is not None:
+            self._iid.append(np.asarray(out["image_id"]))
+            self._cid.append(np.asarray(out["caption_id"]))
+
+    def after_val_epoch(self, runner) -> None:
+        img = torch.cat(self._img)
+        txt = torch.cat(self._txt)
+        if self._iid:
+            iid = np.concatenate(self._iid)
+            cid = np.concatenate(self._cid)
+        else:
+            iid = np.arange(img.shape[0])
+            cid = np.arange(txt.shape[0])
+        keep = iid > -1
+        rows = torch.from_numpy(np.flatnonzero(keep)).to(img.device)
+        summary = retrieval_summary(img[rows], txt[rows], iid[keep], cid[keep])
+        runner.state.retrieval_summary = summary
+        pretty = " ".join(f"{k}: {v:.4f}" for k, v in summary.items())
+        logger.info(f"[retrieval val #{runner.state.get('val_loader_idx', 0)}] "
+                    f"{pretty}")

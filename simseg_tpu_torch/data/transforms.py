@@ -1,6 +1,6 @@
-"""Eval image transforms and device-side normalisation (port of
+"""Image transforms and device-side normalisation (port of
 ``simseg_tpu/data/transforms.py``: ``resize`` :40-43, ``resize_bicubic``
-:46-57, ``center_crop`` :60-69, the valid ``TransformPipeline`` :307-352,
+:46-57, ``center_crop`` :60-69, the ``TransformPipeline`` :307-352,
 ``build_transforms`` :496 and ``normalize_images`` :503-511).
 
 The JAX package resizes with PIL. The resize here is PIL's resample
@@ -13,8 +13,11 @@ horizontal pass rounded and clipped to uint8, then a vertical pass. A
 pass is skipped where its side keeps its size, as PIL skips it.
 ``F.interpolate(antialias=True)`` computes in float and does not match.
 
-Images are (H, W, 3) uint8 tensors on any device. The train-mode ops and
-random erasing are not ported (ROADMAP queue 1 item 10).
+Images are (H, W, 3) uint8 tensors on any device. Train mode runs PIL on
+the host (``data/train_transforms.py``, imported only there), so the eval
+path needs no PIL. The JAX package's native decode fast path
+(``TransformPipeline.load``, ``data/native.py``) is not ported (ROADMAP
+queue 1 item 10): ``data.native_decode`` is read as False.
 """
 
 from __future__ import annotations
@@ -164,17 +167,17 @@ class TransformPipeline:
 
     def __init__(self, cfg, mode: str = "valid"):
         if mode != "valid":
-            raise NotImplementedError(
-                f"transforms mode {mode!r}: the port has the eval transforms "
-                "only; the train-mode ops and random erasing are ROADMAP "
-                "queue 1 item 10")
+            raise ValueError(f"TransformPipeline takes mode 'valid', not "
+                             f"{mode!r}; build_transforms(cfg, 'train') gives "
+                             "the train pipeline")
         self.names: Sequence[str] = list(cfg.transforms.valid_transforms)
         self.mode = mode
         unknown = [n for n in self.names if n not in VALID_OPS]
         if unknown:
             raise NotImplementedError(
-                f"transforms {unknown}: the port has {sorted(VALID_OPS)}; the "
-                "other ops and random erasing are ROADMAP queue 1 item 10")
+                f"valid transforms {unknown}: the eval path has "
+                f"{sorted(VALID_OPS)} (deterministic, PIL-free); the random "
+                "ops belong in train_transforms")
         self.ops: List[Callable] = [VALID_OPS[n](cfg) for n in self.names]
 
     def __call__(self, img: torch.Tensor) -> torch.Tensor:
@@ -183,8 +186,14 @@ class TransformPipeline:
         return img
 
 
-def build_transforms(cfg, mode: str = "valid") -> TransformPipeline:
-    """The composed ops of ``cfg.transforms`` for ``mode`` (valid only)."""
+def build_transforms(cfg, mode: str = "valid"):
+    """The composed ops of ``cfg.transforms`` for ``mode``: 'valid', a
+    ``TransformPipeline``; 'train', ``train_transforms.TrainPipeline`` (PIL
+    on the host, imported only here)."""
+    if mode == "train":
+        from simseg_tpu_torch.data.train_transforms import TrainPipeline
+
+        return TrainPipeline(cfg)
     return TransformPipeline(cfg, mode)
 
 

@@ -1,5 +1,5 @@
 """The contrastive train step (port of ``simseg_tpu/engine/train_step.py``,
-single device).
+single device; and the retrieval eval step).
 
 Parity: reference hot loop ``tasks/clip/clip_runner.py:216-251``
 (batch_processor: forward -> loss dict -> backward -> step). One step is
@@ -129,3 +129,23 @@ def make_train_step(model, optimizer, smoothing: float = 0.0,
         return metrics
 
     return step_fn
+
+
+def make_eval_step(model) -> Callable:
+    """``eval_fn(batch) -> (image_emb, text_emb)`` in float32 for retrieval
+    validation (JAX ``make_eval_step``, ``simseg_tpu/engine/train_step.py:
+    447-460``): the model in eval mode under ``torch.no_grad``, its mode
+    restored after."""
+
+    def eval_fn(batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                img, txt, _ = model(batch, deterministic=True)
+        finally:
+            model.train(was_training)
+        return img.float(), txt.float()
+
+    return eval_fn

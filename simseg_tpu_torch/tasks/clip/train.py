@@ -1,27 +1,36 @@
 """CLIP pretraining entry point (port of ``simseg_tpu/tasks/clip/train.py``).
 
+    python -m simseg_tpu_torch.tasks.clip.train --cfg configs/clip/simseg.vit-b.yaml \
+        --vocab_file vocab.txt data.data_path=DIR/ [--device cpu] [a.b=value ...]
+
     train(cfg, {"train": [loader]})              # on CUDA
     train(cfg, {"train": [loader]}, device="cpu")
 
+``main(argv)`` parses the JAX entry point's arguments into a fresh config,
+reads the WordPiece tokenizer from ``--vocab_file`` (required: the port has
+no HuggingFace tokenizer), builds the CSV / parquet loaders
+(``build_clip_dataloaders``) and trains with retrieval validation through
+``train``, on ``--device`` (default: CUDA); it returns the runner.
 ``train`` builds the model from the config (seeded from ``cfg.seed``,
 float32 parameters, bf16 compute under ``dist.bf16``) and a ``CLIPRunner``
-over the given loaders, runs it and returns the runner. ``main()`` parses
-the JAX entry point's arguments into the config; the dataset loader that it
-would then build (``build_clip_dataloaders``) is not ported yet (ROADMAP
-queue 1 item 10), so it stops there rather than make up data.
+over the given loaders, runs it and returns the runner. The BSGS runner
+(``runner.name=clip_bsgs``) is not ported (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 from typing import Dict, Optional, Sequence
 
 import torch
 
 from simseg_tpu_torch import resolve_device
 from simseg_tpu_torch.config import cfg as global_cfg
-from simseg_tpu_torch.config import update_cfg
+from simseg_tpu_torch.config import new_base_cfg, update_cfg
 from simseg_tpu_torch.core.runner import CLIPRunner
+from simseg_tpu_torch.data.datasets import build_clip_dataloaders
+from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
 from simseg_tpu_torch.models.clip import build_clip_model
 from simseg_tpu_torch.tasks.clip.config import task_cfg_init_fn, update_clip_config
 
@@ -39,12 +48,17 @@ def train(cfg, loaders: Dict[str, Sequence], tokenizer=None,
 
 
 def parse_args(argv: Optional[Sequence[str]] = None, target=None):
-    """``--cfg file.yaml [--vocab_file f] [a.b=value ...]`` into the config
-    (JAX ``parse_args``, :24-32)."""
+    """``--cfg file.yaml [--vocab_file f] [--device d] [a.b=value ...]``
+    into the config ``target`` (default: the package's global tree; JAX
+    ``parse_args``, :24-32)."""
     parser = argparse.ArgumentParser(description="SimSeg CLIP pretraining")
     parser.add_argument("--cfg", type=str, required=True,
                         help="experiment configure file name")
-    parser.add_argument("--vocab_file", type=str, default="")
+    parser.add_argument("--vocab_file", type=str, default="",
+                        help="WordPiece vocab.txt (required by main: the port "
+                             "has no HuggingFace tokenizer)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: CUDA)")
     args, overrides = parser.parse_known_args(argv)
     update_cfg(task_cfg_init_fn, args.cfg, overrides,
                preprocess_fn=update_clip_config,
@@ -52,14 +66,23 @@ def parse_args(argv: Optional[Sequence[str]] = None, target=None):
     return args
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
-    parse_args(argv)
-    raise NotImplementedError(
-        "the CLIP pair dataset loader (build_clip_dataloaders) is not ported "
-        "yet (ROADMAP queue 1 item 10); call "
-        "simseg_tpu_torch.tasks.clip.train.train(cfg, {'train': [loader]}) "
-        "with your own batches")
+def main(argv: Optional[Sequence[str]] = None) -> CLIPRunner:
+    """Pretraining as the JAX entry point runs it (:35-60); returns the
+    runner after its run."""
+    cfg = new_base_cfg()
+    args = parse_args(argv, target=cfg)
+    if not args.vocab_file:
+        raise SystemExit("train: --vocab_file is required (the port tokenizes "
+                         "with WordPiece over a vocab.txt; it has no "
+                         "HuggingFace tokenizer)")
+    if cfg.runner.name not in ("clip", "clip_bsgs"):
+        raise NotImplementedError(f"runner '{cfg.runner.name}'")
+    device = resolve_device(args.device)
+    tokenizer = WordPieceTokenizer.from_vocab_file(args.vocab_file)
+    loaders = build_clip_dataloaders(cfg, tokenizer=tokenizer)
+    return train(cfg, loaders, tokenizer=tokenizer, device=device)
 
 
 if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     main()

@@ -282,3 +282,44 @@ def test_multi_scale_with_token_merging_matches_jax():
     np.testing.assert_array_equal(pred.numpy(), np.asarray(jpred))
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(u.numpy(), np.asarray(ju))
+
+
+
+# ------------------------------------------------------------- training
+
+GRAD_VITS = {
+    # the towers of the JAX package's own ToMe training tests
+    # (tests/test_tome.py:158, :262-279) and a deeper one
+    "r2": ("vit_test", 32, dict(tome_r=2)),
+    "sched_4_0": ("vit_test", 32, dict(tome_schedule=(4, 0))),
+    "depth4_r3": ("vit_test", 64, dict(depth=4, tome_r=3)),
+}
+
+
+@pytest.mark.parametrize("name", list(GRAD_VITS))
+def test_vit_tome_gradients_match_flax(name):
+    """The guard before training with ToMe: every parameter gradient of a
+    ToMe tower against ``jax.grad`` on the same weights, for the loss
+    sum(tokens * G) with a seeded G (JAX's own tests take mean(tokens²),
+    whose gradient the final LayerNorm leaves at float32 noise), within
+    1e-4 of each gradient's largest entry (the towers' float32 bar)."""
+    tag, size, arch = GRAD_VITS[name]
+    flax_vit, params, port = _vit_pair(tag, size, arch)
+    rng = np.random.default_rng(2)
+    images = rng.normal(size=(2, size, size, 3)).astype(np.float32)
+    cot = rng.normal(size=(2, 1 + (size // 8) ** 2, 32)).astype(np.float32)
+    want = jax.jit(jax.grad(lambda p: jnp.sum(
+        flax_vit.apply(p, jnp.asarray(images)) * cot)))(params)
+    prefix = "image_encoder.model.model."
+    want = {k[len(prefix):]: v.numpy() for k, v in flax_params_to_state_dict(
+        {"params": {"image_encoder": jax.tree.map(np.asarray,
+                                                  want["params"])}}).items()}
+    port.train()
+    torch.sum(port(torch.from_numpy(images)) * torch.from_numpy(cot)).backward()
+    got = {n: p.grad.numpy() for n, p in port.named_parameters()}
+    assert got.keys() == want.keys()
+    for key in got:
+        scale = float(np.abs(want[key]).max())
+        assert scale > 1e-3, key
+        np.testing.assert_allclose(got[key] / scale, want[key] / scale,
+                                   rtol=0, atol=1e-4, err_msg=key)

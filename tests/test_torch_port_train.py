@@ -530,3 +530,32 @@ def test_train_entry_tokenizes_captions(tmp_path):
     assert runner.step == 2 and np.isfinite(float(runner.outputs["loss"]))
     assert has_checkpoint(cfg.ckpt.dir)
     assert list(itertools.islice(runner.model.parameters(), 1))[0].device.type == "cpu"
+
+
+class _Val(Hook):
+    def __init__(self):
+        self.passes = []
+
+    def after_val_epoch(self, runner):
+        self.passes.append((runner.step, runner.state.val_steps,
+                            runner.state.retrieval_summary["rsum"]))
+
+
+def test_runner_validates_at_epoch_end_and_caps_val_steps(tmp_path):
+    """With ``runner.val_interval_steps`` < 0 the validation runs at each
+    ``val_interval``-th epoch's end (JAX ``EpochRunner.run``), capped at
+    ``data.val_steps`` batches; the model is back in train mode after."""
+    val = [dict(b, image_id=np.arange(4) // 2, caption_id=np.arange(4))
+           for b in _batches(3, seed=9)]
+    cfg, _ = _trees(TINY + FLAGSHIP_OPTIM + [
+        f"ckpt.dir={tmp_path}", "data.train_steps=2", "epoch=2",
+        "runner.val_interval=2", "runner.val_interval_steps=-1",
+        "data.val_steps=2"])
+    torch.manual_seed(0)
+    runner = CLIPRunner(cfg, build_clip_model(cfg),
+                        {"train": [_batches(2)], "val": [val]}, device="cpu")
+    hook = _Val()
+    runner.register_hook(hook, Priority.LOWEST)
+    runner.run()
+    assert [p[:2] for p in hook.passes] == [(4, 2)]
+    assert 0 < hook.passes[0][2] <= 600 and runner.model.training

@@ -1,0 +1,177 @@
+"""PyTorch port (simseg_tpu_torch): the pretraining entry point end to end
+against the JAX package's — ``tasks/clip/train.main(argv)`` on the CPU
+beside JAX's ``build_clip_dataloaders`` + ``CLIPRunner`` in process
+(``tests/test_runner.py``'s way), on the same CSV set, seeds and weights.
+
+The config is ``tests/test_train_cli.py:CLIP_YAML`` (vit_test and
+bert_test towers, 32 px, batch 8) with JAX's pretraining transforms
+``[random_resize_crop, autoaug]``, float32 (``dist.bf16=False``), one
+decode thread, 3 steps and retrieval validation after each step. JAX's
+initial parameters reach the port as a ``.pth`` through
+``ckpt.external_resume``.
+
+Bars: every train batch bit-equal (images, token ids); per-step losses
+within 1e-4 relative (float32 sums in another order, through three Adam
+steps); each validation's R@1/5/10 and RSUM within 1e-6.
+"""
+
+import random
+import unittest.mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import simseg_tpu_torch.core.runner as port_runner
+import simseg_tpu_torch.core.train_hooks as port_hooks
+from simseg_tpu.config import new_base_cfg as jax_new_base_cfg
+from simseg_tpu.config import update_cfg as jax_update_cfg
+from simseg_tpu.core.hooks import Hook as JaxHook
+from simseg_tpu.core.hooks import Priority as JaxPriority
+from simseg_tpu.core.runner import CLIPRunner as JaxRunner
+from simseg_tpu.data.datasets import build_clip_dataloaders as jax_build_loaders
+from simseg_tpu.data.tokenizer import WordPieceTokenizer as JaxTokenizer
+from simseg_tpu.models.clip import build_clip_model as jax_build_clip_model
+from simseg_tpu.tasks.clip.config import task_cfg_init_fn as jax_task_cfg_init_fn
+from simseg_tpu.tasks.clip.config import update_clip_config as jax_update_clip_config
+from simseg_tpu_torch.checkpoint.convert import flax_params_to_state_dict
+from simseg_tpu_torch.data.tokenizer import make_test_vocab
+from simseg_tpu_torch.tasks.clip import train as port_train
+from tests.test_torch_port_pair_data import WORDS, write_pair_set
+from tests.test_train_cli import CLIP_YAML
+
+torch.set_num_threads(2)
+
+STEPS = 3
+OVERRIDES = ["transforms.train_transforms=[random_resize_crop,autoaug]",
+             "transforms.random_resize_crop.size=32", "data.native_decode=False",
+             "data.train_name=[pairs]", "data.valid_name=[pairs]",
+             f"data.train_steps={STEPS}", "runner.val_interval_steps=1",
+             "runner.stable_random=none", "log.interval_train=1"]
+
+
+class _JaxRecord(JaxHook):
+    def __init__(self):
+        self.losses, self.summaries = [], []
+
+    def after_train_step(self, runner):
+        self.losses.append(float(runner.outputs["loss"]))
+
+    def after_val_epoch(self, runner):
+        self.summaries.append(dict(runner.state.retrieval_summary))
+
+
+def _jax_run(tmp_path, yaml, vocab, overrides):
+    """JAX's run, its batches and records, and its initial parameters."""
+    cfg = jax_update_cfg(jax_task_cfg_init_fn, yaml,
+                         overrides + [f"data.data_path={tmp_path}/data/",
+                                      f"ckpt.dir={tmp_path}/jax"],
+                         preprocess_fn=jax_update_clip_config,
+                         target=jax_new_base_cfg())
+    model = jax_build_clip_model(cfg)
+    # on the host: the runner's step donates its device copy
+    params = jax.tree.map(np.asarray, model.init(jax.random.key(0), {
+        "image": jnp.zeros((1, 32, 32, 3)),
+        "input_ids": jnp.zeros((1, 12), jnp.int32),
+        "attention_mask": jnp.ones((1, 12), jnp.int32)}))
+    batches = []
+    inner = JaxRunner.batch_processor
+
+    def keep(runner, batch, device_batch=None):
+        batches.append(batch)
+        return inner(runner, batch, device_batch)
+
+    random.seed(0)
+    np.random.seed(0)
+    loaders = jax_build_loaders(cfg, tokenizer=JaxTokenizer(dict(vocab)))
+    with unittest.mock.patch.object(JaxRunner, "batch_processor", keep):
+        runner = JaxRunner(cfg, model, loaders, params=params)
+        record = _JaxRecord()
+        runner.register_hook(record, JaxPriority.LOWEST)
+        runner.run()
+    return batches, record, params
+
+
+def _port_run(tmp_path, yaml, overrides):
+    """The port's ``main(argv)`` on the CPU from JAX's initial parameters:
+    (runner, batches, losses, validation tables)."""
+    batches, losses, summaries = [], [], []
+    inner = port_runner.CLIPRunner.batch_processor
+    after_val = port_hooks.RetrievalEvalHook.after_val_epoch
+
+    def keep(runner, batch, device_batch=None):
+        batches.append(batch)
+        out = inner(runner, batch, device_batch)
+        losses.append(float(out["loss"]))
+        return out
+
+    def keep_summary(hook, runner):
+        after_val(hook, runner)
+        summaries.append(dict(runner.state.retrieval_summary))
+
+    random.seed(0)
+    np.random.seed(0)
+    with unittest.mock.patch.object(port_runner.CLIPRunner, "batch_processor",
+                                    keep), \
+            unittest.mock.patch.object(port_hooks.RetrievalEvalHook,
+                                       "after_val_epoch", keep_summary):
+        runner = port_train.main(
+            ["--cfg", yaml, "--vocab_file", str(tmp_path / "vocab.txt"),
+             "--device", "cpu", f"data.data_path={tmp_path}/data/",
+             f"ckpt.dir={tmp_path}/port",
+             f"ckpt.external_resume={tmp_path}/init.pth"] + overrides)
+    return runner, batches, losses, summaries
+
+
+def _run_both(tmp_path, overrides):
+    yaml = tmp_path / "clip.yaml"
+    yaml.write_text(CLIP_YAML)
+    vocab = make_test_vocab(WORDS)
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    want_batches, want, params = _jax_run(tmp_path, str(yaml), vocab, overrides)
+    torch.save({"state_dict": flax_params_to_state_dict(
+        {"params": params["params"]})}, tmp_path / "init.pth")
+    runner, batches, losses, summaries = _port_run(tmp_path, str(yaml), overrides)
+    assert runner.step == STEPS and len(batches) == len(want_batches) == STEPS
+    for got, ref in zip(batches, want_batches):
+        np.testing.assert_array_equal(got["image"].numpy(), ref["image"])
+        for k in ("input_ids", "attention_mask"):
+            np.testing.assert_array_equal(got[k], ref[k])
+    np.testing.assert_allclose(losses, want.losses, rtol=1e-4)
+    return summaries, want.summaries
+
+
+def test_train_main_matches_jax(tmp_path):
+    """JAX's pretraining recipe in shuffle mode, validating after each
+    step."""
+    write_pair_set(tmp_path / "data", "pairs", 28, 16, seed=12)
+    summaries, want = _run_both(tmp_path, OVERRIDES)
+    assert len(summaries) == len(want) == STEPS
+    for got, ref in zip(summaries, want):
+        assert got.keys() == ref.keys()
+        for k in ref:
+            assert abs(got[k] - ref[k]) <= 1e-6 * max(1.0, abs(ref[k])), k
+
+
+MODES = {
+    "sequential": ["transforms.train_transforms=[random_resize_crop,autoaug]"],
+    # every loader's producer draws at once in debias mode (the module-level
+    # random interleaves by thread timing in both packages): ops without
+    # draws
+    "debias": ["transforms.train_transforms=[resize]"],
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_train_main_modes_match_jax(tmp_path, mode):
+    """The other two train modes over two sets (9 and 20 rows: the first
+    runs out within the 3 steps), no validation."""
+    write_pair_set(tmp_path / "data", "a", 9, 0, seed=13)
+    write_pair_set(tmp_path / "data", "b", 20, 0, seed=14)
+    overrides = [o for o in OVERRIDES if not o.startswith(
+        ("transforms.train_transforms", "data.train_name"))]
+    _run_both(tmp_path, overrides + MODES[mode] + [
+        f"data.train_type={mode}", "data.train_name=[a,b]",
+        "data.enable_valid=False"])

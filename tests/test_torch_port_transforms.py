@@ -5,7 +5,8 @@ package's ``build_transforms(cfg, "valid")``, which runs PIL's ops
 Bar: bit-equal, over image and target sizes drawn from 1 to 800 px, up
 and down, for ``resize`` (PIL bilinear), ``resize_bicubic`` (shorter side
 to the size, PIL bicubic), ``center_crop`` (PIL's zero fill where the crop
-leaves the image) and their compositions. The train-mode ops raise.
+leaves the image) and their compositions. A random op in the valid
+pipeline raises (the train mode is tests/test_torch_port_train_transforms.py).
 """
 
 import numpy as np
@@ -93,9 +94,13 @@ def test_coefficients_are_fixed_point_and_normalised():
 
 
 def test_train_mode_and_unported_ops_raise():
+    """Train mode builds (over PIL); the valid pipeline takes the three
+    deterministic ops only, and an unknown mode raises."""
     cfg = _cfgs(["resize"], 32, 16)[1]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_transforms(cfg, "train")
-    cfg = _cfgs(["random_erasing"], 32, 16)[1]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_transforms(cfg, "valid")
+    assert build_transforms(cfg, "train").mode == "train"
+    for ops in (["random_erasing"], ["resize", "autoaug"]):
+        cfg = _cfgs(ops, 32, 16)[1]
+        with pytest.raises(NotImplementedError, match="PIL-free"):
+            build_transforms(cfg, "valid")
+    with pytest.raises(ValueError, match="mode"):
+        build_transforms(cfg, "test")
