@@ -6,6 +6,7 @@
     python3 chip_smoke.py --bilateral-trees DIR [DIR ...]   (compare_bilateral_trees)
     python3 chip_smoke.py --entry-point                     (phases 1-2 and 8)
     python3 chip_smoke.py --train-entry                     (phases 1-2 and 9)
+    python3 chip_smoke.py --big-batch                       (phases 1-2 and 10)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
@@ -206,10 +207,38 @@ Phases (any failure raises, so the exit code is non-zero):
    the same batches, the loader's share, the idle share, seconds per
    validation pass, the host's decode and transform ms per batch and the
    launches.
+10. the YAML's batch of 1024 (``runner.name=clip_bsgs``, remat, gradient
+   accumulation, the towers' dropout), the flagship at full width with
+   ``TRAIN_OVERRIDES`` and float32 master weights: (a) one BSGS gradient of
+   a seeded batch against the plain step's on the same batch, 224 px batch
+   256 in micro-batches of 64 and 576 px batch 64 in micro-batches of 32:
+   loss within 1e-2, each tower's least gradient cosine >= 0.99 (the key
+   projections' biases left out: zero in exact arithmetic), 12 x micro-
+   batches forward launches without lse (pass 1), as many with lse and as
+   many backward (pass 2) at 576 px; planted fault: pass 2 on the left
+   matrices in reversed micro-batch order must fail the bars; (b) at 576 px,
+   batch 8, remat 'none' and 'dots' against no remat: loss bit-equal, each
+   gradient within 1e-6 of its largest entry, the train lane's forward
+   launches doubled under 'none'; (c) dropout 0.1 at every tower site: two
+   BSGS gradients with one key bit-equal, another key's different; (e)
+   ``train`` in memory, 5 steps, steps 3-5 timed (``StepTimer``), peak
+   ``max_memory_allocated``: BSGS 1024 / 128 at 224 px with and without
+   remat, BSGS 256 / 32 at 576 px (exact launches: 12 x 8 a pass a step),
+   the plain step at 128 (224 px), 32 (576 px) and 256 (224 px, with and
+   without remat); (f) ``optim.grad_accum_steps=2`` at 224 px, batch 128,
+   4 steps: finite losses, AdamW's step half the runner's; (d)
+   ``tasks.clip.train.main`` with ``runner.name=clip_bsgs``, batch 1024 in
+   micro-batches of 128, on phase 9's cc3m-layout fixture with 8 decode
+   threads (the deterministic resize to 224 px), 3 steps: finite losses,
+   no kernel launch; a run cut after its step-2 checkpoint and resumed
+   equals the uninterrupted run (step 3's loss and every parameter, bit
+   for bit). Prints images/s, ms a step and peak GiB of each, the launches
+   per BSGS step and its own wall time.
 It then prints one JSON line of kernel numbers (``cli_launches``: the
 kernel's launches in phase 8's lane that takes it; ``train_entry_launches``:
-in phase 9's run B), the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.
+in phase 9's run B; ``bsgs_launches``: per BSGS step of phase 10 at 576 px,
+batch 256 in micro-batches of 32), the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -636,6 +665,12 @@ def read_counts() -> dict:
               for name, (module, attr) in counters().items()}
     counts.update({f"lane_{k}": v for k, v in flash_attention.LANE_CALLS.items()})
     return counts
+
+
+def check_counts(label, counts, want):
+    """Exactly the launches ``want`` ({count: n}), every other count 0."""
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"{label}: launches {counts}, want {want}")
 
 
 def slice_setup():
@@ -1528,11 +1563,10 @@ def run_train_crop(tmp, tok, seed, size, b, want, input_size=None,
           f"{ms:.3f} ms per step (steps 3-{steps}; {inside:.3f} ms inside "
           f"batch_processor) = {b / (ms / 1e3):.1f} images/s; launches "
           f"{counts}", flush=True)
+    check_counts(label, counts, want)
     if (len(losses) != steps or not all(np.isfinite(losses))
-            or not losses[-1] < losses[0]
-            or counts != {k: want.get(k, 0) for k in counts}):
-        raise AssertionError(f"{label}: launches {counts}, want {want}; "
-                             f"losses {losses}")
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: losses {losses}")
     if compare:
         # the same forward kernel; the backward kernel against its plain
         # version
@@ -2297,11 +2331,9 @@ def run_cli(label, argv):
 
 
 def check_entry_launches(label, counts, decodes):
-    want = ENTRY_WANT[label]
-    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
-    if bad or decodes != 1:
-        raise AssertionError(f"8 {label}: launches {bad} (want {want}), "
-                             f"nvJPEG decodes {decodes} (want 1)")
+    check_counts(f"8 {label}", counts, ENTRY_WANT[label])
+    if decodes != 1:
+        raise AssertionError(f"8 {label}: nvJPEG decodes {decodes} (want 1)")
 
 
 def check_nvjpeg_and_resize(dataset):
@@ -2996,9 +3028,8 @@ def run_train_entry():
         steps = TRAIN_ENTRY_RUNS["B"][1]
         want = {"flash_attention": 12 * steps, "flash_attention_bwd": 12 * steps,
                 "lane_train": 12 * steps}
-        if counts != {k: want.get(k, 0) for k in counts}:
-            raise AssertionError(f"9 run B: launches {counts}, want {want} (the "
-                                 "288-px validation takes no kernel)")
+        # the 288-px validation takes no kernel
+        check_counts("9 run B", counts, want)
         check_lr_sequence(runner, rec)
         batches["B"], vals["B"] = rec["batches"], [s for _, s in rec["val"]]
         del runner, rec
@@ -3040,6 +3071,421 @@ def run_train_entry():
               f"{len(batches[run][0]['image'])}: decode {decode:.1f} ms, train "
               f"transforms {augment:.1f} ms, captions {text:.1f} ms", flush=True)
     print(f"9 launches ({card}): {launches}", flush=True)
+    return launches
+
+
+# -- phase 10: the YAML's batch of 1024 (BSGS, remat, accumulation) -------------
+
+BIG_BATCH = 1024                           # configs/clip/simseg.vit-b.yaml
+BIG_MICRO = 128                            # data.batch_size_train's default
+BIG_LONG = (256, 32)                       # BSGS at 576 px: batch, micro
+BIG_STEPS = 5                              # timed steps 3-5 (StepTimer)
+BSGS_CHECKS = ((224, 256, 64), (TRAIN_SIZE, 64, 32))   # (a): px, batch, micro
+BSGS_LOSS_BAR = 1e-2                       # phase 6's step bars
+BSGS_COS_BAR = 0.99
+REMAT_BATCH = 8
+REMAT_GRAD_BAR = 1e-6                      # of each gradient's largest entry
+BIG_ENTRY_STEPS = 3
+ACCUM_STEPS = 6                            # (f): timed steps 3-6, two updates
+BIG_ENTRY_CUT = 2                          # the mid-epoch checkpoint's step
+
+
+def bsgs_counts(per, steps=1):
+    """A BSGS run's launches at 576 px with ``per`` = 12 x micro-batches: a
+    forward without lse each (pass 1, the inference lane), a forward with
+    it and a backward each (pass 2, the train lane)."""
+    return {"flash_attention": 2 * per * steps, "flash_attention_bwd": per * steps,
+            "lane_flash": per * steps, "lane_train": per * steps}
+
+
+def big_runner(size, b, micro, *extra, tok=None, seed=0):
+    """A ``CLIPRunner`` on the card over no loader (for its model, optimizer
+    and ``_prepare_batch``): the training slice's config at a ``size``-px
+    crop, ``runner.name=clip_bsgs``, batch b in micro-batches of ``micro``."""
+    from simseg_tpu_torch.core.runner import CLIPRunner
+    from simseg_tpu_torch.models.clip import build_clip_model
+
+    cfg = train_cfg(tempfile.gettempdir(), f"transforms.random_resize_crop.size={size}",
+                    f"transforms.input_size={size}", f"data.batch_size={b}",
+                    f"data.batch_size_train={micro}", "runner.name=clip_bsgs",
+                    *extra)
+    torch.manual_seed(seed)
+    return CLIPRunner(cfg, build_clip_model(cfg), {"train": []}, device="cuda",
+                      tokenizer=tok)
+
+
+def tiled_batch(batch, n):
+    """``batch`` repeated to n rows."""
+    reps = -(-n // len(batch["image"]))
+    return {"image": np.concatenate([batch["image"]] * reps)[:n],
+            "caption": (list(batch["caption"]) * reps)[:n]}
+
+
+def bsgs_grads(model, batch, num_micro, key=None):
+    """(loss, {name: float32 grad}) of one BSGS gradient."""
+    from simseg_tpu_torch.engine import bsgs
+
+    metrics = bsgs.make_bsgs_grad_fn(model, num_micro)(batch, key)
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return metrics["loss"].item(), grads
+
+
+def tower_cosines(grads, want):
+    """{tower: (least cosine, tensor)} of each tower's gradients against
+    ``want``; the key projections' biases left out (their gradient is zero
+    in exact arithmetic: a softmax does not move when a query's scores all
+    shift, so both sides hold rounding noise there)."""
+    import torch.nn.functional as F
+
+    out = {}
+    for tower in ("image_encoder.", "text_encoder."):
+        cos = {n: F.cosine_similarity(grads[n].flatten(), want[n].flatten(),
+                                      dim=0).item()
+               for n in want if n.startswith(tower)
+               and not n.endswith("attention.self.key.bias")}
+        worst = min(cos, key=cos.get)
+        out[tower[:-1]] = (cos[worst], worst)
+    return out
+
+
+def within_bsgs_bars(loss, want_loss, cos):
+    rel = abs(loss - want_loss) / abs(want_loss)
+    return rel, rel <= BSGS_LOSS_BAR and all(c >= BSGS_COS_BAR for c, _ in cos.values())
+
+
+def check_bsgs_against_plain(size, b, micro, tok, batch, fault=False):
+    """10a: one BSGS gradient of a seeded batch against the plain step's
+    (``clip_loss_fn`` over the whole batch, one backward): loss within 1e-2,
+    each tower's least gradient cosine >= 0.99; with ``fault``, pass 2 on the
+    micro-batches' left matrices in reversed order must fail the bars.
+    Returns the launch counts of the BSGS gradient."""
+    from simseg_tpu_torch.engine import bsgs
+
+    runner = big_runner(size, b, micro, tok=tok)
+    dev = runner._prepare_batch(batch)
+    loss_p, want = step_grads(runner.model, dev)
+    reset_counts()
+    loss_b, grads = bsgs_grads(runner.model, dev, b // micro)
+    counts = read_counts()
+    cos = tower_cosines(grads, want)
+    rel, ok = within_bsgs_bars(loss_b, loss_p, cos)
+    print(f"10a BSGS {b} / {micro} at {size} px vs the plain step: loss "
+          f"{loss_b:.6f} vs {loss_p:.6f} (relative {rel:.3e}); least gradient "
+          f"cosine {cos}; launches {counts}", flush=True)
+    if not ok:
+        raise AssertionError(f"10a: BSGS vs plain at {size} px: loss {rel}, {cos}")
+    if fault:
+        inner = bsgs.reforward
+
+        def reversed_lefts(model, micro_batches, keys, lam, left_i, left_t, n):
+            m = len(micro_batches)
+            flip = lambda x: torch.cat(list(x.chunk(m))[::-1])  # noqa: E731
+            return inner(model, micro_batches, keys, lam, flip(left_i),
+                         flip(left_t), n)
+
+        with unittest.mock.patch.object(bsgs, "reforward", reversed_lefts):
+            loss_f, bad = bsgs_grads(runner.model, dev, b // micro)
+        cos_f = tower_cosines(bad, want)
+        rel_f, ok_f = within_bsgs_bars(loss_f, loss_p, cos_f)
+        print(f"10a planted fault (pass 2 on the left matrices in reversed "
+              f"micro-batch order): loss relative {rel_f:.3e}, least cosine "
+              f"{cos_f}; within the bars {ok_f}", flush=True)
+        if ok_f:
+            raise AssertionError("10a: the planted fault passed the BSGS bars")
+    return runner, dev, counts
+
+
+def check_remat(runner, dev):
+    """10b: one step's loss and gradients at batch ``REMAT_BATCH`` with the
+    towers under remat 'none' and 'dots' against no remat (576 px, the
+    attention kernels on the path): loss bit-equal, each gradient within
+    1e-6 of its largest entry, the train lane's forward launches doubled
+    under 'none' (the recompute runs the kernels again). Each run's peak is
+    read before its gradients are copied, and the copies are kept on the
+    host, so no run's peak holds another run's gradients."""
+    from simseg_tpu_torch.engine.train_step import clip_loss_fn
+
+    model = runner.model
+    small = {k: v[:REMAT_BATCH] for k, v in dev.items()}
+    towers = (model.vit, model.bert)
+
+    def run(remat, policy):
+        for tower in towers:
+            tower.remat, tower.remat_policy = remat, policy
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = clip_loss_fn(model, small)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads, counts, peak
+
+    loss, want, counts, peak = run(False, "none")
+    print(f"10b no remat: loss {loss:.6f}, launches {counts}, peak "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    check_counts("10b no remat", counts, {"flash_attention": 12, "lane_train": 12,
+                                          "flash_attention_bwd": 12})
+    for policy in ("none", "dots"):
+        loss_r, got, counts_r, peak_r = run(True, policy)
+        worst = max(((got[n] - w).abs().max().item()
+                     / max(w.abs().max().item(), 1e-30), n)
+                    for n, w in want.items())
+        print(f"10b remat {policy}: loss {loss_r:.6f} (bit-equal "
+              f"{loss_r == loss}); largest gradient error {worst[0]:.3e} of "
+              f"its largest entry ({worst[1]}); launches {counts_r}; peak "
+              f"{peak_r / 2**30:.3f} GiB", flush=True)
+        if loss_r != loss or worst[0] > REMAT_GRAD_BAR:
+            raise AssertionError(f"10b remat {policy}: loss {loss_r} vs {loss}, "
+                                 f"gradient {worst}")
+        if policy == "none":
+            check_counts("10b remat none", counts_r,
+                         {"flash_attention": 24, "lane_train": 24,
+                          "flash_attention_bwd": 12})
+    for tower in towers:
+        tower.remat, tower.remat_policy = False, "none"
+
+
+def check_dropout_replay(runner, dev):
+    """10c: dropout 0.1 at every tower site: two BSGS gradients with one key
+    bit-equal, another key's different."""
+    from simseg_tpu_torch.engine.train_step import step_key
+    from simseg_tpu_torch.models.layers import Dropout
+
+    sites = [m for m in runner.model.modules() if isinstance(m, Dropout)]
+    for m in sites:
+        m.rate = 0.1
+    b = len(dev["image"])
+    try:
+        runs = [bsgs_grads(runner.model, dev, 2, step_key(0, s))
+                for s in (7, 7, 8)]
+    finally:
+        for m in sites:
+            m.rate = 0.0
+    same = runs[0][0] == runs[1][0] and all(
+        torch.equal(runs[0][1][n], runs[1][1][n]) for n in runs[0][1])
+    moved = sum(not torch.equal(runs[0][1][n], runs[2][1][n]) for n in runs[0][1])
+    print(f"10c dropout 0.1 at {len(sites)} sites, BSGS {b} / {b // 2}: the same "
+          f"key twice bit-equal {same} (loss {runs[0][0]:.6f}); another key "
+          f"moves {moved} of {len(runs[0][1])} gradients (loss "
+          f"{runs[2][0]:.6f})", flush=True)
+    if not same or moved < len(runs[0][1]) // 2:
+        raise AssertionError("10c: dropout masks do not replay by key")
+
+
+def time_train(label, size, b, steps, tok, batch, *extra):
+    """10e: ``train`` on ``batch`` repeated ``steps`` times at a ``size``-px
+    crop, writing no checkpoint: (ms per step over steps 3 to the end, peak
+    GiB, launch counts, runner). Losses finite."""
+    from simseg_tpu_torch.core.train_hooks import CheckpointHook
+    from simseg_tpu_torch.tasks.clip.train import train
+
+    cfg = train_cfg(tempfile.mkdtemp(), f"transforms.random_resize_crop.size={size}",
+                    f"transforms.input_size={size}", f"data.batch_size={b}",
+                    f"data.train_steps={steps}", "epoch=1", "ckpt.step_interval=-1",
+                    *extra)
+    timer = StepTimer()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with timer.patch(), unittest.mock.patch.object(CheckpointHook, "_save",
+                                                   lambda *a: None):
+        reset_counts()
+        runner = train(cfg, {"train": [[batch] * steps]}, tokenizer=tok)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [x.item() for x in timer.losses]
+    ms, inside = timer.ms_per_step()
+    each = [round(a.elapsed_time(z), 1) for a, z in timer.events]
+    print(f"10e {label}: {ms:.3f} ms a step (steps 3-{steps}; {inside:.3f} ms "
+          f"inside batch_processor; each step {each} ms) = {b / ms * 1e3:.1f} "
+          f"images/s; peak {peak:.3f} GiB; losses "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"10e {label}: losses {losses}")
+    shutil.rmtree(cfg.ckpt.dir, ignore_errors=True)
+    return ms, peak, counts, runner
+
+
+def big_entry_argv(root, vocab, label):
+    """10d: the vit-b YAML through the entry point with BSGS at its batch of
+    1024 in micro-batches of 128, 8 decode threads, the deterministic
+    resize to 224 px (random ops drawn by 8 threads would not replay, and
+    the resume check replays step 3), no validation."""
+    return ["--cfg", ENTRY_YAML, "--vocab_file", vocab,
+            f"data.data_path={root}/", f"ckpt.dir={root}/{label}",
+            "data.train_name=[synth]", "data.valid_name=[synth]",
+            "data.enable_valid=False", "runner.name=clip_bsgs",
+            f"data.batch_size={BIG_BATCH}", f"data.batch_size_train={BIG_MICRO}",
+            "data.num_workers=8", f"data.train_steps={BIG_ENTRY_STEPS}",
+            "epoch=1", f"ckpt.step_interval={BIG_ENTRY_CUT}",
+            "log.interval_train=1", "transforms.train_transforms=[resize]",
+            "transforms.resize.size=224"]
+
+
+def big_entry_run(label, argv, cut=False):
+    """``tasks.clip.train.main(argv)`` with the counts set to 0 just before
+    and read just after; with ``cut``, interrupted right after the
+    checkpoint of step ``BIG_ENTRY_CUT``. Returns (runner, losses, counts,
+    wall s)."""
+    from simseg_tpu_torch.core.train_hooks import CheckpointHook
+    from simseg_tpu_torch.tasks.clip import train as entry
+
+    save = CheckpointHook.after_train_step
+
+    def save_then_stop(hook, runner):
+        save(hook, runner)
+        if runner.step == BIG_ENTRY_CUT:
+            raise KeyboardInterrupt("cut after the mid-epoch checkpoint")
+
+    timer = StepTimer()
+    stop = (unittest.mock.patch.object(CheckpointHook, "after_train_step",
+                                       save_then_stop)
+            if cut else contextlib.nullcontext())
+    random.seed(TRAIN_ENTRY_SEED)
+    np.random.seed(TRAIN_ENTRY_SEED)
+    runner = None
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timer.patch(), stop:
+        try:
+            runner = entry.main(argv)
+        except KeyboardInterrupt:
+            if not cut:
+                raise
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [x.item() for x in timer.losses]
+    steps = [round(a.elapsed_time(b), 1) for a, b in timer.events]
+    print(f"10d {label}: main() in {wall:.3f} s, {len(losses)} steps of "
+          f"{BIG_BATCH} ({steps} ms each), losses "
+          f"{[round(x, 5) for x in losses]}; launches {counts}", flush=True)
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"10d {label}: losses {losses}")
+    return runner, losses, counts, wall
+
+
+def check_big_entry(root, vocab):
+    """10d: the entry point with ``runner.name=clip_bsgs`` at 1024 / 128:
+    finite losses; a run cut after its step-2 checkpoint and resumed gives
+    the uninterrupted run's parameters."""
+    whole, losses, counts, _ = big_entry_run(
+        "uninterrupted", big_entry_argv(root, vocab, "whole"))
+    check_counts("10d (224 px takes no kernel)", counts, {})
+    if len(losses) != BIG_ENTRY_STEPS:
+        raise AssertionError(f"10d: {len(losses)} steps")
+    argv = big_entry_argv(root, vocab, "cut")
+    big_entry_run("cut after step 2", argv, cut=True)
+    resumed, rest, _, _ = big_entry_run("resumed", argv)
+    same = all(torch.equal(a, b) for a, b in zip(
+        whole.model.state_dict().values(), resumed.model.state_dict().values()))
+    print(f"10d resumed at step {BIG_ENTRY_CUT}, ran {len(rest)} step(s) to step "
+          f"{resumed.step}; step 3's loss {rest[-1]:.6f} vs {losses[-1]:.6f}; "
+          f"parameters equal to the uninterrupted run's {same}", flush=True)
+    if resumed.step != BIG_ENTRY_STEPS or not same or rest[-1] != losses[-1]:
+        raise AssertionError("10d: the resumed run differs from the "
+                             "uninterrupted one")
+    del whole, resumed
+    torch.cuda.empty_cache()
+
+
+def run_big_batch():
+    """Phase 10: returns the launches of rows 5 and 6 counted in one BSGS
+    step at 576 px, {"flash_attention": pass 1 + pass 2 forward,
+    "flash_attention_bwd"}."""
+    card = card_line()
+    t_start = time.perf_counter()
+    batch224, tok = caption_batch(13, BIG_BATCH // 4, 224)
+    batch576, _ = caption_batch(14, BSGS_CHECKS[1][1], TRAIN_SIZE)
+
+    # (a) BSGS against the plain step, a planted fault at 224 px; (b) remat
+    # and (c) dropout on the 576-px model
+    for (size, b, micro), batch, fault in zip(BSGS_CHECKS, (batch224, batch576),
+                                              (True, False)):
+        runner, dev, counts = check_bsgs_against_plain(size, b, micro, tok,
+                                                       batch, fault)
+        if size == TRAIN_SIZE:
+            check_counts("10a BSGS", counts, bsgs_counts(12 * (b // micro)))
+            check_remat(runner, dev)
+        else:
+            check_dropout_replay(runner, {k: v[:64] for k, v in dev.items()})
+        del runner, dev
+        torch.cuda.empty_cache()
+
+    # (e) images/s in memory and peak memory; (f) accumulation
+    big = tiled_batch(batch224, BIG_BATCH)
+    rows = {}
+    for label, size, b, batch, extra in (
+            ("BSGS 1024 / 128, 224 px", 224, BIG_BATCH, big,
+             ("runner.name=clip_bsgs", f"data.batch_size_train={BIG_MICRO}")),
+            ("BSGS 1024 / 128, 224 px, remat none", 224, BIG_BATCH, big,
+             ("runner.name=clip_bsgs", f"data.batch_size_train={BIG_MICRO}",
+              "model.remat=True")),
+            ("BSGS 256 / 32, 576 px", TRAIN_SIZE, BIG_LONG[0],
+             tiled_batch(batch576, BIG_LONG[0]),
+             ("runner.name=clip_bsgs", f"data.batch_size_train={BIG_LONG[1]}")),
+            ("plain 128, 224 px", 224, 128, tiled_batch(batch224, 128), ()),
+            ("plain 32, 576 px", TRAIN_SIZE, 32, tiled_batch(batch576, 32), ()),
+            ("plain 256, 224 px", 224, 256, batch224, ()),
+            ("plain 256, 224 px, remat none", 224, 256, batch224,
+             ("model.remat=True",))):
+        ms, peak, counts, runner = time_train(label, size, b, BIG_STEPS, tok,
+                                              batch, *extra)
+        rows[label] = (b / ms * 1e3, ms, peak, counts)
+        if label.startswith("BSGS 256"):
+            # rows 5-6's launches in one more BSGS step, counted alone
+            reset_counts()
+            runner.batch_processor(batch)
+            torch.cuda.synchronize()
+            one_step = read_counts()
+        del runner
+    per = 12 * (BIG_LONG[0] // BIG_LONG[1])
+    check_counts("10e one BSGS 256 / 32 step", one_step, bsgs_counts(per))
+    for label, row in rows.items():
+        check_counts(f"10e {label}", row[3],
+                     bsgs_counts(per, BIG_STEPS) if label.startswith("BSGS 256")
+                     else {"flash_attention": 12 * BIG_STEPS,
+                           "flash_attention_bwd": 12 * BIG_STEPS,
+                           "lane_train": 12 * BIG_STEPS} if "576" in label
+                     else {})
+    ms, _, _, runner = time_train("plain 128, 224 px, grad_accum_steps=2", 224,
+                                  128, ACCUM_STEPS, tok, tiled_batch(batch224, 128),
+                                  "optim.grad_accum_steps=2")
+    counts = {int(s["step"]) for s in runner.optimizer.base.state.values()}
+    print(f"10f accumulation: runner step {runner.step}, AdamW step {counts}, "
+          f"mini-step {runner.optimizer.mini_step}", flush=True)
+    if counts != {runner.step // 2} or runner.optimizer.mini_step:
+        raise AssertionError(f"10f: AdamW steps {counts} after {runner.step}")
+    # one warm-up call accumulates, the profiled call updates
+    device_profile(lambda: runner.batch_processor(tiled_batch(batch224, 128)),
+                   "10f step with the update, grad_accum_steps=2", top=6)
+    del runner
+    torch.cuda.empty_cache()
+
+    # (d) the entry point at the YAML's batch
+    with tempfile.TemporaryDirectory() as root:
+        vocab = write_train_entry_fixture(root)
+        check_big_entry(root, vocab)
+
+    for label, (rate, ms, peak, _) in rows.items():
+        print(f"10 {label} ({card}): {rate:.1f} images/s in memory ({ms:.3f} "
+              f"ms a step), peak {peak:.3f} GiB", flush=True)
+    launches = {k: one_step[k] for k in ("flash_attention", "flash_attention_bwd")}
+    print(f"10 launches in one BSGS step at 576 px, 256 / 32, counted ({card}): "
+          f"rows 5-6 {launches} (pass 1: {one_step['lane_flash']} forwards in "
+          f"the inference lane, pass 2: {one_step['lane_train']} in the train "
+          f"lane, then {one_step['flash_attention_bwd']} backward); phase 10 in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     return launches
 
 
@@ -3356,6 +3802,11 @@ def main() -> None:
         build_all()
         run_train_entry()
         return None
+    if sys.argv[1:2] == ["--big-batch"]:
+        print(f"card: {card_line()}", flush=True)
+        build_all()
+        run_big_batch()
+        return None
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
@@ -3406,6 +3857,8 @@ def main() -> None:
     run_lanes(tokenizer, classes)
     entry = run_entry_point()
     train_entry = run_train_entry()
+    torch.cuda.empty_cache()
+    big = run_big_batch()
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",
@@ -3420,12 +3873,14 @@ def main() -> None:
          "launches": ms_counts["flash_attention"],
          "cli_launches": entry["scales (1.0, 2.0)"]["flash_attention"],
          "train_entry_launches": train_entry["B"]["flash_attention"],
+         "bsgs_launches": big["flash_attention"],
          **attn[LONG_T]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "simseg_tpu/ops/flash_attention.py:202",
          "launches": train_counts["flash_attention_bwd"],
          "train_entry_launches": train_entry["B"]["flash_attention_bwd"],
+         "bsgs_launches": big["flash_attention_bwd"],
          **attn_bwd},
         {"name": "bilateral_matvec", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/bilateral_matvec.cu",

@@ -21,12 +21,21 @@ The JAX version builds an optax chain; this one keeps its semantics:
 - ``skip_nonfinite = N`` skips the update, optimizer state untouched, while
   a step's gradients are not all finite, for up to N consecutive steps,
   then lets it through (optax ``apply_if_finite``);
-- ``set_lr(lr)`` writes the schedule's lr times each group's multiplier.
+- ``set_lr(lr)`` writes the schedule's lr times each group's multiplier;
+- ``grad_accum_steps = k`` is optax ``MultiSteps`` around all of the above
+  (``simseg_tpu/core/optim.py:160-171``): each step's gradients go into a
+  running mean (``acc + (g - acc) / (n + 1)``, as optax computes it), and
+  only the k-th step clips, guards and updates, on that mean, so the inner
+  optimizer's state (AdamW's count and moments, the guard's count) moves
+  once in k steps, with the lr set for that step. The mean starts again
+  from zero after each update (optax multiplies it by zero, which keeps a
+  NaN: the port does not carry a non-finite window into the next one).
+  The mean and the mini-step are in ``state_dict``, so a run resumed in the
+  middle of an accumulation goes on as the uninterrupted run.
 
 Adam's and SGD's weight decay are coupled L2, as torch's own (the JAX
 version adds ``add_decayed_weights`` ahead of optax's transform for the
-same reason); AdamW's is decoupled. LARS and ``grad_accum_steps > 1`` are
-not ported yet.
+same reason); AdamW's is decoupled. LARS is not ported yet.
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ def _optimizer_class(name: str, opt_param: dict):
         return torch.optim.SGD, dict(momentum=opt_param.get("momentum", 0.9))
     if name == "lars":
         raise NotImplementedError("LARS is not ported yet (ROADMAP queue 1 "
-                                  "item 11)")
+                                  "item 14, with the linear probe)")
     raise NotImplementedError(f"optimizer '{name}'")
 
 
@@ -89,12 +98,16 @@ class Optimizer:
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  base: torch.optim.Optimizer, max_norm: Optional[float] = None,
-                 skip_nonfinite: int = 0) -> None:
+                 skip_nonfinite: int = 0, accum_steps: int = 1) -> None:
         self.params: List[torch.nn.Parameter] = [p for _, p in named_params]
         self.base = base
         self.max_norm = max_norm
         self.skip_nonfinite = skip_nonfinite
         self.notfinite_count = 0
+        self.accum_steps = accum_steps
+        self.mini_step = 0
+        # the running mean of the steps' gradients (accum_steps > 1)
+        self.acc: Optional[List[torch.Tensor]] = None
 
     def set_lr(self, lr: float) -> None:
         for group in self.base.param_groups:
@@ -106,11 +119,38 @@ class Optimizer:
 
     def step(self) -> torch.Tensor:
         """One update from the parameters' ``.grad`` (a missing grad is a
-        zero); returns the global gradient norm before clipping, as a
-        float32 scalar tensor, and clears the gradients."""
+        zero), or under ``accum_steps`` one step of the accumulation;
+        returns the global norm of this step's gradients before clipping,
+        as a float32 scalar tensor, and clears the gradients."""
+        norm = _global_norm([p.grad for p in self.params if p.grad is not None])
+        if self.accum_steps == 1:
+            self._update(norm)
+        elif self._accumulate():
+            self._update(_global_norm([p.grad for p in self.params]))
+        self.zero_grad()
+        return norm
+
+    def _accumulate(self) -> bool:
+        """Adds the gradients to the running mean; on the k-th step puts the
+        mean in ``.grad``, restarts the mean and returns True."""
+        if self.acc is None:
+            self.acc = [torch.zeros_like(p) for p in self.params]
+        n = self.mini_step
+        for p, acc in zip(self.params, self.acc):
+            g = torch.zeros_like(acc) if p.grad is None else p.grad
+            acc.add_((g - acc) / (n + 1))
+        self.mini_step = (n + 1) % self.accum_steps
+        if self.mini_step:
+            return False
+        for p, acc in zip(self.params, self.acc):
+            p.grad = acc.clone()
+            acc.zero_()
+        return True
+
+    def _update(self, norm: torch.Tensor) -> None:
+        """Clipping (by ``norm``, the gradients' global norm), the
+        non-finite guard and the base step on ``.grad``."""
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
         apply = True
         if self.skip_nonfinite > 0:
             finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
@@ -122,16 +162,28 @@ class Optimizer:
                                     self.max_norm / norm)
                 torch._foreach_mul_(grads, scale)
             self.base.step()
-        self.zero_grad()
-        return norm
 
     def state_dict(self) -> dict:
-        return {"base": self.base.state_dict(),
-                "notfinite_count": self.notfinite_count}
+        state = {"base": self.base.state_dict(),
+                 "notfinite_count": self.notfinite_count}
+        if self.accum_steps > 1:
+            state["mini_step"] = self.mini_step
+            state["acc"] = None if self.acc is None else [
+                a.clone() for a in self.acc]
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         self.base.load_state_dict(state["base"])
         self.notfinite_count = int(state.get("notfinite_count", 0))
+        self.mini_step = int(state.get("mini_step", 0))
+        acc = state.get("acc")
+        self.acc = None if acc is None else [
+            a.to(p.device, p.dtype).clone() for a, p in zip(acc, self.params)]
+
+
+def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads]))
 
 
 def build_optimizer(cfg, model: torch.nn.Module,
@@ -143,9 +195,6 @@ def build_optimizer(cfg, model: torch.nn.Module,
     weight_decay = opt_param.get("weight_decay", 0.0)
     base_lr = cfg.optim.get("lr", {}).get("init", None)
     rules = dict(cfg.optim.get("param_group_rules", {}) or {})
-    if int(cfg.optim.get("grad_accum_steps", 1) or 1) > 1:
-        raise NotImplementedError("optim.grad_accum_steps > 1 is not ported "
-                                  "yet (ROADMAP queue 1 item 11)")
     cls, kwargs = _optimizer_class(cfg.optim.name, opt_param)
 
     named = list(model.named_parameters())
@@ -176,4 +225,5 @@ def build_optimizer(cfg, model: torch.nn.Module,
     base = cls(groups, lr=0.0, **kwargs)
     clip = cfg.optim.get("grad_clip", {}) or {}
     return Optimizer(named, base, max_norm=clip.get("max_norm", None),
-                     skip_nonfinite=cfg.optim.get("skip_nonfinite", 0) or 0)
+                     skip_nonfinite=cfg.optim.get("skip_nonfinite", 0) or 0,
+                     accum_steps=int(cfg.optim.get("grad_accum_steps", 1) or 1))

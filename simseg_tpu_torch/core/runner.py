@@ -10,9 +10,10 @@ batch dicts with ``image`` (uint8 or float NHWC), ``input_ids`` and
 ``attention_mask`` (or ``caption`` strings, tokenized here), optionally
 ``ignore_mask``.
 
-Not ported yet: validation during training (retrieval eval, ROADMAP queue 1
-item 9), the BSGS runner (item 12), the linear-probe runner (item 14) and
-device prefetch.
+``runner.name`` is ``clip`` (``engine/train_step.py``) or ``clip_bsgs``
+(``engine/bsgs.py``: the exact gradient of the ``data.batch_size`` batch in
+micro-batches of ``data.batch_size_train``), refused where JAX refuses it.
+Not ported yet: the linear-probe runner (ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from simseg_tpu_torch.core.lr_schedule import build_schedule
 from simseg_tpu_torch.core.optim import build_optimizer
 from simseg_tpu_torch.data.datasets import debias_batches, sequential_batches
 from simseg_tpu_torch.data.transforms import normalize_images
+from simseg_tpu_torch.engine.bsgs import make_bsgs_train_step
 from simseg_tpu_torch.engine.train_step import make_eval_step, make_train_step
 from simseg_tpu_torch.utils.collections import AttrDict
 
@@ -293,9 +295,8 @@ class CLIPRunner(EpochRunner):
 
     def build_step_fns(self) -> None:
         cfg = self.cfg
-        if cfg.runner.name != "clip":
-            raise NotImplementedError(f"runner '{cfg.runner.name}' is not "
-                                      "ported yet (BSGS: ROADMAP queue 1 item 12)")
+        if cfg.runner.name not in ("clip", "clip_bsgs"):
+            raise NotImplementedError(f"runner '{cfg.runner.name}'")
         for enc in ("image_encoder", "text_encoder"):
             arch = dict(cfg.model[enc].get("arch", {}) or {})
             if arch.get("quant", "none") not in (None, "", "none"):
@@ -305,6 +306,10 @@ class CLIPRunner(EpochRunner):
             # devices per group in the JAX package; one card is one group
             raise NotImplementedError("loss.group_size > 1 needs several "
                                       "cards (ROADMAP queue 1 item 13)")
+        self._eval_fn = make_eval_step(self.model)
+        if cfg.runner.name == "clip_bsgs":
+            self._step_fn = self._bsgs_step()
+            return
         self._step_fn = make_train_step(
             self.model, self.optimizer,
             smoothing=cfg.loss.get("smoothing", 0.0),
@@ -315,7 +320,39 @@ class CLIPRunner(EpochRunner):
             extra_losses=tuple(cfg.loss.get("extra_losses", []) or ()),
             seed=int(cfg.seed or 0),
         )
-        self._eval_fn = make_eval_step(self.model)
+
+    def _bsgs_step(self):
+        """The BSGS step, refusing what JAX's branch refuses
+        (``simseg_tpu/core/runner.py:367-406``)."""
+        cfg = self.cfg
+        image_arch = dict(cfg.model.image_encoder.get("arch", {}) or {})
+        text_arch = dict(cfg.model.text_encoder.get("arch", {}) or {})
+        if (int(cfg.dist.get("pp_size", 1) or 1) > 1
+                or cfg.dist.get("moe_ep", False)
+                or image_arch.get("moe_experts", 0)
+                or text_arch.get("moe_experts", 0)):
+            # PP's GPipe forward and the MoE aux objective do not fold into
+            # the two-pass analytic gradient
+            raise NotImplementedError(
+                "runner 'clip_bsgs' does not combine with dist.pp_size>1 or "
+                "MoE towers (use runner.name='clip')")
+        loss_name = cfg.loss.get("name", "NCE")
+        if loss_name not in ("NCE", "MixUpNCE"):
+            # the analytic gradients are derived for (mixup-)InfoNCE only
+            raise NotImplementedError(
+                f"runner 'clip_bsgs' supports loss NCE/MixUpNCE, got "
+                f"'{loss_name}' (use runner.name='clip')")
+        if cfg.loss.get("extra_losses", None):
+            raise NotImplementedError(
+                "runner 'clip_bsgs' does not support loss.extra_losses "
+                "(use runner.name='clip')")
+        return make_bsgs_train_step(
+            self.model, self.optimizer,
+            num_micro=max(1, cfg.data.batch_size // cfg.data.batch_size_train),
+            smoothing=cfg.loss.get("smoothing", 0.0),
+            mixup=loss_name == "MixUpNCE",
+            mixup_alpha_param=cfg.get("mixup", {}).get("alpha", 0.2),
+            seed=int(cfg.seed or 0))
 
     def init_hook(self) -> None:
         """parity: clip_runner.py:44-63 hook wiring."""

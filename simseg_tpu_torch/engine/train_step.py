@@ -10,7 +10,13 @@ step (clipping and the non-finite guard inside), and the metrics
 
 On one card the global batch is the local batch, so the all-gather of
 negatives is the identity. Not ported yet: the mesh, ZeRO-1, FSDP, TP, PP,
-MoE and live-BN branches (ROADMAP queue 1 items 8 and 11-13).
+MoE and live-BN branches (ROADMAP queue 1 items 8 and 13).
+
+Dropout: with ``runner.stable_random`` set (``deterministic`` False) the
+forward takes the step's key, JAX's ``fold_in(key(seed), step)``
+(``step_key``), from which each dropout site draws its mask
+(``models/layers.py``); BSGS (``engine/bsgs.py``) folds the micro-batch's
+index into the same key, so the two runners share one dropout scheme.
 
 The attention kernels' training lane needs no marker: autograd knows that
 a call is differentiated (``ops/attention.py``).
@@ -31,15 +37,20 @@ from simseg_tpu_torch.utils import threefry
 MIXUP_FOLD_TAG = 0x7FFFFFFF
 
 
-def mixup_lambda(seed: Optional[int], step: int, alpha: float) -> float:
+def step_key(seed: int, step: int) -> threefry.Key:
+    """The step's dropout key, JAX's ``fold_in(key(seed), step)``
+    (``simseg_tpu/core/runner.py:189-191``)."""
+    return threefry.fold_in(threefry.key(seed), step)
+
+
+def mixup_lambda(key: Optional[threefry.Key], step: int, alpha: float) -> float:
     """Per-step Beta(alpha, alpha) mixup coefficient in [0.5, 1], JAX's
-    draw (``simseg_tpu/engine/train_step.py:56-66``) computed on the host
-    (``utils/threefry.py``): with ``runner.stable_random`` on, JAX's step
-    key ``fold_in(key(seed), step)`` folded with the tag; with it off
-    (``seed=None``), ``fold_in(key(0), step)``."""
-    if seed is not None:
-        k = threefry.fold_in(threefry.fold_in(threefry.key(seed), step),
-                             MIXUP_FOLD_TAG)
+    ``mixup_lambda(rng, step, alpha)`` (``simseg_tpu/engine/train_step.py:
+    56-66``) computed on the host (``utils/threefry.py``): the step key
+    (``step_key``) folded with the tag; without a key
+    (``runner.stable_random`` off), ``fold_in(key(0), step)``."""
+    if key is not None:
+        k = threefry.fold_in(key, MIXUP_FOLD_TAG)
     else:
         k = threefry.fold_in(threefry.key(0), step)
     lam = float(threefry.beta(k, alpha, alpha))
@@ -64,14 +75,14 @@ def clip_loss_fn(
     ``extra_losses`` add further terms on the same embeddings). MixUpNCE
     mixes each image with its mirror in the batch, as the JAX step does on
     one device."""
+    key = None if deterministic else step_key(seed, step)
     if loss_name == "MixUpNCE":
-        lam = mixup_lambda(None if deterministic else seed, step,
-                           mixup_alpha_param)
+        lam = mixup_lambda(key, step, mixup_alpha_param)
         batch = dict(batch)
         batch["image"] = (lam * batch["image"]
                           + (1.0 - lam) * batch["image"].flip(0))
 
-    img, txt, temp = model(batch, deterministic=deterministic)
+    img, txt, temp = model(batch, deterministic=deterministic, key=key)
     img, txt = img.float(), txt.float()
     ignore = batch.get("ignore_mask")
 

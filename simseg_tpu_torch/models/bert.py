@@ -9,8 +9,13 @@ reference state dict loads as it is. Compute runs in ``compute_dtype``
 (None: the parameters' dtype), parameters cast at use as flax does
 (``models/layers.py``). ``quant`` makes the six products of every layer
 int8 (``ops/quant.py``); no activation scale spans tokens (per token, or
-calibrated per channel), so padded positions cannot perturb real ones. The MoE option and the HuggingFace
-AutoConfig lookup are not ported.
+calibrated per channel), so padded positions cannot perturb real ones.
+``dropout`` drops out at JAX's sites (``simseg_tpu/models/bert.py:54, :71,
+:112``: after the embeddings' LayerNorm, after the attention's output
+projection and after the FFN's output projection; keyed,
+``models/layers.py``); ``remat`` and ``remat_policy`` run each layer under a
+non-reentrant checkpoint. The MoE option and the HuggingFace AutoConfig
+lookup are not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from simseg_tpu_torch.models.layers import LayerNorm, gelu
+from simseg_tpu_torch.models.layers import (Dropout, LayerNorm, gelu,
+                                            number_dropout_sites,
+                                            parse_remat_policy, remat_call)
 from simseg_tpu_torch.ops.attention import multi_head_attention, padding_bias
 from simseg_tpu_torch.ops.quant import linear_cls
 
@@ -57,23 +64,24 @@ class _Intermediate(nn.Module):
 
 class BertLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, intermediate_dim: int,
-                 quant: str = "none") -> None:
+                 quant: str = "none", dropout: float = 0.0) -> None:
         super().__init__()
         linear = linear_cls(quant)
         self.num_heads = num_heads
         self.attention = _Attention(dim, linear)
         self.intermediate = _Intermediate(dim, intermediate_dim, linear)
         self.output = _DenseNorm(intermediate_dim, dim, linear)
+        self.attention_drop, self.output_drop = Dropout(dropout), Dropout(dropout)
 
-    def forward(self, x: torch.Tensor,
-                bias: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
+                key=None) -> torch.Tensor:
         sa = self.attention.self
         attn = multi_head_attention(sa.query(x), sa.key(x), sa.value(x),
                                     self.num_heads, bias)
         out = self.attention.output
-        x = out.LayerNorm(x + out.dense(attn))
+        x = out.LayerNorm(x + self.attention_drop(out.dense(attn), key))
         y = self.output.dense(gelu(self.intermediate.dense(x)))
-        return self.output.LayerNorm(x + y)
+        return self.output.LayerNorm(x + self.output_drop(y, key))
 
 
 class _Embeddings(nn.Module):
@@ -96,22 +104,29 @@ class BertEncoder(nn.Module):
     def __init__(self, vocab_size: int = 30522, hidden_dim: int = 768,
                  depth: int = 12, num_heads: int = 12,
                  intermediate_dim: int = 3072, max_position: int = 512,
-                 type_vocab_size: int = 2, quant: str = "none") -> None:
+                 type_vocab_size: int = 2, quant: str = "none",
+                 dropout: float = 0.0, remat: bool = False,
+                 remat_policy: str = "none") -> None:
         super().__init__()
         self.quant = quant
+        self.remat = bool(remat)
+        self.remat_policy = parse_remat_policy(remat_policy)
         self.embeddings = _Embeddings(vocab_size, hidden_dim, max_position,
                                       type_vocab_size)
+        self.embed_drop = Dropout(dropout)
         self.encoder = _Encoder(
-            [BertLayer(hidden_dim, num_heads, intermediate_dim, quant)
+            [BertLayer(hidden_dim, num_heads, intermediate_dim, quant, dropout)
              for _ in range(depth)])
+        number_dropout_sites(self)
         # None: compute in the parameters' dtype
         self.compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                key=None) -> torch.Tensor:
         """input_ids: (B, T) int -> last hidden state (B, T, D) in the
-        compute dtype."""
+        compute dtype; ``key``: the dropout key (None: no dropout)."""
         emb = self.embeddings
         dtype = self.compute_dtype or emb.word_embeddings.weight.dtype
         t = input_ids.shape[1]
@@ -121,11 +136,16 @@ class BertEncoder(nn.Module):
         x = emb.LayerNorm(emb.word_embeddings(input_ids).to(dtype)
                           + emb.position_embeddings(position_ids).to(dtype)
                           + emb.token_type_embeddings(token_type_ids).to(dtype))
+        x = self.embed_drop(x, key)
         bias = None
         if attention_mask is not None:
             bias = padding_bias(attention_mask, torch.float32)
         for layer in self.encoder.layer:
-            x = layer(x, bias)
+            if self.remat and torch.is_grad_enabled():
+                # JAX nn.remat(BertLayer), simseg_tpu/models/bert.py:115-119
+                x = remat_call(layer, self.remat_policy, x, bias, key)
+            else:
+                x = layer(x, bias, key)
         return x
 
 
@@ -173,5 +193,7 @@ def resolve_bert_config(tag: str, arch: Optional[dict] = None) -> dict:
     return spec
 
 
-def build_bert(tag: str, arch: Optional[dict] = None) -> BertEncoder:
-    return BertEncoder(**resolve_bert_config(tag, arch))
+def build_bert(tag: str, arch: Optional[dict] = None,
+               **train_kw) -> BertEncoder:
+    """``train_kw``: ``dropout``, ``remat``, ``remat_policy``."""
+    return BertEncoder(**resolve_bert_config(tag, arch), **train_kw)

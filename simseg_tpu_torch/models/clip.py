@@ -13,6 +13,14 @@ temperature always) and the towers compute in ``compute_dtype`` (bf16
 under ``dist.bf16``), weights cast at use; ``compute_dtype=None`` computes
 in the parameters' own dtype, so ``model.to(torch.bfloat16)`` still gives
 the bf16 inference lane.
+
+Training options as in JAX: ``dropout`` (the towers' rate; JAX's
+``build_clip_model`` never sets it, nor does this one) and ``remat`` /
+``remat_policy`` (read from ``model.remat`` / ``model.remat_policy``). A
+non-deterministic forward takes a dropout key (``models/layers.py``) that
+the train step derives from the run's seed and step (and BSGS from the
+micro-batch too); the model's dropout sites are numbered once, across both
+towers and the projections, so each draws its own mask from that key.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 import torch.nn as nn
 
 from simseg_tpu_torch.models.bert import build_bert
+from simseg_tpu_torch.models.layers import number_dropout_sites
 from simseg_tpu_torch.models.projection import ComplexProjection, SimpleProjection
 from simseg_tpu_torch.models.vit import build_vit
 from simseg_tpu_torch.ops.pooling import avg_pool, l2_normalize, topk_pool
@@ -54,13 +63,17 @@ class CLIPModel(nn.Module):
         temperature_init: float = 0.02,
         projection_dropout: float = 0.1,
         compute_dtype: Optional[torch.dtype] = None,
+        dropout: float = 0.0,
+        remat: bool = False,
+        remat_policy: str = "none",
     ) -> None:
         super().__init__()
         if "vit" not in image_tag:
             raise NotImplementedError(
                 f"image tower '{image_tag}': only ViT towers are ported")
-        vit = build_vit(image_tag, img_size, dict(image_arch or ()))
-        bert = build_bert(text_tag, dict(text_arch or ()))
+        train_kw = dict(dropout=dropout, remat=remat, remat_policy=remat_policy)
+        vit = build_vit(image_tag, img_size, dict(image_arch or ()), **train_kw)
+        bert = build_bert(text_tag, dict(text_arch or ()), **train_kw)
         self.image_encoder = _Wrapper(_Wrapper(vit))
         self.text_encoder = _Wrapper(_Wrapper(bert))
         vit.compute_dtype = bert.compute_dtype = compute_dtype
@@ -87,6 +100,7 @@ class CLIPModel(nn.Module):
                 torch.tensor(temperature_init, dtype=torch.float32))
         elif temperature_name != "constant":
             raise NotImplementedError(f"temperature '{temperature_name}'")
+        number_dropout_sites(self)
 
     @property
     def vit(self) -> nn.Module:
@@ -110,10 +124,11 @@ class CLIPModel(nn.Module):
         return torch.clamp(t, 0.001, 0.5)
 
     # -- image tower -------------------------------------------------------------
-    def forward_image_feature(self, images: torch.Tensor) -> torch.Tensor:
+    def forward_image_feature(self, images: torch.Tensor,
+                              key=None) -> torch.Tensor:
         """(B, H, W, 3) -> CLS (B, D) for identity pooling, else the patch
-        tokens (B, N, D)."""
-        tokens = self.vit(images)
+        tokens (B, N, D); ``key``: the dropout key (None: no dropout)."""
+        tokens = self.vit(images, key)
         if self.pool_name == "identity":
             return tokens[:, 0]
         return tokens[:, 1:]
@@ -123,8 +138,8 @@ class CLIPModel(nn.Module):
         return self.vit(images)
 
     def forward_image_project(self, image_features: torch.Tensor,
-                              deterministic: bool = True) -> torch.Tensor:
-        x = self.image_projection(image_features, deterministic)
+                              key=None) -> torch.Tensor:
+        x = self.image_projection(image_features, key)
         if self.pool_name == "loda":
             x = topk_pool(x, self.image_k)
         elif self.pool_name == "avg":
@@ -139,16 +154,17 @@ class CLIPModel(nn.Module):
 
     # -- text tower ---------------------------------------------------------------
     def forward_text_feature(self, input_ids: torch.Tensor,
-                             attention_mask: torch.Tensor) -> torch.Tensor:
-        hidden = self.bert(input_ids, attention_mask)
+                             attention_mask: torch.Tensor,
+                             key=None) -> torch.Tensor:
+        hidden = self.bert(input_ids, attention_mask, key=key)
         if self.pool_name == "identity":
             return hidden[:, self.target_token_idx]
         return hidden[:, self.target_token_idx:]
 
     def forward_text_project(self, text_features: torch.Tensor,
                              attention_mask: Optional[torch.Tensor],
-                             deterministic: bool = True) -> torch.Tensor:
-        x = self.text_projection(text_features, deterministic)
+                             key=None) -> torch.Tensor:
+        x = self.text_projection(text_features, key)
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, self.target_token_idx:]
@@ -161,17 +177,22 @@ class CLIPModel(nn.Module):
         return x
 
     # -- joint ----------------------------------------------------------------------
-    def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
+                key=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(image_emb, text_emb, temperature) of a batch with ``image``
         (B, H, W, 3) float, ``input_ids`` and ``attention_mask`` (B, T)
-        (parity: JAX ``CLIPModel.__call__``, pipelines/clip.py:152-176)."""
-        img = self.forward_image_feature(batch["image"])
-        txt = self.forward_text_feature(batch["input_ids"],
-                                        batch["attention_mask"])
-        img = self.forward_image_project(img, deterministic)
-        txt = self.forward_text_project(txt, batch["attention_mask"],
-                                        deterministic)
+        (parity: JAX ``CLIPModel.__call__``, pipelines/clip.py:152-176).
+        ``deterministic=False`` drops out with the dropout ``key``, or with
+        one drawn from torch's default generator when none is given."""
+        if deterministic:
+            key = None
+        elif key is None:
+            key = tuple(int(v) for v in torch.randint(0, 2**32, (2,)))
+        mask = batch["attention_mask"]
+        img = self.forward_image_feature(batch["image"], key)
+        txt = self.forward_text_feature(batch["input_ids"], mask, key)
+        img = self.forward_image_project(img, key)
+        txt = self.forward_text_project(txt, mask, key)
         return img, txt, self.temperature()
 
 
@@ -205,4 +226,6 @@ def build_clip_model(cfg) -> CLIPModel:
         temperature_name=cfg.loss.temperature.name,
         temperature_init=cfg.loss.temperature.value,
         compute_dtype=torch.bfloat16 if cfg.dist.get("bf16", False) else None,
+        remat=m.get("remat", False),
+        remat_policy=m.get("remat_policy", "none"),
     )

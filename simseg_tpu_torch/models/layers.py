@@ -9,13 +9,31 @@ parameters and runs in bf16 when its activations are bf16, and
 ``model.to(torch.bfloat16)`` still works (the casts are then no-ops).
 ``torch.autocast`` is not used: its op list keeps LayerNorm and softmax in
 float32 where the JAX bf16 lane does not.
+
+Also the towers' dropout and rematerialisation. A dropout key is a
+threefry key (``utils/threefry.py``: two uint32 words) that the caller
+passes down the forward; each ``Dropout`` site folds its own number into
+it and seeds a generator of its own from the result, as flax folds a
+module's path into the ``dropout`` rng. No site touches a shared
+generator, so a recompute (``remat``) or a second forward with the same
+key (BSGS's pass 2) draws the same masks: ``torch.utils.checkpoint``'s
+``preserve_rng_state`` restores only the default generators, which no site
+uses. ``remat`` runs a block under ``torch.utils.checkpoint.checkpoint``
+in its non-reentrant form, whose first forward keeps grad mode on (the
+reentrant form would run it under ``no_grad``, and the attention would
+take the inference lane there and the train lane in the recompute).
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from simseg_tpu_torch.utils import threefry
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -45,3 +63,72 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape,
                             self.weight.float(), self.bias.float(),
                             self.eps).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` with an explicit key: each entry kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), the rest zero. The
+    mask comes from a generator seeded from ``fold_in(key, site)``, where
+    ``site`` is this module's number in its model
+    (``number_dropout_sites``). Without a key (the deterministic forward)
+    or at rate 0 it is the identity."""
+
+    def __init__(self, rate: float = 0.0) -> None:
+        super().__init__()
+        self.rate = float(rate)
+        self.site = 0
+
+    def forward(self, x: torch.Tensor,
+                key: Optional[threefry.Key] = None) -> torch.Tensor:
+        if key is None or self.rate <= 0.0:
+            return x
+        k = threefry.fold_in(key, self.site)
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed((k[0] << 32) | k[1])
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
+def number_dropout_sites(module: nn.Module) -> None:
+    """Numbers the ``Dropout`` sites of ``module`` 0, 1, ... in module
+    order, so that each draws its own mask from one key."""
+    sites = (m for m in module.modules() if isinstance(m, Dropout))
+    for i, m in enumerate(sites):
+        m.site = i
+
+
+def parse_remat_policy(name: Optional[str]) -> str:
+    """'none' (recompute the whole block) or 'dots' (JAX's
+    ``dots_with_no_batch_dims_saveable``: keep the weight products, recompute
+    the rest), the JAX tower's ``_remat_policy`` names."""
+    if name in (None, "", "none"):
+        return "none"
+    if name == "dots":
+        return "dots"
+    raise NotImplementedError(f"remat_policy '{name}'")
+
+
+def _keep_weight_products(ctx, op, *args, **kwargs):
+    """The 'dots' policy: ``mm`` / ``addmm`` (the linears, whose products
+    have no batch dimension) saved; batched products (``bmm``: the plain
+    attention's scores and mix), elementwise ops and the attention kernels
+    recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, policy: str, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    (non-reentrant checkpoint; ``policy`` from ``parse_remat_policy``)."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kwargs = {}
+    if policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _keep_weight_products)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      **kwargs)

@@ -7,9 +7,13 @@ patches): patch-embed conv, learned CLS and position embeddings, pre-LN
 blocks with fused-qkv attention, final LayerNorm, LN eps 1e-6. Module and
 parameter names are timm's, so a reference state dict loads as it is.
 
-Token merging (``tome_r``, ``tome_schedule``; ``ops/tome.py``) and int8
-post-training quantisation (``quant``; ``ops/quant.py``) are ported; the
-JAX tower's MoE and remat options are not. Compute runs in
+Token merging (``tome_r``, ``tome_schedule``; ``ops/tome.py``), int8
+post-training quantisation (``quant``; ``ops/quant.py``), dropout at JAX's
+sites (``dropout``: after the position embeddings, the attention's output
+projection, the MLP's GELU and its output; keyed, ``models/layers.py``) and
+remat (``remat``, ``remat_policy``: each block under a non-reentrant
+checkpoint, composing with the ToMe carry) are ported; the JAX tower's MoE
+option is not. Compute runs in
 ``compute_dtype`` (None: the parameters' dtype), with float32 parameters
 cast at use as flax does (``models/layers.py``): float32 master weights and
 bf16 compute for training and for the int8 lanes, or
@@ -25,7 +29,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from simseg_tpu_torch.models.layers import LayerNorm, gelu
+from simseg_tpu_torch.models.layers import (Dropout, LayerNorm, gelu,
+                                            number_dropout_sites,
+                                            parse_remat_policy, remat_call)
 from simseg_tpu_torch.ops.attention import multi_head_attention
 from simseg_tpu_torch.ops.interpolate_pe import interpolate_pos_embed
 from simseg_tpu_torch.ops.quant import linear_cls
@@ -34,14 +40,16 @@ from simseg_tpu_torch.ops.tome import (bipartite_merge, size_bias, unmerge,
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int, quant: str = "none") -> None:
+    def __init__(self, dim: int, hidden_dim: int, quant: str = "none",
+                 dropout: float = 0.0) -> None:
         super().__init__()
         linear = linear_cls(quant)
         self.fc1 = linear(dim, hidden_dim)
         self.fc2 = linear(hidden_dim, dim)
+        self.drop1, self.drop2 = Dropout(dropout), Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        return self.drop2(self.fc2(self.drop1(gelu(self.fc1(x)), key)), key)
 
 
 class Attention(nn.Module):
@@ -49,18 +57,20 @@ class Attention(nn.Module):
     and proj products quantise under ``quant``; the score and probability
     products stay in the compute dtype."""
 
-    def __init__(self, dim: int, num_heads: int, quant: str = "none") -> None:
+    def __init__(self, dim: int, num_heads: int, quant: str = "none",
+                 dropout: float = 0.0) -> None:
         super().__init__()
         linear = linear_cls(quant)
         self.num_heads = num_heads
         self.qkv = linear(dim, 3 * dim)
         self.proj = linear(dim, dim)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, attention_bias=None,
-                return_keys: bool = False):
+                return_keys: bool = False, key=None):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
-        out = self.proj(multi_head_attention(q, k, v, self.num_heads,
-                                             attention_bias))
+        out = self.drop(self.proj(multi_head_attention(q, k, v, self.num_heads,
+                                                       attention_bias)), key)
         if return_keys:
             # the token-merging metric: the keys, mean over heads
             b, t, d = k.shape
@@ -80,33 +90,35 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  tome_r: int = 0, tome_chain: bool = False,
-                 tome_first: bool = False, quant: str = "none") -> None:
+                 tome_first: bool = False, quant: str = "none",
+                 dropout: float = 0.0) -> None:
         super().__init__()
         self.tome_r, self.tome_chain, self.tome_first = (tome_r, tome_chain,
                                                          tome_first)
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, quant)
+        self.attn = Attention(dim, num_heads, quant, dropout)
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), quant)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), quant, dropout)
 
-    def forward(self, x):
+    def forward(self, x, key=None):
         in_chain = self.tome_chain or self.tome_r > 0
         if not in_chain:
-            x = x + self.attn(self.norm1(x))
-            return x + self.mlp(self.norm2(x))
+            x = x + self.attn(self.norm1(x), key=key)
+            return x + self.mlp(self.norm2(x), key)
         if not (isinstance(x, tuple) and len(x) == 3):
             raise TypeError("Block(tome) takes the (x, sizes, gather_map) "
                             f"carry tuple, got {type(x).__name__}")
         x, sizes, gather_map = x
         bias = None if self.tome_first else size_bias(sizes, x.dtype)
         if self.tome_r > 0:
-            attn_out, keys = self.attn(self.norm1(x), bias, return_keys=True)
+            attn_out, keys = self.attn(self.norm1(x), bias, return_keys=True,
+                                       key=key)
             x, sizes, old2new = bipartite_merge(x + attn_out, sizes, keys,
                                                 self.tome_r)
             gather_map = update_gather_map(gather_map, old2new)
         else:
-            x = x + self.attn(self.norm1(x), bias)
-        return x + self.mlp(self.norm2(x)), sizes, gather_map
+            x = x + self.attn(self.norm1(x), bias, key=key)
+        return x + self.mlp(self.norm2(x), key), sizes, gather_map
 
 
 class PatchEmbed(nn.Module):
@@ -138,7 +150,8 @@ class VisionTransformer(nn.Module):
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, tome_r: int = 0,
                  tome_schedule: Optional[Sequence[int]] = None,
-                 quant: str = "none") -> None:
+                 quant: str = "none", dropout: float = 0.0,
+                 remat: bool = False, remat_policy: str = "none") -> None:
         super().__init__()
         self.img_size = img_size
         self.depth = depth
@@ -146,6 +159,8 @@ class VisionTransformer(nn.Module):
         self.tome_schedule = (None if tome_schedule is None
                               else tuple(int(r) for r in tome_schedule))
         self.quant = quant
+        self.remat = bool(remat)
+        self.remat_policy = parse_remat_policy(remat_policy)
         plan = self.tome_plan
         self.patch_size = patch_size
         self.embed_dim = embed_dim
@@ -159,15 +174,17 @@ class VisionTransformer(nn.Module):
             [Block(embed_dim, num_heads, mlp_ratio, tome_r=plan[i],
                    tome_chain=self.tome_on,
                    tome_first=self.tome_on and sum(plan[:i]) == 0,
-                   quant=quant)
+                   quant=quant, dropout=dropout)
              for i in range(depth)])
+        self.pos_drop = Dropout(dropout)
         self.norm = LayerNorm(embed_dim, eps=1e-6)
+        number_dropout_sites(self)
         # None: compute in the parameters' dtype
         self.compute_dtype: Optional[torch.dtype] = None
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, key=None) -> torch.Tensor:
         """images: (B, H, W, 3) NHWC float -> (B, 1+N, D) in the compute
-        dtype."""
+        dtype; ``key``: the dropout key (None: no dropout)."""
         dtype = self.compute_dtype or self.cls_token.dtype
         x = self.patch_embed(images.to(dtype))
         pos_embed = self.pos_embed
@@ -178,17 +195,24 @@ class VisionTransformer(nn.Module):
             pos_embed = interpolate_pos_embed(pos_embed.float(), x.shape[1])
         pos_embed = pos_embed.to(dtype)
         cls = self.cls_token.to(dtype).expand(x.shape[0], -1, -1)
-        x = torch.cat([cls, x], dim=1) + pos_embed
+        x = self.pos_drop(torch.cat([cls, x], dim=1) + pos_embed, key)
         if self.tome_on:
             b, t = x.shape[:2]
             carry = (x, torch.ones((b, t), device=x.device),
                      torch.arange(t, device=x.device).expand(b, t))
             for block in self.blocks:
-                carry = block(carry)
+                carry = self._block(block, carry, key)
             return unmerge(self.norm(carry[0]), carry[2])
         for block in self.blocks:
-            x = block(x)
+            x = self._block(block, x, key)
         return self.norm(x)
+
+    def _block(self, block, x, key):
+        """One block, rematerialised under ``remat`` when autograd records
+        (JAX ``nn.remat(ViTBlock)``, ``simseg_tpu/models/vit.py:295-297``)."""
+        if self.remat and torch.is_grad_enabled():
+            return remat_call(block, self.remat_policy, x, key)
+        return block(x, key)
 
     @property
     def tome_on(self) -> bool:
@@ -263,6 +287,8 @@ def resolve_vit_config(tag: str, arch: Optional[dict] = None) -> dict:
     return spec
 
 
-def build_vit(tag: str, img_size: int,
-              arch: Optional[dict] = None) -> VisionTransformer:
-    return VisionTransformer(img_size=img_size, **resolve_vit_config(tag, arch))
+def build_vit(tag: str, img_size: int, arch: Optional[dict] = None,
+              **train_kw) -> VisionTransformer:
+    """``train_kw``: ``dropout``, ``remat``, ``remat_policy``."""
+    return VisionTransformer(img_size=img_size, **resolve_vit_config(tag, arch),
+                             **train_kw)

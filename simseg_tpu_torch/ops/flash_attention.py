@@ -390,9 +390,12 @@ class _FlashMHATrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if len(ctx.saved_tensors) == 3:
-            return flash_mha_train_bwd_plain(*ctx.saved_tensors, g)
-        qh, kh, vh, out, lse = ctx.saved_tensors
+        # read once: under a non-reentrant checkpoint (remat) each read of
+        # saved_tensors unpacks the recomputed tensors, and a second raises
+        saved = ctx.saved_tensors
+        if len(saved) == 3:
+            return flash_mha_train_bwd_plain(*saved, g)
+        qh, kh, vh, out, lse = saved
         return flash_mha_train_bwd(qh, kh, vh, out, g, lse)
 
 

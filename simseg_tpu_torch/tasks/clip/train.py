@@ -13,8 +13,13 @@ no HuggingFace tokenizer), builds the CSV / parquet loaders
 ``train``, on ``--device`` (default: CUDA); it returns the runner.
 ``train`` builds the model from the config (seeded from ``cfg.seed``,
 float32 parameters, bf16 compute under ``dist.bf16``) and a ``CLIPRunner``
-over the given loaders, runs it and returns the runner. The BSGS runner
-(``runner.name=clip_bsgs``) is not ported (ROADMAP queue 1 item 12).
+over the given loaders, runs it and returns the runner. ``runner.name``
+``clip`` trains the plain step, ``clip_bsgs`` BSGS (``engine/bsgs.py``:
+the exact gradient of the ``data.batch_size`` batch, e.g. the vit-b YAML's
+1024, in micro-batches of ``data.batch_size_train``); ``model.remat`` /
+``model.remat_policy`` rematerialise the towers' blocks and
+``optim.grad_accum_steps`` accumulates gradients over runner steps, as in
+JAX.
 """
 
 from __future__ import annotations

@@ -637,3 +637,37 @@ def test_device_prefetch_gives_the_same_run(cuda_device, tmp_path):
     assert runs[0][0] == runs[1][0]
     for key, value in runs[0][1].items():
         assert torch.equal(value, runs[1][1][key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["none", "dots"])
+def test_vit_block_remat_on_the_card(cuda_device, policy):
+    """A ViT-B block at T = 1297 (the 576-px pass, the train lane) under
+    remat: its gradients within 1e-6 of each one's largest entry of the
+    un-rematerialised block's (the recompute runs the same kernels on the
+    same inputs), and the train lane's forward launches doubled, the
+    backward's not."""
+    from simseg_tpu_torch.models.layers import remat_call
+    from simseg_tpu_torch.models.vit import Block
+
+    torch.manual_seed(0)
+    block = Block(768, 12).to(cuda_device)
+    x = torch.randn(2, 1297, 768, device=cuda_device).to(torch.bfloat16)
+    x.requires_grad_()
+    g = torch.randn_like(x)
+
+    def grads(run):
+        block.zero_grad(set_to_none=True)
+        x.grad = None
+        before = (flash_attention.LANE_CALLS["train"], flash_attention.BWD_LAUNCHES)
+        run().backward(g)
+        torch.cuda.synchronize()
+        calls = (flash_attention.LANE_CALLS["train"] - before[0],
+                 flash_attention.BWD_LAUNCHES - before[1])
+        return calls, [x.grad.float()] + [p.grad.float() for p in block.parameters()]
+
+    plain_calls, want = grads(lambda: block(x))
+    remat_calls, got = grads(lambda: remat_call(block, policy, x, None))
+    assert plain_calls == (1, 1) and remat_calls == (2, 1)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max()

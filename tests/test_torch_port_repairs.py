@@ -27,7 +27,7 @@ from simseg_tpu.data.tokenizer import make_test_vocab as jax_make_test_vocab
 from simseg_tpu.engine.train_step import mixup_lambda as jax_mixup_lambda
 from simseg_tpu.tasks.clip.config import task_cfg_init_fn
 from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer, make_test_vocab
-from simseg_tpu_torch.engine.train_step import mixup_lambda
+from simseg_tpu_torch.engine.train_step import mixup_lambda, step_key
 from simseg_tpu_torch.utils import threefry
 from tests.test_torch_port_lanes import CLASSES, WORDS, lane_models  # noqa: F401
 from tests.test_torch_port_quant import replayed_calibration_matches_jax
@@ -115,7 +115,8 @@ def test_mixup_lambda_is_jax_draw(alpha):
         for stable in (True, False):
             key = jax.random.fold_in(jax.random.key(seed), step) if stable else None
             want = float(jax_mixup_lambda(key, step, alpha))
-            got = mixup_lambda(seed if stable else None, step, alpha)
+            got = mixup_lambda(step_key(seed, step) if stable else None, step,
+                               alpha)
             assert 0.5 <= got <= 1.0
             worst = max(worst, abs(got - want) / want)
     assert worst <= 1e-6, worst

@@ -291,6 +291,68 @@ def test_optimizer_matches_jax(name):
                                    rtol=0, atol=1e-6, err_msg=key)
 
 
+# gradient accumulation (optim.grad_accum_steps = 2, optax MultiSteps):
+# name -> (overrides, step whose gradients hold a NaN, or None)
+ACCUMULATION = {
+    "adamw_clip_guard": (
+        ["optim.name=torch.optim.AdamW", "optim.skip_nonfinite=1",
+         "optim.param={'betas': [0.9, 0.98], 'eps': 1e-6, 'weight_decay': 0.05}",
+         "optim.grad_clip={'max_norm': 0.5}"], 2),
+    "sgd_clip": (
+        ["optim.name=torch.optim.SGD",
+         "optim.param={'momentum': 0.8, 'weight_decay': 0.001}",
+         "optim.grad_clip={'max_norm': 0.5}"], None),
+}
+
+
+@pytest.mark.parametrize("name", list(ACCUMULATION))
+def test_grad_accumulation_matches_jax_multisteps(name):
+    """Four steps of k = 2 with a changing lr against JAX's optimizer chain
+    under ``optax.MultiSteps``: the mean of two steps' gradients is clipped
+    and applied on every second step, the guard judging the mean (a NaN in
+    step 2's gradients skips the second update); AdamW's count moves once a
+    window; the reported norm is each step's own."""
+    argv, nan_step = ACCUMULATION[name]
+    ours_cfg, ref_cfg = _trees(TINY + ["optim.lr.init=1e-3",
+                                       "optim.grad_accum_steps=2"] + argv)
+    _, params, port = _pair()
+    tx, set_lr = jax_build_optimizer(ref_cfg, params)
+    state = tx.init(params)
+    opt = build_optimizer(ours_cfg, port)
+    named = dict(port.named_parameters())
+    rng = np.random.default_rng(4)
+    for step in range(4):
+        grads = jax.tree.map(
+            lambda p: np.asarray(rng.normal(size=p.shape) * 0.1, np.float32),
+            params)
+        if step == nan_step:
+            grads["params"]["temperature"] = np.asarray(np.nan, np.float32)
+        lr = 1e-3 * (step + 1)
+        state = set_lr(state, lr)
+        updates, state = tx.update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+        for key, g in flax_params_to_state_dict(grads).items():
+            named[key].grad = g
+        opt.set_lr(lr)
+        norm = opt.step()
+        np.testing.assert_allclose(float(norm), float(optax.global_norm(grads)),
+                                   rtol=1e-6)
+        assert opt.mini_step == (step + 1) % 2
+    want = flax_params_to_state_dict(jax.tree.map(np.asarray, params))
+    for key, value in port.state_dict().items():
+        np.testing.assert_allclose(value.numpy(), want[key].numpy(),
+                                   rtol=0, atol=1e-6, err_msg=key)
+    if name.startswith("adamw"):
+        counts = {int(s["step"]) for s in opt.base.state.values()}
+        assert counts == {1}   # the second window was skipped
+
+
+def test_lars_is_refused_naming_its_item():
+    ours_cfg, _ = _trees(TINY + ["optim.name=LARS"])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        build_optimizer(ours_cfg, _pair()[2])
+
+
 def test_float32_master_weights_survive_a_bf16_step():
     """bf16 compute, float32 parameters: an AdamW step at lr 1e-4 moves
     nearly every weight, by less than the bf16 spacing of most of them — a
@@ -483,6 +545,29 @@ def test_resumed_run_equals_uninterrupted(tmp_path):
     resumed, _ = _runner(argv + [f"ckpt.dir={tmp_path / 'b'}"], _batches(4), hook)
     resumed.run()
     assert len(hook.lrs) == 2 and resumed.step == 4
+    for (key, a), b in zip(whole.model.state_dict().items(),
+                           resumed.model.state_dict().values()):
+        assert torch.equal(a, b), key
+
+
+def test_resume_mid_accumulation_equals_uninterrupted(tmp_path):
+    """``optim.grad_accum_steps=2``, a checkpoint after step 3, halfway
+    through the second window: the resumed run's parameters equal the
+    uninterrupted run's, and AdamW moved once a window."""
+    argv = ["data.train_steps=4", "epoch=1", "ckpt.step_interval=3",
+            "optim.grad_accum_steps=2"]
+    whole, _ = _runner(argv + [f"ckpt.dir={tmp_path / 'a'}"], _batches(4), _Record())
+    whole.run()
+    cut, _ = _runner(argv + [f"ckpt.dir={tmp_path / 'b'}"], _batches(4),
+                     _Record(stop_after=3))
+    with pytest.raises(KeyboardInterrupt):
+        cut.run()
+    assert cut.optimizer.mini_step == 1
+    hook = _Record()
+    resumed, _ = _runner(argv + [f"ckpt.dir={tmp_path / 'b'}"], _batches(4), hook)
+    resumed.run()
+    assert len(hook.lrs) == 1 and resumed.step == 4
+    assert {int(s["step"]) for s in resumed.optimizer.base.state.values()} == {2}
     for (key, a), b in zip(whole.model.state_dict().items(),
                            resumed.model.state_dict().values()):
         assert torch.equal(a, b), key

@@ -40,6 +40,7 @@ from simseg_tpu_torch.checkpoint.convert import flax_params_to_state_dict
 from simseg_tpu_torch.data.tokenizer import make_test_vocab
 from simseg_tpu_torch.tasks.clip import train as port_train
 from tests.test_torch_port_pair_data import WORDS, write_pair_set
+from tests.test_torch_port_train import _key_bias
 from tests.test_train_cli import CLIP_YAML
 
 torch.set_num_threads(2)
@@ -91,6 +92,7 @@ def _jax_run(tmp_path, yaml, vocab, overrides):
         record = _JaxRecord()
         runner.register_hook(record, JaxPriority.LOWEST)
         runner.run()
+    record.final_params = jax.tree.map(np.asarray, runner.train_state.params)
     return batches, record, params
 
 
@@ -175,3 +177,35 @@ def test_train_main_modes_match_jax(tmp_path, mode):
     _run_both(tmp_path, overrides + MODES[mode] + [
         f"data.train_type={mode}", "data.train_name=[a,b]",
         "data.enable_valid=False"])
+
+
+def test_train_main_bsgs_matches_jax(tmp_path):
+    """``runner.name=clip_bsgs``: batch 8 in micro-batches of 4, 2 steps, no
+    validation. Losses within 1e-4 relative and parameters within 1e-5 of
+    JAX's runner; the key biases, whose gradient is zero in exact
+    arithmetic, within the 2 x lr a step that Adam gives either side's
+    float32 noise there."""
+    write_pair_set(tmp_path / "data", "pairs", 20, 0, seed=15)
+    overrides = [o for o in OVERRIDES if not o.startswith("data.train_steps")]
+    overrides += ["runner.name=clip_bsgs", "data.batch_size_train=4",
+                  "data.train_steps=2", "data.enable_valid=False"]
+    yaml = tmp_path / "clip.yaml"
+    yaml.write_text(CLIP_YAML)
+    vocab = make_test_vocab(WORDS)
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    _, want, params = _jax_run(tmp_path, str(yaml), vocab, overrides)
+    torch.save({"state_dict": flax_params_to_state_dict(
+        {"params": params["params"]})}, tmp_path / "init.pth")
+    runner, _, losses, _ = _port_run(tmp_path, str(yaml), overrides)
+    assert runner.step == 2 and len(want.losses) == 2
+    assert "make_bsgs_train_step" in runner._step_fn.__qualname__
+    np.testing.assert_allclose(losses, want.losses, rtol=1e-4)
+    ref = flax_params_to_state_dict(want.final_params)
+    drift = 2 * 2 * 1e-3
+    for key, value in runner.model.state_dict().items():
+        a, b = value.numpy(), ref[key].numpy()
+        keys = _key_bias(key, a.size)
+        if keys is not None:
+            assert np.all(np.abs(a[keys] - b[keys]) <= drift), key
+            a, b = np.delete(a, keys), np.delete(b, keys)
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5, err_msg=key)
