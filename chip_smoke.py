@@ -7,6 +7,7 @@
     python3 chip_smoke.py --entry-point                     (phases 1-2 and 8)
     python3 chip_smoke.py --train-entry                     (phases 1-2 and 9)
     python3 chip_smoke.py --big-batch                       (phases 1-2 and 10)
+    python3 chip_smoke.py --distributed                     (phases 1-2 and 11)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
@@ -234,11 +235,39 @@ Phases (any failure raises, so the exit code is non-zero):
    equals the uninterrupted run (step 3's loss and every parameter, bit
    for bit). Prints images/s, ms a step and peak GiB of each, the launches
    per BSGS step and its own wall time.
+11. data parallelism over ranks (``simseg_tpu_torch/parallel``, the launcher):
+   (a) the pretraining entry point at world 1 through ``python -m
+   simseg_tpu_torch.launch --nproc_per_node 1`` (NCCL) and alone, each a
+   process of its own, on phase 9's cc3m-layout fixture: the vit-b YAML at
+   224 px (the deterministic resize, the model at 224 px), batch 128, 8
+   steps, 8 decode threads; the two checkpoints (parameters and AdamW's state) bit-equal
+   and the logged losses equal (a sum over one rank is exact), ms a step
+   of both from the log lines' stamps, and the gradient reduction alone in
+   a world of one NCCL rank over the flagship's float32 gradients (CUDA
+   events); then two ranks on ``cuda:0`` joined
+   by gloo (NCCL refuses two ranks on a card), ``--rank-worker``, rank 0
+   also running the one-process references: (b) the plain step at 576 px,
+   16 images a rank, against one process's step at 32 on the same images
+   and weights: loss within 1e-2, each tower's least gradient cosine >=
+   0.99, each tower's gradient norm and the temperature's gradient within
+   1e-2 relative; planted faults that must fail: a mean where the sum is
+   due, a gather without rank 1's rows; 3 steps with exactly 12 forward
+   and 12 backward attention launches a step on each rank, the ranks'
+   parameters bit-equal after them; (c) ``evaluate_benchmark`` over 3
+   batches of 16 a rank at 288 px, float and int8_static image tower,
+   against one process on both ranks' batches: mIoU within 1e-3,
+   predictions equal on >= 99.9% of pixels, rank 1's int8 state bit-equal
+   to rank 0's, 3 CRF launches a rank; (d) BSGS 512 / 64 a rank at 224 px
+   against one process's BSGS 1024 / 128 with (b)'s bars, then 2 steps.
+   Prints images/s of (a), (b) and (d), the gradient reduction's ms a step
+   and the bytes staged through the host (gloo on CUDA tensors), beside the
+   card's name and power limit.
 It then prints one JSON line of kernel numbers (``cli_launches``: the
 kernel's launches in phase 8's lane that takes it; ``train_entry_launches``:
 in phase 9's run B; ``bsgs_launches``: per BSGS step of phase 10 at 576 px,
-batch 256 in micro-batches of 32), the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.
+batch 256 in micro-batches of 32; ``dist_launches``: each rank's in phase
+11, (b) for the attention kernels and (c)'s float lane for the CRF), the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -3489,6 +3518,590 @@ def run_big_batch():
     return launches
 
 
+# -- phase 11: data parallelism over ranks --------------------------------------
+
+DIST_WORLD = 2
+DIST_RANK_BATCH = 16                       # (b): 576 px, images a rank
+DIST_STEPS = 3
+DIST_LOSS_BAR = 1e-2                       # phase 6's step bar
+DIST_COS_BAR = 0.99
+DIST_NORM_BAR = 1e-2                       # relative: tower norms, temperature
+DIST_EVAL_BATCHES = 3                      # (c): batches of 16 a rank, 288 px
+DIST_BSGS = (BIG_BATCH, BIG_MICRO, 64)     # (d): batch, one process's micro, a rank's
+DIST_BSGS_STEPS = 2
+DIST_ENTRY_STEPS = 8                       # (a)
+DIST_LIMIT = 900                           # seconds the ranks may take
+DIST_NOTE = ("two ranks sharing one card through gloo measure no multi-card "
+             "speed: they take turns on the card and stage every collective "
+             "through the host")
+
+
+def tower_norms(grads, want):
+    """{tower: |1 - norm / wanted norm|} of each tower's gradients, and the
+    temperature's gradient the same way."""
+    out = {}
+    for tower in ("image_encoder.", "text_encoder."):
+        names = [n for n in want if n.startswith(tower)]
+        got = torch.sqrt(sum(grads[n].double().pow(2).sum() for n in names))
+        ref = torch.sqrt(sum(want[n].double().pow(2).sum() for n in names))
+        out[tower[:-1]] = abs(1.0 - (got / ref).item())
+    t = "loss.temperature"
+    out["temperature"] = abs(1.0 - (grads[t] / want[t]).item())
+    return out
+
+
+def dist_bars(label, loss, grads, want_loss, want):
+    """(ok, text): loss within 1e-2 relative, each tower's least gradient
+    cosine >= 0.99, each tower's gradient norm and the temperature's
+    gradient within 1e-2 relative of one process's."""
+    rel = abs(loss - want_loss) / abs(want_loss)
+    cos = tower_cosines(grads, want)
+    norms = tower_norms(grads, want)
+    ok = (rel <= DIST_LOSS_BAR and all(c >= DIST_COS_BAR for c, _ in cos.values())
+          and all(v <= DIST_NORM_BAR for v in norms.values()))
+    return ok, (f"{label}: loss {loss:.6f} vs {want_loss:.6f} (relative "
+                f"{rel:.3e}); least gradient cosine {cos}; norm errors {norms}")
+
+
+def captured_step(runner, batch):
+    """(loss, {name: float32 grad}) of one call of the runner's step on
+    ``batch`` (device tensors), the optimizer's update replaced by a copy of
+    the gradients it would take."""
+    grads = {}
+
+    def capture():
+        for n, p in runner.model.named_parameters():
+            if p.grad is not None:
+                grads[n] = p.grad.detach().float().clone()
+        runner.optimizer.zero_grad()
+        return torch.zeros(())
+
+    with unittest.mock.patch.object(runner.optimizer, "step", capture):
+        metrics = runner._step_fn(batch, 0.0, 0, True)
+    return metrics["loss"].item(), grads
+
+
+def params_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def timed_reductions():
+    """(patch, events): ``reduce_gradients`` in the steps wrapped in CUDA
+    events."""
+    from simseg_tpu_torch.engine import bsgs, train_step
+
+    events, inner = [], train_step.reduce_gradients
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        inner(*a, **kw)
+        end.record()
+        events.append((start, end))
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(unittest.mock.patch.object(train_step, "reduce_gradients", timed))
+    stack.enter_context(unittest.mock.patch.object(bsgs, "reduce_gradients", timed))
+    return stack, events
+
+
+def dist_train_steps(label, runner, host, steps, rank):
+    """``steps`` calls of ``runner.batch_processor`` on this rank's host
+    batch, the counts set to 0 just before and read just after: (ms a step
+    over the steps after the first, reduction ms a step, staged bytes a
+    step, counts)."""
+    from simseg_tpu_torch.parallel import collectives
+
+    timer = StepTimer()
+    patch, events = timed_reductions()
+    staged = collectives.STAGED_BYTES[0]
+    reset_counts()
+    torch.cuda.synchronize()
+    with timer.patch(), patch:
+        for _ in range(steps):
+            runner.batch_processor(host)
+            runner.step += 1
+        torch.cuda.synchronize()
+    counts = read_counts()
+    staged = (collectives.STAGED_BYTES[0] - staged) / steps
+    ms, _ = timer.ms_per_step(warmup=1)
+    red = sum(a.elapsed_time(b) for a, b in events[1:]) / max(len(events) - 1, 1)
+    losses = [x.item() for x in timer.losses]
+    print(f"11{label} rank {rank}: {steps} steps, losses "
+          f"{[round(x, 5) for x in losses]}, {ms:.3f} ms a step (steps 2-"
+          f"{steps}), gradient reduction {red:.3f} ms a step, {staged / 2**20:.1f} "
+          f"MiB staged through the host a step; launches {counts}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"11{label} rank {rank}: losses {losses}")
+    return ms, red, staged, counts
+
+
+def planted_gathers():
+    """The planted faults of (b): a mean where the sum is due (the
+    gradients halved), and a gather that leaves out rank 1's rows (rank 0's
+    in their place)."""
+    from simseg_tpu_torch.engine import train_step
+    from simseg_tpu_torch.parallel import collectives
+
+    def mean_reduce(params, group=None):
+        params = list(params)
+        collectives.reduce_gradients(params, group)
+        for p in params:
+            if p.grad is not None:
+                p.grad.div_(DIST_WORLD)
+
+    def gather_without_rank1(x, group=None):
+        g = collectives.all_gather(x, group)
+        n = x.shape[0]
+        return torch.cat([g[:n], g[:n]] + [g[2 * n:]])
+
+    return {"a mean where the sum is due": unittest.mock.patch.object(
+                train_step, "reduce_gradients", mean_reduce),
+            "a gather without rank 1's rows": unittest.mock.patch.object(
+                train_step, "all_gather", gather_without_rank1)}
+
+
+def dist_plain_step(tmp, rank, mesh, result):
+    """11b: the plain step at 576 px, 16 images a rank, against one
+    process's step at 32 on the same images and weights; the planted
+    faults; 3 steps; the ranks' parameters bit-equal after them."""
+    from simseg_tpu_torch.core.runner import CLIPRunner
+    from simseg_tpu_torch.models.clip import build_clip_model
+    from simseg_tpu_torch.parallel import process_allgather
+
+    b, n = DIST_WORLD * DIST_RANK_BATCH, DIST_RANK_BATCH
+    batch, tok = caption_batch(31, b, TRAIN_SIZE)
+    cfg = train_cfg(tmp, f"transforms.random_resize_crop.size={TRAIN_SIZE}",
+                    f"transforms.input_size={TRAIN_SIZE}", f"data.batch_size={b}")
+    torch.manual_seed(0)
+    runner = CLIPRunner(cfg, build_clip_model(cfg), {"train": []},
+                        device="cuda:0", tokenizer=tok)
+    dev = runner._prepare_batch(batch)
+    local = {k: v[rank * n:(rank + 1) * n] for k, v in dev.items()}
+    want = None
+    if rank == 0:
+        want_loss, want = step_grads(runner.model, dev)
+    loss, grads = captured_step(runner, local)
+    faults = {}
+    for name, patch in planted_gathers().items():
+        with patch:
+            faults[name] = captured_step(runner, local)
+    if rank == 0:
+        ok, text = dist_bars(f"11b {DIST_WORLD} ranks x {n} vs one process at "
+                             f"{b}, {TRAIN_SIZE} px", loss, grads, want_loss, want)
+        print(text, flush=True)
+        if not ok:
+            raise AssertionError("11b: the ranks' gradient is not one process's")
+        for name, (f_loss, f_grads) in faults.items():
+            f_ok, f_text = dist_bars(f"11b planted fault, {name}", f_loss,
+                                     f_grads, want_loss, want)
+            print(f_text + f"; within the bars {f_ok}", flush=True)
+            if f_ok:
+                raise AssertionError(f"11b: the planted fault ({name}) passed")
+    del want, grads, faults
+    torch.cuda.empty_cache()
+    host = {"image": batch["image"][rank * n:(rank + 1) * n],
+            "caption": batch["caption"][rank * n:(rank + 1) * n]}
+    ms, red, staged, counts = dist_train_steps("b", runner, host, DIST_STEPS, rank)
+    check_counts(f"11b rank {rank}", counts,
+                 {"flash_attention": 12 * DIST_STEPS, "lane_train": 12 * DIST_STEPS,
+                  "flash_attention_bwd": 12 * DIST_STEPS})
+    digests = process_allgather(np.frombuffer(
+        bytes.fromhex(params_digest(runner.model)), np.uint8))
+    same = bool((digests == digests[0]).all())
+    print(f"11b rank {rank}: parameters after {DIST_STEPS} steps bit-equal "
+          f"across the ranks {same}", flush=True)
+    if not same:
+        raise AssertionError("11b: the ranks' parameters differ")
+    result["b"] = dict(ms=ms, reduce_ms=red, staged=staged, counts=counts,
+                       images_per_s=b / ms * 1e3)
+    del runner, dev, local
+    torch.cuda.empty_cache()
+
+
+class ChainedLoader:
+    """The batches of several loaders, one after the other."""
+
+    def __init__(self, loaders):
+        self.loaders = loaders
+        self.batches = sum(l.batches for l in loaders)
+        self.batch_size = loaders[0].batch_size
+
+    def __iter__(self):
+        for loader in self.loaders:
+            yield from loader
+
+
+def recorded_eval(label, loader, model, tokenizer, classes):
+    """``evaluate_benchmark`` at 288 px with each batch's predictions kept,
+    the counts set to 0 just before it and read just after: (mIoU, preds,
+    counts)."""
+    from simseg_tpu_torch.tasks import seg_eval
+
+    preds, inner = [], seg_eval.make_seg_forward
+
+    def make(*a, **kw):
+        forward = inner(*a, return_pred=True, **kw)
+
+        def keep(*args):
+            total_i, total_u, pred = forward(*args)
+            preds.append(pred.cpu())
+            return total_i, total_u
+
+        return keep
+
+    with unittest.mock.patch.object(seg_eval, "make_seg_forward", make):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, miou = seg_eval.evaluate_benchmark(
+            loader, model, tokenizer, classes, top_cls_num=10,
+            dataset_name="pascal_voc", input_size=SIZE, max_length=25,
+            bilateral_stride=STRIDE)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    print(f"{label}: evaluate_benchmark on {loader.batches * loader.batch_size} "
+          f"images in {time.perf_counter() - t0:.3f} s, mIoU {miou:.6f}, "
+          f"launches {counts}", flush=True)
+    return miou, torch.cat(preds), counts
+
+
+@contextlib.contextmanager
+def one_process():
+    """A rank's evaluation as one process's: the eval's collectives off
+    (``evaluate_benchmark`` and the int8 broadcast ask ``is_distributed``)."""
+    from simseg_tpu_torch.parallel import mesh
+    from simseg_tpu_torch.tasks import seg_eval
+
+    with contextlib.ExitStack() as stack:
+        for module in (mesh, seg_eval):
+            stack.enter_context(unittest.mock.patch.object(
+                module, "is_distributed", lambda: False))
+            stack.enter_context(unittest.mock.patch.object(module, "rank",
+                                                           lambda: 0))
+        yield
+
+
+def quant_digest(model) -> str:
+    import hashlib
+
+    from simseg_tpu_torch.ops.quant import quant_layers
+
+    h = hashlib.sha256()
+    for name, m in sorted(quant_layers(model).items()):
+        for k in ("weight_q", "w_scale", "x_absmax"):
+            v = getattr(m, k)
+            if v is not None:
+                h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_eval(rank, result):
+    """11c: ``evaluate_benchmark`` over the two ranks (3 batches of 16 a
+    rank, 288 px, single-scale with the CRF kernel), float and int8_static
+    image tower, against one process on both ranks' batches: mIoU within
+    1e-3, predictions >= 99.9% equal; rank 1's int8 state bit-equal to
+    rank 0's."""
+    from simseg_tpu_torch.parallel import process_allgather
+
+    model, tok, classes = slice_setup()
+    lanes = {"float": model,
+             "int8_static": lane_model(seeded_clip(0).state_dict(),
+                                       image_arch=(("quant", "int8_static"),))}
+    loaders = [SyntheticLoader(DIST_EVAL_BATCHES, BATCH, len(classes), seed=40 + r)
+               for r in range(DIST_WORLD)]
+    result["c"] = {}
+    for lane, m in lanes.items():
+        if rank == 0:
+            with one_process():
+                miou_1, pred_1, _ = recorded_eval(f"11c {lane}, one process",
+                                                  ChainedLoader(loaders), m,
+                                                  tok, classes)
+        miou, pred, counts = recorded_eval(f"11c {lane}, rank {rank}",
+                                           loaders[rank], m, tok, classes)
+        check_counts(f"11c {lane} rank {rank}", counts,
+                     {"crf_mean_field": DIST_EVAL_BATCHES})
+        preds = process_allgather(pred.numpy())
+        digests = process_allgather(np.frombuffer(bytes.fromhex(quant_digest(m)),
+                                                  np.uint8))
+        if rank == 0:
+            agree = float((torch.from_numpy(preds.reshape(pred_1.shape))
+                           == pred_1).float().mean())
+            same_q = bool((digests == digests[0]).all())
+            print(f"11c {lane}: mIoU over the ranks {miou:.6f} vs one process "
+                  f"{miou_1:.6f} (difference {abs(miou - miou_1):.3e}); "
+                  f"predictions equal on {agree:.6f} of pixels; int8 state "
+                  f"bit-equal across the ranks {same_q}", flush=True)
+            if abs(miou - miou_1) > 1e-3 or agree < 0.999 or not same_q:
+                raise AssertionError(f"11c {lane}: the ranks' eval is not one "
+                                     "process's")
+        result["c"][lane] = dict(counts=counts, miou=miou)
+    del lanes, model
+    torch.cuda.empty_cache()
+
+
+def dist_bsgs(tmp, rank, mesh, result):
+    """11d: BSGS 512 / 64 a rank at 224 px against one process's BSGS
+    1024 / 128: loss within 1e-2, the least tower cosine and norm bars of
+    (b); 2 steps."""
+    from simseg_tpu_torch.core.runner import CLIPRunner
+    from simseg_tpu_torch.engine import bsgs
+    from simseg_tpu_torch.models.clip import build_clip_model
+
+    b, micro_1, micro = DIST_BSGS
+    n = b // DIST_WORLD
+    batch224, tok = caption_batch(13, b // 4, 224)
+    batch = tiled_batch(batch224, b)
+    cfg = train_cfg(tmp, "transforms.random_resize_crop.size=224",
+                    "transforms.input_size=224", f"data.batch_size={b}",
+                    f"data.batch_size_train={micro}", "runner.name=clip_bsgs")
+    torch.manual_seed(0)
+    runner = CLIPRunner(cfg, build_clip_model(cfg), {"train": []},
+                        device="cuda:0", tokenizer=tok)
+    dev = runner._prepare_batch(batch)
+    local = {k: v[rank * n:(rank + 1) * n] for k, v in dev.items()}
+    if rank == 0:
+        want_loss, want = bsgs_grads(runner.model, dev, b // micro_1)
+    del dev
+    metrics = bsgs.make_bsgs_grad_fn(runner.model, n // micro, mesh=mesh)(local)
+    grads = {k: p.grad.detach().float().clone()
+             for k, p in runner.model.named_parameters() if p.grad is not None}
+    runner.model.zero_grad(set_to_none=True)
+    if rank == 0:
+        ok, text = dist_bars(f"11d BSGS {DIST_WORLD} ranks x {n} / {micro} vs one "
+                             f"process {b} / {micro_1}, 224 px",
+                             metrics["loss"].item(), grads, want_loss, want)
+        print(text, flush=True)
+        if not ok:
+            raise AssertionError("11d: the ranks' BSGS gradient is not one "
+                                 "process's")
+        del want
+    del grads, local
+    torch.cuda.empty_cache()
+    host = {"image": batch["image"][rank * n:(rank + 1) * n],
+            "caption": batch["caption"][rank * n:(rank + 1) * n]}
+    ms, red, staged, counts = dist_train_steps("d", runner, host,
+                                               DIST_BSGS_STEPS, rank)
+    check_counts(f"11d rank {rank} (224 px takes no kernel)", counts, {})
+    result["d"] = dict(ms=ms, reduce_ms=red, staged=staged,
+                       images_per_s=b / ms * 1e3)
+    del runner
+    torch.cuda.empty_cache()
+
+
+def run_rank_worker(out_dir):
+    """One rank of phase 11 (b)-(d): gloo, on ``cuda:0`` beside the other
+    rank; rank 0 also runs the one-process references. Writes its numbers
+    to ``out_dir/rank<r>.json``."""
+    from simseg_tpu_torch.parallel import init_distributed, make_mesh, rank
+
+    init_distributed(backend="gloo", device="cuda:0", timeout=DIST_LIMIT)
+    r, mesh = rank(), make_mesh()
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist_plain_step(tmp, r, mesh, result)
+        dist_eval(r, result)
+        dist_bsgs(tmp, r, mesh, result)
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def entry_log(path):
+    """(losses, ms a step over steps 3-8) from a pretraining log: the
+    log lines' timestamps (each step's line follows a device sync)."""
+    import datetime
+    import re
+
+    stamps, losses = [], []
+    with open(path, errors="replace") as f:
+        for line in f:
+            m = re.match(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) Epoch \[\d+/\d+\]"
+                         r"\[(\d+)/\d+\].* loss: ([-\d.]+)", line)
+            if m:
+                stamps.append(datetime.datetime.strptime(
+                    m.group(1), "%Y-%m-%d %H:%M:%S,%f"))
+                losses.append(float(m.group(3)))
+    if len(losses) != DIST_ENTRY_STEPS:
+        raise AssertionError(f"11a: {len(losses)} step lines in {path}")
+    ms = (stamps[-1] - stamps[1]).total_seconds() * 1e3 / (len(stamps) - 2)
+    return losses, ms
+
+
+ENTRY_HEADS = {"launcher": ["-m", "simseg_tpu_torch.launch", "--task", "clip",
+                             "--nproc_per_node", "1"],
+               "plain": ["-m", "simseg_tpu_torch.tasks.clip.train"]}
+
+
+def entry_run(root, vocab, label, head):
+    """One process (``head``: the launcher or the entry point) of 11a on
+    phase 9's fixture: (losses, ms a step, checkpoint state, wall s)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    cwd = os.path.join(root, label)
+    os.makedirs(cwd)
+    argv = ["--cfg", os.path.join(repo, ENTRY_YAML), "--vocab_file", vocab,
+            f"data.data_path={root}/", f"ckpt.dir={cwd}/ckpt",
+            "data.train_name=[synth]", "data.enable_valid=False",
+            "data.batch_size=128", "data.num_workers=8",
+            f"data.train_steps={DIST_ENTRY_STEPS}", "epoch=1",
+            "ckpt.step_interval=-1", "log.interval_train=1",
+            "transforms.train_transforms=[resize]", "transforms.resize.size=224",
+            # the model at the crop's grid: a 288-px model interpolates its
+            # position embeddings, and the bicubic backward's atomics make
+            # two runs of one process differ in the last bits
+            "transforms.input_size=224"]
+    log = os.path.join(cwd, "run.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = subprocess.run([sys.executable, *head, *argv], cwd=cwd, env=env,
+                            stdout=f, stderr=subprocess.STDOUT,
+                            timeout=DIST_LIMIT).returncode
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(log) as f:
+            raise AssertionError(f"11a {label}: rc {rc}\n{f.read()[-3000:]}")
+    losses, ms = entry_log(log)
+    ckpt = os.path.join(cwd, "ckpt", "simseg_eval")
+    with open(os.path.join(ckpt, "latest_ckpt")) as f:
+        state = torch.load(os.path.join(ckpt, f.read().strip(), "train_state.pt"),
+                           map_location="cpu", weights_only=True)
+    print(f"11a {label}: {DIST_ENTRY_STEPS} steps of 128 in {wall:.1f} s, "
+          f"losses {losses}, {ms:.1f} ms a step (steps 3-8, log stamps)",
+          flush=True)
+    return losses, ms, state, wall
+
+
+def state_diff(a, b):
+    """[(name, largest absolute difference)] of the tensors that differ
+    between two checkpoints' parameters and AdamW states."""
+    pairs = [(k, a["model"][k], v) for k, v in b["model"].items()]
+    pairs += [(f"adam {i} {k}", a["optimizer"]["base"]["state"][i][k], t)
+              for i, s in b["optimizer"]["base"]["state"].items()
+              for k, t in s.items()]
+    diff = [(k, (x.double() - y.double()).abs().max().item())
+            for k, x, y in pairs if not torch.equal(x, y)]
+    return diff
+
+
+def dist_entry(root, vocab):
+    """11a: the pretraining entry point at world 1 through the launcher
+    (NCCL) and without it, as two processes: the vit-b YAML at 224 px (the
+    deterministic resize, the model at 224 px, 8 decode threads), batch
+    128, 8 steps; the
+    checkpoints (parameters and AdamW's state) bit-equal, the logged losses
+    equal; ms a step of both."""
+    runs = {label: entry_run(root, vocab, label, head)
+            for label, head in ENTRY_HEADS.items()}
+    if not os.path.exists(os.path.join(root, "launcher", "output",
+                                       "simseg.vit-b_log.txt")):
+        raise AssertionError("11a: the launcher wrote no log file")
+    (la, ms_l, sl, _), (lp, ms_p, sp, _) = runs["launcher"], runs["plain"]
+    diff = state_diff(sl, sp)
+    same = la == lp and sl["step"] == sp["step"] and not diff
+    print(f"11a world 1 (NCCL) through the launcher vs the entry point alone: "
+          f"parameters and AdamW's state bit-equal after {DIST_ENTRY_STEPS} "
+          f"steps {same} (differing tensors: {diff[:6]}); "
+          f"{ms_l:.1f} vs {ms_p:.1f} ms a step (the world's gather and "
+          f"gradient reduction included)", flush=True)
+    if not same:
+        raise AssertionError("11a: the world of one differs from one process")
+    return {"ms": ms_l, "plain_ms": ms_p, "images_per_s": 128 / ms_l * 1e3,
+            "plain_images_per_s": 128 / ms_p * 1e3}
+
+
+def world1_reduction_ms(reps=5):
+    """ms of ``reduce_gradients`` over the flagship's float32 gradients
+    (ViT-B/16 + BERT-base, 0.8 GB) in a world of one NCCL rank, this
+    process (CUDA events, the mean of ``reps`` after a warm-up)."""
+    import torch.distributed as dist
+
+    from simseg_tpu_torch.launch import free_port
+    from simseg_tpu_torch.parallel import collectives
+
+    params = list(seeded_clip(0).cuda().parameters())
+    for p in params:
+        p.grad = torch.randn_like(p)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        want = [p.grad.clone() for p in params]
+        ms = cuda_ms(lambda: collectives.reduce_gradients(params), reps)
+        if not all(torch.equal(p.grad, w) for p, w in zip(params, want)):
+            raise AssertionError("11a: a sum over one rank changed a gradient")
+    finally:
+        dist.destroy_process_group()
+    del params, want
+    torch.cuda.empty_cache()
+    return ms
+
+
+def run_distributed():
+    """Phase 11: returns each kernel's launches per rank in (b) and (c)."""
+    from simseg_tpu_torch.launch import free_port
+
+    card = card_line()
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        vocab = write_train_entry_fixture(root)
+        entry = dist_entry(root, vocab)
+        entry["reduce_ms"] = world1_reduction_ms()
+        out = os.path.join(root, "ranks")
+        os.makedirs(out)
+        port = free_port()
+        procs = []
+        for r in range(DIST_WORLD):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK="0",
+                       WORLD_SIZE=str(DIST_WORLD), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker", out],
+                env=env))
+        try:
+            rcs = [p.wait(timeout=DIST_LIMIT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if rcs != [0] * DIST_WORLD:
+            raise AssertionError(f"11: the ranks exited {rcs}")
+        ranks = []
+        for r in range(DIST_WORLD):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    print(f"11a ({card}): the entry point at world 1 through the launcher "
+          f"{entry['images_per_s']:.1f} images/s ({entry['ms']:.1f} ms a step), "
+          f"alone {entry['plain_images_per_s']:.1f} ({entry['plain_ms']:.1f} ms), "
+          f"launcher - alone {entry['ms'] - entry['plain_ms']:+.1f} ms a step "
+          f"(host-bound steps); the gradient reduction alone at world 1 (NCCL) "
+          f"{entry['reduce_ms']:.3f} ms a step", flush=True)
+    for part, what in (("b", f"plain step, {DIST_WORLD} x {DIST_RANK_BATCH} at "
+                             f"{TRAIN_SIZE} px"),
+                       ("d", f"BSGS {DIST_WORLD} x {DIST_BSGS[0] // DIST_WORLD} / "
+                             f"{DIST_BSGS[2]} at 224 px")):
+        for r, res in enumerate(ranks):
+            x = res[part]
+            print(f"11{part} rank {r} ({card}): {what}: {x['images_per_s']:.1f} "
+                  f"images/s ({x['ms']:.1f} ms a step), gradient reduction "
+                  f"{x['reduce_ms']:.1f} ms a step, {x['staged'] / 2**20:.1f} MiB "
+                  f"staged through the host a step; {DIST_NOTE}", flush=True)
+    print(f"11 phase in {time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"flash_attention": [r["b"]["counts"]["flash_attention"] for r in ranks],
+            "flash_attention_bwd": [r["b"]["counts"]["flash_attention_bwd"]
+                                    for r in ranks],
+            "crf_mean_field": [r["c"]["float"]["counts"]["crf_mean_field"]
+                               for r in ranks]}
+
+
 def build_all():
     """Builds the four kernels and the nvJPEG binding with one nvcc process
     each, in parallel."""
@@ -3781,6 +4394,8 @@ def compare_bilateral_trees(trees) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke needs one")
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return run_rank_worker(sys.argv[2])
     if sys.argv[1:2] == ["--attention-trees"]:
         print(f"card: {card_line()}", flush=True)
         return compare_attention_trees(sys.argv[2:])
@@ -3806,6 +4421,11 @@ def main() -> None:
         print(f"card: {card_line()}", flush=True)
         build_all()
         run_big_batch()
+        return None
+    if sys.argv[1:2] == ["--distributed"]:
+        print(f"card: {card_line()}", flush=True)
+        build_all()
+        run_distributed()
         return None
 
     card = card_line()
@@ -3859,13 +4479,16 @@ def main() -> None:
     train_entry = run_train_entry()
     torch.cuda.empty_cache()
     big = run_big_batch()
+    torch.cuda.empty_cache()
+    dist = run_distributed()
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/crf_mean_field.cu",
          "replaces": "simseg_tpu/ops/crf_fused.py:304",
          "launches": crf_launches,
-         "cli_launches": entry["auto"]["crf_mean_field"], "library_ms": None,
+         "cli_launches": entry["auto"]["crf_mean_field"],
+         "dist_launches": dist["crf_mean_field"], "library_ms": None,
          **crf},
         {"name": "flash_attention", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
@@ -3874,6 +4497,7 @@ def main() -> None:
          "cli_launches": entry["scales (1.0, 2.0)"]["flash_attention"],
          "train_entry_launches": train_entry["B"]["flash_attention"],
          "bsgs_launches": big["flash_attention"],
+         "dist_launches": dist["flash_attention"],
          **attn[LONG_T]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -3881,21 +4505,25 @@ def main() -> None:
          "launches": train_counts["flash_attention_bwd"],
          "train_entry_launches": train_entry["B"]["flash_attention_bwd"],
          "bsgs_launches": big["flash_attention_bwd"],
+         "dist_launches": dist["flash_attention_bwd"],
          **attn_bwd},
         {"name": "bilateral_matvec", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/bilateral_matvec.cu",
          "replaces": "simseg_tpu/ops/crf_pallas.py:125",
          "launches": win_counts["bilateral_matvec"],
-         "cli_launches": entry["pallas"]["bilateral_matvec"], **bilateral},
+         "cli_launches": entry["pallas"]["bilateral_matvec"],
+         "dist_launches": [0] * DIST_WORLD, **bilateral},
         {"name": "seg_decode_tail", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/crf_mean_field.cu",
          "replaces": "simseg_tpu/ops/crf_fused.py:425",
          "launches": tail_counts["seg_decode_tail"],
-         "cli_launches": entry["fused_tail"]["seg_decode_tail"], **tail},
+         "cli_launches": entry["fused_tail"]["seg_decode_tail"],
+         "dist_launches": [0] * DIST_WORLD, **tail},
         {"name": "flash_attention (rowblock)", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
          "replaces": "simseg_tpu/ops/flash_attention.py:789",
          "launches": long_counts["lane_rowblock"],
+         "dist_launches": [0] * DIST_WORLD,
          "train_launches": row_train_counts["lane_rowblock"],
          "bwd_launches": row_train_counts["flash_attention_bwd"],
          "shape": [BATCH, ROWBLOCK_T, HEADS, HEAD_DIM],
@@ -3904,6 +4532,7 @@ def main() -> None:
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
          "replaces": "simseg_tpu/ops/flash_attention.py:536",
          "launches": long_counts["lane_stream"],
+         "dist_launches": [0] * DIST_WORLD,
          "shape": [BATCH, STREAM_T, HEADS, HEAD_DIM],
          **long_fwd["stream"], **long_bwd["stream"]},
     ]}))

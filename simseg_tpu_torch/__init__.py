@@ -12,17 +12,24 @@ hand-written kernel is replaced by its plain PyTorch version.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 __version__ = "0.1.0"
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> the current CUDA device; anything else as given.
+    """``None`` -> the rank's card, ``cuda:LOCAL_RANK`` (``cuda:0`` outside
+    a ``torch.distributed`` launch, where ``LOCAL_RANK`` is unset);
+    anything else as given.
 
     Raises when CUDA is asked for (explicitly or by default) and absent.
     """
-    dev = torch.device("cuda") if device is None else torch.device(device)
+    if device is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0") or 0))
+    else:
+        dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "simseg_tpu_torch runs on CUDA unless told otherwise, and no CUDA "

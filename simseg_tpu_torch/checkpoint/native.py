@@ -14,6 +14,11 @@ discipline as the JAX version: files go through a temp file and an atomic
 rename, the ``latest_ckpt`` pointer flips only once a checkpoint is
 complete, and a re-save under an existing name writes a fresh
 ``name@<step>`` directory and prunes the superseded ones.
+
+In a ``torch.distributed`` world rank 0 writes (the parameters are the same
+on every rank, JAX ``checkpoint/native.py:31-36``) and every rank waits at
+a barrier until the files are complete, so a rank that resumes, or reads
+the pointer, reads the same checkpoint.
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from simseg_tpu_torch.parallel.collectives import barrier
+from simseg_tpu_torch.parallel.mesh import rank
+
 logger = logging.getLogger(__name__)
 
 STATE_FILE = "train_state.pt"
@@ -36,9 +44,17 @@ LATEST = "latest_ckpt"
 
 def save_checkpoint(directory: str, name: str, model: torch.nn.Module,
                     optimizer=None, meta: Optional[Dict[str, Any]] = None,
-                    make_latest: bool = True) -> str:
+                    make_latest: bool = True) -> Optional[str]:
     """Write ``model`` (and ``optimizer``) under ``directory/name``; returns
-    the path (JAX ``save_checkpoint``)."""
+    the path, None on a rank other than 0 (JAX ``save_checkpoint``). Every
+    rank of a world must call it: the write ends at a barrier."""
+    path = _write_checkpoint(directory, name, model, optimizer, meta,
+                             make_latest) if rank() == 0 else None
+    barrier()
+    return path
+
+
+def _write_checkpoint(directory, name, model, optimizer, meta, make_latest):
     base = name
     path = os.path.join(directory, name)
     meta = dict(meta or {})
@@ -137,7 +153,9 @@ def has_checkpoint(directory: str) -> bool:
 
 def dump_config_snapshot(directory: str, cfg) -> None:
     """The config tree as ``global.json`` (the JAX version writes
-    ``global.yaml``; JSON needs no PyYAML)."""
+    ``global.yaml``; JSON needs no PyYAML), by rank 0."""
+    if rank() != 0:
+        return
     os.makedirs(directory, exist_ok=True)
     with open(os.path.join(directory, "global.json"), "w") as f:
         json.dump(cfg.to_dict(), f, indent=1, default=str)

@@ -13,7 +13,15 @@ batch dicts with ``image`` (uint8 or float NHWC), ``input_ids`` and
 ``runner.name`` is ``clip`` (``engine/train_step.py``) or ``clip_bsgs``
 (``engine/bsgs.py``: the exact gradient of the ``data.batch_size`` batch in
 micro-batches of ``data.batch_size_train``), refused where JAX refuses it.
-Not ported yet: the linear-probe runner (ROADMAP queue 1 item 14).
+
+In a ``torch.distributed`` world (``parallel/mesh.py``) every rank runs
+the runner on its shard of each batch (``data.batch_size`` is the global
+batch, which the world size must divide, JAX ``runner.py:84-91``); the
+steps gather the embeddings and sum the gradients over the ranks, so the
+lr schedule, the steps and the parameters are the same on every rank.
+``loss.group_size`` (ranks per gather group) must divide the world, as
+JAX's ``make_mesh`` checks. Not ported yet: the linear-probe runner
+(ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from simseg_tpu_torch.data.datasets import debias_batches, sequential_batches
 from simseg_tpu_torch.data.transforms import normalize_images
 from simseg_tpu_torch.engine.bsgs import make_bsgs_train_step
 from simseg_tpu_torch.engine.train_step import make_eval_step, make_train_step
+from simseg_tpu_torch.parallel.mesh import (batch_shards, loss_group_samples,
+                                            make_mesh)
 from simseg_tpu_torch.utils.collections import AttrDict
 
 _BATCH_KEYS = ("image", "input_ids", "attention_mask", "ignore_mask")
@@ -81,6 +91,15 @@ class EpochRunner(BaseRunner):
         self.max_epochs = cfg.epoch
         self.val_interval = cfg.runner.val_interval
         self.val_interval_steps = cfg.runner.val_interval_steps
+        self.mesh = make_mesh(int(cfg.loss.get("group_size", -1) or -1))
+
+        # batch divisibility guard (parity: core/initial.py:68-72, JAX
+        # runner.py:84-91): each rank takes batch_size / W of a batch
+        n_shards = batch_shards(self.mesh)
+        if self.train_loaders and cfg.data.batch_size % n_shards != 0:
+            raise ValueError(
+                f"data.batch_size {cfg.data.batch_size} must be divisible by "
+                f"the batch shard count {n_shards}")
 
         # steps math (parity: epoch_runner.py:39-65); a loader without a
         # length needs data.train_steps
@@ -113,9 +132,12 @@ class EpochRunner(BaseRunner):
         raise NotImplementedError
 
     def init_hook(self) -> None:
-        from simseg_tpu_torch.core.train_hooks import CheckpointHook, LogHook
+        from simseg_tpu_torch.core.train_hooks import (CheckpointHook, LogHook,
+                                                       PreemptionHook)
 
         self.register_hook(CheckpointHook(), Priority.LOW)
+        # after CheckpointHook's own interval save (JAX runner.py:166-168)
+        self.register_hook(PreemptionHook(), Priority.VERY_LOW)
         self.register_hook(LogHook(), Priority.VERY_LOW)
 
     # -- shared plumbing ------------------------------------------------------------
@@ -301,11 +323,8 @@ class CLIPRunner(EpochRunner):
             arch = dict(cfg.model[enc].get("arch", {}) or {})
             if arch.get("quant", "none") not in (None, "", "none"):
                 raise NotImplementedError(f"{enc} arch quant is inference-only")
-        group_size = int(cfg.loss.get("group_size", -1))
-        if group_size > 1:
-            # devices per group in the JAX package; one card is one group
-            raise NotImplementedError("loss.group_size > 1 needs several "
-                                      "cards (ROADMAP queue 1 item 13)")
+        # devices per gather group in the config; the loss takes samples
+        self._group_samples = loss_group_samples(self.mesh, cfg.data.batch_size)
         self._eval_fn = make_eval_step(self.model)
         if cfg.runner.name == "clip_bsgs":
             self._step_fn = self._bsgs_step()
@@ -319,6 +338,8 @@ class CLIPRunner(EpochRunner):
             triplet_reduce=cfg.loss.get("triplet_loss", {}).get("reduce_mode", "max"),
             extra_losses=tuple(cfg.loss.get("extra_losses", []) or ()),
             seed=int(cfg.seed or 0),
+            mesh=self.mesh, group_size=self._group_samples,
+            mixup_pairing=cfg.get("mixup", {}).get("pairing", "shard"),
         )
 
     def _bsgs_step(self):
@@ -346,13 +367,23 @@ class CLIPRunner(EpochRunner):
             raise NotImplementedError(
                 "runner 'clip_bsgs' does not support loss.extra_losses "
                 "(use runner.name='clip')")
+        # JAX's micro-batches are contiguous blocks of the global batch:
+        # each rank runs its own share of them
+        num_micro = max(1, cfg.data.batch_size // cfg.data.batch_size_train)
+        world = batch_shards(self.mesh)
+        if loss_name == "MixUpNCE" and num_micro % world:
+            # the flip blocks (micro-batches) would span ranks
+            raise NotImplementedError(
+                f"runner 'clip_bsgs' with MixUpNCE needs each micro-batch on "
+                f"one rank: data.batch_size // data.batch_size_train "
+                f"({num_micro}) must be a multiple of the world size {world}")
         return make_bsgs_train_step(
-            self.model, self.optimizer,
-            num_micro=max(1, cfg.data.batch_size // cfg.data.batch_size_train),
+            self.model, self.optimizer, num_micro=max(1, num_micro // world),
             smoothing=cfg.loss.get("smoothing", 0.0),
+            group_size=self._group_samples,
             mixup=loss_name == "MixUpNCE",
             mixup_alpha_param=cfg.get("mixup", {}).get("alpha", 0.2),
-            seed=int(cfg.seed or 0))
+            seed=int(cfg.seed or 0), mesh=self.mesh)
 
     def init_hook(self) -> None:
         """parity: clip_runner.py:44-63 hook wiring."""
@@ -372,8 +403,9 @@ class CLIPRunner(EpochRunner):
         lr = self.lr_schedule(self.step)
         deterministic = self.cfg.runner.get("stable_random", "none") == "none"
         metrics = self._step_fn(device_batch, lr, self.step, deterministic)
-        self.state.log_metrics.add_counter("samples",
-                                           device_batch["image"].shape[0])
+        # the global batch's samples, as JAX counts them
+        self.state.log_metrics.add_counter(
+            "samples", device_batch["image"].shape[0] * batch_shards(self.mesh))
         return metrics
 
     def val_step(self, batch) -> None:

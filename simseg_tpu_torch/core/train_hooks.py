@@ -1,13 +1,15 @@
-"""Training hooks: logging, checkpointing and retrieval validation (port
-of ``simseg_tpu/core/train_hooks.py``: ``LogHook``, ``CheckpointHook`` with
-the native backend and ``RetrievalEvalHook``; the preemption, profile and
-wandb hooks are not ported yet, ROADMAP queue 1 item 11).
+"""Training hooks: logging, checkpointing, preemption and retrieval
+validation (port of ``simseg_tpu/core/train_hooks.py``: ``LogHook``,
+``CheckpointHook`` with the native backend, ``PreemptionHook`` and
+``RetrievalEvalHook``; the profile and wandb hooks are not ported yet,
+ROADMAP queue 1 item 11).
 
 Parity: LogHook, reference ``core/hooks/log.py:64-146`` — a train line per
 interval with the step's metrics and step time, validation progress;
 CheckpointHook, ``core/hooks/checkpoint.py:80-187`` — step-interval and
 per-epoch checkpoints, auto-resume (mid-epoch included) and an external
-pretrained init; RetrievalEvalHook, ``tasks/clip/hooks/eval.py:9-99`` —
+pretrained init; PreemptionHook, JAX ``train_hooks.py:237-278`` (beyond
+the reference); RetrievalEvalHook, ``tasks/clip/hooks/eval.py:9-99`` —
 the validation embeddings collected, R@1/5/10 and RSUM at the end.
 """
 
@@ -24,6 +26,9 @@ from simseg_tpu_torch.checkpoint.native import (dump_config_snapshot,
                                                 has_checkpoint, load_checkpoint,
                                                 load_params, save_checkpoint)
 from simseg_tpu_torch.core.hooks import Hook
+from simseg_tpu_torch.parallel.collectives import (all_reduce_max,
+                                                   allgather_rows)
+from simseg_tpu_torch.parallel.mesh import host_group, is_distributed
 from simseg_tpu_torch.utils.retrieval import retrieval_summary
 
 logger = logging.getLogger(__name__)
@@ -144,12 +149,59 @@ class CheckpointHook(Hook):
         self._save(runner, f"epoch_{runner.epoch + 1:03d}", meta)
 
 
+class PreemptionHook(Hook):
+    """Graceful preemption (JAX ``PreemptionHook``): on SIGTERM, finish the
+    step, write the step checkpoint through the registered
+    ``CheckpointHook`` and exit 0, so that a restarted job auto-resumes in
+    the middle of its epoch. A second SIGTERM takes the default action.
+
+    In a world the ranks agree on the step to stop at: after every step the
+    flag goes through a max all-reduce on the host group, so all ranks stop
+    after the first step at whose end any rank holds it (a rank that
+    stopped alone would hang the others at their next collective)."""
+
+    def before_run(self, runner) -> None:
+        import signal
+
+        self._requested = False
+
+        def _handler(signum, frame):
+            self._requested = True
+            signal.signal(signal.SIGTERM, self._orig)
+            logger.warning("SIGTERM received: checkpointing after the current "
+                           "step, then exiting 0 for auto-resume")
+
+        self._orig = signal.signal(signal.SIGTERM, _handler)
+
+    def _agreed(self) -> bool:
+        if not is_distributed():
+            return self._requested
+        flag = torch.tensor([float(self._requested)])
+        return bool(all_reduce_max(flag, host_group()).item())
+
+    def after_train_step(self, runner) -> None:
+        if not self._agreed():
+            return
+        saved = False
+        for hook in runner._hooks:
+            if isinstance(hook, CheckpointHook):
+                hook._save(runner, runner.cfg.ckpt.filename, hook._meta(runner))
+                saved = True
+        status = "written" if saved else "SKIPPED (no CheckpointHook)"
+        logger.warning(f"Preemption checkpoint {status} at epoch "
+                       f"{runner.epoch}, step {runner.step}: exiting")
+        raise SystemExit(0)
+
+
 class RetrievalEvalHook(Hook):
     """Collects each validation step's embeddings (on the device) and ids;
     at the end of the pass, R@1/5/10 and RSUM over the rows whose image id
     is not -1 (padding, eval.py:32-33), kept in
-    ``runner.state.retrieval_summary``. The gather across processes of the
-    JAX hook is not ported (ROADMAP queue 1 item 13)."""
+    ``runner.state.retrieval_summary``. In a world where
+    ``data.single_eval`` is false each rank embedded its shard of the valid
+    set: the embeddings and ids are gathered from every rank first (JAX
+    ``train_hooks.py:326-334``, the reference's all_gather), the shorter
+    shards padded with id -1."""
 
     def before_val_epoch(self, runner) -> None:
         self._img, self._txt, self._iid, self._cid = [], [], [], []
@@ -171,6 +223,12 @@ class RetrievalEvalHook(Hook):
         else:
             iid = np.arange(img.shape[0])
             cid = np.arange(txt.shape[0])
+        if is_distributed() and not runner.cfg.data.get("single_eval", True):
+            dev = img.device
+            img, txt, iid, cid = allgather_rows(
+                [img.cpu().numpy(), txt.cpu().numpy(), iid, cid],
+                [0.0, 0.0, -1, -1])
+            img, txt = torch.from_numpy(img).to(dev), torch.from_numpy(txt).to(dev)
         keep = iid > -1
         rows = torch.from_numpy(np.flatnonzero(keep)).to(img.device)
         summary = retrieval_summary(img[rows], txt[rows], iid[keep], cid[keep])

@@ -18,6 +18,18 @@ Parity: reference ``simseg/tasks/clip/clip_bsgs_runner.py:309-451``
    the whole batch for every parameter, the learnable temperature included
    (through the re-forward's 1 / sqrt(T)).
 
+Over a ``torch.distributed`` world (``mesh``; JAX ``bsgs.py:242-323``,
+BSGS on a data mesh) each rank holds its rows of the global batch, in
+micro-batches of its own: pass 1 embeds them, the float32 middle section
+runs on the embeddings all-gathered over the world (or over the rank's
+``loss.group_size`` gather group, whose rows are one loss group) with the
+global batch as the divisor, pass 2 re-forwards the rank's micro-batches
+with its rows of the left matrices, and the gradients are summed over the
+ranks once per step (``parallel/collectives.reduce_gradients``). The
+logged loss and accuracies are the global batch's. Under mixup the flip
+blocks are the micro-batches, each on one rank, as in JAX where a
+micro-batch is a contiguous block of the global batch.
+
 Dropout: micro-batch i runs with the key ``fold_in(key, i)`` in both
 passes (JAX ``bsgs.py:126-127``), and every dropout site seeds its own
 draw from it (``models/layers.py``), so pass 2 replays pass 1's masks.
@@ -39,7 +51,11 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from simseg_tpu_torch.engine.train_step import mixup_lambda, step_key
+from simseg_tpu_torch.engine.train_step import (mixup_lambda, rank_key,
+                                                step_key)
+from simseg_tpu_torch.parallel.collectives import (all_gather, all_reduce_sum,
+                                                   reduce_gradients)
+from simseg_tpu_torch.parallel.mesh import DataMesh
 from simseg_tpu_torch.utils import threefry
 
 _BATCH_KEYS = ("image", "input_ids", "attention_mask")
@@ -92,7 +108,8 @@ def reforward(model, micro, keys, lam, left_i, left_t, b: int) -> None:
 
 def make_bsgs_grad_fn(model, num_micro: int, smoothing: float = 0.0,
                       group_size: int = -1, mixup: bool = False,
-                      mixup_alpha_param: float = 0.2) -> Callable:
+                      mixup_alpha_param: float = 0.2,
+                      mesh: Optional[DataMesh] = None) -> Callable:
     """``grad_fn(batch, key=None, step=0) -> metrics``: the exact symmetric
     InfoNCE gradient of the whole batch put in the parameters' ``.grad``
     (cleared first), by two passes over ``num_micro`` micro-batches. ``key``
@@ -103,23 +120,18 @@ def make_bsgs_grad_fn(model, num_micro: int, smoothing: float = 0.0,
     group_size: negatives restricted to contiguous groups of this many
     samples (block-diagonal loss). mixup: image mixup with the reversed
     pairing within each micro-batch, the coefficient JAX's draw
-    (``mixup_lambda``)."""
+    (``mixup_lambda``). mesh: the world (None: one process); ``batch`` then
+    holds this rank's rows, split into ``num_micro`` micro-batches, and
+    ``group_size`` is met by the gather group."""
 
     def grad_fn(batch: Dict[str, torch.Tensor],
                 key: Optional[threefry.Key] = None, step: int = 0):
-        b = batch["image"].shape[0]
-        mb_size = b // num_micro
-        g = group_size if (group_size and 0 < group_size < b) else b
-        if b % g != 0:
-            raise ValueError(f"group_size {g} must divide batch {b}")
-        if mixup and g % mb_size != 0 and g != b:
-            raise ValueError(
-                "mixup flip blocks (micro-batches) must nest inside "
-                f"group_size groups: micro {mb_size}, group {g}")
-        ng = b // g
+        rows = batch["image"].shape[0]
+        mb_size = rows // num_micro
         micro = split_micro(batch, num_micro)
         lam = mixup_lambda(key, step, mixup_alpha_param) if mixup else None
-        keys = [None if key is None else threefry.fold_in(key, i)
+        rkey = rank_key(key, mesh)
+        keys = [None if rkey is None else threefry.fold_in(rkey, i)
                 for i in range(num_micro)]
         for p in model.parameters():
             p.grad = None
@@ -130,14 +142,33 @@ def make_bsgs_grad_fn(model, num_micro: int, smoothing: float = 0.0,
         img_g = torch.cat([o[0] for o in outs])
         txt_g = torch.cat([o[1] for o in outs])
         temp = outs[0][2].float()
-        d = img_g.shape[-1]
         dev = img_g.device
         mask = batch.get("ignore_mask")
-        w = (torch.ones(b, device=dev) if mask is None
+        w = (torch.ones(rows, device=dev) if mask is None
              else 1.0 - mask.to(dev, torch.float32))
+        b, first, gsize = rows, 0, group_size
+        if mesh is not None:
+            # the middle section over the gathered batch: the world's, or
+            # the rank's gather group's (one loss group)
+            group = mesh.group if mesh.n_groups > 1 else None
+            img_g, txt_g, w = (all_gather(x, group) for x in (img_g, txt_g, w))
+            b = rows * mesh.world
+            first = rows * (mesh.rank_in_group if group is not None
+                            else mesh.rank)
+            gsize = -1
+        n = img_g.shape[0]
+        g = gsize if (gsize and 0 < gsize < n) else n
+        if n % g != 0:
+            raise ValueError(f"group_size {g} must divide batch {n}")
+        if mixup and g % mb_size != 0 and g != n:
+            raise ValueError(
+                "mixup flip blocks (micro-batches) must nest inside "
+                f"group_size groups: micro {mb_size}, group {g}")
+        ng = n // g
+        d = img_g.shape[-1]
 
         # ---- analytic softmax gradients (clip_bsgs_runner.py:358-396), by
-        # group (g == b: one group, global negatives); masked rows are
+        # group (g == n: one group, global negatives); masked rows are
         # zeroed in the second operand of the logits (info_nce parity)
         i_blk = img_g.reshape(ng, g, d)
         t_blk = txt_g.reshape(ng, g, d)
@@ -168,8 +199,8 @@ def make_bsgs_grad_fn(model, num_micro: int, smoothing: float = 0.0,
         mid_i = (a1 + a2.transpose(1, 2)) * ww
         mid_t = (a2 + a1.transpose(1, 2)) * ww
         temp_sqrt = torch.sqrt(temp)
-        left_i = (torch.bmm(mid_i, t_blk) / temp_sqrt).reshape(b, d)
-        left_t = (torch.bmm(mid_t, i_blk) / temp_sqrt).reshape(b, d)
+        left_i = (torch.bmm(mid_i, t_blk) / temp_sqrt).reshape(n, d)
+        left_t = (torch.bmm(mid_t, i_blk) / temp_sqrt).reshape(n, d)
 
         # the logged loss (clip_bsgs_runner.py:369): the autodiff objective,
         # masks, smoothing and mixup included
@@ -177,15 +208,23 @@ def make_bsgs_grad_fn(model, num_micro: int, smoothing: float = 0.0,
         row2 = -torch.sum(y * torch.log_softmax(s2, dim=-1), dim=-1) * w_blk
         loss = 0.5 * (row1.sum() + row2.sum()) / b
         tgt = torch.arange(g, device=dev)
-        hit1 = (s1.argmax(dim=-1) == tgt).float()
-        hit2 = (s2.argmax(dim=-1) == tgt).float()
-        denom = torch.clamp(w_blk.sum(), min=1.0)
+        hits1 = ((s1.argmax(dim=-1) == tgt).float() * w_blk).sum()
+        hits2 = ((s2.argmax(dim=-1) == tgt).float() * w_blk).sum()
+        valid = w_blk.sum()
+        if mesh is not None and mesh.n_groups > 1:
+            # each group's sums, counted once by each of its ranks
+            loss, hits1, hits2, valid = (all_reduce_sum(x) / mesh.group_ranks
+                                         for x in (loss, hits1, hits2, valid))
+        denom = torch.clamp(valid, min=1.0)
 
-        # ---- pass 2: the surrogate re-forward with grads (:404-438)
-        reforward(model, micro, keys, lam, left_i, left_t, b)
+        # ---- pass 2: the surrogate re-forward with grads (:404-438), on
+        # this rank's rows of the left matrices
+        reforward(model, micro, keys, lam, left_i[first:first + rows],
+                  left_t[first:first + rows], b)
+        if mesh is not None:
+            reduce_gradients(model.parameters())
         return {"loss": loss, "temperature": temp,
-                "i2t_acc": (hit1 * w_blk).sum() / denom,
-                "t2i_acc": (hit2 * w_blk).sum() / denom}
+                "i2t_acc": hits1 / denom, "t2i_acc": hits2 / denom}
 
     return grad_fn
 
@@ -193,7 +232,8 @@ def make_bsgs_grad_fn(model, num_micro: int, smoothing: float = 0.0,
 def make_bsgs_train_step(model, optimizer, num_micro: int,
                          smoothing: float = 0.0, group_size: int = -1,
                          mixup: bool = False, mixup_alpha_param: float = 0.2,
-                         seed: int = 0) -> Callable:
+                         seed: int = 0, mesh: Optional[DataMesh] = None
+                         ) -> Callable:
     """``step_fn(batch, lr, step=0, deterministic=True) -> metrics``, the
     plain step's contract (``train_step.make_train_step``): the BSGS
     gradient, then one update of ``optimizer`` (``core/optim.py``), with
@@ -202,7 +242,7 @@ def make_bsgs_train_step(model, optimizer, num_micro: int,
     key of ``seed`` and ``step``."""
     grad_fn = make_bsgs_grad_fn(model, num_micro, smoothing,
                                 group_size=group_size, mixup=mixup,
-                                mixup_alpha_param=mixup_alpha_param)
+                                mixup_alpha_param=mixup_alpha_param, mesh=mesh)
 
     def step_fn(batch: Dict[str, torch.Tensor], lr: float, step: int = 0,
                 deterministic: bool = True) -> Dict[str, torch.Tensor]:

@@ -131,11 +131,18 @@ class BertEncoder(nn.Module):
         dtype = self.compute_dtype or emb.word_embeddings.weight.dtype
         t = input_ids.shape[1]
         if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
+            # every token of type 0: the row itself, broadcast. Its gradient
+            # is then a plain sum; the lookup's backward on the card sums
+            # the B x T rows into that one row in an order that changes from
+            # run to run, and two runs' AdamW moments differed in their last
+            # bits
+            token_type = emb.token_type_embeddings.weight[0]
+        else:
+            token_type = emb.token_type_embeddings(token_type_ids)
         position_ids = torch.arange(t, device=input_ids.device)[None, :]
         x = emb.LayerNorm(emb.word_embeddings(input_ids).to(dtype)
                           + emb.position_embeddings(position_ids).to(dtype)
-                          + emb.token_type_embeddings(token_type_ids).to(dtype))
+                          + token_type.to(dtype))
         x = self.embed_drop(x, key)
         bias = None
         if attention_mask is not None:

@@ -18,7 +18,8 @@ module's path into the ``dropout`` rng. No site touches a shared
 generator, so a recompute (``remat``) or a second forward with the same
 key (BSGS's pass 2) draws the same masks: ``torch.utils.checkpoint``'s
 ``preserve_rng_state`` restores only the default generators, which no site
-uses. ``remat`` runs a block under ``torch.utils.checkpoint.checkpoint``
+uses. Over ranks the step folds the rank into the key
+(``engine/train_step.rank_key``), so no two ranks share a mask. ``remat`` runs a block under ``torch.utils.checkpoint.checkpoint``
 in its non-reentrant form, whose first forward keeps grad mode on (the
 reentrant form would run it under ``no_grad``, and the attention would
 take the inference lane there and the train lane in the recompute).

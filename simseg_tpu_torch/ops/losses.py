@@ -4,9 +4,10 @@
 Parity: reference ``simseg/models/criteria/losses/mml_loss.py`` — NCE
 (:12-103), MixUpNCE (:105-197), MSE (:200-253), Triplet (:256-347),
 LabelSmoothingCrossEntropy (:350-377), SoftTargetCrossEntropy (:379-391).
-Like the JAX version, the losses take the global batch: on one card the
-reference's all-gather of negatives (GatherLayer) is the identity. Group-
-limited negatives (``group_size``) are a block-diagonal reshape. Logits are
+Like the JAX version, the losses take the global batch: over ranks the
+train step all-gathers the embeddings first (``engine/train_step.py``, the
+reference's GatherLayer). Group-limited negatives (``group_size``) are a
+block-diagonal reshape. Logits are
 float32 whatever the embeddings' dtype.
 """
 

@@ -25,7 +25,9 @@ Weight caching: ``QuantLinear`` keeps the int8 weight, ``w_scale`` and
 loading do not change; they are derived state, rebuilt by every
 ``cache_quant_state`` call, and must be rebuilt after loading other weights.
 Without the cache, ``int8`` quantises the float32 weight on every call and
-``int8_static`` raises.
+``int8_static`` raises. In a ``torch.distributed`` world the ranks
+calibrate on different shards, so one calibration must win:
+``broadcast_quant_state`` gives every rank rank 0's.
 """
 
 from __future__ import annotations
@@ -184,6 +186,30 @@ def cache_quant_state(model: torch.nn.Module,
     finally:
         for layer in layers:
             layer.calibrating = False
+    return model
+
+
+def broadcast_quant_state(model: torch.nn.Module) -> torch.nn.Module:
+    """Every ``QuantLinear``'s cached int8 weights, scales and absmax made
+    rank 0's on every rank of a ``torch.distributed`` world (JAX
+    ``simseg_tpu/tasks/seg_eval.py:149-157``: process 0's calibration
+    broadcast); nothing without a world. Every rank must call it."""
+    from simseg_tpu_torch.parallel.collectives import broadcast_object
+    from simseg_tpu_torch.parallel.mesh import is_distributed, rank
+
+    layers = quant_layers(model)
+    if not is_distributed() or not layers:
+        return model
+    names = ("weight_q", "w_scale", "x_absmax")
+    state = None
+    if rank() == 0:
+        state = {n: {k: None if getattr(m, k) is None else getattr(m, k).cpu()
+                     for k in names} for n, m in layers.items()}
+    state = broadcast_object(state)
+    for n, m in layers.items():
+        for k in names:
+            v = state[n][k]
+            setattr(m, k, None if v is None else v.to(m.weight.device))
     return model
 
 

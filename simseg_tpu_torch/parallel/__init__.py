@@ -1,0 +1,23 @@
+"""Data parallelism over a ``torch.distributed`` world, one process per card
+(port of ``simseg_tpu/parallel``: its mesh and collectives; TP, PP, ZeRO-1
+and FSDP are not ported, ROADMAP queue 1 item 13)."""
+
+from simseg_tpu_torch.parallel.collectives import (all_gather, all_reduce_max,
+                                                   all_reduce_mean,
+                                                   all_reduce_sum,
+                                                   allgather_rows, axis_index,
+                                                   barrier, broadcast_object,
+                                                   process_allgather,
+                                                   reduce_gradients)
+from simseg_tpu_torch.parallel.mesh import (DataMesh, batch_shards,
+                                            init_distributed, is_distributed,
+                                            local_batch_size, local_rank,
+                                            loss_group_samples, make_mesh,
+                                            rank, world_size)
+
+__all__ = ["DataMesh", "all_gather", "all_reduce_max", "all_reduce_mean",
+           "all_reduce_sum", "allgather_rows", "axis_index", "barrier",
+           "batch_shards", "broadcast_object", "init_distributed",
+           "is_distributed", "local_batch_size", "local_rank",
+           "loss_group_samples", "make_mesh", "process_allgather", "rank",
+           "reduce_gradients", "world_size"]

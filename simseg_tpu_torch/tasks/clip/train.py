@@ -20,6 +20,13 @@ the exact gradient of the ``data.batch_size`` batch, e.g. the vit-b YAML's
 ``model.remat_policy`` rematerialise the towers' blocks and
 ``optim.grad_accum_steps`` accumulates gradients over runner steps, as in
 JAX.
+
+Data parallelism: ``main`` joins the ``torch.distributed`` world that a
+launcher describes in the environment (``parallel/mesh.init_distributed``:
+NCCL on the cards, gloo under ``--device cpu``) before it builds the
+loaders, which then shard by rank, and trains on the rank's card,
+``cuda:LOCAL_RANK``. ``python -m simseg_tpu_torch.launch --task clip
+--nproc_per_node N --cfg ...`` starts N such ranks.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from simseg_tpu_torch.core.runner import CLIPRunner
 from simseg_tpu_torch.data.datasets import build_clip_dataloaders
 from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
 from simseg_tpu_torch.models.clip import build_clip_model
+from simseg_tpu_torch.parallel.mesh import init_distributed
 from simseg_tpu_torch.tasks.clip.config import task_cfg_init_fn, update_clip_config
 
 
@@ -63,7 +71,7 @@ def parse_args(argv: Optional[Sequence[str]] = None, target=None):
                         help="WordPiece vocab.txt (required by main: the port "
                              "has no HuggingFace tokenizer)")
     parser.add_argument("--device", type=str, default=None,
-                        help="torch device (default: CUDA)")
+                        help="torch device (default: CUDA, the rank's card)")
     args, overrides = parser.parse_known_args(argv)
     update_cfg(task_cfg_init_fn, args.cfg, overrides,
                preprocess_fn=update_clip_config,
@@ -82,6 +90,7 @@ def main(argv: Optional[Sequence[str]] = None) -> CLIPRunner:
                          "HuggingFace tokenizer)")
     if cfg.runner.name not in ("clip", "clip_bsgs"):
         raise NotImplementedError(f"runner '{cfg.runner.name}'")
+    init_distributed(device=args.device)
     device = resolve_device(args.device)
     tokenizer = WordPieceTokenizer.from_vocab_file(args.vocab_file)
     loaders = build_clip_dataloaders(cfg, tokenizer=tokenizer)

@@ -14,8 +14,14 @@ The options the JAX version reads from its config tree are keywords here
 dense inference, and ``crf_backend`` / ``compute_dtype`` for
 ``seg_eval.crf_backend`` / ``seg_eval.crf_dtype``, see
 ``ops/seg_decode.py``); ``tools/seg_evaluation.py`` reads them from the
-config. int8 towers are calibrated by ``prepare_quant_params``;
-multi-process sharding is not ported.
+config. int8 towers are calibrated by ``prepare_quant_params``.
+
+In a ``torch.distributed`` world each rank evaluates its shard of the set
+(``data/datasets.build_seg_valid_loader``): rank 0 calibrates an int8
+tower and every rank takes its calibration (``ops/quant.
+broadcast_quant_state``; JAX ``seg_eval.py:149-157``), and the float64
+intersection and union histograms and the image count are summed over the
+ranks (JAX ``:459-468``), so every rank reports the whole set's mIoU.
 """
 
 from __future__ import annotations
@@ -32,8 +38,10 @@ from simseg_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD, normal
 from simseg_tpu_torch.ops.interpolate_pe import resize_bilinear
 from simseg_tpu_torch.ops.morphology import resize_nearest_to_padded
 from simseg_tpu_torch.ops.pooling import l2_normalize
-from simseg_tpu_torch.ops.quant import cache_quant_state
+from simseg_tpu_torch.ops.quant import broadcast_quant_state, cache_quant_state
 from simseg_tpu_torch.ops.seg_decode import make_seg_decode_fn
+from simseg_tpu_torch.parallel.collectives import process_allgather
+from simseg_tpu_torch.parallel.mesh import is_distributed, rank
 from simseg_tpu_torch.utils.metrics import intersect_and_union, miou_from_totals
 from simseg_tpu_torch.utils.prompts import openai_imagenet_template
 
@@ -95,8 +103,8 @@ def prepare_quant_params(model, *, input_size: int,
     calib_images_u8: (N, S, S, 3) uint8 images, normalised here exactly as
     the eval forward normalises them; needed for ``int8_static`` on the
     image tower, while ``int8`` caches from a zeros image. The text tower
-    calibrates on the 80 prompts of the first 4 classes. The multi-process
-    broadcast of the JAX version is not ported (ROADMAP queue 1 item 13)."""
+    calibrates on the 80 prompts of the first 4 classes (in a world, the
+    caller broadcasts rank 0's: ``ops/quant.broadcast_quant_state``)."""
     device = resolve_device(device)
     img_q = model.vit.quant or "none"
     txt_q = model.bert.quant or "none"
@@ -361,28 +369,32 @@ def evaluate_benchmark(loader: Iterable[dict], model, tokenizer,
     model = model.to(device).eval()
     num_classes = len(seg_categories)
     canvas = label_canvas(loader, dataset_name)
-    calib = None
-    if model.vit.quant == "int8_static":
-        # a running absmax over the first images: one batch under-covers the
-        # activation range (JAX ``evaluate_benchmark``)
-        if iter(loader) is loader:
-            raise ValueError("an int8_static image tower calibrates on the "
-                             "loader's first images and then evaluates it "
-                             "from the start: pass a re-iterable loader, not "
-                             "an iterator")
-        if calib_images is None:
-            calib_images = int(os.environ.get("SIMSEG_CALIB_IMAGES", "32") or 32)
-        chunks, have = [], 0
-        for batch in loader:
-            chunks.append(torch.as_tensor(batch["image"]))
-            have += chunks[-1].shape[0]
-            if have >= calib_images:
-                break
-        calib = torch.cat([c.to(device) for c in chunks])[:calib_images]
-    prepare_quant_params(model, input_size=input_size, mean=mean, std=std,
-                         calib_images_u8=calib, tokenizer=tokenizer,
-                         classnames=seg_categories, max_length=max_length,
-                         device=device)
+    if rank() == 0:
+        # in a world rank 0 calibrates and the others take its state
+        calib = None
+        if model.vit.quant == "int8_static":
+            # a running absmax over the first images: one batch under-covers
+            # the activation range (JAX ``evaluate_benchmark``)
+            if iter(loader) is loader:
+                raise ValueError("an int8_static image tower calibrates on "
+                                 "the loader's first images and then "
+                                 "evaluates it from the start: pass a "
+                                 "re-iterable loader, not an iterator")
+            if calib_images is None:
+                calib_images = int(os.environ.get("SIMSEG_CALIB_IMAGES", "32")
+                                   or 32)
+            chunks, have = [], 0
+            for batch in loader:
+                chunks.append(torch.as_tensor(batch["image"]))
+                have += chunks[-1].shape[0]
+                if have >= calib_images:
+                    break
+            calib = torch.cat([c.to(device) for c in chunks])[:calib_images]
+        prepare_quant_params(model, input_size=input_size, mean=mean, std=std,
+                             calib_images_u8=calib, tokenizer=tokenizer,
+                             classnames=seg_categories, max_length=max_length,
+                             device=device)
+    broadcast_quant_state(model)
     logger.info("Building zero-shot classifier for %d classes", num_classes)
     text_bank = zero_shot_classifier(model, seg_categories, tokenizer,
                                      max_length=max_length, device=device)
@@ -424,6 +436,11 @@ def evaluate_benchmark(loader: Iterable[dict], model, tokenizer,
         total_u += union.double().cpu().numpy()
         count += b
 
+    if is_distributed():
+        # the ranks' shards: the whole set's histograms, float64 exactly
+        total_i = process_allgather(total_i).sum(axis=0)
+        total_u = process_allgather(total_u).sum(axis=0)
+        count = int(process_allgather(np.asarray([count], np.int64)).sum())
     iou, miou = miou_from_totals(total_i, total_u)
     logger.info("%d samples evaluated; mIoU %.4f", count, miou)
     return iou, miou

@@ -7,8 +7,17 @@ overrides) and flow: config -> model -> checkpoint -> per
 ``data.valid_name``: the ``valid.parquet`` loader, the embeddings batch by
 batch, R@1/5/10 and RSUM. ``--device`` picks the device (default: CUDA);
 ``--vocab_file`` (a WordPiece ``vocab.txt``) is required, since the port
-has no HuggingFace tokenizer. Reading parquet needs pyarrow. The gather
-across processes is not ported (ROADMAP queue 1 item 13).
+has no HuggingFace tokenizer. Reading parquet needs pyarrow.
+
+In a ``torch.distributed`` world (one process per card, started by a
+launcher that sets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` and ``MASTER_PORT``, such as ``torchrun``) each rank
+embeds its shard of the set; rank 0 calibrates an int8 tower and every
+rank takes its calibration (JAX ``tools/retrieval_evaluation.py:46-71``),
+and the embeddings and ids are gathered from every rank, the shorter
+shards padded with id -1 rows that are dropped after, an empty shard
+joining the gather with no rows (JAX ``:105-146``), so every rank reports
+the whole set's table.
 
 Usage:
     python -m simseg_tpu_torch.tools.retrieval_evaluation \\
@@ -32,7 +41,9 @@ from simseg_tpu_torch.data.datasets import (DataLoader, ParquetRetrievalDataset,
 from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
 from simseg_tpu_torch.data.transforms import build_transforms, normalize_images
 from simseg_tpu_torch.models.clip import build_clip_model
-from simseg_tpu_torch.ops.quant import cache_quant_state
+from simseg_tpu_torch.ops.quant import broadcast_quant_state, cache_quant_state
+from simseg_tpu_torch.parallel.collectives import allgather_rows
+from simseg_tpu_torch.parallel.mesh import init_distributed, is_distributed, rank
 from simseg_tpu_torch.tasks.clip.config import task_cfg_init_fn, update_clip_config
 from simseg_tpu_torch.utils.retrieval import retrieval_summary
 
@@ -64,13 +75,15 @@ def evaluate_benchmark(loader: Iterable[dict], model, cfg,
     in float32 with the caption ids, then ``retrieval_summary``. A tower
     whose ``arch.quant`` is int8 or int8_static first caches its int8
     weights and calibrates on the loader's first batch, as JAX's CLI does
-    (its images as the loader gives them, unnormalised)."""
+    (its images as the loader gives them, unnormalised); in a world, rank
+    0's loader, and every rank takes its state. In a world the table is
+    that of every rank's shard together."""
     device = resolve_device(device)
     model = model.to(device).eval()
     mean = tuple(cfg.transforms.normalize.mean)
     std = tuple(cfg.transforms.normalize.std)
     img_q, txt_q = model.vit.quant or "none", model.bert.quant or "none"
-    if img_q != "none" or txt_q != "none":
+    if (img_q != "none" or txt_q != "none") and rank() == 0:
         first = next(iter(loader))
         calls = []
         if img_q != "none":
@@ -81,6 +94,7 @@ def evaluate_benchmark(loader: Iterable[dict], model, cfg,
             mask = torch.as_tensor(first["attention_mask"]).to(device).long()
             calls.append(lambda: model.forward_text_feature(ids, mask))
         cache_quant_state(model, calls)
+    broadcast_quant_state(model)
 
     imgs, txts, iids, cids = [], [], [], []
     with torch.no_grad():
@@ -98,8 +112,21 @@ def evaluate_benchmark(loader: Iterable[dict], model, cfg,
             txts.append(txt.float())
             iids.append(torch.as_tensor(batch["image_id"]))
             cids.append(torch.as_tensor(batch["caption_id"]))
-    summary = retrieval_summary(torch.cat(imgs), torch.cat(txts),
-                                torch.cat(iids).numpy(), torch.cat(cids).numpy())
+    if not imgs:
+        # an empty shard still joins the gather, with no rows
+        dim = int(cfg.model.projection.dim)
+        imgs = txts = [torch.zeros((0, dim), device=device)]
+        iids = cids = [torch.zeros((0,), dtype=torch.int64)]
+    img, txt = torch.cat(imgs), torch.cat(txts)
+    iid, cid = torch.cat(iids).numpy(), torch.cat(cids).numpy()
+    if is_distributed():
+        img, txt, iid, cid = allgather_rows(
+            [img.cpu().numpy(), txt.cpu().numpy(), iid, cid], [0.0, 0.0, -1, -1])
+        keep = iid >= 0
+        img = torch.from_numpy(img[keep]).to(device)
+        txt = torch.from_numpy(txt[keep]).to(device)
+        iid, cid = iid[keep], cid[keep]
+    summary = retrieval_summary(img, txt, iid, cid)
     logger.info(" ".join(f"{k}: {v:.4f}" for k, v in summary.items()))
     return summary
 
@@ -111,6 +138,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         raise SystemExit("retrieval_evaluation: --vocab_file is required (the "
                          "port tokenizes with WordPiece over a vocab.txt; it "
                          "has no HuggingFace tokenizer)")
+    init_distributed(device=args.device)
     device = resolve_device(args.device)
     model = build_clip_model(cfg)
     if args.ckpt_path:

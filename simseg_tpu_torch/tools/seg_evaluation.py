@@ -9,7 +9,10 @@ label bank, ``top_cls_num`` (30 for pascal_context, else 10) and
 ``evaluate_benchmark`` with the ``seg_eval`` and ``transforms`` knobs.
 ``--device`` picks the device (default: CUDA). The port has no
 HuggingFace tokenizer, so ``--vocab_file`` (a WordPiece ``vocab.txt``) is
-required.
+required. In a ``torch.distributed`` world (one process per card, its
+rank environment set by a launcher such as ``torchrun``) each rank
+evaluates its shard of each set and every rank reports the whole set's
+mIoU (``tasks/seg_eval.evaluate_benchmark``).
 
 Usage:
     python -m simseg_tpu_torch.tools.seg_evaluation \\
@@ -31,6 +34,7 @@ from simseg_tpu_torch.config import new_base_cfg, update_cfg
 from simseg_tpu_torch.data.datasets import build_seg_valid_loader
 from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
 from simseg_tpu_torch.models.clip import build_clip_model
+from simseg_tpu_torch.parallel.mesh import init_distributed
 from simseg_tpu_torch.tasks.clip.config import task_cfg_init_fn, update_clip_config
 from simseg_tpu_torch.tasks.seg_eval import evaluate_benchmark, load_label_bank
 
@@ -63,6 +67,7 @@ def main(argv: Optional[Sequence[str]] = None
         raise SystemExit("seg_evaluation: --vocab_file is required (the port "
                          "tokenizes with WordPiece over a vocab.txt; it has "
                          "no HuggingFace tokenizer)")
+    init_distributed(device=args.device)
     device = resolve_device(args.device)
     model = build_clip_model(cfg)
     if args.ckpt_path:
