@@ -8,6 +8,7 @@
     python3 chip_smoke.py --train-entry                     (phases 1-2 and 9)
     python3 chip_smoke.py --big-batch                       (phases 1-2 and 10)
     python3 chip_smoke.py --distributed                     (phases 1-2 and 11)
+    python3 chip_smoke.py --linear-probe                    (phases 1-2 and 12)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
@@ -262,11 +263,44 @@ Phases (any failure raises, so the exit code is non-zero):
    Prints images/s of (a), (b) and (d), the gradient reduction's ms a step
    and the bytes staged through the host (gloo on CUDA tensors), beside the
    card's name and power limit.
+12. the linear-probe entry point and the CNN towers: (a)
+   ``tasks.linear_prob.train.main`` with ``configs/linear_prob/imagenet.yaml``,
+   overriding only the data path (10 class folders of 48 train and 16 val
+   JPEGs at four sizes), ``num_classes``, the batch (128), ``epoch`` (2)
+   and the checkpoint (``ckpt.dir``; a seeded ViT-B/16 ``.pth`` in the
+   reference's layout through ``ckpt.external_resume`` with
+   ``only_load_image_encoder``): the tower bit-unchanged, the classifier
+   moved, finite losses, top-1 / top-5 logged, no kernel launch (T = 197),
+   the float32 logits of 16 val images on the card against the CPU at
+   cosine >= 0.9999; images/s through the entry point (epoch 2) and over
+   the same batches in memory, the loader's share; (b) the YAML's batch of
+   16,384 in memory as 8 x 2048 through ``optim.grad_accum_steps`` and
+   whole, else the largest of 8192 and 4096 that fits: ms a step, images/s,
+   peak GiB; (c) ResNet-50, ConvNeXt-T and EfficientNet-B0 at 224 px, batch
+   8, float32 (cuDNN's TF32 off), card against the CPU: least cosine >=
+   0.9999, max abs error <= 1e-3 x the largest entry; a frozen ResNet-50
+   probe, batch 128, bf16, 3 steps: its running statistics bit-unchanged;
+   (d) CLIP with a ResNet-50 tower (BN calibrated on synthetic scenes) and
+   BERT-base through ``evaluate_benchmark`` at 288 px, 3 batches of 16, in
+   the auto, fused_tail and xla lanes: exact launches of rows 1-2 (the
+   unaries 9 x 9, upsampled x32), auto's and fused_tail's predictions
+   against the unfused chain (xla) on one batch >= 99.9%; planted fault:
+   the decode at stride 16 on the CNN's 81 tokens must raise; rows 1-2's
+   event ms at x32 beside the main path's x16; (e) live BN: one float32
+   step at batch 4, 64 px (the last stage's 2 x 2 map, n = 16): every
+   running statistic within 1e-4 (x its buffer's largest entry) of a
+   float64 witness of flax's biased update, PyTorch's unbiased update
+   (planted fault) outside ten times that, loss within 1e-4 and each
+   tower's gradient (all its tensors, concatenated) at cosine >= 0.9999
+   against the CPU, the least cosine of one tensor printed; then 3 steps
+   at batch 32, 224 px, bf16 through ``CLIPRunner``: finite losses, every
+   running statistic moved.
 It then prints one JSON line of kernel numbers (``cli_launches``: the
 kernel's launches in phase 8's lane that takes it; ``train_entry_launches``:
 in phase 9's run B; ``bsgs_launches``: per BSGS step of phase 10 at 576 px,
 batch 256 in micro-batches of 32; ``dist_launches``: each rank's in phase
-11, (b) for the attention kernels and (c)'s float lane for the CRF), the
+11, (b) for the attention kernels and (c)'s float lane for the CRF;
+``cnn_launches``: rows 1-2's in phase 12d's auto and fused_tail lanes), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -4102,6 +4136,618 @@ def run_distributed():
                                for r in ranks]}
 
 
+# -- phase 12: the linear probe and the CNN towers --------------------------------
+
+PROBE_YAML = "configs/linear_prob/imagenet.yaml"
+PROBE_CLASSES = 10
+PROBE_TRAIN, PROBE_VAL = 48, 16            # JPEGs a class
+PROBE_BATCH = 128
+PROBE_LOGITS = 16                          # (a): card against the CPU
+PROBE_COS_BAR = 0.9999
+PROBE_MICRO, PROBE_ACCUM = 2048, 8         # (b): 8 x 2048 = the YAML's 16,384
+PROBE_WHOLE = (16384, 8192, 4096)          # (b): one batch, largest first
+CNN_TAGS = ("resnet50", "convnext_tiny", "efficientnet_b0")
+CNN_BATCH = 8
+CNN_COS_BAR = 0.9999
+CNN_ERR_BAR = 1e-3                         # x the CPU map's largest entry
+CNN_PROBE_STEPS = 3
+CNN_SEG_BATCHES = 3
+CNN_STRIDE = 32
+BN_CHECK = (4, 64)   # (e): batch, px; the last stage's 2 x 2 map: n = 16
+BN_STATS_BAR = 1e-4  # x each buffer's largest entry; n / (n - 1) moves a var 0.7%
+BN_TRAIN = (32, 224, 3)                    # (e): batch, px, steps
+
+
+def repo_path(rel):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+
+
+def write_probe_fixture(root):
+    """``root/{train,val}/<class>/<n>.JPEG``: PROBE_TRAIN and PROBE_VAL
+    photos a class at four sizes, JPEG quality 90."""
+    from PIL import Image
+
+    rng = np.random.default_rng(15)
+    sizes = ((240, 320), (300, 300), (375, 500), (333, 500))
+    for split, n in (("train", PROBE_TRAIN), ("val", PROBE_VAL)):
+        for c in range(PROBE_CLASSES):
+            d = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(d)
+            for i in range(n):
+                h, w = sizes[(c + i) % len(sizes)]
+                Image.fromarray(synth_photo(rng, h, w)).save(
+                    os.path.join(d, f"{i:04d}.JPEG"), quality=90)
+
+
+def probe_cfg(*overrides):
+    """The linear-probe YAML with dotted overrides."""
+    from simseg_tpu_torch.config import new_base_cfg, update_cfg
+    from simseg_tpu_torch.tasks.linear_prob.config import (task_cfg_init_fn,
+                                                           update_linear_config)
+
+    return update_cfg(task_cfg_init_fn, repo_path(PROBE_YAML), list(overrides),
+                      preprocess_fn=update_linear_config, target=new_base_cfg())
+
+
+def probe_model(cfg, pth, seed=0):
+    """The probe of ``cfg`` on the card, its tower from the ``.pth``."""
+    from simseg_tpu_torch.checkpoint.torch_bridge import load_clip_checkpoint
+    from simseg_tpu_torch.models.linear_prob import build_linear_prob_model
+
+    torch.manual_seed(seed)
+    model = build_linear_prob_model(cfg)
+    if pth:
+        load_clip_checkpoint(pth, model, only_image_encoder=True)
+    return model.cuda()
+
+
+class ProbeSteps:
+    """Wraps ``LinearProbRunner.batch_processor``: each step's loss, its CUDA
+    events and its batch on the card."""
+
+    def __init__(self):
+        self.losses, self.events, self.batches = [], [], []
+
+    def patch(self):
+        from simseg_tpu_torch.core.runner import LinearProbRunner
+
+        inner = LinearProbRunner.batch_processor
+
+        def wrapped(runner, batch, device_batch=None):
+            if device_batch is None:
+                device_batch = runner._prepare_batch(batch)
+            self.batches.append(dict(device_batch))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(runner, batch, device_batch)
+            end.record()
+            self.events.append((start, end))
+            self.losses.append(out["loss"])
+            return out
+
+        return unittest.mock.patch.object(LinearProbRunner, "batch_processor",
+                                          wrapped)
+
+    def ms(self, first):
+        """Mean ms a step from the start of step ``first + 1`` to the end of
+        the last, host stalls between steps included."""
+        torch.cuda.synchronize()
+        timed = self.events[first:]
+        return timed[0][0].elapsed_time(timed[-1][1]) / len(timed)
+
+
+def probe_entry(root, pth, card):
+    """12a: ``tasks.linear_prob.train.main`` on the YAML and the class folders."""
+    import copy
+
+    from simseg_tpu_torch.data.datasets import build_imagenet_dataloaders
+    from simseg_tpu_torch.data.transforms import normalize_images
+    from simseg_tpu_torch.models.linear_prob import build_linear_prob_model
+    from simseg_tpu_torch.tasks.linear_prob import train as entry
+
+    out = tempfile.mkdtemp()
+    overrides = [f"data.data_path={root}/", f"model.classifier.num_classes={PROBE_CLASSES}",
+                 f"data.batch_size={PROBE_BATCH}", "epoch=2", f"ckpt.dir={out}",
+                 f"ckpt.external_resume={pth}", "ckpt.only_load_image_encoder=True"]
+    steps = ProbeSteps()
+    seeded = {k: v for k, v in torch.load(pth)["state_dict"].items()
+              if k.startswith("image_encoder.")}
+    reset_counts()
+    t0 = time.perf_counter()
+    with steps.patch():
+        runner = entry.main(["--cfg", repo_path(PROBE_YAML)] + overrides)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts("12a probe entry point (T = 197: no attention kernel)", counts, {})
+    per_epoch = PROBE_CLASSES * PROBE_TRAIN // PROBE_BATCH
+    losses = [x.item() for x in steps.losses]
+    if len(losses) != 2 * per_epoch or not all(np.isfinite(losses)):
+        raise AssertionError(f"12a: losses {losses}")
+    state = runner.model.state_dict()
+    changed = [k for k, v in seeded.items() if not torch.equal(state[k].cpu(), v)]
+    if changed:
+        raise AssertionError(f"12a: frozen tower moved: {changed[:4]}")
+    cfg = runner.cfg
+    torch.manual_seed(int(cfg.seed or 0))
+    init = build_linear_prob_model(cfg).classifier.weight
+    if torch.equal(runner.model.classifier.weight.detach().cpu(), init.detach()):
+        raise AssertionError("12a: the classifier did not move")
+    acc = runner.state.get("linear_eval")
+    if not acc or set(acc) != {"acc1", "acc5"}:
+        raise AssertionError(f"12a: no top-1 / top-5 logged: {acc}")
+    # the card's float32 logits against the CPU's on PROBE_LOGITS val images
+    val = next(iter(build_imagenet_dataloaders(cfg)["val"][0]))
+    images = normalize_images(torch.as_tensor(val["image"][:PROBE_LOGITS]))
+    f32 = copy.deepcopy(runner.model)
+    f32.image_tower.compute_dtype = None
+    f32.eval()
+    with torch.no_grad():
+        card_logits = f32({"image": images.cuda()}).cpu()
+        cpu_logits = f32.cpu()({"image": images})
+    cos = min_token_cosine(card_logits, cpu_logits)
+    print(f"12a probe logits, float32, card vs CPU on {PROBE_LOGITS} val "
+          f"images: least row cosine {cos:.8f}", flush=True)
+    if cos < PROBE_COS_BAR:
+        raise AssertionError(f"12a: logits cosine {cos} < {PROBE_COS_BAR}")
+    del f32
+    entry_ms = steps.ms(per_epoch)          # epoch 2's steps
+    # the same batches in memory, through the same runner
+    memory = ProbeSteps()
+    with memory.patch():
+        for b in steps.batches[per_epoch:]:
+            runner.batch_processor(None, b)
+    mem_ms = memory.ms(1)
+    print(f"12a probe entry point ({card}): {wall:.1f} s for 2 epochs of "
+          f"{per_epoch} steps + 2 validations; losses {[round(x, 4) for x in losses]}; "
+          f"top-1 {acc['acc1']:.4f} top-5 {acc['acc5']:.4f}; epoch 2 "
+          f"{entry_ms:.3f} ms a step = {PROBE_BATCH / entry_ms * 1e3:.1f} "
+          f"images/s through the entry point, {mem_ms:.3f} ms = "
+          f"{PROBE_BATCH / mem_ms * 1e3:.1f} images/s in memory; the loader's "
+          f"share {1 - mem_ms / entry_ms:.3f}", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    del runner
+    torch.cuda.empty_cache()
+
+
+def probe_in_memory(label, pth, b, steps, timed_from, *extra):
+    """12b: a LinearProbRunner over one batch of b random images (224 px,
+    1000 classes) on the card, ``steps`` steps: (ms a step over the steps
+    after ``timed_from``, peak GiB, runner)."""
+    from simseg_tpu_torch.core.runner import LinearProbRunner
+
+    cfg = probe_cfg(f"data.batch_size={b}", f"ckpt.dir={tempfile.gettempdir()}",
+                    *extra)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runner = LinearProbRunner(cfg, probe_model(cfg, pth), {"train": []},
+                              device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    batch = {"image": torch.randint(0, 256, (b, 224, 224, 3), dtype=torch.uint8,
+                                    device="cuda", generator=gen),
+             "label": torch.randint(0, 1000, (b,), device="cuda", generator=gen)}
+    rec = ProbeSteps()
+    with rec.patch():
+        for _ in range(steps):
+            runner.batch_processor(batch)
+            runner.step += 1
+    ms = rec.ms(timed_from)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [x.item() for x in rec.losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"12b {label}: losses {losses}")
+    return ms, peak, runner
+
+
+def probe_big_batch(pth, card):
+    """12b: the YAML's batch of 16,384 as 8 x 2048 through
+    ``optim.grad_accum_steps``, and whole where it fits."""
+    steps = 2 * PROBE_ACCUM
+    ms, peak, runner = probe_in_memory(
+        "8 x 2048", pth, PROBE_MICRO, steps, PROBE_ACCUM,
+        f"optim.grad_accum_steps={PROBE_ACCUM}")
+    if runner.optimizer.mini_step != 0 or runner.step != steps:
+        raise AssertionError(f"12b: mini-step {runner.optimizer.mini_step}")
+    print(f"12b probe, the YAML's batch as {PROBE_ACCUM} x {PROBE_MICRO} "
+          f"(grad_accum_steps, {card}): {ms:.3f} ms a step of {PROBE_MICRO} "
+          f"(the last {PROBE_ACCUM} of {steps}: one update) = "
+          f"{PROBE_MICRO / ms * 1e3:.1f} images/s, "
+          f"{PROBE_ACCUM * ms:.1f} ms an update of {PROBE_ACCUM * PROBE_MICRO}; "
+          f"peak {peak:.3f} GiB", flush=True)
+    del runner
+    for b in PROBE_WHOLE:
+        try:
+            ms, peak, runner = probe_in_memory(f"whole {b}", pth, b, 2, 1)
+        except torch.cuda.OutOfMemoryError:
+            print(f"12b probe, one batch of {b}: out of memory on the card",
+                  flush=True)
+            torch.cuda.empty_cache()
+            continue
+        del runner
+        torch.cuda.empty_cache()
+        print(f"12b probe, one batch of {b} ({card}): {ms:.3f} ms a step = "
+              f"{b / ms * 1e3:.1f} images/s; peak {peak:.3f} GiB"
+              + ("" if b == PROBE_WHOLE[0] else
+                 f" (the largest batch that fits; {PROBE_WHOLE[0]} does not)"),
+              flush=True)
+        return
+    raise AssertionError("12b: no whole batch fits")
+
+
+def calibrate_bn(model, images):
+    """Every BatchNorm's running statistics set to one batch's (momentum 0
+    for a live-BN forward), so that a seeded CNN's maps stay on scale."""
+    from simseg_tpu_torch.models.layers import BatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.momentum = 0.0
+    with torch.no_grad():
+        model(images, train_bn=True)
+    for m in bns:
+        m.momentum = 0.9
+
+
+def seeded_cnn(tag, seed):
+    """A CNN tower on the CPU in float32: torch's default initialisation
+    under ``seed``, BN statistics calibrated on synthetic scenes."""
+    from simseg_tpu_torch.data.transforms import normalize_images
+    from simseg_tpu_torch.models.cnn import build_cnn
+
+    torch.manual_seed(seed)
+    model = build_cnn(tag)
+    images, _ = synthetic_scenes(np.random.default_rng(seed), 8, 224, 21)
+    calibrate_bn(model, normalize_images(torch.from_numpy(images)))
+    return model.eval()
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN's convolutions in full float32 (its TF32 default off)."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def check_cnn_towers(card):
+    """12c: each CNN family at 224 px, float32, card against the CPU."""
+    import copy
+
+    from simseg_tpu_torch.data.transforms import normalize_images
+
+    images, _ = synthetic_scenes(np.random.default_rng(3), CNN_BATCH, 224, 21)
+    x = normalize_images(torch.from_numpy(images))
+    xc = x.cuda()
+    for tag in CNN_TAGS:
+        cpu = seeded_cnn(tag, 1)
+        with torch.no_grad():
+            want = cpu(x)
+            gpu = copy.deepcopy(cpu).cuda()
+            with no_tf32():
+                got = gpu(xc).cpu()
+            ms = cuda_ms(lambda: gpu(xc), 5)
+            gpu.compute_dtype = torch.bfloat16
+            bf16_ms = cuda_ms(lambda: gpu(xc), 5)
+        cos = min_token_cosine(got.flatten(1), want.flatten(1))
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        print(f"12c {tag} ({card}): map {tuple(got.shape)}, float32 card vs CPU "
+              f"least cosine {cos:.8f}, max abs error {err:.3e} x the largest "
+              f"entry; forward at batch {CNN_BATCH} {ms:.3f} ms float32 (TF32 "
+              f"allowed), {bf16_ms:.3f} ms bf16", flush=True)
+        if cos < CNN_COS_BAR or err > CNN_ERR_BAR:
+            raise AssertionError(f"12c {tag}: cosine {cos}, error {err}")
+        del gpu, cpu
+
+
+def check_cnn_probe(card):
+    """12c: a frozen ResNet-50 probe, batch 128, bf16, the YAML's LARS: the
+    running statistics bit-unchanged, the classifier moved."""
+    from simseg_tpu_torch.core.runner import LinearProbRunner
+
+    cfg = probe_cfg("model.image_encoder.tag=resnet50",
+                    f"data.batch_size={PROBE_BATCH}",
+                    f"ckpt.dir={tempfile.gettempdir()}")
+    model = probe_model(cfg, None)
+    model.image_tower.load_state_dict(seeded_cnn("resnet50", 1).state_dict())
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if "running" in k}
+    w0 = model.classifier.weight.detach().clone()
+    runner = LinearProbRunner(cfg, model, {"train": []}, device="cuda")
+    images, _ = synthetic_scenes(np.random.default_rng(4), PROBE_BATCH, 224, 21)
+    batch = {"image": torch.from_numpy(images).cuda(),
+             "label": torch.arange(PROBE_BATCH, device="cuda") % 1000}
+    rec = ProbeSteps()
+    reset_counts()
+    with rec.patch():
+        for _ in range(CNN_PROBE_STEPS):
+            runner.batch_processor(batch)
+            runner.step += 1
+    check_counts("12c ResNet-50 probe", read_counts(), {})
+    losses = [x.item() for x in rec.losses]
+    moved = [k for k, v in stats.items() if not torch.equal(model.state_dict()[k], v)]
+    if moved or not all(np.isfinite(losses)) or torch.equal(
+            model.classifier.weight.detach(), w0):
+        raise AssertionError(f"12c probe: losses {losses}, statistics moved {moved[:4]}")
+    print(f"12c ResNet-50 probe, batch {PROBE_BATCH}, bf16 ({card}): "
+          f"{rec.ms(1):.3f} ms a step (steps 2-{CNN_PROBE_STEPS}), losses "
+          f"{[round(x, 4) for x in losses]}; {len(stats)} running statistics "
+          "bit-unchanged", flush=True)
+
+
+def seeded_cnn_clip(seed, img_size, tag="resnet50", compute_dtype=None):
+    """CLIP with a CNN image tower and BERT-base on the card, float32
+    parameters computing in ``compute_dtype``: the CNN as ``seeded_cnn``,
+    the rest as ``seeded_clip``."""
+    from simseg_tpu_torch.models.clip import CLIPModel
+
+    model = CLIPModel(img_size=img_size, compute_dtype=compute_dtype,
+                      **{**FLAGSHIP, "image_tag": tag})
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() >= 2 and not name.startswith("image_encoder."):
+                p.normal_(0.0, 0.02, generator=gen)
+    model.image_tower.load_state_dict(seeded_cnn(tag, seed).state_dict())
+    return model.cuda()
+
+
+def crf_x32_times(model, loader, text_bank, classes):
+    """12d: rows 1-2 at the x32 shape on one batch's features, and at the
+    main path's x16 shape (phase 3's inputs): event ms of each."""
+    from simseg_tpu_torch.ops import crf_fused
+    from simseg_tpu_torch.ops.morphology import nearest_upsample
+    from simseg_tpu_torch.ops.seg_decode import coarse_unary, shortlist
+    from simseg_tpu_torch.tasks.seg_eval import make_seg_features
+
+    images = torch.from_numpy(next(iter(loader))["image"]).cuda()
+    dense, pooled = make_seg_features(model, input_size=SIZE)(images)
+    with torch.no_grad():
+        idx, scores, valid = shortlist(pooled, text_bank, 10, CLASSES_PER_IMAGE)
+        du_c = coarse_unary(dense, text_bank, idx, SIZE // CNN_STRIDE)
+    du = nearest_upsample(du_c, CNN_STRIDE).contiguous()
+    eff = torch.where(valid, scores, torch.zeros_like(scores))
+    kw = dict(stride=STRIDE, num_iters=ITERS, closing_ksize=CLOSING)
+    du16, rgb16 = crf_inputs(BATCH)
+    tail16 = tail_inputs()
+    ms = {"x32": (cuda_ms(lambda: crf_fused.mean_field_fused(du, images, **kw), 10),
+                  cuda_ms(lambda: crf_fused.seg_decode_tail_fused(
+                      du_c, images, eff, idx, CNN_STRIDE, **kw), 10)),
+          "x16": (cuda_ms(lambda: crf_fused.mean_field_fused(du16, rgb16, **kw), 10),
+                  cuda_ms(lambda: crf_fused.seg_decode_tail_fused(
+                      *tail16, PATCH, **kw), 10))}
+    for shape, (mf, tail) in ms.items():
+        grid = SIZE // (CNN_STRIDE if shape == "x32" else PATCH)
+        print(f"12d rows 1-2 at {BATCH} x {CLASSES_PER_IMAGE} x {SIZE}^2, "
+              f"unaries {grid}x{grid} {shape}: crf_mean_field {mf:.4f} ms, "
+              f"seg_decode_tail {tail:.4f} ms (events)", flush=True)
+    return ms
+
+
+def check_cnn_seg(card, tokenizer, classes):
+    """12d: CLIP with a ResNet-50 tower through ``evaluate_benchmark`` at
+    288 px in the auto, fused_tail and xla lanes: returns rows 1-2's
+    launches."""
+    from simseg_tpu_torch.ops.seg_decode import make_seg_decode_fn
+    from simseg_tpu_torch.tasks.seg_eval import (image_patch_stride,
+                                                 make_seg_features,
+                                                 zero_shot_classifier)
+
+    model = seeded_cnn_clip(5, SIZE).to(torch.bfloat16).eval()
+    if image_patch_stride(model) != CNN_STRIDE:
+        raise AssertionError(f"12d: grid step {image_patch_stride(model)}")
+    loader = SyntheticLoader(CNN_SEG_BATCHES, BATCH, len(classes), 21)
+    want = {"auto": {"crf_mean_field": CNN_SEG_BATCHES},
+            "fused_tail": {"seg_decode_tail": CNN_SEG_BATCHES}, "xla": {}}
+    counts = {}
+    for lane, lane_want in want.items():
+        counts[lane] = drive_eval(f"12d ResNet-50 seg eval, crf_backend={lane}",
+                                  loader, model, tokenizer, classes,
+                                  input_size=SIZE, crf_backend=lane)
+        check_counts(f"12d {lane}", counts[lane], lane_want)
+    text_bank = zero_shot_classifier(model, classes, tokenizer, max_length=25)
+    images = torch.from_numpy(next(iter(loader))["image"]).cuda()
+    dense, pooled = make_seg_features(model, input_size=SIZE)(images)
+    if dense.shape[1] != (SIZE // CNN_STRIDE) ** 2:
+        raise AssertionError(f"12d: {dense.shape[1]} tokens")
+    preds = {}
+    for lane in want:
+        decode = make_seg_decode_fn(num_classes=len(classes), image_size=SIZE,
+                                    patch_size=CNN_STRIDE, top_cls_num=10,
+                                    bilateral_stride=STRIDE, crf_backend=lane)
+        with torch.no_grad():
+            preds[lane] = decode(dense, pooled, text_bank, images)[0]
+    for lane in ("auto", "fused_tail"):
+        agree = (preds[lane] == preds["xla"]).float().mean().item()
+        print(f"12d {lane} vs the unfused chain (xla) at x32: pred agreement "
+              f"{agree:.6f}", flush=True)
+        if agree < 0.999:
+            raise AssertionError(f"12d {lane}: agreement {agree} < 0.999")
+    bad = make_seg_decode_fn(num_classes=len(classes), image_size=SIZE,
+                             patch_size=PATCH, top_cls_num=10,
+                             bilateral_stride=STRIDE)
+    try:
+        bad(dense, pooled, text_bank, images)
+    except ValueError as e:
+        print(f"12d planted fault (the decode at stride {PATCH} on "
+              f"{dense.shape[1]} tokens) raised: {e}", flush=True)
+    else:
+        raise AssertionError("12d: the stride-16 decode took the CNN's tokens")
+    crf_x32_times(model, loader, text_bank, classes)
+    del model
+    torch.cuda.empty_cache()
+    return {"crf_mean_field": counts["auto"]["crf_mean_field"],
+            "seg_decode_tail": counts["fused_tail"]["seg_decode_tail"]}
+
+
+def bn_witness(model, batch):
+    """{buffer name: the running statistic flax's update gives} of one
+    live-BN forward of ``model`` (float32, on its device) on ``batch``: each
+    BatchNorm's input captured, its biased statistics in float64."""
+    from simseg_tpu_torch.engine.train_step import clip_loss_fn
+    from simseg_tpu_torch.models.layers import BatchNorm
+
+    want, hooks = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, BatchNorm):
+            def hook(mod, args, name=name):
+                x = args[0].detach().double()
+                mean = x.mean((0, 2, 3))
+                var = (x * x).mean((0, 2, 3)) - mean * mean
+                want[f"{name}.running_mean"] = (
+                    0.9 * mod.running_mean.double() + 0.1 * mean)
+                want[f"{name}.running_var"] = (
+                    0.9 * mod.running_var.double() + 0.1 * var)
+            hooks.append(m.register_forward_pre_hook(hook))
+    try:
+        with torch.no_grad():
+            clip_loss_fn(model, batch, bn_training=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return want
+
+
+def bn_error(model, want):
+    """The largest |running statistic - witness| over each buffer's largest
+    witness entry."""
+    state = model.state_dict()
+    return max(((state[k].double().cpu() - w.cpu()).abs().max()
+                / w.abs().max().clamp_min(1e-30)).item() for k, w in want.items())
+
+
+def unbiased_bn_forward(self, x, train_bn=False):
+    """The planted fault: PyTorch's training-mode update (the unbiased
+    variance, momentum 0.1 for flax's 0.9)."""
+    import torch.nn.functional as F
+
+    return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                        self.bias, train_bn, 1.0 - self.momentum, self.eps)
+
+
+def whole_tower_cosines(grads, want):
+    """{tower: cosine of all its gradients, concatenated, against ``want``}.
+    One tensor's cosine can dip where a ReLU's input lies within rounding of
+    0 and its gate differs between the two devices (at n = 16 values a
+    channel, one flip moves a BN scale's gradient by a sixteenth)."""
+    import torch.nn.functional as F
+
+    out = {}
+    for tower in ("image_encoder.", "text_encoder."):
+        names = [n for n in want if n.startswith(tower)]
+        a = torch.cat([grads[n].flatten() for n in names]).double()
+        b = torch.cat([want[n].flatten() for n in names]).double()
+        out[tower[:-1]] = F.cosine_similarity(a, b, dim=0).item()
+    return out
+
+
+def bn_step(model, batch):
+    """(loss, {name: grad}) of one live-BN forward/backward."""
+    from simseg_tpu_torch.engine.train_step import clip_loss_fn
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = clip_loss_fn(model, batch, bn_training=True)
+    loss.backward()
+    grads = {n: p.grad.detach().float().cpu().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def check_live_bn(card):
+    """12e: CLIP with ResNet-50 + BERT-base training its BN live."""
+    import copy
+
+    from simseg_tpu_torch.core.runner import CLIPRunner
+    from simseg_tpu_torch.data.transforms import normalize_images
+    from simseg_tpu_torch.models.layers import BatchNorm
+
+    b, size = BN_CHECK
+    raw, tok = caption_batch(17, b, size)
+    enc = tok(list(raw["caption"]), max_length=25)
+    host = {"image": normalize_images(torch.from_numpy(raw["image"])),
+            "input_ids": torch.as_tensor(np.asarray(enc["input_ids"])).long(),
+            "attention_mask": torch.as_tensor(np.asarray(enc["attention_mask"])).long()}
+    card_batch = {k: v.cuda() for k, v in host.items()}
+    base = seeded_cnn_clip(6, size).cpu()
+    cpu, gpu, fault = base, copy.deepcopy(base).cuda(), copy.deepcopy(base).cuda()
+    with no_tf32():
+        want = bn_witness(copy.deepcopy(gpu), card_batch)
+        cpu_loss, cpu_grads = bn_step(cpu, host)
+        loss, grads = bn_step(gpu, card_batch)
+        with unittest.mock.patch.object(BatchNorm, "forward", unbiased_bn_forward):
+            bn_step(fault, card_batch)
+    err, fault_err = bn_error(gpu, want), bn_error(fault, want)
+    cos = whole_tower_cosines(grads, cpu_grads)
+    rel = abs(loss - cpu_loss) / abs(cpu_loss)
+    print(f"12e live BN, float32, batch {b} at {size} px: running statistics "
+          f"vs flax's biased witness {err:.3e} (bar {BN_STATS_BAR}); planted "
+          f"fault, PyTorch's unbiased update, {fault_err:.3e}; loss card "
+          f"{loss:.6f} vs CPU {cpu_loss:.6f} (rel {rel:.2e}); gradient cosine "
+          f"by tower {cos}, least of one tensor "
+          f"{tower_cosines(grads, cpu_grads)}", flush=True)
+    if err > BN_STATS_BAR or fault_err < 10 * BN_STATS_BAR:
+        raise AssertionError(f"12e: statistics error {err}, fault {fault_err}")
+    if rel > 1e-4 or any(c < CNN_COS_BAR for c in cos.values()):
+        raise AssertionError(f"12e: loss rel {rel}, cosines {cos}")
+    del cpu, gpu, fault, base
+    # 3 steps at 224 px, bf16, through the CLIP runner
+    b, size, steps = BN_TRAIN
+    cfg = train_cfg(tempfile.gettempdir(), "model.image_encoder.tag=resnet50",
+                    f"transforms.input_size={size}", f"data.batch_size={b}")
+    model = seeded_cnn_clip(7, size, compute_dtype=torch.bfloat16)
+    stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    runner = CLIPRunner(cfg, model, {"train": []}, device="cuda", tokenizer=tok)
+    batch = tiled_batch(caption_batch(18, b, size)[0], b)
+    timer = StepTimer()
+    reset_counts()
+    with timer.patch():
+        for _ in range(steps):
+            runner.batch_processor(batch)
+            runner.step += 1
+    check_counts("12e live-BN CLIP steps", read_counts(), {})
+    losses = [x.item() for x in timer.losses]
+    moved = sum(not torch.equal(model.state_dict()[k], v) for k, v in stats.items())
+    if not all(np.isfinite(losses)) or moved != len(stats):
+        raise AssertionError(f"12e: losses {losses}, {moved} of {len(stats)} moved")
+    ms, inside = timer.ms_per_step(warmup=1)
+    print(f"12e ResNet-50 + BERT-base, live BN, {steps} steps at batch {b}, "
+          f"{size} px, bf16 ({card}): {ms:.3f} ms a step (steps 2-{steps}) = "
+          f"{b / ms * 1e3:.1f} images/s; losses {[round(x, 4) for x in losses]}; "
+          f"all {len(stats)} running statistics moved", flush=True)
+    del runner, model
+    torch.cuda.empty_cache()
+
+
+def run_linear_probe(tokenizer=None, classes=None):
+    """Phase 12: returns rows 1-2's launches in 12d's auto and fused_tail
+    lanes."""
+    card = card_line()
+    t_start = time.perf_counter()
+    if tokenizer is None:
+        _, tokenizer, classes = slice_setup()
+    with tempfile.TemporaryDirectory() as root:
+        pth = os.path.join(root, "vit_b16_224.pth")
+        torch.save({"state_dict": seeded_clip(8, 224).state_dict()}, pth)
+        t0 = time.perf_counter()
+        write_probe_fixture(os.path.join(root, "data"))
+        print(f"12a fixture: {PROBE_CLASSES} classes x {PROBE_TRAIN} + "
+              f"{PROBE_VAL} JPEGs in {time.perf_counter() - t0:.1f} s", flush=True)
+        probe_entry(os.path.join(root, "data"), pth, card)
+        probe_big_batch(pth, card)
+    check_cnn_towers(card)
+    check_cnn_probe(card)
+    launches = check_cnn_seg(card, tokenizer, classes)
+    check_live_bn(card)
+    print(f"12 launches of rows 1-2 in the ResNet-50 seg eval ({card}): "
+          f"{launches}; phase 12 in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return launches
+
+
 def build_all():
     """Builds the four kernels and the nvJPEG binding with one nvcc process
     each, in parallel."""
@@ -4427,6 +5073,11 @@ def main() -> None:
         build_all()
         run_distributed()
         return None
+    if sys.argv[1:2] == ["--linear-probe"]:
+        print(f"card: {card_line()}", flush=True)
+        build_all()
+        run_linear_probe()
+        return None
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
@@ -4481,6 +5132,8 @@ def main() -> None:
     big = run_big_batch()
     torch.cuda.empty_cache()
     dist = run_distributed()
+    torch.cuda.empty_cache()
+    cnn = run_linear_probe(tokenizer, classes)
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",
@@ -4488,7 +5141,8 @@ def main() -> None:
          "replaces": "simseg_tpu/ops/crf_fused.py:304",
          "launches": crf_launches,
          "cli_launches": entry["auto"]["crf_mean_field"],
-         "dist_launches": dist["crf_mean_field"], "library_ms": None,
+         "dist_launches": dist["crf_mean_field"],
+         "cnn_launches": cnn["crf_mean_field"], "library_ms": None,
          **crf},
         {"name": "flash_attention", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
@@ -4518,7 +5172,8 @@ def main() -> None:
          "replaces": "simseg_tpu/ops/crf_fused.py:425",
          "launches": tail_counts["seg_decode_tail"],
          "cli_launches": entry["fused_tail"]["seg_decode_tail"],
-         "dist_launches": [0] * DIST_WORLD, **tail},
+         "dist_launches": [0] * DIST_WORLD,
+         "cnn_launches": cnn["seg_decode_tail"], **tail},
         {"name": "flash_attention (rowblock)", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
          "replaces": "simseg_tpu/ops/flash_attention.py:789",

@@ -1,12 +1,15 @@
 """JAX-package parameters -> the port's state dict.
 
-Takes the ``{'params': ...}`` tree that ``simseg_tpu``'s flax ``CLIPModel``
-initialises or trains (leaves as numpy arrays) and returns a state dict in
+Takes the variables that ``simseg_tpu``'s flax ``CLIPModel`` or
+``LinearProbModel`` initialises or trains (leaves as numpy arrays):
+``params`` and, for a CNN tower, ``batch_stats``. Returns a state dict in
 the reference's timm/HF names — the layout of
-``simseg_tpu/checkpoint/torch_export.py:46-224`` — which the port's
-``CLIPModel`` loads with ``strict=True``. Only the towers the port has are
-mapped (ViT, BERT, simple/complex projections, temperature); any other leaf
-raises rather than being dropped.
+``simseg_tpu/checkpoint/torch_export.py:46-224`` (ViT, ResNet, ConvNeXt and
+EfficientNet towers, BERT, simple/complex projections, temperature; BN
+statistics as ``running_mean`` / ``running_var`` with a zero
+``num_batches_tracked``, as ``flax_to_torch`` writes them) plus the linear
+probe's ``classifier`` — which the port's models load with ``strict=True``.
+Any other leaf or collection raises rather than being dropped.
 
 ``load_quant_state`` carries JAX's derived ``'quant'`` collection (the
 cached int8 weights and calibrated activation ranges of ``QuantDense``
@@ -18,6 +21,7 @@ Layout conversions (flax -> torch):
 - Conv2d:    kernel (kh, kw, I, O) -> weight (O, I, kh, kw)
 - Embedding: embedding             -> weight
 - LayerNorm: scale / bias          -> weight / bias
+- BatchNorm: scale / bias, mean / var -> weight / bias, running_mean / running_var
 
 ``flax_param_path`` maps the other way for names only: a key of the port's
 state dict -> the ``/``-joined path of the same leaf in the JAX package's
@@ -67,6 +71,55 @@ def _vit_rules():
            lambda m: f"blocks.{m[1]}.mlp.{m[2]}.bias", None)
 
 
+# the CNN towers (JAX ``torch_bridge.py:163-319``): flax module path ->
+# timm module path; a leaf maps by its name (``_LEAF``)
+_CNN_MODULES = (
+    (r"^(conv1|bn1|bn2|conv_stem|conv_head)$", lambda m: m[1]),
+    (r"^layer(\d+)_(\d+)/(conv\d|bn\d)$", lambda m: f"layer{m[1]}.{m[2]}.{m[3]}"),
+    (r"^layer(\d+)_(\d+)/downsample_(conv|bn)$",
+     lambda m: f"layer{m[1]}.{m[2]}.downsample.{int(m[3] == 'bn')}"),
+    (r"^stem_(conv|norm)$", lambda m: f"stem.{int(m[1] == 'norm')}"),
+    (r"^downsample_(norm|conv)(\d+)$",
+     lambda m: f"stages.{m[2]}.downsample.{int(m[1] == 'conv')}"),
+    (r"^stage(\d+)_block(\d+)$", lambda m: f"stages.{m[1]}.blocks.{m[2]}"),
+    (r"^stage(\d+)_block(\d+)/(conv_dw|norm)$",
+     lambda m: f"stages.{m[1]}.blocks.{m[2]}.{m[3]}"),
+    (r"^stage(\d+)_block(\d+)/(fc1|fc2)$",
+     lambda m: f"stages.{m[1]}.blocks.{m[2]}.mlp.{m[3]}"),
+    (r"^head_norm$", lambda m: "head.norm"),
+    (r"^blocks_(\d+)_(\d+)/(conv_pw|conv_dw|conv_pwl|bn\d|se/conv_reduce|se/conv_expand)$",
+     lambda m: f"blocks.{m[1]}.{m[2]}.{m[3].replace('/', '.')}"),
+)
+_LEAF = {"bias": "bias", "scale": "weight", "gamma": "gamma",
+         "mean": "running_mean", "var": "running_var"}
+
+
+def _kernel(x):
+    """A conv kernel (kh, kw, I, O) or a dense kernel (in, out) in torch's
+    layout."""
+    x = np.asarray(x)
+    return _conv(x) if x.ndim == 4 else _linear(x)
+
+
+def _cnn_rules():
+    for pattern, module_fn in _CNN_MODULES:
+        body = pattern[1:-1]
+        yield (rf"^{body}/kernel$", lambda m, f=module_fn: f"{f(m)}.weight",
+               _kernel)
+        yield (rf"^{body}/(bias|scale|gamma|mean|var)$",
+               lambda m, f=module_fn: f"{f(m)}.{_LEAF[m[m.re.groups]]}", None)
+
+
+def _image_rules():
+    yield from _vit_rules()
+    yield from _cnn_rules()
+
+
+def _classifier_rules():
+    yield r"^kernel$", lambda m: "weight", _linear
+    yield r"^bias$", lambda m: "bias", None
+
+
 _BERT_LAYER = {
     "query": "attention.self.query",
     "key": "attention.self.key",
@@ -112,27 +165,16 @@ def _leaves(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
 
 
 _SCOPES = {
-    "image_encoder": (_IMG, _vit_rules),
+    "image_encoder": (_IMG, _image_rules),
+    "classifier": ("classifier.", _classifier_rules),
     "text_encoder": (_TXT, _bert_rules),
     "image_projection": ("image_projection.", _projection_rules),
     "text_projection": ("text_projection.", _projection_rules),
 }
 
 
-def flax_params_to_state_dict(variables) -> Dict[str, torch.Tensor]:
-    """``{'params': tree}`` (or a bare params tree) of numpy arrays -> the
-    port's ``CLIPModel`` state dict of float32 tensors."""
-    params = variables["params"] if "params" in variables else variables
-    extra = [k for k in variables if k != "params"] if "params" in variables else []
-    if extra:
-        raise ValueError(f"collections without a slot in the port: {extra}")
-    out: Dict[str, torch.Tensor] = {}
-    unmapped = []
-    for scope, subtree in params.items():
-        if scope == "temperature":
-            out["loss.temperature"] = torch.tensor(
-                np.asarray(subtree, np.float32))
-            continue
+def _map_tree(tree, out: Dict[str, torch.Tensor], unmapped: list) -> None:
+    for scope, subtree in tree.items():
         if scope not in _SCOPES:
             unmapped.append(scope)
             continue
@@ -149,6 +191,29 @@ def flax_params_to_state_dict(variables) -> Dict[str, torch.Tensor]:
                     break
             else:
                 unmapped.append(f"{scope}/{joined}")
+
+
+def flax_params_to_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """``{'params': tree[, 'batch_stats': tree]}`` (or a bare params tree)
+    of numpy arrays -> the port's state dict of float32 tensors (a zero
+    int64 ``num_batches_tracked`` beside each BN's statistics)."""
+    if "params" not in variables:
+        variables = {"params": variables}
+    extra = [k for k in variables if k not in ("params", "batch_stats")]
+    if extra:
+        raise ValueError(f"collections without a slot in the port: {extra}")
+    params = dict(variables["params"])
+    out: Dict[str, torch.Tensor] = {}
+    unmapped = []
+    if "temperature" in params:
+        out["loss.temperature"] = torch.tensor(
+            np.asarray(params.pop("temperature"), np.float32))
+    _map_tree(params, out, unmapped)
+    if variables.get("batch_stats"):
+        _map_tree(variables["batch_stats"], out, unmapped)
+        for key in [k for k in out if k.endswith(".running_mean")]:
+            out[key[:-len("running_mean")] + "num_batches_tracked"] = (
+                torch.tensor(0, dtype=torch.long))
     if unmapped:
         raise ValueError(f"params without a slot in the port: {unmapped}")
     return out
@@ -229,7 +294,38 @@ _INVERSE = {
          lambda m: f"blocks_{m[1]}/{m[2]}/{_LN_INV[m[3]]}"),
         (r"^blocks\.(\d+)\.(attn\.qkv|attn\.proj|mlp\.fc1|mlp\.fc2)\.(weight|bias)$",
          lambda m: f"blocks_{m[1]}/{m[2].replace('.', '/')}/{_DENSE_INV[m[3]]}"),
+        # the CNN towers
+        (r"^(conv1|conv_stem|conv_head)\.weight$", lambda m: f"{m[1]}/kernel"),
+        (r"^(bn1|bn2)\.(weight|bias)$", lambda m: f"{m[1]}/{_LN_INV[m[2]]}"),
+        (r"^layer(\d+)\.(\d+)\.(conv\d)\.weight$",
+         lambda m: f"layer{m[1]}_{m[2]}/{m[3]}/kernel"),
+        (r"^layer(\d+)\.(\d+)\.(bn\d)\.(weight|bias)$",
+         lambda m: f"layer{m[1]}_{m[2]}/{m[3]}/{_LN_INV[m[4]]}"),
+        (r"^layer(\d+)\.(\d+)\.downsample\.0\.weight$",
+         lambda m: f"layer{m[1]}_{m[2]}/downsample_conv/kernel"),
+        (r"^layer(\d+)\.(\d+)\.downsample\.1\.(weight|bias)$",
+         lambda m: f"layer{m[1]}_{m[2]}/downsample_bn/{_LN_INV[m[3]]}"),
+        (r"^stem\.0\.(weight|bias)$", lambda m: f"stem_conv/{_DENSE_INV[m[1]]}"),
+        (r"^stem\.1\.(weight|bias)$", lambda m: f"stem_norm/{_LN_INV[m[1]]}"),
+        (r"^stages\.(\d+)\.downsample\.0\.(weight|bias)$",
+         lambda m: f"downsample_norm{m[1]}/{_LN_INV[m[2]]}"),
+        (r"^stages\.(\d+)\.downsample\.1\.(weight|bias)$",
+         lambda m: f"downsample_conv{m[1]}/{_DENSE_INV[m[2]]}"),
+        (r"^stages\.(\d+)\.blocks\.(\d+)\.gamma$",
+         lambda m: f"stage{m[1]}_block{m[2]}/gamma"),
+        (r"^stages\.(\d+)\.blocks\.(\d+)\.norm\.(weight|bias)$",
+         lambda m: f"stage{m[1]}_block{m[2]}/norm/{_LN_INV[m[3]]}"),
+        (r"^stages\.(\d+)\.blocks\.(\d+)\.(?:mlp\.)?(conv_dw|fc1|fc2)\.(weight|bias)$",
+         lambda m: f"stage{m[1]}_block{m[2]}/{m[3]}/{_DENSE_INV[m[4]]}"),
+        (r"^head\.norm\.(weight|bias)$", lambda m: f"head_norm/{_LN_INV[m[1]]}"),
+        (r"^blocks\.(\d+)\.(\d+)\.(bn\d)\.(weight|bias)$",
+         lambda m: f"blocks_{m[1]}_{m[2]}/{m[3]}/{_LN_INV[m[4]]}"),
+        (r"^blocks\.(\d+)\.(\d+)\.(conv_pw|conv_dw|conv_pwl|se\.conv_reduce|"
+         r"se\.conv_expand)\.(weight|bias)$",
+         lambda m: f"blocks_{m[1]}_{m[2]}/{m[3].replace('.', '/')}/"
+                   f"{_DENSE_INV[m[4]]}"),
     ),
+    "classifier": ((r"^(weight|bias)$", lambda m: _DENSE_INV[m[1]]),),
     "text_encoder": (
         (r"^embeddings\.(word|position|token_type)_embeddings\.weight$",
          lambda m: f"{m[1]}_embeddings/embedding"),
@@ -249,7 +345,8 @@ _INVERSE["text_projection"] = _INVERSE["image_projection"]
 
 
 def flax_param_path(name: str) -> str:
-    """A key of the port's ``CLIPModel`` state dict -> the path of the same
+    """A parameter of the port's ``CLIPModel`` or ``LinearProbModel`` -> the
+    path of the same
     parameter in the JAX package's variables, e.g.
     ``image_encoder.model.model.blocks.0.attn.qkv.weight`` ->
     ``params/image_encoder/blocks_0/attn/qkv/kernel``."""

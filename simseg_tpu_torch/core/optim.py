@@ -1,10 +1,12 @@
-"""Optimizer construction: AdamW / Adam / SGD over ``torch.optim`` with
-per-parameter group rules, frozen patterns, gradient clipping, a
+"""Optimizer construction: AdamW / Adam / SGD over ``torch.optim`` and LARS
+with per-parameter group rules, frozen patterns, gradient clipping, a
 non-finite guard and a host-driven LR (port of ``simseg_tpu/core/optim.py``).
 
 Parity: reference ``simseg/core/hooks/optimizer.py:90-118`` (optimizer by
-name) and ``simseg/tasks/clip/hooks/optimizer.py:14-36`` (regex
-``optim.param_group_rules`` overriding lr / weight decay per parameter).
+name), ``simseg/tasks/clip/hooks/optimizer.py:14-36`` (regex
+``optim.param_group_rules`` overriding lr / weight decay per parameter) and
+``simseg/core/optimizer/lars.py`` (LARS; in JAX ``optax.lars``, ``LARS``
+below).
 The JAX version builds an optax chain; this one keeps its semantics:
 
 - rules and frozen patterns are regexes over the JAX package's parameter
@@ -35,7 +37,7 @@ The JAX version builds an optax chain; this one keeps its semantics:
 
 Adam's and SGD's weight decay are coupled L2, as torch's own (the JAX
 version adds ``add_decayed_weights`` ahead of optax's transform for the
-same reason); AdamW's is decoupled. LARS is not ported yet.
+same reason); AdamW's is decoupled.
 """
 
 from __future__ import annotations
@@ -70,9 +72,55 @@ def _optimizer_class(name: str, opt_param: dict):
     if name == "sgd":
         return torch.optim.SGD, dict(momentum=opt_param.get("momentum", 0.9))
     if name == "lars":
-        raise NotImplementedError("LARS is not ported yet (ROADMAP queue 1 "
-                                  "item 14, with the linear probe)")
+        return LARS, dict(momentum=opt_param.get("momentum", 0.9),
+                          trust_coefficient=opt_param.get("trust_coefficient",
+                                                          0.001))
     raise NotImplementedError(f"optimizer '{name}'")
+
+
+class LARS(torch.optim.Optimizer):
+    """``optax.lars`` (``simseg_tpu/core/optim.py:75-81``) in optax's order,
+    per parameter tensor, in float32:
+
+    1. u = g + weight_decay · p (``add_decayed_weights``, biases included);
+    2. u = u · trust_coefficient · |p| / |u| (``scale_by_trust_ratio``,
+       eps 0; Frobenius norms, which a transposed kernel keeps), the ratio
+       1 where either norm is 0 (a zero-initialised bias on its first step);
+    3. u = -lr · u;
+    4. trace = u + momentum · trace, p = p + trace (``trace``).
+
+    The learning rate enters before the momentum: under a changing lr this
+    is not SGD-style LARS, whose trace holds lr-free updates."""
+
+    def __init__(self, params, lr: float = 0.0, weight_decay: float = 0.0,
+                 momentum: float = 0.9, trust_coefficient: float = 0.001
+                 ) -> None:
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      momentum=momentum,
+                                      trust_coefficient=trust_coefficient))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, wd = group["lr"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                u = p.grad.float()
+                if wd:
+                    u = u + wd * p.float()
+                p_norm = torch.linalg.vector_norm(p.float())
+                u_norm = torch.linalg.vector_norm(u)
+                ratio = group["trust_coefficient"] * p_norm / u_norm
+                ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                    torch.ones_like(ratio), ratio)
+                u = -lr * (u * ratio)
+                state = self.state[p]
+                if "trace" not in state:
+                    state["trace"] = torch.zeros_like(u)
+                trace = state["trace"]
+                trace.mul_(group["momentum"]).add_(u)
+                p.add_(trace.to(p.dtype))
 
 
 def _rule_pattern(rule: dict) -> str:

@@ -4,7 +4,8 @@
 Parity: reference ``simseg/core/runners/base_runner.py:20-86`` (hook
 registry and fan-out), ``epoch_runner.py:15-178`` (epoch/step loops, steps
 math, mid-epoch resume) and ``tasks/clip/clip_runner.py:19-299`` (hook
-wiring, batch_processor). The runner owns the model (moved to its device),
+wiring, batch_processor) and ``tasks/linear_prob/linear_runner.py:20-200``
+(``LinearProbRunner``). The runner owns the model (moved to its device),
 the optimizer and the lr schedule; the train loaders are any iterables of
 batch dicts with ``image`` (uint8 or float NHWC), ``input_ids`` and
 ``attention_mask`` (or ``caption`` strings, tokenized here), optionally
@@ -13,6 +14,10 @@ batch dicts with ``image`` (uint8 or float NHWC), ``input_ids`` and
 ``runner.name`` is ``clip`` (``engine/train_step.py``) or ``clip_bsgs``
 (``engine/bsgs.py``: the exact gradient of the ``data.batch_size`` batch in
 micro-batches of ``data.batch_size_train``), refused where JAX refuses it.
+A CNN image tower trains its BatchNorm live (batch statistics over the
+global batch, running averages moved) unless ``model.freeze_cnn_bn``;
+BSGS refuses live BN, as JAX does. ``LinearProbRunner`` trains the linear
+probe (``models/linear_prob.py``) on ``label`` batches.
 
 In a ``torch.distributed`` world (``parallel/mesh.py``) every rank runs
 the runner on its shard of each batch (``data.batch_size`` is the global
@@ -20,8 +25,7 @@ batch, which the world size must divide, JAX ``runner.py:84-91``); the
 steps gather the embeddings and sum the gradients over the ranks, so the
 lr schedule, the steps and the parameters are the same on every rank.
 ``loss.group_size`` (ranks per gather group) must divide the world, as
-JAX's ``make_mesh`` checks. Not ported yet: the linear-probe runner
-(ROADMAP queue 1 item 14).
+JAX's ``make_mesh`` checks.
 """
 
 from __future__ import annotations
@@ -39,12 +43,16 @@ from simseg_tpu_torch.core.optim import build_optimizer
 from simseg_tpu_torch.data.datasets import debias_batches, sequential_batches
 from simseg_tpu_torch.data.transforms import normalize_images
 from simseg_tpu_torch.engine.bsgs import make_bsgs_train_step
-from simseg_tpu_torch.engine.train_step import make_eval_step, make_train_step
+from simseg_tpu_torch.engine.train_step import (make_eval_step, make_train_step,
+                                                step_key)
+from simseg_tpu_torch.models.layers import BatchNorm
+from simseg_tpu_torch.parallel.collectives import (all_reduce_mean,
+                                                   reduce_gradients)
 from simseg_tpu_torch.parallel.mesh import (batch_shards, loss_group_samples,
                                             make_mesh)
 from simseg_tpu_torch.utils.collections import AttrDict
 
-_BATCH_KEYS = ("image", "input_ids", "attention_mask", "ignore_mask")
+_BATCH_KEYS = ("image", "input_ids", "attention_mask", "ignore_mask", "label")
 
 
 class BaseRunner:
@@ -326,7 +334,15 @@ class CLIPRunner(EpochRunner):
         # devices per gather group in the config; the loss takes samples
         self._group_samples = loss_group_samples(self.mesh, cfg.data.batch_size)
         self._eval_fn = make_eval_step(self.model)
+        live_bn = (not cfg.model.get("freeze_cnn_bn", False)
+                   and any(isinstance(m, BatchNorm) for m in self.model.modules()))
         if cfg.runner.name == "clip_bsgs":
+            if live_bn:
+                raise NotImplementedError(
+                    "runner 'clip_bsgs' does not thread live BatchNorm "
+                    "statistics (the two-pass re-forward would double-update "
+                    "them); set model.freeze_cnn_bn=true or use "
+                    "runner.name='clip'")
             self._step_fn = self._bsgs_step()
             return
         self._step_fn = make_train_step(
@@ -340,6 +356,7 @@ class CLIPRunner(EpochRunner):
             seed=int(cfg.seed or 0),
             mesh=self.mesh, group_size=self._group_samples,
             mixup_pairing=cfg.get("mixup", {}).get("pairing", "shard"),
+            bn_training=live_bn,
         )
 
     def _bsgs_step(self):
@@ -415,3 +432,98 @@ class CLIPRunner(EpochRunner):
         self.outputs = {"image_emb": img, "text_emb": txt,
                         "image_id": batch.get("image_id"),
                         "caption_id": batch.get("caption_id")}
+
+
+class LinearProbRunner(EpochRunner):
+    """ImageNet linear probing (JAX ``LinearProbRunner``,
+    ``simseg_tpu/core/runner.py:488-619``; parity: linear_runner.py:20-200).
+
+    A step: the batch's logits, the CE loss (``loss.smoothing``), backward,
+    the optimizer (LARS in the YAML) on the parameters that are not frozen
+    (a frozen tower's, ``^params/image_encoder/``, never; a CNN's running
+    statistics are buffers, which no optimizer sees). With ``mixup.enable``
+    the images and their smoothed one-hot labels are blended with the
+    rows' mirror within each rank's shard (JAX's ``_block_flip`` over the
+    data shards), by λ ~ Beta(α, α) drawn as JAX draws it: the step key
+    ``fold_in(key(seed), step)`` split, its first half into ``beta``. In a
+    world the loss and accuracies are the global batch's (means over the
+    equal shards) and the gradients are summed over the ranks;
+    ``samples`` counts the world's."""
+
+    def frozen_patterns(self):
+        if not self.cfg.model.image_encoder.get("trainable", True):
+            return (r"^params/image_encoder/",)
+        return ()
+
+    def build_step_fns(self) -> None:
+        cfg = self.cfg
+        if int(cfg.dist.get("tp_size", 1) or 1) > 1:
+            raise NotImplementedError(
+                "linear probing is data-parallel only (the encoder is "
+                "frozen and the classifier tiny) — use dist.tp_size=1")
+        self._smoothing = cfg.loss.get("smoothing", 0.0)
+        mixup_cfg = cfg.get("mixup", {}) or {}
+        self._mixup_alpha = (float(mixup_cfg.get("alpha", 0.2))
+                             if mixup_cfg.get("enable", False) else 0.0)
+        self._num_classes = cfg.model.classifier.num_classes
+        self._seed = int(cfg.seed or 0)
+
+    def init_hook(self) -> None:
+        super().init_hook()
+        if self.val_loaders:
+            from simseg_tpu_torch.core.train_hooks import LinearEvalHook
+
+            self.register_hook(LinearEvalHook(), Priority.VERY_LOW)
+
+    def _mixup(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        from simseg_tpu_torch.utils import threefry
+
+        mix_key, _ = threefry.split(step_key(self._seed, self.step))
+        lam = float(threefry.beta(mix_key, self._mixup_alpha,
+                                  self._mixup_alpha))
+        onehot = torch.nn.functional.one_hot(batch["label"],
+                                             self._num_classes).float()
+        if self._smoothing > 0:
+            # smoothed before the blend: CE is linear in the target
+            onehot = (onehot * (1.0 - self._smoothing)
+                      + self._smoothing / self._num_classes)
+        images = batch["image"]
+        return dict(batch, image=lam * images + (1.0 - lam) * images.flip(0),
+                    label=lam * onehot + (1.0 - lam) * onehot.flip(0))
+
+    def batch_processor(self, batch, device_batch: Optional[Dict] = None
+                        ) -> Dict[str, Any]:
+        from simseg_tpu_torch.models.linear_prob import linear_prob_loss_fn
+
+        if device_batch is None:
+            device_batch = self._prepare_batch(batch)
+        lr = self.lr_schedule(self.step)
+        if self._mixup_alpha > 0:
+            device_batch = self._mixup(device_batch)
+        loss, metrics = linear_prob_loss_fn(
+            self.model, device_batch, smoothing=self._smoothing,
+            soft_targets=self._mixup_alpha > 0)
+        if self.mesh is None:
+            loss.backward()
+        else:
+            (loss / self.mesh.world).backward()
+            reduce_gradients(self.optimizer.params)
+            metrics = {k: all_reduce_mean(v) for k, v in metrics.items()}
+        self.optimizer.set_lr(lr)
+        self.optimizer.step()
+        metrics["lr"] = lr
+        self.state.log_metrics.add_counter(
+            "samples", device_batch["image"].shape[0] * batch_shards(self.mesh))
+        return metrics
+
+    def val_step(self, batch) -> None:
+        """The batch's float32 logits (on the device) and labels into
+        ``outputs`` for ``LinearEvalHook``."""
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                logits = self.model(self._prepare_batch(batch))
+        finally:
+            self.model.train(was_training)
+        self.outputs = {"logits": logits, "label": np.asarray(batch["label"])}

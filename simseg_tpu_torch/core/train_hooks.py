@@ -1,8 +1,8 @@
 """Training hooks: logging, checkpointing, preemption and retrieval
 validation (port of ``simseg_tpu/core/train_hooks.py``: ``LogHook``,
-``CheckpointHook`` with the native backend, ``PreemptionHook`` and
-``RetrievalEvalHook``; the profile and wandb hooks are not ported yet,
-ROADMAP queue 1 item 11).
+``CheckpointHook`` with the native backend, ``PreemptionHook``,
+``RetrievalEvalHook`` and ``LinearEvalHook``; the profile and wandb hooks
+are not ported yet, ROADMAP queue 1 item 11).
 
 Parity: LogHook, reference ``core/hooks/log.py:64-146`` — a train line per
 interval with the step's metrics and step time, validation progress;
@@ -10,7 +10,8 @@ CheckpointHook, ``core/hooks/checkpoint.py:80-187`` — step-interval and
 per-epoch checkpoints, auto-resume (mid-epoch included) and an external
 pretrained init; PreemptionHook, JAX ``train_hooks.py:237-278`` (beyond
 the reference); RetrievalEvalHook, ``tasks/clip/hooks/eval.py:9-99`` —
-the validation embeddings collected, R@1/5/10 and RSUM at the end.
+the validation embeddings collected, R@1/5/10 and RSUM at the end;
+LinearEvalHook, ``tasks/linear_prob/hooks/eval.py:9-54`` — top-1 / top-5.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from simseg_tpu_torch.checkpoint.native import (dump_config_snapshot,
                                                 load_params, save_checkpoint)
 from simseg_tpu_torch.core.hooks import Hook
 from simseg_tpu_torch.parallel.collectives import (all_reduce_max,
-                                                   allgather_rows)
+                                                   allgather_rows,
+                                                   process_allgather)
 from simseg_tpu_torch.parallel.mesh import host_group, is_distributed
 from simseg_tpu_torch.utils.retrieval import retrieval_summary
 
@@ -236,3 +238,31 @@ class RetrievalEvalHook(Hook):
         pretty = " ".join(f"{k}: {v:.4f}" for k, v in summary.items())
         logger.info(f"[retrieval val #{runner.state.get('val_loader_idx', 0)}] "
                     f"{pretty}")
+
+
+class LinearEvalHook(Hook):
+    """Collects each validation step's logits and labels; at the end of the
+    pass, top-1 and top-5 accuracy from ``np.argsort(-logits)``'s first
+    five columns (JAX ``LinearEvalHook``, ``simseg_tpu/core/train_hooks.py:
+    374-400``), kept in ``runner.state.linear_eval``. In a world where
+    ``data.single_eval`` is false each rank scored its (padded, equal)
+    shard: every rank's rows are gathered first."""
+
+    def before_val_epoch(self, runner) -> None:
+        self._logits, self._labels = [], []
+
+    def after_val_step(self, runner) -> None:
+        self._logits.append(runner.outputs["logits"].float().cpu().numpy())
+        self._labels.append(np.asarray(runner.outputs["label"]))
+
+    def after_val_epoch(self, runner) -> None:
+        logits = np.concatenate(self._logits)
+        labels = np.concatenate(self._labels)
+        if is_distributed() and not runner.cfg.data.get("single_eval", True):
+            logits = process_allgather(logits).reshape(-1, logits.shape[-1])
+            labels = process_allgather(labels).reshape(-1)
+        top5 = np.argsort(-logits, axis=1)[:, :5]
+        acc1 = float(np.mean(top5[:, 0] == labels))
+        acc5 = float(np.mean(np.any(top5 == labels[:, None], axis=1)))
+        runner.state.linear_eval = {"acc1": acc1, "acc5": acc5}
+        logger.info(f"[linear eval] top-1: {acc1:.4f} top-5: {acc5:.4f}")

@@ -1,16 +1,18 @@
 """Datasets and the host-side prefetching loader (port of
 ``simseg_tpu/data/datasets.py``: ``CsvPairDataset`` :48-108,
-``ParquetRetrievalDataset`` :111-143, ``SegDataset`` :146-199, ``_collate``
-:233-253, ``DataLoader`` :256-378, ``ConcatDataset``, the train mixing
-:380-420, ``build_clip_dataloaders`` :432-492 and ``build_seg_valid_loader``
-:495-505).
+``ParquetRetrievalDataset`` :111-143, ``SegDataset`` :146-199,
+``ImageFolderDataset`` :202-230, ``_collate`` :233-253, ``DataLoader``
+:256-378, ``ConcatDataset``, the train mixing :380-420,
+``build_clip_dataloaders`` :432-492, ``build_seg_valid_loader`` :495-505
+and ``build_imagenet_dataloaders`` :517-538).
 
 Parity: reference ``simseg/datasets/clip/clip_dataset.py`` (CSV
 image-caption pairs with train-time caption corruption; f30k / coco
 ``valid.parquet``; the shuffle / sequential / debias train modes) and
 ``simseg/datasets/seg/seg_dataset.py:13-81`` (the pascal_voc /
 pascal_context / coco_stuff val splits, each sample the transformed image
-and its label map at the raw size).
+and its label map at the raw size) and ``linear_prob/linear_dataset.py``
+(ImageNet's class-per-directory folders).
 
 Images are decoded by ``data/image_io.py`` (the port's PNG reader; PIL
 for a JPEG on the CPU, nvJPEG on the card). The seg loader transforms on
@@ -18,8 +20,9 @@ its device, so a loader for the card yields ``image`` as a CUDA uint8
 tensor. The pair datasets decode and augment on the host (the train ops
 are PIL's, ``data/train_transforms.py``), as the JAX loader does, and
 yield CPU uint8 tensors; the runner normalises them on the device. Labels
-and token ids are numpy. Not ported: the ImageFolder dataset (ROADMAP
-queue 1 item 14).
+and token ids are numpy. Not ported: JAX's native-decode fast path of
+the ImageFolder train mode (``transforms.load``); every image goes through
+the decoder and PIL's train ops.
 """
 
 from __future__ import annotations
@@ -208,6 +211,31 @@ class SegDataset:
             label = read_png_array(f.read())
         return {"image": self.transforms(image),
                 "mask_label": label.astype(np.int32)}
+
+
+class ImageFolderDataset:
+    """``root/<class>/<image>``: classes in sorted order numbered from 0,
+    each class's files sorted; a sample is the transformed image and its
+    int64 ``label``."""
+
+    def __init__(self, root: str, transforms):
+        self.transforms = transforms
+        classes = sorted(d for d in os.listdir(root)
+                         if os.path.isdir(os.path.join(root, d)))
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples: List = []
+        for c in classes:
+            for path in sorted(glob(os.path.join(root, c, "*"))):
+                self.samples.append((path, self.class_to_idx[c]))
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        path, label = self.samples[index]
+        with open(path, "rb") as f:
+            image = decode_rgb(f.read(), "cpu")
+        return {"image": self.transforms(image), "label": np.int64(label)}
 
 
 def _collate(samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
@@ -459,3 +487,29 @@ def build_clip_dataloaders(cfg, tokenizer=None) -> Dict[str, Any]:
                                   shard_index=vshard, shard_count=vnshards,
                                   pad_shards=True))
     return dict(train=train, train_dataset=train_datasets, val=val)
+
+
+def build_imagenet_dataloaders(cfg) -> Dict[str, Any]:
+    """The linear probe's loaders over ``<data_path>/{train,val}`` class
+    folders (JAX ``build_imagenet_dataloaders``): the train loader shuffled,
+    its last short batch dropped, ``data.batch_size`` over the world with
+    the shards padded; the val loader of ``data.batch_size_val``, the whole
+    set on every process under ``data.single_eval`` (default), else the
+    rank's padded shard of ``batch_size_val / W`` a batch."""
+    shard, nshards = process_shard()
+    root = cfg.data.data_path
+    train_ds = ImageFolderDataset(os.path.join(root, "train"),
+                                  build_transforms(cfg, "train"))
+    val_ds = ImageFolderDataset(os.path.join(root, "val"),
+                                build_transforms(cfg, "valid"))
+    train = DataLoader(train_ds, cfg.data.batch_size // nshards, shuffle=True,
+                       drop_last=True, num_workers=cfg.data.num_workers,
+                       shard_index=shard, shard_count=nshards, pad_shards=True)
+    if cfg.data.get("single_eval", True):
+        vshard, vnshards, bs_val = 0, 1, cfg.data.batch_size_val
+    else:
+        vshard, vnshards = shard, nshards
+        bs_val = cfg.data.batch_size_val // nshards
+    val = DataLoader(val_ds, bs_val, num_workers=cfg.data.num_workers,
+                     shard_index=vshard, shard_count=vnshards, pad_shards=True)
+    return dict(train=[train], train_dataset=None, val=[val])

@@ -34,8 +34,15 @@ batch under pjit; the reference's GatherLayer):
   or within the global batch (``global``: the mirror rank's rows,
   reversed); the coefficient is the same on every rank.
 
-Not ported: ZeRO-1, FSDP, TP, PP, MoE and live-BN branches (ROADMAP
-queue 1 item 13's second part).
+A CNN image tower with ``bn_training`` (JAX's live-BN branch,
+``simseg_tpu/engine/train_step.py:260-270``: the runner passes ``not
+model.freeze_cnn_bn``) runs its BatchNorm on the batch's statistics and
+moves its running averages in the forward (``models/layers.BatchNorm``);
+in a world the statistics are the global batch's, as JAX's pjit forward
+computes them (synchronised BN).
+
+Not ported: ZeRO-1, FSDP, TP, PP and MoE branches (ROADMAP queue 1 item
+13's second part).
 
 Dropout: with ``runner.stable_random`` set (``deterministic`` False) the
 forward takes the step's key, JAX's ``fold_in(key(seed), step)``
@@ -154,6 +161,7 @@ def clip_loss_fn(
     mesh: Optional[DataMesh] = None,
     group_size: int = -1,
     mixup_pairing: str = "shard",
+    bn_training: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward + contrastive loss of the global batch (JAX ``clip_loss_fn``;
     parity: pipelines/clip.py:123-176 forward_loss, dispatching on
@@ -161,7 +169,8 @@ def clip_loss_fn(
     embeddings). ``batch`` holds this rank's rows; ``mesh`` the world (None:
     one process); ``group_size`` the loss groups in samples
     (``parallel/mesh.loss_group_samples``). MixUpNCE mixes each image with
-    its partner (``mixup_partner``)."""
+    its partner (``mixup_partner``); ``bn_training``: a CNN tower's live
+    BatchNorm."""
     key = None if deterministic else step_key(seed, step)
     if loss_name == "MixUpNCE":
         if mixup_pairing == "global" and group_size > 0:
@@ -174,7 +183,7 @@ def clip_loss_fn(
                           * mixup_partner(batch["image"], mesh, mixup_pairing))
 
     img, txt, temp = model(batch, deterministic=deterministic,
-                           key=rank_key(key, mesh))
+                           key=rank_key(key, mesh), train_bn=bn_training)
     img, txt = img.float(), txt.float()
     ignore = batch.get("ignore_mask")
     local_rows = img.shape[0]

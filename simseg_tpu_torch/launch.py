@@ -8,8 +8,9 @@ through ``torch.distributed.launch`` and tees the output to
 ``./output/<exp>_log.txt``. On a TPU the JAX launcher runs one process per
 host, which drives all the host's chips; here each rank is a process of
 its own on ``cuda:LOCAL_RANK``, running the task's entry point
-(``tasks/clip/train.py``) with the rest of the command line, which joins
-the world through ``parallel/mesh.init_distributed``:
+(``tasks/clip/train.py``, or ``tasks/linear_prob/train.py`` for ``--task
+linear_prob``) with the rest of the command line, which joins the world
+through ``parallel/mesh.init_distributed``:
 
 - it sets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
   (``--master_addr``, default 127.0.0.1) and ``MASTER_PORT``
@@ -25,9 +26,6 @@ the world through ``parallel/mesh.init_distributed``:
   wait for the lost rank at their next collective); 0 when all exit 0;
 - it refuses ``--nproc_per_node`` larger than the number of cards, unless
   the ranks run on the CPU (``--device cpu``, gloo).
-
-``--task linear_prob`` waits for ROADMAP queue 1 item 14 (the linear probe
-is not ported).
 """
 
 from __future__ import annotations
@@ -42,9 +40,8 @@ import threading
 import time
 from typing import List, Optional, Sequence
 
-TASKS = {"clip": "simseg_tpu_torch.tasks.clip.train"}
-_WAITING = {"linear_prob": "the linear probe is not ported yet (ROADMAP "
-                           "queue 1 item 14)"}
+TASKS = {"clip": "simseg_tpu_torch.tasks.clip.train",
+         "linear_prob": "simseg_tpu_torch.tasks.linear_prob.train"}
 
 
 def free_port() -> int:
@@ -67,7 +64,7 @@ def _device_of(passthrough: Sequence[str]) -> Optional[str]:
 def parse_args(argv: Optional[Sequence[str]] = None):
     parser = argparse.ArgumentParser(description="SimSeg launcher (PyTorch port)")
     parser.add_argument("--task", type=str, default="clip",
-                        choices=sorted(TASKS) + sorted(_WAITING))
+                        choices=sorted(TASKS))
     parser.add_argument("--cfg", type=str, required=True)
     parser.add_argument("--nproc_per_node", type=int, default=1)
     parser.add_argument("--exp_name", type=str, default="")
@@ -85,8 +82,6 @@ def _tee(stream, sinks) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args, passthrough = parse_args(argv)
-    if args.task in _WAITING:
-        raise SystemExit(f"launch: --task {args.task}: {_WAITING[args.task]}")
     n = args.nproc_per_node
     if n < 1:
         raise SystemExit(f"launch: --nproc_per_node {n} must be at least 1")

@@ -6,7 +6,11 @@ tree carries the reference's state-dict names (``image_encoder.model.model``
 is the timm ViT, ``text_encoder.model.model`` the HF BERT, both two wrappers
 deep as in the reference; ``loss.temperature``), so the state dict that
 ``checkpoint/convert.py`` makes, or a reference ``.pth``, loads with
-``strict=True``. Only ViT image towers are ported; the CNN towers are not.
+``strict=True``. The image tower is a ViT, or a CNN (``models/cnn.py``:
+ResNet, ConvNeXt, EfficientNet) whose (B, h, w, C) map becomes h·w tokens
+(reference ``pipelines/clip.py:79-82``); ``forward(..., train_bn=True)``
+runs its BatchNorm on the batch's statistics and moves the running ones
+(the reference's ``freeze_cnn_bn=False``).
 
 Mixed precision as in the JAX package: parameters stay float32 (the
 temperature always) and the towers compute in ``compute_dtype`` (bf16
@@ -31,6 +35,7 @@ import torch
 import torch.nn as nn
 
 from simseg_tpu_torch.models.bert import build_bert
+from simseg_tpu_torch.models.cnn import build_cnn
 from simseg_tpu_torch.models.layers import number_dropout_sites
 from simseg_tpu_torch.models.projection import ComplexProjection, SimpleProjection
 from simseg_tpu_torch.models.vit import build_vit
@@ -68,15 +73,20 @@ class CLIPModel(nn.Module):
         remat_policy: str = "none",
     ) -> None:
         super().__init__()
-        if "vit" not in image_tag:
-            raise NotImplementedError(
-                f"image tower '{image_tag}': only ViT towers are ported")
         train_kw = dict(dropout=dropout, remat=remat, remat_policy=remat_policy)
-        vit = build_vit(image_tag, img_size, dict(image_arch or ()), **train_kw)
+        self.is_vit = "vit" in image_tag
+        if self.is_vit:
+            image = build_vit(image_tag, img_size, dict(image_arch or ()),
+                              **train_kw)
+            image_dim = image.embed_dim
+        else:
+            # JAX's CNN builders take neither dropout nor remat
+            image = build_cnn(image_tag, dict(image_arch or ()))
+            image_dim = image.num_features
         bert = build_bert(text_tag, dict(text_arch or ()), **train_kw)
-        self.image_encoder = _Wrapper(_Wrapper(vit))
+        self.image_encoder = _Wrapper(_Wrapper(image))
         self.text_encoder = _Wrapper(_Wrapper(bert))
-        vit.compute_dtype = bert.compute_dtype = compute_dtype
+        image.compute_dtype = bert.compute_dtype = compute_dtype
         if projection_name == "simple":
             proj = SimpleProjection
         elif projection_name == "complex":
@@ -84,7 +94,7 @@ class CLIPModel(nn.Module):
                 return ComplexProjection(in_dim, dim, projection_dropout)
         else:
             raise NotImplementedError(f"projection '{projection_name}'")
-        self.image_projection = proj(vit.embed_dim, projection_dim)
+        self.image_projection = proj(image_dim, projection_dim)
         text_dim = bert.embeddings.word_embeddings.embedding_dim
         self.text_projection = proj(text_dim, projection_dim)
         self.projection_name = projection_name
@@ -103,8 +113,13 @@ class CLIPModel(nn.Module):
         number_dropout_sites(self)
 
     @property
-    def vit(self) -> nn.Module:
+    def image_tower(self) -> nn.Module:
         return self.image_encoder.model.model
+
+    @property
+    def vit(self) -> nn.Module:
+        """The image tower, under the name most callers know it by."""
+        return self.image_tower
 
     @property
     def bert(self) -> nn.Module:
@@ -112,7 +127,9 @@ class CLIPModel(nn.Module):
 
     @property
     def patch_size(self) -> int:
-        return self.vit.patch_size
+        """The dense grid's step: the ViT's patch, a CNN's total stride (JAX
+        ``tasks/seg_eval.image_patch_stride``)."""
+        return self.image_tower.patch_size
 
     # -- temperature -----------------------------------------------------------
     def temperature(self) -> torch.Tensor:
@@ -124,18 +141,27 @@ class CLIPModel(nn.Module):
         return torch.clamp(t, 0.001, 0.5)
 
     # -- image tower -------------------------------------------------------------
-    def forward_image_feature(self, images: torch.Tensor,
-                              key=None) -> torch.Tensor:
-        """(B, H, W, 3) -> CLS (B, D) for identity pooling, else the patch
-        tokens (B, N, D); ``key``: the dropout key (None: no dropout)."""
-        tokens = self.vit(images, key)
+    def forward_image_feature(self, images: torch.Tensor, key=None,
+                              train_bn: bool = False) -> torch.Tensor:
+        """(B, H, W, 3) -> ViT: CLS (B, D) for identity pooling, else the
+        patch tokens (B, N, D); CNN: its map as (B, h·w, C) tokens.
+        ``key``: the dropout key (None: no dropout); ``train_bn``: a CNN's
+        BatchNorm on the batch's statistics."""
+        if not self.is_vit:
+            return self.forward_image_tokens(images, train_bn)
+        tokens = self.image_tower(images, key)
         if self.pool_name == "identity":
             return tokens[:, 0]
         return tokens[:, 1:]
 
-    def forward_image_tokens(self, images: torch.Tensor) -> torch.Tensor:
-        """Full (B, 1+N, D) sequence (seg eval needs CLS + patches)."""
-        return self.vit(images)
+    def forward_image_tokens(self, images: torch.Tensor,
+                             train_bn: bool = False) -> torch.Tensor:
+        """ViT: the full (B, 1+N, D) sequence (seg eval needs CLS +
+        patches); CNN: the (B, h·w, C) map tokens, no CLS."""
+        if self.is_vit:
+            return self.image_tower(images)
+        fmap = self.image_tower(images, train_bn=train_bn)
+        return fmap.reshape(fmap.shape[0], -1, fmap.shape[-1])
 
     def forward_image_project(self, image_features: torch.Tensor,
                               key=None) -> torch.Tensor:
@@ -178,18 +204,20 @@ class CLIPModel(nn.Module):
 
     # -- joint ----------------------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
-                key=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                key=None, train_bn: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(image_emb, text_emb, temperature) of a batch with ``image``
         (B, H, W, 3) float, ``input_ids`` and ``attention_mask`` (B, T)
         (parity: JAX ``CLIPModel.__call__``, pipelines/clip.py:152-176).
         ``deterministic=False`` drops out with the dropout ``key``, or with
-        one drawn from torch's default generator when none is given."""
+        one drawn from torch's default generator when none is given;
+        ``train_bn``: a CNN tower's live BatchNorm."""
         if deterministic:
             key = None
         elif key is None:
             key = tuple(int(v) for v in torch.randint(0, 2**32, (2,)))
         mask = batch["attention_mask"]
-        img = self.forward_image_feature(batch["image"], key)
+        img = self.forward_image_feature(batch["image"], key, train_bn)
         txt = self.forward_text_feature(batch["input_ids"], mask, key)
         img = self.forward_image_project(img, key)
         txt = self.forward_text_project(txt, mask, key)

@@ -10,6 +10,10 @@ parameters and runs in bf16 when its activations are bf16, and
 ``torch.autocast`` is not used: its op list keeps LayerNorm and softmax in
 float32 where the JAX bf16 lane does not.
 
+The CNN towers' layers (``Conv2d``, ``BatchNorm``, ``same_pad``) follow
+flax's ``nn.Conv`` and ``nn.BatchNorm`` on NCHW tensors (``models/resnet.py``,
+``convnext.py``, ``efficientnet.py``).
+
 Also the towers' dropout and rematerialisation. A dropout key is a
 threefry key (``utils/threefry.py``: two uint32 words) that the caller
 passes down the forward; each ``Dropout`` site folds its own number into
@@ -64,6 +68,86 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape,
                             self.weight.float(), self.bias.float(),
                             self.eps).to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """A convolution in x's dtype, its weight and bias cast at use (flax
+    ``Conv`` with ``dtype``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """``x`` (N, C, H, W) zero-padded as flax's ``padding='SAME'`` pads it
+    for a ``kernel`` x ``kernel`` window at ``stride``: out = ceil(in /
+    stride), the missing rows split low = total // 2, high = the rest. Where
+    the size divides the stride and kernel == stride this is no padding,
+    torch's ``padding=0``; elsewhere torch would drop the last rows."""
+    pads = []
+    for size in (x.shape[3], x.shape[2]):
+        out = -(-size // stride)
+        total = max((out - 1) * stride + kernel - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channels
+    of an NCHW tensor, under timm's ``BatchNorm2d`` names (``weight``,
+    ``bias``, ``running_mean``, ``running_var``; ``num_batches_tracked`` is
+    kept for the reference's layout and never counts, as flax keeps no
+    count).
+
+    ``forward(x, train_bn=False)``: with the running statistics, the
+    result in x's dtype (``F.batch_norm``, which normalises in float32).
+    With ``train_bn`` (flax ``use_running_average=False``), the batch's
+    statistics in float32 whatever x's dtype: mean = E[x] and the biased
+    var = max(E[x^2] - E[x]^2, 0), gradients flowing through them; the
+    running buffers move as flax moves them, ``momentum * old + (1 -
+    momentum) * batch`` with that biased var (PyTorch's
+    ``F.batch_norm(training=True)`` would take the unbiased var, and calls
+    flax's 0.9 ``momentum=0.1``). In a ``torch.distributed`` world of more
+    than one rank the sums are taken over the world (synchronised BN: JAX's
+    forward under pjit sees the global batch), and their gradients are
+    summed over it in the backward."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.9) -> None:
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor, train_bn: bool = False) -> torch.Tensor:
+        if not train_bn:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        from simseg_tpu_torch.parallel.collectives import all_reduce_sum_grad
+        from simseg_tpu_torch.parallel.mesh import world_size
+
+        xf = x.float()
+        sums = torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
+        count = float(x.numel() // x.shape[1])
+        if world_size() > 1:
+            sums = all_reduce_sum_grad(sums)
+            count *= world_size()
+        mean = sums[0] / count
+        var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_((1.0 - m) * mean)
+            self.running_var.mul_(m).add_((1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean[:, None, None]) * mul[:, None, None]
+        return (y + self.bias.float()[:, None, None]).to(x.dtype)
 
 
 class Dropout(nn.Module):

@@ -111,6 +111,26 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
                         group)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the group; the backward sums the gradient over the group
+    too (each rank's input feeds every rank's sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
+
+
+def all_reduce_sum_grad(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over ``group`` (None: the world), differentiable: the
+    synchronised batch statistics of ``models/layers.BatchNorm``."""
+    return _AllReduceSum.apply(x, group)
+
+
 def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     return all_reduce_sum(x, group) / dist.get_world_size(group)
 

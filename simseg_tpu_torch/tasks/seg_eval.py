@@ -106,7 +106,7 @@ def prepare_quant_params(model, *, input_size: int,
     calibrates on the 80 prompts of the first 4 classes (in a world, the
     caller broadcasts rank 0's: ``ops/quant.broadcast_quant_state``)."""
     device = resolve_device(device)
-    img_q = model.vit.quant or "none"
+    img_q = model.image_tower.quant or "none"
     txt_q = model.bert.quant or "none"
     if img_q == "none" and txt_q == "none":
         return model
@@ -143,6 +143,15 @@ def prepare_quant_params(model, *, input_size: int,
     return cache_quant_state(model, calls)
 
 
+def image_patch_stride(model) -> int:
+    """The dense feature grid's step (JAX ``image_patch_stride``,
+    ``simseg_tpu/tasks/seg_eval.py:161-172``): the ViT's patch size, a CNN's
+    total stride, 32 for every ResNet, ConvNeXt and EfficientNet of four or
+    more stages (JAX returns 32 for any CNN, also for the test towers of
+    two stages, whose maps are a step of 8)."""
+    return model.patch_size
+
+
 def make_seg_features(model, *, input_size: int,
                       mean: Sequence[float] = IMAGENET_MEAN,
                       std: Sequence[float] = IMAGENET_STD,
@@ -153,7 +162,10 @@ def make_seg_features(model, *, input_size: int,
     L2-normalised float32, on ``device`` (the model must be there): the
     normalisation and the towers of JAX ``make_seg_predict``
     (``simseg_tpu/tasks/seg_eval.py:175-316``), N the patch grid of
-    ``input_size``.
+    ``input_size``. ``patch_size``: the grid's step, by default the
+    tower's (``image_patch_stride``). A CNN tower's tokens are its whole
+    map; JAX's ``_tower`` drops the first token of every tower as a CLS
+    token, which a CNN has not, so its decode asserts on h·w - 1 tokens.
 
     scales: the image is also encoded at each scale != 1.0 (size snapped to
     the patch grid); every scale's patch features are resampled bilinearly
@@ -164,14 +176,16 @@ def make_seg_features(model, *, input_size: int,
     and the crops' patch features are scatter-averaged onto the full grid.
     """
     device = resolve_device(device)
-    patch_size = patch_size or model.patch_size
+    patch_size = patch_size or image_patch_stride(model)
     scales = tuple(scales)
     base_grid = input_size // patch_size
     use_window = 0 < window_size < input_size
     multi_scale = len(scales) > 1 or scales[0] != 1.0
 
     def tower(images):
-        patches = model.forward_image_tokens(images)[:, 1:]
+        patches = model.forward_image_tokens(images)
+        if model.is_vit:
+            patches = patches[:, 1:]
         pooled = model.forward_image_project(patches).float()
         return model.project_image_tokens(patches).float(), pooled
 
@@ -254,7 +268,7 @@ def make_seg_predict(model, num_classes: int, top_cls_num: int, *,
     then the decode on the ``input_size`` canvas (``crf_backend`` and
     ``compute_dtype`` as ``make_seg_decode_fn`` takes them)."""
     device = resolve_device(device)
-    patch_size = patch_size or model.patch_size
+    patch_size = patch_size or image_patch_stride(model)
     features = make_seg_features(
         model, input_size=input_size, mean=mean, std=std,
         patch_size=patch_size, scales=scales, window_size=window_size,
@@ -372,7 +386,7 @@ def evaluate_benchmark(loader: Iterable[dict], model, tokenizer,
     if rank() == 0:
         # in a world rank 0 calibrates and the others take its state
         calib = None
-        if model.vit.quant == "int8_static":
+        if model.image_tower.quant == "int8_static":
             # a running absmax over the first images: one batch under-covers
             # the activation range (JAX ``evaluate_benchmark``)
             if iter(loader) is loader:

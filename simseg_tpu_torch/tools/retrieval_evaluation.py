@@ -82,7 +82,7 @@ def evaluate_benchmark(loader: Iterable[dict], model, cfg,
     model = model.to(device).eval()
     mean = tuple(cfg.transforms.normalize.mean)
     std = tuple(cfg.transforms.normalize.std)
-    img_q, txt_q = model.vit.quant or "none", model.bert.quant or "none"
+    img_q, txt_q = model.image_tower.quant or "none", model.bert.quant or "none"
     if (img_q != "none" or txt_q != "none") and rank() == 0:
         first = next(iter(loader))
         calls = []

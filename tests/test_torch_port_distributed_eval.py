@@ -353,11 +353,15 @@ def test_launcher_returns_a_ranks_exit_code(tmp_path):
 def test_launcher_refuses_what_waits_and_more_ranks_than_cards(tmp_path):
     _train_fixture(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
+    # nothing waits any more: --task linear_prob launches its entry point,
+    # whose rank fails on the missing config with its own exit code
     r = subprocess.run([sys.executable, "-m", "simseg_tpu_torch.launch",
-                        "--task", "linear_prob", "--cfg", "x.yaml"], env=env,
+                        "--task", "linear_prob", "--cfg", "x.yaml",
+                        "--device", "cpu"], env=env,
                        cwd=str(tmp_path), capture_output=True, text=True,
                        timeout=120)
-    assert r.returncode != 0 and "item 14" in r.stderr
+    assert r.returncode == 1, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "simseg_tpu_torch.tasks.linear_prob.train" in r.stdout
     r = subprocess.run([sys.executable, "-m", "simseg_tpu_torch.launch",
                         "--nproc_per_node", str(torch.cuda.device_count() + 1),
                         "--cfg", "x.yaml"], env=env, cwd=str(tmp_path),

@@ -76,8 +76,10 @@ def test_guard_covers_every_port_module():
     int8 modules among them."""
     mods = _port_modules()
     assert {"simseg_tpu_torch.ops.tome", "simseg_tpu_torch.ops.quant",
-            "simseg_tpu_torch.models.vit", "simseg_tpu_torch.tasks.seg_eval"
-            } <= set(mods)
+            "simseg_tpu_torch.models.vit", "simseg_tpu_torch.tasks.seg_eval",
+            "simseg_tpu_torch.models.linear_prob",
+            "simseg_tpu_torch.tasks.linear_prob.config",
+            "simseg_tpu_torch.tasks.linear_prob.train"} <= set(mods)
 
 
 def _imported_roots(path):

@@ -671,3 +671,64 @@ def test_vit_block_remat_on_the_card(cuda_device, policy):
     assert plain_calls == (1, 1) and remat_calls == (2, 1)
     for a, b in zip(got, want):
         assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+
+
+# -- the CNN towers and the decode at their grid step ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", ["resnet50", "convnext_tiny", "efficientnet_b0"])
+def test_cnn_tower_on_the_card_matches_the_cpu(cuda_device, tag):
+    """Float32 with cuDNN's TF32 off: least per-image cosine >= 0.9999, max
+    abs error <= 1e-3 of the CPU map's largest entry; BN statistics set
+    from one batch first, so the seeded maps stay on scale."""
+    from simseg_tpu_torch.models.cnn import build_cnn
+    from simseg_tpu_torch.models.layers import BatchNorm
+
+    torch.manual_seed(0)
+    cpu = build_cnn(tag)
+    x = torch.randn(4, 224, 224, 3)
+    for m in cpu.modules():
+        if isinstance(m, BatchNorm):
+            m.momentum = 0.0
+    with torch.no_grad():
+        cpu(x, train_bn=True)
+        cpu.eval()
+        want = cpu(x)
+        card = copy.deepcopy(cpu).to(cuda_device)
+        old = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            got = card(x.to(cuda_device)).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = old
+    cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1))
+    assert cos.min().item() >= 0.9999
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", ["auto", "fused_tail"])
+def test_decode_at_a_cnn_grid_step_matches_the_unfused_chain(cuda_device, lane):
+    """Rows 1-2 at 288 px with 9 x 9 patch-grid unaries upsampled x32 (a
+    CNN tower's step) against the unfused chain: pred >= 99.9%; the
+    kernel launched once."""
+    from simseg_tpu_torch.ops.seg_decode import make_seg_decode_fn
+
+    rng = np.random.default_rng(32)
+    b, d, c = 4, 32, 12
+    dense = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(b, 81, d)).astype(np.float32)), dim=-1)
+    pooled = torch.nn.functional.normalize(dense.mean(1), dim=-1)
+    bank = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(c, d)).astype(np.float32)), dim=-1)
+    bank[1:4] = pooled[:3]
+    rgb = torch.from_numpy(rng.integers(0, 255, (b, 288, 288, 3)).astype(np.uint8))
+    args = [t.to(cuda_device) for t in (dense, pooled, bank, rgb)]
+    kw = dict(num_classes=c, image_size=288, patch_size=32, top_cls_num=6)
+    before = (crf_fused.LAUNCHES, crf_fused.TAIL_LAUNCHES)
+    pred, _ = make_seg_decode_fn(crf_backend=lane, **kw)(*args)
+    after = (crf_fused.LAUNCHES, crf_fused.TAIL_LAUNCHES)
+    want, _ = make_seg_decode_fn(crf_backend="xla", **kw)(*args)
+    assert (pred == want).float().mean().item() >= 0.999
+    grew = (after[0] - before[0], after[1] - before[1])
+    assert grew == ((1, 0) if lane == "auto" else (0, 1))

@@ -348,9 +348,30 @@ def test_grad_accumulation_matches_jax_multisteps(name):
 
 
 def test_lars_is_refused_naming_its_item():
-    ours_cfg, _ = _trees(TINY + ["optim.name=LARS"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_optimizer(ours_cfg, _pair()[2])
+    """LARS, once refused here until the linear probe came, now builds and
+    takes a step as ``optax.lars`` does (the full comparison is in
+    ``tests/test_torch_port_cnn.py``)."""
+    from simseg_tpu_torch.core.optim import LARS
+
+    ours_cfg, ref_cfg = _trees(TINY + ["optim.name=LARS",
+                                       "optim.param={'weight_decay': 1e-4}"])
+    _, params, port = _pair()
+    opt = build_optimizer(ours_cfg, port)
+    assert isinstance(opt.base, LARS)
+    tx, set_lr = jax_build_optimizer(ref_cfg, params)
+    state = set_lr(tx.init(params), 0.5)
+    grads = jax.tree.map(lambda p: np.full(p.shape, 0.01, np.float32), params)
+    updates, _ = tx.update(grads, state, params)
+    params = optax.apply_updates(params, updates)
+    named = dict(port.named_parameters())
+    for key, g in flax_params_to_state_dict(grads).items():
+        named[key].grad = g
+    opt.set_lr(0.5)
+    opt.step()
+    want = flax_params_to_state_dict(jax.tree.map(np.asarray, params))
+    for key, value in port.state_dict().items():
+        np.testing.assert_allclose(value.numpy(), want[key].numpy(),
+                                   rtol=0, atol=1e-6, err_msg=key)
 
 
 def test_float32_master_weights_survive_a_bf16_step():
