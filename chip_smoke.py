@@ -4,11 +4,13 @@
     python3 chip_smoke.py --attention-trees DIR [DIR ...]   (compare_attention_trees)
     python3 chip_smoke.py --crf-trees DIR [DIR ...]         (compare_crf_trees)
     python3 chip_smoke.py --bilateral-trees DIR [DIR ...]   (compare_bilateral_trees)
+    python3 chip_smoke.py --grad-trees DIR [DIR ...]        (compare_grad_trees)
     python3 chip_smoke.py --entry-point                     (phases 1-2 and 8)
     python3 chip_smoke.py --train-entry                     (phases 1-2 and 9)
     python3 chip_smoke.py --big-batch                       (phases 1-2 and 10)
     python3 chip_smoke.py --distributed                     (phases 1-2 and 11)
     python3 chip_smoke.py --linear-probe                    (phases 1-2 and 12)
+    python3 chip_smoke.py --serving                         (phases 1-2 and 13)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
@@ -295,12 +297,35 @@ Phases (any failure raises, so the exit code is non-zero):
    against the CPU, the least cosine of one tensor printed; then 3 steps
    at batch 32, 224 px, bf16 through ``CLIPRunner``: finite losses, every
    running statistic moved.
+13. serving export (``simseg_tpu_torch/serving.py``, the kernels as
+   ``simseg::`` custom ops): ``tools/export_serving.main(argv)`` with
+   ``configs/clip/simseg.vit-b.yaml``, a seeded ViT-B/16 + BERT-base
+   ``.pth`` and a WordPiece vocab it writes, six artifacts: (a) seg, batch
+   64, baked; (b) batch 16, ``scales=(1.0, 2.0)`` with ``fused_tail``, and
+   288-px windows at stride 192 over 576 px; (c) bench.py's default lane,
+   ToMe r = 16 with an int8_static image tower, calibrated by the tool;
+   (d) (a) in the separate-weights layout; (e) retrieval, batch 64. Each
+   is loaded in a fresh process (``--serve-worker``) that imports
+   ``simseg_tpu_torch.serving`` alone, run on seeded batches (3 for (a), 2
+   for the rest) with the counts taken around the calls: outputs bit-equal
+   to the live staged module's, exact launches counted inside the ops
+   (``SERVE_ARTIFACTS``: rows 1, 5 and 2, 4); (d) bit-equal to (a), and a
+   planted fault (one patch-embedding weight of the sidecar moved by 1.0)
+   must break it; (f) (a) loaded with ``devices=["cuda:0", "cuda:0"]``,
+   half a batch each, equal to one device; (a) and (b)'s first artifact
+   called in turns on one stream (the CRF kernels' shared grid barrier)
+   equal to their own calls. Prints each export's seconds and MB, the
+   separate graph's and sidecar's MB, (a)'s file beside its image side's
+   parameter bytes, and (a)'s images/s live and loaded in turns in one
+   process (CUDA events).
 It then prints one JSON line of kernel numbers (``cli_launches``: the
 kernel's launches in phase 8's lane that takes it; ``train_entry_launches``:
 in phase 9's run B; ``bsgs_launches``: per BSGS step of phase 10 at 576 px,
 batch 256 in micro-batches of 32; ``dist_launches``: each rank's in phase
 11, (b) for the attention kernels and (c)'s float lane for the CRF;
-``cnn_launches``: rows 1-2's in phase 12d's auto and fused_tail lanes), the
+``cnn_launches``: rows 1-2's in phase 12d's auto and fused_tail lanes;
+``serving_launches``: in phase 13's loading process, (a) for row 1, (b)'s
+for rows 2, 4 and 5), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -4748,6 +4773,275 @@ def run_linear_probe(tokenizer=None, classes=None):
     return launches
 
 
+# -- phase 13: serving export ----------------------------------------------------
+SERVE_YAML = os.path.join("configs", "clip", "simseg.vit-b.yaml")
+SERVE_LIMIT = 600                         # seconds the loading process may take
+SERVE_DEVICES = ["cuda:0", "cuda:0"]      # (f): the split logic on one card
+# the artifacts: name -> (kind, batch, weights, overrides, batches run,
+# exact launches over them); (c) is bench.py's default lane
+SERVE_ARTIFACTS = {
+    "a": ("seg", BENCH_BATCH, "baked", (), 3, {"crf_mean_field": 3}),
+    "b_scales_tail": ("seg", BATCH, "baked", (
+        "seg_eval.scales=[1.0,2.0]", "seg_eval.crf_backend=fused_tail"), 2,
+        {"flash_attention": 24, "lane_flash": 24, "seg_decode_tail": 2}),
+    "b_window": ("seg", BATCH, "baked", (
+        f"transforms.input_size={WIN_INPUT}", f"seg_eval.window.size={WIN}",
+        f"seg_eval.window.stride={WIN_STRIDE}"), 2, {"bilateral_matvec": 8}),
+    "c": ("seg", BENCH_BATCH, "baked", (
+        "model.image_encoder.arch={'tome_r': 16, 'quant': 'int8_static'}",),
+        2, {"crf_mean_field": 2}),
+    "d": ("seg", BENCH_BATCH, "separate", (), 2, {"crf_mean_field": 2}),
+    "e": ("retrieval", BENCH_BATCH, "baked", (), 2, {}),
+}
+COUNT_MODULES = {"crf_mean_field": ("crf_fused", "LAUNCHES"),
+                 "seg_decode_tail": ("crf_fused", "TAIL_LAUNCHES"),
+                 "flash_attention": ("flash_attention", "LAUNCHES"),
+                 "flash_attention_bwd": ("flash_attention", "BWD_LAUNCHES"),
+                 "bilateral_matvec": ("crf_pallas", "LAUNCHES")}
+
+
+def serve_inputs(name, kind, batch, size, batches):
+    """The seeded inputs of an artifact: ``batches`` tuples of host tensors
+    (uint8 images; for retrieval also token ids and masks)."""
+    # (d) is held against (a) on the same images
+    seed = sorted(SERVE_ARTIFACTS).index({"d": "a"}.get(name, name))
+    rng = np.random.default_rng([1300, seed])
+    out = []
+    for _ in range(batches):
+        images = torch.from_numpy(synthetic_scenes(rng, batch, size, 21)[0])
+        if kind == "seg":
+            out.append((images,))
+        else:
+            ids = torch.from_numpy(rng.integers(5, 500, (batch, 25)))
+            out.append((images, ids, torch.ones_like(ids)))
+    return out
+
+
+def worker_counts():
+    """The launch counts, read from the op modules that loading an artifact
+    imported (the worker imports nothing of the port but ``serving``)."""
+    mods = {m: sys.modules[f"simseg_tpu_torch.ops.{m}"]
+            for m in ("crf_fused", "crf_pallas", "flash_attention")}
+    counts = {k: getattr(mods[m], a) for k, (m, a) in COUNT_MODULES.items()}
+    counts.update({f"lane_{k}": v for k, v in
+                   mods["flash_attention"].LANE_CALLS.items()})
+    return counts
+
+
+def run_serve_worker(root):
+    """The loading side of phase 13, in a process of its own that imports
+    ``simseg_tpu_torch.serving`` and nothing else of the port: each job's
+    artifact loaded (its seconds), run on its inputs with the counts taken
+    around the calls, the outputs written to ``root``; then two artifacts
+    called in turns on one stream against their own calls. Writes
+    ``root/results.json``."""
+    from simseg_tpu_torch import serving
+
+    with open(os.path.join(root, "jobs.json")) as f:
+        jobs = json.load(f)
+    results, loaded, outputs = {}, {}, {}
+    for job in jobs:
+        t0 = time.perf_counter()
+        load = (serving.load_artifact_separate if job["weights"] == "separate"
+                else serving.load_artifact)
+        fn = load(job["path"], devices=job.get("devices"))
+        load_s = time.perf_counter() - t0
+        inputs = torch.load(job["inputs"])
+        before = worker_counts()
+        t0 = time.perf_counter()
+        outs = [fn(*(x.cuda() for x in args)) for args in inputs]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        after = worker_counts()
+        torch.save([[o.cpu() for o in out] for out in outs], job["out"])
+        results[job["name"]] = {
+            "load_s": load_s, "run_s": run_s,
+            "counts": {k: after[k] - before[k] for k in after}}
+        loaded[job["name"]], outputs[job["name"]] = fn, (inputs, outs)
+        print(f"13 worker: {job['name']} loaded in {load_s:.2f} s, "
+              f"{len(inputs)} calls in {run_s:.3f} s", flush=True)
+    # the CRF kernels' grid barrier is cached per (device, stream): two
+    # loaded artifacts' calls queued in turns on one stream share it
+    pair = ("a", "b_scales_tail")
+    turns = [loaded[n](*(x.cuda() for x in outputs[n][0][i]))
+             for i in range(2) for n in pair]
+    torch.cuda.synchronize()
+    want = [outputs[n][1][i] for i in range(2) for n in pair]
+    results["turns_equal"] = all(
+        torch.equal(a, b) for got, ref in zip(turns, want)
+        for a, b in zip(got, ref))
+    with open(os.path.join(root, "results.json"), "w") as f:
+        json.dump(results, f)
+
+
+def serve_export(root, ckpt, vocab, name):
+    """Artifact ``name`` through ``tools/export_serving.main(argv)``, with
+    its seeded inputs and the live staged module's outputs on them written
+    to ``root``. Returns (job, the live module, its export seconds)."""
+    from simseg_tpu_torch.tools import export_serving
+
+    kind, batch, weights, extra, batches, _ = SERVE_ARTIFACTS[name]
+    path = os.path.join(root, f"{name}.pt2")
+    argv = ["--cfg", SERVE_YAML, "--ckpt_path", ckpt, "--vocab_file", vocab,
+            "--kind", kind, "--dataset", "pascal_voc", "--batch", str(batch),
+            "--weights", weights, "--out", path, *extra]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn = export_serving.main(argv)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    size = int(next((e.split("=")[1] for e in extra
+                     if e.startswith("transforms.input_size=")), SIZE))
+    inputs = serve_inputs(name, kind, batch, size, batches)
+    live_fn = fn.staged if weights == "separate" else fn
+    live = [[o.cpu() for o in live_fn(*(x.cuda() for x in args))]
+            for args in inputs]
+    torch.save(inputs, os.path.join(root, f"{name}.inputs.pt"))
+    job = {"name": name, "path": path, "weights": weights,
+           "inputs": os.path.join(root, f"{name}.inputs.pt"),
+           "out": os.path.join(root, f"{name}.out.pt"), "live": live}
+    print(f"13 export {name}: {kind}, batch {batch}, {weights}, "
+          f"{' '.join(extra) or 'the YAML as it is'}: {export_s:.1f} s "
+          f"(model, checkpoint, bank and trace), "
+          f"{os.path.getsize(path) / 1e6:.1f} MB", flush=True)
+    return job, live_fn, export_s
+
+
+def planted_sidecar(root, job):
+    """A copy of the separate artifact whose sidecar has one weight of the
+    patch embedding moved by 1.0: the bit-equality check must fail on it."""
+    path = os.path.join(root, "d_fault.pt2")
+    shutil.copy(job["path"], path)
+    weights = torch.load(job["path"] + ".weights", weights_only=True)
+    key = next(k for k in weights if "patch_embed" in k and k.endswith("weight"))
+    weights[key] = weights[key].clone()
+    weights[key].view(-1)[0] += 1.0
+    torch.save(weights, path + ".weights")
+    return dict(job, name="d_fault", path=path,
+                out=os.path.join(root, "d_fault.out.pt"))
+
+
+def same_outputs(got, want) -> bool:
+    return all(torch.equal(a, b) for g, w in zip(got, want)
+               for a, b in zip(g, w))
+
+
+def run_serving():
+    """Phase 13: returns {artifact: its launch counts in the loading
+    process}."""
+    from simseg_tpu_torch import serving
+    from simseg_tpu_torch.data.tokenizer import make_test_vocab
+    from simseg_tpu_torch.tasks.seg_eval import load_label_bank
+    from simseg_tpu_torch.utils.prompts import IMAGENET_TEMPLATES
+
+    t_start = time.perf_counter()
+    card = card_line()
+    classes = load_label_bank("pascal_voc")
+    words = [w for t in IMAGENET_TEMPLATES for w in t.replace("{}", " ")
+             .replace(".", " ").split()] + classes
+    vocab_ids = make_test_vocab(words)
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = os.path.join(root, "simseg.vit-b.pth")
+        torch.save({"state_dict": seeded_clip(0).state_dict()}, ckpt)
+        vocab = os.path.join(root, "vocab.txt")
+        with open(vocab, "w") as f:
+            f.write("\n".join(sorted(vocab_ids, key=vocab_ids.get)) + "\n")
+        jobs, export_s = {}, {}
+        for name in SERVE_ARTIFACTS:
+            job, live_fn, export_s[name] = serve_export(root, ckpt, vocab, name)
+            jobs[name] = job
+            if name == "a":
+                live_a = live_fn
+            del live_fn
+            torch.cuda.empty_cache()
+        fault = planted_sidecar(root, jobs["d"])
+        spread = dict(jobs["a"], name="f", devices=SERVE_DEVICES,
+                      out=os.path.join(root, "f.out.pt"))
+        worker_jobs = [{k: v for k, v in j.items() if k != "live"}
+                       for j in (*jobs.values(), fault, spread)]
+        with open(os.path.join(root, "jobs.json"), "w") as f:
+            json.dump(worker_jobs, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--serve-worker", root], timeout=SERVE_LIMIT,
+                              capture_output=True, text=True)
+        worker_s = time.perf_counter() - t0
+        print(proc.stdout[-4000:], end="", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"13: the loading process failed "
+                                 f"({proc.returncode}):\n{proc.stderr[-6000:]}")
+        with open(os.path.join(root, "results.json")) as f:
+            results = json.load(f)
+        got = {j["name"]: torch.load(j["out"]) for j in worker_jobs}
+
+        counts = {}
+        for name, (_, batch, _, _, batches, want) in SERVE_ARTIFACTS.items():
+            equal = same_outputs(got[name], jobs[name]["live"])
+            counts[name] = results[name]["counts"]
+            print(f"13 ({name}) loaded in a fresh process: outputs bit-equal to "
+                  f"the live call on {batches} batches of {batch}: {equal}; "
+                  f"launches {counts[name]}; load {results[name]['load_s']:.2f}"
+                  f" s", flush=True)
+            if not equal:
+                raise AssertionError(f"13 ({name}): the loaded artifact's "
+                                     "outputs differ from the live call's")
+            check_counts(f"13 ({name})", counts[name], want)
+        shape = tuple(got["a"][0][0].shape)
+        if shape != (BENCH_BATCH, SIZE, SIZE) or not all(
+                torch.isfinite(o[1]).all() for o in got["a"]):
+            raise AssertionError(f"13 (a): bad outputs {shape}")
+        d_equal = same_outputs(got["d"], got["a"][:2])
+        fault_equal = same_outputs(got["d_fault"], got["a"][:2])
+        d_graph = os.path.getsize(jobs["d"]["path"]) / 1e6
+        d_side = os.path.getsize(jobs["d"]["path"] + ".weights") / 1e6
+        print(f"13 (d) separate against baked: bit-equal {d_equal}; graph "
+              f"{d_graph:.1f} MB, sidecar {d_side:.1f} MB; planted fault (one "
+              f"patch-embedding weight of the sidecar moved by 1.0) bit-equal "
+              f"{fault_equal}", flush=True)
+        if not d_equal:
+            raise AssertionError("13 (d): the separate layout differs from baked")
+        if fault_equal:
+            raise AssertionError("13 (d): the planted sidecar fault passed")
+        f_equal = same_outputs(got["f"], got["a"])
+        print(f"13 (f) devices=['cuda:0', 'cuda:0'] (two halves of each batch "
+              f"of {BENCH_BATCH}) against one device: bit-equal {f_equal}; "
+              f"launches {results['f']['counts']}", flush=True)
+        if not f_equal:
+            raise AssertionError("13 (f): the split serve differs")
+        check_counts("13 (f)", results["f"]["counts"], {"crf_mean_field": 6})
+        print(f"13 two loaded artifacts (a, b) called in turns on one stream "
+              f"(the CRF kernels' shared grid barrier): bit-equal to their own "
+              f"calls {results['turns_equal']}", flush=True)
+        if not results["turns_equal"]:
+            raise AssertionError("13: artifacts in turns on one stream differ")
+
+        # in one process, in turns: the live module and the loaded artifact
+        loaded = serving.load_artifact(jobs["a"]["path"])
+        x = serve_inputs("a", "seg", BENCH_BATCH, SIZE, 1)[0][0].cuda()
+        if not same_outputs([loaded(x)], [live_a(x)]):
+            raise AssertionError("13 (a): loaded != live in one process")
+        ms = {"live": [], "loaded": []}
+        for side in ("live", "loaded", "loaded", "live"):
+            ms[side].append(cuda_ms(lambda: (live_a if side == "live"
+                                             else loaded)(x), 5))
+        rates = {k: ", ".join(f"{BENCH_BATCH / (m / 1e3):.1f} ({m:.3f} ms)"
+                              for m in v) for k, v in ms.items()}
+        image_bytes = sum(t.numel() * t.element_size() for t in
+                          (*live_a.parameters(), *live_a.buffers()))
+        a_mb = os.path.getsize(jobs["a"]["path"]) / 1e6
+        print(f"13 (a) in turns, batch {BENCH_BATCH} ({card}): images/s live "
+              f"{rates['live']}, loaded {rates['loaded']}; artifact "
+              f"{a_mb:.1f} MB beside the image side's parameters and bank "
+              f"{image_bytes / 1e6:.1f} MB", flush=True)
+        print(f"13 serving ({card}): exports "
+              f"{', '.join(f'{k} {v:.1f} s' for k, v in export_s.items())}; "
+              f"the loading process {worker_s:.1f} s; phase 13 in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        del live_a, loaded
+    torch.cuda.empty_cache()
+    return counts
+
+
 def build_all():
     """Builds the four kernels and the nvJPEG binding with one nvcc process
     each, in parallel."""
@@ -5037,17 +5331,80 @@ def compare_bilateral_trees(trees) -> None:
     shutil.rmtree(out_dir)
 
 
+# the attention lanes of --grad-trees: (lane, wrapper, batch, T)
+GRAD_TREE_LANES = (("flash", "flash_mha", 4, LONG_T),
+                   ("train", "flash_mha_train", 8, LONG_T),
+                   ("rowblock", "flash_mha_rowblock", 4, 1601),
+                   ("stream", "flash_mha_stream", 2, 4097))
+
+
+def grad_tree_worker(tree, out) -> None:
+    """One tree of ``--grad-trees``, in a process of its own with ``tree``
+    first on the path: each attention lane's output and q, k, v gradients
+    on seeded bf16 inputs and a seeded g, and the launch counts, saved to
+    ``out``."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from simseg_tpu_torch.ops import flash_attention as fa
+
+    if not fa.__file__.startswith(os.path.abspath(tree)):
+        raise AssertionError(f"{fa.__file__} is not under {tree}")
+    res = {}
+    for lane, name, b, t in GRAD_TREE_LANES:
+        gen = torch.Generator().manual_seed(7)
+        q, k, v, g = (torch.randn(b, t, HEADS, HEAD_DIM, generator=gen)
+                      for _ in range(4))
+        leaves = [x.to("cuda", torch.bfloat16).requires_grad_()
+                  for x in (q * HEAD_DIM ** -0.5, k, v)]
+        o = getattr(fa, name)(*leaves)
+        o.backward(g.to("cuda", torch.bfloat16))
+        res[lane] = [o.detach().cpu()] + [x.grad.cpu() for x in leaves]
+    torch.cuda.synchronize()
+    res["counts"] = [fa.LAUNCHES, fa.BWD_LAUNCHES, dict(fa.LANE_CALLS)]
+    torch.save(res, out)
+
+
+def compare_grad_trees(trees) -> None:
+    """``python3 chip_smoke.py --grad-trees DIR ...``: the attention lanes'
+    outputs and gradients (``GRAD_TREE_LANES``) of each tree (a checkout,
+    e.g. an earlier commit unpacked with git archive), each in its own
+    process, held bit for bit against the first tree's, with the launch
+    counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        results = []
+        for i, tree in enumerate(trees):
+            out = os.path.join(tmp, f"tree{i}.pt")
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--grad-tree-worker", tree, out], check=True,
+                           timeout=DIST_LIMIT)
+            results.append(torch.load(out))
+        for tree, res in zip(trees[1:], results[1:]):
+            for key, want in results[0].items():
+                same = (res[key] == want if key == "counts" else
+                        all(torch.equal(a, b) for a, b in zip(res[key], want)))
+                print(f"grad-trees {tree} against {trees[0]}, {key}: "
+                      f"bit-equal {same}", flush=True)
+                if not same:
+                    raise AssertionError(f"{tree}: {key} differs from {trees[0]}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke needs one")
     if sys.argv[1:2] == ["--rank-worker"]:
         return run_rank_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--serve-worker"]:
+        return run_serve_worker(sys.argv[2])
     if sys.argv[1:2] == ["--attention-trees"]:
         print(f"card: {card_line()}", flush=True)
         return compare_attention_trees(sys.argv[2:])
     if sys.argv[1:2] == ["--crf-trees"]:
         print(f"card: {card_line()}", flush=True)
         return compare_crf_trees(sys.argv[2:])
+    if sys.argv[1:2] == ["--grad-tree-worker"]:
+        return grad_tree_worker(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--grad-trees"]:
+        print(f"card: {card_line()}", flush=True)
+        return compare_grad_trees(sys.argv[2:])
     if sys.argv[1:2] == ["--bilateral-trees"]:
         print(f"card: {card_line()}", flush=True)
         return compare_bilateral_trees(sys.argv[2:])
@@ -5077,6 +5434,11 @@ def main() -> None:
         print(f"card: {card_line()}", flush=True)
         build_all()
         run_linear_probe()
+        return None
+    if sys.argv[1:2] == ["--serving"]:
+        print(f"card: {card_line()}", flush=True)
+        build_all()
+        run_serving()
         return None
 
     card = card_line()
@@ -5134,6 +5496,8 @@ def main() -> None:
     dist = run_distributed()
     torch.cuda.empty_cache()
     cnn = run_linear_probe(tokenizer, classes)
+    torch.cuda.empty_cache()
+    serve = run_serving()
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",
@@ -5142,7 +5506,8 @@ def main() -> None:
          "launches": crf_launches,
          "cli_launches": entry["auto"]["crf_mean_field"],
          "dist_launches": dist["crf_mean_field"],
-         "cnn_launches": cnn["crf_mean_field"], "library_ms": None,
+         "cnn_launches": cnn["crf_mean_field"],
+         "serving_launches": serve["a"]["crf_mean_field"], "library_ms": None,
          **crf},
         {"name": "flash_attention", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
@@ -5152,6 +5517,7 @@ def main() -> None:
          "train_entry_launches": train_entry["B"]["flash_attention"],
          "bsgs_launches": big["flash_attention"],
          "dist_launches": dist["flash_attention"],
+         "serving_launches": serve["b_scales_tail"]["flash_attention"],
          **attn[LONG_T]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -5166,14 +5532,18 @@ def main() -> None:
          "replaces": "simseg_tpu/ops/crf_pallas.py:125",
          "launches": win_counts["bilateral_matvec"],
          "cli_launches": entry["pallas"]["bilateral_matvec"],
-         "dist_launches": [0] * DIST_WORLD, **bilateral},
+         "dist_launches": [0] * DIST_WORLD,
+         "serving_launches": serve["b_window"]["bilateral_matvec"],
+         **bilateral},
         {"name": "seg_decode_tail", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/crf_mean_field.cu",
          "replaces": "simseg_tpu/ops/crf_fused.py:425",
          "launches": tail_counts["seg_decode_tail"],
          "cli_launches": entry["fused_tail"]["seg_decode_tail"],
          "dist_launches": [0] * DIST_WORLD,
-         "cnn_launches": cnn["seg_decode_tail"], **tail},
+         "cnn_launches": cnn["seg_decode_tail"],
+         "serving_launches": serve["b_scales_tail"]["seg_decode_tail"],
+         **tail},
         {"name": "flash_attention (rowblock)", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
          "replaces": "simseg_tpu/ops/flash_attention.py:789",

@@ -26,6 +26,11 @@ steps gather the embeddings and sum the gradients over the ranks, so the
 lr schedule, the steps and the parameters are the same on every rank.
 ``loss.group_size`` (ranks per gather group) must divide the world, as
 JAX's ``make_mesh`` checks.
+
+Settings of JAX features the port has not ported yet are refused by name
+where a runner builds its step (``refuse_unported``): the model-parallel
+and sharded legs of ``dist`` (ROADMAP item 13), ``ckpt.backend: orbax``,
+``wandb.enable`` and ``profile`` (item 11).
 """
 
 from __future__ import annotations
@@ -53,6 +58,45 @@ from simseg_tpu_torch.parallel.mesh import (batch_shards, loss_group_samples,
 from simseg_tpu_torch.utils.collections import AttrDict
 
 _BATCH_KEYS = ("image", "input_ids", "attention_mask", "ignore_mask", "label")
+
+
+# dist keys of the parallel legs not ported yet (ROADMAP item 13), with
+# their defaults: any other value is refused
+_UNPORTED_DIST = {"tp_size": 1, "sp": False, "zero1": False, "fsdp": False,
+                  "pp_size": 1, "pp_micro": 4, "moe_ep": False}
+_UNPORTED_DIST_NAMES = {"tp_size": "tensor parallelism",
+                        "sp": "sequence parallelism",
+                        "zero1": "ZeRO-1 optimizer-state sharding",
+                        "fsdp": "fully-sharded parameters",
+                        "pp_size": "pipeline parallelism",
+                        "pp_micro": "pipeline micro-batches",
+                        "moe_ep": "expert-parallel MoE"}
+
+
+def refuse_unported(cfg) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item for a setting
+    that JAX acts on and the port would otherwise ignore: a non-default
+    ``dist`` parallel leg (item 13), ``ckpt.backend: orbax``,
+    ``wandb.enable: true`` or a truthy ``profile`` (item 11)."""
+    dist = cfg.get("dist", {}) or {}
+    for key, default in _UNPORTED_DIST.items():
+        value = dist.get(key, default)
+        if value is not None and value != default:
+            raise NotImplementedError(
+                f"dist.{key}={value!r} ({_UNPORTED_DIST_NAMES[key]}) is not "
+                "ported yet: ROADMAP item 13")
+    backend = (cfg.get("ckpt", {}) or {}).get("backend", "msgpack")
+    if backend not in (None, "msgpack"):
+        raise NotImplementedError(
+            f"ckpt.backend={backend!r} is not ported yet (the port saves "
+            "msgpack checkpoints only): ROADMAP item 11")
+    if (cfg.get("wandb", {}) or {}).get("enable", False):
+        raise NotImplementedError(
+            "wandb.enable=true (the wandb hook) is not ported yet: ROADMAP "
+            "item 11")
+    if cfg.get("profile"):
+        raise NotImplementedError(
+            "profile (the profile hook) is not ported yet: ROADMAP item 11")
 
 
 class BaseRunner:
@@ -327,6 +371,7 @@ class CLIPRunner(EpochRunner):
         cfg = self.cfg
         if cfg.runner.name not in ("clip", "clip_bsgs"):
             raise NotImplementedError(f"runner '{cfg.runner.name}'")
+        refuse_unported(cfg)
         for enc in ("image_encoder", "text_encoder"):
             arch = dict(cfg.model[enc].get("arch", {}) or {})
             if arch.get("quant", "none") not in (None, "", "none"):
@@ -461,6 +506,7 @@ class LinearProbRunner(EpochRunner):
             raise NotImplementedError(
                 "linear probing is data-parallel only (the encoder is "
                 "frozen and the classifier tiny) — use dist.tp_size=1")
+        refuse_unported(cfg)
         self._smoothing = cfg.loss.get("smoothing", 0.0)
         mixup_cfg = cfg.get("mixup", {}) or {}
         self._mixup_alpha = (float(mixup_cfg.get("alpha", 0.2))

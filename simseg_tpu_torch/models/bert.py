@@ -27,7 +27,8 @@ import torch.nn as nn
 
 from simseg_tpu_torch.models.layers import (Dropout, LayerNorm, gelu,
                                             number_dropout_sites,
-                                            parse_remat_policy, remat_call)
+                                            parse_remat_policy, refuse_moe,
+                                            remat_call)
 from simseg_tpu_torch.ops.attention import multi_head_attention, padding_bias
 from simseg_tpu_torch.ops.quant import linear_cls
 
@@ -203,4 +204,5 @@ def resolve_bert_config(tag: str, arch: Optional[dict] = None) -> dict:
 def build_bert(tag: str, arch: Optional[dict] = None,
                **train_kw) -> BertEncoder:
     """``train_kw``: ``dropout``, ``remat``, ``remat_policy``."""
+    refuse_moe(arch, "text")
     return BertEncoder(**resolve_bert_config(tag, arch), **train_kw)

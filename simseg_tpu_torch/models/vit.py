@@ -31,7 +31,8 @@ import torch.nn.functional as F
 
 from simseg_tpu_torch.models.layers import (Dropout, LayerNorm, gelu,
                                             number_dropout_sites,
-                                            parse_remat_policy, remat_call)
+                                            parse_remat_policy, refuse_moe,
+                                            remat_call)
 from simseg_tpu_torch.ops.attention import multi_head_attention
 from simseg_tpu_torch.ops.interpolate_pe import interpolate_pos_embed
 from simseg_tpu_torch.ops.quant import linear_cls
@@ -290,5 +291,7 @@ def resolve_vit_config(tag: str, arch: Optional[dict] = None) -> dict:
 def build_vit(tag: str, img_size: int, arch: Optional[dict] = None,
               **train_kw) -> VisionTransformer:
     """``train_kw``: ``dropout``, ``remat``, ``remat_policy``."""
+    refuse_moe(arch, "image")
     return VisionTransformer(img_size=img_size, **resolve_vit_config(tag, arch),
                              **train_kw)
+

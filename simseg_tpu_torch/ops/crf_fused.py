@@ -19,9 +19,15 @@ device work: the features, the mean field, the closing and (tail) the argmax
 all run inside the kernel. ``launch_plan`` is how the kernel cuts a call
 (update tile, shared memory per block); ``csrc/crf_mean_field.cu`` checks it.
 
-The kernels are built at first use by ``ops/cuda_build.py`` and loaded with
-``ctypes``. ``LAUNCHES`` counts the mean-field kernel's launches,
-``TAIL_LAUNCHES`` the tail kernel's.
+Each entry point is a registered custom op, ``simseg::crf_mean_field`` and
+``simseg::crf_decode_tail``, with a fake implementation, so that
+``torch.export`` (and ``torch.compile``) stage it as one node: its CUDA
+implementation launches the kernel, its CPU implementation runs the plain
+version. The kernels are built at first use by ``ops/cuda_build.py`` and
+loaded with ``ctypes``. ``LAUNCHES`` counts the mean-field kernel's
+launches, ``TAIL_LAUNCHES`` the tail kernel's, both counted inside the CUDA
+implementations, so that a graph loaded from an exported artifact counts its
+launches as it runs.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from simseg_tpu_torch.ops.crf import (
 from simseg_tpu_torch.ops.morphology import closing, nearest_upsample
 
 __all__ = ["LAUNCHES", "SMEM_LIMIT", "TAIL_LAUNCHES", "LaunchPlan",
-           "bilateral_features", "fused_eligible", "gaussian_constants",
+           "bilateral_features", "crf_decode_tail", "crf_mean_field",
+           "fused_eligible", "gaussian_constants",
            "launch_plan", "mean_field_fused", "mean_field_fused_plain",
            "seg_decode_tail_fused", "seg_decode_tail_fused_plain",
            "workspace_floats"]
@@ -251,17 +258,47 @@ def mean_field_fused(du: torch.Tensor, rgb: torch.Tensor, num_iters: int = 3,
         raise ValueError(f"du on {du.device} but rgb on {rgb.device}")
     if h % stride or w % stride:
         raise ValueError(f"map {h}x{w} not divisible by stride {stride}")
-    if du.device.type == "cpu":
-        return mean_field_fused_plain(
-            du, rgb, num_iters=num_iters, gaussian_sxy=gaussian_sxy,
-            gaussian_compat=gaussian_compat, bilateral_sxy=bilateral_sxy,
-            bilateral_srgb=bilateral_srgb, bilateral_compat=bilateral_compat,
-            stride=stride, closing_ksize=closing_ksize)
-    if du.device.type != "cuda":
+    if du.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no CRF path for device {du.device}")
+    return crf_mean_field(du, rgb, num_iters, float(gaussian_sxy),
+                          float(gaussian_compat), float(bilateral_sxy),
+                          float(bilateral_srgb), float(bilateral_compat),
+                          stride, closing_ksize)
+
+
+@torch.library.custom_op("simseg::crf_mean_field", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def crf_mean_field(du: torch.Tensor, rgb: torch.Tensor, num_iters: int,
+                   gaussian_sxy: float, gaussian_compat: float,
+                   bilateral_sxy: float, bilateral_srgb: float,
+                   bilateral_compat: float, stride: int,
+                   closing_ksize: int) -> torch.Tensor:
+    """The op of ``mean_field_fused`` (arguments as it takes them): the
+    kernel on a CUDA tensor, the plain version on a CPU one."""
+    kw = dict(num_iters=num_iters, gaussian_sxy=gaussian_sxy,
+              gaussian_compat=gaussian_compat, bilateral_sxy=bilateral_sxy,
+              bilateral_srgb=bilateral_srgb, bilateral_compat=bilateral_compat,
+              stride=stride, closing_ksize=closing_ksize)
+    if du.device.type == "cuda":
+        return _mean_field_cuda(du, rgb, **kw)
+    return mean_field_fused_plain(du, rgb, **kw).contiguous()
+
+
+@crf_mean_field.register_fake
+def _(du, rgb, num_iters, gaussian_sxy, gaussian_compat, bilateral_sxy,
+      bilateral_srgb, bilateral_compat, stride, closing_ksize):
+    return du.new_empty(du.shape, dtype=torch.float32)
+
+
+def _mean_field_cuda(du, rgb, num_iters, gaussian_sxy, gaussian_compat,
+                     bilateral_sxy, bilateral_srgb, bilateral_compat, stride,
+                     closing_ksize):
+    """The mean-field kernel on du's card, on the current stream."""
+    b, kk, h, w = du.shape
     if kk > _MAX_CLASSES:
         raise ValueError(f"{kk} maps per image; the kernel takes <= {_MAX_CLASSES}")
     lib = _library()
+    du = du.float().contiguous()
     taps, ah, aw, radius, rgb, plan, work, barrier, stream = _launch_inputs(
         du, rgb, h, w, stride, gaussian_sxy, num_iters, closing_ksize, False)
     out = torch.empty_like(du)
@@ -314,15 +351,55 @@ def seg_decode_tail_fused(du_coarse: torch.Tensor, rgb: torch.Tensor,
         raise ValueError(f"rgb, scores_eff and cand_idx must be on {dev}")
     if h % stride or w % stride:
         raise ValueError(f"map {h}x{w} not divisible by stride {stride}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no decode tail for device {dev}")
+    return crf_decode_tail(du_coarse, rgb, scores_eff, cand_idx, du_factor,
+                           num_iters, float(gaussian_sxy),
+                           float(gaussian_compat), float(bilateral_sxy),
+                           float(bilateral_srgb), float(bilateral_compat),
+                           stride, closing_ksize)
+
+
+@torch.library.custom_op("simseg::crf_decode_tail", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def crf_decode_tail(du_coarse: torch.Tensor, rgb: torch.Tensor,
+                    scores_eff: torch.Tensor, cand_idx: torch.Tensor,
+                    du_factor: int, num_iters: int, gaussian_sxy: float,
+                    gaussian_compat: float, bilateral_sxy: float,
+                    bilateral_srgb: float, bilateral_compat: float,
+                    stride: int, closing_ksize: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op of ``seg_decode_tail_fused`` (arguments as it takes them):
+    the tail kernel on a CUDA tensor, the plain version on a CPU one."""
     kw = dict(num_iters=num_iters, gaussian_sxy=gaussian_sxy,
               gaussian_compat=gaussian_compat, bilateral_sxy=bilateral_sxy,
               bilateral_srgb=bilateral_srgb, bilateral_compat=bilateral_compat,
               stride=stride, closing_ksize=closing_ksize)
-    if dev.type == "cpu":
-        return seg_decode_tail_fused_plain(du_coarse, rgb, scores_eff,
-                                           cand_idx, du_factor, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"no decode tail for device {dev}")
+    if du_coarse.device.type == "cuda":
+        return _decode_tail_cuda(du_coarse, rgb, scores_eff, cand_idx,
+                                 du_factor, **kw)
+    pred, best_w = seg_decode_tail_fused_plain(du_coarse, rgb, scores_eff,
+                                               cand_idx, du_factor, **kw)
+    return pred.contiguous(), best_w.contiguous()
+
+
+@crf_decode_tail.register_fake
+def _(du_coarse, rgb, scores_eff, cand_idx, du_factor, num_iters,
+      gaussian_sxy, gaussian_compat, bilateral_sxy, bilateral_srgb,
+      bilateral_compat, stride, closing_ksize):
+    b, _, gh, gw = du_coarse.shape
+    shape = (b, gh * du_factor, gw * du_factor)
+    return (du_coarse.new_empty(shape, dtype=torch.int32),
+            du_coarse.new_empty(shape, dtype=torch.float32))
+
+
+def _decode_tail_cuda(du_coarse, rgb, scores_eff, cand_idx, du_factor,
+                      num_iters, gaussian_sxy, gaussian_compat, bilateral_sxy,
+                      bilateral_srgb, bilateral_compat, stride, closing_ksize):
+    """The tail kernel on du_coarse's card, on the current stream."""
+    b, kk, gh, gw = du_coarse.shape
+    h, w = gh * du_factor, gw * du_factor
+    dev = du_coarse.device
     if kk > _MAX_CLASSES:
         raise ValueError(f"{kk} maps per image; the kernel takes <= {_MAX_CLASSES}")
     lib = _library()

@@ -5,11 +5,12 @@ counterpart's name).
 ``bilateral_matvec_batched(feat (B, N, F), q (B, N, C))`` returns
 out[b] = K_b q[b] with K_b[i, j] = exp(-0.5 |f_i - f_j|^2);
 ``bilateral_matvec`` is its B = 1 case. A ones column for q gives the
-degree K 1. On a CUDA tensor the wrapper launches
-``csrc/bilateral_matvec.cu`` (the product over column chunks, then the
-fixed-order sum of the chunks' partial sums) or raises — there
-is no fallback; on a CPU tensor it runs ``bilateral_matvec_plain``.
-``LAUNCHES`` counts the calls that launched the kernel. ``launch_plan`` is
+degree K 1. The product is the custom op ``simseg::bilateral_matvec``: on
+a CUDA tensor it launches ``csrc/bilateral_matvec.cu`` (the product over
+column chunks, then the fixed-order sum of the chunks' partial sums) or
+raises — there is no fallback; on a CPU tensor it runs
+``bilateral_matvec_plain`` in float32. ``LAUNCHES`` counts the calls that
+launched the kernel, inside the op's CUDA implementation. ``launch_plan`` is
 how the kernel cuts a call (warps per CTA, the column split, shared
 memory, workspace); the kernel refuses a plan that does not match its own
 count.
@@ -32,7 +33,8 @@ import torch
 from simseg_tpu_torch.ops import cuda_build
 
 __all__ = ["LAUNCHES", "LaunchPlan", "bilateral_matvec",
-           "bilateral_matvec_batched", "bilateral_matvec_plain", "launch_plan"]
+           "bilateral_matvec_batched", "bilateral_matvec_op",
+           "bilateral_matvec_plain", "launch_plan"]
 
 _NAME = "bilateral_matvec"  # csrc/bilateral_matvec.cu
 # the kernel's cuts (csrc/bilateral_matvec.cu): rows a warp holds (kRows = 6
@@ -129,10 +131,29 @@ def bilateral_matvec_batched(feat: torch.Tensor, q: torch.Tensor) -> torch.Tenso
                          f"{tuple(feat.shape)} and {tuple(q.shape)}")
     if feat.device != q.device:
         raise ValueError(f"feat on {feat.device} but q on {q.device}")
-    if feat.device.type == "cpu":
-        return bilateral_matvec_plain(feat, q)
-    if feat.device.type != "cuda":
+    if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no bilateral path for device {feat.device}")
+    return bilateral_matvec_op(feat, q)
+
+
+@torch.library.custom_op("simseg::bilateral_matvec", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def bilateral_matvec_op(feat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The op of ``bilateral_matvec_batched``: (B, N, C) float32, the kernel
+    on a CUDA tensor, the plain version on a CPU one."""
+    if feat.device.type == "cuda":
+        return _matvec_cuda(feat, q)
+    return bilateral_matvec_plain(feat.float(), q.float())
+
+
+@bilateral_matvec_op.register_fake
+def _(feat, q):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+def _matvec_cuda(feat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The kernel on feat's card, on the current stream, q read through its
+    strides."""
     b, n, f = feat.shape
     c = q.shape[2]
     if not 1 <= f <= _MAX_F:

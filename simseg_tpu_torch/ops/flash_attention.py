@@ -29,9 +29,19 @@ row-block kernel normalises p before its bf16 cast, as the whole-T one
 does) or ``flash_mha_stream_plain`` forward, and ``flash_mha_long_bwd_plain``
 backward.
 
-Counts: ``LAUNCHES`` forward kernel launches, ``BWD_LAUNCHES`` backward
-ones (one per wrapper call each, on the card), ``LANE_CALLS[lane]`` the
-forward launches of each lane ("flash", "train", "rowblock", "stream").
+The two kernels are the custom ops ``simseg::flash_attention_fwd`` (q, k,
+v, whether to write the log-sum-exp, the lane) and
+``simseg::flash_attention_bwd``, each with a fake implementation, so that
+``torch.export`` and ``torch.compile`` stage a call as one node; the
+autograd Functions below call them. On a CUDA tensor an op launches its
+kernel; on a CPU tensor it runs the plain version (the forward the lane's,
+the backward ``flash_mha_long_bwd_plain``).
+
+Counts, kept inside the ops' CUDA implementations (so a loaded exported
+graph counts as it runs): ``LAUNCHES`` forward kernel launches,
+``BWD_LAUNCHES`` backward ones (one per wrapper call each, on the card),
+``LANE_CALLS[lane]`` the forward launches of each lane ("flash", "train",
+"rowblock", "stream").
 
 ``flash_supported``, ``flash_train_supported``, ``flash_rowblock_supported``
 and ``flash_stream_supported`` are the JAX gates, copied as they are: their
@@ -49,7 +59,8 @@ import torch
 
 from simseg_tpu_torch.ops import cuda_build
 
-__all__ = ["BWD_LAUNCHES", "LANE_CALLS", "LAUNCHES", "flash_mha",
+__all__ = ["BWD_LAUNCHES", "LANE_CALLS", "LAUNCHES", "flash_attention_bwd",
+           "flash_attention_fwd", "flash_mha",
            "flash_mha_long_bwd_plain", "flash_mha_plain", "flash_mha_rowblock",
            "flash_mha_rowblock_plain", "flash_mha_stream",
            "flash_mha_stream_plain", "flash_mha_train",
@@ -305,16 +316,43 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     return (out, lse) if with_lse else out
 
 
-def flash_mha_train_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
-                        out: torch.Tensor, g: torch.Tensor, lse: torch.Tensor):
-    """The backward kernel: (dq, dk, dv) of ``flash_mha_train``,
-    ``flash_mha_rowblock`` or ``flash_mha_stream`` from the forward's
-    inputs, its output ``out`` and its (B, H, Tq) f32 ``lse``, and
-    g = dL/d out (cast to q's dtype, as the JAX backward does). CUDA
-    tensors only: there is no plain fallback here."""
-    if qh.device.type != "cuda":
-        raise ValueError(f"the backward kernel runs on CUDA, got {qh.device}")
-    g = g.to(qh.dtype)
+_LANES = ("flash", "train", "rowblock", "stream")
+_LONG_PLAIN = {"rowblock": flash_mha_rowblock_plain,
+               "stream": flash_mha_stream_plain}
+
+
+@torch.library.custom_op("simseg::flash_attention_fwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def flash_attention_fwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                        with_lse: bool, lane: str
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward op: (out (B, Tq, H, hd) in q's dtype, lse (B, H, Tq)
+    f32, or an empty (0,) f32 tensor without ``with_lse``). On a CUDA tensor
+    the kernel, counted under ``lane``; on a CPU tensor the lane's plain
+    forward (``_LONG_PLAIN``'s for the long lanes, else
+    ``flash_mha_plain``)."""
+    if lane not in _LANES:
+        raise ValueError(f"lane {lane!r}: one of {_LANES}")
+    if qh.device.type == "cuda":
+        res = _launch(qh, kh, vh, with_lse=with_lse, lane=lane)
+    else:
+        res = _LONG_PLAIN.get(lane, flash_mha_plain)(qh, kh, vh,
+                                                     with_lse=with_lse)
+    if not with_lse:
+        res = (res, res.new_empty((0,), dtype=torch.float32))
+    return tuple(x.contiguous() for x in res)
+
+
+@flash_attention_fwd.register_fake
+def _(qh, kh, vh, with_lse, lane):
+    b, tq, h, hd = qh.shape
+    return (qh.new_empty((b, tq, h, hd)),
+            qh.new_empty((b, h, tq) if with_lse else (0,),
+                         dtype=torch.float32))
+
+
+def _bwd_cuda(qh, kh, vh, out, g, lse):
+    """The backward kernel on q's card, on the current stream."""
     _check_operands(qh, k=kh, v=vh, o=out, g=g)
     b, tq, h, hd = qh.shape
     tk = kh.shape[1]
@@ -341,6 +379,40 @@ def flash_mha_train_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     return dq, dk, dv
 
 
+@torch.library.custom_op("simseg::flash_attention_bwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def flash_attention_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                        out: torch.Tensor, g: torch.Tensor, lse: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward op: (dq, dk, dv) in q's dtype from the forward's
+    inputs, its output, g = dL/d out in q's dtype and the (B, H, Tq) f32
+    lse. On a CUDA tensor the kernel; on a CPU tensor
+    ``flash_mha_long_bwd_plain``, the kernel's function."""
+    if qh.device.type == "cuda":
+        return _bwd_cuda(qh, kh, vh, out, g, lse)
+    return tuple(x.contiguous()
+                 for x in flash_mha_long_bwd_plain(qh, kh, vh, out, g, lse))
+
+
+@flash_attention_bwd.register_fake
+def _(qh, kh, vh, out, g, lse):
+    return (qh.new_empty(qh.shape), qh.new_empty(kh.shape),
+            qh.new_empty(kh.shape))
+
+
+def flash_mha_train_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                        out: torch.Tensor, g: torch.Tensor, lse: torch.Tensor):
+    """The backward kernel: (dq, dk, dv) of ``flash_mha_train``,
+    ``flash_mha_rowblock`` or ``flash_mha_stream`` from the forward's
+    inputs, its output ``out`` and its (B, H, Tq) f32 ``lse``, and
+    g = dL/d out (cast to q's dtype, as the JAX backward does), through
+    ``flash_attention_bwd``. CUDA tensors only: there is no plain fallback
+    here (the op's CPU implementation serves its tests)."""
+    if qh.device.type != "cuda":
+        raise ValueError(f"the backward kernel runs on CUDA, got {qh.device}")
+    return flash_attention_bwd(qh, kh, vh, out, g.to(qh.dtype), lse)
+
+
 class _FlashMHA(torch.autograd.Function):
     """Forward: the kernel (CUDA) or the plain version (CPU). Backward: the
     plain version's gradients, recomputed from q, k, v (flash-style: no
@@ -349,11 +421,9 @@ class _FlashMHA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qh, kh, vh):
         ctx.save_for_backward(qh, kh, vh)
-        if qh.device.type == "cpu":
-            return flash_mha_plain(qh, kh, vh)
-        if qh.device.type != "cuda":
+        if qh.device.type not in ("cpu", "cuda"):
             raise ValueError(f"no attention kernel for device {qh.device}")
-        return _launch(qh, kh, vh)
+        return flash_attention_fwd(qh, kh, vh, False, "flash")[0]
 
     @staticmethod
     def backward(ctx, g):
@@ -384,7 +454,7 @@ class _FlashMHATrain(torch.autograd.Function):
             return flash_mha_plain(qh, kh, vh)
         if qh.device.type != "cuda":
             raise ValueError(f"no attention kernel for device {qh.device}")
-        out, lse = _launch(qh, kh, vh, with_lse=True, lane="train")
+        out, lse = flash_attention_fwd(qh, kh, vh, True, "train")
         ctx.save_for_backward(qh, kh, vh, out, lse)
         return out
 
@@ -409,10 +479,6 @@ def flash_mha_train(qh: torch.Tensor, kh: torch.Tensor,
     return _FlashMHATrain.apply(qh, kh, vh)
 
 
-_LONG_PLAIN = {"rowblock": flash_mha_rowblock_plain,
-               "stream": flash_mha_stream_plain}
-
-
 class _LongMHA(torch.autograd.Function):
     """A long-sequence lane ("rowblock" or "stream"). Forward: the kernel
     (CUDA), with the log-sum-exp only when an input needs a gradient, or
@@ -423,13 +489,9 @@ class _LongMHA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qh, kh, vh, lane):
         differentiated = any(ctx.needs_input_grad[:3])
-        if qh.device.type == "cpu":
-            out, lse = _LONG_PLAIN[lane](qh, kh, vh, with_lse=True)
-        elif qh.device.type == "cuda":
-            res = _launch(qh, kh, vh, with_lse=differentiated, lane=lane)
-            out, lse = res if differentiated else (res, None)
-        else:
+        if qh.device.type not in ("cpu", "cuda"):
             raise ValueError(f"no attention kernel for device {qh.device}")
+        out, lse = flash_attention_fwd(qh, kh, vh, differentiated, lane)
         if differentiated:
             ctx.save_for_backward(qh, kh, vh, out, lse)
         return out

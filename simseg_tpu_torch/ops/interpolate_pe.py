@@ -57,11 +57,20 @@ def _device_matrix(in_size: int, out_size: int,
     return torch.from_numpy(resize_matrix(in_size, out_size)).to(device)
 
 
+def _matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """``_device_matrix``, or a fresh copy while a graph is traced
+    (``torch.export``, ``torch.compile``), where it becomes a constant of the
+    graph: a cached tensor would keep the tracer's fake one."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(resize_matrix(in_size, out_size)).to(device)
+    return _device_matrix(in_size, out_size, device)
+
+
 def bicubic_resize_2d(grid: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, new_h, new_w, C) float32, torch-bicubic semantics."""
     _, h, w, _ = grid.shape
-    row = _device_matrix(h, new_h, grid.device)
-    col = _device_matrix(w, new_w, grid.device)
+    row = _matrix(h, new_h, grid.device)
+    col = _matrix(w, new_w, grid.device)
     out = torch.einsum("oh,bhwc->bowc", row, grid.float())
     return torch.einsum("pw,bowc->bopc", col, out)
 

@@ -11,27 +11,29 @@ batched:
    patch grid (normalisation commutes with the nearest upsample), unary
    difference ``du`` there, then x patch_size nearest upsample (:136-150)
 4. mean-field CRF + 7x7 closing (:153-159), routed by shape as the JAX
-   decode routes it (``simseg_tpu/ops/seg_decode.py:200-222``): on the
-   card, where ``fused_eligible`` holds, one CUDA kernel runs both
-   (``ops/crf_fused.mean_field_fused``); elsewhere ``dense_crf_batched_du``
-   takes its auto lane (materialised K, or the streaming kernel past 4096
-   cells) and the closing follows.
+   decode routes it (``simseg_tpu/ops/seg_decode.py:200-222``): where
+   ``fused_eligible`` holds, one op runs both
+   (``ops/crf_fused.mean_field_fused``: the CUDA kernel on the card, its
+   plain version, the dense lane and the window closing, on the CPU);
+   elsewhere ``dense_crf_batched_du`` takes its auto lane (materialised K,
+   or the streaming kernel past 4096 cells) and the closing follows.
 5. score-weighted masks, argmax with first-occurrence ties (:160-177)
 
 The knobs are JAX's (``simseg_tpu/ops/seg_decode.py:130-223``), routed
 as JAX routes them on the TPU with the card in the TPU's place:
 
-- ``crf_backend``: ``"auto"`` (on the card, where ``fused_eligible``
-  holds and ``morphology_impl`` is ``"auto"`` too, the one-kernel CRF +
-  closing above; otherwise the CRF's own auto lane), ``"xla"`` (the plain
-  chain, the CRF's ``"dense"`` lane), ``"pallas"`` (the bilateral kernel,
-  the CRF's ``"stream"`` lane), ``"fused"`` (the mean-field kernel without
-  its closing, then the closing ``morphology_impl`` selects) and
-  ``"fused_tail"`` (on the card, where ``fused_eligible`` holds, steps
-  3-5 in one kernel, ``ops/crf_fused.seg_decode_tail_fused``, on the
-  patch-grid unaries; elsewhere the unfused chain on the dense lane, as
-  JAX's default branch runs it). On the CPU every kernel lane runs its
-  plain version.
+- ``crf_backend``: ``"auto"`` (where ``fused_eligible`` holds and
+  ``morphology_impl`` is ``"auto"`` too, the one-op CRF + closing above;
+  otherwise the CRF's own auto lane), ``"xla"`` (the plain chain, the
+  CRF's ``"dense"`` lane), ``"pallas"`` (the bilateral kernel, the CRF's
+  ``"stream"`` lane), ``"fused"`` (the mean-field kernel without its
+  closing, then the closing ``morphology_impl`` selects) and
+  ``"fused_tail"`` (where ``fused_eligible`` holds, steps 3-5 in one op,
+  ``ops/crf_fused.seg_decode_tail_fused``, on the patch-grid unaries;
+  elsewhere the unfused chain on the dense lane, as JAX's default branch
+  runs it). On the CPU every kernel lane runs its plain version, which
+  gives the unfused chain's results there: so an exported graph holds the
+  same ops on both devices.
 - ``morphology_impl``: ``"window"`` (``morphology.closing``),
   ``"matmul"`` (``morphology.binary_closing_matmul``, exact on the 0/1
   masks) or ``"auto"`` (matmul on the card, window elsewhere).
@@ -158,7 +160,7 @@ def make_seg_decode_fn(num_classes: int, image_size: int, patch_size: int = 16,
         cand_idx, cand_scores, valid = shortlist(
             pooled, text_bank, top_cls_num, candidate_classes)
         du_coarse = coarse_unary(dense, text_bank, cand_idx, grid)
-        if crf_backend == "fused_tail" and on_card and eligible:
+        if crf_backend == "fused_tail" and eligible:
             scores_eff = torch.where(valid, cand_scores,
                                      torch.zeros_like(cand_scores))
             return seg_decode_tail_fused(
@@ -166,8 +168,9 @@ def make_seg_decode_fn(num_classes: int, image_size: int, patch_size: int = 16,
                 du_factor=patch_size, num_iters=crf_iters,
                 stride=bilateral_stride, closing_ksize=morphology_ksize)
         du = nearest_upsample(du_coarse, patch_size).contiguous()
-        if (crf_backend == "auto" and morphology_impl == "auto" and on_card
-                and eligible):
+        # bf16 on the CPU keeps the plain chain in bf16 (the op is float32)
+        if (crf_backend == "auto" and morphology_impl == "auto" and eligible
+                and (on_card or not bf16)):
             if bf16:
                 raise NotImplementedError(
                     "compute_dtype='bfloat16' where crf_backend='auto' takes "

@@ -350,7 +350,7 @@ def test_launcher_returns_a_ranks_exit_code(tmp_path):
     assert rc == 1, out[-2000:]
 
 
-def test_launcher_refuses_what_waits_and_more_ranks_than_cards(tmp_path):
+def test_launcher_launches_the_probe_and_refuses_more_ranks_than_cards(tmp_path):
     _train_fixture(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     # nothing waits any more: --task linear_prob launches its entry point,

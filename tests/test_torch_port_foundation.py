@@ -72,14 +72,16 @@ def test_port_imports_leave_jax_and_simseg_tpu_out():
 
 
 def test_guard_covers_every_port_module():
-    """The guard imports the modules found on disk, the token-merging and
-    int8 modules among them."""
+    """The guard imports the modules found on disk, the token-merging,
+    int8 and serving modules among them."""
     mods = _port_modules()
     assert {"simseg_tpu_torch.ops.tome", "simseg_tpu_torch.ops.quant",
             "simseg_tpu_torch.models.vit", "simseg_tpu_torch.tasks.seg_eval",
             "simseg_tpu_torch.models.linear_prob",
             "simseg_tpu_torch.tasks.linear_prob.config",
-            "simseg_tpu_torch.tasks.linear_prob.train"} <= set(mods)
+            "simseg_tpu_torch.tasks.linear_prob.train",
+            "simseg_tpu_torch.serving",
+            "simseg_tpu_torch.tools.export_serving"} <= set(mods)
 
 
 def _imported_roots(path):

@@ -732,3 +732,86 @@ def test_decode_at_a_cnn_grid_step_matches_the_unfused_chain(cuda_device, lane):
     assert (pred == want).float().mean().item() >= 0.999
     grew = (after[0] - before[0], after[1] - before[1])
     assert grew == ((1, 0) if lane == "auto" else (0, 1))
+
+
+# -- the kernels as registered custom ops (simseg::) ----------------------------
+
+def _op_cases(device):
+    """(op, arguments) of every op's CUDA implementation at small shapes,
+    in the layouts the main path passes (q of the bilateral product a
+    transposed view)."""
+    rng = np.random.default_rng(40)
+    du, rgb = _case(41, 2, 3, 64, device)
+    coarse = torch.from_numpy(rng.normal(size=(2, 3, 4, 4)).astype(np.float32)
+                              * 3).to(device)
+    scores = torch.from_numpy(rng.uniform(0, 1, (2, 3)).astype(np.float32)).to(device)
+    cand = torch.from_numpy(rng.integers(1, 20, (2, 3))).to(device)
+    feat = torch.from_numpy(rng.normal(size=(2, 600, 5)).astype(np.float32)).to(device)
+    qt = torch.from_numpy(rng.normal(size=(2, 5, 600)).astype(np.float32)
+                          ).to(device).transpose(1, 2)
+    q, k, v = _qkv(42, 2, 1100, 2, 64, device)
+    out, lse = flash_attention.flash_attention_fwd(q, k, v, True, "train")
+    g = torch.randn_like(out)
+    crf = (3, 3.0, 3.0, 40.0, 13.0, 10.0, 8, 7)
+    return {
+        "crf_mean_field": (crf_fused.crf_mean_field, (du, rgb) + crf),
+        "crf_decode_tail": (crf_fused.crf_decode_tail,
+                            (coarse, rgb, scores, cand, 16) + crf),
+        "bilateral_matvec": (crf_pallas.bilateral_matvec_op, (feat, qt)),
+        "flash_attention_fwd": (flash_attention.flash_attention_fwd,
+                                (q, k, v, False, "flash")),
+        "flash_attention_fwd_lse": (flash_attention.flash_attention_fwd,
+                                    (q, k, v, True, "stream")),
+        "flash_attention_bwd": (flash_attention.flash_attention_bwd,
+                                (q, k, v, out, g, lse)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["crf_mean_field", "crf_decode_tail",
+                                  "bilateral_matvec", "flash_attention_fwd",
+                                  "flash_attention_fwd_lse",
+                                  "flash_attention_bwd"])
+def test_opcheck_cuda_implementation(cuda_device, name):
+    """``torch.library.opcheck`` of each op's CUDA implementation: schema,
+    fake tensor (shapes, dtypes and strides of the kernel's outputs),
+    autograd registration and AOT dispatch."""
+    op, args = _op_cases(cuda_device)[name]
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crf_backend", ["auto", "fused_tail"])
+def test_loaded_artifact_counts_its_launches(cuda_device, tmp_path, crf_backend):
+    """A seg artifact exported on the card (the tiny CLIP at 32 px) and
+    loaded: its calls equal the live call's bit for bit, and each launches
+    the CRF kernel (or the tail kernel) once, counted at run time inside
+    the op."""
+    from simseg_tpu_torch import serving
+    from simseg_tpu_torch.models.clip import CLIPModel
+    from simseg_tpu_torch.utils.collections import AttrDict
+
+    torch.manual_seed(0)
+    model = CLIPModel(image_tag="vit_test", img_size=32, text_tag="bert_test",
+                      projection_dim=16, image_k=3)
+    cfg = AttrDict()
+    cfg.transforms = AttrDict(input_size=32, normalize=AttrDict(
+        mean=[0.485, 0.456, 0.406], std=[0.229, 0.224, 0.225]))
+    cfg.seg_eval = AttrDict(bilateral_stride=4, crf_backend=crf_backend)
+    rng = np.random.default_rng(9)
+    bank = torch.from_numpy(rng.normal(size=(5, 16)).astype(np.float32))
+    fn = serving.make_seg_infer_fn(model, bank, cfg, num_classes=5,
+                                   top_cls_num=3, device=cuda_device)
+    x = torch.from_numpy(rng.integers(0, 255, (4, 32, 32, 3)).astype(np.uint8)
+                         ).to(cuda_device)
+    path = str(tmp_path / "seg.pt2")
+    serving.save_artifact(path, serving.export_artifact(fn, (x,)))
+    loaded = serving.load_artifact(path)
+    attr = "LAUNCHES" if crf_backend == "auto" else "TAIL_LAUNCHES"
+    live = fn(x)
+    before = getattr(crf_fused, attr)
+    got = [loaded(x) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert getattr(crf_fused, attr) == before + 2
+    for out in got:
+        assert all(torch.equal(a, b) for a, b in zip(out, live))

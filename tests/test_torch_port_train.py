@@ -347,7 +347,7 @@ def test_grad_accumulation_matches_jax_multisteps(name):
         assert counts == {1}   # the second window was skipped
 
 
-def test_lars_is_refused_naming_its_item():
+def test_lars_builds_and_steps_as_optax_lars():
     """LARS, once refused here until the linear probe came, now builds and
     takes a step as ``optax.lars`` does (the full comparison is in
     ``tests/test_torch_port_cnn.py``)."""

@@ -209,3 +209,50 @@ def test_train_main_bsgs_matches_jax(tmp_path):
             assert np.all(np.abs(a[keys] - b[keys]) <= drift), key
             a, b = np.delete(a, keys), np.delete(b, keys)
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5, err_msg=key)
+
+
+# settings JAX acts on that the port has not ported: each refused by name,
+# with its ROADMAP item, where the runner builds its step (the MoE towers
+# where the towers are built); ``profile`` is no key of the config files,
+# JAX's users set it on the tree, as the case does
+UNPORTED = {
+    "dist.tp_size=2": "item 13", "dist.sp=True": "item 13",
+    "dist.zero1=True": "item 13", "dist.fsdp=True": "item 13",
+    "dist.pp_size=2": "item 13", "dist.pp_micro=8": "item 13",
+    "dist.moe_ep=True": "item 13",
+    "model.image_encoder.arch={'moe_experts': 4}": "item 13",
+    "model.text_encoder.arch={'moe_experts': 4}": "item 13",
+    "ckpt.backend=orbax": "item 11", "wandb.enable=True": "item 11",
+    "profile": "item 11",
+}
+
+
+@pytest.fixture(scope="module")
+def refusal_fixture(tmp_path_factory):
+    root = tmp_path_factory.mktemp("refusals")
+    write_pair_set(root / "data", "pairs", 8, 0, seed=16)
+    (root / "clip.yaml").write_text(CLIP_YAML)
+    (root / "vocab.txt").write_text("\n".join(make_test_vocab(WORDS)) + "\n")
+    return root
+
+
+@pytest.mark.parametrize("setting", list(UNPORTED))
+def test_train_main_refuses_unported_settings(refusal_fixture, setting):
+    root = refusal_fixture
+    argv = ["--cfg", str(root / "clip.yaml"), "--vocab_file",
+            str(root / "vocab.txt"), "--device", "cpu",
+            f"data.data_path={root}/data/", f"ckpt.dir={root}/out",
+            "data.train_name=[pairs]", "data.enable_valid=False",
+            "data.native_decode=False", "data.train_steps=1"]
+    init = port_train.task_cfg_init_fn
+    if setting == "profile":
+        def init_with_profile(cfg):
+            init(cfg)
+            cfg.profile = {"start_step": 1, "num_steps": 1, "dir": str(root)}
+    else:
+        argv.append(setting)
+        init_with_profile = init
+    with unittest.mock.patch.object(port_train, "task_cfg_init_fn",
+                                    init_with_profile), \
+            pytest.raises(NotImplementedError, match=UNPORTED[setting]):
+        port_train.main(argv)
