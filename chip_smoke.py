@@ -11,12 +11,17 @@
     python3 chip_smoke.py --distributed                     (phases 1-2 and 11)
     python3 chip_smoke.py --linear-probe                    (phases 1-2 and 12)
     python3 chip_smoke.py --serving                         (phases 1-2 and 13)
+    python3 chip_smoke.py --model-parallel                  (phases 1-2 and 14)
+    python3 chip_smoke.py --model-parallel-nccl             (14e over 4 cards)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
    CUDA; float32 matmuls must be full float32 (no TF32);
 2. builds the four kernel sources of ``simseg_tpu_torch/csrc`` with nvcc,
-   one process per source, all started together;
+   one process per source, all started together; the full run checks the
+   attention and bilateral kernels (3b-3f) and runs the training slice
+   (6, 6b) and the pretraining entry point (9) while the CRF source, the
+   slowest to build, still compiles, and waits for it before 3;
 3. holds the CRF kernel against its plain PyTorch version on the card at
    the main path's shape (16 images, 5 candidate maps, 288 x 288, stride 8,
    unaries in the decode's form: a patch-grid ``du`` upsampled x16):
@@ -192,11 +197,13 @@ Phases (any failure raises, so the exit code is non-zero):
    batch_size_val 64, one decode thread, validation every 4 steps), from
    ``random.seed`` / ``np.random.seed`` 12: run A, 8 steps at the YAML's
    224-px crop with AutoAugment, no attention-kernel launch; run B, the
-   same at the 576-px crop (T = 1297), batch 32, 6 steps, exactly 12
-   forward and 12 backward kernel launches a step and none from its
-   288-px validation; run C, ``data.train_type=debias`` over two sets, 4
-   steps; timed passes of runs A and B without validation, with 1 and 8
-   decode threads, 24 steps, the last 8 timed, beside the same batches in
+   same at the 576-px crop (T = 1297), batch 32, 6 steps, exactly one
+   forward and one backward kernel launch a block and step and none from
+   its 288-px validation (every run's towers cut to ``CUT_DEPTH`` blocks at
+   full width; the fixture is written once and read again by 10d and
+   11a); run C, ``data.train_type=debias`` over two sets, 4
+   steps; timed passes of runs A and B without validation, with 8 decode
+   threads, 24 steps, the last 8 timed, beside the same batches in
    memory (16 steps, the last 8 timed). Checks: run A's
    first two batches bit-equal to the port's CPU loader from the same
    seeds (planted fault: two images swapped after decode); step 1's loss
@@ -233,7 +240,8 @@ Phases (any failure raises, so the exit code is non-zero):
    4 steps: finite losses, AdamW's step half the runner's; (d)
    ``tasks.clip.train.main`` with ``runner.name=clip_bsgs``, batch 1024 in
    micro-batches of 128, on phase 9's cc3m-layout fixture with 8 decode
-   threads (the deterministic resize to 224 px), 3 steps: finite losses,
+   threads (the deterministic resize to 224 px), ``CUT_DEPTH`` blocks a
+   tower at full width, 3 steps: finite losses,
    no kernel launch; a run cut after its step-2 checkpoint and resumed
    equals the uninterrupted run (step 3's loss and every parameter, bit
    for bit). Prints images/s, ms a step and peak GiB of each, the launches
@@ -241,21 +249,24 @@ Phases (any failure raises, so the exit code is non-zero):
 11. data parallelism over ranks (``simseg_tpu_torch/parallel``, the launcher):
    (a) the pretraining entry point at world 1 through ``python -m
    simseg_tpu_torch.launch --nproc_per_node 1`` (NCCL) and alone, each a
-   process of its own, on phase 9's cc3m-layout fixture: the vit-b YAML at
-   224 px (the deterministic resize, the model at 224 px), batch 128, 8
+   process of its own, both at once and while (b)-(d)'s ranks run, on phase
+   9's cc3m-layout fixture: the vit-b YAML at
+   224 px (the deterministic resize, the model at 224 px, ``CUT_DEPTH``
+   blocks a tower at full width), batch 128, 8
    steps, 8 decode threads; the two checkpoints (parameters and AdamW's state) bit-equal
    and the logged losses equal (a sum over one rank is exact), ms a step
    of both from the log lines' stamps, and the gradient reduction alone in
    a world of one NCCL rank over the flagship's float32 gradients (CUDA
    events); then two ranks on ``cuda:0`` joined
    by gloo (NCCL refuses two ranks on a card), ``--rank-worker``, rank 0
-   also running the one-process references: (b) the plain step at 576 px,
+   also running the one-process references, both towers cut to
+   ``CUT_DEPTH`` blocks at their full width: (b) the plain step at 576 px,
    16 images a rank, against one process's step at 32 on the same images
    and weights: loss within 1e-2, each tower's least gradient cosine >=
    0.99, each tower's gradient norm and the temperature's gradient within
    1e-2 relative; planted faults that must fail: a mean where the sum is
-   due, a gather without rank 1's rows; 3 steps with exactly 12 forward
-   and 12 backward attention launches a step on each rank, the ranks'
+   due, a gather without rank 1's rows; 3 steps with exactly one forward
+   and one backward attention launch a block and step on each rank, the ranks'
    parameters bit-equal after them; (c) ``evaluate_benchmark`` over 3
    batches of 16 a rank at 288 px, float and int8_static image tower,
    against one process on both ranks' batches: mIoU within 1e-3,
@@ -300,7 +311,10 @@ Phases (any failure raises, so the exit code is non-zero):
 13. serving export (``simseg_tpu_torch/serving.py``, the kernels as
    ``simseg::`` custom ops): ``tools/export_serving.main(argv)`` with
    ``configs/clip/simseg.vit-b.yaml``, a seeded ViT-B/16 + BERT-base
-   ``.pth`` and a WordPiece vocab it writes, six artifacts: (a) seg, batch
+   ``.pth`` cut to ``CUT_DEPTH`` blocks a tower at full width (the towers'
+   ``arch`` on every export's command line) and a WordPiece vocab it
+   writes, six artifacts, (b)-(e) exported in a process each while this
+   one exports (a): (a) seg, batch
    64, baked; (b) batch 16, ``scales=(1.0, 2.0)`` with ``fused_tail``, and
    288-px windows at stride 192 over 576 px; (c) bench.py's default lane,
    ToMe r = 16 with an int8_static image tower, calibrated by the tool;
@@ -317,7 +331,29 @@ Phases (any failure raises, so the exit code is non-zero):
    equal to their own calls. Prints each export's seconds and MB, the
    separate graph's and sidecar's MB, (a)'s file beside its image side's
    parameter bytes, and (a)'s images/s live and loaded in turns in one
-   process (CUDA events).
+   process (CUDA events);
+14. the sharded-state legs (``parallel/tp.py``, ``parallel/sharding.py``):
+   the attention kernels against their plain versions at (8, 1297, 6, 64)
+   (tp = 2's heads a rank) with the bars of 3b and 3d; then ViT-B/16 +
+   BERT-base at full width and depth (``TRAIN_OVERRIDES``, float32 master
+   weights, bf16 compute, a constant lr), gloo ranks sharing the card
+   (``--mp-worker``, a process a rank; the world of 2 and the world of 4
+   run at once), each leg from the same seeded
+   weights: (a) tp = 2 at 576 px, batch 8; (b) (a) with ``dist.sp``; (c)
+   ZeRO-1 over 2 data ranks at 224 px, batch 32; (d) FSDP, the same; (e)
+   tp = 2 + FSDP over 4 ranks; (f) BSGS 64 / 32 with tp = 2 + ZeRO-1 over
+   4 ranks. Each leg's first step (loss, gradients gathered whole) against
+   one process's plain or BSGS step on the same batch (``mp_bars``: loss
+   1e-2, each tower's whole gradient at cosine 0.99 and its norm within
+   1e-2, every tensor's gradient within twice that step's own distance
+   from a float32 step); planted faults that must fail (a: one
+   row-parallel sum dropped; b: the LayerNorms' gradients left unsummed;
+   d: one FSDP leaf left whole, against the bytes check); 3 timed steps with exact launches (a, b: 36 forward and
+   36 backward a rank; none at 224 px); each rank's parameter and AdamW
+   bytes equal to the rules' (printed beside one process's), the peak, MiB
+   staged a step; the replicated leaves bit-equal across ranks; (c)'s
+   parameters bit-equal to a data-parallel twin's after 3 steps.
+   ``--model-parallel-nccl`` runs (e) over four cards, one NCCL rank each.
 It then prints one JSON line of kernel numbers (``cli_launches``: the
 kernel's launches in phase 8's lane that takes it; ``train_entry_launches``:
 in phase 9's run B; ``bsgs_launches``: per BSGS step of phase 10 at 576 px,
@@ -325,10 +361,12 @@ batch 256 in micro-batches of 32; ``dist_launches``: each rank's in phase
 11, (b) for the attention kernels and (c)'s float lane for the CRF;
 ``cnn_launches``: rows 1-2's in phase 12d's auto and fused_tail lanes;
 ``serving_launches``: in phase 13's loading process, (a) for row 1, (b)'s
-for rows 2, 4 and 5), the
+for rows 2, 4 and 5; ``mp_launches``: each rank's in phase 14 (a), then
+(b)), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
+import atexit
 import contextlib
 import csv
 import json
@@ -684,12 +722,15 @@ FLAGSHIP = dict(image_tag="vit_base_patch16_224_in21k", text_tag="bert-base-unca
                 image_k=5, text_k=1)
 
 
-def seeded_clip(seed: int, img_size: int = SIZE):
+def seeded_clip(seed: int, img_size: int = SIZE, depth=None):
     """The flagship CLIP model on the CPU in float32, with weights drawn from
-    a seeded generator."""
+    a seeded generator (``depth``: the blocks of each tower, at full
+    width)."""
     from simseg_tpu_torch.models.clip import CLIPModel
 
-    model = CLIPModel(img_size=img_size, **FLAGSHIP)
+    arch = (("depth", depth),) if depth else None
+    model = CLIPModel(img_size=img_size, image_arch=arch, text_arch=arch,
+                      **FLAGSHIP)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in model.parameters():
@@ -840,20 +881,21 @@ def run_slice(model, tokenizer, classes):
     return launches
 
 
-def seeded_qkv(seed, b, t, n=3):
-    """n (b, t, 12, 64) bf16 tensors on the card, the first (q) pre-scaled."""
+def seeded_qkv(seed, b, t, n=3, heads=HEADS):
+    """n (b, t, heads, 64) bf16 tensors on the card, the first (q)
+    pre-scaled."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    xs = [torch.randn(b, t, HEADS, HEAD_DIM, device="cuda", generator=gen)
+    xs = [torch.randn(b, t, heads, HEAD_DIM, device="cuda", generator=gen)
           for _ in range(n)]
     xs[0] = xs[0] * HEAD_DIM ** -0.5
     return [x.to(torch.bfloat16) for x in xs]
 
 
-def attention_bound_ms(b, t, ops_per_elem, nbytes):
-    """Least time for attention work at (b, t, 12, 64): ops_per_elem x B H
-    T^2 hd bf16 tensor-core operations over 989 TFLOP/s, or nbytes over
+def attention_bound_ms(b, t, ops_per_elem, nbytes, heads=HEADS):
+    """Least time for attention work at (b, t, heads, 64): ops_per_elem x B
+    H T^2 hd bf16 tensor-core operations over 989 TFLOP/s, or nbytes over
     HBM bandwidth."""
-    t_ops = ops_per_elem * b * HEADS * t * t * HEAD_DIM / BF16_FLOP_PER_S * 1e3
+    t_ops = ops_per_elem * b * heads * t * t * HEAD_DIM / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -905,21 +947,23 @@ def within_bwd_bars(rel):
             and rel[2] <= BWD_SCALE)
 
 
-def check_flash_kernel(t, lane="flash", profile=False):
-    """Phases 3b / 3e at (16, t, 12, 64): returns the JSON fields (no
-    launches). The plain version of a long lane runs in slices of 2
+def check_flash_kernel(t, lane="flash", profile=False, b=BATCH, heads=HEADS):
+    """Phases 3b / 3e at (16, t, 12, 64) (14: (8, 1297, 6, 64)): returns the
+    JSON fields (no launches). The plain version of a long lane runs in slices of 2
     images: its f32 scores at (16, 5185) would take 20.6 GB. With
     ``profile``, the kernel's device time over five calls."""
     import torch.nn.functional as F
 
     kernel, plain = lane_functions(lane)
     label = "attention" if lane == "flash" else f"attention {lane}"
-    q, k, v = seeded_qkv(t, BATCH, t)
-    step = BATCH if lane == "flash" else PLAIN_SLICE
+    if heads != HEADS:
+        label += f" H={heads}"
+    q, k, v = seeded_qkv(t, b, t, heads=heads)
+    step = b if lane == "flash" else PLAIN_SLICE
 
     def plain_all():
         return [plain(q[i:i + step], k[i:i + step], v[i:i + step])
-                for i in range(0, BATCH, step)]
+                for i in range(0, b, step)]
 
     want = torch.cat(plain_all())
     got = kernel(q, k, v)
@@ -953,7 +997,7 @@ def check_flash_kernel(t, lane="flash", profile=False):
     del want, faults
     if profile:  # five calls: the profiler may miss a window's first kernel
         device_profile(lambda: [kernel(q, k, v) for _ in range(5)],
-                       f"{label} B={BATCH} T={t}, over 5 calls", top=3)
+                       f"{label} B={b} T={t}, over 5 calls", top=3)
     ms = cuda_ms(lambda: kernel(q, k, v), 20)
     plain_ms = cuda_ms(plain_all, 5 if lane == "flash" else 2)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -961,9 +1005,9 @@ def check_flash_kernel(t, lane="flash", profile=False):
         qt, kt, vt, scale=1.0), 20)
     # the work: 4 B H T^2 hd tensor-core operations; q, k, v, o once each
     bound, bound_by = attention_bound_ms(
-        BATCH, t, 4, 4 * BATCH * t * HEADS * HEAD_DIM * 2)
+        b, t, 4, 4 * b * t * heads * HEAD_DIM * 2, heads)
     print(f"{label} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-          f"{'' if step == BATCH else f' ({BATCH // step} calls of {step} images)'}"
+          f"{'' if step == b else f' ({b // step} calls of {step} images)'}"
           f", sdpa {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
           f"kernel / sdpa {ms / sdpa_ms:.3f}, share of bound {bound / ms:.3f}",
           flush=True)
@@ -971,8 +1015,10 @@ def check_flash_kernel(t, lane="flash", profile=False):
                 bound_by=bound_by, library_ms=sdpa_ms)
 
 
-def check_flash_bwd_kernel(t, b=BATCH, lane="train", profile=False):
-    """Phases 3d / 3f at (b, t, 12, 64): returns the backward kernel's JSON
+def check_flash_bwd_kernel(t, b=BATCH, lane="train", profile=False,
+                           heads=HEADS):
+    """Phases 3d / 3f at (b, t, 12, 64) (14: (8, 1297, 6, 64)): returns the
+    backward kernel's JSON
     fields (no launches). q, k, v and the output and log-sum-exp of the
     forward kernel, random g; the whole-T lane's plain backward recomputes
     everything from q, k, v, g, a long lane's runs on its plain forward's
@@ -986,7 +1032,7 @@ def check_flash_bwd_kernel(t, b=BATCH, lane="train", profile=False):
 
     from simseg_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, g = seeded_qkv(t + b, b, t, n=4)
+    q, k, v, g = seeded_qkv(t + b, b, t, n=4, heads=heads)
     out, lse = fa._launch(q, k, v, with_lse=True, lane=lane)
     got = fa.flash_mha_train_bwd(q, k, v, out, g, lse)
     if lane == "train":
@@ -998,6 +1044,8 @@ def check_flash_bwd_kernel(t, b=BATCH, lane="train", profile=False):
         def plain():
             return fa.flash_mha_long_bwd_plain(q, k, v, p_out, g, p_lse)
     label = "attention bwd" if lane == "train" else f"attention {lane} bwd"
+    if heads != HEADS:
+        label += f" H={heads}"
     bars = f"(bars {BWD_MAX_REL:g}, {BWD_MEAN_REL:g}, {BWD_SCALE:g})"
     want = plain()
     max_err = 0.0
@@ -1050,7 +1098,7 @@ def check_flash_bwd_kernel(t, b=BATCH, lane="train", profile=False):
     # the work: 10 B H T^2 hd tensor-core operations (dv, dp, dq, dk and the
     # recomputed s); q, k, v, o, g and lse read once, dq, dk, dv written once
     bound, bound_by = attention_bound_ms(
-        b, t, 10, 8 * b * t * HEADS * HEAD_DIM * 2 + b * HEADS * t * 4)
+        b, t, 10, 8 * b * t * heads * HEAD_DIM * 2 + b * heads * t * 4, heads)
     print(f"{label} B={b} T={t}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, "
           f"sdpa bwd {sdpa_fb - sdpa_f:.4f} ms (fwd+bwd {sdpa_fb:.4f}, fwd "
@@ -1058,7 +1106,8 @@ def check_flash_bwd_kernel(t, b=BATCH, lane="train", profile=False):
           f"bound {bound:.4f} ms ({bound_by}); forward kernel "
           f"with lse {fwd_lse_ms:.4f} ms, without {fwd_ms:.4f} ms, with lse / "
           f"sdpa fwd {fwd_lse_ms / sdpa_f:.3f}, share of the forward's bound "
-          f"{attention_bound_ms(b, t, 4, 0)[0] / fwd_lse_ms:.3f}", flush=True)
+          f"{attention_bound_ms(b, t, 4, 0, heads)[0] / fwd_lse_ms:.3f}",
+          flush=True)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=sdpa_fb - sdpa_f)
 
@@ -2650,11 +2699,12 @@ TRAIN_ENTRY_RUNS = {
            "data.enable_valid=False"), 4),
 }
 # the timed passes: runs A and B again without validation (a pass inside
-# the window would let the loader fill its queue), with 1 and 8 decode
-# threads, 24 steps, the last 8 timed: the batches the loader makes ahead
-# while the first steps warm up (its queue of 4 and 2 staged) are used up
-# by then (16 steps timed from step 9 still held some of them)
-TRAIN_ENTRY_TIMED = {f"{run}{n}": (run, n) for run in ("A", "B") for n in (1, 8)}
+# the window would let the loader fill its queue), with 8 decode threads,
+# 24 steps, the last 8 timed: the batches the loader makes ahead while the
+# first steps warm up (its queue of 4 and 2 staged) are used up by then (16
+# steps timed from step 9 still held some of them); one thread's cost is
+# ``host_batch_times``'
+TRAIN_ENTRY_TIMED = {f"{run}8": (run, 8) for run in ("A", "B")}
 TRAIN_ENTRY_TIMED_STEPS = 24
 TRAIN_ENTRY_TIMED_LAST = 8
 TRAIN_ENTRY_LOSS_BAR = 1e-2                # phase 6's step bar
@@ -2739,17 +2789,37 @@ def write_train_entry_fixture(root):
     return vocab
 
 
-def train_entry_argv(label, root, vocab):
+_FIXTURE = {}
+
+
+def train_entry_fixture():
+    """(directory, vocab file) of ``write_train_entry_fixture``, written
+    once per process (phases 9, 10d and 11a read it) into a directory
+    removed at exit."""
+    if not _FIXTURE:
+        root = tempfile.mkdtemp(prefix="chip_smoke_fixture_")
+        atexit.register(shutil.rmtree, root, True)
+        t0 = time.perf_counter()
+        _FIXTURE.update(root=root, vocab=write_train_entry_fixture(root))
+        print(f"9 fixture: {sum(TRAIN_ENTRY_ROWS.values())} train rows and "
+              f"{TRAIN_ENTRY_IMAGES} valid images written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return _FIXTURE["root"], _FIXTURE["vocab"]
+
+
+def train_entry_argv(label, data, root, vocab):
     """Run ``label``'s argv: a run of ``TRAIN_ENTRY_RUNS`` or a timed pass
-    of ``TRAIN_ENTRY_TIMED``; checkpoints under ``root``."""
+    of ``TRAIN_ENTRY_TIMED``, on the fixture under ``data``; checkpoints
+    under ``root``."""
     run, threads = TRAIN_ENTRY_TIMED.get(label, (label, None))
     extra, steps = TRAIN_ENTRY_RUNS[run]
     if threads is not None:
         extra = extra + (f"data.num_workers={threads}", "data.enable_valid=False")
         steps = TRAIN_ENTRY_TIMED_STEPS
     return (["--cfg", ENTRY_YAML, "--vocab_file", vocab,
-             f"data.data_path={root}/", f"ckpt.dir={root}/{label}",
-             f"data.train_steps={steps}", *TRAIN_ENTRY_COMMON, *extra])
+             f"data.data_path={data}/", f"ckpt.dir={root}/{label}",
+             f"data.train_steps={steps}", *TRAIN_ENTRY_COMMON, *CUT_ARCH,
+             *extra])
 
 
 def parse_entry(argv):
@@ -3022,8 +3092,9 @@ def host_batch_times(argv, vocab, n):
     return 1e3 * decode, 1e3 * augment, 1e3 * text
 
 
-def run_retrieval_cli(root, vocab, ckpt, want):
-    """9: the retrieval CLI on a ``valid.parquet`` of the valid set where
+def run_retrieval_cli(data, root, vocab, ckpt, want):
+    """9: the retrieval CLI on a ``valid.parquet`` (written under ``root``)
+    of the fixture's valid set (under ``data``) where
     pyarrow is installed, else ``evaluate_benchmark`` over the CSV valid
     loader; both on run A's checkpoint, against run A's last validation
     table (the same weights, images and captions) within 1e-6."""
@@ -3031,7 +3102,7 @@ def run_retrieval_cli(root, vocab, ckpt, want):
 
     argv = ["--cfg", ENTRY_YAML, "--ckpt_path", ckpt, "--vocab_file", vocab,
             f"data.data_path={root}/", "data.batch_size_val=64",
-            "data.num_workers=1"]
+            "data.num_workers=1", *CUT_ARCH]
     try:
         import pyarrow as pa
         import pyarrow.parquet as pq
@@ -3040,10 +3111,10 @@ def run_retrieval_cli(root, vocab, ckpt, want):
     t0 = time.perf_counter()
     if pa is not None:
         cols = {"imbytes": [], "caption": [], "image_id": [], "id": []}
-        with open(os.path.join(root, "synth", "valid_anno.csv"), newline="",
+        with open(os.path.join(data, "synth", "valid_anno.csv"), newline="",
                   encoding="utf-8") as f:
             for row in csv.DictReader(f):
-                with open(os.path.join(root, "synth", "valid", row["image"]),
+                with open(os.path.join(data, "synth", "valid", row["image"]),
                           "rb") as g:
                     cols["imbytes"].append(g.read())
                 cols["caption"].append(row["caption"])
@@ -3059,7 +3130,8 @@ def run_retrieval_cli(root, vocab, ckpt, want):
         from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
         from simseg_tpu_torch.models.clip import build_clip_model
 
-        _, cfg = cli.parse_args(argv + ["data.valid_name=[synth]",
+        _, cfg = cli.parse_args(argv + [f"data.data_path={data}/",
+                                        "data.valid_name=[synth]",
                                         "data.train_name=[synth]"])
         model = load_pretrained_params(ckpt, build_clip_model(cfg))
         loader = build_clip_dataloaders(
@@ -3087,13 +3159,9 @@ def run_train_entry():
           f"{module_check('PIL')}, pandas {module_check('pandas')}", flush=True)
     card = card_line()
     launches, batches, vals, timed = {}, {}, {}, {}
+    data, vocab = train_entry_fixture()
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        vocab = write_train_entry_fixture(root)
-        print(f"9 fixture: {sum(TRAIN_ENTRY_ROWS.values())} train rows and "
-              f"{TRAIN_ENTRY_IMAGES} valid images written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        argv = {k: train_entry_argv(k, root, vocab)
+        argv = {k: train_entry_argv(k, data, root, vocab)
                 for k in list(TRAIN_ENTRY_RUNS) + list(TRAIN_ENTRY_TIMED)}
 
         runner, rec, counts, _ = run_train_main("A", argv["A"])
@@ -3108,14 +3176,15 @@ def run_train_entry():
         check_loader_drift(argv["A"], rec, vocab)
         check_first_step_loss(argv["A"], rec)
         check_retrieval_ranking(last_val)
-        run_retrieval_cli(root, vocab, ckpt, last_val[-1])
+        run_retrieval_cli(data, root, vocab, ckpt, last_val[-1])
         del rec, last_val
 
         runner, rec, counts, _ = run_train_main("B", argv["B"])
         launches["B"] = counts
         steps = TRAIN_ENTRY_RUNS["B"][1]
-        want = {"flash_attention": 12 * steps, "flash_attention_bwd": 12 * steps,
-                "lane_train": 12 * steps}
+        want = {"flash_attention": CUT_DEPTH * steps,
+                "flash_attention_bwd": CUT_DEPTH * steps,
+                "lane_train": CUT_DEPTH * steps}
         # the 288-px validation takes no kernel
         check_counts("9 run B", counts, want)
         check_lr_sequence(runner, rec)
@@ -3176,6 +3245,12 @@ REMAT_GRAD_BAR = 1e-6                      # of each gradient's largest entry
 BIG_ENTRY_STEPS = 3
 ACCUM_STEPS = 6                            # (f): timed steps 3-6, two updates
 BIG_ENTRY_CUT = 2                          # the mid-epoch checkpoint's step
+# 10d, 11a, 11b, 11d, 13: the blocks of each tower, at full width (what
+# these checks hold, a resume, a world against one process, an artifact
+# against the live module, does not depend on depth; their time does)
+CUT_DEPTH = 2
+CUT_ARCH = (f"model.image_encoder.arch={{'depth': {CUT_DEPTH}}}",
+            f"model.text_encoder.arch={{'depth': {CUT_DEPTH}}}")
 
 
 def bsgs_counts(per, steps=1):
@@ -3403,20 +3478,20 @@ def time_train(label, size, b, steps, tok, batch, *extra):
     return ms, peak, counts, runner
 
 
-def big_entry_argv(root, vocab, label):
+def big_entry_argv(data, root, vocab, label):
     """10d: the vit-b YAML through the entry point with BSGS at its batch of
     1024 in micro-batches of 128, 8 decode threads, the deterministic
     resize to 224 px (random ops drawn by 8 threads would not replay, and
     the resume check replays step 3), no validation."""
     return ["--cfg", ENTRY_YAML, "--vocab_file", vocab,
-            f"data.data_path={root}/", f"ckpt.dir={root}/{label}",
+            f"data.data_path={data}/", f"ckpt.dir={root}/{label}",
             "data.train_name=[synth]", "data.valid_name=[synth]",
             "data.enable_valid=False", "runner.name=clip_bsgs",
             f"data.batch_size={BIG_BATCH}", f"data.batch_size_train={BIG_MICRO}",
             "data.num_workers=8", f"data.train_steps={BIG_ENTRY_STEPS}",
             "epoch=1", f"ckpt.step_interval={BIG_ENTRY_CUT}",
             "log.interval_train=1", "transforms.train_transforms=[resize]",
-            "transforms.resize.size=224"]
+            "transforms.resize.size=224", *CUT_ARCH]
 
 
 def big_entry_run(label, argv, cut=False):
@@ -3463,16 +3538,16 @@ def big_entry_run(label, argv, cut=False):
     return runner, losses, counts, wall
 
 
-def check_big_entry(root, vocab):
+def check_big_entry(data, root, vocab):
     """10d: the entry point with ``runner.name=clip_bsgs`` at 1024 / 128:
     finite losses; a run cut after its step-2 checkpoint and resumed gives
     the uninterrupted run's parameters."""
     whole, losses, counts, _ = big_entry_run(
-        "uninterrupted", big_entry_argv(root, vocab, "whole"))
+        "uninterrupted", big_entry_argv(data, root, vocab, "whole"))
     check_counts("10d (224 px takes no kernel)", counts, {})
     if len(losses) != BIG_ENTRY_STEPS:
         raise AssertionError(f"10d: {len(losses)} steps")
-    argv = big_entry_argv(root, vocab, "cut")
+    argv = big_entry_argv(data, root, vocab, "cut")
     big_entry_run("cut after step 2", argv, cut=True)
     resumed, rest, _, _ = big_entry_run("resumed", argv)
     same = all(torch.equal(a, b) for a, b in zip(
@@ -3561,9 +3636,9 @@ def run_big_batch():
     torch.cuda.empty_cache()
 
     # (d) the entry point at the YAML's batch
+    data, vocab = train_entry_fixture()
     with tempfile.TemporaryDirectory() as root:
-        vocab = write_train_entry_fixture(root)
-        check_big_entry(root, vocab)
+        check_big_entry(data, root, vocab)
 
     for label, (rate, ms, peak, _) in rows.items():
         print(f"10 {label} ({card}): {rate:.1f} images/s in memory ({ms:.3f} "
@@ -3650,11 +3725,11 @@ def params_digest(model) -> str:
 
 
 def timed_reductions():
-    """(patch, events): ``reduce_gradients`` in the steps wrapped in CUDA
-    events."""
+    """(patch, events): the steps' gradient reduction
+    (``reduce_model_gradients``) wrapped in CUDA events."""
     from simseg_tpu_torch.engine import bsgs, train_step
 
-    events, inner = [], train_step.reduce_gradients
+    events, inner = [], train_step.reduce_model_gradients
 
     def timed(*a, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -3665,8 +3740,10 @@ def timed_reductions():
         events.append((start, end))
 
     stack = contextlib.ExitStack()
-    stack.enter_context(unittest.mock.patch.object(train_step, "reduce_gradients", timed))
-    stack.enter_context(unittest.mock.patch.object(bsgs, "reduce_gradients", timed))
+    stack.enter_context(unittest.mock.patch.object(
+        train_step, "reduce_model_gradients", timed))
+    stack.enter_context(unittest.mock.patch.object(
+        bsgs, "reduce_model_gradients", timed))
     return stack, events
 
 
@@ -3692,12 +3769,12 @@ def dist_train_steps(label, runner, host, steps, rank):
     ms, _ = timer.ms_per_step(warmup=1)
     red = sum(a.elapsed_time(b) for a, b in events[1:]) / max(len(events) - 1, 1)
     losses = [x.item() for x in timer.losses]
-    print(f"11{label} rank {rank}: {steps} steps, losses "
+    print(f"{label} rank {rank}: {steps} steps, losses "
           f"{[round(x, 5) for x in losses]}, {ms:.3f} ms a step (steps 2-"
           f"{steps}), gradient reduction {red:.3f} ms a step, {staged / 2**20:.1f} "
           f"MiB staged through the host a step; launches {counts}", flush=True)
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"11{label} rank {rank}: losses {losses}")
+        raise AssertionError(f"{label} rank {rank}: losses {losses}")
     return ms, red, staged, counts
 
 
@@ -3706,12 +3783,11 @@ def planted_gathers():
     gradients halved), and a gather that leaves out rank 1's rows (rank 0's
     in their place)."""
     from simseg_tpu_torch.engine import train_step
-    from simseg_tpu_torch.parallel import collectives
+    from simseg_tpu_torch.parallel import collectives, sharding
 
-    def mean_reduce(params, group=None):
-        params = list(params)
-        collectives.reduce_gradients(params, group)
-        for p in params:
+    def mean_reduce(model, mesh):
+        sharding.reduce_model_gradients(model, mesh)
+        for p in model.parameters():
             if p.grad is not None:
                 p.grad.div_(DIST_WORLD)
 
@@ -3721,7 +3797,7 @@ def planted_gathers():
         return torch.cat([g[:n], g[:n]] + [g[2 * n:]])
 
     return {"a mean where the sum is due": unittest.mock.patch.object(
-                train_step, "reduce_gradients", mean_reduce),
+                train_step, "reduce_model_gradients", mean_reduce),
             "a gather without rank 1's rows": unittest.mock.patch.object(
                 train_step, "all_gather", gather_without_rank1)}
 
@@ -3737,7 +3813,8 @@ def dist_plain_step(tmp, rank, mesh, result):
     b, n = DIST_WORLD * DIST_RANK_BATCH, DIST_RANK_BATCH
     batch, tok = caption_batch(31, b, TRAIN_SIZE)
     cfg = train_cfg(tmp, f"transforms.random_resize_crop.size={TRAIN_SIZE}",
-                    f"transforms.input_size={TRAIN_SIZE}", f"data.batch_size={b}")
+                    f"transforms.input_size={TRAIN_SIZE}", f"data.batch_size={b}",
+                    *CUT_ARCH)
     torch.manual_seed(0)
     runner = CLIPRunner(cfg, build_clip_model(cfg), {"train": []},
                         device="cuda:0", tokenizer=tok)
@@ -3767,10 +3844,11 @@ def dist_plain_step(tmp, rank, mesh, result):
     torch.cuda.empty_cache()
     host = {"image": batch["image"][rank * n:(rank + 1) * n],
             "caption": batch["caption"][rank * n:(rank + 1) * n]}
-    ms, red, staged, counts = dist_train_steps("b", runner, host, DIST_STEPS, rank)
+    ms, red, staged, counts = dist_train_steps("11b", runner, host, DIST_STEPS, rank)
     check_counts(f"11b rank {rank}", counts,
-                 {"flash_attention": 12 * DIST_STEPS, "lane_train": 12 * DIST_STEPS,
-                  "flash_attention_bwd": 12 * DIST_STEPS})
+                 {"flash_attention": CUT_DEPTH * DIST_STEPS,
+                  "lane_train": CUT_DEPTH * DIST_STEPS,
+                  "flash_attention_bwd": CUT_DEPTH * DIST_STEPS})
     digests = process_allgather(np.frombuffer(
         bytes.fromhex(params_digest(runner.model)), np.uint8))
     same = bool((digests == digests[0]).all())
@@ -3919,7 +3997,8 @@ def dist_bsgs(tmp, rank, mesh, result):
     batch = tiled_batch(batch224, b)
     cfg = train_cfg(tmp, "transforms.random_resize_crop.size=224",
                     "transforms.input_size=224", f"data.batch_size={b}",
-                    f"data.batch_size_train={micro}", "runner.name=clip_bsgs")
+                    f"data.batch_size_train={micro}", "runner.name=clip_bsgs",
+                    *CUT_ARCH)
     torch.manual_seed(0)
     runner = CLIPRunner(cfg, build_clip_model(cfg), {"train": []},
                         device="cuda:0", tokenizer=tok)
@@ -3945,7 +4024,7 @@ def dist_bsgs(tmp, rank, mesh, result):
     torch.cuda.empty_cache()
     host = {"image": batch["image"][rank * n:(rank + 1) * n],
             "caption": batch["caption"][rank * n:(rank + 1) * n]}
-    ms, red, staged, counts = dist_train_steps("d", runner, host,
+    ms, red, staged, counts = dist_train_steps("11d", runner, host,
                                                DIST_BSGS_STEPS, rank)
     check_counts(f"11d rank {rank} (224 px takes no kernel)", counts, {})
     result["d"] = dict(ms=ms, reduce_ms=red, staged=staged,
@@ -3997,7 +4076,7 @@ ENTRY_HEADS = {"launcher": ["-m", "simseg_tpu_torch.launch", "--task", "clip",
                "plain": ["-m", "simseg_tpu_torch.tasks.clip.train"]}
 
 
-def entry_run(root, vocab, label, head):
+def entry_run(data, root, vocab, label, head):
     """One process (``head``: the launcher or the entry point) of 11a on
     phase 9's fixture: (losses, ms a step, checkpoint state, wall s)."""
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -4007,7 +4086,7 @@ def entry_run(root, vocab, label, head):
     cwd = os.path.join(root, label)
     os.makedirs(cwd)
     argv = ["--cfg", os.path.join(repo, ENTRY_YAML), "--vocab_file", vocab,
-            f"data.data_path={root}/", f"ckpt.dir={cwd}/ckpt",
+            f"data.data_path={data}/", f"ckpt.dir={cwd}/ckpt",
             "data.train_name=[synth]", "data.enable_valid=False",
             "data.batch_size=128", "data.num_workers=8",
             f"data.train_steps={DIST_ENTRY_STEPS}", "epoch=1",
@@ -4016,7 +4095,7 @@ def entry_run(root, vocab, label, head):
             # the model at the crop's grid: a 288-px model interpolates its
             # position embeddings, and the bicubic backward's atomics make
             # two runs of one process differ in the last bits
-            "transforms.input_size=224"]
+            "transforms.input_size=224", *CUT_ARCH]
     log = os.path.join(cwd, "run.log")
     t0 = time.perf_counter()
     with open(log, "w") as f:
@@ -4050,15 +4129,17 @@ def state_diff(a, b):
     return diff
 
 
-def dist_entry(root, vocab):
+def dist_entry(data, root, vocab):
     """11a: the pretraining entry point at world 1 through the launcher
-    (NCCL) and without it, as two processes: the vit-b YAML at 224 px (the
+    (NCCL) and without it, as two processes run at once: the vit-b YAML at 224 px (the
     deterministic resize, the model at 224 px, 8 decode threads), batch
     128, 8 steps; the
     checkpoints (parameters and AdamW's state) bit-equal, the logged losses
     equal; ms a step of both."""
-    runs = {label: entry_run(root, vocab, label, head)
-            for label, head in ENTRY_HEADS.items()}
+    with ThreadPoolExecutor(len(ENTRY_HEADS)) as pool:
+        jobs = {label: pool.submit(entry_run, data, root, vocab, label, head)
+                for label, head in ENTRY_HEADS.items()}
+        runs = {label: job.result() for label, job in jobs.items()}
     if not os.path.exists(os.path.join(root, "launcher", "output",
                                        "simseg.vit-b_log.txt")):
         raise AssertionError("11a: the launcher wrote no log file")
@@ -4109,10 +4190,10 @@ def run_distributed():
     card = card_line()
     t_start = time.perf_counter()
     torch.cuda.empty_cache()
+    data, vocab = train_entry_fixture()
     with tempfile.TemporaryDirectory() as root:
-        vocab = write_train_entry_fixture(root)
-        entry = dist_entry(root, vocab)
-        entry["reduce_ms"] = world1_reduction_ms()
+        # (b)-(d)'s ranks run while 11a's two processes do: the card has
+        # room for all four, and each is held back by its host
         out = os.path.join(root, "ranks")
         os.makedirs(out)
         port = free_port()
@@ -4125,6 +4206,8 @@ def run_distributed():
                 [sys.executable, os.path.abspath(__file__), "--rank-worker", out],
                 env=env))
         try:
+            entry = dist_entry(data, root, vocab)
+            entry["reduce_ms"] = world1_reduction_ms()
             rcs = [p.wait(timeout=DIST_LIMIT) for p in procs]
         finally:
             for p in procs:
@@ -4144,9 +4227,10 @@ def run_distributed():
           f"(host-bound steps); the gradient reduction alone at world 1 (NCCL) "
           f"{entry['reduce_ms']:.3f} ms a step", flush=True)
     for part, what in (("b", f"plain step, {DIST_WORLD} x {DIST_RANK_BATCH} at "
-                             f"{TRAIN_SIZE} px"),
+                             f"{TRAIN_SIZE} px, {CUT_DEPTH} blocks a tower"),
                        ("d", f"BSGS {DIST_WORLD} x {DIST_BSGS[0] // DIST_WORLD} / "
-                             f"{DIST_BSGS[2]} at 224 px")):
+                             f"{DIST_BSGS[2]} at 224 px, {CUT_DEPTH} blocks "
+                             "a tower")):
         for r, res in enumerate(ranks):
             x = res[part]
             print(f"11{part} rank {r} ({card}): {what}: {x['images_per_s']:.1f} "
@@ -4783,12 +4867,14 @@ SERVE_ARTIFACTS = {
     "a": ("seg", BENCH_BATCH, "baked", (), 3, {"crf_mean_field": 3}),
     "b_scales_tail": ("seg", BATCH, "baked", (
         "seg_eval.scales=[1.0,2.0]", "seg_eval.crf_backend=fused_tail"), 2,
-        {"flash_attention": 24, "lane_flash": 24, "seg_decode_tail": 2}),
+        {"flash_attention": 2 * CUT_DEPTH, "lane_flash": 2 * CUT_DEPTH,
+         "seg_decode_tail": 2}),
     "b_window": ("seg", BATCH, "baked", (
         f"transforms.input_size={WIN_INPUT}", f"seg_eval.window.size={WIN}",
         f"seg_eval.window.stride={WIN_STRIDE}"), 2, {"bilateral_matvec": 8}),
     "c": ("seg", BENCH_BATCH, "baked", (
-        "model.image_encoder.arch={'tome_r': 16, 'quant': 'int8_static'}",),
+        "model.image_encoder.arch={'tome_r': 16, 'quant': 'int8_static', "
+        f"'depth': {CUT_DEPTH}}}",),
         2, {"crf_mean_field": 2}),
     "d": ("seg", BENCH_BATCH, "separate", (), 2, {"crf_mean_field": 2}),
     "e": ("retrieval", BENCH_BATCH, "baked", (), 2, {}),
@@ -4884,7 +4970,7 @@ def serve_export(root, ckpt, vocab, name):
     path = os.path.join(root, f"{name}.pt2")
     argv = ["--cfg", SERVE_YAML, "--ckpt_path", ckpt, "--vocab_file", vocab,
             "--kind", kind, "--dataset", "pascal_voc", "--batch", str(batch),
-            "--weights", weights, "--out", path, *extra]
+            "--weights", weights, "--out", path, *CUT_ARCH, *extra]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn = export_serving.main(argv)
@@ -4905,6 +4991,13 @@ def serve_export(root, ckpt, vocab, name):
           f"(model, checkpoint, bank and trace), "
           f"{os.path.getsize(path) / 1e6:.1f} MB", flush=True)
     return job, live_fn, export_s
+
+
+def run_serve_export(root, ckpt, vocab, name):
+    """``--serve-export``: ``serve_export`` of artifact ``name`` in a process
+    of its own; (its job, its export seconds) to ``root/<name>.job.pt``."""
+    job, _, export_s = serve_export(root, ckpt, vocab, name)
+    torch.save((job, export_s), os.path.join(root, f"{name}.job.pt"))
 
 
 def planted_sidecar(root, job):
@@ -4942,18 +5035,32 @@ def run_serving():
     vocab_ids = make_test_vocab(words)
     with tempfile.TemporaryDirectory() as root:
         ckpt = os.path.join(root, "simseg.vit-b.pth")
-        torch.save({"state_dict": seeded_clip(0).state_dict()}, ckpt)
+        torch.save({"state_dict": seeded_clip(0, depth=CUT_DEPTH).state_dict()},
+                   ckpt)
         vocab = os.path.join(root, "vocab.txt")
         with open(vocab, "w") as f:
             f.write("\n".join(sorted(vocab_ids, key=vocab_ids.get)) + "\n")
+        # (a) here (its live module is timed below), the others in a process
+        # each, all at once: an export is host-bound tracing
+        procs = {name: subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-export", root,
+             ckpt, vocab, name]) for name in SERVE_ARTIFACTS if name != "a"}
+        try:
+            job_a, live_a, export_a = serve_export(root, ckpt, vocab, "a")
+            rcs = {name: p.wait(timeout=SERVE_LIMIT) for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(rcs.values()):
+            raise AssertionError(f"13: the export processes exited {rcs}")
         jobs, export_s = {}, {}
         for name in SERVE_ARTIFACTS:
-            job, live_fn, export_s[name] = serve_export(root, ckpt, vocab, name)
-            jobs[name] = job
-            if name == "a":
-                live_a = live_fn
-            del live_fn
-            torch.cuda.empty_cache()
+            jobs[name], export_s[name] = (
+                (job_a, export_a) if name == "a" else
+                torch.load(os.path.join(root, f"{name}.job.pt")))
+        torch.cuda.empty_cache()
         fault = planted_sidecar(root, jobs["d"])
         spread = dict(jobs["a"], name="f", devices=SERVE_DEVICES,
                       out=os.path.join(root, "f.out.pt"))
@@ -5042,22 +5149,430 @@ def run_serving():
     return counts
 
 
-def build_all():
+# -- phase 14: the sharded-state legs (TP, SP, ZeRO-1, FSDP, BSGS) -------------------
+
+MP_STEPS = 3
+MP_LIMIT = 600                             # seconds a world's ranks may take
+MP_T = (TRAIN_SIZE // PATCH) ** 2 + 1      # 1297: the train lane at 576 px
+# leg -> (world, px, global batch, dist settings, BSGS micro-batch or None)
+MP_LEGS = {
+    "a": (2, TRAIN_SIZE, 8, ("dist.tp_size=2",), None),
+    "b": (2, TRAIN_SIZE, 8, ("dist.tp_size=2", "dist.sp=True"), None),
+    "c": (2, 224, 32, ("dist.zero1=True",), None),
+    "d": (2, 224, 32, ("dist.fsdp=True",), None),
+    "e": (4, 224, 32, ("dist.tp_size=2", "dist.fsdp=True"), None),
+    "f": (4, 224, 64, ("dist.tp_size=2", "dist.zero1=True"), 32),
+}
+MP_NOTE = ("ranks sharing one card through gloo: every collective is staged "
+           "through the host, so the times measure no card-to-card link")
+# each tensor's gradient within this many times one process's own bf16
+# error (against the float32 step of the same weights and batch): a
+# sharded bf16 step sums its partial products in another order, and some
+# tensors (the position embeddings: a sum over the batch that nearly
+# cancels) sit 26-29% from float32 in either order
+MP_NOISE_BAR = 2.0
+
+
+def mp_cfg(tmp, leg, sharded=True, bf16=True):
+    """A leg's config: the flagship's (``TRAIN_OVERRIDES``) at the leg's
+    size and batch, a constant lr (the schedule's warmup would start at 0),
+    its ``dist`` settings unless ``sharded`` is False (one process's);
+    float32 compute with ``bf16`` False (the witness of ``mp_bars``)."""
+    _, px, b, legs, micro = MP_LEGS[leg]
+    extra = [f"transforms.random_resize_crop.size={px}",
+             f"transforms.input_size={px}", f"data.batch_size={b}",
+             "optim.lr.name=constant_schedule"]
+    if micro:
+        extra += [f"data.batch_size_train={micro}", "runner.name=clip_bsgs"]
+    if not bf16:
+        extra.append("dist.bf16=False")
+    return train_cfg(tmp, *extra, *(legs if sharded else ()))
+
+
+def mp_model(cfg, dev, mesh=None):
+    """The seeded flagship model of ``cfg``, initialised on ``dev`` (the same
+    draws on every rank and in the one-process references)."""
+    from simseg_tpu_torch.models.clip import build_clip_model
+
+    torch.manual_seed(0)
+    with torch.device(dev):
+        return build_clip_model(cfg, mesh)
+
+
+def mp_runner(cfg, tok, dev):
+    """The seeded flagship model under the config's legs and its runner."""
+    from simseg_tpu_torch.core.runner import CLIPRunner
+    from simseg_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(-1, int(cfg.dist.tp_size))
+    return CLIPRunner(cfg, mp_model(cfg, dev, mesh), {"train": []},
+                      device=dev, tokenizer=tok)
+
+
+def mp_bars(label, loss, grads, want_loss, want, want32):
+    """(ok, text): the loss within 1e-2 relative, each tower's whole gradient
+    at cosine >= 0.99 and its norm within 1e-2 (the temperature's too) of
+    one process's bf16 step, and every tensor's gradient within
+    ``MP_NOISE_BAR`` times that step's own distance from the float32 step
+    (``want32``; + 1e-3 of its norm), the key projections' biases left out
+    as in ``tower_cosines``."""
+    rel = abs(loss - want_loss) / abs(want_loss)
+    cos = whole_tower_cosines(grads, want)
+    norms = tower_norms(grads, want)
+    ratios = {}
+    for n, w in want.items():
+        if n.endswith("attention.self.key.bias"):
+            continue  # zero in exact arithmetic: both sides hold noise
+        w = w.double()
+        noise = (w - want32[n].double()).norm() + 1e-3 * w.norm()
+        ratios[n] = ((grads[n].double() - w).norm() / noise).item()
+    worst = max(ratios, key=ratios.get)
+    ok = (rel <= DIST_LOSS_BAR and all(c >= DIST_COS_BAR for c in cos.values())
+          and all(v <= DIST_NORM_BAR for v in norms.values())
+          and ratios[worst] <= MP_NOISE_BAR)
+    return ok, (f"{label}: loss {loss:.6f} vs {want_loss:.6f} (relative "
+                f"{rel:.3e}); whole-tower gradient cosine {cos}; norm errors "
+                f"{norms}; largest error over one process's bf16 error "
+                f"{ratios[worst]:.3f} ({worst})")
+
+
+def mp_captured(runner, batch):
+    """(loss, {name: whole float32 grad}) of one call of the sharded step:
+    the optimizer's update replaced by a gather of the gradients it would
+    take (a collective: every rank calls it)."""
+    plan = runner.model.shard_plan
+    grads = {}
+
+    def capture():
+        for n, p in runner.model.named_parameters():
+            if p.grad is None:
+                continue
+            spec, g = plan.specs[n], p.grad.detach()
+            if spec.tp_dim is not None or spec.fsdp_dim is not None:
+                g = plan.full(g, spec)
+            grads[n] = g.float().clone()
+        runner.optimizer.zero_grad()
+        return torch.zeros(())
+
+    with unittest.mock.patch.object(runner.optimizer, "step", capture):
+        metrics = runner._step_fn(batch, 0.0, 0, True)
+    return metrics["loss"].item(), grads
+
+
+def mp_rule_bytes(plan):
+    """(parameter bytes, AdamW moment bytes) a rank holds by the specs, and
+    the same for one process: each sharded dim divided by its ranks (a
+    ZeRO-1 slice by the data ranks); two float32 moments a parameter."""
+    m = plan.mesh
+    params = moments = whole = 0
+    for spec in plan.specs.values():
+        n = int(np.prod(spec.shape)) if spec.shape else 1
+        whole += n
+        local = n // (m.tp if spec.tp_dim is not None else 1)
+        local //= m.group_ranks if spec.fsdp_dim is not None else 1
+        params += 4 * local
+        moments += 8 * (n // m.data_size if spec.zero_dim is not None else local)
+    return (params, moments), (4 * whole, 8 * whole)
+
+
+def mp_faults(leg, runner, local):
+    """The leg's planted faults, each of which must fail its check: (a) one
+    row-parallel sum dropped (the image tower's last fc2), against
+    ``mp_bars``; (b) the sequence-parallel LayerNorms' gradients left
+    unsummed over the model group, against ``mp_bars``; (d) one FSDP leaf
+    (the word embeddings) left whole, against the bytes check."""
+    from simseg_tpu_torch.parallel.sharding import state_bytes
+
+    plan = runner.model.shard_plan
+    out = {}
+    if leg == "a":
+        fc2 = runner.model.image_tower.blocks[-1].mlp.fc2
+
+        def unsummed(x):
+            y = fc2.product(x, None)
+            return y + fc2.bias.to(y.dtype)
+
+        with unittest.mock.patch.object(fc2, "forward", unsummed):
+            out["one row-parallel sum dropped"] = mp_captured(runner, local)
+    if leg == "b":
+        norms = [n for n, s in plan.specs.items()
+                 if s.sp_partial and ".norm" in n]
+        for n in norms:
+            plan.specs[n].sp_partial = False
+        try:
+            out["the LayerNorms' gradients unsummed"] = mp_captured(runner, local)
+        finally:
+            for n in norms:
+                plan.specs[n].sp_partial = True
+    if leg == "d":
+        emb = runner.model.bert.embeddings.word_embeddings
+        name = "text_encoder.model.model.embeddings.word_embeddings.weight"
+        shard = emb._parameters["weight"]
+        emb._parameters["weight"] = torch.nn.Parameter(
+            plan.full(shard, plan.specs[name]))
+        try:
+            got = state_bytes(runner.model)[0]
+        finally:
+            emb._parameters["weight"] = shard
+        want_b = mp_rule_bytes(plan)[0][0]
+        print(f"14d planted fault (the word embeddings left whole): parameter "
+              f"bytes {got} vs the rules' {want_b}; equal {got == want_b}",
+              flush=True)
+        if got == want_b:
+            raise AssertionError("14d: the bytes check passes a whole FSDP leaf")
+    return out
+
+
+def mp_leg(tmp, leg, r, dev, result, refs):
+    """One leg (``MP_LEGS``): a step's loss and gathered gradients against
+    one process's on the same batch and weights (rank 0; ``refs`` keeps a
+    reference for the next leg of the same size), the planted faults,
+    ``MP_STEPS`` timed steps with their launches, the bytes each rank holds
+    against the rules, the replicated leaves bit-equal across ranks."""
+    from simseg_tpu_torch.parallel import process_allgather
+    from simseg_tpu_torch.parallel.sharding import state_bytes
+
+    world, px, b, legs, micro = MP_LEGS[leg]
+    t_leg = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    batch224, tok = caption_batch(41, min(b, 32), px)
+    batch = tiled_batch(batch224, b)
+    runner = mp_runner(mp_cfg(tmp, leg), tok, dev)
+    mesh = runner.mesh
+    plan = runner.model.shard_plan
+    full = runner._prepare_batch(batch)
+    n, d = b // mesh.data_size, mesh.data_rank
+    local = {k: v[d * n:(d + 1) * n] for k, v in full.items()}
+    key = (px, b, micro)
+    if r == 0 and key not in refs:
+        refs.clear()
+        out = []
+        for bf16 in (True, False):
+            ref = mp_model(mp_cfg(tmp, leg, sharded=False, bf16=bf16), dev)
+            out.append(bsgs_grads(ref, full, b // micro) if micro
+                       else step_grads(ref, full))
+            del ref
+            torch.cuda.empty_cache()
+        refs[key] = (*out[0], out[1][1])
+    del full
+    loss, grads = mp_captured(runner, local)
+    faults = mp_faults(leg, runner, local)
+    label = f"14{leg} {'+'.join(legs)}, {px} px, batch {b}" + (
+        f" (BSGS / {micro})" if micro else "") + f", {world} ranks"
+    if r == 0:
+        want_loss, want, want32 = refs[key]
+        ok, text = mp_bars(label + " vs one process", loss, grads,
+                           want_loss, want, want32)
+        print(text, flush=True)
+        if not ok:
+            raise AssertionError(f"14{leg}: the sharded step is not one "
+                                 "process's")
+        for name, (f_loss, f_grads) in faults.items():
+            f_ok, f_text = mp_bars(f"14{leg} planted fault, {name}", f_loss,
+                                   f_grads, want_loss, want, want32)
+            print(f_text + f"; within the bars {f_ok}", flush=True)
+            if f_ok:
+                raise AssertionError(f"14{leg}: the planted fault ({name}) "
+                                     "passed")
+    del grads, faults, local
+    host = {"image": batch["image"][d * n:(d + 1) * n],
+            "caption": batch["caption"][d * n:(d + 1) * n]}
+    ms, red, staged, counts = dist_train_steps(f"14{leg}", runner, host,
+                                               MP_STEPS, r)
+    kernels = {"flash_attention": 12 * MP_STEPS, "lane_train": 12 * MP_STEPS,
+               "flash_attention_bwd": 12 * MP_STEPS} if px == TRAIN_SIZE else {}
+    check_counts(f"14{leg} rank {r}", counts, kernels)
+    got = state_bytes(runner.model, runner.optimizer)
+    (want_b, dp_b) = mp_rule_bytes(plan)
+    print(f"14{leg} rank {r}: parameter / moment bytes {got[0]} / {got[1]}, the "
+          f"rules' {want_b[0]} / {want_b[1]}, one process's {dp_b[0]} / "
+          f"{dp_b[1]}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    if tuple(got) != tuple(want_b):
+        raise AssertionError(f"14{leg} rank {r}: the rank holds {got} bytes, "
+                             f"the rules give {want_b}")
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in runner.model.state_dict().items():
+        spec = plan.specs.get(k)
+        if spec is None or (spec.tp_dim is None and spec.fsdp_dim is None):
+            h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                     .tobytes())
+    digests = process_allgather(np.frombuffer(h.digest(), np.uint8))
+    same = bool((digests == digests[0]).all())
+    print(f"14{leg} rank {r}: replicated leaves bit-equal across the ranks "
+          f"after {MP_STEPS} steps {same}", flush=True)
+    if not same:
+        raise AssertionError(f"14{leg}: the ranks' replicated leaves differ")
+    result[leg] = dict(ms=ms, reduce_ms=red, staged=staged, counts=counts,
+                       bytes=list(got), rule_bytes=list(want_b),
+                       dp_bytes=list(dp_b), images_per_s=b / ms * 1e3,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       seconds=time.perf_counter() - t_leg)
+    if leg == "c":
+        result["c"]["digest"] = params_digest(runner.model)
+    del runner
+    torch.cuda.empty_cache()
+
+
+def mp_zero1_vs_dp(tmp, r, dev, result):
+    """(c)'s data-parallel twin: the same ranks, batches and weights without
+    ZeRO-1; the parameters after ``MP_STEPS`` steps must be bit-equal to
+    ZeRO-1's (AdamW is elementwise, the slices see the whole summed
+    gradient)."""
+    _, px, b, _, _ = MP_LEGS["c"]
+    batch224, tok = caption_batch(41, b, px)
+    runner = mp_runner(mp_cfg(tmp, "c", sharded=False), tok, dev)
+    n, d = b // runner.mesh.data_size, runner.mesh.data_rank
+    host = {"image": batch224["image"][d * n:(d + 1) * n],
+            "caption": batch224["caption"][d * n:(d + 1) * n]}
+    ms, _, staged, _ = dist_train_steps("14c data-parallel twin", runner, host,
+                                        MP_STEPS, r)
+    same = params_digest(runner.model) == result["c"]["digest"]
+    print(f"14c rank {r}: ZeRO-1's parameters after {MP_STEPS} AdamW steps "
+          f"bit-equal to data parallelism's {same}; {ms:.1f} ms a step "
+          f"data-parallel vs {result['c']['ms']:.1f} ZeRO-1", flush=True)
+    if not same:
+        raise AssertionError("14c: ZeRO-1 is not bit-equal to data parallelism")
+    result["c"]["dp_ms"] = ms
+    del runner
+    torch.cuda.empty_cache()
+
+
+def run_mp_worker(out_dir, world, backend="gloo"):
+    """One rank of a phase 14 world: gloo ranks on ``cuda:0`` (NCCL: a card
+    a rank), the legs of this world size; its numbers to
+    ``out_dir/rank<r>.json``."""
+    from simseg_tpu_torch.parallel import init_distributed, local_rank, rank
+
+    dev = "cuda:0" if backend == "gloo" else f"cuda:{local_rank()}"
+    init_distributed(backend=backend, device=dev, timeout=MP_LIMIT)
+    r, result, refs = rank(), {}, {}
+    legs = [leg for leg, spec in MP_LEGS.items() if spec[0] == int(world)]
+    if backend != "gloo":
+        legs = ["e"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for leg in legs:
+            mp_leg(tmp, leg, r, dev, result, refs)
+            if leg == "c":
+                mp_zero1_vs_dp(tmp, r, dev, result)
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def mp_world(world, backend="gloo"):
+    """The ranks of one phase 14 world, started together; their results."""
+    from simseg_tpu_torch.launch import free_port
+
+    with tempfile.TemporaryDirectory() as out:
+        port, procs = free_port(), []
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(r if backend == "nccl" else 0),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-worker", out,
+                 str(world), backend], env=env))
+        try:
+            rcs = [p.wait(timeout=MP_LIMIT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if rcs != [0] * world:
+            raise AssertionError(f"14: the {world} ranks exited {rcs}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks
+
+
+def run_model_parallel():
+    """Phase 14: the attention kernels at the TP shape, then the legs in a
+    world of 2 and one of 4 gloo ranks on the card; returns the attention
+    kernels' launches per rank in (a) and (b)."""
+    card = card_line()
+    t_start = time.perf_counter()
+    b = MP_LEGS["a"][2]
+    fwd = check_flash_kernel(MP_T, b=b, heads=HEADS // 2)
+    bwd = check_flash_bwd_kernel(MP_T, b, heads=HEADS // 2)
+    torch.cuda.empty_cache()
+    # the two worlds at once: six host-bound processes, about 40 GiB of
+    # the card at their peaks
+    with ThreadPoolExecutor(2) as pool:
+        worlds = {w: pool.submit(mp_world, w) for w in (2, 4)}
+        ranks = {w: job.result() for w, job in worlds.items()}
+    for leg, (world, px, b, legs, micro) in MP_LEGS.items():
+        for r, res in enumerate(ranks[world]):
+            x = res[leg]
+            print(f"14{leg} rank {r} ({card}): {'+'.join(legs)} at {px} px, "
+                  f"batch {b}{f' (BSGS / {micro})' if micro else ''}: "
+                  f"{x['images_per_s']:.1f} images/s ({x['ms']:.1f} ms a step"
+                  + (f"; data-parallel {x['dp_ms']:.1f}" if "dp_ms" in x else "")
+                  + f"), reduction {x['reduce_ms']:.1f} ms a step, "
+                  f"{x['staged'] / 2**20:.1f} MiB staged a step, parameters "
+                  f"{x['bytes'][0] / 2**20:.1f} MiB and moments "
+                  f"{x['bytes'][1] / 2**20:.1f} MiB (one process "
+                  f"{x['dp_bytes'][0] / 2**20:.1f} / {x['dp_bytes'][1] / 2**20:.1f}), "
+                  f"peak {x['peak_gib']:.2f} GiB; the leg in "
+                  f"{x['seconds']:.1f} s; {MP_NOTE}", flush=True)
+    print(f"14 attention at ({MP_LEGS['a'][2]}, {MP_T}, {HEADS // 2}, "
+          f"{HEAD_DIM}): forward "
+          f"{fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, sdpa "
+          f"{fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f}); backward "
+          f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, sdpa "
+          f"{bwd['library_ms']:.4f}, bound {bwd['bound_ms']:.4f})", flush=True)
+    print(f"14 phase in {time.perf_counter() - t_start:.1f} s", flush=True)
+    return {k: [res[leg]["counts"][k] for leg in ("a", "b")
+                for res in ranks[2]]
+            for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def run_model_parallel_nccl():
+    """(e) over four cards, one NCCL rank each: the record of the leg across
+    NVLink (needs four cards)."""
+    if torch.cuda.device_count() < 4:
+        raise SystemExit("chip_smoke --model-parallel-nccl needs four cards")
+    t_start = time.perf_counter()
+    for r, res in enumerate(mp_world(4, "nccl")):
+        x = res["e"]
+        print(f"14e NCCL rank {r} ({card_line()}): {x['images_per_s']:.1f} "
+              f"images/s ({x['ms']:.1f} ms a step), reduction "
+              f"{x['reduce_ms']:.1f} ms a step, peak {x['peak_gib']:.2f} GiB",
+              flush=True)
+    print(f"14e NCCL in {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def build_all(later=()):
     """Builds the four kernels and the nvJPEG binding with one nvcc process
-    each, in parallel."""
+    each, all started together; waits for every source but those named in
+    ``later`` and returns a function that waits for those (nothing may call
+    their kernels before it has returned)."""
     from simseg_tpu_torch.ops import cuda_build
 
     sources = [(name, ()) for name in KERNELS] + [("nvjpeg_decode", ("-lnvjpeg",))]
+    t0 = time.perf_counter()
 
     def build(job):
-        t0 = time.perf_counter()
         cuda_build.build_library(*job)
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(sources)) as pool:
-        seconds = list(pool.map(build, sources))
-    for (name, _), sec in zip(sources, seconds):
-        print(f"build: {name}.cu in {sec:.2f} s", flush=True)
+    pool = ThreadPoolExecutor(len(sources))
+    jobs = {job[0]: pool.submit(build, job) for job in sources}
+    pool.shutdown(wait=False)
+
+    def wait(names):
+        for name in names:
+            t_wait = time.perf_counter()
+            built = jobs[name].result()
+            print(f"build: {name}.cu in {built:.2f} s (waited "
+                  f"{time.perf_counter() - t_wait:.2f} s for it)", flush=True)
+
+    wait([name for name in jobs if name not in later])
+    return lambda: wait(later)
 
 
 FWD_TREE_SHAPES = ((BATCH, LONG_T, False), (BATCH, ROWBLOCK_T, False),
@@ -5392,8 +5907,12 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke needs one")
     if sys.argv[1:2] == ["--rank-worker"]:
         return run_rank_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--mp-worker"]:
+        return run_mp_worker(*sys.argv[2:5])
     if sys.argv[1:2] == ["--serve-worker"]:
         return run_serve_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--serve-export"]:
+        return run_serve_export(*sys.argv[2:6])
     if sys.argv[1:2] == ["--attention-trees"]:
         print(f"card: {card_line()}", flush=True)
         return compare_attention_trees(sys.argv[2:])
@@ -5440,16 +5959,30 @@ def main() -> None:
         build_all()
         run_serving()
         return None
+    if sys.argv[1:2] == ["--model-parallel"]:
+        print(f"card: {card_line()}", flush=True)
+        build_all()
+        run_model_parallel()
+        return None
+    if sys.argv[1:2] == ["--model-parallel-nccl"]:
+        print(f"card: {card_line()}", flush=True)
+        run_model_parallel_nccl()
+        return None
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("float32 matmuls must be full float32 (TF32 on)")
-    build_all()
+    t_run = time.perf_counter()
+    crf_built = build_all(later=("crf_mean_field",))
 
-    crf = check_crf_kernel(BATCH)
-    check_crf_kernel(BENCH_BATCH)
+    def phase_done(label, t_from):
+        print(f"{label} in {time.perf_counter() - t_from:.1f} s (the run at "
+              f"{time.perf_counter() - t_run:.1f} s)", flush=True)
+        return time.perf_counter()
+
+    t_phase = time.perf_counter()
     attn = {t: check_flash_kernel(t, profile=t == LONG_T) for t in ATTN_TS}
     bilateral = check_bilateral_kernel()
     for t in BWD_TS:
@@ -5468,7 +6001,21 @@ def main() -> None:
                 for lane, (b, t) in (("rowblock", LONG_BWD[0]),
                                      ("stream", LONG_BWD[-1]))}
     torch.cuda.empty_cache()
+    t_phase = phase_done("3 kernel checks, attention and bilateral", t_phase)
+    # the training slice and the pretraining entry point take no CRF: they
+    # run while crf_mean_field.cu builds
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts, row_train_counts = run_train_slice(tmp)
+    t_phase = phase_done("6 training slice", t_phase)
+    torch.cuda.empty_cache()
+    train_entry = run_train_entry()
+    t_phase = phase_done("9 train entry point", t_phase)
+    torch.cuda.empty_cache()
+    crf_built()
+    crf = check_crf_kernel(BATCH)
+    check_crf_kernel(BENCH_BATCH)
     tail = check_tail_kernel()
+    t_phase = phase_done("3 kernel checks, CRF and decode tail", t_phase)
 
     model, tokenizer, classes = slice_setup()
     crf_launches = run_slice(model, tokenizer, classes)
@@ -5482,22 +6029,28 @@ def main() -> None:
         {"rowblock": 36, "stream": 36}, 4)
     tail_counts = run_fused_tail_slice(model, tokenizer, classes)
     check_checkpoint()
+    t_phase = phase_done("4-5 segmentation slices and checkpoint", t_phase)
     del model
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        train_counts, row_train_counts = run_train_slice(tmp)
-    torch.cuda.empty_cache()
     run_lanes(tokenizer, classes)
+    t_phase = phase_done("7 lanes", t_phase)
     entry = run_entry_point()
-    train_entry = run_train_entry()
+    t_phase = phase_done("8 seg entry point", t_phase)
     torch.cuda.empty_cache()
     big = run_big_batch()
+    t_phase = phase_done("10 big batch", t_phase)
     torch.cuda.empty_cache()
     dist = run_distributed()
+    t_phase = phase_done("11 data parallelism", t_phase)
     torch.cuda.empty_cache()
     cnn = run_linear_probe(tokenizer, classes)
+    t_phase = phase_done("12 linear probe", t_phase)
     torch.cuda.empty_cache()
     serve = run_serving()
+    t_phase = phase_done("13 serving", t_phase)
+    torch.cuda.empty_cache()
+    mp = run_model_parallel()
+    phase_done("14 sharded state", t_phase)
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",
@@ -5518,6 +6071,7 @@ def main() -> None:
          "bsgs_launches": big["flash_attention"],
          "dist_launches": dist["flash_attention"],
          "serving_launches": serve["b_scales_tail"]["flash_attention"],
+         "mp_launches": mp["flash_attention"],
          **attn[LONG_T]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -5526,6 +6080,7 @@ def main() -> None:
          "train_entry_launches": train_entry["B"]["flash_attention_bwd"],
          "bsgs_launches": big["flash_attention_bwd"],
          "dist_launches": dist["flash_attention_bwd"],
+         "mp_launches": mp["flash_attention_bwd"],
          **attn_bwd},
         {"name": "bilateral_matvec", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/bilateral_matvec.cu",

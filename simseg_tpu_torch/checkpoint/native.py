@@ -15,10 +15,14 @@ rename, the ``latest_ckpt`` pointer flips only once a checkpoint is
 complete, and a re-save under an existing name writes a fresh
 ``name@<step>`` directory and prunes the superseded ones.
 
-In a ``torch.distributed`` world rank 0 writes (the parameters are the same
-on every rank, JAX ``checkpoint/native.py:31-36``) and every rank waits at
-a barrier until the files are complete, so a rank that resumes, or reads
-the pointer, reads the same checkpoint.
+In a ``torch.distributed`` world rank 0 writes (JAX
+``checkpoint/native.py:31-36``), and every rank waits at a barrier until
+the files are complete, so a rank that resumes, or reads the pointer, reads
+the same checkpoint. On a sharded leg (``parallel/sharding.py``) every rank
+takes part in gathering the shards, tensor by tensor, and only rank 0 keeps
+them: the parameters and the optimizer's moments are written whole, the
+file a data-parallel run writes, and a load cuts them to whatever leg the
+loading run has.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import torch
 
 from simseg_tpu_torch.parallel.collectives import barrier
 from simseg_tpu_torch.parallel.mesh import rank
+from simseg_tpu_torch.parallel.sharding import (full_state_dict,
+                                                load_full_state_dict)
 
 logger = logging.getLogger(__name__)
 
@@ -47,14 +53,20 @@ def save_checkpoint(directory: str, name: str, model: torch.nn.Module,
                     make_latest: bool = True) -> Optional[str]:
     """Write ``model`` (and ``optimizer``) under ``directory/name``; returns
     the path, None on a rank other than 0 (JAX ``save_checkpoint``). Every
-    rank of a world must call it: the write ends at a barrier."""
-    path = _write_checkpoint(directory, name, model, optimizer, meta,
-                             make_latest) if rank() == 0 else None
+    rank of a world must call it: the shards are gathered over the ranks,
+    and the write ends at a barrier."""
+    writer = rank() == 0
+    state = {"model": full_state_dict(model, keep=writer),
+             "step": (meta or {}).get("step", 0)}
+    if optimizer is not None:
+        state["optimizer"] = optimizer.state_dict(keep=writer)
+    path = _write_checkpoint(directory, name, state, meta,
+                             make_latest) if writer else None
     barrier()
     return path
 
 
-def _write_checkpoint(directory, name, model, optimizer, meta, make_latest):
+def _write_checkpoint(directory, name, state, meta, make_latest):
     base = name
     path = os.path.join(directory, name)
     meta = dict(meta or {})
@@ -71,9 +83,6 @@ def _write_checkpoint(directory, name, model, optimizer, meta, make_latest):
     meta.setdefault("simseg_tpu_torch_version", _version())
     meta.setdefault("torch_version", torch.__version__)
 
-    state = {"model": model.state_dict(), "step": meta.get("step", 0)}
-    if optimizer is not None:
-        state["optimizer"] = optimizer.state_dict()
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(state, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
@@ -117,7 +126,7 @@ def load_checkpoint(directory: str, model: torch.nn.Module, optimizer=None,
     device = next(model.parameters()).device
     state = torch.load(os.path.join(path, STATE_FILE), map_location=device,
                        weights_only=True)
-    model.load_state_dict(state["model"], strict=True)
+    load_full_state_dict(model, state["model"], strict=True)
     if optimizer is not None and "optimizer" in state:
         optimizer.load_state_dict(state["optimizer"])
     meta: Dict[str, Any] = {}
@@ -139,7 +148,7 @@ def load_params(path: str, model: torch.nn.Module) -> None:
     state = torch.load(os.path.join(path, STATE_FILE),
                        map_location=next(model.parameters()).device,
                        weights_only=True)
-    model.load_state_dict(state["model"], strict=True)
+    load_full_state_dict(model, state["model"], strict=True)
 
 
 def has_checkpoint(directory: str) -> bool:

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 import torch
 
 from simseg_tpu_torch.ops.interpolate_pe import interpolate_pos_embed
+from simseg_tpu_torch.parallel.sharding import full_shapes, load_full_state_dict
 
 logger = logging.getLogger(__name__)
 
@@ -71,7 +72,7 @@ def load_state_into(model: torch.nn.Module, state: Dict[str, torch.Tensor],
     (``pos_embed`` resampled to the model's grid first). Returns the
     four-bucket report; with ``strict`` a missing or mismatched entry
     raises before anything is copied."""
-    target = model.state_dict()
+    target = full_shapes(model)
     loaded: Dict[str, torch.Tensor] = {}
     matched, mismatched, unexpected = [], [], []
     for name, value in state.items():
@@ -79,14 +80,14 @@ def load_state_into(model: torch.nn.Module, state: Dict[str, torch.Tensor],
         if want is None:
             unexpected.append(name)
             continue
-        if name.endswith("pos_embed") and value.shape != want.shape:
-            n_new = want.shape[1]
+        if name.endswith("pos_embed") and tuple(value.shape) != want:
+            n_new = want[1]
             extra = n_new - int(round((n_new - 1) ** 0.5)) ** 2
             value = interpolate_pos_embed(value, n_new - extra, extra)
             logger.info("interpolated %s %s -> %s", name,
                         tuple(state[name].shape), tuple(value.shape))
-        if value.shape != want.shape:
-            mismatched.append((name, tuple(value.shape), tuple(want.shape)))
+        if tuple(value.shape) != want:
+            mismatched.append((name, tuple(value.shape), want))
             continue
         loaded[name] = value
         matched.append(name)
@@ -96,7 +97,7 @@ def load_state_into(model: torch.nn.Module, state: Dict[str, torch.Tensor],
     if strict and (missing or mismatched):
         raise ValueError(f"strict load failed: {len(missing)} missing, "
                          f"{len(mismatched)} mismatched: {report}")
-    model.load_state_dict(loaded, strict=strict)
+    load_full_state_dict(model, loaded, strict=strict)
     logger.info("torch checkpoint: %d matched, %d shape-mismatched, %d "
                 "missing, %d unexpected", len(matched), len(mismatched),
                 len(missing), len(unexpected))

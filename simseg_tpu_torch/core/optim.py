@@ -38,6 +38,24 @@ The JAX version builds an optax chain; this one keeps its semantics:
 Adam's and SGD's weight decay are coupled L2, as torch's own (the JAX
 version adds ``add_decayed_weights`` ahead of optax's transform for the
 same reason); AdamW's is decoupled.
+
+Sharded state (``parallel/sharding.py``): a parameter that TP or FSDP
+shards is a shard here too, and so are its moments. Under ZeRO-1
+(``dist.zero1``) the optimizer steps a view of its data rank's slice of
+each parameter it shards (``ParamSpec.zero_dim``), so the moments exist for
+that slice only: the whole gradient, summed over the data ranks, is viewed
+in the same slice, the slice updated in place and the other ranks' slices
+all-gathered into the parameter. AdamW,
+Adam and SGD are elementwise, so the parameters are bit for bit the
+data-parallel step's. Where some gradient is a shard, the global norm
+counts each element once over the world (``sharding.grad_sq_norm``) and
+the non-finite guard decides on every rank's gradients, so clipping and
+the guard see the whole gradient and every rank decides the same.
+``state_dict`` gathers the moments whole (a collective: every rank calls
+it; ``keep`` False drops each as it is gathered, on a rank that does not
+write), the state a data-parallel run writes, and ``load_state_dict`` cuts a
+whole state to this rank's slices. LARS's per-tensor norms span the
+slices: it is refused on a sharded leg.
 """
 
 from __future__ import annotations
@@ -49,6 +67,10 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 from simseg_tpu_torch.checkpoint.convert import flax_param_path
+from simseg_tpu_torch.parallel.collectives import all_reduce_max
+from simseg_tpu_torch.parallel.mesh import host_group
+from simseg_tpu_torch.parallel.sharding import (gather_zero_slices, grad_sq_norm,
+                                                plan_of)
 
 logger = logging.getLogger(__name__)
 
@@ -146,8 +168,10 @@ class Optimizer:
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  base: torch.optim.Optimizer, max_norm: Optional[float] = None,
-                 skip_nonfinite: int = 0, accum_steps: int = 1) -> None:
-        self.params: List[torch.nn.Parameter] = [p for _, p in named_params]
+                 skip_nonfinite: int = 0, accum_steps: int = 1,
+                 plan=None, zero: Sequence[tuple] = ()) -> None:
+        named = list(named_params)
+        self.params: List[torch.nn.Parameter] = [p for _, p in named]
         self.base = base
         self.max_norm = max_norm
         self.skip_nonfinite = skip_nonfinite
@@ -156,6 +180,20 @@ class Optimizer:
         self.mini_step = 0
         # the running mean of the steps' gradients (accum_steps > 1)
         self.acc: Optional[List[torch.Tensor]] = None
+        # the shard plan (parallel/sharding.py; None: every parameter whole)
+        self.plan = plan
+        self.specs = [None if plan is None else plan.specs.get(n)
+                      for n, _ in named]
+        self._sharded = plan is not None and plan.sharded_grads
+        # ZeRO-1: (parameter, the base optimizer's view of its slice, spec)
+        self._zero = list(zero)
+        # the spec of each base parameter, in the base state's index order,
+        # and whether it is a ZeRO-1 slice
+        of = {id(o): (spec, True) for _, o, spec in self._zero}
+        of.update({id(p): (spec, False) for p, spec in zip(self.params,
+                                                           self.specs)})
+        self._base_specs = [of.get(id(t), (None, False))
+                            for g in base.param_groups for t in g["params"]]
 
     def set_lr(self, lr: float) -> None:
         for group in self.base.param_groups:
@@ -164,19 +202,27 @@ class Optimizer:
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+        for _, o, _ in self._zero:
+            o.grad = None
 
     def step(self) -> torch.Tensor:
         """One update from the parameters' ``.grad`` (a missing grad is a
         zero), or under ``accum_steps`` one step of the accumulation;
         returns the global norm of this step's gradients before clipping,
         as a float32 scalar tensor, and clears the gradients."""
-        norm = _global_norm([p.grad for p in self.params if p.grad is not None])
+        norm = self._norm()
         if self.accum_steps == 1:
             self._update(norm)
         elif self._accumulate():
-            self._update(_global_norm([p.grad for p in self.params]))
+            self._update(self._norm())
         self.zero_grad()
         return norm
+
+    def _norm(self) -> torch.Tensor:
+        grads = [p.grad for p in self.params]
+        if self._sharded:
+            return torch.sqrt(grad_sq_norm(grads, self.specs, self.plan))
+        return _global_norm([g for g in grads if g is not None])
 
     def _accumulate(self) -> bool:
         """Adds the gradients to the running mean; on the k-th step puts the
@@ -202,6 +248,9 @@ class Optimizer:
         apply = True
         if self.skip_nonfinite > 0:
             finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+            if self._sharded:
+                flag = torch.tensor([0.0 if finite else 1.0])
+                finite = not bool(all_reduce_max(flag, host_group()).item())
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             apply = finite or self.notfinite_count > self.skip_nonfinite
         if apply:
@@ -209,22 +258,74 @@ class Optimizer:
                 scale = torch.where(norm < self.max_norm, torch.ones_like(norm),
                                     self.max_norm / norm)
                 torch._foreach_mul_(grads, scale)
+            for p, o, spec in self._zero:
+                # a view of the parameter's storage as it is now (``.to``
+                # may have moved the parameter since the last step)
+                o.data = self.plan.zero_view(p.detach(), spec)
+                o.grad = (None if p.grad is None
+                          else self.plan.zero_view(p.grad, spec))
             self.base.step()
+            if self._zero:
+                gather_zero_slices(self._zero, self.plan)
 
-    def state_dict(self) -> dict:
-        state = {"base": self.base.state_dict(),
-                 "notfinite_count": self.notfinite_count}
+    def _moments(self, state: dict, whole: bool, keep: bool = True) -> dict:
+        """The base optimizer's state with each moment whole (``whole``;
+        ``keep`` False: each dropped once gathered) or cut to this rank's
+        shard or slice."""
+        plan = self.plan
+        out = {}
+        for i, st in state.items():
+            spec, zero = self._base_specs[int(i)]
+            new = {}
+            for k, v in st.items():
+                if torch.is_tensor(v) and v.dim() > 0 and spec is not None:
+                    if zero:
+                        v = (plan.zero_full(v, spec) if whole
+                             else plan.zero_local(v, spec))
+                    elif spec.tp_dim is not None or spec.fsdp_dim is not None:
+                        v = plan.full(v, spec) if whole else plan.local(v, spec)
+                if keep:
+                    new[k] = v
+            out[i] = new
+        return out
+
+    def _acc_layout(self, acc, whole: bool, keep: bool = True):
+        if acc is None:
+            return acc
+        out = []
+        for a, spec in zip(acc, self.specs):
+            if self.plan is not None and spec is not None and (
+                    spec.tp_dim is not None or spec.fsdp_dim is not None):
+                a = self.plan.full(a, spec) if whole else self.plan.local(a, spec)
+            elif whole:
+                a = a.clone()
+            if keep:
+                out.append(a)
+        return out
+
+    def state_dict(self, keep: bool = True) -> dict:
+        """The state in the whole layout (a collective under a shard plan:
+        every rank calls it). With ``keep`` False, on a rank that does not
+        write it, each gathered tensor is dropped at once: that rank never
+        holds the whole state, and what it returns is not a state."""
+        base = self.base.state_dict()
+        if self.plan is not None:
+            base = dict(base, state=self._moments(base["state"], True, keep))
+        state = {"base": base, "notfinite_count": self.notfinite_count}
         if self.accum_steps > 1:
             state["mini_step"] = self.mini_step
-            state["acc"] = None if self.acc is None else [
-                a.clone() for a in self.acc]
+            state["acc"] = None if self.acc is None else self._acc_layout(
+                self.acc, True, keep)
         return state
 
     def load_state_dict(self, state: dict) -> None:
-        self.base.load_state_dict(state["base"])
+        base = state["base"]
+        if self.plan is not None:
+            base = dict(base, state=self._moments(base["state"], False))
+        self.base.load_state_dict(base)
         self.notfinite_count = int(state.get("notfinite_count", 0))
         self.mini_step = int(state.get("mini_step", 0))
-        acc = state.get("acc")
+        acc = self._acc_layout(state.get("acc"), False)
         self.acc = None if acc is None else [
             a.to(p.device, p.dtype).clone() for a, p in zip(acc, self.params)]
 
@@ -246,9 +347,21 @@ def build_optimizer(cfg, model: torch.nn.Module,
     cls, kwargs = _optimizer_class(cfg.optim.name, opt_param)
 
     named = list(model.named_parameters())
+    plan = plan_of(model)
+    if plan is not None and cls is LARS:
+        raise NotImplementedError(
+            "LARS's per-tensor trust ratios span the shards: it is not "
+            "ported on a sharded leg (dist.tp_size / fsdp / zero1)")
     by_label: Dict[str, List[torch.nn.Parameter]] = {}
+    zero = []
     for name, p in named:
         label = param_label(flax_param_path(name), rules, frozen_patterns)
+        spec = None if plan is None else plan.specs.get(name)
+        if label != "_frozen" and spec is not None and spec.zero_dim is not None:
+            # ZeRO-1: the base optimizer steps a view of this rank's slice
+            o = torch.nn.Parameter(plan.zero_view(p.detach(), spec))
+            zero.append((p, o, spec))
+            p = o
         by_label.setdefault(label, []).append(p)
 
     groups = []
@@ -274,4 +387,5 @@ def build_optimizer(cfg, model: torch.nn.Module,
     clip = cfg.optim.get("grad_clip", {}) or {}
     return Optimizer(named, base, max_norm=clip.get("max_norm", None),
                      skip_nonfinite=cfg.optim.get("skip_nonfinite", 0) or 0,
-                     accum_steps=int(cfg.optim.get("grad_accum_steps", 1) or 1))
+                     accum_steps=int(cfg.optim.get("grad_accum_steps", 1) or 1),
+                     plan=plan, zero=zero)

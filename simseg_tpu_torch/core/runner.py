@@ -27,15 +27,25 @@ lr schedule, the steps and the parameters are the same on every rank.
 ``loss.group_size`` (ranks per gather group) must divide the world, as
 JAX's ``make_mesh`` checks.
 
+The sharded legs of ``dist`` (``tp_size``, ``sp``, ``fsdp``, ``zero1``;
+JAX ``build_step_fns`` :342-445 and ``_adopt_step_factory``) are applied
+to the model where the runner takes it (``prepare_model``:
+``parallel/sharding.shard_model``) before the optimizer is built over its
+shards; the steps then run them (``engine/``). ``dist.tp_size`` ranks form
+a model group, which sees the same rows: the model group's first rank
+broadcasts each host batch to the others, so their random augmentations
+are one draw.
+
 Settings of JAX features the port has not ported yet are refused by name
-where a runner builds its step (``refuse_unported``): the model-parallel
-and sharded legs of ``dist`` (ROADMAP item 13), ``ckpt.backend: orbax``,
-``wandb.enable`` and ``profile`` (item 11).
+where a runner builds its step (``refuse_unported``): pipeline and expert
+parallelism (ROADMAP item 13), ``ckpt.backend: orbax``, ``wandb.enable``
+and ``profile`` (item 11).
 """
 
 from __future__ import annotations
 
 import collections
+import logging
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -52,23 +62,22 @@ from simseg_tpu_torch.engine.train_step import (make_eval_step, make_train_step,
                                                 step_key)
 from simseg_tpu_torch.models.layers import BatchNorm
 from simseg_tpu_torch.parallel.collectives import (all_reduce_mean,
+                                                   broadcast_batch,
                                                    reduce_gradients)
+from simseg_tpu_torch.parallel.sharding import shard_model
 from simseg_tpu_torch.parallel.mesh import (batch_shards, loss_group_samples,
                                             make_mesh)
 from simseg_tpu_torch.utils.collections import AttrDict
+
+logger = logging.getLogger(__name__)
 
 _BATCH_KEYS = ("image", "input_ids", "attention_mask", "ignore_mask", "label")
 
 
 # dist keys of the parallel legs not ported yet (ROADMAP item 13), with
 # their defaults: any other value is refused
-_UNPORTED_DIST = {"tp_size": 1, "sp": False, "zero1": False, "fsdp": False,
-                  "pp_size": 1, "pp_micro": 4, "moe_ep": False}
-_UNPORTED_DIST_NAMES = {"tp_size": "tensor parallelism",
-                        "sp": "sequence parallelism",
-                        "zero1": "ZeRO-1 optimizer-state sharding",
-                        "fsdp": "fully-sharded parameters",
-                        "pp_size": "pipeline parallelism",
+_UNPORTED_DIST = {"pp_size": 1, "pp_micro": 4, "moe_ep": False}
+_UNPORTED_DIST_NAMES = {"pp_size": "pipeline parallelism",
                         "pp_micro": "pipeline micro-batches",
                         "moe_ep": "expert-parallel MoE"}
 
@@ -76,7 +85,7 @@ _UNPORTED_DIST_NAMES = {"tp_size": "tensor parallelism",
 def refuse_unported(cfg) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for a setting
     that JAX acts on and the port would otherwise ignore: a non-default
-    ``dist`` parallel leg (item 13), ``ckpt.backend: orbax``,
+    pipeline or expert-parallel ``dist`` key (item 13), ``ckpt.backend: orbax``,
     ``wandb.enable: true`` or a truthy ``profile`` (item 11)."""
     dist = cfg.get("dist", {}) or {}
     for key, default in _UNPORTED_DIST.items():
@@ -143,7 +152,9 @@ class EpochRunner(BaseRunner):
         self.max_epochs = cfg.epoch
         self.val_interval = cfg.runner.val_interval
         self.val_interval_steps = cfg.runner.val_interval_steps
-        self.mesh = make_mesh(int(cfg.loss.get("group_size", -1) or -1))
+        self.mesh = make_mesh(int(cfg.loss.get("group_size", -1) or -1),
+                              self.tp_size())
+        self.model = self.prepare_model(self.model)
 
         # batch divisibility guard (parity: core/initial.py:68-72, JAX
         # runner.py:84-91): each rank takes batch_size / W of a batch
@@ -173,6 +184,14 @@ class EpochRunner(BaseRunner):
     def frozen_patterns(self):
         """Regexes of JAX parameter paths excluded from optimization."""
         return ()
+
+    def tp_size(self) -> int:
+        """Ranks per model group (``dist.tp_size``)."""
+        return int(self.cfg.dist.get("tp_size", 1) or 1)
+
+    def prepare_model(self, model: torch.nn.Module) -> torch.nn.Module:
+        """The model as the step trains it (a subclass shards it here)."""
+        return model
 
     def build_step_fns(self) -> None:
         raise NotImplementedError
@@ -204,8 +223,12 @@ class EpochRunner(BaseRunner):
                                  max_length=self.cfg.model.max_length)
             batch["input_ids"] = tok["input_ids"]
             batch["attention_mask"] = tok["attention_mask"]
-        return {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
-                for k, v in batch.items() if k in _BATCH_KEYS}
+        out = {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+               for k, v in batch.items() if k in _BATCH_KEYS}
+        if self.mesh is not None and self.mesh.tp > 1:
+            out = broadcast_batch(out, self.mesh.rank - self.mesh.model_rank,
+                                  self.mesh.model_host_group)
+        return out
 
     def _finish_batch(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """uint8 images normalised and ids as int64, on the device."""
@@ -367,6 +390,18 @@ class CLIPRunner(EpochRunner):
             patterns.append(r"^params/text_projection/")
         return tuple(patterns)
 
+    def prepare_model(self, model: torch.nn.Module) -> torch.nn.Module:
+        """The model sharded over the mesh by the config's ``dist`` legs
+        (JAX ``derive_state_shardings`` in ``build_step_fns``); a model
+        that ``build_clip_model(cfg, mesh)`` made tensor-parallel keeps its
+        TP."""
+        d = self.cfg.dist
+        return shard_model(model, self.mesh,
+                           tp=int(d.get("tp_size", 1) or 1),
+                           sp=bool(d.get("sp", False)),
+                           fsdp=bool(d.get("fsdp", False)),
+                           zero1=bool(d.get("zero1", False)))
+
     def build_step_fns(self) -> None:
         cfg = self.cfg
         if cfg.runner.name not in ("clip", "clip_bsgs"):
@@ -500,6 +535,10 @@ class LinearProbRunner(EpochRunner):
             return (r"^params/image_encoder/",)
         return ()
 
+    def tp_size(self) -> int:
+        # data-parallel only: build_step_fns refuses dist.tp_size
+        return 1
+
     def build_step_fns(self) -> None:
         cfg = self.cfg
         if int(cfg.dist.get("tp_size", 1) or 1) > 1:
@@ -507,6 +546,11 @@ class LinearProbRunner(EpochRunner):
                 "linear probing is data-parallel only (the encoder is "
                 "frozen and the classifier tiny) — use dist.tp_size=1")
         refuse_unported(cfg)
+        for key in ("sp", "zero1", "fsdp"):
+            if cfg.dist.get(key, False):
+                # JAX's probe step ignores them as well
+                logger.warning("dist.%s is a CLIP-step leg: the linear probe "
+                               "trains data-parallel", key)
         self._smoothing = cfg.loss.get("smoothing", 0.0)
         mixup_cfg = cfg.get("mixup", {}) or {}
         self._mixup_alpha = (float(mixup_cfg.get("alpha", 0.2))
@@ -552,7 +596,7 @@ class LinearProbRunner(EpochRunner):
         if self.mesh is None:
             loss.backward()
         else:
-            (loss / self.mesh.world).backward()
+            (loss / self.mesh.data_size).backward()
             reduce_gradients(self.optimizer.params)
             metrics = {k: all_reduce_mean(v) for k, v in metrics.items()}
         self.optimizer.set_lr(lr)

@@ -156,6 +156,8 @@ class PreemptionHook(Hook):
     step, write the step checkpoint through the registered
     ``CheckpointHook`` and exit 0, so that a restarted job auto-resumes in
     the middle of its epoch. A second SIGTERM takes the default action.
+    A run that ends puts the handler it found back, so that a process which
+    goes on after ``train`` returns is stopped by SIGTERM as before.
 
     In a world the ranks agree on the step to stop at: after every step the
     flag goes through a max all-reduce on the host group, so all ranks stop
@@ -173,7 +175,14 @@ class PreemptionHook(Hook):
             logger.warning("SIGTERM received: checkpointing after the current "
                            "step, then exiting 0 for auto-resume")
 
+        self._handler = _handler
         self._orig = signal.signal(signal.SIGTERM, _handler)
+
+    def after_run(self, runner) -> None:
+        import signal
+
+        if signal.getsignal(signal.SIGTERM) is self._handler:
+            signal.signal(signal.SIGTERM, self._orig)
 
     def _agreed(self) -> bool:
         if not is_distributed():
@@ -203,7 +212,9 @@ class RetrievalEvalHook(Hook):
     ``data.single_eval`` is false each rank embedded its shard of the valid
     set: the embeddings and ids are gathered from every rank first (JAX
     ``train_hooks.py:326-334``, the reference's all_gather), the shorter
-    shards padded with id -1."""
+    shards padded with id -1. The ranks of a model group (``dist.tp_size``)
+    embed the same shard together; only the group's first rank's rows are
+    kept."""
 
     def before_val_epoch(self, runner) -> None:
         self._img, self._txt, self._iid, self._cid = [], [], [], []
@@ -227,6 +238,10 @@ class RetrievalEvalHook(Hook):
             cid = np.arange(txt.shape[0])
         if is_distributed() and not runner.cfg.data.get("single_eval", True):
             dev = img.device
+            mesh = getattr(runner, "mesh", None)
+            if mesh is not None and mesh.model_rank > 0:
+                # the model group's first rank holds the same rows
+                iid = np.full_like(iid, -1)
             img, txt, iid, cid = allgather_rows(
                 [img.cpu().numpy(), txt.cpu().numpy(), iid, cid],
                 [0.0, 0.0, -1, -1])

@@ -436,10 +436,10 @@ def build_clip_dataloaders(cfg, tokenizer=None) -> Dict[str, Any]:
     "val": [loader, ...]}. ``data.train_type`` 'shuffle' concatenates the
     train sets into one shuffled loader, 'sequential' and 'debias' keep one
     loader per set. A valid set is ``valid.parquet`` where that file
-    exists, else its CSV. The batch is ``data.batch_size`` over the
-    ``torch.distributed`` world (one process unless a group is
-    initialised); ``data.single_eval`` gives every process the whole valid
-    set. ``tokenizer``: the port's WordPiece tokenizer, else one is read
+    exists, else its CSV. The batch is ``data.batch_size`` over the data
+    ranks of the ``torch.distributed`` world (one process unless a group is
+    initialised; ``dist.tp_size`` ranks to a model group, which loads one
+    shard); ``data.single_eval`` gives every process the whole valid set. ``tokenizer``: the port's WordPiece tokenizer, else one is read
     from ``data.vocab_file``."""
     if tokenizer is None:
         vocab = cfg.data.get("vocab_file")
@@ -451,6 +451,9 @@ def build_clip_dataloaders(cfg, tokenizer=None) -> Dict[str, Any]:
 
         tokenizer = WordPieceTokenizer.from_vocab_file(vocab)
     shard, nshards = process_shard()
+    # a model group's ranks (dist.tp_size) load one data rank's shard
+    tp = max(int(cfg.dist.get("tp_size", 1) or 1), 1)
+    shard, nshards = shard // tp, max(nshards // tp, 1)
     train_tf = build_transforms(cfg, "train")
     valid_tf = build_transforms(cfg, "valid")
     bs = cfg.data.batch_size // nshards

@@ -25,10 +25,17 @@ runs on the embeddings all-gathered over the world (or over the rank's
 ``loss.group_size`` gather group, whose rows are one loss group) with the
 global batch as the divisor, pass 2 re-forwards the rank's micro-batches
 with its rows of the left matrices, and the gradients are summed over the
-ranks once per step (``parallel/collectives.reduce_gradients``). The
+ranks once per step (``parallel/sharding.reduce_model_gradients``). The
 logged loss and accuracies are the global batch's. Under mixup the flip
 blocks are the micro-batches, each on one rank, as in JAX where a
 micro-batch is a contiguous block of the global batch.
+
+On the sharded legs (JAX ``make_bsgs_train_step`` with TP, ZeRO-1 and
+FSDP) "rank" above is a data rank: the ranks of a model group run both
+passes together on the same rows (the towers' collectives in their
+layers), the middle section runs the same on each of them, FSDP's
+gradients are reduce-scattered in each micro-batch's backward, and the
+optimizer holds its shards (``core/optim.py``).
 
 Dropout: micro-batch i runs with the key ``fold_in(key, i)`` in both
 passes (JAX ``bsgs.py:126-127``), and every dropout site seeds its own
@@ -53,9 +60,9 @@ import torch
 
 from simseg_tpu_torch.engine.train_step import (mixup_lambda, rank_key,
                                                 step_key)
-from simseg_tpu_torch.parallel.collectives import (all_gather, all_reduce_sum,
-                                                   reduce_gradients)
+from simseg_tpu_torch.parallel.collectives import all_gather, all_reduce_sum
 from simseg_tpu_torch.parallel.mesh import DataMesh
+from simseg_tpu_torch.parallel.sharding import reduce_model_gradients
 from simseg_tpu_torch.utils import threefry
 
 _BATCH_KEYS = ("image", "input_ids", "attention_mask")
@@ -148,13 +155,13 @@ def make_bsgs_grad_fn(model, num_micro: int, smoothing: float = 0.0,
              else 1.0 - mask.to(dev, torch.float32))
         b, first, gsize = rows, 0, group_size
         if mesh is not None:
-            # the middle section over the gathered batch: the world's, or
-            # the rank's gather group's (one loss group)
-            group = mesh.group if mesh.n_groups > 1 else None
-            img_g, txt_g, w = (all_gather(x, group) for x in (img_g, txt_g, w))
-            b = rows * mesh.world
-            first = rows * (mesh.rank_in_group if group is not None
-                            else mesh.rank)
+            # the middle section over the gathered batch: every data
+            # rank's, or the rank's gather group's (one loss group)
+            grouped = mesh.n_groups > 1
+            img_g, txt_g, w = (all_gather(x, mesh.gather_group)
+                               for x in (img_g, txt_g, w))
+            b = rows * mesh.data_size
+            first = rows * (mesh.rank_in_group if grouped else mesh.data_rank)
             gsize = -1
         n = img_g.shape[0]
         g = gsize if (gsize and 0 < gsize < n) else n
@@ -213,16 +220,16 @@ def make_bsgs_grad_fn(model, num_micro: int, smoothing: float = 0.0,
         valid = w_blk.sum()
         if mesh is not None and mesh.n_groups > 1:
             # each group's sums, counted once by each of its ranks
-            loss, hits1, hits2, valid = (all_reduce_sum(x) / mesh.group_ranks
-                                         for x in (loss, hits1, hits2, valid))
+            loss, hits1, hits2, valid = (
+                all_reduce_sum(x, mesh.data_group) / mesh.group_ranks
+                for x in (loss, hits1, hits2, valid))
         denom = torch.clamp(valid, min=1.0)
 
         # ---- pass 2: the surrogate re-forward with grads (:404-438), on
         # this rank's rows of the left matrices
         reforward(model, micro, keys, lam, left_i[first:first + rows],
                   left_t[first:first + rows], b)
-        if mesh is not None:
-            reduce_gradients(model.parameters())
+        reduce_model_gradients(model, mesh)
         return {"loss": loss, "temperature": temp,
                 "i2t_acc": hits1 / denom, "t2i_acc": hits2 / denom}
 

@@ -24,7 +24,7 @@ batch under pjit; the reference's GatherLayer):
   groups as blocks (``group_size`` samples);
 - every rank holds the same loss (of its group), so each backpropagates
   ``loss / W``, and the gradients summed over the ranks
-  (``reduce_gradients``) are JAX's gradient of the global-batch loss, the
+  (``reduce_model_gradients``) are JAX's gradient of the global-batch loss, the
   temperature's included; the optimizer then clips, accumulates
   (``optim.grad_accum_steps``) and updates on that sum, as optax does on
   JAX's global gradient. ``loss.global_reduce`` and
@@ -41,8 +41,13 @@ moves its running averages in the forward (``models/layers.BatchNorm``);
 in a world the statistics are the global batch's, as JAX's pjit forward
 computes them (synchronised BN).
 
-Not ported: ZeRO-1, FSDP, TP, PP and MoE branches (ROADMAP queue 1 item
-13's second part).
+The sharded legs (``parallel/sharding.py``: TP, SP, FSDP, ZeRO-1) run
+through the same step: the towers' collectives are in their layers, the
+embeddings are gathered over the data ranks only (a model group's ranks
+hold the same rows and embeddings), each data rank backpropagates ``loss /
+D`` (D the data ranks) and ``reduce_model_gradients`` sums the gradients
+as each leaf needs. Not ported: the PP and MoE branches (ROADMAP queue 1
+item 13).
 
 Dropout: with ``runner.stable_random`` set (``deterministic`` False) the
 forward takes the step's key, JAX's ``fold_in(key(seed), step)``
@@ -65,9 +70,9 @@ import torch
 from simseg_tpu_torch.ops.losses import (mixup_nce, mse_embedding_loss,
                                          symmetric_info_nce, triplet_loss)
 from simseg_tpu_torch.parallel.collectives import (all_gather, all_reduce_mean,
-                                                   all_reduce_sum,
-                                                   reduce_gradients)
+                                                   all_reduce_sum)
 from simseg_tpu_torch.parallel.mesh import DataMesh
+from simseg_tpu_torch.parallel.sharding import reduce_model_gradients
 from simseg_tpu_torch.utils import threefry
 
 
@@ -83,12 +88,14 @@ def step_key(seed: int, step: int) -> threefry.Key:
 
 def rank_key(key: Optional[threefry.Key],
              mesh: Optional[DataMesh]) -> Optional[threefry.Key]:
-    """This rank's dropout key: ``fold_in(key, rank)`` in a world of more
-    than one rank, else ``key`` (one process and a world of one draw the
-    same masks)."""
-    if key is None or mesh is None or mesh.world == 1:
+    """This rank's dropout key: ``fold_in(key, data rank)`` over more than
+    one data rank, else ``key`` (one process and a world of one draw the
+    same masks). The ranks of a model group hold the same rows and draw the
+    same masks, each site of a sharded tensor keeping its slice
+    (``models/layers.Dropout``)."""
+    if key is None or mesh is None or mesh.data_size == 1:
         return key
-    return threefry.fold_in(key, mesh.rank)
+    return threefry.fold_in(key, mesh.data_rank)
 
 
 def mixup_lambda(key: Optional[threefry.Key], step: int, alpha: float) -> float:
@@ -111,13 +118,13 @@ def mixup_partner(images: torch.Tensor, mesh: Optional[DataMesh],
     (``pairing`` 'shard', or one process), or under 'global' the rows the
     flip of the whole batch pairs with them, the mirror rank's reversed
     (JAX ``_block_flip`` with ``mixup_shards`` W or 1)."""
-    if mesh is None or mesh.world == 1 or pairing == "shard":
+    if mesh is None or mesh.data_size == 1 or pairing == "shard":
         return images.flip(0)
     if pairing != "global":
         raise NotImplementedError(f"mixup.pairing '{pairing}'")
     b = images.shape[0]
-    start = (mesh.world - 1 - mesh.rank) * b
-    return all_gather(images.detach())[start:start + b].flip(0)
+    start = (mesh.data_size - 1 - mesh.data_rank) * b
+    return all_gather(images.detach(), mesh.data_group)[start:start + b].flip(0)
 
 
 def loss_gather(mesh: Optional[DataMesh], loss_name: str,
@@ -125,12 +132,12 @@ def loss_gather(mesh: Optional[DataMesh], loss_name: str,
     """(group to gather the embeddings over, loss group size in samples of
     the gathered batch, whether the gather is a group's). NCE and MixUpNCE
     gather within the rank's gather group, whose rows form one loss group;
-    the losses JAX computes over the whole batch gather the world and take
-    the groups (``group_size``) as blocks."""
+    the losses JAX computes over the whole batch gather every data rank and
+    take the groups (``group_size``) as blocks."""
     if (mesh is not None and mesh.n_groups > 1
             and loss_name in ("NCE", "MixUpNCE") and not extra_losses):
         return mesh.group, -1, True
-    return None, group_size, False
+    return (None if mesh is None else mesh.data_group), group_size, False
 
 
 def world_metrics(metrics: Dict[str, torch.Tensor], valid: torch.Tensor,
@@ -139,10 +146,12 @@ def world_metrics(metrics: Dict[str, torch.Tensor], valid: torch.Tensor,
     loss the mean of the groups' (each the mean of as many rows), each
     accuracy the hits over the valid rows summed over the world."""
     out = dict(metrics)
-    out["loss"] = all_reduce_mean(metrics["loss"])
-    denom = torch.clamp(all_reduce_sum(valid), min=1.0)
+    group = mesh.data_group
+    out["loss"] = all_reduce_mean(metrics["loss"], group)
+    denom = torch.clamp(all_reduce_sum(valid, group), min=1.0)
     for k in ("i2t_acc", "t2i_acc"):
-        out[k] = all_reduce_sum(metrics[k] * torch.clamp(valid, min=1.0)) / denom
+        out[k] = all_reduce_sum(metrics[k] * torch.clamp(valid, min=1.0),
+                                group) / denom
     return out
 
 
@@ -251,9 +260,9 @@ def make_train_step(model, optimizer, smoothing: float = 0.0,
         if mesh is None:
             loss.backward()
         else:
-            # every rank holds the loss: each backpropagates its share
-            (loss / mesh.world).backward()
-            reduce_gradients(optimizer.params)
+            # every data rank holds the loss: each backpropagates its share
+            (loss / mesh.data_size).backward()
+            reduce_model_gradients(model, mesh)
         optimizer.set_lr(lr)
         metrics["grad_norm"] = optimizer.step()
         metrics["lr"] = lr

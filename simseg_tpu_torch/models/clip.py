@@ -224,10 +224,25 @@ class CLIPModel(nn.Module):
         return img, txt, self.temperature()
 
 
-def build_clip_model(cfg) -> CLIPModel:
+def build_clip_model(cfg, mesh=None) -> CLIPModel:
     """The CLIP model of a config tree (JAX ``build_clip_model``,
     ``simseg_tpu/models/clip.py:221-284``), float32 parameters, computing in
-    bf16 when ``cfg.dist.bf16``."""
+    bf16 when ``cfg.dist.bf16``.
+
+    mesh: the world's ``parallel/mesh.DataMesh``; with model groups
+    (``dist.tp_size``) the towers are made tensor-parallel, and with
+    ``cfg.dist.sp`` the image tower's stream sequence-parallel, each rank
+    keeping its shards (``parallel/sharding.shard_model``). ``dist.sp``
+    on a mesh without model groups raises JAX's ``ValueError``."""
+    model = _build(cfg)
+    if mesh is not None:
+        from simseg_tpu_torch.parallel.sharding import shard_model
+
+        shard_model(model, mesh, tp=mesh.tp, sp=bool(cfg.dist.get("sp", False)))
+    return model
+
+
+def _build(cfg) -> CLIPModel:
     m = cfg.model
 
     def arch(enc_cfg):

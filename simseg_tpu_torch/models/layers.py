@@ -23,7 +23,9 @@ generator, so a recompute (``remat``) or a second forward with the same
 key (BSGS's pass 2) draws the same masks: ``torch.utils.checkpoint``'s
 ``preserve_rng_state`` restores only the default generators, which no site
 uses. Over ranks the step folds the rank into the key
-(``engine/train_step.rank_key``), so no two ranks share a mask. ``remat`` runs a block under ``torch.utils.checkpoint.checkpoint``
+(``engine/train_step.rank_key``), so no two data ranks share a mask; the
+ranks of a model group share it, each site of a sharded tensor keeping its
+slice of the whole mask (``Dropout.feature_shard`` / ``seq``). ``remat`` runs a block under ``torch.utils.checkpoint.checkpoint``
 in its non-reentrant form, whose first forward keeps grad mode on (the
 reentrant form would run it under ``no_grad``, and the attention would
 take the inference lane there and the train lane in the recompute).
@@ -47,13 +49,36 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none" if x.dtype == torch.float32 else "tanh")
 
 
+def whole_param(module: nn.Module, name: str) -> torch.Tensor:
+    """``module``'s parameter ``name`` whole, for a forward that reads a
+    child's parameter: gathered from its shards where FSDP shards it
+    (``parallel/sharding.py``; a collective of the gather group)."""
+    fsdp = module.__dict__.get("_fsdp")
+    if fsdp is not None and name in fsdp:
+        from simseg_tpu_torch.parallel.collectives import gather_param
+
+        return gather_param(module._parameters[name], *fsdp[name])
+    return getattr(module, name)
+
+
 class Linear(nn.Linear):
     """``x W^T + b`` in x's dtype, W and b cast to it at use (flax ``Dense``
     with ``dtype``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        return self.product(x, self.bias)
+
+    def product(self, x: torch.Tensor, bias) -> torch.Tensor:
+        """``x W^T`` (+ ``bias``); a weight that FSDP shards is gathered for
+        the product and again for its backward (``parallel/sharding.py``)."""
+        fsdp = self.__dict__.get("_fsdp")
+        if fsdp is not None and "weight" in fsdp:
+            from simseg_tpu_torch.parallel.sharding import gathered_linear
+
+            return gathered_linear(x, self._parameters["weight"], bias,
+                                   fsdp["weight"])
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if bias is None else bias.to(x.dtype))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -110,9 +135,10 @@ class BatchNorm(nn.Module):
     momentum) * batch`` with that biased var (PyTorch's
     ``F.batch_norm(training=True)`` would take the unbiased var, and calls
     flax's 0.9 ``momentum=0.1``). In a ``torch.distributed`` world of more
-    than one rank the sums are taken over the world (synchronised BN: JAX's
-    forward under pjit sees the global batch), and their gradients are
-    summed over it in the backward."""
+    than one rank the sums are taken over the data ranks (``sync``; the
+    world without tensor parallelism: synchronised BN, JAX's forward under
+    pjit sees the global batch), and their gradients are summed over them
+    in the backward."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.9) -> None:
@@ -125,6 +151,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        # (group, ranks) the statistics are summed over: None, the world;
+        # a model group's ranks hold the same rows, so tensor parallelism
+        # sets the data ranks (parallel/sharding.py)
+        self.sync = None
 
     def forward(self, x: torch.Tensor, train_bn: bool = False) -> torch.Tensor:
         if not train_bn:
@@ -136,9 +166,10 @@ class BatchNorm(nn.Module):
         xf = x.float()
         sums = torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
         count = float(x.numel() // x.shape[1])
-        if world_size() > 1:
-            sums = all_reduce_sum_grad(sums)
-            count *= world_size()
+        group, n = self.sync if self.sync is not None else (None, world_size())
+        if n > 1:
+            sums = all_reduce_sum_grad(sums, group)
+            count *= n
         mean = sums[0] / count
         var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
         with torch.no_grad():
@@ -162,6 +193,12 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
         self.site = 0
+        # a tensor-parallel site holds a slice of what one process drops
+        # out: (ranks, rank) of its last dim (a column-parallel output), or
+        # the token slice of a sequence-parallel tower (``parallel/tp.py:
+        # SeqParallel``); it draws the whole mask and keeps its slice
+        self.feature_shard: Optional[tuple] = None
+        self.seq = None
 
     def forward(self, x: torch.Tensor,
                 key: Optional[threefry.Key] = None) -> torch.Tensor:
@@ -170,7 +207,22 @@ class Dropout(nn.Module):
         k = threefry.fold_in(key, self.site)
         gen = torch.Generator(device=x.device)
         gen.manual_seed((k[0] << 32) | k[1])
-        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - self.rate
+        shape = list(x.shape)
+        if self.feature_shard is not None:
+            shape[-1] *= self.feature_shard[0]
+        if self.seq is not None:
+            shape[1] = self.seq.tokens
+        keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - self.rate
+        if self.seq is not None:
+            first, rows = self.seq.rows()
+            pad = first + rows - keep.shape[1]
+            if pad > 0:
+                keep = torch.cat([keep, keep.new_ones(
+                    (shape[0], pad) + tuple(shape[2:]))], dim=1)
+            keep = keep.narrow(1, first, rows)
+        if self.feature_shard is not None:
+            n = x.shape[-1]
+            keep = keep.narrow(-1, self.feature_shard[1] * n, n)
         return torch.where(keep, x / (1.0 - self.rate), 0.0)
 
 

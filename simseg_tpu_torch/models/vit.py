@@ -12,8 +12,10 @@ post-training quantisation (``quant``; ``ops/quant.py``), dropout at JAX's
 sites (``dropout``: after the position embeddings, the attention's output
 projection, the MLP's GELU and its output; keyed, ``models/layers.py``) and
 remat (``remat``, ``remat_policy``: each block under a non-reentrant
-checkpoint, composing with the ToMe carry) are ported; the JAX tower's MoE
-option is not. Compute runs in
+checkpoint, composing with the ToMe carry) are ported, and so are tensor
+and sequence parallelism (``parallel/tp.py``: the blocks' linears sharded
+over a model group, the residual stream sliced by tokens between blocks);
+the JAX tower's MoE option is not. Compute runs in
 ``compute_dtype`` (None: the parameters' dtype), with float32 parameters
 cast at use as flax does (``models/layers.py``): float32 master weights and
 bf16 compute for training and for the int8 lanes, or
@@ -32,12 +34,13 @@ import torch.nn.functional as F
 from simseg_tpu_torch.models.layers import (Dropout, LayerNorm, gelu,
                                             number_dropout_sites,
                                             parse_remat_policy, refuse_moe,
-                                            remat_call)
+                                            remat_call, whole_param)
 from simseg_tpu_torch.ops.attention import multi_head_attention
 from simseg_tpu_torch.ops.interpolate_pe import interpolate_pos_embed
 from simseg_tpu_torch.ops.quant import linear_cls
 from simseg_tpu_torch.ops.tome import (bipartite_merge, size_bias, unmerge,
                                        update_gather_map)
+from simseg_tpu_torch.parallel.collectives import reduce_from_group
 
 
 class Mlp(nn.Module):
@@ -66,6 +69,9 @@ class Attention(nn.Module):
         self.qkv = linear(dim, 3 * dim)
         self.proj = linear(dim, dim)
         self.drop = Dropout(dropout)
+        # tensor parallelism (parallel/sharding.py): this rank's heads of
+        # ``tp`` model ranks in ``tp_group``
+        self.tp, self.tp_group = 1, None
 
     def forward(self, x: torch.Tensor, attention_bias=None,
                 return_keys: bool = False, key=None):
@@ -75,8 +81,12 @@ class Attention(nn.Module):
         if return_keys:
             # the token-merging metric: the keys, mean over heads
             b, t, d = k.shape
-            return out, k.reshape(b, t, self.num_heads,
-                                  d // self.num_heads).mean(dim=2)
+            keys = k.reshape(b, t, self.num_heads,
+                             d // self.num_heads).mean(dim=2)
+            if self.tp > 1:
+                # the mean over every rank's heads
+                keys = reduce_from_group(keys, self.tp_group) / self.tp
+            return out, keys
         return out
 
 
@@ -138,9 +148,10 @@ class PatchEmbed(nn.Module):
         patches = (images.reshape(b, gh, p, gw, p, c)
                    .permute(0, 1, 3, 5, 2, 4)            # (B, gh, gw, C, p, p)
                    .reshape(b, gh * gw, c * p * p))
-        weight = self.proj.weight.reshape(self.proj.out_channels, -1)
+        weight = whole_param(self.proj, "weight").reshape(
+            self.proj.out_channels, -1)
         return F.linear(patches, weight.to(images.dtype),
-                        self.proj.bias.to(images.dtype))
+                        whole_param(self.proj, "bias").to(images.dtype))
 
 
 class VisionTransformer(nn.Module):
@@ -182,6 +193,9 @@ class VisionTransformer(nn.Module):
         number_dropout_sites(self)
         # None: compute in the parameters' dtype
         self.compute_dtype: Optional[torch.dtype] = None
+        # sequence parallelism (``parallel/tp.py:SeqParallel``, set by
+        # ``parallel/sharding.shard_model``): the blocks run on token slices
+        self.seq = None
 
     def forward(self, images: torch.Tensor, key=None) -> torch.Tensor:
         """images: (B, H, W, 3) NHWC float -> (B, 1+N, D) in the compute
@@ -204,8 +218,12 @@ class VisionTransformer(nn.Module):
             for block in self.blocks:
                 carry = self._block(block, carry, key)
             return unmerge(self.norm(carry[0]), carry[2])
+        if self.seq is not None:
+            x = self.seq.enter(x)
         for block in self.blocks:
             x = self._block(block, x, key)
+        if self.seq is not None:
+            x = self.seq.leave(x)
         return self.norm(x)
 
     def _block(self, block, x, key):

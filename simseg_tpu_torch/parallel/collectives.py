@@ -13,12 +13,25 @@ reference's ``gather_backward=True``. ``reduce_gradients`` sums the
 parameters' gradients over the world in flat buckets, JAX's psum of the
 gradient.
 
+The sharded legs (``parallel/tp.py``, ``parallel/sharding.py``) run on
+``gather_dim`` / ``reduce_scatter_dim`` (any dim) and on Megatron's pairs of
+differentiable collectives: ``copy_to_group`` (identity, gradient summed)
+and ``reduce_from_group`` (sum, gradient passed) around the
+tensor-parallel linears, ``gather_seq`` / ``scatter_seq`` (all-gather vs
+reduce-scatter, each the other's backward) around them under sequence
+parallelism, ``split_dim`` / ``gather_replicated`` where a replicated stream
+enters and leaves the sequence-parallel region, and ``gather_param`` (an
+FSDP weight gathered, its gradient reduce-scattered).
+
 Gloo and CUDA: gloo's support for CUDA tensors differs from one collective
 to another, so every collective of this module whose group runs gloo and
 whose tensor lies on a card moves that tensor to the host, runs there and
 moves the result back (two ranks sharing one card run gloo, since NCCL
 refuses two ranks on a device). ``STAGED_BYTES[0]`` counts the bytes those
-copies move, both ways. The computation itself never leaves the card.
+copies move, both ways. The computation itself never leaves the card, and
+the collective called is the same on both backends
+(``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``), so
+the CPU's gloo runs the calls NCCL runs.
 """
 
 from __future__ import annotations
@@ -58,13 +71,8 @@ def _gather_cat(x: torch.Tensor, group=None) -> torch.Tensor:
     staged = _staged(src, group)
     if staged:
         src = _host(src)
-    if dist.get_backend(group) == "nccl":
-        out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-        dist.all_gather_into_tensor(out, src, group=group)
-    else:
-        parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=group)
-        out = torch.cat(parts)
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
     return _back(out, x.device) if staged else out
 
 
@@ -77,6 +85,159 @@ def _all_reduce_(x: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Ten
     else:
         dist.all_reduce(x, op=op, group=group)
     return x
+
+
+def gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` in group-rank order (no
+    gradient)."""
+    if dim == 0:
+        return _gather_cat(x, group)
+    moved = _gather_cat(x.movedim(dim, 0).contiguous(), group)
+    return moved.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """``x`` summed over the group, this rank's 1/n slice along ``dim`` kept
+    (no gradient; ``x.shape[dim]`` divides by n)."""
+    n = dist.get_world_size(group)
+    src = x.detach().movedim(dim, 0).contiguous()
+    staged = _staged(src, group)
+    if staged:
+        src = _host(src)
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    if staged:
+        out = _back(out, x.device)
+    return out.movedim(0, dim).contiguous()
+
+
+def _narrow_rank(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    size = x.shape[dim] // dist.get_world_size(group)
+    return x.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: ``x`` as it is, its gradient summed over the group (the
+    input of a column-parallel linear)."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g: ``x`` summed over the group, its gradient passed as it
+    is (the output of a row-parallel linear)."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class _SplitDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _narrow_rank(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _narrow_rank(grad, ctx.dim, ctx.group), None, None
+
+
+def gather_seq(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather along ``dim``; the backward reduce-scatters (the slices'
+    consumers each hold a part of the gradient: Megatron-SP's gather
+    before a column-parallel linear)."""
+    return _GatherSeq.apply(x, dim, group)
+
+
+def scatter_seq(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Reduce-scatter along ``dim``; the backward all-gathers (Megatron-SP's
+    reduce-scatter after a row-parallel linear)."""
+    return _ScatterSeq.apply(x, dim, group)
+
+
+def split_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice along ``dim`` of a tensor every rank holds whole;
+    the backward all-gathers the slices' gradients."""
+    return _SplitDim.apply(x, dim, group)
+
+
+def gather_replicated(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather along ``dim`` into a tensor whose consumers run the same
+    on every rank: the backward keeps this rank's slice of the gradient."""
+    return _GatherReplicated.apply(x, dim, group)
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, dim, group, replica_group):
+        ctx.dim, ctx.group, ctx.replica_group = dim, group, replica_group
+        return gather_dim(shard.detach(), dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = reduce_scatter_dim(grad, ctx.dim, ctx.group)
+        if ctx.replica_group is not None:
+            out = _all_reduce_(out, ctx.replica_group)
+        return out, None, None, None
+
+
+def gather_param(shard: torch.Tensor, dim: int, group,
+                 replica_group=None) -> torch.Tensor:
+    """An FSDP parameter whole from its shards along ``dim`` over ``group``;
+    the backward reduce-scatters the gradient into the shard (then sums it
+    over ``replica_group``, the gather groups' peers)."""
+    return _GatherParam.apply(shard, dim, group, replica_group)
 
 
 class _AllGather(torch.autograd.Function):
@@ -168,6 +329,19 @@ def reduce_gradients(params: Iterable[torch.nn.Parameter], group=None,
 
 
 # -- host side ---------------------------------------------------------------
+
+def broadcast_batch(batch: dict, src: int, group) -> dict:
+    """The host tensors of ``batch`` as the group's rank ``src`` (a global
+    rank) holds them, on every rank of ``group``: the ranks of a model
+    group load the same shard, and this makes their random augmentations
+    one draw."""
+    out = {}
+    for k in sorted(batch):
+        t = batch[k].contiguous().clone()
+        dist.broadcast(t, src, group=group)
+        out[k] = t
+    return out
+
 
 def broadcast_object(obj, src: int = 0):
     """``obj`` of rank ``src`` on every rank, pickled (JAX

@@ -1,23 +1,30 @@
-"""Process group set-up and the data-parallel layout (port of
+"""Process group set-up and the (replica, data, model) layout (port of
 ``simseg_tpu/parallel/mesh.py``).
 
 Parity: reference ``simseg/core/initial.py:52-54`` (init_process_group) and
 ``simseg/utils/dist.py:371-428`` (generate_local_groups). JAX lays the
 devices of one program out on a ``Mesh``; the port runs one process per
 card (``simseg_tpu_torch/launch.py``) in a ``torch.distributed`` world, and
-``DataMesh`` records what the JAX mesh's shape tells its step:
+``DataMesh`` records what the JAX mesh's shape tells its step, with JAX's
+order of the axes (``make_mesh``: the model axis innermost):
 
-- the world: W ranks, each holding a contiguous 1/W of the batch (the
-  loaders' shards, ``data/datasets.py``), rank r the rows
-  [r B/W, (r + 1) B/W) of the global batch, as JAX's 'data' axis shards it;
-- the gather groups of ``loss.group_size``, in devices (ranks) as in JAX:
-  W / group_size groups of contiguous ranks, JAX's ('replica', 'data')
-  fold. Every rank builds every group, in the same order, since
-  ``dist.new_group`` is a collective over the world.
+    rank = (replica * group_ranks + data_in_group) * tp + model
 
-Host-side collectives (``parallel/collectives.py``: objects, eval gathers,
-barriers, the preemption flag) ride a gloo group even when the world runs
-NCCL, so they never wait on the card's stream.
+- ``tp`` ranks of one model group (``dist.tp_size``; one data index) hold
+  the tensor-parallel shards of one model replica and see the same rows
+  (``parallel/tp.py``);
+- the ``data_size = world / tp`` data ranks (one model index) split the
+  batch: data rank d holds the rows [d B/D, (d + 1) B/D) of the global
+  batch, as JAX's batch axes shard it;
+- the gather groups of ``loss.group_size``, in data ranks (devices per
+  group in JAX, whose batch axes hold no model axis): D / group_size
+  groups of contiguous data ranks, JAX's ('replica', 'data') fold.
+
+Every rank builds every group, in the same order, since
+``dist.new_group`` is a collective over the world. Host-side collectives
+(``parallel/collectives.py``: objects, eval gathers, barriers, the
+preemption flag, the model group's batch broadcast) ride gloo groups even
+when the world runs NCCL, so they never wait on the card's stream.
 """
 
 from __future__ import annotations
@@ -26,14 +33,14 @@ import datetime
 import logging
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 _ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 _HOST_GROUP = None          # gloo group of the whole world (host collectives)
-_GROUPS: Dict[int, object] = {}   # group_size -> this rank's group
+_MESHES: Dict[Tuple[int, int], "DataMesh"] = {}   # (n_groups, tp) -> mesh
 
 
 def init_distributed(backend: Optional[str] = None, device=None,
@@ -130,59 +137,124 @@ def host_group():
 
 @dataclass(frozen=True)
 class DataMesh:
-    """The data-parallel layout of a world: ``world`` ranks in ``n_groups``
-    gather groups of ``group_ranks`` contiguous ranks; ``group`` is this
-    rank's group (None: the world)."""
+    """The layout of a world: ``world`` ranks, ``tp`` to a model group,
+    ``world / tp`` data ranks in ``n_groups`` gather groups. The groups are
+    this rank's (None: the world): ``group`` its gather group (None without
+    gather groups), ``data_group`` the data ranks of its model index,
+    ``replica_group`` the ranks of its (data-in-group, model) position in
+    every gather group, ``model_group`` its model group and
+    ``model_host_group`` that group over gloo."""
     world: int
     rank: int
     n_groups: int = 1
     group: object = None
+    tp: int = 1
+    data_group: object = None
+    replica_group: object = None
+    model_group: object = None
+    model_host_group: object = None
+
+    @property
+    def data_size(self) -> int:
+        return self.world // self.tp
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.tp
 
     @property
     def group_ranks(self) -> int:
-        return self.world // self.n_groups
+        """Data ranks per gather group (JAX's 'data' axis)."""
+        return self.data_size // self.n_groups
 
     @property
     def rank_in_group(self) -> int:
-        return self.rank % self.group_ranks
+        return self.data_rank % self.group_ranks
+
+    @property
+    def replica(self) -> int:
+        return self.data_rank // self.group_ranks
+
+    @property
+    def gather_group(self):
+        """The group the contrastive loss gathers over: the gather group,
+        else every data rank of this model index."""
+        return self.group if self.n_groups > 1 else self.data_group
 
 
-def _group_handles(group_size: int, world: int, rank_: int):
-    """This rank's group of ``group_size`` contiguous ranks; every rank
-    creates every group, in rank order (``dist.new_group`` is collective)."""
-    if group_size not in _GROUPS:
-        mine = None
-        for start in range(0, world, group_size):
-            g = dist.new_group(list(range(start, start + group_size)))
-            if start <= rank_ < start + group_size:
-                mine = g
-        _GROUPS[group_size] = mine
-    return _GROUPS[group_size]
+def _new_groups(rank_lists: List[List[int]], rank_: int, **kwargs):
+    """Every group of ``rank_lists`` created on every rank, in order;
+    returns this rank's."""
+    mine = None
+    for ranks in rank_lists:
+        g = dist.new_group(ranks, **kwargs)
+        if rank_ in ranks:
+            mine = g
+    return mine
 
 
-def make_mesh(group_size: int = -1) -> Optional[DataMesh]:
+def _build_mesh(world: int, rank_: int, n_groups: int, tp: int) -> DataMesh:
+    data = world // tp
+    gs = data // n_groups
+
+    def at(replica, d, m):
+        return (replica * gs + d) * tp + m
+
+    kw = {}
+    if tp > 1:
+        kw["data_group"] = _new_groups(
+            [[d * tp + m for d in range(data)] for m in range(tp)], rank_)
+        models = [[d * tp + m for m in range(tp)] for d in range(data)]
+        kw["model_group"] = _new_groups(models, rank_)
+        kw["model_host_group"] = (
+            kw["model_group"] if dist.get_backend() == "gloo"
+            else _new_groups(models, rank_, backend="gloo"))
+    if n_groups > 1:
+        kw["group"] = _new_groups(
+            [[at(g, d, m) for d in range(gs)]
+             for m in range(tp) for g in range(n_groups)], rank_)
+        kw["replica_group"] = _new_groups(
+            [[at(g, d, m) for g in range(n_groups)]
+             for m in range(tp) for d in range(gs)], rank_)
+    return DataMesh(world, rank_, n_groups, tp=tp, **kw)
+
+
+def make_mesh(group_size: int = -1, tp_size: int = 1) -> Optional[DataMesh]:
     """The world's ``DataMesh``, or None outside a ``torch.distributed``
-    world (one process: the global batch is the local batch). With
-    ``group_size`` (devices) in (0, W) the world folds into W / group_size
-    gather groups, which must divide it (JAX ``make_mesh``); otherwise the
-    gather spans the world."""
+    world (one process: the global batch is the local batch). ``tp_size``
+    ranks form a model group and must divide the world; with ``group_size``
+    (devices) in (0, W / tp) the data ranks fold into gather groups, which
+    must divide them (JAX ``make_mesh``); otherwise the gather spans the
+    data ranks."""
+    tp = int(tp_size) if tp_size and tp_size > 1 else 1
     if not is_distributed():
+        if tp > 1:
+            raise ValueError(f"tp_size {tp} must divide device count 1")
         return None
     world, r = dist.get_world_size(), dist.get_rank()
-    if group_size is None or group_size <= 0 or group_size >= world:
-        return DataMesh(world, r)
-    if world % group_size != 0:
+    if world % tp != 0:
+        raise ValueError(f"tp_size {tp} must divide device count {world}")
+    n_data = world // tp
+    if group_size is None or group_size <= 0 or group_size >= n_data:
+        n_groups = 1
+    elif n_data % group_size != 0:
         raise ValueError(f"group_size {group_size} must divide data-parallel "
-                         f"size {world}")
-    return DataMesh(world, r, world // group_size,
-                    _group_handles(group_size, world, r))
+                         f"size {n_data}")
+    else:
+        n_groups = n_data // group_size
+    key = (n_groups, tp)
+    if key not in _MESHES:
+        _MESHES[key] = _build_mesh(world, r, n_groups, tp)
+    return _MESHES[key]
 
 
 def batch_shards(mesh: Optional[DataMesh]) -> int:
-    """Number of ways the batch is split (the world size)."""
-    return 1 if mesh is None else mesh.world
-
-
+    """Number of ways the batch is split (the data ranks)."""
+    return 1 if mesh is None else mesh.data_size
 def local_batch_size(global_batch_size: int, mesh: Optional[DataMesh]) -> int:
     n = batch_shards(mesh)
     if global_batch_size % n != 0:

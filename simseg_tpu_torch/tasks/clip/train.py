@@ -27,6 +27,13 @@ NCCL on the cards, gloo under ``--device cpu``) before it builds the
 loaders, which then shard by rank, and trains on the rank's card,
 ``cuda:LOCAL_RANK``. ``python -m simseg_tpu_torch.launch --task clip
 --nproc_per_node N --cfg ...`` starts N such ranks.
+
+The sharded legs (JAX :35-60): ``train`` builds the mesh from
+``loss.group_size`` and ``dist.tp_size`` and hands it to
+``build_clip_model`` (tensor parallelism, ``dist.sp``); the runner adds
+``dist.fsdp`` and ``dist.zero1``. ``dist.tp_size`` must divide the world,
+whose ranks then form model groups of that many ranks, each group one data
+rank of the loaders.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from simseg_tpu_torch.core.runner import CLIPRunner
 from simseg_tpu_torch.data.datasets import build_clip_dataloaders
 from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
 from simseg_tpu_torch.models.clip import build_clip_model
-from simseg_tpu_torch.parallel.mesh import init_distributed
+from simseg_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from simseg_tpu_torch.tasks.clip.config import task_cfg_init_fn, update_clip_config
 
 
@@ -54,7 +61,9 @@ def train(cfg, loaders: Dict[str, Sequence], tokenizer=None,
     runner (its ``model``, ``optimizer``, ``step`` and last ``outputs``)."""
     device = resolve_device(device)
     torch.manual_seed(int(cfg.seed or 0))
-    model = build_clip_model(cfg)
+    mesh = make_mesh(int(cfg.loss.get("group_size", -1) or -1),
+                     int(cfg.dist.get("tp_size", 1) or 1))
+    model = build_clip_model(cfg, mesh)
     runner = CLIPRunner(cfg, model, loaders, device=device, tokenizer=tokenizer)
     runner.run()
     return runner

@@ -638,6 +638,25 @@ def test_train_entry_tokenizes_captions(tmp_path):
     assert list(itertools.islice(runner.model.parameters(), 1))[0].device.type == "cpu"
 
 
+def test_a_finished_run_puts_the_sigterm_handler_back(tmp_path):
+    """``PreemptionHook`` takes SIGTERM for the run only: after ``train``
+    returns, the handler the process had is installed again."""
+    import signal
+
+    def mine(signum, frame):
+        raise AssertionError("not called")
+
+    before = signal.signal(signal.SIGTERM, mine)
+    try:
+        cfg, _ = _trees(TINY + [f"ckpt.dir={tmp_path}", "data.train_steps=1",
+                                "epoch=1"])
+        runner = train(cfg, {"train": [_batches(1)]}, device="cpu")
+        assert runner.step == 1
+        assert signal.getsignal(signal.SIGTERM) is mine
+    finally:
+        signal.signal(signal.SIGTERM, before)
+
+
 class _Val(Hook):
     def __init__(self):
         self.passes = []

@@ -216,8 +216,6 @@ def test_train_main_bsgs_matches_jax(tmp_path):
 # where the towers are built); ``profile`` is no key of the config files,
 # JAX's users set it on the tree, as the case does
 UNPORTED = {
-    "dist.tp_size=2": "item 13", "dist.sp=True": "item 13",
-    "dist.zero1=True": "item 13", "dist.fsdp=True": "item 13",
     "dist.pp_size=2": "item 13", "dist.pp_micro=8": "item 13",
     "dist.moe_ep=True": "item 13",
     "model.image_encoder.arch={'moe_experts': 4}": "item 13",
@@ -255,4 +253,79 @@ def test_train_main_refuses_unported_settings(refusal_fixture, setting):
     with unittest.mock.patch.object(port_train, "task_cfg_init_fn",
                                     init_with_profile), \
             pytest.raises(NotImplementedError, match=UNPORTED[setting]):
+        port_train.main(argv)
+
+
+# the sharded legs, ported: main(argv) trains with each, over two gloo
+# ranks (one model group of 2, or 2 data ranks)
+SHARDED = {
+    "dist.tp_size=2": ["dist.tp_size=2"],
+    "dist.tp_size=2 dist.sp=True": ["dist.tp_size=2", "dist.sp=True"],
+    "dist.zero1=True": ["dist.zero1=True"],
+    "dist.fsdp=True": ["dist.fsdp=True"],
+    "clip_bsgs dist.tp_size=2 dist.zero1=True": [
+        "runner.name=clip_bsgs", "data.batch_size_train=4", "dist.tp_size=2",
+        "dist.zero1=True"],
+}
+
+SHARDED_ENTRY = r'''
+import json, os, sys
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+sys.path.insert(0, os.environ["REPO"])
+import datetime
+dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=60))
+from simseg_tpu_torch.parallel.sharding import full_state_dict
+from simseg_tpu_torch.tasks.clip import train
+base, settings = json.loads(os.environ["ARGS"])
+out = {}
+for name, extra in settings.items():
+    runner = train.main(base + extra + [f"ckpt.dir={os.environ['OUT']}/{len(out)}"])
+    full = full_state_dict(runner.model)
+    out[name] = {"step": runner.step, "loss": float(runner.outputs["loss"]),
+                 "plan": getattr(runner.model, "shard_plan", None) is not None,
+                 "sum": float(sum(v.double().sum() for v in full.values()))}
+if dist.get_rank() == 0:
+    json.dump(out, open(os.path.join(os.environ["OUT"], "sharded.json"), "w"))
+'''
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(refusal_fixture, tmp_path_factory):
+    import json
+
+    from tests.test_torch_port_distributed import run_world
+
+    root = refusal_fixture
+    out = tmp_path_factory.mktemp("sharded")
+    base = ["--cfg", str(root / "clip.yaml"), "--vocab_file",
+            str(root / "vocab.txt"), "--device", "cpu",
+            f"data.data_path={root}/data/", "data.train_name=[pairs]",
+            "data.enable_valid=False", "data.native_decode=False",
+            "data.train_steps=1", "ckpt.step_interval=-1"]
+    run_world(2, SHARDED_ENTRY, {"OUT": str(out),
+                                 "ARGS": json.dumps([base, SHARDED])})
+    return json.loads((out / "sharded.json").read_text())
+
+
+@pytest.mark.parametrize("setting", list(SHARDED))
+def test_train_main_trains_with_sharded_setting(sharded_runs, setting):
+    """Each setting that was refused before its port trains a step through
+    ``main(argv)`` over two ranks, on a sharded model, to a finite loss."""
+    run = sharded_runs[setting]
+    assert run["step"] == 1 and run["plan"]
+    assert np.isfinite(run["loss"]) and np.isfinite(run["sum"])
+
+
+def test_train_main_sp_without_tp_raises_jax_value_error(refusal_fixture):
+    """``dist.sp=True`` alone: JAX's ValueError (the token dim shards over
+    the tensor-parallel axis)."""
+    root = refusal_fixture
+    argv = ["--cfg", str(root / "clip.yaml"), "--vocab_file",
+            str(root / "vocab.txt"), "--device", "cpu",
+            f"data.data_path={root}/data/", f"ckpt.dir={root}/sp",
+            "data.train_name=[pairs]", "data.enable_valid=False",
+            "data.native_decode=False", "data.train_steps=1", "dist.sp=True"]
+    with pytest.raises(ValueError, match="tp_size"):
         port_train.main(argv)
