@@ -11,7 +11,7 @@
     python3 chip_smoke.py --distributed                     (phases 1-2 and 11)
     python3 chip_smoke.py --linear-probe                    (phases 1-2 and 12)
     python3 chip_smoke.py --serving                         (phases 1-2 and 13)
-    python3 chip_smoke.py --model-parallel                  (phases 1-2 and 14)
+    python3 chip_smoke.py --model-parallel                  (phases 1-2, 14 and 15)
     python3 chip_smoke.py --model-parallel-nccl             (14e over 4 cards)
 
 Phases (any failure raises, so the exit code is non-zero):
@@ -335,10 +335,12 @@ Phases (any failure raises, so the exit code is non-zero):
 14. the sharded-state legs (``parallel/tp.py``, ``parallel/sharding.py``):
    the attention kernels against their plain versions at (8, 1297, 6, 64)
    (tp = 2's heads a rank) with the bars of 3b and 3d; then ViT-B/16 +
-   BERT-base at full width and depth (``TRAIN_OVERRIDES``, float32 master
+   BERT-base at full width and depth, the 224-px legs (c)-(f) at
+   ``MP_DEPTH`` = 6 blocks a tower since phase 15 came (``TRAIN_OVERRIDES``,
+   float32 master
    weights, bf16 compute, a constant lr), gloo ranks sharing the card
-   (``--mp-worker``, a process a rank; the world of 2 and the world of 4
-   run at once), each leg from the same seeded
+   (``--mp-worker``, a process a rank; the worlds of ``MP_WORLDS``, phase
+   15's too, run at once), each leg from the same seeded
    weights: (a) tp = 2 at 576 px, batch 8; (b) (a) with ``dist.sp``; (c)
    ZeRO-1 over 2 data ranks at 224 px, batch 32; (d) FSDP, the same; (e)
    tp = 2 + FSDP over 4 ranks; (f) BSGS 64 / 32 with tp = 2 + ZeRO-1 over
@@ -354,6 +356,31 @@ Phases (any failure raises, so the exit code is non-zero):
    staged a step; the replicated leaves bit-equal across ranks; (c)'s
    parameters bit-equal to a data-parallel twin's after 3 steps.
    ``--model-parallel-nccl`` runs (e) over four cards, one NCCL rank each.
+15. the MoE towers, expert and pipeline parallelism (``ops/moe.py``,
+   ``parallel/pp.py``): (a) ViT-B/16 + BERT-base at full depth with an
+   8-expert top-1 MoE in every second block of each tower (capacity 1.25),
+   576 px, bf16 compute: at 8 rows the kernel lane's step against the
+   plain-attention lane's with phase 14's bars (a float32 step as the noise
+   scale) and the aux within ``MOE_AUX_BAR``, the share of tokens each
+   MoE layer routes to the same expert >= ``MOE_ROUTE_BAR``, which a
+   planted fault (the routers' experts read in reverse) must fail; then 4
+   steps at batch 32 with exact launches (12 forward and 12 backward a
+   step), images/s, peak GiB, parameter and AdamW bytes equal to the
+   prediction from the shapes; (b) ``evaluate_benchmark`` with the MoE
+   image tower at 288 px on 3 batches of 16: one CRF launch a batch and no
+   other, predictions against the plain decode >= 99.9%, images/s; (c)
+   ``dist.moe_ep`` over 2 gloo ranks on the card (MoE towers at 4 blocks,
+   full width, 576 px, batch 8): each rank 4 of the 8 experts, its bytes
+   the rules', the step against one process's with phase 14's bars and
+   the aux bar, planted faults (a rank-local aux; the experts' gradients
+   summed over the data ranks); (d) ``dist.pp_size`` 2 with 4 microbatches,
+   dense towers at 4 blocks, 576 px, batch 16, over 2 ranks and over 4 (2
+   data ranks a stage, ZeRO-1): the same checks, exact launches a rank (a
+   stage's 2 blocks x 4 microbatches, forward and backward, a step),
+   replicated leaves bit-equal across ranks, planted faults (two
+   microbatches swapped in the image tower's buffer; the leaves every stage
+   computes summed over the stages). (c) and (d) run as phase 14's legs, in
+   its ``--mp-worker`` processes, their worlds beside phase 14's.
 It then prints one JSON line of kernel numbers (``cli_launches``: the
 kernel's launches in phase 8's lane that takes it; ``train_entry_launches``:
 in phase 9's run B; ``bsgs_launches``: per BSGS step of phase 10 at 576 px,
@@ -362,7 +389,8 @@ batch 256 in micro-batches of 32; ``dist_launches``: each rank's in phase
 ``cnn_launches``: rows 1-2's in phase 12d's auto and fused_tail lanes;
 ``serving_launches``: in phase 13's loading process, (a) for row 1, (b)'s
 for rows 2, 4 and 5; ``mp_launches``: each rank's in phase 14 (a), then
-(b)), the
+(b); ``moe_launches``: phase 15a's 4 steps; ``pp_launches``: each rank's
+in 15c, 15d and 15d4; ``moe_seg_launches``: phase 15b's), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -722,15 +750,15 @@ FLAGSHIP = dict(image_tag="vit_base_patch16_224_in21k", text_tag="bert-base-unca
                 image_k=5, text_k=1)
 
 
-def seeded_clip(seed: int, img_size: int = SIZE, depth=None):
+def seeded_clip(seed: int, img_size: int = SIZE, depth=None, image_arch=()):
     """The flagship CLIP model on the CPU in float32, with weights drawn from
     a seeded generator (``depth``: the blocks of each tower, at full
-    width)."""
+    width; ``image_arch``: more of the image tower's knobs)."""
     from simseg_tpu_torch.models.clip import CLIPModel
 
-    arch = (("depth", depth),) if depth else None
-    model = CLIPModel(img_size=img_size, image_arch=arch, text_arch=arch,
-                      **FLAGSHIP)
+    arch = (("depth", depth),) if depth else ()
+    model = CLIPModel(img_size=img_size, image_arch=(arch + image_arch) or None,
+                      text_arch=arch or None, **FLAGSHIP)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in model.parameters():
@@ -802,8 +830,8 @@ def check_counts(label, counts, want):
         raise AssertionError(f"{label}: launches {counts}, want {want}")
 
 
-def slice_setup():
-    """(model, tokenizer, classes) of the segmentation slices."""
+def seg_vocab():
+    """(tokenizer, classes) of the segmentation slices."""
     from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer, make_test_vocab
     from simseg_tpu_torch.tasks.seg_eval import load_label_bank
     from simseg_tpu_torch.utils.prompts import IMAGENET_TEMPLATES
@@ -811,7 +839,12 @@ def slice_setup():
     classes = load_label_bank("pascal_voc")
     words = [w for t in IMAGENET_TEMPLATES for w in t.replace("{}", " ")
              .replace(".", " ").split()] + classes
-    return seeded_model(0), WordPieceTokenizer(make_test_vocab(words)), classes
+    return WordPieceTokenizer(make_test_vocab(words)), classes
+
+
+def slice_setup():
+    """(model, tokenizer, classes) of the segmentation slices."""
+    return (seeded_model(0), *seg_vocab())
 
 
 def run_slice(model, tokenizer, classes):
@@ -5173,15 +5206,63 @@ MP_NOTE = ("ranks sharing one card through gloo: every collective is staged "
 MP_NOISE_BAR = 2.0
 
 
+# -- phase 15's legs: expert and pipeline parallelism, 4 blocks a tower ------------
+
+MOE_ARCH = "'moe_experts': 8, 'moe_every': 2, 'moe_capacity': 1.25"
+P15_DEPTH = 4
+P15_LEGS = {
+    "15c": (2, TRAIN_SIZE, 8, ("dist.moe_ep=True",), None),
+    "15d": (2, TRAIN_SIZE, 16, ("dist.pp_size=2", "dist.pp_micro=4"), None),
+    "15d4": (4, TRAIN_SIZE, 16, ("dist.pp_size=2", "dist.pp_micro=4",
+                                 "dist.zero1=True"), None),
+}
+# the legs' towers: (c) MoE, (d) dense, each cut to P15_DEPTH blocks
+LEG_ARCH = {
+    "15c": tuple(f"model.{t}_encoder.arch={{'depth': {P15_DEPTH}, {MOE_ARCH}}}"
+                 for t in ("image", "text")),
+    "15d": tuple(f"model.{t}_encoder.arch={{'depth': {P15_DEPTH}}}"
+                 for t in ("image", "text")),
+}
+LEG_ARCH["15d4"] = LEG_ARCH["15d"]
+# phase 14's 224-px legs at MP_DEPTH blocks a tower, full width (the
+# script's time); (a) and (b) stay at full depth: at 6 blocks (b)'s seeded
+# weights put both towers' gradient norms 3.8-4.1% from one process's on
+# the H100 (loss 2.85e-3 off, at temperature 0.02), past the 1e-2 bar it
+# meets at 12 blocks
+MP_DEPTH = 6
+for _leg, _spec in MP_LEGS.items():
+    if _spec[1] != TRAIN_SIZE:
+        LEG_ARCH[_leg] = tuple(
+            f"model.{t}_encoder.arch={{'depth': {MP_DEPTH}}}"
+            for t in ("image", "text"))
+# attention launches a rank a step, forward and backward: (c) every block of
+# the image tower, (d) a stage's 2 blocks x 4 microbatches
+LEG_ATTN = {"15c": P15_DEPTH, "15d": 8, "15d4": 8}
+LEG_ATTN.update({leg: 12 for leg, spec in MP_LEGS.items()
+                 if spec[1] == TRAIN_SIZE})
+# the aux against one process's (relative): each rank's counts of a bf16
+# forward may route a near-tie otherwise than one process's
+MOE_AUX_BAR = 2e-3
+
+
+def leg_spec(leg):
+    return {**MP_LEGS, **P15_LEGS}[leg]
+
+
+def leg_label(leg):
+    return leg if leg.startswith("15") else f"14{leg}"
+
+
 def mp_cfg(tmp, leg, sharded=True, bf16=True):
     """A leg's config: the flagship's (``TRAIN_OVERRIDES``) at the leg's
     size and batch, a constant lr (the schedule's warmup would start at 0),
-    its ``dist`` settings unless ``sharded`` is False (one process's);
-    float32 compute with ``bf16`` False (the witness of ``mp_bars``)."""
-    _, px, b, legs, micro = MP_LEGS[leg]
+    its towers (``LEG_ARCH``), its ``dist`` settings unless ``sharded`` is
+    False (one process's); float32 compute with ``bf16`` False (the witness
+    of ``mp_bars``)."""
+    _, px, b, legs, micro = leg_spec(leg)
     extra = [f"transforms.random_resize_crop.size={px}",
              f"transforms.input_size={px}", f"data.batch_size={b}",
-             "optim.lr.name=constant_schedule"]
+             "optim.lr.name=constant_schedule", *LEG_ARCH.get(leg, ())]
     if micro:
         extra += [f"data.batch_size_train={micro}", "runner.name=clip_bsgs"]
     if not bf16:
@@ -5204,51 +5285,68 @@ def mp_runner(cfg, tok, dev):
     from simseg_tpu_torch.core.runner import CLIPRunner
     from simseg_tpu_torch.parallel import make_mesh
 
-    mesh = make_mesh(-1, int(cfg.dist.tp_size))
+    mesh = make_mesh(-1, int(cfg.dist.tp_size), int(cfg.dist.pp_size))
     return CLIPRunner(cfg, mp_model(cfg, dev, mesh), {"train": []},
                       device=dev, tokenizer=tok)
 
 
-def mp_bars(label, loss, grads, want_loss, want, want32):
+def mp_bars(label, loss, grads, want_loss, want, want32, aux=None,
+            want_aux=None):
     """(ok, text): the loss within 1e-2 relative, each tower's whole gradient
     at cosine >= 0.99 and its norm within 1e-2 (the temperature's too) of
     one process's bf16 step, and every tensor's gradient within
     ``MP_NOISE_BAR`` times that step's own distance from the float32 step
     (``want32``; + 1e-3 of its norm), the key projections' biases left out
-    as in ``tower_cosines``."""
+    as in ``tower_cosines``. With MoE towers (``want_aux`` given) the aux
+    within ``MOE_AUX_BAR``, and each tensor's own distance from the float32
+    step within ``MP_NOISE_BAR`` times one process's: two bf16 runs route
+    a few near-tie tokens to other experts (15a on the H100: 0.38%), which
+    moves the routers' gradients between the two more than rounding does,
+    so the bar holds each to the float32 step (the distance between the
+    two printed beside it)."""
+    aux_rel = 0.0 if want_aux is None else abs(aux - want_aux) / abs(want_aux)
     rel = abs(loss - want_loss) / abs(want_loss)
     cos = whole_tower_cosines(grads, want)
     norms = tower_norms(grads, want)
-    ratios = {}
+    ratios, to32 = {}, {}
     for n, w in want.items():
         if n.endswith("attention.self.key.bias"):
             continue  # zero in exact arithmetic: both sides hold noise
-        w = w.double()
-        noise = (w - want32[n].double()).norm() + 1e-3 * w.norm()
-        ratios[n] = ((grads[n].double() - w).norm() / noise).item()
+        w, w32, g = w.double(), want32[n].double(), grads[n].double()
+        noise = (w - w32).norm() + 1e-3 * w.norm()
+        ratios[n] = ((g - w).norm() / noise).item()
+        to32[n] = ((g - w32).norm() / noise).item()
+    held = to32 if want_aux is not None else ratios
     worst = max(ratios, key=ratios.get)
+    worst32 = max(to32, key=to32.get)
     ok = (rel <= DIST_LOSS_BAR and all(c >= DIST_COS_BAR for c in cos.values())
           and all(v <= DIST_NORM_BAR for v in norms.values())
-          and ratios[worst] <= MP_NOISE_BAR)
+          and max(held.values()) <= MP_NOISE_BAR and aux_rel <= MOE_AUX_BAR)
     return ok, (f"{label}: loss {loss:.6f} vs {want_loss:.6f} (relative "
                 f"{rel:.3e}); whole-tower gradient cosine {cos}; norm errors "
                 f"{norms}; largest error over one process's bf16 error "
-                f"{ratios[worst]:.3f} ({worst})")
+                f"{ratios[worst]:.3f} ({worst})"
+                + ("" if want_aux is None else
+                   f"; largest distance from float32 over one process's "
+                   f"{to32[worst32]:.3f} ({worst32}); aux {aux:.6f} vs "
+                   f"{want_aux:.6f} (relative {aux_rel:.3e})"))
 
 
 def mp_captured(runner, batch):
-    """(loss, {name: whole float32 grad}) of one call of the sharded step:
-    the optimizer's update replaced by a gather of the gradients it would
-    take (a collective: every rank calls it)."""
-    plan = runner.model.shard_plan
+    """(loss, {name: whole float32 grad}, aux or None) of one call of the
+    sharded step: the optimizer's update replaced by a gather of the
+    gradients it would take (a collective: every rank calls it)."""
+    plan = getattr(runner.model, "shard_plan", None)
     grads = {}
 
     def capture():
         for n, p in runner.model.named_parameters():
             if p.grad is None:
                 continue
-            spec, g = plan.specs[n], p.grad.detach()
-            if spec.tp_dim is not None or spec.fsdp_dim is not None:
+            g = p.grad.detach()
+            spec = None if plan is None else plan.specs[n]
+            if spec is not None and (spec.tp_dim is not None
+                                     or spec.data_dim is not None):
                 g = plan.full(g, spec)
             grads[n] = g.float().clone()
         runner.optimizer.zero_grad()
@@ -5256,20 +5354,26 @@ def mp_captured(runner, batch):
 
     with unittest.mock.patch.object(runner.optimizer, "step", capture):
         metrics = runner._step_fn(batch, 0.0, 0, True)
-    return metrics["loss"].item(), grads
+    aux = metrics.get("moe_aux")
+    return metrics["loss"].item(), grads, None if aux is None else aux.item()
 
 
-def mp_rule_bytes(plan):
+def mp_rule_bytes(model):
     """(parameter bytes, AdamW moment bytes) a rank holds by the specs, and
     the same for one process: each sharded dim divided by its ranks (a
-    ZeRO-1 slice by the data ranks); two float32 moments a parameter."""
+    ZeRO-1 slice by the data ranks); two float32 moments a parameter.
+    Without a shard plan (a pipeline alone) every rank holds the whole."""
+    plan = getattr(model, "shard_plan", None)
+    if plan is None:
+        whole = sum(p.numel() for p in model.parameters())
+        return (4 * whole, 8 * whole), (4 * whole, 8 * whole)
     m = plan.mesh
     params = moments = whole = 0
     for spec in plan.specs.values():
         n = int(np.prod(spec.shape)) if spec.shape else 1
         whole += n
         local = n // (m.tp if spec.tp_dim is not None else 1)
-        local //= m.group_ranks if spec.fsdp_dim is not None else 1
+        local //= m.group_ranks if spec.data_dim is not None else 1
         params += 4 * local
         moments += 8 * (n // m.data_size if spec.zero_dim is not None else local)
     return (params, moments), (4 * whole, 8 * whole)
@@ -5280,11 +5384,16 @@ def mp_faults(leg, runner, local):
     row-parallel sum dropped (the image tower's last fc2), against
     ``mp_bars``; (b) the sequence-parallel LayerNorms' gradients left
     unsummed over the model group, against ``mp_bars``; (d) one FSDP leaf
-    (the word embeddings) left whole, against the bytes check."""
+    (the word embeddings) left whole, against the bytes check; 15c and 15d:
+    ``p15_ep_faults``, ``p15_pp_faults``."""
     from simseg_tpu_torch.parallel.sharding import state_bytes
 
-    plan = runner.model.shard_plan
+    plan = getattr(runner.model, "shard_plan", None)
     out = {}
+    if leg == "15c":
+        p15_ep_faults(runner, local, out)
+    if leg == "15d":
+        p15_pp_faults(runner, local, out)
     if leg == "a":
         fc2 = runner.model.image_tower.blocks[-1].mlp.fc2
 
@@ -5314,7 +5423,7 @@ def mp_faults(leg, runner, local):
             got = state_bytes(runner.model)[0]
         finally:
             emb._parameters["weight"] = shard
-        want_b = mp_rule_bytes(plan)[0][0]
+        want_b = mp_rule_bytes(runner.model)[0][0]
         print(f"14d planted fault (the word embeddings left whole): parameter "
               f"bytes {got} vs the rules' {want_b}; equal {got == want_b}",
               flush=True)
@@ -5332,14 +5441,15 @@ def mp_leg(tmp, leg, r, dev, result, refs):
     from simseg_tpu_torch.parallel import process_allgather
     from simseg_tpu_torch.parallel.sharding import state_bytes
 
-    world, px, b, legs, micro = MP_LEGS[leg]
+    world, px, b, legs, micro = leg_spec(leg)
+    name = leg_label(leg)
     t_leg = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     batch224, tok = caption_batch(41, min(b, 32), px)
     batch = tiled_batch(batch224, b)
     runner = mp_runner(mp_cfg(tmp, leg), tok, dev)
     mesh = runner.mesh
-    plan = runner.model.shard_plan
+    plan = getattr(runner.model, "shard_plan", None)
     full = runner._prepare_batch(batch)
     n, d = b // mesh.data_size, mesh.data_rank
     local = {k: v[d * n:(d + 1) * n] for k, v in full.items()}
@@ -5349,62 +5459,64 @@ def mp_leg(tmp, leg, r, dev, result, refs):
         out = []
         for bf16 in (True, False):
             ref = mp_model(mp_cfg(tmp, leg, sharded=False, bf16=bf16), dev)
-            out.append(bsgs_grads(ref, full, b // micro) if micro
-                       else step_grads(ref, full))
+            out.append((*bsgs_grads(ref, full, b // micro), None) if micro
+                       else step_grads_aux(ref, full))
             del ref
             torch.cuda.empty_cache()
-        refs[key] = (*out[0], out[1][1])
+        refs[key] = (*out[0][:2], out[1][1], out[0][2])
     del full
-    loss, grads = mp_captured(runner, local)
+    loss, grads, aux = mp_captured(runner, local)
     faults = mp_faults(leg, runner, local)
-    label = f"14{leg} {'+'.join(legs)}, {px} px, batch {b}" + (
+    label = f"{name} {'+'.join(legs)}, {px} px, batch {b}" + (
         f" (BSGS / {micro})" if micro else "") + f", {world} ranks"
     if r == 0:
-        want_loss, want, want32 = refs[key]
+        want_loss, want, want32, want_aux = refs[key]
         ok, text = mp_bars(label + " vs one process", loss, grads,
-                           want_loss, want, want32)
+                           want_loss, want, want32, aux, want_aux)
         print(text, flush=True)
         if not ok:
-            raise AssertionError(f"14{leg}: the sharded step is not one "
+            raise AssertionError(f"{name}: the sharded step is not one "
                                  "process's")
-        for name, (f_loss, f_grads) in faults.items():
-            f_ok, f_text = mp_bars(f"14{leg} planted fault, {name}", f_loss,
-                                   f_grads, want_loss, want, want32)
+        for fault, (f_loss, f_grads, f_aux) in faults.items():
+            f_ok, f_text = mp_bars(f"{name} planted fault, {fault}", f_loss,
+                                   f_grads, want_loss, want, want32, f_aux,
+                                   want_aux)
             print(f_text + f"; within the bars {f_ok}", flush=True)
             if f_ok:
-                raise AssertionError(f"14{leg}: the planted fault ({name}) "
+                raise AssertionError(f"{name}: the planted fault ({fault}) "
                                      "passed")
     del grads, faults, local
     host = {"image": batch["image"][d * n:(d + 1) * n],
             "caption": batch["caption"][d * n:(d + 1) * n]}
-    ms, red, staged, counts = dist_train_steps(f"14{leg}", runner, host,
+    ms, red, staged, counts = dist_train_steps(name, runner, host,
                                                MP_STEPS, r)
-    kernels = {"flash_attention": 12 * MP_STEPS, "lane_train": 12 * MP_STEPS,
-               "flash_attention_bwd": 12 * MP_STEPS} if px == TRAIN_SIZE else {}
-    check_counts(f"14{leg} rank {r}", counts, kernels)
+    per = LEG_ATTN.get(leg, 0)
+    kernels = {"flash_attention": per * MP_STEPS, "lane_train": per * MP_STEPS,
+               "flash_attention_bwd": per * MP_STEPS} if per else {}
+    check_counts(f"{name} rank {r}", counts, kernels)
     got = state_bytes(runner.model, runner.optimizer)
-    (want_b, dp_b) = mp_rule_bytes(plan)
-    print(f"14{leg} rank {r}: parameter / moment bytes {got[0]} / {got[1]}, the "
+    (want_b, dp_b) = mp_rule_bytes(runner.model)
+    print(f"{name} rank {r}: parameter / moment bytes {got[0]} / {got[1]}, the "
           f"rules' {want_b[0]} / {want_b[1]}, one process's {dp_b[0]} / "
           f"{dp_b[1]}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     if tuple(got) != tuple(want_b):
-        raise AssertionError(f"14{leg} rank {r}: the rank holds {got} bytes, "
+        raise AssertionError(f"{name} rank {r}: the rank holds {got} bytes, "
                              f"the rules give {want_b}")
     import hashlib
 
     h = hashlib.sha256()
     for k, v in runner.model.state_dict().items():
-        spec = plan.specs.get(k)
-        if spec is None or (spec.tp_dim is None and spec.fsdp_dim is None):
+        spec = None if plan is None else plan.specs.get(k)
+        if spec is None or (spec.tp_dim is None and spec.data_dim is None):
             h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy()
                      .tobytes())
     digests = process_allgather(np.frombuffer(h.digest(), np.uint8))
     same = bool((digests == digests[0]).all())
-    print(f"14{leg} rank {r}: replicated leaves bit-equal across the ranks "
+    print(f"{name} rank {r}: replicated leaves bit-equal across the ranks "
           f"after {MP_STEPS} steps {same}", flush=True)
     if not same:
-        raise AssertionError(f"14{leg}: the ranks' replicated leaves differ")
+        raise AssertionError(f"{name}: the ranks' replicated leaves differ")
     result[leg] = dict(ms=ms, reduce_ms=red, staged=staged, counts=counts,
                        bytes=list(got), rule_bytes=list(want_b),
                        dp_bytes=list(dp_b), images_per_s=b / ms * 1e3,
@@ -5440,18 +5552,92 @@ def mp_zero1_vs_dp(tmp, r, dev, result):
     torch.cuda.empty_cache()
 
 
-def run_mp_worker(out_dir, world, backend="gloo"):
-    """One rank of a phase 14 world: gloo ranks on ``cuda:0`` (NCCL: a card
-    a rank), the legs of this world size; its numbers to
+def step_grads_aux(model, batch):
+    """(loss, {name: grad}, aux or None) of one forward/backward of the train
+    loss (the MoE towers' aux in it)."""
+    from simseg_tpu_torch.engine.train_step import clip_loss_fn
+
+    model.zero_grad(set_to_none=True)
+    loss, metrics = clip_loss_fn(model, batch)
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    aux = metrics.get("moe_aux")
+    return loss.item(), grads, None if aux is None else aux.item()
+
+
+def p15_ep_faults(runner, local, out):
+    """15c's planted faults, each against ``mp_bars``: the aux of each rank's
+    own rows (its statistics not summed over the data ranks), and the
+    experts' gradients summed over the data ranks as a replicated leaf's
+    (each rank's shard holds other experts)."""
+    from simseg_tpu_torch.engine import train_step
+    from simseg_tpu_torch.parallel.collectives import reduce_gradients
+
+    real_aux = train_step.moe_aux
+    with unittest.mock.patch.object(
+            train_step, "moe_aux",
+            lambda model, group, world: real_aux(model, None, 1)):
+        out["a rank-local aux"] = mp_captured(runner, local)
+    plan, inner = runner.model.shard_plan, train_step.reduce_model_gradients
+
+    def experts_summed(model, mesh):
+        inner(model, mesh)
+        reduce_gradients([p for n, p in model.named_parameters()
+                          if plan.specs[n].ep_dim is not None], mesh.data_group)
+
+    with unittest.mock.patch.object(train_step, "reduce_model_gradients",
+                                    experts_summed):
+        out["expert gradients summed over the data ranks"] = mp_captured(
+            runner, local)
+
+
+def p15_pp_faults(runner, local, out):
+    """15d's planted faults, each against ``mp_bars``: the image tower's
+    first two microbatches swapped in the collected buffer, and the leaves
+    every stage computes alike (final norm, projections, temperature)
+    summed over the stages."""
+    from simseg_tpu_torch.parallel import pp
+
+    inner_tokens = pp.pp_image_tokens
+
+    def swapped(model, images, mesh, n_micro):
+        t = inner_tokens(model, images, mesh, n_micro)
+        m = t.shape[0] // n_micro
+        return torch.cat([t[m:2 * m], t[:m], t[2 * m:]])
+
+    with unittest.mock.patch.object(pp, "pp_image_tokens", swapped):
+        out["two microbatches swapped in the image buffer"] = mp_captured(
+            runner, local)
+    inner_stages, stage = pp.param_stages, runner.mesh.stage
+
+    def every_stage(model, n):
+        return {k: (stage if v == n - 1 and not (pp._IMG.match(k)
+                                                 or pp._TXT.match(k)) else v)
+                for k, v in inner_stages(model, n).items()}
+
+    with unittest.mock.patch.object(pp, "param_stages", every_stage):
+        out["the replicated leaves summed over the stages"] = mp_captured(
+            runner, local)
+
+
+# the worlds of phases 14 and 15, started at once, each running its legs in
+# turn: twelve host-bound processes sharing the card (the host's cores bound
+# the phases' time: five worlds, (c, d) apart, took as long)
+MP_WORLDS = (("a", "b", "c", "d"), ("e", "f"), ("15c", "15d"), ("15d4",))
+
+
+def run_mp_worker(out_dir, world, backend="gloo", legs="e"):
+    """One rank of a phase 14 or 15 world: gloo ranks on ``cuda:0`` (NCCL: a
+    card a rank), the legs named (comma-separated) in turn; its numbers to
     ``out_dir/rank<r>.json``."""
     from simseg_tpu_torch.parallel import init_distributed, local_rank, rank
 
     dev = "cuda:0" if backend == "gloo" else f"cuda:{local_rank()}"
     init_distributed(backend=backend, device=dev, timeout=MP_LIMIT)
     r, result, refs = rank(), {}, {}
-    legs = [leg for leg, spec in MP_LEGS.items() if spec[0] == int(world)]
-    if backend != "gloo":
-        legs = ["e"]
+    legs = legs.split(",")
     with tempfile.TemporaryDirectory() as tmp:
         for leg in legs:
             mp_leg(tmp, leg, r, dev, result, refs)
@@ -5461,8 +5647,10 @@ def run_mp_worker(out_dir, world, backend="gloo"):
         json.dump(result, f)
 
 
-def mp_world(world, backend="gloo"):
-    """The ranks of one phase 14 world, started together; their results."""
+def mp_world(legs, backend="gloo"):
+    """The ranks of one phase 14 or 15 world running ``legs``, started
+    together; their results."""
+    world = leg_spec(legs[0])[0]
     from simseg_tpu_torch.launch import free_port
 
     with tempfile.TemporaryDirectory() as out:
@@ -5473,7 +5661,7 @@ def mp_world(world, backend="gloo"):
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--mp-worker", out,
-                 str(world), backend], env=env))
+                 str(world), backend, ",".join(legs)], env=env))
         try:
             rcs = [p.wait(timeout=MP_LIMIT) for p in procs]
         finally:
@@ -5482,7 +5670,7 @@ def mp_world(world, backend="gloo"):
                     p.kill()
                     p.wait()
         if rcs != [0] * world:
-            raise AssertionError(f"14: the {world} ranks exited {rcs}")
+            raise AssertionError(f"{legs}: the {world} ranks exited {rcs}")
         ranks = []
         for r in range(world):
             with open(os.path.join(out, f"rank{r}.json")) as f:
@@ -5491,24 +5679,24 @@ def mp_world(world, backend="gloo"):
 
 
 def run_model_parallel():
-    """Phase 14: the attention kernels at the TP shape, then the legs in a
-    world of 2 and one of 4 gloo ranks on the card; returns the attention
-    kernels' launches per rank in (a) and (b)."""
+    """Phases 14 and 15 (c, d): the attention kernels at the TP shape, then
+    the legs in worlds of 2 and 4 gloo ranks on the card, phase 14's and
+    phase 15's at once; returns the attention kernels' launches per rank in
+    14 (a) and (b), and in 15c, 15d and 15d4."""
     card = card_line()
     t_start = time.perf_counter()
     b = MP_LEGS["a"][2]
     fwd = check_flash_kernel(MP_T, b=b, heads=HEADS // 2)
     bwd = check_flash_bwd_kernel(MP_T, b, heads=HEADS // 2)
     torch.cuda.empty_cache()
-    # the two worlds at once: six host-bound processes, about 40 GiB of
-    # the card at their peaks
-    with ThreadPoolExecutor(2) as pool:
-        worlds = {w: pool.submit(mp_world, w) for w in (2, 4)}
-        ranks = {w: job.result() for w, job in worlds.items()}
-    for leg, (world, px, b, legs, micro) in MP_LEGS.items():
-        for r, res in enumerate(ranks[world]):
+    with ThreadPoolExecutor(len(MP_WORLDS)) as pool:
+        jobs = [pool.submit(mp_world, legs) for legs in MP_WORLDS]
+        ranks = {leg: res for legs, job in zip(MP_WORLDS, jobs)
+                 for res in [job.result()] for leg in legs}
+    for leg, (world, px, b, legs, micro) in {**MP_LEGS, **P15_LEGS}.items():
+        for r, res in enumerate(ranks[leg]):
             x = res[leg]
-            print(f"14{leg} rank {r} ({card}): {'+'.join(legs)} at {px} px, "
+            print(f"{leg_label(leg)} rank {r} ({card}): {'+'.join(legs)} at {px} px, "
                   f"batch {b}{f' (BSGS / {micro})' if micro else ''}: "
                   f"{x['images_per_s']:.1f} images/s ({x['ms']:.1f} ms a step"
                   + (f"; data-parallel {x['dp_ms']:.1f}" if "dp_ms" in x else "")
@@ -5525,10 +5713,13 @@ def run_model_parallel():
           f"{fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f}); backward "
           f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, sdpa "
           f"{bwd['library_ms']:.4f}, bound {bwd['bound_ms']:.4f})", flush=True)
-    print(f"14 phase in {time.perf_counter() - t_start:.1f} s", flush=True)
-    return {k: [res[leg]["counts"][k] for leg in ("a", "b")
-                for res in ranks[2]]
-            for k in ("flash_attention", "flash_attention_bwd")}
+    print(f"14-15 worlds in {time.perf_counter() - t_start:.1f} s", flush=True)
+    mp = {k: [res[leg]["counts"][k] for leg in ("a", "b") for res in ranks[leg]]
+          for k in ("flash_attention", "flash_attention_bwd")}
+    pp = {k: [res[leg]["counts"][k] for leg in ("15c", "15d", "15d4")
+              for res in ranks[leg]]
+          for k in ("flash_attention", "flash_attention_bwd")}
+    return mp, pp
 
 
 def run_model_parallel_nccl():
@@ -5537,13 +5728,213 @@ def run_model_parallel_nccl():
     if torch.cuda.device_count() < 4:
         raise SystemExit("chip_smoke --model-parallel-nccl needs four cards")
     t_start = time.perf_counter()
-    for r, res in enumerate(mp_world(4, "nccl")):
+    for r, res in enumerate(mp_world(("e",), "nccl")):
         x = res["e"]
         print(f"14e NCCL rank {r} ({card_line()}): {x['images_per_s']:.1f} "
               f"images/s ({x['ms']:.1f} ms a step), reduction "
               f"{x['reduce_ms']:.1f} ms a step, peak {x['peak_gib']:.2f} GiB",
               flush=True)
     print(f"14e NCCL in {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+# -- phase 15 (a, b): the MoE towers in one process ------------------------------
+
+MOE_STEPS = 4                              # (a): timed steps 2-4
+MOE_COMPARE = 8                            # (a): rows of the witness step
+# (a): share of routed tokens on the witness's expert (bf16 near-ties flip)
+MOE_ROUTE_BAR = 0.99
+MOE_SEG_BATCHES = 3
+
+
+def moe_overrides(depth=None):
+    d = "" if depth is None else f"'depth': {depth}, "
+    return tuple(f"model.{t}_encoder.arch={{{d}{MOE_ARCH}}}"
+                 for t in ("image", "text"))
+
+
+def routed(model, fn):
+    """(fn(), [each MoE layer's expert of every token]) from the routers'
+    logits (their argmax, the layer's own choice)."""
+    from simseg_tpu_torch.ops.moe import moe_layers
+
+    routes = []
+    hooks = [m.router.register_forward_hook(
+        lambda mod, args, out: routes.append(out.argmax(-1).flatten().cpu()))
+        for m in moe_layers(model)]
+    try:
+        return fn(), routes
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def route_share(routes, want):
+    same = sum(int((a == b).sum()) for a, b in zip(routes, want))
+    return same / sum(a.numel() for a in want)
+
+
+def moe_predicted_bytes(cfg):
+    """(parameters, AdamW moments) in bytes from the shapes of the model of
+    ``cfg`` on the ``meta`` device, and the experts' parameters."""
+    from simseg_tpu_torch.models.clip import build_clip_model
+
+    with torch.device("meta"):
+        model = build_clip_model(cfg)
+    n = sum(p.numel() for p in model.parameters())
+    experts = sum(p.numel() for name, p in model.named_parameters()
+                  if ".moe.w" in name or ".moe.b" in name)
+    return 4 * n, 8 * n, experts, n
+
+
+def run_moe_train(tmp):
+    """15a: ViT-B/16 + BERT-base with 8-expert MoE blocks (every second
+    block of each tower, capacity 1.25), full depth, 576 px, batch 32, bf16
+    compute. At ``MOE_COMPARE`` rows: the kernel lane's step (loss, aux,
+    gradients) against the plain-attention lane's with ``mp_bars`` (a
+    float32 step of the same weights as the noise scale) and the routing
+    shares against it, a planted routing fault (the router's experts read
+    in reverse) below ``MOE_ROUTE_BAR``; then ``MOE_STEPS`` timed steps at
+    32 with exact launches (12 forward and 12 backward a step), images/s,
+    peak GiB, parameter and moment bytes against the prediction. Returns
+    the launch counts."""
+    from simseg_tpu_torch.core.runner import CLIPRunner
+    from simseg_tpu_torch.models.clip import build_clip_model
+    from simseg_tpu_torch.ops import attention
+    from simseg_tpu_torch.ops.moe import moe_layers
+    from simseg_tpu_torch.parallel.sharding import state_bytes
+
+    card, t0 = card_line(), time.perf_counter()
+    extra = (*moe_overrides(), f"transforms.random_resize_crop.size={TRAIN_SIZE}",
+             f"transforms.input_size={TRAIN_SIZE}",
+             f"data.batch_size={TRAIN_BATCH}", "optim.lr.name=constant_schedule")
+    cfg = train_cfg(tmp, *extra)
+    batch, tok = caption_batch(43, TRAIN_BATCH, TRAIN_SIZE)
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        model = build_clip_model(cfg)
+    runner = CLIPRunner(cfg, model, {"train": []}, device="cuda", tokenizer=tok)
+    dev = runner._prepare_batch(batch)
+    small = {k: v[:MOE_COMPARE] for k, v in dev.items()}
+    (loss, grads, aux), routes = routed(
+        runner.model, lambda: step_grads_aux(runner.model, small))
+    with unittest.mock.patch.object(attention, "attention_lane",
+                                    lambda *a, **k: "plain"):
+        (w_loss, w_grads, w_aux), w_routes = routed(
+            runner.model, lambda: step_grads_aux(runner.model, small))
+    with torch.device("cuda"):
+        f32 = build_clip_model(train_cfg(tmp, *extra, "dist.bf16=False"))
+    f32.load_state_dict(runner.model.state_dict())
+    grads32 = step_grads_aux(f32, small)[1]
+    del f32
+    torch.cuda.empty_cache()
+    label = (f"15a MoE 8 experts, {TRAIN_SIZE} px, batch {MOE_COMPARE}: kernel "
+             f"lane vs the plain-attention lane")
+    ok, text = mp_bars(label, loss, grads, w_loss, w_grads, grads32, aux, w_aux)
+    share = route_share(routes, w_routes)
+    print(f"{text}; tokens routed to the witness's expert {share:.6f} of "
+          f"{sum(r.numel() for r in w_routes)}", flush=True)
+    if not ok or share < MOE_ROUTE_BAR:
+        raise AssertionError(f"15a: the kernel lane's MoE step is not the "
+                             f"witness's (share {share})")
+    routers = [m.router for m in moe_layers(runner.model)]
+    with contextlib.ExitStack() as stack:
+        for router in routers:
+            stack.enter_context(unittest.mock.patch.object(
+                router, "forward",
+                lambda x, r=router: type(r).forward(r, x).flip(-1)))
+        (_, _, f_aux), f_routes = routed(
+            runner.model, lambda: step_grads_aux(runner.model, small))
+    f_share = route_share(f_routes, w_routes)
+    print(f"15a planted fault (the routers' experts read in reverse): tokens "
+          f"routed to the witness's expert {f_share:.6f}, aux {f_aux:.6f}",
+          flush=True)
+    if f_share >= MOE_ROUTE_BAR:
+        raise AssertionError("15a: the planted routing fault passed")
+    del grads, w_grads, grads32
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    events, losses, auxes = [], [], []
+    for step in range(MOE_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = runner._step_fn(dev, 1e-4, step, True)
+        end.record()
+        events.append((start, end))
+        losses.append(m["loss"])
+        auxes.append(m["moe_aux"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    per = 12 * MOE_STEPS
+    check_counts("15a", counts, {"flash_attention": per, "lane_train": per,
+                                 "flash_attention_bwd": per})
+    ms = events[1][0].elapsed_time(events[-1][1]) / (MOE_STEPS - 1)
+    losses = [x.item() for x in losses]
+    auxes = [x.item() for x in auxes]
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(auxes))):
+        raise AssertionError(f"15a: losses {losses}, aux {auxes}")
+    got = state_bytes(runner.model, runner.optimizer)
+    want_p, want_m, experts, n = moe_predicted_bytes(cfg)
+    print(f"15a ({card}): {MOE_STEPS} steps at batch {TRAIN_BATCH}, losses "
+          f"{[round(x, 5) for x in losses]}, aux {[round(x, 5) for x in auxes]}; "
+          f"{ms:.1f} ms a step (steps 2-{MOE_STEPS}) = "
+          f"{TRAIN_BATCH / ms * 1e3:.1f} images/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; parameters "
+          f"{got[0]} bytes, moments {got[1]} (predicted {want_p} / {want_m}: "
+          f"{n} parameters, {experts} of them the experts'); launches {counts}",
+          flush=True)
+    if tuple(got) != (want_p, want_m):
+        raise AssertionError(f"15a: bytes {got}, predicted {(want_p, want_m)}")
+    print(f"15a in {time.perf_counter() - t0:.1f} s", flush=True)
+    del runner, model, dev, small
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_moe_seg(tokenizer, classes):
+    """15b: ``evaluate_benchmark`` with the 8-expert MoE image tower at 288 px
+    on ``MOE_SEG_BATCHES`` batches of 16 (seeded weights, bf16): one CRF
+    launch a batch and nothing else (the 325-token pass takes the plain
+    attention lane); one batch's predictions against the plain decode
+    (>= 99.9%); images/s of towers + decode (CUDA events). Returns the
+    counts."""
+    from simseg_tpu_torch.ops.seg_decode import make_seg_decode_fn
+    from simseg_tpu_torch.tasks.seg_eval import (make_seg_features,
+                                                 make_seg_predict,
+                                                 zero_shot_classifier)
+
+    t0 = time.perf_counter()
+    model = seeded_clip(5, image_arch=(("moe_experts", 8), ("moe_every", 2),
+                                       ("moe_capacity", 1.25))).to(
+        device="cuda", dtype=torch.bfloat16).eval()
+    loader = SyntheticLoader(MOE_SEG_BATCHES, BATCH, len(classes), seed=6)
+    counts = drive_eval("15b MoE seg eval", loader, model, tokenizer, classes,
+                        input_size=SIZE)
+    check_counts("15b", counts, {"crf_mean_field": MOE_SEG_BATCHES})
+    text_bank = zero_shot_classifier(model, classes, tokenizer, max_length=25)
+    images_u8 = torch.from_numpy(next(iter(loader))["image"]).cuda()
+    dense, pooled = make_seg_features(model, input_size=SIZE)(images_u8)
+    decode = make_seg_decode_fn(num_classes=len(classes), image_size=SIZE,
+                                patch_size=PATCH, top_cls_num=10,
+                                bilateral_stride=STRIDE)
+    with torch.no_grad():
+        pred, _ = decode(dense, pooled, text_bank, images_u8)
+    agree = (pred == plain_decode(dense, pooled, text_bank, images_u8,
+                                  SIZE)).float().mean().item()
+    predict = make_seg_predict(model, len(classes), 10, input_size=SIZE,
+                               bilateral_stride=STRIDE)
+    ms = cuda_ms(lambda: predict(images_u8, text_bank), 3)
+    print(f"15b ({card_line()}): pred agreement kernel vs plain decode "
+          f"{agree:.6f}; towers + decode {ms:.3f} ms a batch of {BATCH} = "
+          f"{BATCH / ms * 1e3:.1f} images/s; 15b in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if agree < 0.999:
+        raise AssertionError(f"15b: pred agreement {agree:.6f} < 0.999")
+    del model
+    torch.cuda.empty_cache()
+    return counts
 
 
 def build_all(later=()):
@@ -5908,7 +6299,7 @@ def main() -> None:
     if sys.argv[1:2] == ["--rank-worker"]:
         return run_rank_worker(sys.argv[2])
     if sys.argv[1:2] == ["--mp-worker"]:
-        return run_mp_worker(*sys.argv[2:5])
+        return run_mp_worker(*sys.argv[2:6])
     if sys.argv[1:2] == ["--serve-worker"]:
         return run_serve_worker(sys.argv[2])
     if sys.argv[1:2] == ["--serve-export"]:
@@ -5962,6 +6353,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--model-parallel"]:
         print(f"card: {card_line()}", flush=True)
         build_all()
+        with tempfile.TemporaryDirectory() as tmp:
+            run_moe_train(tmp)
+        run_moe_seg(*seg_vocab())
         run_model_parallel()
         return None
     if sys.argv[1:2] == ["--model-parallel-nccl"]:
@@ -6049,8 +6443,12 @@ def main() -> None:
     serve = run_serving()
     t_phase = phase_done("13 serving", t_phase)
     torch.cuda.empty_cache()
-    mp = run_model_parallel()
-    phase_done("14 sharded state", t_phase)
+    with tempfile.TemporaryDirectory() as tmp:
+        moe = run_moe_train(tmp)
+    moe_seg = run_moe_seg(tokenizer, classes)
+    t_phase = phase_done("15 (a, b) MoE towers", t_phase)
+    mp, pp = run_model_parallel()
+    phase_done("14 sharded state and 15 (c, d) EP and PP", t_phase)
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",
@@ -6060,7 +6458,8 @@ def main() -> None:
          "cli_launches": entry["auto"]["crf_mean_field"],
          "dist_launches": dist["crf_mean_field"],
          "cnn_launches": cnn["crf_mean_field"],
-         "serving_launches": serve["a"]["crf_mean_field"], "library_ms": None,
+         "serving_launches": serve["a"]["crf_mean_field"],
+         "moe_seg_launches": moe_seg["crf_mean_field"], "library_ms": None,
          **crf},
         {"name": "flash_attention", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
@@ -6072,6 +6471,8 @@ def main() -> None:
          "dist_launches": dist["flash_attention"],
          "serving_launches": serve["b_scales_tail"]["flash_attention"],
          "mp_launches": mp["flash_attention"],
+         "moe_launches": moe["flash_attention"],
+         "pp_launches": pp["flash_attention"],
          **attn[LONG_T]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -6081,6 +6482,8 @@ def main() -> None:
          "bsgs_launches": big["flash_attention_bwd"],
          "dist_launches": dist["flash_attention_bwd"],
          "mp_launches": mp["flash_attention_bwd"],
+         "moe_launches": moe["flash_attention_bwd"],
+         "pp_launches": pp["flash_attention_bwd"],
          **attn_bwd},
         {"name": "bilateral_matvec", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/bilateral_matvec.cu",

@@ -23,6 +23,11 @@ Layout conversions (flax -> torch):
 - LayerNorm: scale / bias          -> weight / bias
 - BatchNorm: scale / bias, mean / var -> weight / bias, running_mean / running_var
 
+MoE layers (``ops/moe.py``) carry JAX's leaves: ``…/moe/router/kernel``
+and ``bias`` as a linear's, ``…/moe/{w1,b1,w2,b2}`` as stored. The
+reference's layout has no slot for them: ``reference_state_dict`` refuses
+them under ``strict`` as JAX's ``flax_to_torch`` does.
+
 ``flax_param_path`` maps the other way for names only: a key of the port's
 state dict -> the ``/``-joined path of the same leaf in the JAX package's
 ``{'params': ...}`` tree, so that rules written against the JAX names
@@ -69,6 +74,18 @@ def _vit_rules():
            lambda m: f"blocks.{m[1]}.mlp.{m[2]}.weight", _linear)
     yield (r"^blocks_(\d+)/mlp/(fc1|fc2)/bias$",
            lambda m: f"blocks.{m[1]}.mlp.{m[2]}.bias", None)
+    yield from _moe_rules(r"blocks_(\d+)", "blocks.{}")
+
+
+def _moe_rules(flax_block, port_block):
+    """An MoE layer (``ops/moe.py``): the router a linear, the experts'
+    ``w1``/``b1``/``w2``/``b2`` as stored."""
+    yield (rf"^{flax_block}/moe/router/kernel$",
+           lambda m: port_block.format(m[1]) + ".moe.router.weight", _linear)
+    yield (rf"^{flax_block}/moe/router/bias$",
+           lambda m: port_block.format(m[1]) + ".moe.router.bias", None)
+    yield (rf"^{flax_block}/moe/(w1|b1|w2|b2)$",
+           lambda m: port_block.format(m[1]) + f".moe.{m[2]}", None)
 
 
 # the CNN towers (JAX ``torch_bridge.py:163-319``): flax module path ->
@@ -146,6 +163,7 @@ def _bert_rules():
     yield (rf"^layer_(\d+)/({mods})/(scale|bias)$",
            lambda m: f"encoder.layer.{m[1]}.{_BERT_LAYER[m[2]]}."
                      f"{_LN[m[3]]}", None)
+    yield from _moe_rules(r"layer_(\d+)", "encoder.layer.{}")
 
 
 def _projection_rules():
@@ -294,6 +312,10 @@ _INVERSE = {
          lambda m: f"blocks_{m[1]}/{m[2]}/{_LN_INV[m[3]]}"),
         (r"^blocks\.(\d+)\.(attn\.qkv|attn\.proj|mlp\.fc1|mlp\.fc2)\.(weight|bias)$",
          lambda m: f"blocks_{m[1]}/{m[2].replace('.', '/')}/{_DENSE_INV[m[3]]}"),
+        (r"^blocks\.(\d+)\.moe\.router\.(weight|bias)$",
+         lambda m: f"blocks_{m[1]}/moe/router/{_DENSE_INV[m[2]]}"),
+        (r"^blocks\.(\d+)\.moe\.(w1|b1|w2|b2)$",
+         lambda m: f"blocks_{m[1]}/moe/{m[2]}"),
         # the CNN towers
         (r"^(conv1|conv_stem|conv_head)\.weight$", lambda m: f"{m[1]}/kernel"),
         (r"^(bn1|bn2)\.(weight|bias)$", lambda m: f"{m[1]}/{_LN_INV[m[2]]}"),
@@ -333,6 +355,10 @@ _INVERSE = {
          lambda m: f"embeddings_norm/{_LN_INV[m[1]]}"),
         (rf"^encoder\.layer\.(\d+)\.({_HF_MODS})\.(weight|bias)$",
          _bert_layer_path),
+        (r"^encoder\.layer\.(\d+)\.moe\.router\.(weight|bias)$",
+         lambda m: f"layer_{m[1]}/moe/router/{_DENSE_INV[m[2]]}"),
+        (r"^encoder\.layer\.(\d+)\.moe\.(w1|b1|w2|b2)$",
+         lambda m: f"layer_{m[1]}/moe/{m[2]}"),
     ),
     "image_projection": (
         (r"^(linear|projection|fc)\.(weight|bias)$",
@@ -361,3 +387,28 @@ def flax_param_path(name: str) -> str:
             if m:
                 return f"params/{scope}/{path_fn(m)}"
     raise ValueError(f"no JAX path for the port parameter '{name}'")
+
+
+# -- the reference's layout -----------------------------------------------------
+
+_NO_REFERENCE_SLOT = re.compile(r"\.moe\.")
+
+
+def reference_state_dict(state: Dict[str, torch.Tensor], strict: bool = True):
+    """``(state, report)``: the port's state dict as the reference's timm/HF
+    layout holds it (JAX ``flax_to_torch``,
+    ``simseg_tpu/checkpoint/torch_export.py:227-336``). The MoE leaves have
+    no slot there: ``strict`` raises JAX's ``ValueError`` naming them by
+    their JAX paths, else they are left out with a warning; ``report``
+    lists the exported keys and the skipped paths."""
+    import logging
+
+    out = {k: v for k, v in state.items() if not _NO_REFERENCE_SLOT.search(k)}
+    skipped = sorted(flax_param_path(k) for k in state if k not in out)
+    if skipped:
+        msg = (f"flax->torch: {len(skipped)} leaves have no slot in the "
+               f"reference layout: {skipped}")
+        if strict:
+            raise ValueError(msg)
+        logging.getLogger(__name__).warning(msg)
+    return out, {"exported": sorted(out), "skipped": skipped}

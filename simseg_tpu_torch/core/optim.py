@@ -282,7 +282,7 @@ class Optimizer:
                     if zero:
                         v = (plan.zero_full(v, spec) if whole
                              else plan.zero_local(v, spec))
-                    elif spec.tp_dim is not None or spec.fsdp_dim is not None:
+                    elif spec.tp_dim is not None or spec.data_dim is not None:
                         v = plan.full(v, spec) if whole else plan.local(v, spec)
                 if keep:
                     new[k] = v
@@ -295,7 +295,7 @@ class Optimizer:
         out = []
         for a, spec in zip(acc, self.specs):
             if self.plan is not None and spec is not None and (
-                    spec.tp_dim is not None or spec.fsdp_dim is not None):
+                    spec.tp_dim is not None or spec.data_dim is not None):
                 a = self.plan.full(a, spec) if whole else self.plan.local(a, spec)
             elif whole:
                 a = a.clone()

@@ -36,10 +36,19 @@ a model group, which sees the same rows: the model group's first rank
 broadcasts each host batch to the others, so their random augmentations
 are one draw.
 
+The MoE towers train with their aux (``loss.moe_aux_weight``) and
+``dist.moe_ep`` splits their experts over the data ranks (``prepare_model``);
+``dist.pp_size`` stages pipeline both towers' blocks
+(``parallel/pp.make_pp_forward``, ``dist.pp_micro`` microbatches), their
+ranks of one data index taking the batch of stage 0's rank, and compose
+with data ranks, FSDP and ZeRO-1; the eval step runs the plain forward, as
+JAX's ``make_eval_step`` does. JAX's refusals are kept: PP with tp or
+gather groups (``make_mesh``), with MoE, ToMe, dropout or a CNN tower
+(``make_pp_forward``), BSGS with PP or MoE.
+
 Settings of JAX features the port has not ported yet are refused by name
-where a runner builds its step (``refuse_unported``): pipeline and expert
-parallelism (ROADMAP item 13), ``ckpt.backend: orbax``, ``wandb.enable``
-and ``profile`` (item 11).
+where a runner builds its step (``refuse_unported``): ``ckpt.backend:
+orbax``, ``wandb.enable`` and ``profile`` (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -74,26 +83,10 @@ logger = logging.getLogger(__name__)
 _BATCH_KEYS = ("image", "input_ids", "attention_mask", "ignore_mask", "label")
 
 
-# dist keys of the parallel legs not ported yet (ROADMAP item 13), with
-# their defaults: any other value is refused
-_UNPORTED_DIST = {"pp_size": 1, "pp_micro": 4, "moe_ep": False}
-_UNPORTED_DIST_NAMES = {"pp_size": "pipeline parallelism",
-                        "pp_micro": "pipeline micro-batches",
-                        "moe_ep": "expert-parallel MoE"}
-
-
 def refuse_unported(cfg) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for a setting
-    that JAX acts on and the port would otherwise ignore: a non-default
-    pipeline or expert-parallel ``dist`` key (item 13), ``ckpt.backend: orbax``,
-    ``wandb.enable: true`` or a truthy ``profile`` (item 11)."""
-    dist = cfg.get("dist", {}) or {}
-    for key, default in _UNPORTED_DIST.items():
-        value = dist.get(key, default)
-        if value is not None and value != default:
-            raise NotImplementedError(
-                f"dist.{key}={value!r} ({_UNPORTED_DIST_NAMES[key]}) is not "
-                "ported yet: ROADMAP item 13")
+    that JAX acts on and the port would otherwise ignore: ``ckpt.backend:
+    orbax``, ``wandb.enable: true`` or a truthy ``profile`` (item 11)."""
     backend = (cfg.get("ckpt", {}) or {}).get("backend", "msgpack")
     if backend not in (None, "msgpack"):
         raise NotImplementedError(
@@ -106,6 +99,22 @@ def refuse_unported(cfg) -> None:
     if cfg.get("profile"):
         raise NotImplementedError(
             "profile (the profile hook) is not ported yet: ROADMAP item 11")
+
+
+def refuse_bsgs_parallel(cfg) -> None:
+    """JAX's refusal of BSGS with PP or MoE (``simseg_tpu/core/runner.py:
+    367-380``), from the config alone, before the runner builds its mesh:
+    PP's GPipe forward and the MoE aux objective do not fold into the
+    two-pass analytic gradient."""
+    image_arch = dict(cfg.model.image_encoder.get("arch", {}) or {})
+    text_arch = dict(cfg.model.text_encoder.get("arch", {}) or {})
+    if (int(cfg.dist.get("pp_size", 1) or 1) > 1
+            or cfg.dist.get("moe_ep", False)
+            or image_arch.get("moe_experts", 0)
+            or text_arch.get("moe_experts", 0)):
+        raise NotImplementedError(
+            "runner 'clip_bsgs' does not combine with dist.pp_size>1 or "
+            "MoE towers (use runner.name='clip')")
 
 
 class BaseRunner:
@@ -153,7 +162,7 @@ class EpochRunner(BaseRunner):
         self.val_interval = cfg.runner.val_interval
         self.val_interval_steps = cfg.runner.val_interval_steps
         self.mesh = make_mesh(int(cfg.loss.get("group_size", -1) or -1),
-                              self.tp_size())
+                              self.tp_size(), self.pp_size())
         self.model = self.prepare_model(self.model)
 
         # batch divisibility guard (parity: core/initial.py:68-72, JAX
@@ -188,6 +197,10 @@ class EpochRunner(BaseRunner):
     def tp_size(self) -> int:
         """Ranks per model group (``dist.tp_size``)."""
         return int(self.cfg.dist.get("tp_size", 1) or 1)
+
+    def pp_size(self) -> int:
+        """Pipeline stages (``dist.pp_size``)."""
+        return int(self.cfg.dist.get("pp_size", 1) or 1)
 
     def prepare_model(self, model: torch.nn.Module) -> torch.nn.Module:
         """The model as the step trains it (a subclass shards it here)."""
@@ -228,6 +241,9 @@ class EpochRunner(BaseRunner):
         if self.mesh is not None and self.mesh.tp > 1:
             out = broadcast_batch(out, self.mesh.rank - self.mesh.model_rank,
                                   self.mesh.model_host_group)
+        if self.mesh is not None and self.mesh.pp > 1:
+            out = broadcast_batch(out, self.mesh.rank_of_stage(0),
+                                  self.mesh.pipe_host_group)
         return out
 
     def _finish_batch(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -374,6 +390,11 @@ class EpochRunner(BaseRunner):
 class CLIPRunner(EpochRunner):
     """Contrastive pretraining runner (parity: clip_runner.py)."""
 
+    def __init__(self, cfg, *args, **kwargs) -> None:
+        if cfg.runner.name == "clip_bsgs":
+            refuse_bsgs_parallel(cfg)
+        super().__init__(cfg, *args, **kwargs)
+
     def frozen_patterns(self):
         """parity: pipelines/clip.py:199-200/217-218 + projection trainable
         flags (components/projection.py:41-43)."""
@@ -400,7 +421,8 @@ class CLIPRunner(EpochRunner):
                            tp=int(d.get("tp_size", 1) or 1),
                            sp=bool(d.get("sp", False)),
                            fsdp=bool(d.get("fsdp", False)),
-                           zero1=bool(d.get("zero1", False)))
+                           zero1=bool(d.get("zero1", False)),
+                           ep=bool(d.get("moe_ep", False)))
 
     def build_step_fns(self) -> None:
         cfg = self.cfg
@@ -425,6 +447,12 @@ class CLIPRunner(EpochRunner):
                     "runner.name='clip'")
             self._step_fn = self._bsgs_step()
             return
+        forward_fn = None
+        if self.mesh is not None and self.mesh.pp > 1:
+            from simseg_tpu_torch.parallel.pp import make_pp_forward
+
+            forward_fn = make_pp_forward(self.model, self.mesh,
+                                         int(cfg.dist.get("pp_micro", 4)))
         self._step_fn = make_train_step(
             self.model, self.optimizer,
             smoothing=cfg.loss.get("smoothing", 0.0),
@@ -437,23 +465,14 @@ class CLIPRunner(EpochRunner):
             mesh=self.mesh, group_size=self._group_samples,
             mixup_pairing=cfg.get("mixup", {}).get("pairing", "shard"),
             bn_training=live_bn,
+            moe_aux_weight=float(cfg.loss.get("moe_aux_weight", 0.01)),
+            forward_fn=forward_fn,
         )
 
     def _bsgs_step(self):
         """The BSGS step, refusing what JAX's branch refuses
         (``simseg_tpu/core/runner.py:367-406``)."""
         cfg = self.cfg
-        image_arch = dict(cfg.model.image_encoder.get("arch", {}) or {})
-        text_arch = dict(cfg.model.text_encoder.get("arch", {}) or {})
-        if (int(cfg.dist.get("pp_size", 1) or 1) > 1
-                or cfg.dist.get("moe_ep", False)
-                or image_arch.get("moe_experts", 0)
-                or text_arch.get("moe_experts", 0)):
-            # PP's GPipe forward and the MoE aux objective do not fold into
-            # the two-pass analytic gradient
-            raise NotImplementedError(
-                "runner 'clip_bsgs' does not combine with dist.pp_size>1 or "
-                "MoE towers (use runner.name='clip')")
         loss_name = cfg.loss.get("name", "NCE")
         if loss_name not in ("NCE", "MixUpNCE"):
             # the analytic gradients are derived for (mixup-)InfoNCE only
@@ -537,6 +556,10 @@ class LinearProbRunner(EpochRunner):
 
     def tp_size(self) -> int:
         # data-parallel only: build_step_fns refuses dist.tp_size
+        return 1
+
+    def pp_size(self) -> int:
+        # JAX's probe builds a plain data mesh
         return 1
 
     def build_step_fns(self) -> None:

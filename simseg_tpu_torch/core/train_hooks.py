@@ -239,8 +239,8 @@ class RetrievalEvalHook(Hook):
         if is_distributed() and not runner.cfg.data.get("single_eval", True):
             dev = img.device
             mesh = getattr(runner, "mesh", None)
-            if mesh is not None and mesh.model_rank > 0:
-                # the model group's first rank holds the same rows
+            if mesh is not None and mesh.holds_copy:
+                # the model group's first rank (stage 0) holds the same rows
                 iid = np.full_like(iid, -1)
             img, txt, iid, cid = allgather_rows(
                 [img.cpu().numpy(), txt.cpu().numpy(), iid, cid],

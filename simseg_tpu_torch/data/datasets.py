@@ -439,7 +439,8 @@ def build_clip_dataloaders(cfg, tokenizer=None) -> Dict[str, Any]:
     exists, else its CSV. The batch is ``data.batch_size`` over the data
     ranks of the ``torch.distributed`` world (one process unless a group is
     initialised; ``dist.tp_size`` ranks to a model group, which loads one
-    shard); ``data.single_eval`` gives every process the whole valid set. ``tokenizer``: the port's WordPiece tokenizer, else one is read
+    shard, and the ``dist.pp_size`` stages' ranks of one data index load
+    one shard); ``data.single_eval`` gives every process the whole valid set. ``tokenizer``: the port's WordPiece tokenizer, else one is read
     from ``data.vocab_file``."""
     if tokenizer is None:
         vocab = cfg.data.get("vocab_file")
@@ -451,7 +452,11 @@ def build_clip_dataloaders(cfg, tokenizer=None) -> Dict[str, Any]:
 
         tokenizer = WordPieceTokenizer.from_vocab_file(vocab)
     shard, nshards = process_shard()
+    # the stages' ranks of one data index (dist.pp_size, the outermost) and
     # a model group's ranks (dist.tp_size) load one data rank's shard
+    pp = max(int(cfg.dist.get("pp_size", 1) or 1), 1)
+    if pp > 1 and nshards % pp == 0:
+        shard, nshards = shard % (nshards // pp), nshards // pp
     tp = max(int(cfg.dist.get("tp_size", 1) or 1), 1)
     shard, nshards = shard // tp, max(nshards // tp, 1)
     train_tf = build_transforms(cfg, "train")

@@ -46,8 +46,20 @@ through the same step: the towers' collectives are in their layers, the
 embeddings are gathered over the data ranks only (a model group's ranks
 hold the same rows and embeddings), each data rank backpropagates ``loss /
 D`` (D the data ranks) and ``reduce_model_gradients`` sums the gradients
-as each leaf needs. Not ported: the PP and MoE branches (ROADMAP queue 1
-item 13).
+as each leaf needs.
+
+MoE towers (JAX :233-262, :321-323): the Switch aux of the forward
+(``ops/moe.moe_aux``: each layer's statistics of the global batch, summed
+over the data ranks, then summed over the layers) is added to the loss
+weighted by ``loss.moe_aux_weight`` and reported as ``moe_aux``; it
+composes with a live-BN CNN image tower. Expert parallelism needs nothing
+here: the experts' all-to-alls are in the layers and their gradients skip
+the data reduction (``parallel/sharding.py``).
+
+Pipeline parallelism (a mesh with ``pp`` stages, JAX ``forward_fn``): the
+forward is ``parallel/pp.make_pp_forward``'s, both towers' blocks run as
+GPipe stages, and ``reduce_model_gradients`` takes each leaf's gradient
+from the stage that computed it.
 
 Dropout: with ``runner.stable_random`` set (``deterministic`` False) the
 forward takes the step's key, JAX's ``fold_in(key(seed), step)``
@@ -69,6 +81,7 @@ import torch
 
 from simseg_tpu_torch.ops.losses import (mixup_nce, mse_embedding_loss,
                                          symmetric_info_nce, triplet_loss)
+from simseg_tpu_torch.ops.moe import moe_aux
 from simseg_tpu_torch.parallel.collectives import (all_gather, all_reduce_mean,
                                                    all_reduce_sum)
 from simseg_tpu_torch.parallel.mesh import DataMesh
@@ -171,6 +184,8 @@ def clip_loss_fn(
     group_size: int = -1,
     mixup_pairing: str = "shard",
     bn_training: bool = False,
+    moe_aux_weight: float = 0.01,
+    forward_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward + contrastive loss of the global batch (JAX ``clip_loss_fn``;
     parity: pipelines/clip.py:123-176 forward_loss, dispatching on
@@ -179,7 +194,9 @@ def clip_loss_fn(
     one process); ``group_size`` the loss groups in samples
     (``parallel/mesh.loss_group_samples``). MixUpNCE mixes each image with
     its partner (``mixup_partner``); ``bn_training``: a CNN tower's live
-    BatchNorm."""
+    BatchNorm; ``moe_aux_weight``: the MoE towers' aux in the loss;
+    ``forward_fn(batch) -> (img, txt, temp)``: another forward (the
+    pipeline's), deterministic."""
     key = None if deterministic else step_key(seed, step)
     if loss_name == "MixUpNCE":
         if mixup_pairing == "global" and group_size > 0:
@@ -191,8 +208,13 @@ def clip_loss_fn(
         batch["image"] = (lam * batch["image"] + (1.0 - lam)
                           * mixup_partner(batch["image"], mesh, mixup_pairing))
 
-    img, txt, temp = model(batch, deterministic=deterministic,
-                           key=rank_key(key, mesh), train_bn=bn_training)
+    if forward_fn is not None:
+        img, txt, temp = forward_fn(batch)
+    else:
+        img, txt, temp = model(batch, deterministic=deterministic,
+                               key=rank_key(key, mesh), train_bn=bn_training)
+    aux = moe_aux(model, None if mesh is None else mesh.data_group,
+                  1 if mesh is None else mesh.data_size)
     img, txt = img.float(), txt.float()
     ignore = batch.get("ignore_mask")
     local_rows = img.shape[0]
@@ -233,6 +255,9 @@ def clip_loss_fn(
         extra, _ = compute(name)
         loss = loss + extra
         metrics[f"{name.lower()}_loss"] = extra.detach()
+    if aux is not None:
+        loss = loss + moe_aux_weight * aux
+        metrics["moe_aux"] = aux.detach()
     metrics["loss"] = loss.detach()
     if in_group:
         valid = (torch.ones(img.shape[0], device=img.device) if ignore is None

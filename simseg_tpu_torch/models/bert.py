@@ -14,8 +14,11 @@ calibrated per channel), so padded positions cannot perturb real ones.
 :112``: after the embeddings' LayerNorm, after the attention's output
 projection and after the FFN's output projection; keyed,
 ``models/layers.py``); ``remat`` and ``remat_policy`` run each layer under a
-non-reentrant checkpoint. The MoE option and the HuggingFace AutoConfig
-lookup are not ported.
+non-reentrant checkpoint. ``moe_experts`` / ``moe_every`` /
+``moe_capacity`` make every ``moe_every``-th layer's FFN a top-1 MoE
+(``ops/moe.py``; JAX ``bert.py:57-62, :121-129``) that takes the attention
+mask as its ``token_mask``, its output dropped out and normalised as the
+dense FFN's. The HuggingFace AutoConfig lookup is not ported.
 """
 
 from __future__ import annotations
@@ -27,9 +30,10 @@ import torch.nn as nn
 
 from simseg_tpu_torch.models.layers import (Dropout, LayerNorm, gelu,
                                             number_dropout_sites,
-                                            parse_remat_policy, refuse_moe,
-                                            remat_call)
+                                            parse_remat_policy, remat_call)
+from simseg_tpu_torch.models.vit import is_moe
 from simseg_tpu_torch.ops.attention import multi_head_attention, padding_bias
+from simseg_tpu_torch.ops.moe import MoEMlp
 from simseg_tpu_torch.ops.quant import linear_cls
 
 
@@ -50,6 +54,14 @@ class _DenseNorm(nn.Module):
         self.LayerNorm = LayerNorm(dim, eps=1e-12)
 
 
+class _Norm(nn.Module):
+    """An MoE layer's ``output``: its LayerNorm alone."""
+
+    def __init__(self, dim: int) -> None:
+        super().__init__()
+        self.LayerNorm = LayerNorm(dim, eps=1e-12)
+
+
 class _Attention(nn.Module):
     def __init__(self, dim: int, linear) -> None:
         super().__init__()
@@ -65,23 +77,34 @@ class _Intermediate(nn.Module):
 
 class BertLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, intermediate_dim: int,
-                 quant: str = "none", dropout: float = 0.0) -> None:
+                 quant: str = "none", dropout: float = 0.0,
+                 moe_experts: int = 0, moe_capacity: float = 1.25) -> None:
         super().__init__()
         linear = linear_cls(quant)
         self.num_heads = num_heads
         self.attention = _Attention(dim, linear)
-        self.intermediate = _Intermediate(dim, intermediate_dim, linear)
-        self.output = _DenseNorm(intermediate_dim, dim, linear)
+        if moe_experts > 0:
+            self.moe = MoEMlp(dim, moe_experts, intermediate_dim, dim,
+                              moe_capacity)
+            self.output = _Norm(dim)
+        else:
+            self.intermediate = _Intermediate(dim, intermediate_dim, linear)
+            self.output = _DenseNorm(intermediate_dim, dim, linear)
         self.attention_drop, self.output_drop = Dropout(dropout), Dropout(dropout)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
-                key=None) -> torch.Tensor:
+                key=None, token_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """``token_mask``: the attention mask, for an MoE layer's routing."""
         sa = self.attention.self
         attn = multi_head_attention(sa.query(x), sa.key(x), sa.value(x),
                                     self.num_heads, bias)
         out = self.attention.output
         x = out.LayerNorm(x + self.attention_drop(out.dense(attn), key))
-        y = self.output.dense(gelu(self.intermediate.dense(x)))
+        if hasattr(self, "moe"):
+            y = self.moe(x, token_mask)
+        else:
+            y = self.output.dense(gelu(self.intermediate.dense(x)))
         return self.output.LayerNorm(x + self.output_drop(y, key))
 
 
@@ -107,7 +130,8 @@ class BertEncoder(nn.Module):
                  intermediate_dim: int = 3072, max_position: int = 512,
                  type_vocab_size: int = 2, quant: str = "none",
                  dropout: float = 0.0, remat: bool = False,
-                 remat_policy: str = "none") -> None:
+                 remat_policy: str = "none", moe_experts: int = 0,
+                 moe_every: int = 2, moe_capacity: float = 1.25) -> None:
         super().__init__()
         self.quant = quant
         self.remat = bool(remat)
@@ -116,8 +140,10 @@ class BertEncoder(nn.Module):
                                       type_vocab_size)
         self.embed_drop = Dropout(dropout)
         self.encoder = _Encoder(
-            [BertLayer(hidden_dim, num_heads, intermediate_dim, quant, dropout)
-             for _ in range(depth)])
+            [BertLayer(hidden_dim, num_heads, intermediate_dim, quant, dropout,
+                       moe_experts if is_moe(i, moe_experts, moe_every) else 0,
+                       moe_capacity)
+             for i in range(depth)])
         number_dropout_sites(self)
         # None: compute in the parameters' dtype
         self.compute_dtype: Optional[torch.dtype] = None
@@ -128,6 +154,25 @@ class BertEncoder(nn.Module):
                 key=None) -> torch.Tensor:
         """input_ids: (B, T) int -> last hidden state (B, T, D) in the
         compute dtype; ``key``: the dropout key (None: no dropout)."""
+        x = self.embed(input_ids, token_type_ids, key)
+        bias = None
+        if attention_mask is not None:
+            bias = padding_bias(attention_mask, torch.float32)
+        for layer in self.encoder.layer:
+            mask = attention_mask if hasattr(layer, "moe") else None
+            if self.remat and torch.is_grad_enabled():
+                # JAX nn.remat(BertLayer), simseg_tpu/models/bert.py:115-119
+                x = remat_call(layer, self.remat_policy, x, bias, key, mask)
+            else:
+                x = layer(x, bias, key, mask)
+        return x
+
+    def embed(self, input_ids: torch.Tensor,
+              token_type_ids: Optional[torch.Tensor] = None,
+              key=None) -> torch.Tensor:
+        """Word + position + token-type embeddings, LayerNorm and dropout:
+        (B, T) -> (B, T, D) (JAX ``BertEncoder.embed``, a stage of its own
+        under pipeline parallelism)."""
         emb = self.embeddings
         dtype = self.compute_dtype or emb.word_embeddings.weight.dtype
         t = input_ids.shape[1]
@@ -144,17 +189,7 @@ class BertEncoder(nn.Module):
         x = emb.LayerNorm(emb.word_embeddings(input_ids).to(dtype)
                           + emb.position_embeddings(position_ids).to(dtype)
                           + token_type.to(dtype))
-        x = self.embed_drop(x, key)
-        bias = None
-        if attention_mask is not None:
-            bias = padding_bias(attention_mask, torch.float32)
-        for layer in self.encoder.layer:
-            if self.remat and torch.is_grad_enabled():
-                # JAX nn.remat(BertLayer), simseg_tpu/models/bert.py:115-119
-                x = remat_call(layer, self.remat_policy, x, bias, key)
-            else:
-                x = layer(x, bias, key)
-        return x
+        return self.embed_drop(x, key)
 
 
 BERT_CONFIGS = {
@@ -204,5 +239,4 @@ def resolve_bert_config(tag: str, arch: Optional[dict] = None) -> dict:
 def build_bert(tag: str, arch: Optional[dict] = None,
                **train_kw) -> BertEncoder:
     """``train_kw``: ``dropout``, ``remat``, ``remat_policy``."""
-    refuse_moe(arch, "text")
     return BertEncoder(**resolve_bert_config(tag, arch), **train_kw)

@@ -74,6 +74,8 @@ class CLIPModel(nn.Module):
     ) -> None:
         super().__init__()
         train_kw = dict(dropout=dropout, remat=remat, remat_policy=remat_policy)
+        self.dropout, self.projection_dropout = dropout, projection_dropout
+        self.image_arch, self.text_arch = image_arch, text_arch
         self.is_vit = "vit" in image_tag
         if self.is_vit:
             image = build_vit(image_tag, img_size, dict(image_arch or ()),
@@ -182,7 +184,12 @@ class CLIPModel(nn.Module):
     def forward_text_feature(self, input_ids: torch.Tensor,
                              attention_mask: torch.Tensor,
                              key=None) -> torch.Tensor:
-        hidden = self.bert(input_ids, attention_mask, key=key)
+        return self.text_feature_of(self.bert(input_ids, attention_mask,
+                                              key=key))
+
+    def text_feature_of(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The text tower's last hidden state -> the feature the projection
+        takes: the target token (identity pooling) or the tokens from it."""
         if self.pool_name == "identity":
             return hidden[:, self.target_token_idx]
         return hidden[:, self.target_token_idx:]

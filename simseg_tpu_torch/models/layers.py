@@ -269,12 +269,3 @@ def remat_call(fn, policy: str, *args):
             create_selective_checkpoint_contexts, _keep_weight_products)
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
                       **kwargs)
-
-def refuse_moe(arch: Optional[dict], tower: str) -> None:
-    """JAX's MoE towers (``moe_experts > 0``, ``ops/moe.py``) are not ported:
-    refuse them by name rather than fail on an unknown keyword."""
-    experts = dict(arch or {}).get("moe_experts", 0)
-    if int(experts or 0) > 0:
-        raise NotImplementedError(
-            f"the {tower} tower's arch moe_experts={experts} (MoE towers, "
-            "ops/moe.py) is not ported yet: ROADMAP item 13")

@@ -14,8 +14,10 @@ projection, the MLP's GELU and its output; keyed, ``models/layers.py``) and
 remat (``remat``, ``remat_policy``: each block under a non-reentrant
 checkpoint, composing with the ToMe carry) are ported, and so are tensor
 and sequence parallelism (``parallel/tp.py``: the blocks' linears sharded
-over a model group, the residual stream sliced by tokens between blocks);
-the JAX tower's MoE option is not. Compute runs in
+over a model group, the residual stream sliced by tokens between blocks),
+and so is the MoE option (``moe_experts``, ``moe_every``,
+``moe_capacity``: block i's MLP is a top-1 MoE, ``ops/moe.py``, when
+i % moe_every == moe_every - 1; JAX ``vit.py:202-208``). Compute runs in
 ``compute_dtype`` (None: the parameters' dtype), with float32 parameters
 cast at use as flax does (``models/layers.py``): float32 master weights and
 bf16 compute for training and for the int8 lanes, or
@@ -33,10 +35,11 @@ import torch.nn.functional as F
 
 from simseg_tpu_torch.models.layers import (Dropout, LayerNorm, gelu,
                                             number_dropout_sites,
-                                            parse_remat_policy, refuse_moe,
-                                            remat_call, whole_param)
+                                            parse_remat_policy, remat_call,
+                                            whole_param)
 from simseg_tpu_torch.ops.attention import multi_head_attention
 from simseg_tpu_torch.ops.interpolate_pe import interpolate_pos_embed
+from simseg_tpu_torch.ops.moe import MoEMlp
 from simseg_tpu_torch.ops.quant import linear_cls
 from simseg_tpu_torch.ops.tome import (bipartite_merge, size_bias, unmerge,
                                        update_gather_map)
@@ -97,25 +100,36 @@ class Block(nn.Module):
     ``tome_r`` > 0 it merges that many token pairs between attention and
     MLP (JAX ``ViTBlock``). Before any merge the sizes are all ones, so no
     bias is passed and the block stays eligible for the attention kernels,
-    whose gates all require ``attention_bias is None``."""
+    whose gates all require ``attention_bias is None``. With ``moe_experts``
+    > 0 its MLP is ``moe``, a top-1 MoE without dropout (JAX ``ViTBlock``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  tome_r: int = 0, tome_chain: bool = False,
                  tome_first: bool = False, quant: str = "none",
-                 dropout: float = 0.0) -> None:
+                 dropout: float = 0.0, moe_experts: int = 0,
+                 moe_capacity: float = 1.25) -> None:
         super().__init__()
         self.tome_r, self.tome_chain, self.tome_first = (tome_r, tome_chain,
                                                          tome_first)
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, quant, dropout)
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), quant, dropout)
+        hidden = int(dim * mlp_ratio)
+        if moe_experts > 0:
+            self.moe = MoEMlp(dim, moe_experts, hidden, dim, moe_capacity)
+        else:
+            self.mlp = Mlp(dim, hidden, quant, dropout)
+
+    def ffn(self, x, key=None):
+        if hasattr(self, "moe"):
+            return self.moe(x)
+        return self.mlp(x, key)
 
     def forward(self, x, key=None):
         in_chain = self.tome_chain or self.tome_r > 0
         if not in_chain:
             x = x + self.attn(self.norm1(x), key=key)
-            return x + self.mlp(self.norm2(x), key)
+            return x + self.ffn(self.norm2(x), key)
         if not (isinstance(x, tuple) and len(x) == 3):
             raise TypeError("Block(tome) takes the (x, sizes, gather_map) "
                             f"carry tuple, got {type(x).__name__}")
@@ -129,7 +143,7 @@ class Block(nn.Module):
             gather_map = update_gather_map(gather_map, old2new)
         else:
             x = x + self.attn(self.norm1(x), bias, key=key)
-        return x + self.mlp(self.norm2(x), key), sizes, gather_map
+        return x + self.ffn(self.norm2(x), key), sizes, gather_map
 
 
 class PatchEmbed(nn.Module):
@@ -163,7 +177,9 @@ class VisionTransformer(nn.Module):
                  mlp_ratio: float = 4.0, tome_r: int = 0,
                  tome_schedule: Optional[Sequence[int]] = None,
                  quant: str = "none", dropout: float = 0.0,
-                 remat: bool = False, remat_policy: str = "none") -> None:
+                 remat: bool = False, remat_policy: str = "none",
+                 moe_experts: int = 0, moe_every: int = 2,
+                 moe_capacity: float = 1.25) -> None:
         super().__init__()
         self.img_size = img_size
         self.depth = depth
@@ -186,7 +202,10 @@ class VisionTransformer(nn.Module):
             [Block(embed_dim, num_heads, mlp_ratio, tome_r=plan[i],
                    tome_chain=self.tome_on,
                    tome_first=self.tome_on and sum(plan[:i]) == 0,
-                   quant=quant, dropout=dropout)
+                   quant=quant, dropout=dropout,
+                   moe_experts=moe_experts if is_moe(i, moe_experts,
+                                                     moe_every) else 0,
+                   moe_capacity=moe_capacity)
              for i in range(depth)])
         self.pos_drop = Dropout(dropout)
         self.norm = LayerNorm(embed_dim, eps=1e-6)
@@ -200,17 +219,7 @@ class VisionTransformer(nn.Module):
     def forward(self, images: torch.Tensor, key=None) -> torch.Tensor:
         """images: (B, H, W, 3) NHWC float -> (B, 1+N, D) in the compute
         dtype; ``key``: the dropout key (None: no dropout)."""
-        dtype = self.compute_dtype or self.cls_token.dtype
-        x = self.patch_embed(images.to(dtype))
-        pos_embed = self.pos_embed
-        if x.shape[1] != self.num_patches:
-            # another input size (multi-scale inference, a training crop
-            # smaller than input_size): resample the position grid
-            # bicubically in f32 (JAX ``vit.py:323-334``)
-            pos_embed = interpolate_pos_embed(pos_embed.float(), x.shape[1])
-        pos_embed = pos_embed.to(dtype)
-        cls = self.cls_token.to(dtype).expand(x.shape[0], -1, -1)
-        x = self.pos_drop(torch.cat([cls, x], dim=1) + pos_embed, key)
+        x = self.embed(images, key)
         if self.tome_on:
             b, t = x.shape[:2]
             carry = (x, torch.ones((b, t), device=x.device),
@@ -225,6 +234,22 @@ class VisionTransformer(nn.Module):
         if self.seq is not None:
             x = self.seq.leave(x)
         return self.norm(x)
+
+    def embed(self, images: torch.Tensor, key=None) -> torch.Tensor:
+        """Patch embedding, CLS and position embeddings: (B, H, W, 3) ->
+        (B, 1+N, D) in the compute dtype (JAX ``VisionTransformer.embed``,
+        a stage of its own under pipeline parallelism)."""
+        dtype = self.compute_dtype or self.cls_token.dtype
+        x = self.patch_embed(images.to(dtype))
+        pos_embed = self.pos_embed
+        if x.shape[1] != self.num_patches:
+            # another input size (multi-scale inference, a training crop
+            # smaller than input_size): resample the position grid
+            # bicubically in f32 (JAX ``vit.py:323-334``)
+            pos_embed = interpolate_pos_embed(pos_embed.float(), x.shape[1])
+        pos_embed = pos_embed.to(dtype)
+        cls = self.cls_token.to(dtype).expand(x.shape[0], -1, -1)
+        return self.pos_drop(torch.cat([cls, x], dim=1) + pos_embed, key)
 
     def _block(self, block, x, key):
         """One block, rematerialised under ``remat`` when autograd records
@@ -250,6 +275,12 @@ class VisionTransformer(nn.Module):
                 raise ValueError(f"tome_schedule entries must be >= 0: {sched}")
             return sched
         return (max(self.tome_r, 0),) * self.depth
+
+
+def is_moe(i: int, experts: int, every: int) -> bool:
+    """Whether block i of a tower with ``experts`` > 0 is an MoE block
+    (JAX: every ``moe_every``-th, the last of each run)."""
+    return experts > 0 and i % every == every - 1
 
 
 # timm tag -> architecture (vit_builder.py instantiates these through
@@ -309,7 +340,6 @@ def resolve_vit_config(tag: str, arch: Optional[dict] = None) -> dict:
 def build_vit(tag: str, img_size: int, arch: Optional[dict] = None,
               **train_kw) -> VisionTransformer:
     """``train_kw``: ``dropout``, ``remat``, ``remat_policy``."""
-    refuse_moe(arch, "image")
     return VisionTransformer(img_size=img_size, **resolve_vit_config(tag, arch),
                              **train_kw)
 

@@ -1,8 +1,8 @@
 """Parallelism over a ``torch.distributed`` world, one process per card
 (port of ``simseg_tpu/parallel``: its mesh and collectives, data
-parallelism, and the sharded-state legs: tensor and sequence parallelism,
-FSDP and ZeRO-1, ``tp.py`` and ``sharding.py``; PP and expert parallelism
-are not ported, ROADMAP queue 1 item 13)."""
+parallelism, the sharded-state legs: tensor and sequence parallelism,
+FSDP, expert parallelism and ZeRO-1, ``tp.py`` and ``sharding.py``, and
+pipeline parallelism, ``pp.py``)."""
 
 from simseg_tpu_torch.parallel.collectives import (all_gather, all_reduce_max,
                                                    all_reduce_mean,

@@ -21,7 +21,12 @@ tensor-parallel linears, ``gather_seq`` / ``scatter_seq`` (all-gather vs
 reduce-scatter, each the other's backward) around them under sequence
 parallelism, ``split_dim`` / ``gather_replicated`` where a replicated stream
 enters and leaves the sequence-parallel region, and ``gather_param`` (an
-FSDP weight gathered, its gradient reduce-scattered).
+FSDP weight gathered, its gradient reduce-scattered). Expert parallelism
+(``ops/moe.py``) runs on ``all_to_all`` (one dim split over the group,
+another gathered; its backward the reverse all-to-all), and the pipeline
+(``parallel/pp.py``) on the point-to-point ``send_tensor`` /
+``recv_tensor`` and ``broadcast_tensor``, which carry no gradient: the
+pipeline's own backward sends the gradients the other way.
 
 Gloo and CUDA: gloo's support for CUDA tensors differs from one collective
 to another, so every collective of this module whose group runs gloo and
@@ -238,6 +243,71 @@ def gather_param(shard: torch.Tensor, dim: int, group,
     the backward reduce-scatters the gradient into the shard (then sums it
     over ``replica_group``, the gather groups' peers)."""
     return _GatherParam.apply(shard, dim, group, replica_group)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int,
+                group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    send = torch.stack(x.detach().chunk(n, split_dim))
+    staged = _staged(send, group)
+    if staged:
+        send = _host(send)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    if staged:
+        recv = _back(recv, x.device)
+    return torch.cat(recv.unbind(0), cat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, cat_dim, group):
+        ctx.dims, ctx.group = (split_dim, cat_dim), group
+        return _all_to_all(x, split_dim, cat_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, cat_dim = ctx.dims
+        return _all_to_all(grad, cat_dim, split_dim, ctx.group), None, None, None
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int,
+               group) -> torch.Tensor:
+    """``x`` cut into n equal parts along ``split_dim``, part j sent to the
+    group's rank j, and the n parts this rank receives concatenated along
+    ``cat_dim`` in group-rank order; differentiable, its backward the
+    reverse all-to-all."""
+    return _AllToAll.apply(x, split_dim, cat_dim, group)
+
+
+def send_tensor(x: torch.Tensor, dst: int, group=None) -> None:
+    """``x`` to the global rank ``dst`` (no gradient)."""
+    src = x.detach().contiguous()
+    if _staged(src, group):
+        src = _host(src)
+    dist.send(src, dst, group=group)
+
+
+def recv_tensor(shape, dtype, device, src: int, group=None) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` from the global rank ``src``, on
+    ``device``."""
+    device = torch.device(device)
+    staged = device.type == "cuda" and dist.get_backend(group) == "gloo"
+    buf = torch.empty(shape, dtype=dtype,
+                      device="cpu" if staged else device)
+    dist.recv(buf, src, group=group)
+    return _back(buf, device) if staged else buf
+
+
+def broadcast_tensor(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``x`` of the global rank ``src`` on every rank of ``group`` (no
+    gradient; ``x`` contiguous, of the same shape on every rank)."""
+    if _staged(x, group):
+        host = _host(x)
+        dist.broadcast(host, src, group=group)
+        return _back(host, x.device)
+    dist.broadcast(x, src, group=group)
+    return x
 
 
 class _AllGather(torch.autograd.Function):

@@ -6,9 +6,10 @@ Parity: reference ``simseg/core/initial.py:52-54`` (init_process_group) and
 devices of one program out on a ``Mesh``; the port runs one process per
 card (``simseg_tpu_torch/launch.py``) in a ``torch.distributed`` world, and
 ``DataMesh`` records what the JAX mesh's shape tells its step, with JAX's
-order of the axes (``make_mesh``: the model axis innermost):
+order of the axes (``make_mesh``: the pipe axis outermost, the model axis
+innermost):
 
-    rank = (replica * group_ranks + data_in_group) * tp + model
+    rank = stage * (world / pp) + (replica * group_ranks + data_in_group) * tp + model
 
 - ``tp`` ranks of one model group (``dist.tp_size``; one data index) hold
   the tensor-parallel shards of one model replica and see the same rows
@@ -18,7 +19,12 @@ order of the axes (``make_mesh``: the model axis innermost):
   batch, as JAX's batch axes shard it;
 - the gather groups of ``loss.group_size``, in data ranks (devices per
   group in JAX, whose batch axes hold no model axis): D / group_size
-  groups of contiguous data ranks, JAX's ('replica', 'data') fold.
+  groups of contiguous data ranks, JAX's ('replica', 'data') fold;
+- ``pp`` pipeline stages (``dist.pp_size``; ``parallel/pp.py``), each of
+  ``world / pp`` data ranks: stage s holds the ranks [s W/pp, (s + 1)
+  W/pp), and the ranks of one data index across the stages
+  (``pipe_group``) see the same rows. As in JAX, the pipe composes with
+  data ranks only (no model groups, no gather groups).
 
 Every rank builds every group, in the same order, since
 ``dist.new_group`` is a collective over the world. Host-side collectives
@@ -40,7 +46,7 @@ import torch.distributed as dist
 
 _ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 _HOST_GROUP = None          # gloo group of the whole world (host collectives)
-_MESHES: Dict[Tuple[int, int], "DataMesh"] = {}   # (n_groups, tp) -> mesh
+_MESHES: Dict[Tuple[int, int, int], "DataMesh"] = {}   # (n_groups, tp, pp) -> mesh
 
 
 def init_distributed(backend: Optional[str] = None, device=None,
@@ -137,13 +143,16 @@ def host_group():
 
 @dataclass(frozen=True)
 class DataMesh:
-    """The layout of a world: ``world`` ranks, ``tp`` to a model group,
-    ``world / tp`` data ranks in ``n_groups`` gather groups. The groups are
-    this rank's (None: the world): ``group`` its gather group (None without
-    gather groups), ``data_group`` the data ranks of its model index,
+    """The layout of a world: ``world`` ranks in ``pp`` pipeline stages,
+    ``tp`` to a model group, ``world / (pp tp)`` data ranks a stage in
+    ``n_groups`` gather groups. The groups are this rank's (None: the
+    world): ``group`` its gather group (None without gather groups),
+    ``data_group`` the data ranks of its stage and model index,
     ``replica_group`` the ranks of its (data-in-group, model) position in
     every gather group, ``model_group`` its model group and
-    ``model_host_group`` that group over gloo."""
+    ``model_host_group`` that group over gloo, ``pipe_group`` the ranks of
+    its data index in every stage and ``pipe_host_group`` that group over
+    gloo."""
     world: int
     rank: int
     n_groups: int = 1
@@ -153,14 +162,36 @@ class DataMesh:
     replica_group: object = None
     model_group: object = None
     model_host_group: object = None
+    pp: int = 1
+    pipe_group: object = None
+    pipe_host_group: object = None
+
+    @property
+    def stage_ranks(self) -> int:
+        return self.world // self.pp
+
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage."""
+        return self.rank // self.stage_ranks
+
+    def rank_of_stage(self, stage: int) -> int:
+        """The global rank of this rank's data index in ``stage``."""
+        return stage * self.stage_ranks + self.rank % self.stage_ranks
 
     @property
     def data_size(self) -> int:
-        return self.world // self.tp
+        return self.stage_ranks // self.tp
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.tp
+        return (self.rank % self.stage_ranks) // self.tp
+
+    @property
+    def holds_copy(self) -> bool:
+        """Whether another rank (its model group's first, its data index's
+        stage 0) holds the same rows."""
+        return self.model_rank > 0 or self.stage > 0
 
     @property
     def model_rank(self) -> int:
@@ -197,7 +228,18 @@ def _new_groups(rank_lists: List[List[int]], rank_: int, **kwargs):
     return mine
 
 
-def _build_mesh(world: int, rank_: int, n_groups: int, tp: int) -> DataMesh:
+def _build_mesh(world: int, rank_: int, n_groups: int, tp: int,
+                pp: int = 1) -> DataMesh:
+    if pp > 1:
+        per = world // pp
+        kw = {"data_group": _new_groups(
+            [[s * per + d for d in range(per)] for s in range(pp)], rank_)}
+        pipes = [[s * per + d for s in range(pp)] for d in range(per)]
+        kw["pipe_group"] = _new_groups(pipes, rank_)
+        kw["pipe_host_group"] = (
+            kw["pipe_group"] if dist.get_backend() == "gloo"
+            else _new_groups(pipes, rank_, backend="gloo"))
+        return DataMesh(world, rank_, pp=pp, **kw)
     data = world // tp
     gs = data // n_groups
 
@@ -223,21 +265,36 @@ def _build_mesh(world: int, rank_: int, n_groups: int, tp: int) -> DataMesh:
     return DataMesh(world, rank_, n_groups, tp=tp, **kw)
 
 
-def make_mesh(group_size: int = -1, tp_size: int = 1) -> Optional[DataMesh]:
+def make_mesh(group_size: int = -1, tp_size: int = 1,
+              pp_size: int = 1) -> Optional[DataMesh]:
     """The world's ``DataMesh``, or None outside a ``torch.distributed``
     world (one process: the global batch is the local batch). ``tp_size``
     ranks form a model group and must divide the world; with ``group_size``
     (devices) in (0, W / tp) the data ranks fold into gather groups, which
     must divide them (JAX ``make_mesh``); otherwise the gather spans the
-    data ranks."""
+    data ranks. ``pp_size`` stages must divide the world and take neither
+    model nor gather groups (JAX's ``ValueError`` and
+    ``NotImplementedError``)."""
     tp = int(tp_size) if tp_size and tp_size > 1 else 1
-    if not is_distributed():
-        if tp > 1:
-            raise ValueError(f"tp_size {tp} must divide device count 1")
-        return None
-    world, r = dist.get_world_size(), dist.get_rank()
-    if world % tp != 0:
+    pp = int(pp_size) if pp_size and pp_size > 1 else 1
+    world = dist.get_world_size() if is_distributed() else 1
+    if tp > 1 and world % tp != 0:
         raise ValueError(f"tp_size {tp} must divide device count {world}")
+    if pp > 1:
+        if world % pp != 0:
+            raise ValueError(f"pp_size {pp} must divide device count {world}")
+        if tp > 1 or (group_size is not None and group_size > 0):
+            raise NotImplementedError(
+                "pp currently composes with data parallelism only "
+                "(no tp/grouped mesh on top)")
+    if not is_distributed():
+        return None
+    r = dist.get_rank()
+    if pp > 1:
+        key = (1, 1, pp)
+        if key not in _MESHES:
+            _MESHES[key] = _build_mesh(world, r, 1, 1, pp)
+        return _MESHES[key]
     n_data = world // tp
     if group_size is None or group_size <= 0 or group_size >= n_data:
         n_groups = 1
@@ -246,15 +303,18 @@ def make_mesh(group_size: int = -1, tp_size: int = 1) -> Optional[DataMesh]:
                          f"size {n_data}")
     else:
         n_groups = n_data // group_size
-    key = (n_groups, tp)
+    key = (n_groups, tp, 1)
     if key not in _MESHES:
         _MESHES[key] = _build_mesh(world, r, n_groups, tp)
     return _MESHES[key]
 
 
 def batch_shards(mesh: Optional[DataMesh]) -> int:
-    """Number of ways the batch is split (the data ranks)."""
+    """Number of ways the batch is split (the data ranks; every stage and
+    model rank works on the same rows)."""
     return 1 if mesh is None else mesh.data_size
+
+
 def local_batch_size(global_batch_size: int, mesh: Optional[DataMesh]) -> int:
     n = batch_shards(mesh)
     if global_batch_size % n != 0:

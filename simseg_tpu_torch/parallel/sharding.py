@@ -22,7 +22,12 @@ only its part of the state:
   shard, and a forward that reads a child's weight gathers it with
   ``models/layers.whole_param``), and a remat recompute gathers again;
   gradients are reduce-scattered into the shards in the backward;
-- ZeRO-1: the optimizer's moments of a parameter the TP and FSDP rules
+- EP (``dist.moe_ep``): an MoE layer's expert weights, their expert dim
+  over the data ranks of a gather group when the expert count divides them
+  (JAX ``ep_shardings``, which wins over FSDP on those leaves); the layer
+  then runs its experts on every rank's tokens between two all-to-alls
+  (``ops/moe.py``);
+- ZeRO-1: the optimizer's moments of a parameter the TP, FSDP and EP rules
   left whole, of at least 2^16 elements, over all data ranks: the
   optimizer steps a view of the rank's slice of the parameter
   (``core/optim.py``).
@@ -35,9 +40,15 @@ to this rank's shards, so a state written by one leg resumes onto any.
 
 Gradients: ``reduce_model_gradients`` sums them over the data ranks
 (replicated and TP-sharded leaves; FSDP's were reduce-scattered in the
-backward), after summing the sequence-parallel leaves' token-slice parts
-over the model group. ``grad_sq_norm`` counts each element of the
-gradient once over the world, for clipping and the log.
+backward; EP's already hold every rank's tokens, and are summed over the
+gather groups' peers only), after summing the sequence-parallel leaves'
+token-slice parts over the model group. Under pipeline parallelism
+(``parallel/pp.py``) every rank holds every parameter and each leaf's
+gradient is taken from the one stage that computes it (its blocks' stage;
+the embeddings' stage 0; the rest, which every stage computes alike, the
+last stage's): the other stages' are zeroed before the sum over the
+world, so no leaf counts a stage twice. ``grad_sq_norm`` counts each
+element of the gradient once over the world, for clipping and the log.
 """
 
 from __future__ import annotations
@@ -57,8 +68,8 @@ from simseg_tpu_torch.parallel.collectives import (_BUCKET_BYTES, _all_reduce_,
 from simseg_tpu_torch.parallel.mesh import DataMesh
 from simseg_tpu_torch.parallel.tp import (ColumnParallelLinear, ParamSpec,
                                           RowParallelLinear, SeqParallel,
-                                          fsdp_dim, layout_order, tp_dim,
-                                          zero1_dim)
+                                          ep_dim, fsdp_dim, layout_order,
+                                          tp_dim, zero1_dim)
 
 logger = logging.getLogger(__name__)
 
@@ -74,6 +85,7 @@ class ShardPlan:
     tp: int = 1
     fsdp: bool = False
     zero1: bool = False
+    ep: bool = False
 
     # -- whole <-> shard ---------------------------------------------------
     def local(self, full: torch.Tensor, spec: ParamSpec) -> torch.Tensor:
@@ -84,8 +96,8 @@ class ShardPlan:
             t = torch.cat([c.chunk(m.tp, spec.tp_dim)[m.model_rank]
                            for c in t.chunk(spec.tp_chunks, spec.tp_dim)],
                           spec.tp_dim)
-        if spec.fsdp_dim is not None:
-            t = t.chunk(m.group_ranks, spec.fsdp_dim)[m.rank_in_group]
+        if spec.data_dim is not None:
+            t = t.chunk(m.group_ranks, spec.data_dim)[m.rank_in_group]
         return t.contiguous()
 
     def full(self, local: torch.Tensor, spec: ParamSpec) -> torch.Tensor:
@@ -93,8 +105,8 @@ class ShardPlan:
         groups the spec shards over)."""
         m = self.mesh
         t = local.detach()
-        if spec.fsdp_dim is not None:
-            t = gather_dim(t, spec.fsdp_dim, m.gather_group)
+        if spec.data_dim is not None:
+            t = gather_dim(t, spec.data_dim, m.gather_group)
         if spec.tp_dim is not None:
             parts = gather_dim(t, spec.tp_dim, m.model_group).chunk(
                 m.tp, spec.tp_dim)
@@ -118,18 +130,21 @@ class ShardPlan:
     def owns(self, spec: Optional[ParamSpec]) -> bool:
         """Whether this rank counts its shard of the parameter once over the
         world (the first rank of every axis the parameter is replicated
-        over)."""
+        over; under pipeline parallelism every stage holds the same summed
+        gradient, and stage 0 counts it)."""
         m = self.mesh
+        if m.stage != 0:
+            return False
         if (spec is None or spec.tp_dim is None) and m.model_rank != 0:
             return False
-        if spec is not None and spec.fsdp_dim is not None:
+        if spec is not None and spec.data_dim is not None:
             return m.replica == 0
         return m.data_rank == 0
 
     @property
     def sharded_grads(self) -> bool:
         """Whether some rank holds only a part of some gradient."""
-        return any(s.tp_dim is not None or s.fsdp_dim is not None
+        return any(s.tp_dim is not None or s.data_dim is not None
                    for s in self.specs.values())
 
 
@@ -188,7 +203,9 @@ def _tp_layout(model: nn.Module, specs: Dict[str, ParamSpec],
     if isinstance(image, VisionTransformer):
         for i, block in enumerate(image.blocks):
             pre = f"image_encoder.model.model.blocks.{i}"
-            attn, mlp = block.attn, block.mlp
+            # an MoE block's experts stay whole (JAX's rules match no
+            # MoE leaf): the block is not sharded whole
+            attn, mlp = block.attn, getattr(block, "mlp", None)
             attn_ok = (type(attn.qkv) is Linear and attn.num_heads % tp == 0
                        and _tp_ok(specs, [f"{pre}.attn.qkv.weight",
                                           f"{pre}.attn.qkv.bias",
@@ -197,7 +214,7 @@ def _tp_layout(model: nn.Module, specs: Dict[str, ParamSpec],
                 out.linears += [(f"{pre}.attn.qkv", attn.qkv, col, 3),
                                 (f"{pre}.attn.proj", attn.proj, row, 1)]
                 out.heads.append(attn)
-            mlp_ok = (type(mlp.fc1) is Linear
+            mlp_ok = (mlp is not None and type(mlp.fc1) is Linear
                       and _tp_ok(specs, [f"{pre}.mlp.fc1.weight",
                                          f"{pre}.mlp.fc1.bias",
                                          f"{pre}.mlp.fc2.weight"], tp))
@@ -221,7 +238,8 @@ def _tp_layout(model: nn.Module, specs: Dict[str, ParamSpec],
                 out.linears.append((f"{pre}.attention.output.dense",
                                     layer.attention.output.dense, row, 1))
                 out.heads.append(layer)
-            if (type(layer.intermediate.dense) is Linear
+            if (hasattr(layer, "intermediate")
+                    and type(layer.intermediate.dense) is Linear
                     and _tp_ok(specs, [f"{pre}.intermediate.dense.weight",
                                        f"{pre}.intermediate.dense.bias",
                                        f"{pre}.output.dense.weight"], tp)):
@@ -252,12 +270,13 @@ def _sp_partial_names(layout: _TpLayout):
 def plan_specs(model: nn.Module, tp: int = 1, sp: bool = False,
                fsdp_ranks: int = 1, zero1_ranks: int = 1,
                fsdp_min_size: int = FSDP_MIN_SIZE,
-               zero1_min_size: int = ZERO1_MIN_SIZE) -> Dict[str, ParamSpec]:
+               zero1_min_size: int = ZERO1_MIN_SIZE,
+               ep_ranks: int = 1) -> Dict[str, ParamSpec]:
     """Every parameter's spec by the rules, from the shapes alone (a model
     on the ``meta`` device will do): TP over ``tp`` model ranks (``sp``:
     the sequence-parallel leaves marked), FSDP over ``fsdp_ranks`` (JAX's
-    'data' axis) and ZeRO-1 over ``zero1_ranks`` (its batch axes); 1 turns
-    a leg off."""
+    'data' axis), EP over ``ep_ranks`` (the same axis) and ZeRO-1 over
+    ``zero1_ranks`` (its batch axes); 1 turns a leg off."""
     specs = {}
     for name, module, leaf in _owners(model):
         p = module._parameters[leaf]
@@ -278,6 +297,8 @@ def plan_specs(model: nn.Module, tp: int = 1, sp: bool = False,
     if fsdp_ranks > 1:
         for spec in specs.values():
             spec.fsdp_dim = fsdp_dim(spec, fsdp_ranks, fsdp_min_size)
+    if ep_ranks > 1:
+        _set_ep(specs, ep_ranks)
     if zero1_ranks > 1:
         for spec in specs.values():
             spec.zero_dim = zero1_dim(spec, zero1_ranks, zero1_min_size)
@@ -398,13 +419,15 @@ def gathered_linear(x, shard, bias, fsdp) -> torch.Tensor:
 def shard_model(model: nn.Module, mesh: Optional[DataMesh], tp: int = 1,
                 sp: bool = False, fsdp: bool = False, zero1: bool = False,
                 fsdp_min_size: int = FSDP_MIN_SIZE,
-                zero1_min_size: int = ZERO1_MIN_SIZE) -> nn.Module:
+                zero1_min_size: int = ZERO1_MIN_SIZE,
+                ep: bool = False) -> nn.Module:
     """Shard ``model`` in place over ``mesh`` (JAX ``derive_state_shardings``
-    with ``tp``, ``fsdp``, ``shard_opt_state=zero1``; ``sp``: JAX's
-    ``act_sharding``), returning it; a leg already applied is kept, so the
-    model builder may apply TP and the runner FSDP and ZeRO-1 after it.
-    Without a world (``mesh`` None) or on one data rank the data legs hold
-    the whole state, as they do on a JAX axis of size 1."""
+    with ``tp``, ``fsdp``, ``moe_ep=ep``, ``shard_opt_state=zero1``;
+    ``sp``: JAX's ``act_sharding``), returning it; a leg already applied is
+    kept, so the model builder may apply TP and the runner FSDP, EP and
+    ZeRO-1 after it. Without a world (``mesh`` None) or on one data rank
+    the data legs hold the whole state, as they do on a JAX axis of size
+    1."""
     tp = int(tp) if tp and tp > 1 else 1
     if sp and (mesh is None or mesh.tp <= 1):
         raise ValueError("dist.sp requires dist.tp_size > 1 (the token dim "
@@ -416,9 +439,10 @@ def shard_model(model: nn.Module, mesh: Optional[DataMesh], tp: int = 1,
                          f"model groups of {mesh.tp}")
     fsdp = fsdp and mesh.group_ranks > 1
     zero1 = zero1 and mesh.data_size > 1
+    ep = ep and mesh.group_ranks > 1
     plan = plan_of(model)
     if plan is None:
-        if tp == 1 and not fsdp and not zero1:
+        if tp == 1 and not fsdp and not zero1 and not ep:
             return model
         plan = ShardPlan(mesh, plan_specs(model))
     new_tp = tp > 1 and plan.tp == 1
@@ -430,19 +454,34 @@ def shard_model(model: nn.Module, mesh: Optional[DataMesh], tp: int = 1,
         for spec in plan.specs.values():
             spec.fsdp_dim = fsdp_dim(spec, mesh.group_ranks, fsdp_min_size)
         plan.fsdp = True
+    new_ep = ep and not plan.ep
+    if new_ep:
+        _set_ep(plan.specs, mesh.group_ranks)
+        plan.ep = True
     if zero1 and not plan.zero1:
         for spec in plan.specs.values():
             spec.zero_dim = zero1_dim(spec, mesh.data_size, zero1_min_size)
         plan.zero1 = True
-    if new_tp or new_fsdp:
-        _cut(model, plan, new_tp, new_fsdp)
+    if new_tp or new_fsdp or new_ep:
+        _cut(model, plan, new_tp, new_fsdp, new_ep)
     model.shard_plan = plan
     return model
 
 
-def _cut(model: nn.Module, plan: ShardPlan, tp: bool, fsdp: bool) -> None:
+def _set_ep(specs: Dict[str, ParamSpec], n: int) -> None:
+    """The EP rule over ``n`` ranks on top of the specs; an expert leaf it
+    splits is no FSDP leaf (JAX's ``ep_shardings`` replaces the base
+    sharding of the leaves it matches)."""
+    for name, spec in specs.items():
+        spec.ep_dim = ep_dim(name, spec.shape, n)
+        if spec.ep_dim is not None:
+            spec.fsdp_dim = None
+
+
+def _cut(model: nn.Module, plan: ShardPlan, tp: bool, fsdp: bool,
+         ep: bool = False) -> None:
     """Each parameter replaced by this rank's shard (TP's of the whole
-    parameter, then FSDP's of that)."""
+    parameter, then FSDP's or EP's of that)."""
     m = plan.mesh
     replica = m.replica_group if m.n_groups > 1 else None
     for name, module, leaf in list(_owners(model)):
@@ -457,6 +496,9 @@ def _cut(model: nn.Module, plan: ShardPlan, tp: bool, fsdp: bool) -> None:
             fsdp_leaves = module.__dict__.setdefault("_fsdp", {})
             fsdp_leaves[leaf] = (spec.fsdp_dim, m.gather_group, replica)
             module.__class__ = _fsdp_class(type(module))
+        if ep and spec.ep_dim is not None:
+            t = t.chunk(m.group_ranks, spec.ep_dim)[m.rank_in_group]
+            module.ep = (m.gather_group, m.group_ranks)
         if tuple(t.shape) != tuple(p.shape):
             module._parameters[leaf] = nn.Parameter(
                 t.contiguous().clone(), requires_grad=p.requires_grad)
@@ -479,7 +521,7 @@ def full_state_dict(model: nn.Module,
     for k, v in state.items():
         spec = plan.specs.get(k)
         if spec is not None and (spec.tp_dim is not None
-                                 or spec.fsdp_dim is not None):
+                                 or spec.data_dim is not None):
             v = plan.full(v, spec)
             if not keep:
                 continue
@@ -512,8 +554,14 @@ def reduce_model_gradients(model: nn.Module, mesh: Optional[DataMesh]) -> None:
     """The parameters' gradients summed as JAX's global gradient: the
     sequence-parallel leaves' token-slice parts over the model group, then
     every leaf over the data ranks, except the FSDP leaves, reduce-scattered
-    in the backward."""
+    in the backward, and the EP leaves, which already hold every rank's
+    tokens (summed over the gather groups' peers only). Under pipeline
+    parallelism each leaf's gradient comes from its own stage
+    (``reduce_pipeline_gradients``)."""
     if mesh is None:
+        return
+    if mesh.pp > 1:
+        reduce_pipeline_gradients(model, mesh)
         return
     plan = plan_of(model)
     if plan is None:
@@ -523,8 +571,36 @@ def reduce_model_gradients(model: nn.Module, mesh: Optional[DataMesh]) -> None:
     partial = [p for n, p in named.items() if plan.specs[n].sp_partial]
     if partial:
         reduce_gradients(partial, mesh.model_group)
+    experts = [p for n, p in named.items() if plan.specs[n].ep_dim is not None]
+    if experts and mesh.n_groups > 1:
+        reduce_gradients(experts, mesh.replica_group)
     reduce_gradients([p for n, p in named.items()
-                      if plan.specs[n].fsdp_dim is None], mesh.data_group)
+                      if plan.specs[n].data_dim is None], mesh.data_group)
+
+
+def reduce_pipeline_gradients(model: nn.Module, mesh: DataMesh) -> None:
+    """Every gradient the sum over the data ranks of the one stage that
+    computes it (``parallel/pp.param_stages``), on every rank: the other
+    stages' parts zeroed, the whole leaves summed over the world and the
+    FSDP leaves (reduce-scattered within the stage in the backward) over
+    the pipe group. Every rank then holds every gradient."""
+    from simseg_tpu_torch.parallel.pp import param_stages
+
+    stages = param_stages(model, mesh.pp)
+    plan = plan_of(model)
+    whole, fsdp = [], []
+    for n, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        elif stages[n] != mesh.stage:
+            p.grad.zero_()
+        sharded = plan is not None and plan.specs[n].fsdp_dim is not None
+        (fsdp if sharded else whole).append(p)
+    reduce_gradients(whole, None)
+    if fsdp:
+        reduce_gradients(fsdp, mesh.pipe_group)
 
 
 def grad_sq_norm(grads, specs, plan: ShardPlan) -> torch.Tensor:

@@ -92,6 +92,19 @@ def tp_dim(name: str, shape, tp: int) -> Optional[int]:
     return 1 if shape[1] % tp == 0 else None
 
 
+_EP_LEAF = re.compile(r"\.moe\.(w1|w2|b1|b2)$")
+
+
+def ep_dim(name: str, shape, n: int) -> Optional[int]:
+    """JAX ``ep_shardings`` (``simseg_tpu/parallel/tp.py:97-124``): an MoE
+    layer's expert weights (``…moe.w1`` / ``b1`` / ``w2`` / ``b2``, leading
+    dim the experts) are split over the data axis (``n`` ranks) when the
+    expert count divides it, else they stay replicated."""
+    if _EP_LEAF.search(name) and shape and shape[0] % n == 0:
+        return 0
+    return None
+
+
 def _largest_free_dim(spec: "ParamSpec", n: int, taken=()) -> Optional[int]:
     """The largest dim of the whole shape not in ``taken`` that ``n``
     divides, ties in the JAX layout's order (its stable sort)."""
@@ -122,7 +135,7 @@ def zero1_dim(spec: "ParamSpec", n: int, min_size: int = 2**16) -> Optional[int]
     applies it: the moments of a parameter that the TP and FSDP rules left
     replicated, of at least ``min_size`` elements, are sharded over the
     batch axes (``n`` data ranks) on the largest dim that ``n`` divides."""
-    if spec.tp_dim is not None or spec.fsdp_dim is not None:
+    if spec.tp_dim is not None or spec.data_dim is not None:
         return None
     if not spec.shape or _numel(spec.shape) < min_size:
         return None
@@ -146,9 +159,10 @@ class ParamSpec:
     ``order``: ``layout_order``; ``tp_dim`` (and ``tp_chunks`` equal parts
     of it sharded each: 3 for the fused qkv) over the model group;
     ``fsdp_dim`` over the data ranks of a gather group (JAX's 'data'
-    axis); ``zero_dim``: the optimizer moments' dim over the data ranks
-    (the parameter itself whole); ``sp_partial``: its gradient is a sum
-    over the model group's token slices."""
+    axis); ``ep_dim``: an MoE layer's expert dim over the same ranks, used
+    as it is (expert parallelism); ``zero_dim``: the optimizer moments' dim
+    over the data ranks (the parameter itself whole); ``sp_partial``: its
+    gradient is a sum over the model group's token slices."""
     shape: Tuple[int, ...]
     order: Tuple[int, ...]
     tp_dim: Optional[int] = None
@@ -156,6 +170,13 @@ class ParamSpec:
     fsdp_dim: Optional[int] = None
     zero_dim: Optional[int] = None
     sp_partial: bool = False
+    ep_dim: Optional[int] = None
+
+    @property
+    def data_dim(self) -> Optional[int]:
+        """The dim split over the data ranks of a gather group (FSDP's or
+        EP's), else None."""
+        return self.fsdp_dim if self.fsdp_dim is not None else self.ep_dim
 
     def flax_spec(self, zero_axis="data") -> Tuple:
         """The JAX PartitionSpec of the parameter (or, with ZeRO-1, of its
@@ -164,7 +185,7 @@ class ParamSpec:
         out = []
         for d in self.order:
             out.append("model" if d == self.tp_dim else
-                       "data" if d == self.fsdp_dim else
+                       "data" if d == self.data_dim else
                        zero_axis if d == self.zero_dim else None)
         return tuple(out)
 

@@ -29,11 +29,13 @@ loaders, which then shard by rank, and trains on the rank's card,
 --nproc_per_node N --cfg ...`` starts N such ranks.
 
 The sharded legs (JAX :35-60): ``train`` builds the mesh from
-``loss.group_size`` and ``dist.tp_size`` and hands it to
+``loss.group_size``, ``dist.tp_size`` and ``dist.pp_size`` and hands it to
 ``build_clip_model`` (tensor parallelism, ``dist.sp``); the runner adds
-``dist.fsdp`` and ``dist.zero1``. ``dist.tp_size`` must divide the world,
-whose ranks then form model groups of that many ranks, each group one data
-rank of the loaders.
+``dist.fsdp``, ``dist.zero1``, ``dist.moe_ep`` (the MoE towers' experts
+over the data ranks) and the pipeline's forward (``dist.pp_micro``).
+``dist.tp_size`` must divide the world, whose ranks then form model groups
+of that many ranks, each group one data rank of the loaders; so must
+``dist.pp_size``, whose stages' ranks of one data index load one shard.
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ def train(cfg, loaders: Dict[str, Sequence], tokenizer=None,
     device = resolve_device(device)
     torch.manual_seed(int(cfg.seed or 0))
     mesh = make_mesh(int(cfg.loss.get("group_size", -1) or -1),
-                     int(cfg.dist.get("tp_size", 1) or 1))
+                     int(cfg.dist.get("tp_size", 1) or 1),
+                     int(cfg.dist.get("pp_size", 1) or 1))
     model = build_clip_model(cfg, mesh)
     runner = CLIPRunner(cfg, model, loaders, device=device, tokenizer=tokenizer)
     runner.run()

@@ -260,7 +260,10 @@ for name, case in spec["cases"].items():
         n = glob["image"].shape[0] // mesh.data_size
         d = mesh.data_rank
         local = {k: torch.from_numpy(v[d * n:(d + 1) * n]) for k, v in glob.items()}
-        rec["losses"].append(float(runner.batch_processor(local)["loss"]))
+        metrics = runner.batch_processor(local)
+        rec["losses"].append(float(metrics["loss"]))
+        if "moe_aux" in metrics:
+            rec.setdefault("aux", []).append(float(metrics["moe_aux"]))
         runner.step += 1
         if step == 0:
             rec["bytes"] = state_bytes(runner.model, runner.optimizer)
@@ -291,9 +294,10 @@ print("WORKER_DONE", r, flush=True)
 '''
 
 
-def run_cases(tmp, world, cases, batches, min_size=MIN_SIZE):
-    """The ``cases`` in one ``world`` of gloo ranks; returns its directory."""
-    flax_model, params, port = _pair()
+def run_cases(tmp, world, cases, batches, min_size=MIN_SIZE, **pair):
+    """The ``cases`` in one ``world`` of gloo ranks, on the tiny model
+    (``pair``: its overrides); returns the JAX model and parameters."""
+    flax_model, params, port = _pair(**pair)
     torch.save(port.state_dict(), tmp / "state.pt")
     np.savez(tmp / "batches.npz", **batches)
     fields = {f: getattr(flax_model, f) for f in _FIELDS}
@@ -334,17 +338,22 @@ def jax_run(flax_model, params, batches, name, world, n, steps, opts):
     if opts.get("sp"):
         model = flax_model.clone(act_sharding=NamedSharding(
             mesh, P(None, MODEL_AXIS, None)))
+    if opts.get("ep"):
+        model = flax_model.clone(expert_sharding=NamedSharding(
+            mesh, P(None, "data", None, None)))
     tx, set_lr = jax_build_optimizer(ref_cfg, params)
     state = TrainState.create(params, tx)
     kw = dict(mesh=mesh, donate=False, shard_opt_state=opts.get("zero1", False),
               fsdp=opts.get("fsdp", False), opt_shard_min_size=MIN_SIZE,
               fsdp_min_size=MIN_SIZE, group_size=jax_group_samples(mesh, n))
+    if opts.get("ep"):
+        kw["moe_ep"] = True
     if "bsgs" in opts:
         built = jax_make_bsgs_train_step(model, tx, set_lr,
                                          num_micro=n // opts["bsgs"], **kw)
     else:
         built = jax_make_train_step(model, tx, set_lr, **kw)
-    if tp > 1 or opts.get("zero1") or opts.get("fsdp"):
+    if tp > 1 or opts.get("zero1") or opts.get("fsdp") or opts.get("ep"):
         step, state = built(state)
     else:
         step = built
@@ -354,6 +363,8 @@ def jax_run(flax_model, params, batches, name, world, n, steps, opts):
                  for k in ("image", "input_ids", "attention_mask")}
         state, m = step(state, shard_batch(batch, mesh), None, LR)
         losses.append(float(m["loss"]))
+        if "moe_aux" in m:
+            opts.setdefault("aux", []).append(float(m["moe_aux"]))
     return losses, flax_params_to_state_dict(jax.tree.map(np.asarray,
                                                           state.params))
 

@@ -212,14 +212,9 @@ def test_train_main_bsgs_matches_jax(tmp_path):
 
 
 # settings JAX acts on that the port has not ported: each refused by name,
-# with its ROADMAP item, where the runner builds its step (the MoE towers
-# where the towers are built); ``profile`` is no key of the config files,
-# JAX's users set it on the tree, as the case does
+# with its ROADMAP item, where the runner builds its step; ``profile`` is no
+# key of the config files, JAX's users set it on the tree, as the case does
 UNPORTED = {
-    "dist.pp_size=2": "item 13", "dist.pp_micro=8": "item 13",
-    "dist.moe_ep=True": "item 13",
-    "model.image_encoder.arch={'moe_experts': 4}": "item 13",
-    "model.text_encoder.arch={'moe_experts': 4}": "item 13",
     "ckpt.backend=orbax": "item 11", "wandb.enable=True": "item 11",
     "profile": "item 11",
 }
@@ -329,3 +324,91 @@ def test_train_main_sp_without_tp_raises_jax_value_error(refusal_fixture):
             "data.native_decode=False", "data.train_steps=1", "dist.sp=True"]
     with pytest.raises(ValueError, match="tp_size"):
         port_train.main(argv)
+
+
+# the MoE towers, expert and pipeline parallelism, ported: main(argv) over
+# two gloo ranks trains a step with each setting, or refuses JAX's own
+# combinations with JAX's exception type
+MOE = "{'moe_experts': 4}"
+DEPTH = ["model.image_encoder.arch={'depth': 4}",
+         "model.text_encoder.arch={'depth': 4}"]
+PARALLEL = {
+    "dist.pp_size=2": (["dist.pp_size=2", "dist.pp_micro=2"] + DEPTH, None),
+    "dist.pp_size=2 dist.zero1=True": (
+        ["dist.pp_size=2", "dist.pp_micro=2", "dist.zero1=True"] + DEPTH, None),
+    "dist.pp_micro=8": (["dist.pp_micro=8"], None),
+    "image moe_experts": ([f"model.image_encoder.arch={MOE}"], None),
+    "text moe_experts": ([f"model.text_encoder.arch={MOE}"], None),
+    "dist.moe_ep=True": (["dist.moe_ep=True", f"model.image_encoder.arch={MOE}",
+                          f"model.text_encoder.arch={MOE}"], None),
+    "pp + moe": (["dist.pp_size=2", f"model.image_encoder.arch={MOE}"],
+                 "NotImplementedError"),
+    "pp + tp": (["dist.pp_size=2", "dist.tp_size=2"], "NotImplementedError"),
+    "pp + dropout": (["dist.pp_size=2", "model.projection.name=complex"],
+                     "NotImplementedError"),
+    "pp + clip_bsgs": (["dist.pp_size=2", "runner.name=clip_bsgs",
+                        "data.batch_size_train=4"], "NotImplementedError"),
+    "pp + depth 3": (["dist.pp_size=2", "dist.pp_micro=2",
+                      "model.image_encoder.arch={'depth': 3}"], "ValueError"),
+}
+
+PARALLEL_ENTRY = r'''
+import json, os, sys
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+sys.path.insert(0, os.environ["REPO"])
+import datetime
+dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=60))
+from simseg_tpu_torch.parallel.sharding import full_state_dict
+from simseg_tpu_torch.tasks.clip import train
+base, settings = json.loads(os.environ["ARGS"])
+out = {}
+for name, (extra, _) in settings.items():
+    try:
+        runner = train.main(base + extra + [f"ckpt.dir={os.environ['OUT']}/{len(out)}"])
+    except Exception as e:
+        out[name] = {"error": type(e).__name__, "message": str(e)}
+        continue
+    full = full_state_dict(runner.model)
+    out[name] = {"step": runner.step, "loss": float(runner.outputs["loss"]),
+                 "aux": float(runner.outputs.get("moe_aux", float("nan"))),
+                 "sum": float(sum(v.double().sum() for v in full.values()))}
+if dist.get_rank() == 0:
+    json.dump(out, open(os.path.join(os.environ["OUT"], "parallel.json"), "w"))
+'''
+
+
+@pytest.fixture(scope="module")
+def parallel_runs(refusal_fixture, tmp_path_factory):
+    import json
+
+    from tests.test_torch_port_distributed import run_world
+
+    root = refusal_fixture
+    out = tmp_path_factory.mktemp("parallel")
+    base = ["--cfg", str(root / "clip.yaml"), "--vocab_file",
+            str(root / "vocab.txt"), "--device", "cpu",
+            f"data.data_path={root}/data/", "data.train_name=[pairs]",
+            "data.enable_valid=False", "data.native_decode=False",
+            "data.train_steps=1", "ckpt.step_interval=-1"]
+    run_world(2, PARALLEL_ENTRY, {"OUT": str(out),
+                                  "ARGS": json.dumps([base, PARALLEL])})
+    return json.loads((out / "parallel.json").read_text())
+
+
+@pytest.mark.parametrize("setting", list(PARALLEL))
+def test_train_main_moe_and_pipeline_settings(parallel_runs, setting):
+    """The MoE towers, ``dist.moe_ep``, ``dist.pp_size`` and
+    ``dist.pp_micro`` (alone a no-op, as in JAX) train a step through
+    ``main(argv)`` over two ranks to a finite loss (an MoE run reports its
+    aux); JAX's refusals of PP with MoE, TP, dropout or BSGS and of a depth
+    the stages do not divide raise JAX's exception types."""
+    run, want = parallel_runs[setting], PARALLEL[setting][1]
+    if want is not None:
+        assert run.get("error") == want, run
+        return
+    assert "error" not in run, run
+    assert run["step"] == 1
+    assert np.isfinite(run["loss"]) and np.isfinite(run["sum"])
+    assert np.isfinite(run["aux"]) == ("moe" in setting)
