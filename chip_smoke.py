@@ -13,6 +13,7 @@
     python3 chip_smoke.py --serving                         (phases 1-2 and 13)
     python3 chip_smoke.py --model-parallel                  (phases 1-2, 14 and 15)
     python3 chip_smoke.py --model-parallel-nccl             (14e over 4 cards)
+    python3 chip_smoke.py --bf16-native                     (phases 1-2, 16a-c)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
@@ -176,8 +177,9 @@ Phases (any failure raises, so the exit code is non-zero):
    labels of 320-511 px, a seeded ViT-B/16 + BERT-base ``.pth`` and a
    WordPiece vocab; ``tools/seg_evaluation.main`` run in this process with
    ``configs/clip/simseg.vit-b.yaml`` at ``data.batch_size_val=16`` on
-   the crf_backend lanes auto, fused_tail, fused, pallas and xla and with
-   ``seg_eval.scales=[1.0,2.0]``, each with its exact launch counts
+   the crf_backend lanes auto, fused_tail, fused, pallas and xla, with
+   ``seg_eval.scales=[1.0,2.0]`` and (phase 16) with fused_tail and
+   ``seg_eval.crf_dtype=bfloat16``, each with its exact launch counts
    (``ENTRY_WANT``) and one nvJPEG decode. Checks: the CLI's per-class IoU
    bit-equal to ``evaluate_benchmark`` over the same decoded batches in
    memory (planted fault: two images of a batch swapped after decode); the
@@ -313,17 +315,19 @@ Phases (any failure raises, so the exit code is non-zero):
    ``configs/clip/simseg.vit-b.yaml``, a seeded ViT-B/16 + BERT-base
    ``.pth`` cut to ``CUT_DEPTH`` blocks a tower at full width (the towers'
    ``arch`` on every export's command line) and a WordPiece vocab it
-   writes, six artifacts, (b)-(e) exported in a process each while this
+   writes, seven artifacts, (b)-(g) exported in a process each while this
    one exports (a): (a) seg, batch
    64, baked; (b) batch 16, ``scales=(1.0, 2.0)`` with ``fused_tail``, and
    288-px windows at stride 192 over 576 px; (c) bench.py's default lane,
    ToMe r = 16 with an int8_static image tower, calibrated by the tool;
-   (d) (a) in the separate-weights layout; (e) retrieval, batch 64. Each
+   (d) (a) in the separate-weights layout; (e) retrieval, batch 64; (g,
+   phase 16) seg, batch 16, ``seg_eval.crf_dtype=bfloat16``. Each
    is loaded in a fresh process (``--serve-worker``) that imports
    ``simseg_tpu_torch.serving`` alone, run on seeded batches (3 for (a), 2
    for the rest) with the counts taken around the calls: outputs bit-equal
    to the live staged module's, exact launches counted inside the ops
-   (``SERVE_ARTIFACTS``: rows 1, 5 and 2, 4); (d) bit-equal to (a), and a
+   (``SERVE_ARTIFACTS``: rows 1, 5 and 2, 4; (g) row 1's bf16 mode); (d)
+   bit-equal to (a), and a
    planted fault (one patch-embedding weight of the sidecar moved by 1.0)
    must break it; (f) (a) loaded with ``devices=["cuda:0", "cuda:0"]``,
    half a batch each, equal to one device; (a) and (b)'s first artifact
@@ -381,6 +385,35 @@ Phases (any failure raises, so the exit code is non-zero):
    microbatches swapped in the image tower's buffer; the leaves every stage
    computes summed over the stages). (c) and (d) run as phase 14's legs, in
    its ``--mp-worker`` processes, their worlds beside phase 14's.
+16. the CRF kernels' bf16 mode (the TPU kernels' default compute dtype)
+   and the native decode library: (a) ``mean_field_fused`` and
+   ``seg_decode_tail_fused`` with ``compute_dtype="bfloat16"`` at phase 3's
+   inputs (16 images, 5 maps, 288 x 288, stride 8, closing 7) and at 64
+   images: masks bf16, equal to the plain bf16 version on >= 99.995%, two
+   calls bit-equal, the tail's pred equal to the unfused bf16 chain (the
+   bf16 mean-field kernel + ``decode_tail``) and to its plain version on >=
+   99.99% (bars between the sound kernels' readings and the float32
+   kernels'), each nearer its plain version than the float32 kernel is;
+   exactly one launch of the bf16 counter a call; the bilateral term
+   dropped and the float32 kernel's output (rounded only at the end) must
+   fall below the bar (both entry points); bf16 and float32 times with CUDA
+   events in turns, device ms (null where the profile missed any of the
+   ``BF16_KERNELS_A_CALL`` kernels), plain ms, the bound (bytes against
+   float32 operations on the CUDA cores and bf16 products at the
+   tensor-core rate); (b)
+   ``evaluate_benchmark`` at batch 64 (one batch) with ``compute_dtype=
+   "bfloat16"`` on the auto, fused, fused_tail and pallas lanes and in
+   float32 on auto: exact launches (``BF16_LANE_WANT``), each lane's pred
+   against the float32 lane's >= 99% (printed beside the bf16 auto lane's);
+   (c) whether the native decode library (``data/native.py``) built, and
+   the compiler's first error line if not; on 64 generated JPEG/PNG files
+   its PNG decodes bit-equal to ``data/image_io.py``'s reader, and the
+   train loader's images/s (the vit-b YAML's train transforms, batch 64)
+   with ``data.native_decode`` on and off at 1 and 8 threads (neither
+   without the library); (d) phase 9's
+   run B with ``cfg.profile`` (steps 3-4, the ProfileHook): its trace
+   holds each attention kernel (forward; delta, dq, dk/dv) once per block
+   and step of the window, as the counters count them.
 It then prints one JSON line of kernel numbers (``cli_launches``: the
 kernel's launches in phase 8's lane that takes it; ``train_entry_launches``:
 in phase 9's run B; ``bsgs_launches``: per BSGS step of phase 10 at 576 px,
@@ -541,6 +574,18 @@ def device_rows(fn):
                    for e in prof.key_averages() if e.device_time_total > 0),
                   reverse=True)
     return sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows), rows
+
+
+def device_rows_checked(fn, want, tries=3):
+    """(device ms, kernels) of one call of fn that launches ``want`` CUDA
+    kernels: ``device_rows`` up to ``tries`` times until the profile holds
+    all of them; the device ms is None where no profile did (the profiler
+    can miss a call's kernels late in a long process)."""
+    for _ in range(tries):
+        ms, kernels, _ = device_rows(fn)
+        if kernels == want:
+            return ms, kernels
+    return None, kernels
 
 
 def launch_times(fn):
@@ -799,6 +844,8 @@ def counters():
 
     return {"crf_mean_field": (crf_fused, "LAUNCHES"),
             "seg_decode_tail": (crf_fused, "TAIL_LAUNCHES"),
+            "crf_mean_field_bf16": (crf_fused, "BF16_LAUNCHES"),
+            "seg_decode_tail_bf16": (crf_fused, "BF16_TAIL_LAUNCHES"),
             "flash_attention": (flash_attention, "LAUNCHES"),
             "flash_attention_bwd": (flash_attention, "BWD_LAUNCHES"),
             "bilateral_matvec": (crf_pallas, "LAUNCHES")}
@@ -2321,7 +2368,9 @@ ENTRY_LANES = (("auto", ()), ("fused_tail", ("seg_eval.crf_backend=fused_tail",)
                ("fused", ("seg_eval.crf_backend=fused",)),
                ("pallas", ("seg_eval.crf_backend=pallas",)),
                ("xla", ("seg_eval.crf_backend=xla",)),
-               ("scales (1.0, 2.0)", ("seg_eval.scales=[1.0,2.0]",)))
+               ("scales (1.0, 2.0)", ("seg_eval.scales=[1.0,2.0]",)),
+               ("fused_tail bf16", ("seg_eval.crf_backend=fused_tail",
+                                    "seg_eval.crf_dtype=bfloat16")))
 # launches per lane over the split: {count: launches}, every other count 0
 ENTRY_WANT = {
     "auto": {"crf_mean_field": ENTRY_BATCHES},
@@ -2334,6 +2383,8 @@ ENTRY_WANT = {
     "scales (1.0, 2.0)": {"crf_mean_field": ENTRY_BATCHES,
                           "flash_attention": 12 * ENTRY_BATCHES,
                           "lane_flash": 12 * ENTRY_BATCHES},
+    # phase 16: the TPU kernels' bf16 mode from the command line
+    "fused_tail bf16": {"seg_decode_tail_bf16": ENTRY_BATCHES},
 }
 ENTRY_LANE_BAR = 0.999
 NVJPEG_NEAR_BAR = 0.99       # share of channel values within 2 levels of PIL's
@@ -2864,12 +2915,14 @@ def parse_entry(argv):
     return cfg
 
 
-def run_train_main(label, argv, keep=2):
+def run_train_main(label, argv, keep=2, profile=None):
     """``tasks.clip.train.main(argv)`` from ``TRAIN_ENTRY_SEED``, the counts
-    set to 0 just before it and read just after. Records the first ``keep``
-    host batches, each step's loss, lr and CUDA events, each validation
-    pass's seconds (host clock, synchronised) and step, and the last pass's
-    embeddings, ids and table. Returns (runner, record, counts, wall s)."""
+    set to 0 just before it and read just after, with ``cfg.profile`` set
+    on the tree (as JAX's users set it) when ``profile`` is given. Records
+    the first ``keep`` host batches, each step's loss, lr and CUDA events,
+    each validation pass's seconds (host clock, synchronised) and step, and
+    the last pass's embeddings, ids and table. Returns (runner, record,
+    counts, wall s)."""
     from simseg_tpu_torch.core import runner as runner_mod
     from simseg_tpu_torch.core.train_hooks import RetrievalEvalHook
     from simseg_tpu_torch.tasks.clip import train as entry
@@ -2906,6 +2959,13 @@ def run_train_main(label, argv, keep=2):
         after_val(hook, runner)
         rec["last_val"] = emb + (dict(runner.state.retrieval_summary),)
 
+    init = entry.task_cfg_init_fn
+
+    def init_with_profile(cfg):
+        init(cfg)
+        if profile is not None:
+            cfg.profile = profile
+
     random.seed(TRAIN_ENTRY_SEED)
     np.random.seed(TRAIN_ENTRY_SEED)
     reset_counts()
@@ -2914,7 +2974,9 @@ def run_train_main(label, argv, keep=2):
     with unittest.mock.patch.object(runner_mod.CLIPRunner, "batch_processor", step), \
             unittest.mock.patch.object(runner_mod.EpochRunner, "val", val), \
             unittest.mock.patch.object(RetrievalEvalHook, "after_val_epoch",
-                                       keep_val):
+                                       keep_val), \
+            unittest.mock.patch.object(entry, "task_cfg_init_fn",
+                                       init_with_profile):
         runner = entry.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2929,6 +2991,31 @@ def run_train_main(label, argv, keep=2):
     if len(losses) != runner.train_steps or not all(np.isfinite(losses)):
         raise AssertionError(f"9 run {label}: losses {losses}")
     return runner, rec, counts, wall
+
+
+# 16d: run B's profiled window (ProfileHook, cfg.profile); each step runs
+# one forward and one backward attention launch a block
+PROFILE_WINDOW = {"start_step": 2, "num_steps": 2}
+PROFILE_KERNELS = ("flash_fwd_kernel", "delta_kernel", "dq_kernel", "dkdv_kernel")
+
+
+def check_profile_trace(path):
+    """16d: run B's trace (the ProfileHook's Chrome trace of steps 3-4) holds
+    each attention kernel once per block and step of the window, as the
+    launch counters count them."""
+    if not path or not os.path.exists(path):
+        raise AssertionError(f"16d: no profile trace ({path})")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in n for n in kernels) for k in PROFILE_KERNELS}
+    want = CUT_DEPTH * PROFILE_WINDOW["num_steps"]
+    print(f"16d: run B's profile trace {os.path.basename(path)} "
+          f"({os.path.getsize(path) / 1e6:.1f} MB): {len(kernels)} CUDA kernels, "
+          f"attention {found} (want {want} each)", flush=True)
+    if any(v != want for v in found.values()):
+        raise AssertionError(f"16d: attention kernels in the trace {found}, "
+                             f"want {want} each")
 
 
 def entry_ms_per_step(rec, warmup=2):
@@ -3212,7 +3299,9 @@ def run_train_entry():
         run_retrieval_cli(data, root, vocab, ckpt, last_val[-1])
         del rec, last_val
 
-        runner, rec, counts, _ = run_train_main("B", argv["B"])
+        runner, rec, counts, _ = run_train_main(
+            "B", argv["B"], profile=dict(PROFILE_WINDOW,
+                                         dir=os.path.join(root, "B_trace")))
         launches["B"] = counts
         steps = TRAIN_ENTRY_RUNS["B"][1]
         want = {"flash_attention": CUT_DEPTH * steps,
@@ -3220,6 +3309,7 @@ def run_train_entry():
                 "lane_train": CUT_DEPTH * steps}
         # the 288-px validation takes no kernel
         check_counts("9 run B", counts, want)
+        check_profile_trace(runner.state.get("profile_trace"))
         check_lr_sequence(runner, rec)
         batches["B"], vals["B"] = rec["batches"], [s for _, s in rec["val"]]
         del runner, rec
@@ -4911,9 +5001,14 @@ SERVE_ARTIFACTS = {
         2, {"crf_mean_field": 2}),
     "d": ("seg", BENCH_BATCH, "separate", (), 2, {"crf_mean_field": 2}),
     "e": ("retrieval", BENCH_BATCH, "baked", (), 2, {}),
+    # phase 16: the default lane in the TPU kernels' bf16 mode
+    "g_bf16": ("seg", BATCH, "baked", ("seg_eval.crf_dtype=bfloat16",), 2,
+               {"crf_mean_field_bf16": 2}),
 }
 COUNT_MODULES = {"crf_mean_field": ("crf_fused", "LAUNCHES"),
                  "seg_decode_tail": ("crf_fused", "TAIL_LAUNCHES"),
+                 "crf_mean_field_bf16": ("crf_fused", "BF16_LAUNCHES"),
+                 "seg_decode_tail_bf16": ("crf_fused", "BF16_TAIL_LAUNCHES"),
                  "flash_attention": ("flash_attention", "LAUNCHES"),
                  "flash_attention_bwd": ("flash_attention", "BWD_LAUNCHES"),
                  "bilateral_matvec": ("crf_pallas", "LAUNCHES")}
@@ -5937,6 +6032,319 @@ def run_moe_seg(tokenizer, classes):
     return counts
 
 
+# -- phase 16: the CRF kernels' bf16 mode, the native decode library --------------
+
+# the bf16 kernels vs their plain versions: between the sound kernels'
+# agreement at 16 x 5 x 288^2 (masks 0.999990, the tail's pred 0.999980)
+# and the float32 kernels' with the same plain outputs (0.999724,
+# 0.999497), so a kernel that rounds to bf16 only at the end fails
+BF16_MASK_BAR = 0.99995
+BF16_TAIL_BAR = 0.9999
+BF16_LANE_BAR = 0.99           # a bf16 lane's pred vs the float32 lane's
+# CUDA kernels of one bf16 call (csrc/crf_mean_field.cu, crf_bf16::run):
+# features, K and its degree, d0, (splat, message, update) an iteration,
+# the closing's four passes, the masks or the tail's argmax
+BF16_KERNELS_A_CALL = 3 + 3 * ITERS + 4 + 1
+BF16_LANES = ("auto", "fused", "fused_tail", "pallas")
+# launches per batch of each bf16 lane: {count: n}
+BF16_LANE_WANT = {"auto": {"crf_mean_field_bf16": 1},
+                  "fused": {"crf_mean_field_bf16": 1},
+                  "fused_tail": {"seg_decode_tail_bf16": 1},
+                  "pallas": {"bilateral_matvec": 1 + ITERS}}
+BF16_EVAL_BATCHES = 1
+NATIVE_FILES = 64
+NATIVE_THREADS = (1, 8)
+
+
+def crf_bf16_bound_ms(b, k, h, w, s, radius, iters, nbytes):
+    """Least time for the bf16 mode's work: ``nbytes`` over HBM bandwidth,
+    against its operations at their types' peaks: the kernel matrix's
+    distances and exponentials in float32 (CUDA cores), the products of
+    bf16 operands (K.q, the two Gaussian passes) at the bf16 tensor-core
+    rate, the update's elementwise work in float32."""
+    n = (h // s) * (w // s)
+    f32 = b * (n * n * (2 * 5 + 5) + k * iters * h * w * 8)
+    bf16 = b * k * iters * (2 * n * n + h * w * 4 * (2 * radius + 1))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f32 / F32_FLOP_PER_S + bf16 / BF16_FLOP_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_crf_bf16(b):
+    """16a at batch b: the bf16 mean field (closing inside) against its
+    plain version and the float32 kernel; the bf16 tail against the unfused
+    bf16 chain (the bf16 mean-field kernel + ``decode_tail``), its plain
+    version and the float32 tail; each nearer its plain version than the
+    float32 kernel is; exact launches; the bilateral term dropped and the
+    float32 kernel's output (a kernel that rounds only at the end) must fail
+    the bar; bf16 and float32 kernel times in turns; the device ms of a call
+    only from a profile that holds all its kernels. Returns the JSON fields
+    of both entries (no launches)."""
+    from simseg_tpu_torch.ops import crf_fused
+    from simseg_tpu_torch.ops.morphology import nearest_upsample
+    from simseg_tpu_torch.ops.seg_decode import decode_tail
+
+    label = f"16a b={b}"
+    du, rgb = crf_inputs(b)
+    kw = dict(stride=STRIDE, num_iters=ITERS, closing_ksize=CLOSING)
+    bf = dict(kw, compute_dtype="bfloat16")
+    reset_counts()
+    masks = crf_fused.mean_field_fused(du, rgb, **bf)
+    again = crf_fused.mean_field_fused(du, rgb, **bf)
+    check_counts(label, read_counts(), {"crf_mean_field_bf16": 2})
+    plain = crf_fused.mean_field_fused_plain(du, rgb, **bf)
+    f32 = crf_fused.mean_field_fused(du, rgb, **kw)
+    torch.cuda.synchronize()
+    agree = (masks == plain).float().mean().item()
+    agree32 = (masks.float() == f32).float().mean().item()
+    f32_plain = (f32 == plain.float()).float().mean().item()
+    max_err = (masks.float() - plain.float()).abs().max().item()
+    print(f"{label}: bf16 mean field, masks {masks.dtype}, vs its plain "
+          f"version {agree:.6f}, vs the float32 kernel {agree32:.6f} (the "
+          f"float32 kernel vs the plain bf16 version {f32_plain:.6f}); two calls "
+          f"bit-equal {torch.equal(masks, again)}", flush=True)
+    if masks.dtype != torch.bfloat16 or agree < BF16_MASK_BAR:
+        raise AssertionError(f"{label}: bf16 kernel vs plain {agree} < "
+                             f"{BF16_MASK_BAR} ({masks.dtype})")
+    if not agree > f32_plain:
+        raise AssertionError(f"{label}: the float32 kernel is as near the plain "
+                             f"bf16 version as the bf16 kernel ({agree})")
+    if not torch.equal(masks, again):
+        raise AssertionError(f"{label}: two bf16 calls differ")
+    check_faults(label, {
+        "bilateral dropped": crf_fused.mean_field_fused(
+            du, rgb, bilateral_compat=0.0, **bf),
+        "float32, rounded at the end": f32.to(torch.bfloat16)}, plain, BF16_MASK_BAR)
+
+    k = CLASSES_PER_IMAGE
+    du_c = du[:, :, ::PATCH, ::PATCH].contiguous()       # the patch grid
+    rng = np.random.default_rng(b + 16)
+    scores = torch.from_numpy(rng.uniform(0.1, 0.5, (b, k)).astype(np.float32)).cuda()
+    scores[:, -1] = 0.0                                    # an invalid candidate
+    idx = torch.from_numpy(np.stack([rng.permutation(np.arange(1, 21))[:k]
+                                     for _ in range(b)]).astype(np.int32)).cuda()
+    ones = torch.ones_like(scores, dtype=torch.bool)
+
+    def tail(**extra):
+        return crf_fused.seg_decode_tail_fused(du_c, rgb, scores, idx, PATCH,
+                                               **{**bf, **extra})
+
+    reset_counts()
+    pred, best_w = tail()
+    check_counts(f"{label} tail", read_counts(), {"seg_decode_tail_bf16": 1})
+    chain = crf_fused.mean_field_fused(nearest_upsample(du_c, PATCH).contiguous(),
+                                       rgb, **bf)
+    chain_p, _ = decode_tail(chain.float(), idx, scores, ones)
+    plain_p, plain_w = crf_fused.seg_decode_tail_fused_plain(du_c, rgb, scores,
+                                                            idx, PATCH, **bf)
+    f32_p, _ = crf_fused.seg_decode_tail_fused(du_c, rgb, scores, idx, PATCH, **kw)
+    torch.cuda.synchronize()
+    t_chain = (pred == chain_p).float().mean().item()
+    t_plain = (pred == plain_p).float().mean().item()
+    t_f32 = (pred == f32_p).float().mean().item()
+    t_f32_plain = (f32_p == plain_p).float().mean().item()
+    tail_err = (best_w - plain_w).abs().max().item()
+    print(f"{label}: bf16 tail pred vs the unfused bf16 chain {t_chain:.6f}, vs "
+          f"its plain version {t_plain:.6f}, vs the float32 tail {t_f32:.6f} "
+          f"(the float32 tail vs the plain bf16 version {t_f32_plain:.6f})",
+          flush=True)
+    if t_chain < BF16_TAIL_BAR or t_plain < BF16_TAIL_BAR:
+        raise AssertionError(f"{label}: bf16 tail agreement {t_chain} / "
+                             f"{t_plain} < {BF16_TAIL_BAR}")
+    if not t_plain > t_f32_plain:
+        raise AssertionError(f"{label}: the float32 tail is as near the plain "
+                             f"bf16 version as the bf16 tail ({t_plain})")
+    check_faults(f"{label} tail", {"bilateral dropped": tail(
+        bilateral_compat=0.0)[0], "float32, rounded at the end": f32_p},
+        plain_p, BF16_TAIL_BAR)
+
+    fns = {"bf16": lambda: crf_fused.mean_field_fused(du, rgb, **bf),
+           "float32": lambda: crf_fused.mean_field_fused(du, rgb, **kw),
+           "tail bf16": lambda: tail(),
+           "tail float32": lambda: crf_fused.seg_decode_tail_fused(
+               du_c, rgb, scores, idx, PATCH, **kw)}
+    names = list(fns)
+    times = {name: float(np.mean(t)) for name, t in zip(
+        names, in_turns(names, lambda n: fns[names[n]]()))}
+    plain_ms = cuda_ms(lambda: crf_fused.mean_field_fused_plain(du, rgb, **bf), 3)
+    tail_plain_ms = cuda_ms(lambda: crf_fused.seg_decode_tail_fused_plain(
+        du_c, rgb, scores, idx, PATCH, **bf), 3)
+    device = {name: device_rows_checked(fn, BF16_KERNELS_A_CALL) for name, fn in (
+        ("bf16", lambda: crf_fused.mean_field_fused(du, rgb, **bf)),
+        ("tail bf16", lambda: tail()))}
+    if b == BATCH:
+        device_profile(lambda: crf_fused.mean_field_fused(du, rgb, **bf),
+                       f"{label} bf16 kernel", top=10)
+    radius = crf_fused.gaussian_constants(SIZE, SIZE, 3.0)[0].shape[0] // 2
+    bound, bound_by = crf_bf16_bound_ms(
+        b, k, SIZE, SIZE, STRIDE, radius, ITERS,
+        du.numel() * 4 + rgb.numel() + masks.numel() * 2)
+    tail_bound, tail_by = crf_bf16_bound_ms(
+        b, k, SIZE, SIZE, STRIDE, radius, ITERS,
+        du_c.numel() * 4 + rgb.numel() + pred.numel() * 8 + 8 * b * k)
+    print(f"{label} ({card_line()}): CUDA events in turns, ms a call: "
+          + ", ".join(f"{n} {v:.4f}" for n, v in times.items())
+          + f"; device ms (CUDA kernels a call, of {BF16_KERNELS_A_CALL}): "
+          + ", ".join(f"{n} {'not measured' if d is None else f'{d:.4f}'} ({c})"
+                      for n, (d, c) in device.items())
+          + f"; plain bf16 {plain_ms:.4f}, tail plain bf16 {tail_plain_ms:.4f}; "
+          f"bound {bound:.4f} ({bound_by}), tail {tail_bound:.4f} ({tail_by}); "
+          f"share of bound {bound / times['bf16']:.3f}, tail "
+          f"{tail_bound / times['tail bf16']:.3f}", flush=True)
+    return {"crf_mean_field": dict(
+                max_abs_err=max_err, agreement=agree, agreement_f32=agree32,
+                f32_agreement_plain=f32_plain,
+                ms=times["bf16"], f32_ms=times["float32"],
+                device_ms=device["bf16"][0], kernels_per_call=device["bf16"][1],
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=None),
+            "seg_decode_tail": dict(
+                max_abs_err=tail_err, agreement_chain=t_chain,
+                agreement_plain=t_plain, agreement_f32=t_f32,
+                f32_agreement_plain=t_f32_plain,
+                ms=times["tail bf16"], f32_ms=times["tail float32"],
+                device_ms=device["tail bf16"][0],
+                kernels_per_call=device["tail bf16"][1], plain_ms=tail_plain_ms,
+                bound_ms=tail_bound, bound_by=tail_by, library_ms=None)}
+
+
+def run_bf16_lanes(model, tokenizer, classes):
+    """16b: ``evaluate_benchmark`` at batch 64 with ``compute_dtype=
+    "bfloat16"`` on the auto, fused, fused_tail and pallas lanes and in
+    float32 on the auto lane, the counts set to 0 just before each run and
+    read just after (exact launches), each lane's predictions against the
+    float32 lane's. Returns {lane: counts}."""
+    from simseg_tpu_torch.tasks import seg_eval
+
+    loader = FrozenLoader(BF16_EVAL_BATCHES, BENCH_BATCH, len(classes), seed=16)
+    real = seg_eval.make_seg_predict
+    preds, out = {}, {}
+
+    def run(lane, dtype):
+        got = preds.setdefault((lane, dtype), [])
+
+        def recording(*a, **k):
+            predict = real(*a, **k)
+
+            def call(*args, **kws):
+                result = predict(*args, **kws)
+                got.append(result[0])
+                return result
+            return call
+
+        with unittest.mock.patch.object(seg_eval, "make_seg_predict", recording):
+            counts = drive_eval(f"16b {lane} {dtype}", loader, model, tokenizer,
+                                classes, input_size=SIZE, crf_backend=lane,
+                                compute_dtype=dtype)
+        return torch.cat(got), counts
+
+    ref, counts = run("auto", "float32")
+    check_counts("16b auto float32", counts, {"crf_mean_field": BF16_EVAL_BATCHES})
+    for lane in BF16_LANES:
+        pred, counts = run(lane, "bfloat16")
+        check_counts(f"16b {lane} bfloat16", counts,
+                     {k: v * BF16_EVAL_BATCHES for k, v in BF16_LANE_WANT[lane].items()})
+        agree = (pred == ref).float().mean().item()
+        out[lane] = counts
+        print(f"16b {lane} bfloat16: pred vs the float32 lane {agree:.6f} "
+              f"({pred.numel()} pixels)", flush=True)
+        if agree < BF16_LANE_BAR:
+            raise AssertionError(f"16b {lane}: {agree} < {BF16_LANE_BAR}")
+        if lane != "auto":
+            same = (pred == torch.cat(preds[("auto", "bfloat16")])).float().mean().item()
+            print(f"16b {lane} bfloat16: pred vs the bf16 auto lane {same:.6f}",
+                  flush=True)
+    return out
+
+
+def native_decode_files(root):
+    """``NATIVE_FILES`` generated photos under ``root``, half JPEG (PIL) and
+    half unfiltered PNG (``png_bytes``), 240-500 px, in a cc3m-layout set
+    ``nat`` with captions, and its vocab file."""
+    from PIL import Image
+
+    from simseg_tpu_torch.data.tokenizer import make_test_vocab
+
+    rng = np.random.default_rng(1616)
+    base = os.path.join(root, "nat", "train")
+    os.makedirs(base)
+    rows = []
+    for i in range(NATIVE_FILES):
+        h, w = (int(v) for v in rng.integers(*TRAIN_ENTRY_SIDES, 2))
+        photo = synth_photo(rng, h, w)
+        name = f"{i:03d}.{'jpg' if i % 2 else 'png'}"
+        if i % 2:
+            Image.fromarray(photo).save(os.path.join(base, name), quality=90)
+        else:
+            with open(os.path.join(base, name), "wb") as f:
+                f.write(png_bytes(photo, paeth=False, level=1))
+        rows.append([name, synth_caption(rng), i, i])
+    with open(os.path.join(root, "nat", "train_anno.csv"), "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["image", "caption", "image_id", "caption_id"])
+        writer.writerows(rows)
+    vocab = os.path.join(root, "vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(make_test_vocab(TRAIN_ENTRY_WORDS)) + "\n")
+    return base, vocab
+
+
+def run_native_decode():
+    """16c: whether the native decode library built here (and if not, the
+    compiler's first error line); on ``NATIVE_FILES`` generated files its PNG
+    decodes against ``data/image_io.py``'s reader (bit for bit), and the
+    train loader's images/s (the vit-b YAML's train transforms, batch 64)
+    with ``data.native_decode`` on and off at 1 and 8 threads. Without the
+    library both settings take the same reader, so neither runs."""
+    from simseg_tpu_torch.data import native
+    from simseg_tpu_torch.data.datasets import CsvPairDataset, DataLoader
+    from simseg_tpu_torch.data.image_io import decode_rgb
+    from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from simseg_tpu_torch.data.transforms import build_transforms
+
+    t0 = time.perf_counter()
+    built = native.available()
+    print(f"16c native decode library: built {built} in "
+          f"{time.perf_counter() - t0:.2f} s"
+          + ("" if built else f"; why not: {native.build_error()}"), flush=True)
+    if not built:
+        print("16c: PNG check and loader times not run (no library: both "
+              "settings of data.native_decode take the port's reader)", flush=True)
+        return built
+    with tempfile.TemporaryDirectory() as root:
+        base, vocab = native_decode_files(root)
+        pngs = sorted(n for n in os.listdir(base) if n.endswith(".png"))
+        for name in pngs:
+            with open(os.path.join(base, name), "rb") as f:
+                data = f.read()
+            if not np.array_equal(native.decode(data, fast_scale=False),
+                                  decode_rgb(data, "cpu").numpy()):
+                raise AssertionError(f"16c: native PNG decode of {name} != "
+                                     "the port's reader")
+        print(f"16c: {len(pngs)} PNGs decoded by the library bit-equal to "
+              "data/image_io.py's reader", flush=True)
+        tok = WordPieceTokenizer.from_vocab_file(vocab)
+        rates = {}
+        for flag in (True, False):
+            cfg = parse_entry(["--cfg", ENTRY_YAML, f"data.data_path={root}/",
+                               f"data.native_decode={flag}"])
+            ds = CsvPairDataset(cfg, "nat", tok, build_transforms(cfg, "train"))
+            # a warm-up pass (the first thread count's), then the timed ones
+            for threads in NATIVE_THREADS[:1] + NATIVE_THREADS:
+                loader = DataLoader(ds, BENCH_BATCH, num_workers=threads)
+                random.seed(16)
+                t0 = time.perf_counter()
+                for batch in loader:
+                    if batch["image"].shape[1:] != (224, 224, 3):
+                        raise AssertionError(f"16c: batch {batch['image'].shape}")
+                rates[(flag, threads)] = NATIVE_FILES / (time.perf_counter() - t0)
+    print(f"16c ({card_line()}): train loader images/s over {NATIVE_FILES} "
+          "files (host clock), " + ", ".join(
+              f"native {'on' if f else 'off'} {t} thread(s) {r:.1f}"
+              for (f, t), r in rates.items()), flush=True)
+    return built
+
+
 def build_all(later=()):
     """Builds the four kernels and the nvJPEG binding with one nvcc process
     each, all started together; waits for every source but those named in
@@ -6358,6 +6766,14 @@ def main() -> None:
         run_moe_seg(*seg_vocab())
         run_model_parallel()
         return None
+    if sys.argv[1:2] == ["--bf16-native"]:
+        print(f"card: {card_line()}", flush=True)
+        build_all()
+        check_crf_bf16(BATCH)
+        check_crf_bf16(BENCH_BATCH)
+        run_bf16_lanes(*slice_setup())
+        run_native_decode()
+        return None
     if sys.argv[1:2] == ["--model-parallel-nccl"]:
         print(f"card: {card_line()}", flush=True)
         run_model_parallel_nccl()
@@ -6403,13 +6819,18 @@ def main() -> None:
     t_phase = phase_done("6 training slice", t_phase)
     torch.cuda.empty_cache()
     train_entry = run_train_entry()
-    t_phase = phase_done("9 train entry point", t_phase)
+    t_phase = phase_done("9 train entry point (16d its trace)", t_phase)
     torch.cuda.empty_cache()
+    native_built = run_native_decode()
+    t_phase = phase_done("16c native decode", t_phase)
     crf_built()
     crf = check_crf_kernel(BATCH)
     check_crf_kernel(BENCH_BATCH)
     tail = check_tail_kernel()
     t_phase = phase_done("3 kernel checks, CRF and decode tail", t_phase)
+    bf16 = check_crf_bf16(BATCH)
+    check_crf_bf16(BENCH_BATCH)
+    t_phase = phase_done("16a bf16 CRF kernels", t_phase)
 
     model, tokenizer, classes = slice_setup()
     crf_launches = run_slice(model, tokenizer, classes)
@@ -6424,6 +6845,8 @@ def main() -> None:
     tail_counts = run_fused_tail_slice(model, tokenizer, classes)
     check_checkpoint()
     t_phase = phase_done("4-5 segmentation slices and checkpoint", t_phase)
+    bf16_lanes = run_bf16_lanes(model, tokenizer, classes)
+    t_phase = phase_done("16b bf16 lanes", t_phase)
     del model
     torch.cuda.empty_cache()
     run_lanes(tokenizer, classes)
@@ -6502,6 +6925,19 @@ def main() -> None:
          "cnn_launches": cnn["seg_decode_tail"],
          "serving_launches": serve["b_scales_tail"]["seg_decode_tail"],
          **tail},
+        {"name": "crf_mean_field (bf16)", "route": "cuda",
+         "source": "simseg_tpu_torch/csrc/crf_mean_field.cu",
+         "replaces": "simseg_tpu/ops/crf_fused.py:304",
+         "launches": bf16_lanes["auto"]["crf_mean_field_bf16"],
+         "fused_launches": bf16_lanes["fused"]["crf_mean_field_bf16"],
+         "serving_launches": serve["g_bf16"]["crf_mean_field_bf16"],
+         **bf16["crf_mean_field"]},
+        {"name": "seg_decode_tail (bf16)", "route": "cuda",
+         "source": "simseg_tpu_torch/csrc/crf_mean_field.cu",
+         "replaces": "simseg_tpu/ops/crf_fused.py:425",
+         "launches": bf16_lanes["fused_tail"]["seg_decode_tail_bf16"],
+         "cli_launches": entry["fused_tail bf16"]["seg_decode_tail_bf16"],
+         **bf16["seg_decode_tail"]},
         {"name": "flash_attention (rowblock)", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
          "replaces": "simseg_tpu/ops/flash_attention.py:789",
@@ -6519,6 +6955,7 @@ def main() -> None:
          "shape": [BATCH, STREAM_T, HEADS, HEAD_DIM],
          **long_fwd["stream"], **long_bwd["stream"]},
     ]}))
+    print(f"native decode library built: {native_built}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,9 +46,11 @@ JAX's ``make_eval_step`` does. JAX's refusals are kept: PP with tp or
 gather groups (``make_mesh``), with MoE, ToMe, dropout or a CNN tower
 (``make_pp_forward``), BSGS with PP or MoE.
 
-Settings of JAX features the port has not ported yet are refused by name
-where a runner builds its step (``refuse_unported``): ``ckpt.backend:
-orbax``, ``wandb.enable`` and ``profile`` (ROADMAP item 11).
+``cfg.profile`` registers the ``ProfileHook`` and ``wandb.enable`` the
+``WandbHook``, as JAX's runner does (``simseg_tpu/core/runner.py:171-174``).
+The one setting of a JAX feature the port has not ported yet,
+``ckpt.backend: orbax``, is refused by name where a runner builds its step
+(``refuse_unported``, ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -86,19 +88,12 @@ _BATCH_KEYS = ("image", "input_ids", "attention_mask", "ignore_mask", "label")
 def refuse_unported(cfg) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for a setting
     that JAX acts on and the port would otherwise ignore: ``ckpt.backend:
-    orbax``, ``wandb.enable: true`` or a truthy ``profile`` (item 11)."""
+    orbax`` (item 11)."""
     backend = (cfg.get("ckpt", {}) or {}).get("backend", "msgpack")
     if backend not in (None, "msgpack"):
         raise NotImplementedError(
             f"ckpt.backend={backend!r} is not ported yet (the port saves "
             "msgpack checkpoints only): ROADMAP item 11")
-    if (cfg.get("wandb", {}) or {}).get("enable", False):
-        raise NotImplementedError(
-            "wandb.enable=true (the wandb hook) is not ported yet: ROADMAP "
-            "item 11")
-    if cfg.get("profile"):
-        raise NotImplementedError(
-            "profile (the profile hook) is not ported yet: ROADMAP item 11")
 
 
 def refuse_bsgs_parallel(cfg) -> None:
@@ -217,12 +212,17 @@ class EpochRunner(BaseRunner):
 
     def init_hook(self) -> None:
         from simseg_tpu_torch.core.train_hooks import (CheckpointHook, LogHook,
-                                                       PreemptionHook)
+                                                       PreemptionHook,
+                                                       ProfileHook, WandbHook)
 
         self.register_hook(CheckpointHook(), Priority.LOW)
         # after CheckpointHook's own interval save (JAX runner.py:166-168)
         self.register_hook(PreemptionHook(), Priority.VERY_LOW)
         self.register_hook(LogHook(), Priority.VERY_LOW)
+        if self.cfg.get("profile"):
+            self.register_hook(ProfileHook(), Priority.HIGH)
+        if (self.cfg.get("wandb", {}) or {}).get("enable", False):
+            self.register_hook(WandbHook(), Priority.LOWEST)
 
     # -- shared plumbing ------------------------------------------------------------
     def _host_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:

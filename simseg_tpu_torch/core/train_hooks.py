@@ -1,8 +1,9 @@
-"""Training hooks: logging, checkpointing, preemption and retrieval
-validation (port of ``simseg_tpu/core/train_hooks.py``: ``LogHook``,
-``CheckpointHook`` with the native backend, ``PreemptionHook``,
-``RetrievalEvalHook`` and ``LinearEvalHook``; the profile and wandb hooks
-are not ported yet, ROADMAP queue 1 item 11).
+"""Training hooks: logging, checkpointing, preemption, retrieval
+validation, profiling and wandb (port of ``simseg_tpu/core/train_hooks.py``:
+``LogHook``, ``CheckpointHook`` with the native backend, ``PreemptionHook``,
+``RetrievalEvalHook``, ``ProfileHook``, ``LinearEvalHook`` and
+``WandbHook``; the orbax backend is not ported yet, ROADMAP queue 1 item
+11).
 
 Parity: LogHook, reference ``core/hooks/log.py:64-146`` — a train line per
 interval with the step's metrics and step time, validation progress;
@@ -11,12 +12,16 @@ per-epoch checkpoints, auto-resume (mid-epoch included) and an external
 pretrained init; PreemptionHook, JAX ``train_hooks.py:237-278`` (beyond
 the reference); RetrievalEvalHook, ``tasks/clip/hooks/eval.py:9-99`` —
 the validation embeddings collected, R@1/5/10 and RSUM at the end;
-LinearEvalHook, ``tasks/linear_prob/hooks/eval.py:9-54`` — top-1 / top-5.
+LinearEvalHook, ``tasks/linear_prob/hooks/eval.py:9-54`` — top-1 / top-5;
+ProfileHook (JAX :342-370, beyond the reference) — ``torch.profiler`` over
+a window of steps; WandbHook (JAX :403-446) — the run's metrics to wandb,
+its id kept in the checkpoint meta so that a resumed run continues it.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Any, Dict, List
 
@@ -61,6 +66,8 @@ class LogHook(Hook):
                 metrics[k] = float(v)
             except (TypeError, ValueError, RuntimeError):
                 continue
+        # for the same cadence's consumers (WandbHook): one read a log step
+        runner.state.logged_metrics = (runner.step, metrics)
         rate = runner.state.log_metrics.pop_counter_rate("samples")
         kv = " ".join(f"{k}: {v:.4f}" for k, v in metrics.items())
         logger.info(
@@ -105,6 +112,7 @@ class CheckpointHook(Hook):
                 runner.epoch = int(meta.get("epoch", 0))
                 runner.step = int(meta.get("step", 0))
                 runner.inner_step = int(meta.get("inner_step", 0))
+                runner.state.wandb_id = meta.get("wandb_id")
                 logger.info(f"Auto-resumed at epoch {runner.epoch}, step "
                             f"{runner.step}")
                 return
@@ -133,7 +141,8 @@ class CheckpointHook(Hook):
 
     def _meta(self, runner) -> Dict[str, Any]:
         return {"epoch": runner.epoch, "step": runner.step,
-                "inner_step": runner.inner_step + 1}
+                "inner_step": runner.inner_step + 1,
+                "wandb_id": runner.state.get("wandb_id")}
 
     def _save(self, runner, name: str, meta) -> None:
         save_checkpoint(runner.cfg.ckpt.dir, name, runner.model,
@@ -281,3 +290,107 @@ class LinearEvalHook(Hook):
         acc5 = float(np.mean(np.any(top5 == labels[:, None], axis=1)))
         runner.state.linear_eval = {"acc1": acc1, "acc5": acc5}
         logger.info(f"[linear eval] top-1: {acc1:.4f} top-5: {acc5:.4f}")
+
+
+class ProfileHook(Hook):
+    """A ``torch.profiler`` trace (CPU and, on the card, CUDA activity)
+    over steps [start_step, start_step + num_steps), configured as JAX's:
+    ``cfg.profile = {start_step: 10, num_steps: 5, dir: <ckpt.dir>/trace}``.
+    The device is synchronised before the profiler stops; the trace goes to
+    ``<dir>/trace_<first>-<last>.json`` (Chrome trace format; over ranks
+    ``trace_<first>-<last>.rank<r>.json``), its path to
+    ``runner.state.profile_trace`` and the profiler to ``self.profiler``
+    (``key_averages()``)."""
+
+    def __init__(self) -> None:
+        self.profiler = None
+        self._stop_at = 0
+        self._first = 0
+
+    def before_train_step(self, runner) -> None:
+        prof = runner.cfg.get("profile", {}) or {}
+        if not prof or self.profiler is not None:
+            return
+        if runner.step == prof.get("start_step", 10):
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if runner.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._dir = prof.get("dir", os.path.join(runner.cfg.ckpt.dir, "trace"))
+            self._first = runner.step
+            self._stop_at = runner.step + prof.get("num_steps", 5)
+            self.profiler = profile(activities=activities)
+            self.profiler.start()
+            logger.info(f"Profiler trace started -> {self._dir}")
+
+    def after_train_step(self, runner) -> None:
+        if self.profiler is not None and runner.step >= self._stop_at:
+            self._stop(runner)
+
+    def after_run(self, runner) -> None:
+        if self.profiler is not None and not runner.state.get("profile_trace"):
+            self._stop(runner)   # the run ended inside the window
+
+    def _stop(self, runner) -> None:
+        if runner.device.type == "cuda":
+            torch.cuda.synchronize(runner.device)
+        self.profiler.stop()
+        os.makedirs(self._dir, exist_ok=True)
+        rank = (f".rank{torch.distributed.get_rank()}"
+                if torch.distributed.is_initialized() else "")
+        path = os.path.join(
+            self._dir, f"trace_{self._first}-{runner.step - 1}{rank}.json")
+        self.profiler.export_chrome_trace(path)
+        runner.state.profile_trace = path
+        self._stop_at = float("inf")   # one window a run, as JAX's
+        logger.info(f"Profiler trace stopped -> {path}")
+
+
+class WandbHook(Hook):
+    """The run's metrics to wandb (JAX ``WandbHook``): ``wandb.init`` with
+    ``wandb.project`` / ``entity``, the id from the checkpoint meta (a
+    resumed run continues its wandb run) and the config; the
+    ``wandb.train_record_keys`` of a step every ``log.interval_train``
+    (``LogHook``'s read reused), the retrieval summary after validation,
+    ``finish`` at the end. Without wandb installed it warns and does
+    nothing."""
+
+    def before_run(self, runner) -> None:
+        try:
+            import wandb
+        except ImportError:
+            logger.warning("wandb not installed; WandbHook disabled")
+            self._run = None
+            return
+        cfg = runner.cfg
+        self._run = wandb.init(project=cfg.wandb.project,
+                               entity=cfg.wandb.entity,
+                               id=runner.state.get("wandb_id"),
+                               resume="allow", config=cfg.to_dict())
+        runner.state.wandb_id = self._run.id
+
+    def after_train_step(self, runner) -> None:
+        if getattr(self, "_run", None) is None:
+            return
+        if not self.every_n_inner_steps(runner, runner.cfg.log.interval_train):
+            return
+        keys = runner.cfg.wandb.train_record_keys
+        stashed = runner.state.get("logged_metrics")
+        if stashed and stashed[0] == runner.step:
+            pulled = stashed[1]
+        else:
+            pulled = {k: v for k, v in runner.outputs.items() if k in keys}
+        self._run.log({k: float(v) for k, v in pulled.items() if k in keys},
+                      step=runner.step)
+
+    def after_val_epoch(self, runner) -> None:
+        if getattr(self, "_run", None) is None:
+            return
+        if runner.state.get("retrieval_summary"):
+            self._run.log(dict(runner.state.retrieval_summary), step=runner.step)
+
+    def after_run(self, runner) -> None:
+        if getattr(self, "_run", None) is not None:
+            self._run.finish()
+

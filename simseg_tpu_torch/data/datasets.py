@@ -20,9 +20,11 @@ its device, so a loader for the card yields ``image`` as a CUDA uint8
 tensor. The pair datasets decode and augment on the host (the train ops
 are PIL's, ``data/train_transforms.py``), as the JAX loader does, and
 yield CPU uint8 tensors; the runner normalises them on the device. Labels
-and token ids are numpy. Not ported: JAX's native-decode fast path of
-the ImageFolder train mode (``transforms.load``); every image goes through
-the decoder and PIL's train ops.
+and token ids are numpy. In train mode ``CsvPairDataset`` and
+``ImageFolderDataset`` read through the train pipeline's ``load`` (the
+native decode library under ``data.native_decode``, ``data/native.py``),
+as JAX's do (``simseg_tpu/data/datasets.py:93,223``); ``SegDataset`` and
+every valid split keep the port's reader, as JAX's keep PIL.
 """
 
 from __future__ import annotations
@@ -69,6 +71,15 @@ def _tokenize_one(tokenizer, caption: str, max_length: int):
             np.asarray(enc["attention_mask"][0], np.int32))
 
 
+def _load_image(transforms, path: str, mode: str):
+    """A file through ``transforms``: its ``load`` in train mode (the native
+    head), else the port's reader and the ops."""
+    if mode == "train" and hasattr(transforms, "load"):
+        return transforms.load(path)
+    with open(path, "rb") as f:
+        return transforms(decode_rgb(f.read(), "cpu"))
+
+
 class CsvPairDataset:
     """``<data_path>/<name>/{train,valid}_anno.csv`` rows (image, caption[,
     image_id, caption_id]), images under ``<name>/{train,valid}/``.
@@ -110,10 +121,9 @@ class CsvPairDataset:
                 (self.seed * 1_000_003 + self.epoch) * 1_000_003 + index)
             caption = process_caption(self.tokenizer, caption, rng=rng)
         ids, mask = _tokenize_one(self.tokenizer, caption, self.max_length)
-        with open(os.path.join(self.image_base, self.images[index]), "rb") as f:
-            image = decode_rgb(f.read(), "cpu")
-        sample = {"image": self.transforms(image), "input_ids": ids,
-                  "attention_mask": mask}
+        path = os.path.join(self.image_base, self.images[index])
+        sample = {"image": _load_image(self.transforms, path, self.mode),
+                  "input_ids": ids, "attention_mask": mask}
         if self.mode != "train" and self.image_ids is not None:
             sample["image_id"] = np.int64(self.image_ids[index])
             sample["caption_id"] = np.int64(
@@ -233,9 +243,9 @@ class ImageFolderDataset:
 
     def __getitem__(self, index: int) -> Dict[str, Any]:
         path, label = self.samples[index]
-        with open(path, "rb") as f:
-            image = decode_rgb(f.read(), "cpu")
-        return {"image": self.transforms(image), "label": np.int64(label)}
+        return {"image": _load_image(self.transforms, path,
+                                     getattr(self.transforms, "mode", "")),
+                "label": np.int64(label)}
 
 
 def _collate(samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
@@ -440,17 +450,13 @@ def build_clip_dataloaders(cfg, tokenizer=None) -> Dict[str, Any]:
     ranks of the ``torch.distributed`` world (one process unless a group is
     initialised; ``dist.tp_size`` ranks to a model group, which loads one
     shard, and the ``dist.pp_size`` stages' ranks of one data index load
-    one shard); ``data.single_eval`` gives every process the whole valid set. ``tokenizer``: the port's WordPiece tokenizer, else one is read
-    from ``data.vocab_file``."""
+    one shard); ``data.single_eval`` gives every process the whole valid set. ``tokenizer``: where None, JAX's ``build_tokenizer`` over the tag
+    and ``data.vocab_file``."""
     if tokenizer is None:
-        vocab = cfg.data.get("vocab_file")
-        if not vocab:
-            raise ValueError("build_clip_dataloaders needs a tokenizer or "
-                             "data.vocab_file (the port has no HuggingFace "
-                             "tokenizer)")
-        from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
+        from simseg_tpu_torch.data.tokenizer import build_tokenizer
 
-        tokenizer = WordPieceTokenizer.from_vocab_file(vocab)
+        tokenizer = build_tokenizer(cfg.model.text_encoder.tag,
+                                    vocab_file=cfg.data.get("vocab_file"))
     shard, nshards = process_shard()
     # the stages' ranks of one data index (dist.pp_size, the outermost) and
     # a model group's ranks (dist.tp_size) load one data rank's shard

@@ -4,16 +4,20 @@
 Parity: the reference tokenizes with ``AutoTokenizer.from_pretrained(tag)``
 padded/truncated to ``model.max_length`` (= 25). This is standard BERT
 basic + WordPiece tokenization (lowercase, punctuation split, greedy
-longest-match with ## continuations) over a local ``vocab.txt``. The
-HuggingFace branch of ``build_tokenizer`` is not ported: the GPU machine
-has no ``transformers``.
+longest-match with ## continuations) over a local ``vocab.txt``.
+``build_tokenizer`` (JAX :167-185) takes a HuggingFace tokenizer first where
+one resolves without the network (a local directory, else the tag in the HF
+cache, ``local_files_only``), else this WordPiece over ``vocab_file``; the
+entry points and ``build_clip_dataloaders`` build theirs through it, as
+JAX's do.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import unicodedata
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 logger = logging.getLogger(__name__)
 
@@ -163,3 +167,42 @@ def make_test_vocab(extra_words: Sequence[str] = ()) -> Dict[str, int]:
     tokens += [str(d) for d in range(10)]
     tokens += [w for w in dict.fromkeys(extra_words) if w not in set(tokens)]
     return {t: i for i, t in enumerate(tokens)}
+
+
+def _hf_local(src: str) -> bool:
+    """Whether ``src`` can resolve offline: a directory, or a repo in the
+    HF hub cache. Where neither holds, ``from_pretrained(...,
+    local_files_only=True)`` fails, so ``transformers`` (seconds to import)
+    is not imported for it."""
+    if os.path.isdir(src):
+        return True
+    try:
+        from huggingface_hub import constants
+    except ImportError:
+        return False
+    return os.path.isdir(os.path.join(constants.HF_HUB_CACHE,
+                                      "models--" + src.replace("/", "--")))
+
+
+def build_tokenizer(tag: str, vocab_file: Optional[str] = None,
+                    local_dir: Optional[str] = None):
+    """A HuggingFace tokenizer if one resolves locally, else WordPiece over
+    ``vocab_file``, in JAX's order: ``local_dir``, the HF cache (offline:
+    ``local_files_only``, never a download), ``vocab_file``. Without
+    ``transformers``, or when neither resolves, the WordPiece path; neither
+    that: RuntimeError."""
+    src = local_dir or tag
+    try:
+        if _hf_local(src):
+            from transformers import AutoTokenizer
+
+            return AutoTokenizer.from_pretrained(src, local_files_only=True)
+    except Exception:
+        pass
+    if vocab_file and os.path.exists(vocab_file):
+        logger.info(f"Using bundled WordPiece tokenizer from {vocab_file}")
+        return WordPieceTokenizer.from_vocab_file(vocab_file)
+    raise RuntimeError(
+        f"Cannot build tokenizer for '{tag}': no local HF cache and no "
+        f"vocab_file. Download the tokenizer or pass data.vocab_file.")
+

@@ -28,6 +28,10 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from simseg_tpu_torch.data.image_io import decode_rgb
+from simseg_tpu_torch.data.transforms import (native_decode_head, native_head,
+                                              read_bytes)
+
 try:
     from PIL import Image, ImageEnhance, ImageFilter, ImageOps
 except ImportError as err:
@@ -317,7 +321,10 @@ def to_pil(img):
 class TrainPipeline:
     """``cfg.transforms.train_transforms`` composed over PIL, then random
     erasing when ``random_erasing.reprob`` > 0: an image (PIL, or the port's
-    uint8 tensor) -> (H, W, 3) uint8 CPU tensor."""
+    uint8 tensor) -> (H, W, 3) uint8 CPU tensor. ``from_bytes`` / ``load``
+    decode through the native head where it folds, with DCT scaling, and
+    run the PIL ops left (JAX ``TransformPipeline.from_bytes``,
+    ``simseg_tpu/data/transforms.py:458-500``)."""
 
     mode = "train"
 
@@ -334,13 +341,25 @@ class TrainPipeline:
         if re_cfg.reprob > 0:
             self.erasing = RandomErasing(re_cfg.reprob, re_cfg.remode,
                                          re_cfg.recount)
+        self._head = native_head(self.names, cfg)
 
-    def __call__(self, img) -> torch.Tensor:
+    def __call__(self, img, start: int = 0) -> torch.Tensor:
         img = to_pil(img)
-        for op in self.ops:
+        for op in self.ops[start:]:
             img = op(img)
         arr = np.array(img.convert("RGB"), dtype=np.uint8)
         if self.erasing is not None:
             arr = (self.erasing(arr.astype(np.float32) / 255.0) * 255
                    ).clip(0, 255).astype(np.uint8)
         return torch.from_numpy(arr)
+
+    def from_bytes(self, data: bytes) -> torch.Tensor:
+        """Encoded bytes through the pipeline: a CPU uint8 tensor."""
+        done = native_decode_head(self._head, data, fast_scale=True)
+        if done is None:
+            return self(decode_rgb(data, "cpu"))
+        arr, consumed = done
+        return self(Image.fromarray(arr), consumed)
+
+    def load(self, path: str) -> torch.Tensor:
+        return self.from_bytes(read_bytes(path))

@@ -15,16 +15,26 @@ pass is skipped where its side keeps its size, as PIL skips it.
 
 Images are (H, W, 3) uint8 tensors on any device. Train mode runs PIL on
 the host (``data/train_transforms.py``, imported only there), so the eval
-path needs no PIL. The JAX package's native decode fast path
-(``TransformPipeline.load``, ``data/native.py``) is not ported (ROADMAP
-queue 1 item 10): ``data.native_decode`` is read as False.
+path needs no PIL.
+
+The native decode fast path (JAX ``TransformPipeline._plan_native_head``,
+``from_bytes`` and ``load``, :354-500): under ``data.native_decode`` (the
+default) both pipelines' ``load`` / ``from_bytes`` fold the leading
+geometry op (and a ``random_flip`` right after it) into one call of the
+native library (``data/native.py``), drawing their randoms as JAX's plan
+does, and run the ops left on the decoded image. The eval pipeline decodes
+exactly, the train pipeline with DCT scaling. A head it cannot fold, an
+image it cannot take, or no library: the port's reader and the ops, as
+JAX falls back to PIL.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, List, Sequence, Tuple
+import os
+import random
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -160,10 +170,131 @@ VALID_OPS = {"resize": resize, "resize_bicubic": resize_bicubic,
              "center_crop": center_crop}
 
 
+def native_head(names: Sequence[str], cfg) -> Optional[Callable]:
+    """JAX's ``_plan_native_head`` (``simseg_tpu/data/transforms.py:
+    354-456``): a plan for folding ``names[0]`` (and a ``random_flip`` right
+    after it) into one native decode, or None when the head is not
+    foldable or ``data.native_decode`` is off. The plan maps (bytes, the
+    native module) to (crop or None, (out_w, out_h), filter, ops consumed,
+    flip), or to None for an image it cannot take (a crop past the image,
+    where PIL pads); its random draws are the PIL ops' own, in their order."""
+    if not names or not cfg.get("data", {}).get("native_decode", True):
+        return None
+    head = names[0]
+    t = cfg.transforms
+
+    if head == "resize":
+        size = t.resize.size
+
+        def plan(data, native):
+            return None, (size, size), native.FILTER_BILINEAR
+    elif head == "resize_bicubic":
+        size = t.resize_bicubic.size
+
+        def plan(data, native):
+            w, h = native.image_size(data)
+            if w < h:
+                nw, nh = size, int(round(h * size / w))
+            else:
+                nw, nh = int(round(w * size / h)), size
+            return None, (nw, nh), native.FILTER_BICUBIC
+    elif head == "center_crop":
+        size = t.center_crop.size
+
+        def plan(data, native):
+            w, h = native.image_size(data)
+            if w < size or h < size:
+                return None
+            left = int(round((w - size) / 2.0))
+            top = int(round((h - size) / 2.0))
+            return (left, top, size, size), (size, size), native.FILTER_BILINEAR
+    elif head == "random_crop":
+        size = t.random_crop.size
+
+        def plan(data, native):
+            w, h = native.image_size(data)
+            if w < size or h < size:
+                return None
+            if w == size and h == size:   # the PIL op draws nothing here
+                return (0, 0, size, size), (size, size), native.FILTER_BILINEAR
+            left = random.randint(0, max(0, w - size))
+            top = random.randint(0, max(0, h - size))
+            return (left, top, size, size), (size, size), native.FILTER_BILINEAR
+    elif head == "random_resize_crop":
+        size = t.random_resize_crop.size
+        scale = tuple(t.random_resize_crop.scale)
+        ratio = (3.0 / 4.0, 4.0 / 3.0)
+
+        def plan(data, native):
+            w, h = native.image_size(data)
+            area = w * h
+            for _ in range(10):
+                target = area * random.uniform(*scale)
+                logr = random.uniform(np.log(ratio[0]), np.log(ratio[1]))
+                ar = float(np.exp(logr))
+                cw = int(round((target * ar) ** 0.5))
+                ch = int(round((target / ar) ** 0.5))
+                if 0 < cw <= w and 0 < ch <= h:
+                    left = random.randint(0, w - cw)
+                    top = random.randint(0, h - ch)
+                    return ((left, top, cw, ch), (size, size),
+                            native.FILTER_BILINEAR)
+            inr = w / h
+            if inr < ratio[0]:
+                cw, ch = w, int(round(w / ratio[0]))
+            elif inr > ratio[1]:
+                cw, ch = int(round(h * ratio[1])), h
+            else:
+                cw, ch = w, h
+            return (((w - cw) // 2, (h - ch) // 2, cw, ch), (size, size),
+                    native.FILTER_BILINEAR)
+    else:
+        return None
+    fold_flip = len(names) > 1 and names[1] == "random_flip"
+
+    def planned(data, native):
+        p = plan(data, native)
+        if p is None:
+            return None
+        if fold_flip:
+            return p + (2, random.random() < 0.5)
+        return p + (1, False)
+
+    return planned
+
+
+def native_decode_head(head, data: bytes, fast_scale: bool):
+    """(decoded (H, W, 3) uint8 array, ops consumed) through ``head``, or
+    None where the port's reader and every op must run instead: no plan,
+    no library, a plan that refuses the image, an encoding it cannot take."""
+    if head is None:
+        return None
+    from simseg_tpu_torch.data import native
+
+    if not native.available():
+        return None
+    try:
+        planned = head(data, native)
+        if planned is None:
+            return None
+        crop, out, filt, consumed, flip = planned
+        arr = native.decode(data, crop=crop, out_size=out, flip=flip,
+                            filter=filt, fast_scale=fast_scale)
+    except ValueError:
+        return None
+    return arr, consumed
+
+
+def read_bytes(path: str) -> bytes:
+    with open(os.fspath(path), "rb") as f:
+        return f.read()
+
+
 class TransformPipeline:
     """The config's ``valid_transforms`` composed: (H, W, 3) uint8 RGB ->
     uint8, on the image's device (normalisation runs later, on the batch,
-    in ``normalize_images``)."""
+    in ``normalize_images``). ``from_bytes`` / ``load`` decode through the
+    native head where it folds (exact decode: no DCT scaling)."""
 
     def __init__(self, cfg, mode: str = "valid"):
         if mode != "valid":
@@ -179,11 +310,25 @@ class TransformPipeline:
                 f"{sorted(VALID_OPS)} (deterministic, PIL-free); the random "
                 "ops belong in train_transforms")
         self.ops: List[Callable] = [VALID_OPS[n](cfg) for n in self.names]
+        self._head = native_head(self.names, cfg)
 
-    def __call__(self, img: torch.Tensor) -> torch.Tensor:
-        for op in self.ops:
+    def __call__(self, img: torch.Tensor, start: int = 0) -> torch.Tensor:
+        for op in self.ops[start:]:
             img = op(img)
         return img
+
+    def from_bytes(self, data: bytes) -> torch.Tensor:
+        """Encoded bytes through the pipeline: a CPU uint8 tensor."""
+        done = native_decode_head(self._head, data, fast_scale=False)
+        if done is None:
+            from simseg_tpu_torch.data.image_io import decode_rgb
+
+            return self(decode_rgb(data, "cpu"))
+        arr, consumed = done
+        return self(torch.from_numpy(arr), consumed)
+
+    def load(self, path: str) -> torch.Tensor:
+        return self.from_bytes(read_bytes(path))
 
 
 def build_transforms(cfg, mode: str = "valid"):

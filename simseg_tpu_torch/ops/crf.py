@@ -20,7 +20,10 @@ The dense lane is the reference the hand-written kernels
 lane every CPU tensor takes unless told otherwise. It computes in float32,
 or with ``compute_dtype="bfloat16"`` in bf16 as JAX's bf16 lane does
 (fine-grid tensors rounded to bf16 after each step, products summed in
-float32); the kernel lanes are float32 and refuse bf16.
+float32). The kernel lanes take bf16 too: ``fused`` runs the mean-field
+kernel's bf16 mode, ``stream`` feeds the bilateral kernel float32 and rounds
+its products to bf16, as JAX's Pallas lane does
+(``simseg_tpu/ops/crf.py:285-300``).
 """
 
 from __future__ import annotations
@@ -44,11 +47,6 @@ def band_matrix(n: int, taps: np.ndarray) -> np.ndarray:
     k = taps.shape[0]
     d = np.arange(n)[None, :] - np.arange(n)[:, None] + k // 2
     return np.where((d >= 0) & (d < k), taps[np.clip(d, 0, k - 1)], 0.0)
-
-
-# ROADMAP queue 1 item 4 names what is left of the bf16 lane
-BF16_KERNELS_TODO = ("the CRF kernels compute in float32; bf16 variants of "
-                     "them are ROADMAP queue 1 item 4")
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -139,7 +137,7 @@ def dense_crf_batched_du(
     bilateral_impl: ``"auto"`` (``_resolve_bilateral_impl`` on du's device),
     ``"fused"``, ``"dense"`` or ``"stream"``.
     compute_dtype: ``"auto"`` or ``"float32"`` (float32), ``"bfloat16"``
-    (the dense lane only: the kernel lanes raise NotImplementedError).
+    (bf16, on every lane).
     Returns (B, K, H, W) int32 masks (1 = foreground).
     """
     bb, kk, h, w = du.shape
@@ -152,10 +150,6 @@ def dense_crf_batched_du(
     impl = bilateral_impl
     if impl == "auto":
         impl = _resolve_bilateral_impl(h, w, s, du.device.type == "cuda")
-    if cdt == torch.bfloat16 and impl in ("fused", "stream"):
-        raise NotImplementedError(
-            f"compute_dtype='bfloat16' on the {impl!r} CRF lane: "
-            f"{BF16_KERNELS_TODO}")
     if impl == "fused":
         from simseg_tpu_torch.ops.crf_fused import mean_field_fused
 
@@ -163,7 +157,9 @@ def dense_crf_batched_du(
             du.float().contiguous(), rgb, num_iters=num_iters,
             gaussian_sxy=gaussian_sxy, gaussian_compat=gaussian_compat,
             bilateral_sxy=bilateral_sxy, bilateral_srgb=bilateral_srgb,
-            bilateral_compat=bilateral_compat, stride=s).to(torch.int32)
+            bilateral_compat=bilateral_compat, stride=s,
+            compute_dtype="bfloat16" if cdt == torch.bfloat16 else "float32",
+        ).to(torch.int32)
     if impl not in ("dense", "stream"):
         raise ValueError(f"unknown bilateral_impl {bilateral_impl!r}")
     du = du.float().to(cdt)
@@ -184,12 +180,13 @@ def dense_crf_batched_du(
 
         degree = bilateral_matvec_batched(
             feat, torch.ones((bb, n_small, 1), dtype=torch.float32, device=dev))
-        b_norm = torch.rsqrt(degree[..., 0] + 1e-20)               # (B, N)
+        b_norm = torch.rsqrt(degree[..., 0] + 1e-20).to(cdt)      # (B, N)
 
         def bilateral_apply(q: torch.Tensor) -> torch.Tensor:
-            # (B, K, N) -> (B, K, N): K (b_norm * q), never stored
-            qn = (q * b_norm[:, None, :]).transpose(1, 2)
-            return bilateral_matvec_batched(feat, qn).transpose(1, 2)
+            # (B, K, N) -> (B, K, N): K (b_norm * q), never stored; the
+            # kernel takes float32 and its product is rounded to cdt
+            qn = (q * b_norm[:, None, :]).float().transpose(1, 2)
+            return bilateral_matvec_batched(feat, qn).transpose(1, 2).to(cdt)
     else:
         kmat = bilateral_kernel_matrix(feat)                       # (B, N, N)
         b_norm = torch.rsqrt(kmat.sum(dim=2) + 1e-20).to(cdt)      # (B, N)

@@ -28,6 +28,16 @@ loaded with ``ctypes``. ``LAUNCHES`` counts the mean-field kernel's
 launches, ``TAIL_LAUNCHES`` the tail kernel's, both counted inside the CUDA
 implementations, so that a graph loaded from an exported artifact counts its
 launches as it runs.
+
+Both entry points take ``compute_dtype``, as the TPU kernels do: ``"float32"``
+(the port's default) or ``"bfloat16"`` (the TPU kernels' default,
+``simseg_tpu/ops/crf_fused.py:315, :439``). In bf16 the function rounds to
+bf16 where the TPU kernel does (the kernel matrix's entries, the iterate,
+every product with a constant matrix summed in float32 and then rounded, the
+update's products and sums; ``_mean_field_bf16_plain`` writes it out as
+JAX's ``_mf_class`` does), ``mean_field_fused`` returns bf16 masks, and the
+card runs ``crf_mean_field_bf16`` / ``crf_decode_tail_bf16`` of the same
+source, counted in ``BF16_LAUNCHES`` / ``BF16_TAIL_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -42,17 +52,20 @@ from simseg_tpu_torch.ops import cuda_build
 from simseg_tpu_torch.ops.crf import (
     band_matrix,
     bilateral_features,
+    bilateral_kernel_matrix,
+    cell_colours,
     dense_crf_batched_du,
     gaussian_taps,
 )
 from simseg_tpu_torch.ops.morphology import closing, nearest_upsample
 
-__all__ = ["LAUNCHES", "SMEM_LIMIT", "TAIL_LAUNCHES", "LaunchPlan",
-           "bilateral_features", "crf_decode_tail", "crf_mean_field",
-           "fused_eligible", "gaussian_constants",
+__all__ = ["BF16_LAUNCHES", "BF16_TAIL_LAUNCHES", "COMPUTE_DTYPES",
+           "LAUNCHES", "SMEM_LIMIT", "TAIL_LAUNCHES", "LaunchPlan",
+           "bf16_tables", "bilateral_features", "crf_decode_tail",
+           "crf_mean_field", "fused_eligible", "gaussian_constants",
            "launch_plan", "mean_field_fused", "mean_field_fused_plain",
            "seg_decode_tail_fused", "seg_decode_tail_fused_plain",
-           "workspace_floats"]
+           "workspace_bytes_bf16", "workspace_floats"]
 
 _NAME = "crf_mean_field"  # csrc/crf_mean_field.cu
 _MAX_CLASSES = 8      # kMaxClasses in the kernel
@@ -65,9 +78,12 @@ _CHUNK, _BAND = 512, 32
 SMEM_LIMIT = 232448
 
 # launches of the CUDA kernels (one per mean_field_fused, respectively
-# seg_decode_tail_fused, call on the card)
+# seg_decode_tail_fused, call on the card), float32 and bf16
 LAUNCHES = 0
 TAIL_LAUNCHES = 0
+BF16_LAUNCHES = 0
+BF16_TAIL_LAUNCHES = 0
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def fused_eligible(h: int, w: int, stride: int) -> bool:
@@ -98,12 +114,97 @@ def _device_constants(h: int, w: int, gaussian_sxy: float, device: torch.device)
                  for a in gaussian_constants(h, w, gaussian_sxy))
 
 
+def band_constants(h: int, w: int, gaussian_sxy: float):
+    """(bandh (H, H), bandw (W, W)) float64: the truncated Gaussian band
+    matrices with their normalisations folded in on both sides,
+    ``diag(a) B diag(a)`` (``simseg_tpu/ops/crf_fused.py:_np_constants``,
+    :73-77)."""
+    taps, ah, aw = gaussian_constants(h, w, gaussian_sxy)
+    return (ah[:, None] * band_matrix(h, taps) * ah[None, :],
+            aw[:, None] * band_matrix(w, taps) * aw[None, :])
+
+
+def to_bf16(a, device=None) -> torch.Tensor:
+    """float64 values rounded to bf16 as ``jnp.asarray(a, jnp.bfloat16)``
+    rounds them (through float32, as PyTorch's conversion does)."""
+    return torch.as_tensor(np.asarray(a, np.float64), device=device).to(
+        torch.bfloat16)
+
+
+def bf16_tables(h: int, w: int, gaussian_sxy: float):
+    """(wtab (W, 2r + 1), htab (H, 2r + 1)) float64, the bf16 kernel's view
+    of the bands: ``wtab[x, t] = bandw[x + t - r, x]`` and ``htab[y, t] =
+    bandh[y, y + t - r]``, 0 outside the map."""
+    bandh, bandw = band_constants(h, w, gaussian_sxy)
+    r = gaussian_taps(gaussian_sxy).shape[0] // 2
+
+    def table(band, n, transpose):
+        i = np.arange(n)[:, None]
+        j = i + np.arange(2 * r + 1)[None, :] - r
+        ok = (j >= 0) & (j < n)
+        jc = np.clip(j, 0, n - 1)
+        vals = band[jc, i] if transpose else band[i, jc]
+        return np.where(ok, vals, 0.0)
+
+    return table(bandw, w, True), table(bandh, h, False)
+
+
+def _mean_field_bf16_plain(du, rgb, num_iters, gaussian_sxy, gaussian_compat,
+                           bilateral_sxy, bilateral_srgb, bilateral_compat,
+                           stride, closing_ksize) -> torch.Tensor:
+    """The bf16 mode in plain PyTorch, written as JAX's ``_build_kmat`` and
+    ``_mf_class`` (``simseg_tpu/ops/crf_fused.py:139-209``) are: the band,
+    box, tile and K products of bf16 operands summed in float32 and rounded
+    to bf16, every elementwise step in bf16. (B, K, H, W) bf16 masks."""
+    bf = torch.bfloat16
+    b, kk, h, w = du.shape
+    s = stride
+    hs, ws = h // s, w // s
+    dev = du.device
+
+    def mm(x, y):
+        return torch.matmul(x.float(), y.float()).to(bf)
+
+    bandh, bandw = (to_bf16(a, dev) for a in band_constants(h, w, gaussian_sxy))
+    uh = to_bf16(np.arange(h)[:, None] // s == np.arange(hs)[None, :], dev)
+    uw = to_bf16(np.arange(w)[:, None] // s == np.arange(ws)[None, :], dev)
+    feat = bilateral_features(cell_colours(rgb, s), bilateral_sxy,
+                              bilateral_srgb, s)
+    kmat = bilateral_kernel_matrix(feat)                     # (B, N, N) f32
+    bn = torch.rsqrt(kmat.sum(dim=1) + 1e-20).to(bf)[:, None, :]
+    kmat = kmat.to(bf)
+    gc, bc, half, scale = (to_bf16(x, dev) for x in (
+        gaussian_compat, bilateral_compat, 0.5, 1.0 / (s * s)))
+    du = du.float().to(bf)
+    d = torch.tanh(du * half)
+    for _ in range(num_iters):
+        g = mm(bandh, mm(d, bandw))                          # Gaussian
+        q = (mm(uh.T, mm(d, uw)) * scale).reshape(b, kk, hs * ws)
+        m = mm(q * bn, kmat) * bn                            # bilateral
+        fineb = mm(uh, mm(m.reshape(b, kk, hs, ws), uw.T))
+        d = torch.tanh((du + gc * g + bc * fineb) * half)
+    mask = (d > 0).to(bf)
+    return closing(mask, closing_ksize) if closing_ksize > 1 else mask
+
+
+def _check_dtype(compute_dtype: str) -> None:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r}: one of {COMPUTE_DTYPES}")
+
+
 def mean_field_fused_plain(du, rgb, num_iters=3, gaussian_sxy=3.0,
                            gaussian_compat=3.0, bilateral_sxy=40.0,
                            bilateral_srgb=13.0, bilateral_compat=10.0,
-                           stride=8, closing_ksize=0) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (the CRF's materialised-K
-    lane, on any device): (B, K, H, W) float32 masks."""
+                           stride=8, closing_ksize=0,
+                           compute_dtype="float32") -> torch.Tensor:
+    """The kernel's function in plain PyTorch, on any device: in float32 the
+    CRF's materialised-K lane, (B, K, H, W) float32 masks; in bf16
+    ``_mean_field_bf16_plain``, bf16 masks."""
+    _check_dtype(compute_dtype)
+    if compute_dtype == "bfloat16":
+        return _mean_field_bf16_plain(
+            du, rgb, num_iters, gaussian_sxy, gaussian_compat, bilateral_sxy,
+            bilateral_srgb, bilateral_compat, stride, closing_ksize)
     masks = dense_crf_batched_du(
         du, rgb, num_iters=num_iters, gaussian_sxy=gaussian_sxy,
         gaussian_compat=gaussian_compat, bilateral_sxy=bilateral_sxy,
@@ -118,12 +219,13 @@ def seg_decode_tail_fused_plain(du_coarse, rgb, scores_eff, cand_idx,
                                 du_factor, num_iters=3, gaussian_sxy=3.0,
                                 gaussian_compat=3.0, bilateral_sxy=40.0,
                                 bilateral_srgb=13.0, bilateral_compat=10.0,
-                                stride=8, closing_ksize=7):
+                                stride=8, closing_ksize=7,
+                                compute_dtype="float32"):
     """The tail kernel's function in plain PyTorch: ``nearest_upsample`` of
-    the patch-grid unaries by ``du_factor``, ``mean_field_fused_plain`` (the
-    materialised-K lane) with the closing, then masks * scores_eff and the
-    strict-'>' argmax of ``ops/seg_decode.decode_tail``. Returns (pred
-    (B, H, W) int32, best_w (B, H, W) f32)."""
+    the patch-grid unaries by ``du_factor``, ``mean_field_fused_plain`` in
+    ``compute_dtype`` with the closing, then masks * scores_eff in float32
+    and the strict-'>' argmax of ``ops/seg_decode.decode_tail``. Returns
+    (pred (B, H, W) int32, best_w (B, H, W) f32)."""
     from simseg_tpu_torch.ops.seg_decode import decode_tail
 
     masks = mean_field_fused_plain(
@@ -131,7 +233,8 @@ def seg_decode_tail_fused_plain(du_coarse, rgb, scores_eff, cand_idx,
         num_iters=num_iters, gaussian_sxy=gaussian_sxy,
         gaussian_compat=gaussian_compat, bilateral_sxy=bilateral_sxy,
         bilateral_srgb=bilateral_srgb, bilateral_compat=bilateral_compat,
-        stride=stride, closing_ksize=closing_ksize)
+        stride=stride, closing_ksize=closing_ksize,
+        compute_dtype=compute_dtype).float()
     scores_eff = scores_eff.float()
     return decode_tail(masks, cand_idx, scores_eff,
                        torch.ones(scores_eff.shape, dtype=torch.bool,
@@ -159,6 +262,24 @@ def _library() -> ctypes.CDLL:
                                              # closing k
                    i, i, i,                  # tile h, tile w, shared bytes
                    p, p, p, p, p]            # work, barrier, pred, best_w,
+                                             # stream
+    fn.restype = ctypes.c_int
+    ll = ctypes.c_longlong
+    fn = lib.crf_mean_field_bf16
+    fn.argtypes = [p, p, i, p, p,            # du, rgb, rgb is uint8, wtab, htab
+                   i, i, i, i, i, i, i,      # B, K, H, W, stride, radius, iters
+                   f, f, f, f, f, i,         # compat g, compat b, scale, sxy,
+                                             # srgb, closing k
+                   p, ll, p, p]              # work, its bytes, out, stream
+    fn.restype = ctypes.c_int
+    fn = lib.crf_decode_tail_bf16
+    fn.argtypes = [p, p, i, p, p,            # du_coarse, rgb, uint8, wtab, htab
+                   p, p, i,                  # scores, cand_idx, cand_idx is int64
+                   i, i, i, i, i, i, i, i,   # B, K, H, W, factor, stride,
+                                             # radius, iters
+                   f, f, f, f, f, i,         # compat g, compat b, scale, sxy,
+                                             # srgb, closing k
+                   p, ll, p, p, p]           # work, its bytes, pred, best_w,
                                              # stream
     fn.restype = ctypes.c_int
     return lib
@@ -207,6 +328,26 @@ def workspace_floats(b: int, k: int, h: int, w: int, stride: int) -> int:
     return b * n * 9 + 2 * b * k * n + 2 * b * k * h * w + b * k * h * (-(-w // 32))
 
 
+def workspace_bytes_bf16(b: int, k: int, h: int, w: int, stride: int) -> int:
+    """Bytes of the bf16 kernel's workspace, each part 256-aligned
+    (``crf_bf16::workspace_bytes`` of ``csrc/crf_mean_field.cu``): features
+    (B, N, 8) f32, bn (B, N) f32, bn q and m (B, K, N) f32, two bf16
+    iterates and two byte masks (B, K, H, W), K (B, N, N) bf16."""
+    def a(n):
+        return -(-n // 256) * 256
+    n = (h // stride) * (w // stride)
+    px = b * k * h * w
+    return (a(b * n * 32) + a(b * n * 4) + 2 * a(b * k * n * 4) + 2 * a(px * 2)
+            + 2 * a(px) + a(b * n * n * 2))
+
+
+@functools.lru_cache(maxsize=32)
+def _device_tables(h: int, w: int, gaussian_sxy: float, device: torch.device):
+    """``bf16_tables`` rounded to bf16, as float32 tensors on ``device``."""
+    return tuple(to_bf16(t).float().to(device).contiguous()
+                 for t in bf16_tables(h, w, gaussian_sxy))
+
+
 @functools.lru_cache(maxsize=None)
 def _barrier(device: torch.device, stream: int) -> torch.Tensor:
     """The kernel's grid barrier, two words per (device, stream), zeroed
@@ -241,13 +382,17 @@ def mean_field_fused(du: torch.Tensor, rgb: torch.Tensor, num_iters: int = 3,
                      gaussian_sxy: float = 3.0, gaussian_compat: float = 3.0,
                      bilateral_sxy: float = 40.0, bilateral_srgb: float = 13.0,
                      bilateral_compat: float = 10.0, stride: int = 8,
-                     closing_ksize: int = 0) -> torch.Tensor:
+                     closing_ksize: int = 0,
+                     compute_dtype: str = "float32") -> torch.Tensor:
     """Mean-field refinement (+ closing when ``closing_ksize > 1``).
 
     du:  (B, K, H, W) float32, contiguous: ``log(p + 1e-8) - log(1 - p + 1e-8)``.
     rgb: (B, H, W, 3) images on du's device, 0..255 scale, any dtype.
-    Returns (B, K, H, W) float32 0/1 masks.
+    compute_dtype: ``"float32"`` or ``"bfloat16"`` (the TPU kernel's
+    default; du is rounded to bf16 on reading).
+    Returns (B, K, H, W) 0/1 masks in ``compute_dtype``.
     """
+    _check_dtype(compute_dtype)
     if du.dim() != 4 or du.dtype != torch.float32 or not du.is_contiguous():
         raise ValueError("du must be a contiguous (B, K, H, W) float32 tensor, "
                          f"got {tuple(du.shape)} {du.dtype}")
@@ -263,7 +408,7 @@ def mean_field_fused(du: torch.Tensor, rgb: torch.Tensor, num_iters: int = 3,
     return crf_mean_field(du, rgb, num_iters, float(gaussian_sxy),
                           float(gaussian_compat), float(bilateral_sxy),
                           float(bilateral_srgb), float(bilateral_compat),
-                          stride, closing_ksize)
+                          stride, closing_ksize, compute_dtype)
 
 
 @torch.library.custom_op("simseg::crf_mean_field", mutates_args=(),
@@ -272,7 +417,8 @@ def crf_mean_field(du: torch.Tensor, rgb: torch.Tensor, num_iters: int,
                    gaussian_sxy: float, gaussian_compat: float,
                    bilateral_sxy: float, bilateral_srgb: float,
                    bilateral_compat: float, stride: int,
-                   closing_ksize: int) -> torch.Tensor:
+                   closing_ksize: int,
+                   compute_dtype: str = "float32") -> torch.Tensor:
     """The op of ``mean_field_fused`` (arguments as it takes them): the
     kernel on a CUDA tensor, the plain version on a CPU one."""
     kw = dict(num_iters=num_iters, gaussian_sxy=gaussian_sxy,
@@ -280,14 +426,19 @@ def crf_mean_field(du: torch.Tensor, rgb: torch.Tensor, num_iters: int,
               bilateral_srgb=bilateral_srgb, bilateral_compat=bilateral_compat,
               stride=stride, closing_ksize=closing_ksize)
     if du.device.type == "cuda":
+        if compute_dtype == "bfloat16":
+            return _mean_field_cuda_bf16(du, rgb, **kw)
         return _mean_field_cuda(du, rgb, **kw)
-    return mean_field_fused_plain(du, rgb, **kw).contiguous()
+    return mean_field_fused_plain(du, rgb, compute_dtype=compute_dtype,
+                                  **kw).contiguous()
 
 
 @crf_mean_field.register_fake
 def _(du, rgb, num_iters, gaussian_sxy, gaussian_compat, bilateral_sxy,
-      bilateral_srgb, bilateral_compat, stride, closing_ksize):
-    return du.new_empty(du.shape, dtype=torch.float32)
+      bilateral_srgb, bilateral_compat, stride, closing_ksize,
+      compute_dtype="float32"):
+    dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    return du.new_empty(du.shape, dtype=dtype)
 
 
 def _mean_field_cuda(du, rgb, num_iters, gaussian_sxy, gaussian_compat,
@@ -316,6 +467,51 @@ def _mean_field_cuda(du, rgb, num_iters, gaussian_sxy, gaussian_compat,
     return out
 
 
+def _bf16_launch_inputs(du, rgb, b, kk, h, w, stride, gaussian_sxy,
+                        gaussian_compat, bilateral_compat):
+    """(wtab, htab, radius, rgb as the kernel reads it, gc, bc and 1 / s^2
+    rounded to bf16, workspace, stream) of a bf16 call on du's card."""
+    dev = du.device
+    wtab, htab = _device_tables(h, w, float(gaussian_sxy), dev)
+    radius = wtab.shape[1] // 2
+    if radius > _MAX_RADIUS:
+        raise ValueError(f"Gaussian radius {radius} > {_MAX_RADIUS}")
+    if kk > _MAX_CLASSES:
+        raise ValueError(f"{kk} maps per image; the kernel takes <= {_MAX_CLASSES}")
+    if rgb.dtype not in (torch.uint8, torch.float32):
+        rgb = rgb.float()
+    consts = [float(to_bf16(x)) for x in (gaussian_compat, bilateral_compat,
+                                          1.0 / (stride * stride))]
+    nbytes = workspace_bytes_bf16(b, kk, h, w, stride)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return wtab, htab, radius, rgb.contiguous(), consts, work, nbytes, stream
+
+
+def _mean_field_cuda_bf16(du, rgb, num_iters, gaussian_sxy, gaussian_compat,
+                          bilateral_sxy, bilateral_srgb, bilateral_compat,
+                          stride, closing_ksize):
+    """The bf16 mean-field kernel on du's card, on the current stream."""
+    b, kk, h, w = du.shape
+    lib = _library()
+    du = du.float().contiguous()
+    wtab, htab, radius, rgb, (gc, bc, scale), work, nbytes, stream = \
+        _bf16_launch_inputs(du, rgb, b, kk, h, w, stride, gaussian_sxy,
+                            gaussian_compat, bilateral_compat)
+    out = torch.empty(du.shape, dtype=torch.bfloat16, device=du.device)
+    with torch.cuda.device(du.device):
+        status = lib.crf_mean_field_bf16(
+            du.data_ptr(), rgb.data_ptr(), int(rgb.dtype == torch.uint8),
+            wtab.data_ptr(), htab.data_ptr(), b, kk, h, w, stride, radius,
+            num_iters, gc, bc, scale, float(bilateral_sxy),
+            float(bilateral_srgb), int(closing_ksize), work.data_ptr(), nbytes,
+            out.data_ptr(), stream)
+    cuda_build.check_status(lib, _NAME, "crf_mean_field_bf16", status)
+    global BF16_LAUNCHES
+    BF16_LAUNCHES += 1
+    return out
+
+
 def seg_decode_tail_fused(du_coarse: torch.Tensor, rgb: torch.Tensor,
                           scores_eff: torch.Tensor, cand_idx: torch.Tensor,
                           du_factor: int, num_iters: int = 3,
@@ -324,7 +520,8 @@ def seg_decode_tail_fused(du_coarse: torch.Tensor, rgb: torch.Tensor,
                           bilateral_sxy: float = 40.0,
                           bilateral_srgb: float = 13.0,
                           bilateral_compat: float = 10.0, stride: int = 8,
-                          closing_ksize: int = 7):
+                          closing_ksize: int = 7,
+                          compute_dtype: str = "float32"):
     """Mean-field CRF + closing + score-weighted argmax in one kernel.
 
     du_coarse:  (B, K, H/f, W/f) f32 patch-grid unary difference (f =
@@ -333,9 +530,11 @@ def seg_decode_tail_fused(du_coarse: torch.Tensor, rgb: torch.Tensor,
     scores_eff: (B, K) f32 candidate scores, 0 where the candidate is
                 invalid (``where(valid, cand_scores, 0)``).
     cand_idx:   (B, K) class ids.
+    compute_dtype: the mean field's, ``"float32"`` or ``"bfloat16"``.
     Returns (pred (B, H, W) int32, 0 where no weight is positive, and
     best_w (B, H, W) f32), the unfused chain's results.
     """
+    _check_dtype(compute_dtype)
     if du_coarse.dim() != 4:
         raise ValueError("du_coarse must be (B, K, H/f, W/f), got "
                          f"{tuple(du_coarse.shape)}")
@@ -357,7 +556,7 @@ def seg_decode_tail_fused(du_coarse: torch.Tensor, rgb: torch.Tensor,
                            num_iters, float(gaussian_sxy),
                            float(gaussian_compat), float(bilateral_sxy),
                            float(bilateral_srgb), float(bilateral_compat),
-                           stride, closing_ksize)
+                           stride, closing_ksize, compute_dtype)
 
 
 @torch.library.custom_op("simseg::crf_decode_tail", mutates_args=(),
@@ -367,7 +566,8 @@ def crf_decode_tail(du_coarse: torch.Tensor, rgb: torch.Tensor,
                     du_factor: int, num_iters: int, gaussian_sxy: float,
                     gaussian_compat: float, bilateral_sxy: float,
                     bilateral_srgb: float, bilateral_compat: float,
-                    stride: int, closing_ksize: int
+                    stride: int, closing_ksize: int,
+                    compute_dtype: str = "float32"
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """The op of ``seg_decode_tail_fused`` (arguments as it takes them):
     the tail kernel on a CUDA tensor, the plain version on a CPU one."""
@@ -376,17 +576,19 @@ def crf_decode_tail(du_coarse: torch.Tensor, rgb: torch.Tensor,
               bilateral_srgb=bilateral_srgb, bilateral_compat=bilateral_compat,
               stride=stride, closing_ksize=closing_ksize)
     if du_coarse.device.type == "cuda":
-        return _decode_tail_cuda(du_coarse, rgb, scores_eff, cand_idx,
-                                 du_factor, **kw)
-    pred, best_w = seg_decode_tail_fused_plain(du_coarse, rgb, scores_eff,
-                                               cand_idx, du_factor, **kw)
+        cuda = (_decode_tail_cuda_bf16 if compute_dtype == "bfloat16"
+                else _decode_tail_cuda)
+        return cuda(du_coarse, rgb, scores_eff, cand_idx, du_factor, **kw)
+    pred, best_w = seg_decode_tail_fused_plain(
+        du_coarse, rgb, scores_eff, cand_idx, du_factor,
+        compute_dtype=compute_dtype, **kw)
     return pred.contiguous(), best_w.contiguous()
 
 
 @crf_decode_tail.register_fake
 def _(du_coarse, rgb, scores_eff, cand_idx, du_factor, num_iters,
       gaussian_sxy, gaussian_compat, bilateral_sxy, bilateral_srgb,
-      bilateral_compat, stride, closing_ksize):
+      bilateral_compat, stride, closing_ksize, compute_dtype="float32"):
     b, _, gh, gw = du_coarse.shape
     shape = (b, gh * du_factor, gw * du_factor)
     return (du_coarse.new_empty(shape, dtype=torch.int32),
@@ -404,10 +606,7 @@ def _decode_tail_cuda(du_coarse, rgb, scores_eff, cand_idx, du_factor,
         raise ValueError(f"{kk} maps per image; the kernel takes <= {_MAX_CLASSES}")
     lib = _library()
     du_coarse = du_coarse.float().contiguous()
-    scores_eff = scores_eff.float().contiguous()
-    if cand_idx.dtype not in (torch.int32, torch.int64):
-        cand_idx = cand_idx.to(torch.int32)
-    cand_idx = cand_idx.contiguous()
+    scores_eff, cand_idx = _tail_operands(scores_eff, cand_idx)
     taps, ah, aw, radius, rgb, plan, work, barrier, stream = _launch_inputs(
         du_coarse, rgb, h, w, stride, gaussian_sxy, num_iters, closing_ksize,
         True)
@@ -427,3 +626,40 @@ def _decode_tail_cuda(du_coarse, rgb, scores_eff, cand_idx, du_factor,
     global TAIL_LAUNCHES
     TAIL_LAUNCHES += 1
     return pred, best_w
+
+
+def _tail_operands(scores_eff, cand_idx):
+    if cand_idx.dtype not in (torch.int32, torch.int64):
+        cand_idx = cand_idx.to(torch.int32)
+    return scores_eff.float().contiguous(), cand_idx.contiguous()
+
+
+def _decode_tail_cuda_bf16(du_coarse, rgb, scores_eff, cand_idx, du_factor,
+                           num_iters, gaussian_sxy, gaussian_compat,
+                           bilateral_sxy, bilateral_srgb, bilateral_compat,
+                           stride, closing_ksize):
+    """The bf16 tail kernel on du_coarse's card, on the current stream."""
+    b, kk, gh, gw = du_coarse.shape
+    h, w = gh * du_factor, gw * du_factor
+    dev = du_coarse.device
+    lib = _library()
+    du_coarse = du_coarse.float().contiguous()
+    scores_eff, cand_idx = _tail_operands(scores_eff, cand_idx)
+    wtab, htab, radius, rgb, (gc, bc, scale), work, nbytes, stream = \
+        _bf16_launch_inputs(du_coarse, rgb, b, kk, h, w, stride, gaussian_sxy,
+                            gaussian_compat, bilateral_compat)
+    pred = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    best_w = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.crf_decode_tail_bf16(
+            du_coarse.data_ptr(), rgb.data_ptr(), int(rgb.dtype == torch.uint8),
+            wtab.data_ptr(), htab.data_ptr(), scores_eff.data_ptr(),
+            cand_idx.data_ptr(), int(cand_idx.dtype == torch.int64), b, kk, h,
+            w, du_factor, stride, radius, num_iters, gc, bc, scale,
+            float(bilateral_sxy), float(bilateral_srgb), int(closing_ksize),
+            work.data_ptr(), nbytes, pred.data_ptr(), best_w.data_ptr(), stream)
+    cuda_build.check_status(lib, _NAME, "crf_decode_tail_bf16", status)
+    global BF16_TAIL_LAUNCHES
+    BF16_TAIL_LAUNCHES += 1
+    return pred, best_w
+

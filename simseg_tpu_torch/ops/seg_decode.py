@@ -38,10 +38,10 @@ as JAX routes them on the TPU with the card in the TPU's place:
   ``"matmul"`` (``morphology.binary_closing_matmul``, exact on the 0/1
   masks) or ``"auto"`` (matmul on the card, window elsewhere).
 - ``compute_dtype``: ``"auto"`` and ``"float32"`` compute in float32 (the
-  port's auto is float32 on every device: its kernels are float32);
-  ``"bfloat16"`` runs the plain chain in bf16 and raises
-  NotImplementedError on a kernel lane (``pallas``, ``fused``,
-  ``fused_tail``, or ``auto`` where it resolves to a kernel).
+  port's auto is float32 on every device, where JAX's is bf16 on the TPU:
+  whether the card's should be bf16 is a speed question the benchmark has
+  to answer); ``"bfloat16"`` computes every lane in bf16, the kernels'
+  lanes through their bf16 modes (``ops/crf_fused.py``) on the card.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from typing import Tuple
 
 import torch
 
-from simseg_tpu_torch.ops.crf import BF16_KERNELS_TODO, dense_crf_batched_du
+from simseg_tpu_torch.ops.crf import dense_crf_batched_du
 from simseg_tpu_torch.ops.crf_fused import (fused_eligible, mean_field_fused,
                                             seg_decode_tail_fused)
 from simseg_tpu_torch.ops.morphology import (binary_closing_matmul, closing,
@@ -144,10 +144,7 @@ def make_seg_decode_fn(num_classes: int, image_size: int, patch_size: int = 16,
         if value not in allowed:
             raise ValueError(f"{name} {value!r}: one of {allowed}")
     bf16 = compute_dtype == "bfloat16"
-    if bf16 and crf_backend in ("pallas", "fused", "fused_tail"):
-        raise NotImplementedError(
-            f"compute_dtype='bfloat16' with crf_backend={crf_backend!r}: "
-            f"{BF16_KERNELS_TODO}")
+    kernel_dtype = "bfloat16" if bf16 else "float32"
     grid = image_size // patch_size
     top_cls_num = min(top_cls_num, num_classes)
     candidate_classes = min(candidate_classes, top_cls_num)
@@ -166,19 +163,18 @@ def make_seg_decode_fn(num_classes: int, image_size: int, patch_size: int = 16,
             return seg_decode_tail_fused(
                 du_coarse, raw_images, scores_eff, cand_idx,
                 du_factor=patch_size, num_iters=crf_iters,
-                stride=bilateral_stride, closing_ksize=morphology_ksize)
+                stride=bilateral_stride, closing_ksize=morphology_ksize,
+                compute_dtype=kernel_dtype)
         du = nearest_upsample(du_coarse, patch_size).contiguous()
-        # bf16 on the CPU keeps the plain chain in bf16 (the op is float32)
+        # bf16 on the CPU keeps the plain chain in bf16, as JAX's default
+        # branch does
         if (crf_backend == "auto" and morphology_impl == "auto" and eligible
                 and (on_card or not bf16)):
-            if bf16:
-                raise NotImplementedError(
-                    "compute_dtype='bfloat16' where crf_backend='auto' takes "
-                    f"the mean-field kernel: {BF16_KERNELS_TODO}")
             masks = mean_field_fused(du, raw_images, num_iters=crf_iters,
                                      stride=bilateral_stride,
-                                     closing_ksize=morphology_ksize)
-            return decode_tail(masks, cand_idx, cand_scores, valid)
+                                     closing_ksize=morphology_ksize,
+                                     compute_dtype=kernel_dtype)
+            return decode_tail(masks.float(), cand_idx, cand_scores, valid)
         # the unfused chain (JAX ``_unfused(on_tpu)``, with on_tpu read as
         # on the card)
         masks = dense_crf_batched_du(

@@ -149,9 +149,11 @@ def task_cfg_init_fn(cfg: AttrDict) -> None:
     # 288px (boundary pixels only)
     cfg.seg_eval.bilateral_stride = 8
     cfg.seg_eval.crf_backend = "auto"
-    # CRF/morphology fine-grid compute dtype: 'auto' = bf16 on accelerators,
-    # f32 on CPU; set 'bfloat16' explicitly to exercise the production TPU
-    # numerics on a CPU host (the production-parity harness does)
+    # CRF/morphology fine-grid compute dtype: 'auto' = float32 on every
+    # device in the port (JAX's 'auto' is bf16 on the TPU only, f32
+    # elsewhere; whether the card's should be bf16 is a speed question for
+    # the benchmark); 'bfloat16' runs the TPU kernels' bf16 numerics on every
+    # lane, the CRF kernels' bf16 mode on the card
     cfg.seg_eval.crf_dtype = "auto"
     # sliding-window dense inference over a larger resize: windows of
     # ``size`` px at ``stride`` px; -1 disables (whole-image forward)

@@ -7,8 +7,9 @@
     train(cfg, {"train": [loader]}, device="cpu")
 
 ``main(argv)`` parses the JAX entry point's arguments into a fresh config,
-reads the WordPiece tokenizer from ``--vocab_file`` (required: the port has
-no HuggingFace tokenizer), builds the CSV / parquet loaders
+builds the tokenizer as JAX does (``build_tokenizer``: a HuggingFace
+tokenizer of ``model.text_encoder.tag`` where one resolves offline, else
+WordPiece over ``--vocab_file``), builds the CSV / parquet loaders
 (``build_clip_dataloaders``) and trains with retrieval validation through
 ``train``, on ``--device`` (default: CUDA); it returns the runner.
 ``train`` builds the model from the config (seeded from ``cfg.seed``,
@@ -51,7 +52,7 @@ from simseg_tpu_torch.config import cfg as global_cfg
 from simseg_tpu_torch.config import new_base_cfg, update_cfg
 from simseg_tpu_torch.core.runner import CLIPRunner
 from simseg_tpu_torch.data.datasets import build_clip_dataloaders
-from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
+from simseg_tpu_torch.data.tokenizer import build_tokenizer
 from simseg_tpu_torch.models.clip import build_clip_model
 from simseg_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from simseg_tpu_torch.tasks.clip.config import task_cfg_init_fn, update_clip_config
@@ -80,8 +81,8 @@ def parse_args(argv: Optional[Sequence[str]] = None, target=None):
     parser.add_argument("--cfg", type=str, required=True,
                         help="experiment configure file name")
     parser.add_argument("--vocab_file", type=str, default="",
-                        help="WordPiece vocab.txt (required by main: the port "
-                             "has no HuggingFace tokenizer)")
+                        help="WordPiece vocab.txt, taken where no HuggingFace "
+                             "tokenizer of the tag resolves offline")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: CUDA, the rank's card)")
     args, overrides = parser.parse_known_args(argv)
@@ -96,15 +97,12 @@ def main(argv: Optional[Sequence[str]] = None) -> CLIPRunner:
     runner after its run."""
     cfg = new_base_cfg()
     args = parse_args(argv, target=cfg)
-    if not args.vocab_file:
-        raise SystemExit("train: --vocab_file is required (the port tokenizes "
-                         "with WordPiece over a vocab.txt; it has no "
-                         "HuggingFace tokenizer)")
     if cfg.runner.name not in ("clip", "clip_bsgs"):
         raise NotImplementedError(f"runner '{cfg.runner.name}'")
     init_distributed(device=args.device)
     device = resolve_device(args.device)
-    tokenizer = WordPieceTokenizer.from_vocab_file(args.vocab_file)
+    tokenizer = build_tokenizer(cfg.model.text_encoder.tag,
+                                vocab_file=args.vocab_file or None)
     loaders = build_clip_dataloaders(cfg, tokenizer=tokenizer)
     return train(cfg, loaders, tokenizer=tokenizer, device=device)
 

@@ -53,8 +53,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--out", required=True)
     ap.add_argument("--vocab_file", default="",
-                    help="WordPiece vocab.txt (required for --kind seg: the "
-                         "port has no HuggingFace tokenizer)")
+                    help="WordPiece vocab.txt for --kind seg, taken where no "
+                         "HuggingFace tokenizer of the tag resolves offline")
     ap.add_argument("--device", default=None,
                     help="torch device the artifact is traced on and serves "
                          "on (default: CUDA)")
@@ -113,10 +113,6 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.nn.Module:
     if args.platforms:
         raise SystemExit("export_serving: --platforms is not taken: the port "
                          "exports for the device it runs on (--device)")
-    if args.kind == "seg" and not args.vocab_file:
-        raise SystemExit("export_serving: --vocab_file is required for --kind "
-                         "seg (the port tokenizes with WordPiece over a "
-                         "vocab.txt; it has no HuggingFace tokenizer)")
     device = resolve_device(args.device)
     torch.manual_seed(0)
     model = build_clip_model(cfg)
@@ -132,12 +128,13 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.nn.Module:
     images = torch.zeros((args.batch, size, size, 3), dtype=torch.uint8,
                          device=device)
     if args.kind == "seg":
-        from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
+        from simseg_tpu_torch.data.tokenizer import build_tokenizer
         from simseg_tpu_torch.tasks.seg_eval import (image_patch_stride,
                                                      load_label_bank,
                                                      zero_shot_classifier)
 
-        tokenizer = WordPieceTokenizer.from_vocab_file(args.vocab_file)
+        tokenizer = build_tokenizer(cfg.model.text_encoder.tag,
+                                    vocab_file=args.vocab_file or None)
         classes = load_label_bank(args.dataset)
         bank = zero_shot_classifier(model, classes, tokenizer, max_length,
                                     device=device)

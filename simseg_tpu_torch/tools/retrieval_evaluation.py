@@ -6,8 +6,9 @@ flags (``--cfg``, ``--ckpt_path``, ``--vocab_file``, dotted config
 overrides) and flow: config -> model -> checkpoint -> per
 ``data.valid_name``: the ``valid.parquet`` loader, the embeddings batch by
 batch, R@1/5/10 and RSUM. ``--device`` picks the device (default: CUDA);
-``--vocab_file`` (a WordPiece ``vocab.txt``) is required, since the port
-has no HuggingFace tokenizer. Reading parquet needs pyarrow.
+the tokenizer is JAX's ``build_tokenizer`` (a HuggingFace tokenizer of the
+tag where one resolves offline, else WordPiece over ``--vocab_file``).
+Reading parquet needs pyarrow.
 
 In a ``torch.distributed`` world (one process per card, started by a
 launcher that sets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
@@ -38,7 +39,7 @@ from simseg_tpu_torch.checkpoint import load_pretrained_params
 from simseg_tpu_torch.config import new_base_cfg, update_cfg
 from simseg_tpu_torch.data.datasets import (DataLoader, ParquetRetrievalDataset,
                                             process_shard)
-from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
+from simseg_tpu_torch.data.tokenizer import build_tokenizer
 from simseg_tpu_torch.data.transforms import build_transforms, normalize_images
 from simseg_tpu_torch.models.clip import build_clip_model
 from simseg_tpu_torch.ops.quant import broadcast_quant_state, cache_quant_state
@@ -58,8 +59,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--cfg", type=str, required=True)
     parser.add_argument("--ckpt_path", type=str, default="")
     parser.add_argument("--vocab_file", type=str, default="",
-                        help="WordPiece vocab.txt (required: the port has "
-                             "no HuggingFace tokenizer)")
+                        help="WordPiece vocab.txt, taken where no HuggingFace "
+                             "tokenizer of the tag resolves offline")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: CUDA)")
     args, overrides = parser.parse_known_args(argv)
@@ -134,10 +135,6 @@ def evaluate_benchmark(loader: Iterable[dict], model, cfg,
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     """Runs the evaluation; returns {dataset: its retrieval table}."""
     args, cfg = parse_args(argv)
-    if not args.vocab_file:
-        raise SystemExit("retrieval_evaluation: --vocab_file is required (the "
-                         "port tokenizes with WordPiece over a vocab.txt; it "
-                         "has no HuggingFace tokenizer)")
     init_distributed(device=args.device)
     device = resolve_device(args.device)
     model = build_clip_model(cfg)
@@ -146,7 +143,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         logger.info("Loaded ckpt path: %s", args.ckpt_path)
     else:
         logger.warning("No --ckpt_path: evaluating randomly initialised weights")
-    tokenizer = WordPieceTokenizer.from_vocab_file(args.vocab_file)
+    tokenizer = build_tokenizer(cfg.model.text_encoder.tag,
+                                vocab_file=args.vocab_file or None)
     shard, nshards = process_shard()
     tf = build_transforms(cfg, "valid")
     results = {}

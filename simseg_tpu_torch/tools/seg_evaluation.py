@@ -7,9 +7,9 @@ the same flow: config -> model -> checkpoint (``pos_embed`` resampled to
 the model's grid) -> tokenizer -> per ``data.valid_name``: the loader, the
 label bank, ``top_cls_num`` (30 for pascal_context, else 10) and
 ``evaluate_benchmark`` with the ``seg_eval`` and ``transforms`` knobs.
-``--device`` picks the device (default: CUDA). The port has no
-HuggingFace tokenizer, so ``--vocab_file`` (a WordPiece ``vocab.txt``) is
-required. In a ``torch.distributed`` world (one process per card, its
+``--device`` picks the device (default: CUDA). The tokenizer is JAX's
+``build_tokenizer``: a HuggingFace tokenizer of the tag where one resolves
+offline, else WordPiece over ``--vocab_file``. In a ``torch.distributed`` world (one process per card, its
 rank environment set by a launcher such as ``torchrun``) each rank
 evaluates its shard of each set and every rank reports the whole set's
 mIoU (``tasks/seg_eval.evaluate_benchmark``).
@@ -32,7 +32,7 @@ from simseg_tpu_torch import resolve_device
 from simseg_tpu_torch.checkpoint import load_pretrained_params
 from simseg_tpu_torch.config import new_base_cfg, update_cfg
 from simseg_tpu_torch.data.datasets import build_seg_valid_loader
-from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
+from simseg_tpu_torch.data.tokenizer import build_tokenizer
 from simseg_tpu_torch.models.clip import build_clip_model
 from simseg_tpu_torch.parallel.mesh import init_distributed
 from simseg_tpu_torch.tasks.clip.config import task_cfg_init_fn, update_clip_config
@@ -49,8 +49,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--cfg", type=str, required=True)
     parser.add_argument("--ckpt_path", type=str, default="")
     parser.add_argument("--vocab_file", type=str, default="",
-                        help="WordPiece vocab.txt (required: the port has "
-                             "no HuggingFace tokenizer)")
+                        help="WordPiece vocab.txt, taken where no HuggingFace "
+                             "tokenizer of the tag resolves offline")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: CUDA)")
     args, overrides = parser.parse_known_args(argv)
@@ -63,10 +63,6 @@ def main(argv: Optional[Sequence[str]] = None
          ) -> Dict[str, Tuple[np.ndarray, float]]:
     """Runs the evaluation; returns {dataset: (per-class IoU, mIoU)}."""
     args, cfg = parse_args(argv)
-    if not args.vocab_file:
-        raise SystemExit("seg_evaluation: --vocab_file is required (the port "
-                         "tokenizes with WordPiece over a vocab.txt; it has "
-                         "no HuggingFace tokenizer)")
     init_distributed(device=args.device)
     device = resolve_device(args.device)
     model = build_clip_model(cfg)
@@ -75,7 +71,8 @@ def main(argv: Optional[Sequence[str]] = None
         logger.info("Loaded ckpt path: %s", args.ckpt_path)
     else:
         logger.warning("No --ckpt_path: evaluating randomly initialised weights")
-    tokenizer = WordPieceTokenizer.from_vocab_file(args.vocab_file)
+    tokenizer = build_tokenizer(cfg.model.text_encoder.tag,
+                                vocab_file=args.vocab_file or None)
     seg = cfg.seg_eval
     results = {}
     for name in cfg.data.valid_name:

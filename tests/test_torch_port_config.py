@@ -120,8 +120,10 @@ def test_yaml_is_imported_only_for_a_file():
 def test_main_stops_until_the_loader_is_ported():
     """The entry point parses as the JAX one does. The loader is ported
     (the run itself: tests/test_torch_port_train_cli.py), so what stops
-    ``main`` now is a missing ``--vocab_file``, before any data is read,
-    or a runner other than JAX's two."""
+    ``main`` now is a tokenizer that cannot be built (no ``--vocab_file``
+    and no HuggingFace tokenizer of the tag offline: JAX's
+    ``build_tokenizer`` error), before any data is read, or a runner other
+    than JAX's two."""
     from simseg_tpu_torch.tasks.clip import train
 
     target = config.new_base_cfg()
@@ -129,7 +131,7 @@ def test_main_stops_until_the_loader_is_ported():
                      target=target)
     assert target.epoch == 3 and target.is_immutable
     assert target.ckpt.dir == os.path.join("./output", "simseg_eval")
-    with pytest.raises(SystemExit, match="--vocab_file is required"):
+    with pytest.raises(RuntimeError, match="Cannot build tokenizer"):
         train.main(["--cfg", os.path.join(REPO, YAMLS[0]), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="runner 'linear'"):
         train.main(["--cfg", os.path.join(REPO, YAMLS[0]), "--vocab_file",

@@ -8,11 +8,12 @@ kernels in interpret mode (``tests/test_crf_pallas.py``,
 ``tests/test_crf_fused.py``). The port's kernel lanes run their plain
 versions on a CPU tensor. Bars: pred equal on >= 99.9% of pixels in
 float32 (a CRF pixel at the threshold may flip under another summation
-order) and >= 99% for the bf16 plain chain against JAX's bf16 chain (bf16
-rounds at other places in the two frameworks). bf16 on a kernel lane
-raises. A second group checks the routing on the card, with the kernels
-and the plain CRF replaced by recorders on CPU tensors that report a CUDA
-device.
+order) and >= 99% in bf16 against JAX's bf16 decode (bf16 rounds at other
+places in the two frameworks; on the CPU JAX's ``fused_tail`` runs its
+unfused chain, the port's the tail's bf16 plain version). A second group
+checks the routing on the card, with the kernels and the plain CRF
+replaced by recorders on CPU tensors that report a CUDA device: bf16 on a
+kernel lane reaches that kernel's bf16 mode.
 """
 
 import functools
@@ -75,8 +76,7 @@ def interpret_kernels():
     patch.undo()
 
 
-CASES = [c for c in itertools.product(BACKENDS, MORPHOLOGY, DTYPES)
-         if not (c[2] == "bfloat16" and c[0] in KERNEL_LANES)]
+CASES = list(itertools.product(BACKENDS, MORPHOLOGY, DTYPES))
 
 
 @pytest.mark.parametrize("backend,morph,dtype", CASES)
@@ -97,24 +97,63 @@ def test_decode_knobs_match_jax(scenes, interpret_kernels, backend, morph,
         same / total
 
 
+def _dtype_recorders(monkeypatch):
+    """Recorders of the compute dtype each kernel entry (and the plain
+    CRF's) receives on the card."""
+    seen = []
+
+    def tail(du_coarse, rgb, scores_eff, cand_idx, du_factor, **kw):
+        seen.append(("tail", kw["compute_dtype"]))
+        b, _, gh, gw = du_coarse.shape
+        return (torch.zeros(b, gh * du_factor, gw * du_factor, dtype=torch.int32),
+                torch.zeros(b, gh * du_factor, gw * du_factor))
+
+    def fused(du, rgb, **kw):
+        seen.append(("fused", kw["compute_dtype"]))
+        return torch.zeros(du.shape, dtype=torch.bfloat16)
+
+    def crf(du, rgb, **kw):
+        seen.append((kw["bilateral_impl"], kw["compute_dtype"]))
+        return torch.zeros(du.shape, dtype=torch.int32)
+
+    monkeypatch.setattr(seg_decode, "seg_decode_tail_fused", tail)
+    monkeypatch.setattr(seg_decode, "mean_field_fused", fused)
+    monkeypatch.setattr(seg_decode, "dense_crf_batched_du", crf)
+    return seen
+
+
 @pytest.mark.parametrize("backend,morph", list(itertools.product(
     KERNEL_LANES, MORPHOLOGY)))
-def test_bf16_on_a_kernel_lane_raises(backend, morph):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        make_seg_decode_fn(**KW, crf_backend=backend, morphology_impl=morph,
-                           compute_dtype="bfloat16")
-
-
-def test_bf16_auto_raises_where_it_takes_a_kernel(monkeypatch):
-    """On the card ``auto`` takes the mean-field kernel at an eligible
-    shape, so bf16 raises there; on the CPU it runs the bf16 chain."""
-    args = _scene(1, 64, 16)
+def test_bf16_on_a_kernel_lane_runs_its_bf16_mode(monkeypatch, backend, morph):
+    """On the card, bf16 on a kernel lane reaches that lane's kernel entry
+    with ``compute_dtype="bfloat16"`` (``pallas`` and ``fused`` through the
+    CRF entry, whose lanes run the bilateral kernel on float32 operands and
+    the mean-field kernel's bf16 mode), and the masks reach the closing."""
+    seen = _dtype_recorders(monkeypatch)
     decode = make_seg_decode_fn(num_classes=12, image_size=64, patch_size=16,
                                 top_cls_num=6, bilateral_stride=8,
+                                crf_backend=backend, morphology_impl=morph,
                                 compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        decode(*args)
-    pred, _ = decode(*(torch.Tensor(a) for a in args))
+    pred, _ = decode(*_scene(2, 64, 16))
+    assert pred.shape == (2, 64, 64)
+    lane = {"pallas": "stream", "fused": "fused", "fused_tail": "tail"}[backend]
+    assert seen == [(lane, "bfloat16")]
+
+
+def test_bf16_auto_takes_the_kernel_on_the_card(monkeypatch):
+    """On the card ``auto`` takes the mean-field kernel's bf16 mode at an
+    eligible shape; on the CPU it runs the bf16 chain, as JAX's default
+    branch does; ``compute_dtype="auto"`` stays float32 on the card."""
+    args = _scene(1, 64, 16)
+    kw = dict(num_classes=12, image_size=64, patch_size=16, top_cls_num=6,
+              bilateral_stride=8)
+    seen = _dtype_recorders(monkeypatch)
+    make_seg_decode_fn(**kw, compute_dtype="bfloat16")(*args)
+    make_seg_decode_fn(**kw)(*args)
+    assert seen == [("fused", "bfloat16"), ("fused", "float32")]
+    monkeypatch.undo()
+    pred, _ = make_seg_decode_fn(**kw, compute_dtype="bfloat16")(
+        *(torch.Tensor(a) for a in args))
     assert pred.shape == (1, 64, 64)
 
 

@@ -195,7 +195,8 @@ def test_decode_lanes_on_the_card(monkeypatch, backend):
         *(torch.Tensor(x) for x in (pooled, tb)), 6, 5)
     [(name, shape, factor, kw, scores_eff)] = calls
     assert (name, shape, factor) == ("tail", (2, 5, 4, 4), 16)
-    assert kw == dict(num_iters=3, stride=8, closing_ksize=7)
+    assert kw == dict(num_iters=3, stride=8, closing_ksize=7,
+                      compute_dtype="float32")
     assert torch.equal(torch.Tensor(scores_eff),
                        torch.where(valid, cand_scores, 0.0))
 

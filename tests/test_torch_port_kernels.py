@@ -186,6 +186,78 @@ def test_tail_kernel_matches_plain_and_the_kernel_lane(cuda_device, seed, b, k,
     assert (best_w == lane_w).float().mean().item() >= 0.9999
 
 
+# the bf16 mode against its plain version: between the sound kernel's
+# agreement at 16 x 5 x 288^2 (masks 0.999990, the tail's pred 0.999980)
+# and the float32 kernel's with the same plain masks (0.999724, 0.999497),
+# so a kernel that rounds to bf16 only at the end fails
+BF16_MASK_BAR = 0.99995
+BF16_TAIL_BAR = 0.9999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,b,k,h,stride,iters", [
+    (30, 1, 1, 16, 1, 3), (31, 2, 3, 40, 4, 3), (32, 2, 5, 288, 8, 3),
+    (33, 1, 8, 96, 8, 1), (34, 2, 2, 64, 8, 0)])
+def test_bf16_kernel_matches_plain(cuda_device, seed, b, k, h, stride, iters):
+    """The bf16 mode against its plain version (JAX's ``_mf_class``
+    rounding): >= 99.995% of masks (the sound kernel reads 0.99999 at the
+    main-path shape, the float32 kernel 0.99972 of the same masks), and
+    nearer it than the float32 kernel is, unless both are exact; bf16 out;
+    one launch of its own."""
+    du, rgb = _case(seed, b, k, h, cuda_device)
+    for ck in (0, 7):
+        kw = dict(stride=stride, closing_ksize=ck, num_iters=iters,
+                  compute_dtype="bfloat16")
+        before = (crf_fused.BF16_LAUNCHES, crf_fused.LAUNCHES)
+        got = crf_fused.mean_field_fused(du, rgb, **kw)
+        assert (crf_fused.BF16_LAUNCHES, crf_fused.LAUNCHES) == (
+            before[0] + 1, before[1])
+        want = crf_fused.mean_field_fused_plain(du, rgb, **kw)
+        f32 = crf_fused.mean_field_fused(du, rgb, **dict(kw, compute_dtype="float32"))
+        assert got.dtype == torch.bfloat16 == want.dtype
+        agree = (got == want).float().mean().item()
+        agree32 = (f32 == want.float()).float().mean().item()
+        print(f"bf16 masks {b}x{k}x{h}^2 s{stride} it{iters} ck{ck}: vs plain "
+              f"{agree:.6f}, float32 kernel vs plain {agree32:.6f}")
+        assert agree >= BF16_MASK_BAR, (agree, agree32)
+        assert agree > agree32 or agree == 1.0, (agree, agree32)
+        assert torch.equal(got, crf_fused.mean_field_fused(du, rgb, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,b,k,grid,factor,stride,iters", [
+    (40, 2, 4, 8, 4, 4, 3), (41, 2, 5, 18, 16, 8, 3), (42, 2, 5, 18, 16, 8, 0)])
+def test_bf16_tail_kernel_matches_plain(cuda_device, seed, b, k, grid, factor,
+                                        stride, iters):
+    """The bf16 tail against its plain version: pred and best_w >= 99.99%,
+    pred nearer it than the float32 tail's unless exact; pred >= 99.99% of
+    the unfused bf16 chain's; one launch of its own."""
+    du_c, rgb, scores, idx = _tail_case(seed, b, k, grid, factor, cuda_device)
+    kw = dict(stride=stride, closing_ksize=7, num_iters=iters,
+              compute_dtype="bfloat16")
+    before = crf_fused.BF16_TAIL_LAUNCHES
+    pred, best_w = crf_fused.seg_decode_tail_fused(du_c, rgb, scores, idx, factor, **kw)
+    assert crf_fused.BF16_TAIL_LAUNCHES == before + 1
+    want_p, want_w = crf_fused.seg_decode_tail_fused_plain(du_c, rgb, scores, idx,
+                                                           factor, **kw)
+    f32_p, _ = crf_fused.seg_decode_tail_fused(du_c, rgb, scores, idx, factor,
+                                               **dict(kw, compute_dtype="float32"))
+    agree = (pred == want_p).float().mean().item()
+    agree32 = (f32_p == want_p).float().mean().item()
+    masks = crf_fused.mean_field_fused(nearest_upsample(du_c, factor).contiguous(),
+                                       rgb, **kw)
+    lane_p, _ = decode_tail(masks.float(), idx, scores,
+                            torch.ones_like(scores, dtype=torch.bool))
+    chain = (pred == lane_p).float().mean().item()
+    print(f"bf16 tail {b}x{k} grid {grid} x{factor} it{iters}: vs plain "
+          f"{agree:.6f}, vs the bf16 chain {chain:.6f}, float32 tail vs plain "
+          f"{agree32:.6f}")
+    assert agree >= BF16_TAIL_BAR, (agree, agree32)
+    assert (best_w == want_w).float().mean().item() >= BF16_TAIL_BAR
+    assert agree > agree32 or agree == 1.0, (agree, agree32)
+    assert chain >= BF16_TAIL_BAR
+
+
 # --------------------------------------------------------------- attention
 
 def _qkv(seed, b, t, h, hd, device):

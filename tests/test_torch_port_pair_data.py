@@ -322,7 +322,7 @@ def test_build_clip_dataloaders_matches_jax(tmp_path, mode, shard):
 def test_build_clip_dataloaders_needs_a_tokenizer(tmp_path):
     write_pair_set(tmp_path, "a", 2, 0, seed=4)
     cfg, _ = cfgs(tmp_path, "data.train_name=[a]", "data.enable_valid=False")
-    with pytest.raises(ValueError, match="vocab_file"):
+    with pytest.raises(RuntimeError, match="Cannot build tokenizer.*vocab_file"):
         ds.build_clip_dataloaders(cfg)
     with pytest.raises(NotImplementedError, match="train_type"):
         ds.build_clip_dataloaders(cfgs(tmp_path, "data.train_name=[a]",

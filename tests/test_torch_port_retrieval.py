@@ -222,6 +222,6 @@ def test_retrieval_cli_matches_jax_evaluate_benchmark(tmp_path, quant):
 
 def test_retrieval_cli_needs_a_vocab_file(tmp_path):
     (tmp_path / "tiny.yaml").write_text(YAML)
-    with pytest.raises(SystemExit, match="vocab_file"):
+    with pytest.raises(RuntimeError, match="Cannot build tokenizer.*vocab_file"):
         retrieval_evaluation.main(["--cfg", str(tmp_path / "tiny.yaml"),
                                    "--device", "cpu"])

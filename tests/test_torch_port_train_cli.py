@@ -212,12 +212,9 @@ def test_train_main_bsgs_matches_jax(tmp_path):
 
 
 # settings JAX acts on that the port has not ported: each refused by name,
-# with its ROADMAP item, where the runner builds its step; ``profile`` is no
-# key of the config files, JAX's users set it on the tree, as the case does
-UNPORTED = {
-    "ckpt.backend=orbax": "item 11", "wandb.enable=True": "item 11",
-    "profile": "item 11",
-}
+# with its ROADMAP item, where the runner builds its step (``wandb.enable``
+# and ``profile`` train: tests/test_torch_port_hooks.py)
+UNPORTED = {"ckpt.backend=orbax": "item 11"}
 
 
 @pytest.fixture(scope="module")
@@ -237,18 +234,8 @@ def test_train_main_refuses_unported_settings(refusal_fixture, setting):
             f"data.data_path={root}/data/", f"ckpt.dir={root}/out",
             "data.train_name=[pairs]", "data.enable_valid=False",
             "data.native_decode=False", "data.train_steps=1"]
-    init = port_train.task_cfg_init_fn
-    if setting == "profile":
-        def init_with_profile(cfg):
-            init(cfg)
-            cfg.profile = {"start_step": 1, "num_steps": 1, "dir": str(root)}
-    else:
-        argv.append(setting)
-        init_with_profile = init
-    with unittest.mock.patch.object(port_train, "task_cfg_init_fn",
-                                    init_with_profile), \
-            pytest.raises(NotImplementedError, match=UNPORTED[setting]):
-        port_train.main(argv)
+    with pytest.raises(NotImplementedError, match=UNPORTED[setting]):
+        port_train.main(argv + [setting])
 
 
 # the sharded legs, ported: main(argv) trains with each, over two gloo
