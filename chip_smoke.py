@@ -18,11 +18,12 @@
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
    CUDA; float32 matmuls must be full float32 (no TF32);
-2. builds the four kernel sources of ``simseg_tpu_torch/csrc`` with nvcc,
+2. builds the five kernel sources of ``simseg_tpu_torch/csrc`` with nvcc,
    one process per source, all started together; the full run checks the
    attention and bilateral kernels (3b-3f) and runs the training slice
-   (6, 6b) and the pretraining entry point (9) while the CRF source, the
-   slowest to build, still compiles, and waits for it before 3;
+   (6, 6b) and the pretraining entry point (9) while the two CRF sources
+   (float32 and bf16), the slowest to build, still compile, and waits for
+   them before 3;
 3. holds the CRF kernel against its plain PyTorch version on the card at
    the main path's shape (16 images, 5 candidate maps, 288 x 288, stride 8,
    unaries in the decode's form: a patch-grid ``du`` upsampled x16):
@@ -170,8 +171,8 @@ Phases (any failure raises, so the exit code is non-zero):
    metric); 7d ToMe r = 16 with ``scales=(1.0, 2.0)``, 3 batches of 16:
    exactly 3 whole-T attention launches, the first block of each 576-px
    pass (fault: the size bias given to the first block too).
-8. the segmentation-eval entry point: a VOC2012-layout directory of 40
-   palette scenes at VOC's image sizes (375 x 500, 500 x 333, ...), PNG
+8. the segmentation-eval entry point: a VOC2012-layout directory of 20
+   palette scenes (two batches of 16, the second part full) at VOC's image sizes (375 x 500, 500 x 333, ...), PNG
    content under ``.jpg`` names (written by ``png_bytes``), one real 4:2:0
    JPEG (``simseg_tpu_torch/data/_testdata/scene.jpg``), palette-PNG
    labels of 320-511 px, a seeded ViT-B/16 + BERT-base ``.pth`` and a
@@ -234,7 +235,7 @@ Phases (any failure raises, so the exit code is non-zero):
    gradient within 1e-6 of its largest entry, the train lane's forward
    launches doubled under 'none'; (c) dropout 0.1 at every tower site: two
    BSGS gradients with one key bit-equal, another key's different; (e)
-   ``train`` in memory, 5 steps, steps 3-5 timed (``StepTimer``), peak
+   ``train`` in memory, 4 steps, steps 3-4 timed (``StepTimer``), peak
    ``max_memory_allocated``: BSGS 1024 / 128 at 224 px with and without
    remat, BSGS 256 / 32 at 576 px (exact launches: 12 x 8 a pass a step),
    the plain step at 128 (224 px), 32 (576 px) and 256 (224 px, with and
@@ -244,9 +245,10 @@ Phases (any failure raises, so the exit code is non-zero):
    micro-batches of 128, on phase 9's cc3m-layout fixture with 8 decode
    threads (the deterministic resize to 224 px), ``CUT_DEPTH`` blocks a
    tower at full width, 3 steps: finite losses,
-   no kernel launch; a run cut after its step-2 checkpoint and resumed
-   equals the uninterrupted run (step 3's loss and every parameter, bit
-   for bit). Prints images/s, ms a step and peak GiB of each, the launches
+   no kernel launch; the run's checkpoint directory copied right after
+   its step-2 checkpoint (what a run cut there leaves) and resumed equals
+   the uninterrupted run (step 3's loss and every parameter, bit for
+   bit). Prints images/s, ms a step and peak GiB of each, the launches
    per BSGS step and its own wall time.
 11. data parallelism over ranks (``simseg_tpu_torch/parallel``, the launcher):
    (a) the pretraining entry point at world 1 through ``python -m
@@ -354,11 +356,12 @@ Phases (any failure raises, so the exit code is non-zero):
    1e-2, every tensor's gradient within twice that step's own distance
    from a float32 step); planted faults that must fail (a: one
    row-parallel sum dropped; b: the LayerNorms' gradients left unsummed;
-   d: one FSDP leaf left whole, against the bytes check); 3 timed steps with exact launches (a, b: 36 forward and
-   36 backward a rank; none at 224 px); each rank's parameter and AdamW
+   d: one FSDP leaf left whole, against the bytes check); ``MP_STEPS`` = 2
+   steps (step 2 timed) with exact launches (a, b: 12 forward and 12
+   backward a rank a step; none at 224 px); each rank's parameter and AdamW
    bytes equal to the rules' (printed beside one process's), the peak, MiB
    staged a step; the replicated leaves bit-equal across ranks; (c)'s
-   parameters bit-equal to a data-parallel twin's after 3 steps.
+   parameters bit-equal to a data-parallel twin's after those steps.
    ``--model-parallel-nccl`` runs (e) over four cards, one NCCL rank each.
 15. the MoE towers, expert and pipeline parallelism (``ops/moe.py``,
    ``parallel/pp.py``): (a) ViT-B/16 + BERT-base at full depth with an
@@ -394,11 +397,12 @@ Phases (any failure raises, so the exit code is non-zero):
    bf16 mean-field kernel + ``decode_tail``) and to its plain version on >=
    99.99% (bars between the sound kernels' readings and the float32
    kernels'), each nearer its plain version than the float32 kernel is;
-   exactly one launch of the bf16 counter a call; the bilateral term
+   two calls of each entry point bit-equal; exactly one launch of the bf16
+   counter a call, one CUDA kernel (a cooperative launch); the bilateral term
    dropped and the float32 kernel's output (rounded only at the end) must
    fall below the bar (both entry points); bf16 and float32 times with CUDA
-   events in turns, device ms (null where the profile missed any of the
-   ``BF16_KERNELS_A_CALL`` kernels), plain ms, the bound (bytes against
+   events in turns, device ms (null where the profile missed the
+   ``BF16_KERNELS_A_CALL`` kernel of a call), plain ms, the bound (bytes against
    float32 operations on the CUDA cores and bf16 products at the
    tensor-core rate); (b)
    ``evaluate_benchmark`` at batch 64 (one batch) with ``compute_dtype=
@@ -460,8 +464,9 @@ WIN_INPUT = 576                          # sliding-window slice
 WIN = 288
 WIN_STRIDE = 192
 GT = 500
-KERNELS = ("crf_mean_field", "flash_attention", "flash_attention_bwd",
-           "bilateral_matvec")   # the sources, one library each
+KERNELS = ("crf_mean_field", "crf_mean_field_bf16", "flash_attention",
+           "flash_attention_bwd", "bilateral_matvec")   # the sources, one library each
+CRF_SOURCES = ("crf_mean_field", "crf_mean_field_bf16")  # the slowest builds
 BWD_TS = (LONG_T, 1024, 1536)
 ROWBLOCK_T = 2026                         # the 720-px view, 2.5 x 288 px
 STREAM_T = 5185                           # the 1152-px view, 4.0 x 288 px
@@ -2357,7 +2362,7 @@ def run_lanes(tokenizer, classes):
 
 # -- phase 8: the segmentation-eval entry point ---------------------------------
 
-ENTRY_SCENES = 40
+ENTRY_SCENES = 20                          # two batches, the second part full
 ENTRY_BATCH = 16
 ENTRY_BATCHES = -(-ENTRY_SCENES // ENTRY_BATCH)
 # VOC2012's common image sizes (h, w); the GT label maps get their own sizes
@@ -3359,7 +3364,7 @@ def run_train_entry():
 BIG_BATCH = 1024                           # configs/clip/simseg.vit-b.yaml
 BIG_MICRO = 128                            # data.batch_size_train's default
 BIG_LONG = (256, 32)                       # BSGS at 576 px: batch, micro
-BIG_STEPS = 5                              # timed steps 3-5 (StepTimer)
+BIG_STEPS = 4                              # timed steps 3-4 (StepTimer)
 BSGS_CHECKS = ((224, 256, 64), (TRAIN_SIZE, 64, 32))   # (a): px, batch, micro
 BSGS_LOSS_BAR = 1e-2                       # phase 6's step bars
 BSGS_COS_BAR = 0.99
@@ -3617,25 +3622,27 @@ def big_entry_argv(data, root, vocab, label):
             "transforms.resize.size=224", *CUT_ARCH]
 
 
-def big_entry_run(label, argv, cut=False):
+def big_entry_run(label, argv, snapshot=None):
     """``tasks.clip.train.main(argv)`` with the counts set to 0 just before
-    and read just after; with ``cut``, interrupted right after the
-    checkpoint of step ``BIG_ENTRY_CUT``. Returns (runner, losses, counts,
-    wall s)."""
+    and read just after; with ``snapshot``, the run's checkpoint directory
+    copied there right after the checkpoint of step ``BIG_ENTRY_CUT`` (what
+    a run cut at that point leaves behind), the run going on. Returns
+    (runner, losses, counts, wall s)."""
     from simseg_tpu_torch.core.train_hooks import CheckpointHook
     from simseg_tpu_torch.tasks.clip import train as entry
 
     save = CheckpointHook.after_train_step
 
-    def save_then_stop(hook, runner):
+    def save_then_copy(hook, runner):
         save(hook, runner)
-        if runner.step == BIG_ENTRY_CUT:
-            raise KeyboardInterrupt("cut after the mid-epoch checkpoint")
+        if runner.step == BIG_ENTRY_CUT:   # the run's directory: ckpt.dir/<exp>
+            shutil.copytree(runner.cfg.ckpt.dir, os.path.join(
+                snapshot, os.path.basename(runner.cfg.ckpt.dir)))
 
     timer = StepTimer()
     stop = (unittest.mock.patch.object(CheckpointHook, "after_train_step",
-                                       save_then_stop)
-            if cut else contextlib.nullcontext())
+                                       save_then_copy)
+            if snapshot else contextlib.nullcontext())
     random.seed(TRAIN_ENTRY_SEED)
     np.random.seed(TRAIN_ENTRY_SEED)
     runner = None
@@ -3643,11 +3650,7 @@ def big_entry_run(label, argv, cut=False):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with timer.patch(), stop:
-        try:
-            runner = entry.main(argv)
-        except KeyboardInterrupt:
-            if not cut:
-                raise
+        runner = entry.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -3663,21 +3666,24 @@ def big_entry_run(label, argv, cut=False):
 
 def check_big_entry(data, root, vocab):
     """10d: the entry point with ``runner.name=clip_bsgs`` at 1024 / 128:
-    finite losses; a run cut after its step-2 checkpoint and resumed gives
-    the uninterrupted run's parameters."""
+    finite losses; the run's step-2 checkpoint directory, as a run cut
+    there leaves it, resumed gives the uninterrupted run's parameters."""
     whole, losses, counts, _ = big_entry_run(
-        "uninterrupted", big_entry_argv(data, root, vocab, "whole"))
+        "uninterrupted", big_entry_argv(data, root, vocab, "whole"),
+        snapshot=f"{root}/cut")
     check_counts("10d (224 px takes no kernel)", counts, {})
     if len(losses) != BIG_ENTRY_STEPS:
         raise AssertionError(f"10d: {len(losses)} steps")
-    argv = big_entry_argv(data, root, vocab, "cut")
-    big_entry_run("cut after step 2", argv, cut=True)
-    resumed, rest, _, _ = big_entry_run("resumed", argv)
+    resumed, rest, _, _ = big_entry_run("resumed",
+                                        big_entry_argv(data, root, vocab, "cut"))
     same = all(torch.equal(a, b) for a, b in zip(
         whole.model.state_dict().values(), resumed.model.state_dict().values()))
     print(f"10d resumed at step {BIG_ENTRY_CUT}, ran {len(rest)} step(s) to step "
           f"{resumed.step}; step 3's loss {rest[-1]:.6f} vs {losses[-1]:.6f}; "
           f"parameters equal to the uninterrupted run's {same}", flush=True)
+    if len(rest) != BIG_ENTRY_STEPS - BIG_ENTRY_CUT:
+        raise AssertionError(f"10d: the resumed run ran {len(rest)} step(s), not "
+                             f"from step {BIG_ENTRY_CUT}'s checkpoint")
     if resumed.step != BIG_ENTRY_STEPS or not same or rest[-1] != losses[-1]:
         raise AssertionError("10d: the resumed run differs from the "
                              "uninterrupted one")
@@ -5279,7 +5285,7 @@ def run_serving():
 
 # -- phase 14: the sharded-state legs (TP, SP, ZeRO-1, FSDP, BSGS) -------------------
 
-MP_STEPS = 3
+MP_STEPS = 2                               # step 2 timed
 MP_LIMIT = 600                             # seconds a world's ranks may take
 MP_T = (TRAIN_SIZE // PATCH) ** 2 + 1      # 1297: the train lane at 576 px
 # leg -> (world, px, global batch, dist settings, BSGS micro-batch or None)
@@ -6041,10 +6047,9 @@ def run_moe_seg(tokenizer, classes):
 BF16_MASK_BAR = 0.99995
 BF16_TAIL_BAR = 0.9999
 BF16_LANE_BAR = 0.99           # a bf16 lane's pred vs the float32 lane's
-# CUDA kernels of one bf16 call (csrc/crf_mean_field.cu, crf_bf16::run):
-# features, K and its degree, d0, (splat, message, update) an iteration,
-# the closing's four passes, the masks or the tail's argmax
-BF16_KERNELS_A_CALL = 3 + 3 * ITERS + 4 + 1
+# CUDA kernels of one bf16 call (csrc/crf_mean_field_bf16.cu): one
+# cooperative launch runs every phase
+BF16_KERNELS_A_CALL = 1
 BF16_LANES = ("auto", "fused", "fused_tail", "pallas")
 # launches per batch of each bf16 lane: {count: n}
 BF16_LANE_WANT = {"auto": {"crf_mean_field_bf16": 1},
@@ -6054,6 +6059,50 @@ BF16_LANE_WANT = {"auto": {"crf_mean_field_bf16": 1},
 BF16_EVAL_BATCHES = 1
 NATIVE_FILES = 64
 NATIVE_THREADS = (1, 8)
+
+
+# the phases of a bf16 call (csrc/crf_common.cuh, phase_at) at STRIDE 8
+BF16_PHASES = (("features and d0", "degree")
+               + tuple(f"{kind} {i}" for i in range(ITERS) for kind in ("message", "update"))
+               + ("closing",))
+
+
+def busy_stream_ms(fn, reps=5):
+    """Median device ms of one call of fn between two CUDA events, the
+    stream held busy (``torch.cuda._sleep``) while the host enqueues the
+    call, so that no host time falls between the events (the profiler can
+    miss a cooperative launch late in a long process)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1 << 21)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def crf_bf16_phase_ms(fn):
+    """{phase: device ms} of a bf16 call's phases, each run alone
+    (``crf_mean_field_bf16_phases``) on the workspace the previous call
+    left, and "whole": where the time of the one cooperative launch goes."""
+    from simseg_tpu_torch.ops import crf_fused
+
+    lib = crf_fused._library()
+    out = {}
+    try:
+        for k, name in enumerate(BF16_PHASES):
+            lib.crf_mean_field_bf16_phases(k, k + 1)
+            out[name] = busy_stream_ms(fn)
+    finally:
+        lib.crf_mean_field_bf16_phases(0, 1 << 30)
+    out["whole"] = busy_stream_ms(fn)
+    return out
 
 
 def crf_bf16_bound_ms(b, k, h, w, s, radius, iters, nbytes):
@@ -6075,11 +6124,11 @@ def check_crf_bf16(b):
     plain version and the float32 kernel; the bf16 tail against the unfused
     bf16 chain (the bf16 mean-field kernel + ``decode_tail``), its plain
     version and the float32 tail; each nearer its plain version than the
-    float32 kernel is; exact launches; the bilateral term dropped and the
-    float32 kernel's output (a kernel that rounds only at the end) must fail
-    the bar; bf16 and float32 kernel times in turns; the device ms of a call
-    only from a profile that holds all its kernels. Returns the JSON fields
-    of both entries (no launches)."""
+    float32 kernel is; exact launches; two calls of each bit-equal; the
+    bilateral term dropped and the float32 kernel's output (a kernel that
+    rounds only at the end) must fail the bar; bf16 and float32 kernel times
+    in turns; the device ms of a call only from a profile that holds its
+    one kernel. Returns the JSON fields of both entries (no launches)."""
     from simseg_tpu_torch.ops import crf_fused
     from simseg_tpu_torch.ops.morphology import nearest_upsample
     from simseg_tpu_torch.ops.seg_decode import decode_tail
@@ -6132,6 +6181,9 @@ def check_crf_bf16(b):
     reset_counts()
     pred, best_w = tail()
     check_counts(f"{label} tail", read_counts(), {"seg_decode_tail_bf16": 1})
+    again_p, again_w = tail()
+    if not (torch.equal(pred, again_p) and torch.equal(best_w, again_w)):
+        raise AssertionError(f"{label}: two bf16 tail calls differ")
     chain = crf_fused.mean_field_fused(nearest_upsample(du_c, PATCH).contiguous(),
                                        rgb, **bf)
     chain_p, _ = decode_tail(chain.float(), idx, scores, ones)
@@ -6146,8 +6198,8 @@ def check_crf_bf16(b):
     tail_err = (best_w - plain_w).abs().max().item()
     print(f"{label}: bf16 tail pred vs the unfused bf16 chain {t_chain:.6f}, vs "
           f"its plain version {t_plain:.6f}, vs the float32 tail {t_f32:.6f} "
-          f"(the float32 tail vs the plain bf16 version {t_f32_plain:.6f})",
-          flush=True)
+          f"(the float32 tail vs the plain bf16 version {t_f32_plain:.6f}); two "
+          "calls bit-equal True", flush=True)
     if t_chain < BF16_TAIL_BAR or t_plain < BF16_TAIL_BAR:
         raise AssertionError(f"{label}: bf16 tail agreement {t_chain} / "
                              f"{t_plain} < {BF16_TAIL_BAR}")
@@ -6175,6 +6227,13 @@ def check_crf_bf16(b):
     if b == BATCH:
         device_profile(lambda: crf_fused.mean_field_fused(du, rgb, **bf),
                        f"{label} bf16 kernel", top=10)
+        phases = crf_bf16_phase_ms(lambda: crf_fused.mean_field_fused(du, rgb, **bf))
+        whole = phases.pop("whole")
+        print(f"{label} ({card_line()}): device ms of each phase of the bf16 mean "
+              "field run alone (events, the stream kept busy): " + ", ".join(
+                  f"{n} {v:.4f}" for n, v in phases.items())
+              + f"; their sum {sum(phases.values()):.4f}, the whole call {whole:.4f}",
+              flush=True)
     radius = crf_fused.gaussian_constants(SIZE, SIZE, 3.0)[0].shape[0] // 2
     bound, bound_by = crf_bf16_bound_ms(
         b, k, SIZE, SIZE, STRIDE, radius, ITERS,
@@ -6346,7 +6405,7 @@ def run_native_decode():
 
 
 def build_all(later=()):
-    """Builds the four kernels and the nvJPEG binding with one nvcc process
+    """Builds the five kernels and the nvJPEG binding with one nvcc process
     each, all started together; waits for every source but those named in
     ``later`` and returns a function that waits for those (nothing may call
     their kernels before it has returned)."""
@@ -6479,11 +6538,13 @@ def compare_attention_trees(trees) -> None:
 def tree_modules(trees, source, module, ptxas=False):
     """For each tree (a checkout of this repository, e.g. an earlier commit
     unpacked with ``git archive``): its ``simseg_tpu_torch/csrc/<source>.cu``
-    built with nvcc (one process per tree, all started together) and its own
-    ``simseg_tpu_torch/ops/<module>.py`` imported with its ``_library``
-    serving that build, since the C interface may differ between trees.
-    Returns the modules and the directory of the builds (the caller removes
-    it); with ptxas, prints each kernel's registers and spills."""
+    (and, for the CRF, ``crf_mean_field_bf16.cu`` where the tree has it)
+    built with nvcc (one process per source and tree, all started together)
+    and its own ``simseg_tpu_torch/ops/<module>.py`` imported with its
+    ``_library`` serving those builds, since the C interface may differ
+    between trees. Returns the modules and the directory of the builds (the
+    caller removes it); with ptxas, prints each kernel's registers and
+    spills."""
     import ctypes
     import importlib.util
     import re
@@ -6492,44 +6553,58 @@ def tree_modules(trees, source, module, ptxas=False):
 
     out_dir = tempfile.mkdtemp(prefix=f"{source}_trees_")
 
-    def build(i):
+    def sources(i):
         csrc = os.path.join(trees[i], "simseg_tpu_torch", "csrc")
-        path = os.path.join(out_dir, f"lib{source}{i}.so")
+        extra = [f"{source}_bf16"] if source == "crf_mean_field" and os.path.exists(
+            os.path.join(csrc, f"{source}_bf16.cu")) else []
+        return [source] + extra
+
+    def build(job):
+        i, name = job
+        csrc = os.path.join(trees[i], "simseg_tpu_torch", "csrc")
+        path = os.path.join(out_dir, f"lib{name}{i}.so")
         proc = subprocess.run(
             [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", csrc,
              *(["-Xptxas", "-v"] if ptxas else []), "-o", path,
-             os.path.join(csrc, f"{source}.cu")],
+             os.path.join(csrc, f"{name}.cu")],
             capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {csrc}/{source}.cu:\n"
+            raise RuntimeError(f"nvcc failed on {csrc}/{name}.cu:\n"
                                f"{proc.stderr}")
         return path, proc.stderr
 
-    with ThreadPoolExecutor(len(trees)) as pool:
-        built = list(pool.map(build, range(len(trees))))
+    jobs = [(i, name) for i in range(len(trees)) for name in sources(i)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(build, jobs)))
     mods = []
-    for i, (path, log) in enumerate(built):
-        if ptxas:
-            # "Compiling entry function '<mangled>'" ... "Used R registers";
-            # the template arguments of each instance, as ILi5ELi5E
-            kernels = re.findall(r"Compiling entry function '(\w+)'.*?"
-                                 r"(\d+) bytes spill stores, (\d+) bytes spill "
-                                 r"loads.*?Used (\d+) registers", log, re.S)
-            print(f"tree {trees[i]}: ptxas (instance: registers, spill "
-                  "stores/loads): " + "; ".join(
-                      f"{'/'.join(re.findall(r'Li(\d+)E', k)) or k[-24:]}: "
-                      f"{regs}, {st}/{ld}" for k, st, ld, regs in kernels),
-                  flush=True)
+    for i in range(len(trees)):
+        libs = {}
+        for name in sources(i):
+            path, log = built[i, name]
+            if ptxas:
+                # "Compiling entry function '<mangled>'" ... "Used R
+                # registers"; the template arguments of each instance, as
+                # ILi5ELi5E
+                kernels = re.findall(r"Compiling entry function '(\w+)'.*?"
+                                     r"(\d+) bytes spill stores, (\d+) bytes spill "
+                                     r"loads.*?Used (\d+) registers", log, re.S)
+                print(f"tree {trees[i]}: {name} ptxas (instance: registers, spill "
+                      "stores/loads): " + "; ".join(
+                          f"{'/'.join(re.findall(r'Li(\d+)E', k)) or k[-24:]}: "
+                          f"{regs}, {st}/{ld}" for k, st, ld, regs in kernels),
+                      flush=True)
+            lib = ctypes.CDLL(path)
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+            libs[name] = lib
         spec = importlib.util.spec_from_file_location(
             f"{module}_tree{i}",
             os.path.join(trees[i], "simseg_tpu_torch", "ops", f"{module}.py"))
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        lib = ctypes.CDLL(path)
-        err = getattr(lib, f"{source}_error_string")
-        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-        with unittest.mock.patch.object(cuda_build, "load_library", lambda _: lib):
+        with unittest.mock.patch.object(cuda_build, "load_library",
+                                        lambda name, *_: libs[name]):
             lib = mod._library.__wrapped__()
         mod._library = lambda lib=lib: lib
         mods.append(mod)
@@ -6785,7 +6860,7 @@ def main() -> None:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("float32 matmuls must be full float32 (TF32 on)")
     t_run = time.perf_counter()
-    crf_built = build_all(later=("crf_mean_field",))
+    crf_built = build_all(later=CRF_SOURCES)
 
     def phase_done(label, t_from):
         print(f"{label} in {time.perf_counter() - t_from:.1f} s (the run at "
@@ -6813,7 +6888,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     t_phase = phase_done("3 kernel checks, attention and bilateral", t_phase)
     # the training slice and the pretraining entry point take no CRF: they
-    # run while crf_mean_field.cu builds
+    # run while the CRF sources build
     with tempfile.TemporaryDirectory() as tmp:
         train_counts, row_train_counts = run_train_slice(tmp)
     t_phase = phase_done("6 training slice", t_phase)
@@ -6926,14 +7001,14 @@ def main() -> None:
          "serving_launches": serve["b_scales_tail"]["seg_decode_tail"],
          **tail},
         {"name": "crf_mean_field (bf16)", "route": "cuda",
-         "source": "simseg_tpu_torch/csrc/crf_mean_field.cu",
+         "source": "simseg_tpu_torch/csrc/crf_mean_field_bf16.cu",
          "replaces": "simseg_tpu/ops/crf_fused.py:304",
          "launches": bf16_lanes["auto"]["crf_mean_field_bf16"],
          "fused_launches": bf16_lanes["fused"]["crf_mean_field_bf16"],
          "serving_launches": serve["g_bf16"]["crf_mean_field_bf16"],
          **bf16["crf_mean_field"]},
         {"name": "seg_decode_tail (bf16)", "route": "cuda",
-         "source": "simseg_tpu_torch/csrc/crf_mean_field.cu",
+         "source": "simseg_tpu_torch/csrc/crf_mean_field_bf16.cu",
          "replaces": "simseg_tpu/ops/crf_fused.py:425",
          "launches": bf16_lanes["fused_tail"]["seg_decode_tail_bf16"],
          "cli_launches": entry["fused_tail bf16"]["seg_decode_tail_bf16"],

@@ -1,7 +1,8 @@
 // Mean-field dense CRF (binary label-difference form) + binary closing,
-// and the whole decode tail, for Hopper (sm_90a), float32; and the same two
-// entry points in the TPU kernels' bf16 mode (namespace crf_bf16, at the
-// end of this file).
+// and the whole decode tail, for Hopper (sm_90a), float32. The same two
+// entry points in the TPU kernels' bf16 mode are crf_mean_field_bf16.cu;
+// what both share (the parameters, the phases, the grid barrier, the
+// closing, the launch) is crf_common.cuh.
 //
 // Replaces the TPU kernels simseg_tpu/ops/crf_fused.py:mean_field_fused
 // (_mean_field_kernel) and :seg_decode_tail_fused (_decode_tail_kernel).
@@ -62,109 +63,25 @@
 // barrier's two words, zeroed before their first call: the arrival count is
 // back to 0 after every barrier, and the release count is only compared.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "crf_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxClasses = 8;
-constexpr int kMaxRadius = 16;
-constexpr int kMaxTileH = 32;     // update tile rows (a multiple of s)
-constexpr int kMaxTileW = 64;     // update tile columns (a multiple of s)
-constexpr int kStrip = 8;         // Gaussian outputs per thread
 constexpr int kRows = 40;         // message rows per item, kRowsPerWarp a warp
 constexpr int kRowsPerWarp = kRows / kWarps;
 constexpr int kChunk = 512;       // message cells staged per tile
-constexpr int kBand = 32;         // closing rows per item
-constexpr int kSmemLimit = 232448;
 // sqrt(log2(e) / 2): exp(-|f_i - f_j|^2 / 2) = exp2(-|g_i - g_j|^2), g = c f
 constexpr float kFeatScale = 0.84932180028801904f;
 
-struct Params {
-  const float* du;          // (B, K, H, W), or (B, K, H/f, W/f) for the tail
-  const void* rgb;          // (B, H, W, 3) uint8 or float32
-  const float* taps;        // 2 radius + 1
-  const float* ah;          // H
-  const float* aw;          // W
-  const float* scores;      // tail: (B, K)
-  const void* cand_idx;     // tail: (B, K) int32 or int64
-  float* feat;              // (B, N, 8) scaled features (5 used)
-  float* bn;                // (B, N)
-  float* q;                 // (B, K, N) cell means of d
-  float* m;                 // (B, K, N) messages
-  float* d0;                // (B, K, H, W) iterates ah[y] aw[x] d: odd
-  float* d1;                //   iterations write d1, even ones d0
-  uint32_t* bits;           // (B, K, H, ceil(W / 32)) the last iterate's d > 0
-  float* out;               // mean field: (B, K, H, W) 0/1 masks
-  int* pred;                // tail: (B, H, W)
-  float* best_w;            // tail: (B, H, W)
-  unsigned* barrier;        // two zeroed words: arrivals, releases
-  int B, K, H, W, f, s, radius, iters, ck;
-  int rgb_u8, idx64;
-  float gc, bc, sxy, srgb;
-  int N, ws, hs;            // cells, cells per row, cell rows
-  int TH, TW, tiles_x, tiles, fused_splat, tail;
-  int bands;
-};
-
-// ------------------------------------------------------------ the phases
-
-enum Kind { kFeat = 1, kInit = 2, kSplat = 4, kDegree = 8, kMessage = 16,
-            kUpdate = 32, kZero = 64, kClose = 128 };
-
-struct Phase {
-  int kinds, it;
-};
-
-// no iteration: zero the mask bits; du > 0 into them; the closing.
-// Else: the features and the cell means of d0 = tanh(du / 2); the degree
-// and zeroing the mask bits; per iteration the message, the update (the
-// last one writes the mask bits, not d) and, for tiles not of whole cells,
-// the cell means of d; the closing. d0 is never stored: the first update
-// and the cell means of d0 read du.
-__host__ __device__ inline int num_phases(const Params& p) {
-  if (p.iters == 0) return 3;
-  return 3 + 2 * p.iters + (p.fused_splat ? 0 : p.iters - 1);
-}
-
-__host__ __device__ inline Phase phase_at(const Params& p, int ph) {
-  if (ph == num_phases(p) - 1) return {kClose, 0};
-  if (p.iters == 0) return {ph == 0 ? kZero : kInit, -1};
-  if (ph == 0) return {kFeat | kSplat, -1};
-  if (ph == 1) return {kDegree | kZero, -1};
-  const int per = p.fused_splat ? 2 : 3;
-  const int it = (ph - 2) / per, r = (ph - 2) - it * per;
-  return {r == 0 ? kMessage : r == 1 ? kUpdate : kSplat, it};
-}
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline float* iterate(const Params& p, int i) {
   return (i & 1) ? p.d1 : p.d0;
-}
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-
-__host__ __device__ inline int items_of(const Params& p, int kind) {
-  const int planes = p.B * p.K;
-  switch (kind) {
-    case kFeat: return p.B * p.hs;
-    case kInit: case kUpdate: return planes * p.tiles;
-    case kSplat: return planes * cdiv(p.N, kThreads);
-    case kDegree: case kMessage: return p.B * cdiv(p.N, kRows);
-    case kZero: return planes;
-    case kClose: return (p.tail ? p.B : p.B * p.K) * p.bands;
-  }
-  return 0;
 }
 
 __host__ __device__ inline int phase_items(const Params& p, int ph) {
   const Phase phase = phase_at(p, ph);
   int n = 0;
   for (int kind = 1; kind <= kClose; kind <<= 1)
-    if (phase.kinds & kind) n += items_of(p, kind);
+    if (phase.kinds & kind) n += items_of(p, kind, kRows);
   return n;
 }
 
@@ -180,17 +97,6 @@ __device__ __forceinline__ float ex2_approx(float x) {
 // absolute error about 1e-7, and +-1 where e^u overflows or vanishes
 __device__ __forceinline__ float tanh_half(float u) {
   return 1.f - __fdividef(2.f, 1.f + __expf(u));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // scaled features of the cells of cell row cy of image b (as
@@ -582,118 +488,6 @@ __device__ void splat_item(const Params& p, int pl, int c0, int it) {
   p.q[(size_t)pl * p.N + c] = a / (float)(s * s);
 }
 
-// the 32 mask bits of pixels pos .. pos + 31 of a packed row; words
-// outside the row read as fill
-__device__ __forceinline__ uint32_t word_at(const uint32_t* row, int q, int ww,
-                                            uint32_t fill) {
-  return q >= 0 && q < ww ? row[q] : fill;
-}
-__device__ __forceinline__ uint32_t bits_at(const uint32_t* row, int pos, int ww,
-                                            uint32_t fill) {
-  const int q = pos >> 5, r = pos & 31;
-  const uint32_t lo = word_at(row, q, ww, fill);
-  return r == 0 ? lo : (lo >> r) | (word_at(row, q + 1, ww, fill) << (32 - r));
-}
-
-__host__ __device__ inline int close_rows(int H, int ck) {
-  return imin(H, kBand + 2 * (ck - 1));
-}
-
-// rows y0 .. y0 + th - 1 of maps c_lo .. c_hi - 1 of image b: the closing
-// of the mask bits, then (kTail, all K maps) the argmax, or (mean field)
-// the closed masks as floats
-template <bool kTail>
-__device__ void close_item(const Params& p, int b, int c_lo, int c_hi, int band,
-                           uint32_t* smem) {
-  const int H = p.H, W = p.W, ww = (W + 31) >> 5, k = p.ck;
-  const int a = k >> 1, z = k - 1 - a;     // window [v - a, v + z]
-  const int y0 = band * kBand, th = min(kBand, H - y0);
-  const int r0 = max(0, y0 - 2 * a), r1 = min(H, y0 + th + 2 * z);
-  const int e0 = max(0, y0 - a), e1 = min(H, y0 + th + z);
-  const int rr = close_rows(H, k);
-  uint32_t* buf0 = smem;
-  uint32_t* buf1 = buf0 + rr * ww;
-  uint32_t* fin = buf1 + rr * ww;
-  const uint32_t tail_bits = (W & 31) ? ~((1u << (W & 31)) - 1u) : 0u;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  for (int c = c_lo; c < c_hi; ++c) {
-    const size_t plane = ((size_t)b * p.K + c) * H * W;
-    uint32_t* done = fin + (kTail ? c * kBand * ww : 0);
-    const int t0 = k > 1 ? r0 : y0, t1 = k > 1 ? r1 : y0 + th;
-    uint32_t* tbuf = k > 1 ? buf0 : done;
-    const uint32_t* src = p.bits + (((size_t)b * p.K + c) * H + t0) * ww;
-    __syncthreads();
-    for (int t = tid; t < (t1 - t0) * ww; t += kThreads) tbuf[t] = __ldcg(src + t);
-    if (k > 1) {
-      __syncthreads();
-      for (int t = tid; t < (r1 - r0) * ww; t += kThreads) {   // dilate along x
-        const int r = t / ww, w = t - r * ww;
-        uint32_t acc = 0u;
-        for (int o = -a; o <= z; ++o) acc |= bits_at(buf0 + r * ww, w * 32 + o, ww, 0u);
-        buf1[t] = acc;
-      }
-      __syncthreads();
-      for (int t = tid; t < (e1 - e0) * ww; t += kThreads) {   // dilate along y
-        const int r = t / ww, w = t - r * ww, y = e0 + r;
-        uint32_t acc = 0u;
-        for (int yy = max(0, y - a); yy <= min(H - 1, y + z); ++yy)
-          acc |= buf1[(yy - r0) * ww + w];
-        if (w == ww - 1) acc |= tail_bits;  // past the image: erosion's identity
-        buf0[(y - r0) * ww + w] = acc;
-      }
-      __syncthreads();
-      for (int t = tid; t < (e1 - e0) * ww; t += kThreads) {   // erode along x
-        const int r = t / ww, w = t - r * ww;
-        const uint32_t* row = buf0 + (e0 - r0 + r) * ww;
-        uint32_t acc = 0xffffffffu;
-        for (int o = -a; o <= z; ++o) acc &= bits_at(row, w * 32 + o, ww, 0xffffffffu);
-        buf1[(e0 - r0 + r) * ww + w] = acc;
-      }
-      __syncthreads();
-      for (int t = tid; t < th * ww; t += kThreads) {          // erode along y
-        const int r = t / ww, w = t - r * ww, y = y0 + r;
-        uint32_t acc = 0xffffffffu;
-        for (int yy = max(0, y - a); yy <= min(H - 1, y + z); ++yy)
-          acc &= buf1[(yy - r0) * ww + w];
-        done[t] = acc;
-      }
-    }
-    if (!kTail) {
-      __syncthreads();
-      for (int t = warp; t < th * ww; t += kWarps) {
-        const int r = t / ww, w = t - r * ww;
-        const int x = w * 32 + lane;
-        if (x < W)
-          p.out[plane + (size_t)(y0 + r) * W + x] = (float)((done[t] >> lane) & 1u);
-      }
-    }
-  }
-  if (!kTail) return;
-  __syncthreads();
-  const size_t img = (size_t)b * H * W;
-  for (int t = warp; t < th * ww; t += kWarps) {
-    const int r = t / ww, w = t - r * ww;
-    const int x = w * 32 + lane;
-    if (x >= W) continue;
-    float best = 0.f;
-    int idx = 0;
-    for (int c = 0; c < p.K; ++c) {
-      const float wgt = (float)((fin[c * kBand * ww + t] >> lane) & 1u) *
-                        __ldg(p.scores + b * p.K + c);
-      const int ci = p.idx64 ? (int)__ldg((const long long*)p.cand_idx + b * p.K + c)
-                             : __ldg((const int*)p.cand_idx + b * p.K + c);
-      if (c == 0 || wgt > best) {
-        best = wgt;
-        idx = ci;
-      }
-    }
-    const size_t o = img + (size_t)(y0 + r) * W + x;
-    p.pred[o] = best > 0.f ? idx : 0;
-    p.best_w[o] = best;
-  }
-}
-
 // ------------------------------------------------------------ the kernel
 
 template <bool kCoarse>
@@ -727,7 +521,7 @@ template <bool kCoarse>
 __device__ void run_item(const Params& p, const Phase& phase, int item, float* smem) {
   for (int kind = 1; kind <= kClose; kind <<= 1) {
     if (!(phase.kinds & kind)) continue;
-    const int n = items_of(p, kind);
+    const int n = items_of(p, kind, kRows);
     if (item >= n) {
       item -= n;
       continue;
@@ -763,45 +557,12 @@ __device__ void run_item(const Params& p, const Phase& phase, int item, float* s
         for (int t = threadIdx.x; t < n; t += kThreads) p.bits[(size_t)item * n + t] = 0u;
         break;
       }
-      case kClose: {
-        const int mp = item / p.bands, band = item - mp * p.bands;
-        uint32_t* words = reinterpret_cast<uint32_t*>(smem);
-        if (kCoarse) {
-          close_item<true>(p, mp, 0, p.K, band, words);
-        } else {
-          const int b = mp / p.K;
-          close_item<false>(p, b, mp - b * p.K, mp - b * p.K + 1, band, words);
-        }
+      case kClose:
+        close_dispatch<kCoarse, false>(p, item, smem);
         break;
-      }
     }
     return;
   }
-}
-
-// Every block of the grid arrives before any leaves (the grid is
-// co-resident: a cooperative launch). bar[0] counts arrivals and is back
-// to 0 at each release, bar[1] counts releases. The arrival is a
-// release-acquire add and the wait an acquire load at gpu scope, so every
-// write before the barrier is seen by every read after it.
-__device__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned seen, arrived, now;
-    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(bar + 1) : "memory");
-    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
-                 : "=r"(arrived) : "l"(bar) : "memory");
-    if (arrived == gridDim.x - 1) {
-      asm volatile("st.relaxed.gpu.global.u32 [%0], 0;" ::"l"(bar) : "memory");
-      asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar + 1) : "memory");
-    } else {
-      do {
-        __nanosleep(32);
-        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(now) : "l"(bar + 1) : "memory");
-      } while (now == seen);
-    }
-  }
-  __syncthreads();
 }
 
 // phases ph_lo .. ph_hi - 1, the items of each spread over the grid, a
@@ -831,8 +592,7 @@ inline int smem_need(int K, int H, int W, int TH, int TW, int radius, int iters,
   if (iters > 0) {
     need = imax(need, kChunk * (5 + K));
   }
-  const int ww = (W + 31) / 32;
-  need = imax(need, 2 * close_rows(H, ck) * ww + (tail ? K : 1) * kBand * ww);
+  need = imax(need, close_words(K, H, W, ck, tail));
   if (iters > 0) need = imax(need, 3 * W);  // a cell row's column sums
   return need * 4;
 }
@@ -842,23 +602,8 @@ inline int smem_need(int K, int H, int W, int TH, int TW, int radius, int iters,
 // bits (B, K, H, ceil(W / 32)) words
 bool setup(Params& p, int B, int K, int H, int W, int f, int stride, int radius,
            int iters, int ck, int TH, int TW, int smem, bool tail, float* work) {
-  if (B < 1 || K < 1 || K > kMaxClasses || H < 1 || W < 1 || radius < 0 ||
-      radius > kMaxRadius || stride < 1 || H % stride || W % stride || iters < 0 ||
-      f < 1 || H % f || W % f || (long long)H * W >= (1ll << 30) || TH < 1 ||
-      TH > kMaxTileH || TW < 1 || TW > kMaxTileW)
-    return false;
-  p.B = B, p.K = K, p.H = H, p.W = W, p.f = f, p.s = stride, p.radius = radius;
-  p.iters = iters;
-  p.ck = ck > 1 ? ck : 1;
-  p.ws = W / stride;
-  p.hs = H / stride;
-  p.N = p.hs * p.ws;
-  p.TH = TH, p.TW = TW;
-  p.tiles_x = cdiv(W, TW);
-  p.tiles = cdiv(H, TH) * p.tiles_x;
-  p.fused_splat = TH % stride == 0 && TW % stride == 0;
-  p.bands = cdiv(H, kBand);
-  if (smem > kSmemLimit || smem < smem_need(K, H, W, TH, TW, radius, iters, p.ck, tail))
+  if (!setup_shape(p, B, K, H, W, f, stride, radius, iters, ck, TH, TW, tail) ||
+      smem > kSmemLimit || smem < smem_need(K, H, W, TH, TW, radius, iters, p.ck, tail))
     return false;
   const size_t bn = (size_t)B * p.N, plane = (size_t)H * W;
   p.feat = work;
@@ -868,32 +613,7 @@ bool setup(Params& p, int B, int K, int H, int W, int f, int stride, int radius,
   p.d0 = p.m + bn * K;
   p.d1 = p.d0 + (size_t)B * K * plane;
   p.bits = reinterpret_cast<uint32_t*>(p.d1 + (size_t)B * K * plane);
-  p.tail = tail;
   return true;
-}
-
-// one cooperative launch of every phase: as many blocks as the card holds
-// at once
-template <bool kCoarse>
-cudaError_t launch(Params p, int smem, unsigned* barrier, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      crf_kernel<kCoarse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  int dev, sms, per_sm;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-          cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, crf_kernel<kCoarse>,
-                                                           kThreads, smem)) !=
-          cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  p.barrier = barrier;
-  int lo = 0, hi = num_phases(p);
-  void* args[] = {&p, &lo, &hi};
-  return cudaLaunchCooperativeKernel((const void*)crf_kernel<kCoarse>,
-                                     dim3(sms * per_sm), dim3(kThreads), args,
-                                     (size_t)smem, st);
 }
 
 }  // namespace
@@ -916,7 +636,7 @@ extern "C" int crf_mean_field_f32(
   p.du = du, p.rgb = rgb, p.rgb_u8 = rgb_u8, p.taps = taps, p.ah = ah, p.aw = aw;
   p.gc = gaussian_compat, p.bc = bilateral_compat, p.sxy = sxy, p.srgb = srgb;
   p.out = out;
-  return (int)launch<false>(p, smem, barrier, (cudaStream_t)stream_ptr);
+  return (int)launch(crf_kernel<false>, p, smem, barrier, (cudaStream_t)stream_ptr);
 }
 
 // du_coarse (B, K, H/f, W/f) f32, scores (B, K) f32 (0 for invalid
@@ -937,425 +657,7 @@ extern "C" int crf_decode_tail_f32(
   p.aw = aw, p.scores = scores, p.cand_idx = cand_idx, p.idx64 = idx64;
   p.gc = gaussian_compat, p.bc = bilateral_compat, p.sxy = sxy, p.srgb = srgb;
   p.pred = pred, p.best_w = best_w;
-  return (int)launch<true>(p, smem, barrier, (cudaStream_t)stream_ptr);
-}
-
-// --------------------------------------------------------- the bf16 mode
-//
-// The TPU kernels' default compute_dtype, bfloat16
-// (simseg_tpu/ops/crf_fused.py:315 mean_field_fused, :439
-// seg_decode_tail_fused): the same function as above, rounded to bf16
-// where the TPU kernel rounds:
-//   - K_ij = exp(-max(sq_i + sq_j - 2 f_i.f_j, 0) / 2) in float32 (the
-//     expanded distance of _build_kmat), stored as bf16; the degree summed
-//     in float32 from the unrounded entries, bn = bf16(rsqrt(degree));
-//   - the iterate d in bf16; each product with a constant matrix summed in
-//     float32 and rounded to bf16: the two Gaussian passes (the bands'
-//     entries, normalisation folded in, rounded to bf16 on the host), the
-//     splat's row sums and then its column sums, K (bn q); the cell mean's
-//     scale, bn q, m bn, gc G, bc B and each sum of the update rounded to
-//     bf16, tanh of the bf16 argument rounded to bf16 (_mf_class);
-//   - the closing on 0/1 masks (exact); bf16 masks out, or the tail's
-//     argmax in float32.
-// A simple design, in launches of its own, each a loop over independent
-// items: the features; K and bn (B N^2 bf16 in the workspace, 54 MB at the
-// main path's 16 images); d0; per iteration the splat, the message (a warp
-// a row of K, the K classes at once, bn q staged in shared memory) and the
-// update (a 32 x 32 tile with its radius-r halo in shared memory, the two
-// Gaussian passes rounded between them); four closing passes over byte
-// masks; the output. What bounds it at the main path's shape is the bytes:
-// K written once and read once per iteration, the bf16 iterates and byte
-// masks, some 0.3 GB through L2 and device memory; fusing passes, as the
-// float32 kernel does, is later work.
-namespace crf_bf16 {
-
-constexpr int kThreads = 256;
-constexpr int kTile = 32;             // update tile, outputs a side
-constexpr int kMaxClasses = 8;
-constexpr int kMaxRadius = 16;
-constexpr int kHalo = kTile + 2 * kMaxRadius;
-constexpr int kTaps = 2 * kMaxRadius + 1;
-constexpr int kChunk = 1024;          // message cells staged per pass
-constexpr int kRowsPerWarp = 2;       // message rows
-constexpr int kRowsPerBlock = kRowsPerWarp * kThreads / 32;
-
-struct Params {
-  const float* du;          // (B, K, H, W), or (B, K, H/f, W/f) for the tail
-  const void* rgb;          // (B, H, W, 3) uint8 or float32
-  const float* wtab;        // (W, 2r+1): bandw[x + t - r, x], bf16 values
-  const float* htab;        // (H, 2r+1): bandh[y, y + t - r], bf16 values
-  const float* scores;      // tail: (B, K)
-  const void* cand_idx;     // tail: (B, K) int32 or int64
-  float* feat;              // (B, N, 8): the 5 features, [5] = |f|^2
-  float* bn;                // (B, N) bf16 values
-  float* v;                 // (B, K, N) bn q, bf16 values
-  float* m;                 // (B, K, N) bn K (bn q), bf16 values
-  __nv_bfloat16* d[2];      // (B, K, H, W) iterates
-  uint8_t* mk[2];           // (B, K, H, W) 0/1 masks
-  __nv_bfloat16* kmat;      // (B, N, N)
-  __nv_bfloat16* out;       // mean field: (B, K, H, W) 0/1 masks
-  int* pred;                // tail: (B, H, W)
-  float* best_w;            // tail: (B, H, W)
-  int B, K, H, W, f, s, radius, iters, ck, rgb_u8, idx64;
-  float gc, bc, scale, sxy, srgb;   // gc, bc and scale are bf16 values
-  int N, ws;
-};
-
-__device__ __forceinline__ float rbf(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// du rounded to bf16: the fine map, or the patch grid at (y / f, x / f)
-__device__ __forceinline__ float unary(const Params& p, int pl, int y, int x) {
-  if (p.f == 1) return rbf(__ldg(p.du + ((size_t)pl * p.H + y) * p.W + x));
-  const int gw = p.W / p.f;
-  return rbf(__ldg(p.du + ((size_t)pl * (p.H / p.f) + y / p.f) * gw + x / p.f));
-}
-
-// a thread a cell: the box-mean colour and the features (as
-// ops/crf.py:bilateral_features) and their squared norm
-__global__ void feat_kernel(Params p) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= p.B * p.N) return;
-  const int b = c / p.N, i = c - b * p.N, cy = i / p.ws, cx = i - cy * p.ws;
-  const int s = p.s;
-  float sum[3] = {0.f, 0.f, 0.f};
-  for (int y = 0; y < s; ++y) {
-    const size_t row = ((size_t)b * p.H + (size_t)cy * s + y) * p.W + (size_t)cx * s;
-    for (int x = 0; x < s; ++x)
-      for (int ch = 0; ch < 3; ++ch) {
-        const size_t o = (row + x) * 3 + ch;
-        sum[ch] += p.rgb_u8 ? (float)__ldg((const uint8_t*)p.rgb + o)
-                            : __ldg((const float*)p.rgb + o);
-      }
-  }
-  float fv[5];
-  fv[0] = __fsub_rn(__fmul_rn((float)cy + 0.5f, (float)s), 0.5f) / p.sxy;
-  fv[1] = __fsub_rn(__fmul_rn((float)cx + 0.5f, (float)s), 0.5f) / p.sxy;
-  for (int ch = 0; ch < 3; ++ch) fv[2 + ch] = sum[ch] / (float)(s * s) / p.srgb;
-  float sq = 0.f;
-  float* out = p.feat + (size_t)c * 8;
-  for (int t = 0; t < 5; ++t) {
-    out[t] = fv[t];
-    sq = __fadd_rn(sq, __fmul_rn(fv[t], fv[t]));
-  }
-  out[5] = sq;
-}
-
-// a warp a row i of image b's K: bf16 entries, bn_i from the float32 sum
-__global__ void kmat_kernel(Params p) {
-  const int b = blockIdx.y, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (i >= p.N) return;  // the whole warp
-  const float* fb = p.feat + (size_t)b * p.N * 8;
-  float fi[6];
-  for (int t = 0; t < 6; ++t) fi[t] = __ldg(fb + (size_t)i * 8 + t);
-  __nv_bfloat16* row = p.kmat + ((size_t)b * p.N + i) * p.N;
-  float acc = 0.f;
-  for (int j = lane; j < p.N; j += 32) {
-    const float* fj = fb + (size_t)j * 8;
-    float dot = 0.f;
-    for (int t = 0; t < 5; ++t) dot = __fadd_rn(dot, __fmul_rn(fi[t], __ldg(fj + t)));
-    const float d2 = __fsub_rn(__fadd_rn(fi[5], __ldg(fj + 5)), __fmul_rn(2.f, dot));
-    const float k = expf(-0.5f * fmaxf(d2, 0.f));
-    row[j] = __float2bfloat16_rn(k);
-    acc += k;
-  }
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.bn[(size_t)b * p.N + i] = rbf(1.f / sqrtf(acc + 1e-20f));
-}
-
-// d0 = tanh(du / 2) in bf16; with no iteration, its sign is the mask
-__global__ void init_kernel(Params p) {
-  const int pl = blockIdx.y, e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= p.H * p.W) return;
-  const int y = e / p.W, x = e - y * p.W;
-  const float d = rbf(tanhf(rbf(unary(p, pl, y, x) * 0.5f)));
-  const size_t o = (size_t)pl * p.H * p.W + e;
-  if (p.iters == 0) p.mk[0][o] = d > 0.f;
-  else p.d[0][o] = __float2bfloat16_rn(d);
-}
-
-// a thread a cell of plane pl: q = (column sum of the s row sums) * scale,
-// each rounded to bf16, and bn q
-__global__ void splat_kernel(Params p, const __nv_bfloat16* cur) {
-  const int pl = blockIdx.y, c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= p.N) return;
-  const int b = pl / p.K, cy = c / p.ws, cx = c - cy * p.ws, s = p.s;
-  const __nv_bfloat16* d = cur + (size_t)pl * p.H * p.W + (size_t)cy * s * p.W + cx * s;
-  float col = 0.f;
-  for (int y = 0; y < s; ++y) {
-    float row = 0.f;
-    for (int x = 0; x < s; ++x) row += __bfloat162float(d[(size_t)y * p.W + x]);
-    col += rbf(row);
-  }
-  const float q = rbf(rbf(col) * p.scale);
-  p.v[(size_t)pl * p.N + c] = rbf(q * __ldg(p.bn + (size_t)b * p.N + c));
-}
-
-// rows j of image b, kRowsPerWarp a warp, the lanes over the cells i:
-// m[b, k, j] = bn_j sum_i K_ji (bn q)[b, k, i], the sum rounded to bf16,
-// then the product
-__global__ void message_kernel(Params p) {
-  __shared__ float s_v[kMaxClasses * kChunk];
-  const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31;
-  const int j0 = blockIdx.x * kRowsPerBlock + (tid >> 5) * kRowsPerWarp;
-  const int N = p.N, K = p.K;
-  float acc[kRowsPerWarp][kMaxClasses];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int k = 0; k < kMaxClasses; ++k) acc[r][k] = 0.f;
-  for (int c0 = 0; c0 < N; c0 += kChunk) {
-    const int cn = min(kChunk, N - c0);
-    __syncthreads();
-    for (int t = tid; t < K * cn; t += kThreads) {
-      const int k = t / cn, i = t - k * cn;
-      s_v[k * kChunk + i] = p.v[((size_t)b * K + k) * N + c0 + i];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int j = j0 + r;
-      if (j >= N) break;
-      const __nv_bfloat16* krow = p.kmat + ((size_t)b * N + j) * N + c0;
-      for (int i = lane; i < cn; i += 32) {
-        const float kv = __bfloat162float(krow[i]);
-#pragma unroll
-        for (int k = 0; k < kMaxClasses; ++k)
-          if (k < K) acc[r][k] = fmaf(kv, s_v[k * kChunk + i], acc[r][k]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int k = 0; k < kMaxClasses; ++k)
-      for (int off = 16; off > 0; off >>= 1)
-        acc[r][k] += __shfl_xor_sync(0xffffffffu, acc[r][k], off);
-  if (lane != 0) return;
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int j = j0 + r;
-    if (j >= N) break;
-    const float bj = p.bn[(size_t)b * N + j];
-    for (int k = 0; k < K; ++k)
-      p.m[((size_t)b * K + k) * N + j] = rbf(rbf(acc[r][k]) * bj);
-  }
-}
-
-// one 32 x 32 tile of plane pl: G(d) by rows then columns (each pass
-// rounded to bf16), the update, and d' (or, at the last iteration, d' > 0)
-__global__ void update_kernel(Params p, const __nv_bfloat16* cur,
-                              __nv_bfloat16* next, uint8_t* mask) {
-  __shared__ float s_in[kHalo][kHalo + 1];
-  __shared__ float s_row[kHalo][kTile + 1];
-  __shared__ float s_wt[kTile][kTaps];
-  __shared__ float s_ht[kTile][kTaps];
-  const int H = p.H, W = p.W, R = p.radius, taps = 2 * R + 1, tid = threadIdx.x;
-  const int pl = blockIdx.y, tiles_x = (W + kTile - 1) / kTile;
-  const int tyi = blockIdx.x / tiles_x, txi = blockIdx.x - tyi * tiles_x;
-  const int y0 = tyi * kTile, x0 = txi * kTile;
-  const int rows = kTile + 2 * R, cols = kTile + 2 * R;
-  const __nv_bfloat16* src = cur + (size_t)pl * H * W;
-  for (int t = tid; t < rows * cols; t += kThreads) {
-    const int r = t / cols, c = t - r * cols, y = y0 - R + r, x = x0 - R + c;
-    s_in[r][c] = y >= 0 && y < H && x >= 0 && x < W
-                     ? __bfloat162float(src[(size_t)y * W + x]) : 0.f;
-  }
-  for (int t = tid; t < kTile * taps; t += kThreads) {
-    const int o = t / taps, k = t - o * taps;
-    s_wt[o][k] = x0 + o < W ? __ldg(p.wtab + (size_t)(x0 + o) * taps + k) : 0.f;
-    s_ht[o][k] = y0 + o < H ? __ldg(p.htab + (size_t)(y0 + o) * taps + k) : 0.f;
-  }
-  __syncthreads();
-  for (int t = tid; t < rows * kTile; t += kThreads) {
-    const int r = t / kTile, o = t - r * kTile;
-    float a = 0.f;
-    for (int k = 0; k < taps; ++k) a = fmaf(s_wt[o][k], s_in[r][o + k], a);
-    s_row[r][o] = rbf(a);
-  }
-  __syncthreads();
-  const size_t pbase = (size_t)pl * H * W;
-  for (int t = tid; t < kTile * kTile; t += kThreads) {
-    const int oy = t / kTile, ox = t - oy * kTile, y = y0 + oy, x = x0 + ox;
-    if (y >= H || x >= W) continue;
-    float a = 0.f;
-    for (int k = 0; k < taps; ++k) a = fmaf(s_ht[oy][k], s_row[oy + k][ox], a);
-    const float g = rbf(a);
-    const float mv = p.m[(size_t)pl * p.N + (y / p.s) * p.ws + x / p.s];
-    float u = rbf(unary(p, pl, y, x) + rbf(p.gc * g));
-    u = rbf(u + rbf(p.bc * mv));
-    const float dn = rbf(tanhf(rbf(u * 0.5f)));
-    const size_t o = pbase + (size_t)y * W + x;
-    if (mask) mask[o] = dn > 0.f;
-    else next[o] = __float2bfloat16_rn(dn);
-  }
-}
-
-// one pass of the k x k closing over byte masks, along y or x: OR (dilate)
-// or AND (erode) over the taps of [v - k / 2, v + k - 1 - k / 2] that lie
-// inside the image (ops/morphology.py's window)
-__global__ void close_kernel(Params p, const uint8_t* in, uint8_t* out, int along_y,
-                             int erode) {
-  const int pl = blockIdx.y, e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= p.H * p.W) return;
-  const int y = e / p.W, x = e - y * p.W, a = p.ck / 2, z = p.ck - 1 - a;
-  const uint8_t* src = in + (size_t)pl * p.H * p.W;
-  int acc = erode;
-  if (along_y) {
-    for (int yy = max(0, y - a); yy <= min(p.H - 1, y + z); ++yy)
-      acc = erode ? acc & src[(size_t)yy * p.W + x] : acc | src[(size_t)yy * p.W + x];
-  } else {
-    const uint8_t* row = src + (size_t)y * p.W;
-    for (int xx = max(0, x - a); xx <= min(p.W - 1, x + z); ++xx)
-      acc = erode ? acc & row[xx] : acc | row[xx];
-  }
-  out[(size_t)pl * p.H * p.W + e] = (uint8_t)acc;
-}
-
-__global__ void masks_out_kernel(Params p, const uint8_t* mask) {
-  const int pl = blockIdx.y, e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= p.H * p.W) return;
-  const size_t o = (size_t)pl * p.H * p.W + e;
-  p.out[o] = __float2bfloat16_rn(mask[o] ? 1.f : 0.f);
-}
-
-// the tail: a pixel's best mask * scores[b, k] by a strict '>' (argmax's
-// first-occurrence rule), pred 0 where the best is <= 0
-__global__ void argmax_kernel(Params p, const uint8_t* mask) {
-  const int b = blockIdx.y, e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= p.H * p.W) return;
-  float best = 0.f;
-  int idx = 0;
-  for (int c = 0; c < p.K; ++c) {
-    const float wgt = (float)mask[((size_t)b * p.K + c) * p.H * p.W + e] *
-                      __ldg(p.scores + b * p.K + c);
-    const int ci = p.idx64 ? (int)__ldg((const long long*)p.cand_idx + b * p.K + c)
-                           : __ldg((const int*)p.cand_idx + b * p.K + c);
-    if (c == 0 || wgt > best) {
-      best = wgt;
-      idx = ci;
-    }
-  }
-  const size_t o = (size_t)b * p.H * p.W + e;
-  p.pred[o] = best > 0.f ? idx : 0;
-  p.best_w[o] = best;
-}
-
-inline size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
-
-// bytes of the workspace (ops/crf_fused.py:workspace_bytes_bf16): feat,
-// bn, bn q, m, two iterates, two masks, K
-inline size_t workspace_bytes(int B, int K, int H, int W, int s) {
-  const size_t n = (size_t)(H / s) * (W / s), bn = (size_t)B * n;
-  const size_t px = (size_t)B * K * H * W;
-  return align256(bn * 8 * 4) + align256(bn * 4) + 2 * align256(bn * K * 4) +
-         2 * align256(px * 2) + 2 * align256(px) + align256(bn * n * 2);
-}
-
-bool setup(Params& p, int B, int K, int H, int W, int f, int s, int radius,
-           int iters, int ck, void* work, long long work_bytes) {
-  if (B < 1 || K < 1 || K > kMaxClasses || H < 1 || W < 1 || radius < 0 ||
-      radius > kMaxRadius || s < 1 || H % s || W % s || iters < 0 || f < 1 ||
-      H % f || W % f || (long long)H * W >= (1ll << 30) || B * K > 65535 ||
-      work_bytes < (long long)workspace_bytes(B, K, H, W, s))
-    return false;
-  p.B = B, p.K = K, p.H = H, p.W = W, p.f = f, p.s = s, p.radius = radius;
-  p.iters = iters, p.ck = ck > 1 ? ck : 1;
-  p.ws = W / s;
-  p.N = (H / s) * p.ws;
-  const size_t bn = (size_t)B * p.N, px = (size_t)B * K * H * W;
-  char* w = (char*)work;
-  p.feat = (float*)w, w += align256(bn * 8 * 4);
-  p.bn = (float*)w, w += align256(bn * 4);
-  p.v = (float*)w, w += align256(bn * K * 4);
-  p.m = (float*)w, w += align256(bn * K * 4);
-  for (int i = 0; i < 2; ++i) p.d[i] = (__nv_bfloat16*)w, w += align256(px * 2);
-  for (int i = 0; i < 2; ++i) p.mk[i] = (uint8_t*)w, w += align256(px);
-  p.kmat = (__nv_bfloat16*)w;
-  return true;
-}
-
-// every launch of a call on stream st, the error of the first that fails
-cudaError_t run(const Params& p, bool tail, cudaStream_t st) {
-  const int planes = p.B * p.K, hw = p.H * p.W;
-  const dim3 px(cdiv(hw, kThreads), planes), cells(cdiv(p.N, kThreads), planes);
-  cudaError_t err;
-#define CRF_BF16_LAUNCH(kernel, grid, ...)              \
-  kernel<<<grid, kThreads, 0, st>>>(__VA_ARGS__);        \
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (p.iters > 0) {
-    CRF_BF16_LAUNCH(feat_kernel, dim3(cdiv(p.B * p.N, kThreads)), p)
-    CRF_BF16_LAUNCH(kmat_kernel, dim3(cdiv(p.N, kThreads / 32), p.B), p)
-  }
-  CRF_BF16_LAUNCH(init_kernel, px, p)
-  const int tiles = cdiv(p.H, kTile) * cdiv(p.W, kTile);
-  for (int it = 0; it < p.iters; ++it) {
-    const bool last = it == p.iters - 1;
-    CRF_BF16_LAUNCH(splat_kernel, cells, p, p.d[it & 1])
-    CRF_BF16_LAUNCH(message_kernel, dim3(cdiv(p.N, kRowsPerBlock), p.B), p)
-    CRF_BF16_LAUNCH(update_kernel, dim3(tiles, planes), p, p.d[it & 1],
-                    last ? nullptr : p.d[(it + 1) & 1], last ? p.mk[0] : nullptr)
-  }
-  if (p.ck > 1) {
-    CRF_BF16_LAUNCH(close_kernel, px, p, p.mk[0], p.mk[1], 0, 0)
-    CRF_BF16_LAUNCH(close_kernel, px, p, p.mk[1], p.mk[0], 1, 0)
-    CRF_BF16_LAUNCH(close_kernel, px, p, p.mk[0], p.mk[1], 0, 1)
-    CRF_BF16_LAUNCH(close_kernel, px, p, p.mk[1], p.mk[0], 1, 1)
-  }
-  if (tail) {
-    CRF_BF16_LAUNCH(argmax_kernel, dim3(cdiv(hw, kThreads), p.B), p, p.mk[0])
-  } else {
-    CRF_BF16_LAUNCH(masks_out_kernel, px, p, p.mk[0])
-  }
-#undef CRF_BF16_LAUNCH
-  return cudaSuccess;
-}
-
-}  // namespace crf_bf16
-
-// The bf16 mode of crf_mean_field_f32: du (B, K, H, W) f32 (rounded to
-// bf16 on reading); wtab (W, 2 radius + 1) and htab (H, 2 radius + 1) the
-// Gaussian bands' entries rounded to bf16 (ops/crf_fused.py:bf16_tables);
-// gc, bc and scale (1 / stride^2) rounded to bf16; work a workspace of
-// work_bytes (ops/crf_fused.py:workspace_bytes_bf16); out (B, K, H, W)
-// bf16 0/1 masks.
-extern "C" int crf_mean_field_bf16(
-    const float* du, const void* rgb, int rgb_u8, const float* wtab, const float* htab,
-    int B, int K, int H, int W, int stride, int radius, int num_iters,
-    float gaussian_compat, float bilateral_compat, float scale, float sxy, float srgb,
-    int closing_ksize, void* work, long long work_bytes, void* out, void* stream_ptr) {
-  crf_bf16::Params p = {};
-  if (!crf_bf16::setup(p, B, K, H, W, 1, stride, radius, num_iters, closing_ksize,
-                       work, work_bytes))
-    return (int)cudaErrorInvalidValue;
-  p.du = du, p.rgb = rgb, p.rgb_u8 = rgb_u8, p.wtab = wtab, p.htab = htab;
-  p.gc = gaussian_compat, p.bc = bilateral_compat, p.scale = scale;
-  p.sxy = sxy, p.srgb = srgb;
-  p.out = (__nv_bfloat16*)out;
-  return (int)crf_bf16::run(p, false, (cudaStream_t)stream_ptr);
-}
-
-// The bf16 mode of crf_decode_tail_f32: du_coarse (B, K, H/f, W/f) f32,
-// scores (B, K) f32, cand_idx (B, K) int32 or (idx64) int64, the rest as
-// crf_mean_field_bf16; out pred (B, H, W) int32, best_w (B, H, W) f32.
-extern "C" int crf_decode_tail_bf16(
-    const float* du_coarse, const void* rgb, int rgb_u8, const float* wtab,
-    const float* htab, const float* scores, const void* cand_idx, int idx64, int B,
-    int K, int H, int W, int du_factor, int stride, int radius, int num_iters,
-    float gaussian_compat, float bilateral_compat, float scale, float sxy, float srgb,
-    int closing_ksize, void* work, long long work_bytes, int* pred, float* best_w,
-    void* stream_ptr) {
-  crf_bf16::Params p = {};
-  if (!crf_bf16::setup(p, B, K, H, W, du_factor, stride, radius, num_iters,
-                       closing_ksize, work, work_bytes))
-    return (int)cudaErrorInvalidValue;
-  p.du = du_coarse, p.rgb = rgb, p.rgb_u8 = rgb_u8, p.wtab = wtab, p.htab = htab;
-  p.scores = scores, p.cand_idx = cand_idx, p.idx64 = idx64;
-  p.gc = gaussian_compat, p.bc = bilateral_compat, p.scale = scale;
-  p.sxy = sxy, p.srgb = srgb;
-  p.pred = pred, p.best_w = best_w;
-  return (int)crf_bf16::run(p, true, (cudaStream_t)stream_ptr);
+  return (int)launch(crf_kernel<true>, p, smem, barrier, (cudaStream_t)stream_ptr);
 }
 
 extern "C" const char* crf_mean_field_error_string(int code) {

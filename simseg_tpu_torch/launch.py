@@ -14,7 +14,10 @@ through ``parallel/mesh.init_distributed``:
 
 - it sets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
   (``--master_addr``, default 127.0.0.1) and ``MASTER_PORT``
-  (``--master_port``, default: a free port the OS gives);
+  (``--master_port``, default: one the OS picks as the launcher binds it),
+  and serves the world's rendezvous store itself (torchrun's agent store,
+  ``parallel/mesh.host_store``), so no other process can take the port
+  before the ranks come up;
 - it tees rank 0's output (stdout and stderr) to ``./output/<exp>_log.txt``
   (``<exp>``: ``--exp_name``, else the config's file name); the other ranks
   write to the launcher's own streams;
@@ -99,7 +102,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     exp = args.exp_name or os.path.splitext(os.path.basename(args.cfg))[0]
     os.makedirs("./output", exist_ok=True)
     log_path = f"./output/{exp}_log.txt"
-    port = args.master_port or free_port()
+    from simseg_tpu_torch.parallel.mesh import host_store
+
+    store, store_env = host_store(args.master_addr, args.master_port)
     cmd = [sys.executable, "-m", TASKS[args.task], "--cfg", args.cfg, *passthrough]
     print(f"[launch] {n} rank(s): {' '.join(cmd)}", flush=True)
     print(f"[launch] teeing rank 0's output to {log_path}", flush=True)
@@ -108,8 +113,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     with open(log_path, "ab") as log:
         for r in range(n):
             env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
-                       WORLD_SIZE=str(n), MASTER_ADDR=args.master_addr,
-                       MASTER_PORT=str(port))
+                       WORLD_SIZE=str(n), **store_env)
             out = subprocess.PIPE if r == 0 else None
             procs.append(subprocess.Popen(cmd, env=env, stdout=out,
                                           stderr=subprocess.STDOUT if r == 0
@@ -139,6 +143,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 break
             time.sleep(0.05)
         tee.join(timeout=5)
+    del store
     # a signal-killed rank has rc = -sig: report the conventional 128 + sig
     return 128 - rc if rc < 0 else rc
 

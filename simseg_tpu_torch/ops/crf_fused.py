@@ -16,8 +16,10 @@ the same source). On a CPU tensor it runs ``seg_decode_tail_fused_plain``.
 On the card each call takes the images as they are (uint8 or float32; any
 other dtype is cast first), one workspace from ``torch.empty`` and no other
 device work: the features, the mean field, the closing and (tail) the argmax
-all run inside the kernel. ``launch_plan`` is how the kernel cuts a call
-(update tile, shared memory per block); ``csrc/crf_mean_field.cu`` checks it.
+all run inside the kernel, one cooperative launch a call. ``launch_plan``
+(``launch_plan_bf16``) is how the kernel cuts a call (update tile, shared
+memory per block); ``csrc/crf_mean_field.cu`` (``crf_mean_field_bf16.cu``)
+checks it.
 
 Each entry point is a registered custom op, ``simseg::crf_mean_field`` and
 ``simseg::crf_decode_tail``, with a fake implementation, so that
@@ -36,14 +38,17 @@ bf16 where the TPU kernel does (the kernel matrix's entries, the iterate,
 every product with a constant matrix summed in float32 and then rounded, the
 update's products and sums; ``_mean_field_bf16_plain`` writes it out as
 JAX's ``_mf_class`` does), ``mean_field_fused`` returns bf16 masks, and the
-card runs ``crf_mean_field_bf16`` / ``crf_decode_tail_bf16`` of the same
-source, counted in ``BF16_LAUNCHES`` / ``BF16_TAIL_LAUNCHES``.
+card runs ``crf_mean_field_bf16`` / ``crf_decode_tail_bf16`` of
+``csrc/crf_mean_field_bf16.cu``, counted in ``BF16_LAUNCHES`` /
+``BF16_TAIL_LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import types
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -63,18 +68,21 @@ __all__ = ["BF16_LAUNCHES", "BF16_TAIL_LAUNCHES", "COMPUTE_DTYPES",
            "LAUNCHES", "SMEM_LIMIT", "TAIL_LAUNCHES", "LaunchPlan",
            "bf16_tables", "bilateral_features", "crf_decode_tail",
            "crf_mean_field", "fused_eligible", "gaussian_constants",
-           "launch_plan", "mean_field_fused", "mean_field_fused_plain",
+           "kernel_tables", "launch_plan", "launch_plan_bf16", "mean_field_fused",
+           "mean_field_fused_plain",
            "seg_decode_tail_fused", "seg_decode_tail_fused_plain",
            "workspace_bytes_bf16", "workspace_floats"]
 
 _NAME = "crf_mean_field"  # csrc/crf_mean_field.cu
+_BF16_NAME = "crf_mean_field_bf16"  # csrc/crf_mean_field_bf16.cu
 _MAX_CLASSES = 8      # kMaxClasses in the kernel
 _MAX_RADIUS = 16      # kMaxRadius in the kernel
-# the kernel's cuts (csrc/crf_mean_field.cu): largest update tile, Gaussian
-# outputs per thread, message cells per staged tile, closing rows per
-# block; the shared memory a block may take on sm_90
+# the kernels' cuts (csrc/crf_common.cuh, crf_mean_field.cu): largest
+# update tile, Gaussian outputs per thread, message cells per staged tile
+# (float32), closing rows per block, warps per block; the shared memory a
+# block may take on sm_90
 _TILE_H, _TILE_W, _STRIP = 32, 64, 8
-_CHUNK, _BAND = 512, 32
+_CHUNK, _BAND, _WARPS = 512, 32, 8
 SMEM_LIMIT = 232448
 
 # launches of the CUDA kernels (one per mean_field_fused, respectively
@@ -242,47 +250,58 @@ def seg_decode_tail_fused_plain(du_coarse, rgb, scores_eff, cand_idx,
 
 
 @functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load_library(_NAME)
+def _library() -> types.SimpleNamespace:
+    """The CRF kernels' entry points and error strings, from two libraries
+    built side by side (one nvcc each, at once): ``csrc/crf_mean_field.cu``
+    (float32) and ``csrc/crf_mean_field_bf16.cu`` (bf16)."""
+    with ThreadPoolExecutor(2) as pool:
+        f32, bf16 = pool.map(cuda_build.load_library, (_NAME, _BF16_NAME))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.crf_mean_field_f32
-    fn.argtypes = [p, p, i, p, p, p,        # du, rgb, rgb is uint8, taps, ah, aw
-                   i, i, i, i, i, i, i,      # B, K, H, W, stride, radius, iters
-                   f, f, f, f, i,            # compat g, compat b, sxy, srgb,
-                                             # closing k
-                   i, i, i,                  # tile h, tile w, shared bytes
-                   p, p, p, p]               # work, barrier, out, stream
-    fn.restype = ctypes.c_int
-    fn = lib.crf_decode_tail_f32
-    fn.argtypes = [p, p, i, p, p, p,        # du_coarse, rgb, uint8, taps, ah, aw
-                   p, p, i,                  # scores, cand_idx, cand_idx is int64
-                   i, i, i, i, i, i, i, i,   # B, K, H, W, factor, stride,
-                                             # radius, iters
-                   f, f, f, f, i,            # compat g, compat b, sxy, srgb,
-                                             # closing k
-                   i, i, i,                  # tile h, tile w, shared bytes
-                   p, p, p, p, p]            # work, barrier, pred, best_w,
-                                             # stream
-    fn.restype = ctypes.c_int
     ll = ctypes.c_longlong
-    fn = lib.crf_mean_field_bf16
-    fn.argtypes = [p, p, i, p, p,            # du, rgb, rgb is uint8, wtab, htab
-                   i, i, i, i, i, i, i,      # B, K, H, W, stride, radius, iters
-                   f, f, f, f, f, i,         # compat g, compat b, scale, sxy,
-                                             # srgb, closing k
-                   p, ll, p, p]              # work, its bytes, out, stream
-    fn.restype = ctypes.c_int
-    fn = lib.crf_decode_tail_bf16
-    fn.argtypes = [p, p, i, p, p,            # du_coarse, rgb, uint8, wtab, htab
-                   p, p, i,                  # scores, cand_idx, cand_idx is int64
-                   i, i, i, i, i, i, i, i,   # B, K, H, W, factor, stride,
-                                             # radius, iters
-                   f, f, f, f, f, i,         # compat g, compat b, scale, sxy,
-                                             # srgb, closing k
-                   p, ll, p, p, p]           # work, its bytes, pred, best_w,
-                                             # stream
-    fn.restype = ctypes.c_int
-    return lib
+    args = {
+        "crf_mean_field_f32": [
+            p, p, i, p, p, p,            # du, rgb, rgb is uint8, taps, ah, aw
+            i, i, i, i, i, i, i,         # B, K, H, W, stride, radius, iters
+            f, f, f, f, i,               # compat g, compat b, sxy, srgb, closing k
+            i, i, i,                     # tile h, tile w, shared bytes
+            p, p, p, p],                 # work, barrier, out, stream
+        "crf_decode_tail_f32": [
+            p, p, i, p, p, p,            # du_coarse, rgb, uint8, taps, ah, aw
+            p, p, i,                     # scores, cand_idx, cand_idx is int64
+            i, i, i, i, i, i, i, i,      # B, K, H, W, factor, stride, radius,
+                                         # iters
+            f, f, f, f, i,               # compat g, compat b, sxy, srgb, closing k
+            i, i, i,                     # tile h, tile w, shared bytes
+            p, p, p, p, p],              # work, barrier, pred, best_w, stream
+        "crf_mean_field_bf16": [
+            p, p, i, p, p,               # du, rgb, rgb is uint8, wtab, htab
+            i, i, i, i,                  # their interiors: wlo, whi, hlo, hhi
+            i, i, i, i, i, i, i,         # B, K, H, W, stride, radius, iters
+            f, f, f, f, f, i,            # compat g, compat b, scale, sxy, srgb,
+                                         # closing k
+            i, i, i,                     # tile h, tile w, shared bytes
+            p, ll, p, p, p],             # work, its bytes, barrier, out, stream
+        "crf_decode_tail_bf16": [
+            p, p, i, p, p,               # du_coarse, rgb, uint8, wtab, htab
+            i, i, i, i,                  # their interiors: wlo, whi, hlo, hhi
+            p, p, i,                     # scores, cand_idx, cand_idx is int64
+            i, i, i, i, i, i, i, i,      # B, K, H, W, factor, stride, radius,
+                                         # iters
+            f, f, f, f, f, i,            # compat g, compat b, scale, sxy, srgb,
+                                         # closing k
+            i, i, i,                     # tile h, tile w, shared bytes
+            p, ll, p, p, p, p]}          # work, its bytes, barrier, pred,
+                                         # best_w, stream
+    fns = {}
+    for name, argtypes in args.items():
+        fn = getattr(bf16 if name.endswith("bf16") else f32, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    for lib, name in ((f32, _NAME), (bf16, _BF16_NAME)):
+        fns[f"{name}_error_string"] = getattr(lib, f"{name}_error_string")
+    fn = fns["crf_mean_field_bf16_phases"] = bf16.crf_mean_field_bf16_phases
+    fn.argtypes, fn.restype = [i, i], None   # a profile by phase: lo, hi
+    return types.SimpleNamespace(**fns)
 
 
 class LaunchPlan(NamedTuple):
@@ -295,16 +314,31 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int
 
 
+def _tile(stride: int):
+    """The update tile: whole stride cells up to 32 x 64 (past that, 32 or
+    64 and a separate splat); (tile_h, tile_w, fused_splat)."""
+    tile_h = stride * (_TILE_H // stride) if stride <= _TILE_H else _TILE_H
+    tile_w = stride * (_TILE_W // stride) if stride <= _TILE_W else _TILE_W
+    return tile_h, tile_w, tile_h % stride == 0 and tile_w % stride == 0
+
+
+def _close_words(h, w, num_classes, closing_ksize, tail):
+    """Words of a closing band (``close_words`` of ``csrc/crf_common.cuh``):
+    two copies of its rows and the closed band (the tail's K bands)."""
+    words = -(-w // 32)
+    k = max(closing_ksize, 1)
+    return (2 * min(h, _BAND + 2 * (k - 1)) * words
+            + (num_classes if tail else 1) * _BAND * words)
+
+
 def launch_plan(h: int, w: int, stride: int, radius: int, num_classes: int,
                 num_iters: int, closing_ksize: int, tail: bool = False) -> LaunchPlan:
     """The kernel's plan for a call, mirroring ``smem_need`` and
-    ``tile_layout`` of ``csrc/crf_mean_field.cu``: update tiles of whole
-    stride cells up to 32 x 64 (past that, 32 or 64 and a separate splat),
-    and the largest of an update tile with its radius-r halo, a message
-    tile (features and K values of 512 cells), a closing band and a cell
-    row's column sums."""
-    tile_h = stride * (_TILE_H // stride) if stride <= _TILE_H else _TILE_H
-    tile_w = stride * (_TILE_W // stride) if stride <= _TILE_W else _TILE_W
+    ``tile_layout`` of ``csrc/crf_mean_field.cu``: the update tile
+    (``_tile``), and the largest of an update tile with its radius-r halo, a
+    message tile (features and K values of 512 cells), a closing band and a
+    cell row's column sums."""
+    tile_h, tile_w, fused = _tile(stride)
     thp, twp = -(-tile_h // _STRIP) * _STRIP, -(-tile_w // _STRIP) * _STRIP
     span = 2 * radius
     need = ((thp + span) * (((twp + span) | 1) + twp + 1)
@@ -312,12 +346,29 @@ def launch_plan(h: int, w: int, stride: int, radius: int, num_classes: int,
             + 2 * _MAX_RADIUS + 1 + thp * twp)
     if num_iters > 0:
         need = max(need, _CHUNK * (5 + num_classes), 3 * w)
-    words = -(-w // 32)
-    k = max(closing_ksize, 1)
-    need = max(need, 2 * min(h, _BAND + 2 * (k - 1)) * words
-               + (num_classes if tail else 1) * _BAND * words)
-    return LaunchPlan(tile_h, tile_w,
-                      tile_h % stride == 0 and tile_w % stride == 0, 4 * need)
+    need = max(need, _close_words(h, w, num_classes, closing_ksize, tail))
+    return LaunchPlan(tile_h, tile_w, fused, 4 * need)
+
+
+def launch_plan_bf16(h: int, w: int, stride: int, radius: int,
+                     num_classes: int, num_iters: int, closing_ksize: int,
+                     tail: bool = False) -> LaunchPlan:
+    """The bf16 kernel's plan, mirroring ``smem_need`` and ``tile_layout``
+    of ``csrc/crf_mean_field_bf16.cu``: the float32 kernel's tile, and the
+    largest of an update tile (the bf16 halo, rows of a pitch odd in words;
+    the row pass's sums; the new d), a cell row's column sums, the
+    bilateral rows' partial sums (8 warps x 128) and a closing band."""
+    tile_h, tile_w, fused = _tile(stride)
+    thp, twp = -(-tile_h // _STRIP) * _STRIP, -(-tile_w // _STRIP) * _STRIP
+    span = 2 * radius
+    cols = twp + span + 2
+    pin = cols if cols % 4 else cols + 2
+    prow = twp + 1
+    need = (thp + span) * pin // 2 + (thp + span) * prow + thp * prow
+    if num_iters > 0:
+        need = max(need, 3 * w, _WARPS * 128)
+    need = max(need, _close_words(h, w, num_classes, closing_ksize, tail))
+    return LaunchPlan(tile_h, tile_w, fused, 4 * need)
 
 
 def workspace_floats(b: int, k: int, h: int, w: int, stride: int) -> int:
@@ -330,22 +381,55 @@ def workspace_floats(b: int, k: int, h: int, w: int, stride: int) -> int:
 
 def workspace_bytes_bf16(b: int, k: int, h: int, w: int, stride: int) -> int:
     """Bytes of the bf16 kernel's workspace, each part 256-aligned
-    (``crf_bf16::workspace_bytes`` of ``csrc/crf_mean_field.cu``): features
-    (B, N, 8) f32, bn (B, N) f32, bn q and m (B, K, N) f32, two bf16
-    iterates and two byte masks (B, K, H, W), K (B, N, N) bf16."""
+    (``workspace_bytes`` of ``csrc/crf_mean_field_bf16.cu``): the features by
+    cell pair (B, Np / 2, 12) f32, bn (B, Np) f32, m (B, K, N) f32, bn q
+    (B, Np / 2, 8, 2) bf16, two bf16 iterates (B, K, H, Wp), the mask bits
+    (B, K, H, ceil(W / 32)) words; Np is N rounded up to 16, Wp is W
+    rounded up to even. No (B, N, N) kernel matrix: the kernel recomputes
+    its rows."""
     def a(n):
         return -(-n // 256) * 256
     n = (h // stride) * (w // stride)
-    px = b * k * h * w
-    return (a(b * n * 32) + a(b * n * 4) + 2 * a(b * k * n * 4) + 2 * a(px * 2)
-            + 2 * a(px) + a(b * n * n * 2))
+    npad = -(-n // 16) * 16
+    px = b * k * h * (w + w % 2)
+    return (a(b * npad * 24) + a(b * npad * 4) + a(b * k * n * 4)
+            + a(b * npad * 16) + 2 * a(px * 2) + a(b * k * h * -(-w // 32) * 4))
+
+
+def kernel_tables(h: int, w: int, gaussian_sxy: float):
+    """The bf16 kernel's view of ``bf16_tables``, rounded to bf16:
+    (wtab, htab) float32, each row's taps zero-padded to a multiple of 4
+    (a row of float4) and 8 zero rows after the map's (a strip of outputs
+    past the image's edge reads them), and for each the range (lo, hi) of
+    rows around the middle row that hold its taps (the interior: a strip
+    of 8 outputs within it takes one row of taps)."""
+    def pad(t):
+        n, taps = t.shape
+        out = np.zeros((n + _STRIP, -(-taps // 4) * 4), np.float32)
+        out[:n, :taps] = t
+        return out
+
+    def interior(t):
+        mid = t.shape[0] // 2
+        same = (t == t[mid]).all(axis=1)
+        lo, hi = mid, mid
+        while lo > 0 and same[lo - 1]:
+            lo -= 1
+        while hi + 1 < t.shape[0] and same[hi + 1]:
+            hi += 1
+        return lo, hi
+
+    wt, ht = (to_bf16(t).float().numpy() for t in bf16_tables(h, w, gaussian_sxy))
+    return pad(wt), pad(ht), interior(wt) + interior(ht)
 
 
 @functools.lru_cache(maxsize=32)
 def _device_tables(h: int, w: int, gaussian_sxy: float, device: torch.device):
-    """``bf16_tables`` rounded to bf16, as float32 tensors on ``device``."""
-    return tuple(to_bf16(t).float().to(device).contiguous()
-                 for t in bf16_tables(h, w, gaussian_sxy))
+    """``kernel_tables`` on ``device``, and the Gaussian's radius."""
+    wt, ht, ranges = kernel_tables(h, w, gaussian_sxy)
+    radius = gaussian_taps(gaussian_sxy).shape[0] // 2
+    return (torch.from_numpy(wt).to(device), torch.from_numpy(ht).to(device),
+            ranges, radius)
 
 
 @functools.lru_cache(maxsize=None)
@@ -468,12 +552,13 @@ def _mean_field_cuda(du, rgb, num_iters, gaussian_sxy, gaussian_compat,
 
 
 def _bf16_launch_inputs(du, rgb, b, kk, h, w, stride, gaussian_sxy,
-                        gaussian_compat, bilateral_compat):
-    """(wtab, htab, radius, rgb as the kernel reads it, gc, bc and 1 / s^2
-    rounded to bf16, workspace, stream) of a bf16 call on du's card."""
+                        gaussian_compat, bilateral_compat, num_iters,
+                        closing_ksize, tail):
+    """(wtab, htab, their interior ranges, radius, rgb as the kernel reads
+    it, gc, bc and 1 / s^2 rounded to bf16, plan, workspace, its bytes,
+    barrier, stream) of a bf16 call on du's card."""
     dev = du.device
-    wtab, htab = _device_tables(h, w, float(gaussian_sxy), dev)
-    radius = wtab.shape[1] // 2
+    wtab, htab, ranges, radius = _device_tables(h, w, float(gaussian_sxy), dev)
     if radius > _MAX_RADIUS:
         raise ValueError(f"Gaussian radius {radius} > {_MAX_RADIUS}")
     if kk > _MAX_CLASSES:
@@ -482,10 +567,13 @@ def _bf16_launch_inputs(du, rgb, b, kk, h, w, stride, gaussian_sxy,
         rgb = rgb.float()
     consts = [float(to_bf16(x)) for x in (gaussian_compat, bilateral_compat,
                                           1.0 / (stride * stride))]
+    plan = launch_plan_bf16(h, w, stride, radius, kk, num_iters,
+                            closing_ksize, tail)
     nbytes = workspace_bytes_bf16(b, kk, h, w, stride)
     work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return wtab, htab, radius, rgb.contiguous(), consts, work, nbytes, stream
+    return (wtab, htab, ranges, radius, rgb.contiguous(), consts, plan, work,
+            nbytes, _barrier(dev, stream), stream)
 
 
 def _mean_field_cuda_bf16(du, rgb, num_iters, gaussian_sxy, gaussian_compat,
@@ -495,18 +583,20 @@ def _mean_field_cuda_bf16(du, rgb, num_iters, gaussian_sxy, gaussian_compat,
     b, kk, h, w = du.shape
     lib = _library()
     du = du.float().contiguous()
-    wtab, htab, radius, rgb, (gc, bc, scale), work, nbytes, stream = \
-        _bf16_launch_inputs(du, rgb, b, kk, h, w, stride, gaussian_sxy,
-                            gaussian_compat, bilateral_compat)
+    (wtab, htab, ranges, radius, rgb, (gc, bc, scale), plan, work, nbytes,
+     barrier, stream) = _bf16_launch_inputs(du, rgb, b, kk, h, w, stride, gaussian_sxy,
+                                   gaussian_compat, bilateral_compat, num_iters,
+                                   closing_ksize, False)
     out = torch.empty(du.shape, dtype=torch.bfloat16, device=du.device)
     with torch.cuda.device(du.device):
         status = lib.crf_mean_field_bf16(
             du.data_ptr(), rgb.data_ptr(), int(rgb.dtype == torch.uint8),
-            wtab.data_ptr(), htab.data_ptr(), b, kk, h, w, stride, radius,
-            num_iters, gc, bc, scale, float(bilateral_sxy),
-            float(bilateral_srgb), int(closing_ksize), work.data_ptr(), nbytes,
+            wtab.data_ptr(), htab.data_ptr(), *ranges, b, kk, h, w, stride,
+            radius, num_iters, gc, bc, scale, float(bilateral_sxy),
+            float(bilateral_srgb), int(closing_ksize), plan.tile_h, plan.tile_w,
+            plan.smem_bytes, work.data_ptr(), nbytes, barrier.data_ptr(),
             out.data_ptr(), stream)
-    cuda_build.check_status(lib, _NAME, "crf_mean_field_bf16", status)
+    cuda_build.check_status(lib, _BF16_NAME, "crf_mean_field_bf16", status)
     global BF16_LAUNCHES
     BF16_LAUNCHES += 1
     return out
@@ -645,20 +735,23 @@ def _decode_tail_cuda_bf16(du_coarse, rgb, scores_eff, cand_idx, du_factor,
     lib = _library()
     du_coarse = du_coarse.float().contiguous()
     scores_eff, cand_idx = _tail_operands(scores_eff, cand_idx)
-    wtab, htab, radius, rgb, (gc, bc, scale), work, nbytes, stream = \
-        _bf16_launch_inputs(du_coarse, rgb, b, kk, h, w, stride, gaussian_sxy,
-                            gaussian_compat, bilateral_compat)
+    (wtab, htab, ranges, radius, rgb, (gc, bc, scale), plan, work, nbytes,
+     barrier, stream) = _bf16_launch_inputs(du_coarse, rgb, b, kk, h, w, stride,
+                                   gaussian_sxy, gaussian_compat,
+                                   bilateral_compat, num_iters, closing_ksize,
+                                   True)
     pred = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     best_w = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         status = lib.crf_decode_tail_bf16(
             du_coarse.data_ptr(), rgb.data_ptr(), int(rgb.dtype == torch.uint8),
-            wtab.data_ptr(), htab.data_ptr(), scores_eff.data_ptr(),
+            wtab.data_ptr(), htab.data_ptr(), *ranges, scores_eff.data_ptr(),
             cand_idx.data_ptr(), int(cand_idx.dtype == torch.int64), b, kk, h,
             w, du_factor, stride, radius, num_iters, gc, bc, scale,
             float(bilateral_sxy), float(bilateral_srgb), int(closing_ksize),
-            work.data_ptr(), nbytes, pred.data_ptr(), best_w.data_ptr(), stream)
-    cuda_build.check_status(lib, _NAME, "crf_decode_tail_bf16", status)
+            plan.tile_h, plan.tile_w, plan.smem_bytes, work.data_ptr(), nbytes,
+            barrier.data_ptr(), pred.data_ptr(), best_w.data_ptr(), stream)
+    cuda_build.check_status(lib, _BF16_NAME, "crf_decode_tail_bf16", status)
     global BF16_TAIL_LAUNCHES
     BF16_TAIL_LAUNCHES += 1
     return pred, best_w

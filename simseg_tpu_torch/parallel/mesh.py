@@ -49,6 +49,19 @@ _HOST_GROUP = None          # gloo group of the whole world (host collectives)
 _MESHES: Dict[Tuple[int, int, int], "DataMesh"] = {}   # (n_groups, tp, pp) -> mesh
 
 
+def host_store(addr: str = "127.0.0.1", port: int = 0):
+    """The rendezvous store of a world whose ranks this process launches,
+    served here (torchrun's agent store): bound on ``port``, or, with 0, on
+    a port the OS picks as it binds, so that no other process can take the
+    port between its choice and the bind. Returns (store, env): keep the
+    store until the ranks have exited, and give each rank ``env``, which
+    makes its ``init_process_group`` a client of the store."""
+    store = dist.TCPStore(addr, port, is_master=True, wait_for_workers=False)
+    return store, {"MASTER_ADDR": addr, "MASTER_PORT": str(store.port),
+                   "TORCHELASTIC_USE_AGENT_STORE": "True",
+                   "TORCHELASTIC_RESTART_COUNT": "0"}
+
+
 def init_distributed(backend: Optional[str] = None, device=None,
                      timeout: Optional[float] = None) -> bool:
     """Join the ``torch.distributed`` world: one already initialised, or the

@@ -66,9 +66,12 @@ def test_main_path_plan():
 
 
 def test_plan_constants_match_the_kernel_source():
-    """The plan's cuts are the kernel's constants."""
-    with open(os.path.join(CSRC, "crf_mean_field.cu")) as f:
-        src = f.read()
+    """The plan's cuts are the kernel's constants (its source and the
+    header both CRF sources share)."""
+    src = ""
+    for name in ("crf_mean_field.cu", "crf_common.cuh"):
+        with open(os.path.join(CSRC, name)) as f:
+            src += f.read()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\w+);", src).group(1))
@@ -81,3 +84,4 @@ def test_plan_constants_match_the_kernel_source():
     assert const("kSmemLimit") == crf_fused.SMEM_LIMIT
     assert const("kMaxClasses") == crf_fused._MAX_CLASSES
     assert const("kMaxRadius") == crf_fused._MAX_RADIUS
+    assert const("kThreads") // 32 == crf_fused._WARPS

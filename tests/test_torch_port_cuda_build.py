@@ -10,8 +10,8 @@ import pytest
 
 from simseg_tpu_torch.ops import cuda_build
 
-_KERNELS = ("crf_mean_field", "flash_attention", "flash_attention_bwd",
-            "bilateral_matvec")
+_KERNELS = ("crf_mean_field", "crf_mean_field_bf16", "flash_attention",
+            "flash_attention_bwd", "bilateral_matvec")
 
 
 def _write(path, text):
@@ -85,3 +85,16 @@ def test_the_port_kernels_hash_the_shared_header(tmp_path, name):
         f.write("// edited\n")
     changed = cuda_build.source_digest(name, str(copy)) != before
     assert changed == name.startswith("flash_attention")
+
+
+@pytest.mark.parametrize("name", _KERNELS)
+def test_the_crf_sources_hash_their_shared_header(tmp_path, name):
+    """Both CRF sources (float32 and bf16) include csrc/crf_common.cuh, so
+    an edit to it renames both their libraries and no other."""
+    copy = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, copy)
+    before = cuda_build.source_digest(name, str(copy))
+    with open(os.path.join(copy, "crf_common.cuh"), "a") as f:
+        f.write("// edited\n")
+    changed = cuda_build.source_digest(name, str(copy)) != before
+    assert changed == name.startswith("crf_mean_field")

@@ -40,6 +40,7 @@ from simseg_tpu.parallel.mesh import shard_batch
 from simseg_tpu_torch.checkpoint.convert import flax_params_to_state_dict
 from simseg_tpu_torch.core.runner import CLIPRunner
 from simseg_tpu_torch.models.clip import CLIPModel
+from simseg_tpu_torch.parallel.mesh import host_store
 from tests.test_torch_port_train import _FIELDS, SEQ, TINY, _key_bias, _pair, _trees
 
 torch.set_num_threads(2)
@@ -169,13 +170,16 @@ def free_port():
 
 def run_world(world, code, env_extra, limit=WORLD_LIMIT):
     """``code`` in ``world`` CPU processes joined by gloo; fails on any
-    rank's non-zero exit or on the time limit."""
-    port = free_port()
+    rank's non-zero exit or on the time limit. This process serves the
+    world's store on a port bound here (``host_store``): a port chosen
+    first and bound later by rank 0 could be taken in between by another
+    world or connection of a parallel test run."""
+    store, store_env = host_store()
     procs = []
     for r in range(world):
         env = dict(os.environ, REPO=REPO, RANK=str(r), LOCAL_RANK=str(r),
-                   WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port), OMP_NUM_THREADS="1", **env_extra)
+                   WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
+                   **store_env, **env_extra)
         procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
                                       stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
@@ -188,9 +192,37 @@ def run_world(world, code, env_extra, limit=WORLD_LIMIT):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        del store
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-3000:]
     return outs
+
+
+JOIN = r'''
+import os, sys
+import torch
+sys.path.insert(0, os.environ["REPO"])
+import torch.distributed as dist
+from simseg_tpu_torch.parallel import init_distributed, rank
+init_distributed(device="cpu", timeout=60)
+x = torch.tensor([float(rank() + 1)])
+dist.all_reduce(x)
+print("SUM", int(x.item()), os.environ["MASTER_PORT"], flush=True)
+'''
+
+
+def test_a_world_joins_on_the_port_its_store_holds():
+    """``run_world``'s store is bound before any rank starts, so no other
+    process of a parallel test run can take its port between the choice
+    and the bind (a port chosen free and bound seconds later by rank 0 can
+    be; a world then fails to start); every rank joins as a client."""
+    store, env = host_store()
+    port = int(env["MASTER_PORT"])
+    with socket.socket() as s, pytest.raises(OSError):
+        s.bind(("127.0.0.1", port))
+    del store
+    outs = run_world(3, JOIN, {})
+    assert [o.splitlines()[-1].split()[:2] for o in outs] == [["SUM", "6"]] * 3
 
 
 def _batch(n, seed):

@@ -173,17 +173,20 @@ def test_bilateral_wrapper_refuses_cuda_tensor_without_library(monkeypatch):
 
 def test_kernel_libraries_are_named_by_their_source_hash(monkeypatch, tmp_path):
     """Each .so is built once per source version, under its own name, and
-    a build that exists is not redone. The name hashes the source and, for
-    the attention kernels, the Hopper header they include."""
+    a build that exists is not redone. The name hashes the source and the
+    header it includes: the Hopper header for the attention kernels, the
+    CRF kernels' shared header for both CRF sources."""
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(cuda_build, "_nvcc", _no_plain)
-    header = os.path.join(cuda_build.CSRC, "hopper_sm90.cuh")
-    for name in ("crf_mean_field", "flash_attention", "flash_attention_bwd",
-                 "bilateral_matvec"):
+    for name in ("crf_mean_field", "crf_mean_field_bf16", "flash_attention",
+                 "flash_attention_bwd", "bilateral_matvec"):
         src = os.path.join(cuda_build.CSRC, f"{name}.cu")
         h = hashlib.sha256(open(src, "rb").read())
-        if name.startswith("flash_attention"):
-            h.update(b"hopper_sm90.cuh\0" + open(header, "rb").read())
+        header = ("hopper_sm90.cuh" if name.startswith("flash_attention") else
+                  "crf_common.cuh" if name.startswith("crf") else None)
+        if header:
+            path = os.path.join(cuda_build.CSRC, header)
+            h.update(header.encode() + b"\0" + open(path, "rb").read())
         digest = h.hexdigest()[:12]
         built = tmp_path / f"lib{name}-{digest}.so"
         built.write_bytes(b"")

@@ -197,7 +197,12 @@ BF16_TAIL_BAR = 0.9999
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed,b,k,h,stride,iters", [
     (30, 1, 1, 16, 1, 3), (31, 2, 3, 40, 4, 3), (32, 2, 5, 288, 8, 3),
-    (33, 1, 8, 96, 8, 1), (34, 2, 2, 64, 8, 0)])
+    (33, 1, 8, 96, 8, 1), (34, 2, 2, 64, 8, 0),
+    (35, 64, 5, 288, 8, 3),      # the bench batch: 64 images
+    (36, 2, 8, 288, 8, 3),       # K = 8, every class slot of the message
+    (37, 1, 3, 512, 16, 3),      # 512^2 at stride 16
+    (38, 1, 2, 128, 64, 2),      # stride 64: the cell means a phase of their own
+    (39, 2, 3, 27, 3, 3)])       # an odd width: the iterate's padded pitch
 def test_bf16_kernel_matches_plain(cuda_device, seed, b, k, h, stride, iters):
     """The bf16 mode against its plain version (JAX's ``_mf_class``
     rounding): >= 99.995% of masks (the sound kernel reads 0.99999 at the
@@ -226,7 +231,8 @@ def test_bf16_kernel_matches_plain(cuda_device, seed, b, k, h, stride, iters):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed,b,k,grid,factor,stride,iters", [
-    (40, 2, 4, 8, 4, 4, 3), (41, 2, 5, 18, 16, 8, 3), (42, 2, 5, 18, 16, 8, 0)])
+    (40, 2, 4, 8, 4, 4, 3), (41, 2, 5, 18, 16, 8, 3), (42, 2, 5, 18, 16, 8, 0),
+    (43, 2, 8, 9, 32, 8, 3)])    # K = 8 at the x32 tail
 def test_bf16_tail_kernel_matches_plain(cuda_device, seed, b, k, grid, factor,
                                         stride, iters):
     """The bf16 tail against its plain version: pred and best_w >= 99.99%,
