@@ -14,11 +14,15 @@
     python3 chip_smoke.py --model-parallel                  (phases 1-2, 14 and 15)
     python3 chip_smoke.py --model-parallel-nccl             (14e over 4 cards)
     python3 chip_smoke.py --bf16-native                     (phases 1-2, 16a-c)
+    python3 chip_smoke.py --write-fixtures DIR              (9-12's fixtures; no card)
 
 Phases (any failure raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi); refuses to run without
    CUDA; float32 matmuls must be full float32 (no TF32);
-2. builds the five kernel sources of ``simseg_tpu_torch/csrc`` with nvcc,
+2. starts the process that writes the fixtures of phases 9-12 (the
+   train entry point's cc3m layout, the probe's class folders) on the host
+   while the phases before 9 run on the card; builds the five kernel
+   sources of ``simseg_tpu_torch/csrc`` with nvcc,
    one process per source, all started together; the full run checks the
    attention and bilateral kernels (3b-3f) and runs the training slice
    (6, 6b) and the pretraining entry point (9) while the two CRF sources
@@ -244,12 +248,20 @@ Phases (any failure raises, so the exit code is non-zero):
    ``tasks.clip.train.main`` with ``runner.name=clip_bsgs``, batch 1024 in
    micro-batches of 128, on phase 9's cc3m-layout fixture with 8 decode
    threads (the deterministic resize to 224 px), ``CUT_DEPTH`` blocks a
-   tower at full width, 3 steps: finite losses,
-   no kernel launch; the run's checkpoint directory copied right after
-   its step-2 checkpoint (what a run cut there leaves) and resumed equals
-   the uninterrupted run (step 3's loss and every parameter, bit for
-   bit). Prints images/s, ms a step and peak GiB of each, the launches
-   per BSGS step and its own wall time.
+   tower at full width, 3 steps, under ``ckpt.backend=orbax`` (the
+   step directories of ``torch.distributed.checkpoint``, written in the
+   background, four threads a rank): finite losses, no kernel launch;
+   the run's directory with its step-3 directory removed (what a run cut
+   at step 2 leaves: step 2's write drained while step 3 updated the
+   weights in place) and resumed equals the uninterrupted run (step 3's
+   loss and every parameter, bit for bit); the resumed run's step 3
+   written as a reference-layout ``.pth`` by
+   ``tools/export_torch_checkpoint.main`` from the step directories and
+   read back by ``load_clip_checkpoint``, every tensor bit-equal to the
+   uninterrupted run's model. Prints images/s, ms a step and peak GiB of
+   each, the launches per BSGS step, its own wall time, the last save's
+   blocking snapshot ms and background write s, the restore's s and what
+   the export costs.
 11. data parallelism over ranks (``simseg_tpu_torch/parallel``, the launcher):
    (a) the pretraining entry point at world 1 through ``python -m
    simseg_tpu_torch.launch --nproc_per_node 1`` (NCCL) and alone, each a
@@ -409,7 +421,13 @@ Phases (any failure raises, so the exit code is non-zero):
    "bfloat16"`` on the auto, fused, fused_tail and pallas lanes and in
    float32 on auto: exact launches (``BF16_LANE_WANT``), each lane's pred
    against the float32 lane's >= 99% (printed beside the bf16 auto lane's);
-   (c) whether the native decode library (``data/native.py``) built, and
+   (c) ``decode_rgb(..., "cuda")`` on one seeded image as GIF, lossless
+   WebP, BMP, TIFF, a 16-bit grey PNG, an Adam7 PNG and a 4:1:1 JPEG (the
+   committed ``sampling_411.jpg``): each taken by PIL on the host, by its
+   header, and equal to PIL's pixels on the card, with no nvJPEG decode;
+   a PNG through the port's reader, equal; a 4:2:0 JPEG through nvJPEG
+   (one decode counted) within phase 8's bar; its time printed; then
+   whether the native decode library (``data/native.py``) built, and
    the compiler's first error line if not; on 64 generated JPEG/PNG files
    its PNG decodes bit-equal to ``data/image_io.py``'s reader, and the
    train loader's images/s (the vit-b YAML's train transforms, batch 64)
@@ -447,6 +465,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+# the checkout: the script reads its files from there, run from any directory
+REPO = os.path.dirname(os.path.abspath(__file__))
+TESTDATA = os.path.join(REPO, "simseg_tpu_torch", "data", "_testdata")
 
 BATCH = 16
 SIZE = 288
@@ -2474,7 +2496,6 @@ def write_entry_fixture(root, tokenizer, num_classes):
     one real JPEG, palette-PNG labels of 320-511 px), a seeded ViT-B/16 +
     BERT-base ``.pth`` in the reference's layout and the WordPiece vocab;
     returns (checkpoint, vocab file)."""
-    testdata = os.path.join("simseg_tpu_torch", "data", "_testdata")
     rng = np.random.default_rng(2012)
     voc = os.path.join(root, "VOCdevkit", "VOC2012")
     for sub in ("JPEGImages", "SegmentationClass", "ImageSets/Segmentation"):
@@ -2486,7 +2507,7 @@ def write_entry_fixture(root, tokenizer, num_classes):
         image, label = entry_scene(rng, ENTRY_SIZES[i % len(ENTRY_SIZES)], gt,
                                    num_classes)
         if i == ENTRY_JPEG_AT:
-            with open(os.path.join(testdata, "scene.jpg"), "rb") as f:
+            with open(os.path.join(TESTDATA, "scene.jpg"), "rb") as f:
                 data = f.read()
         else:
             data = png_bytes(image)
@@ -2568,10 +2589,9 @@ def check_nvjpeg_and_resize(dataset):
     from simseg_tpu_torch.data.image_io import decode_rgb
     from simseg_tpu_torch.data.transforms import pil_resize
 
-    testdata = os.path.join("simseg_tpu_torch", "data", "_testdata")
-    with open(os.path.join(testdata, "scene.jpg"), "rb") as f:
+    with open(os.path.join(TESTDATA, "scene.jpg"), "rb") as f:
         data = f.read()
-    want = np.load(os.path.join(testdata, "scene_pil.npy")).astype(np.int32)
+    want = np.load(os.path.join(TESTDATA, "scene_pil.npy")).astype(np.int32)
     got = decode_rgb(data, "cuda")
     diff = np.abs(got.cpu().numpy().astype(np.int32) - want)
     near = float((diff <= 2).mean())
@@ -2695,7 +2715,7 @@ def run_entry_point():
         ckpt, vocab = write_entry_fixture(root, tokenizer, len(classes))
         print(f"8 fixture: {ENTRY_SCENES} scenes and the checkpoint written in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        base = ["--cfg", os.path.join("configs", "clip", "simseg.vit-b.yaml"),
+        base = ["--cfg", ENTRY_YAML,
                 "--ckpt_path", ckpt, "--vocab_file", vocab,
                 f"data.data_path={root}/", f"data.batch_size_val={ENTRY_BATCH}"]
         launches, first = {}, None
@@ -2762,7 +2782,7 @@ def run_entry_point():
 
 # -- phase 9: the pretraining entry point ----------------------------------------
 
-ENTRY_YAML = os.path.join("configs", "clip", "simseg.vit-b.yaml")
+ENTRY_YAML = os.path.join(REPO, "configs", "clip", "simseg.vit-b.yaml")
 TRAIN_ENTRY_ROWS = {"synth": 3100, "synth2": 384}   # cc3m-layout train rows
 TRAIN_ENTRY_IMAGES = 64                    # valid images, 2 captions each
 TRAIN_ENTRY_SIDES = (240, 500)
@@ -2830,13 +2850,12 @@ def write_train_entry_fixture(root):
     ``<set>/{train,valid}/``, unfiltered PNG from ``png_bytes`` at 240-500
     px a side, plus the committed JPEG; the WordPiece vocab. Returns the
     vocab file."""
-    testdata = os.path.join("simseg_tpu_torch", "data", "_testdata")
     rng = np.random.default_rng(2012)
     jobs = []                               # (path, seed, h, w)
 
     def rows_for(base, split, n, per_image):
         os.makedirs(os.path.join(base, split))
-        shutil.copy(os.path.join(testdata, "scene.jpg"),
+        shutil.copy(os.path.join(TESTDATA, "scene.jpg"),
                     os.path.join(base, split, "scene.jpg"))
         rows = []
         for i in range(n):
@@ -2878,22 +2897,63 @@ def write_train_entry_fixture(root):
     return vocab
 
 
-_FIXTURE = {}
+_FIXTURES = {}
+FIXTURE_LIMIT = 600                        # seconds the writing process may take
+
+
+def write_fixtures(root):
+    """``--write-fixtures``: phase 9's train-entry fixture (``root/entry``,
+    also read by 10d and 11a) and phase 12a's class folders
+    (``root/probe``)."""
+    t0 = time.perf_counter()
+    write_train_entry_fixture(os.path.join(root, "entry"))
+    print(f"9 fixture: {sum(TRAIN_ENTRY_ROWS.values())} train rows and "
+          f"{TRAIN_ENTRY_IMAGES} valid images written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    write_probe_fixture(os.path.join(root, "probe"))
+    print(f"12a fixture: {PROBE_CLASSES} classes x {PROBE_TRAIN} + "
+          f"{PROBE_VAL} JPEGs in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def start_fixtures():
+    """Starts the process that writes the fixtures (``write_fixtures``)
+    into a directory removed at exit. The full run starts it first, so
+    that its host time overlaps the card-bound phases before 9; the
+    process is stopped at exit if it still runs."""
+    if _FIXTURES:
+        return
+    root = tempfile.mkdtemp(prefix="chip_smoke_fixtures_")
+    atexit.register(shutil.rmtree, root, True)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--write-fixtures", root])
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    _FIXTURES.update(root=root, proc=proc, t0=time.perf_counter())
+
+
+def fixtures():
+    """(train-entry directory, its vocab file, probe directory), once the
+    writing process has ended (started here if nothing started it)."""
+    start_fixtures()
+    if "waited" not in _FIXTURES:
+        t0 = time.perf_counter()
+        rc = _FIXTURES["proc"].wait(timeout=FIXTURE_LIMIT)
+        if rc:
+            raise AssertionError(f"the fixture process exited with {rc}")
+        _FIXTURES["waited"] = time.perf_counter() - t0
+        print(f"fixtures: written {time.perf_counter() - _FIXTURES['t0']:.1f} s "
+              f"after the process started, waited for {_FIXTURES['waited']:.1f} s",
+              flush=True)
+    entry = os.path.join(_FIXTURES["root"], "entry")
+    return entry, os.path.join(entry, "vocab.txt"), os.path.join(
+        _FIXTURES["root"], "probe")
 
 
 def train_entry_fixture():
-    """(directory, vocab file) of ``write_train_entry_fixture``, written
-    once per process (phases 9, 10d and 11a read it) into a directory
-    removed at exit."""
-    if not _FIXTURE:
-        root = tempfile.mkdtemp(prefix="chip_smoke_fixture_")
-        atexit.register(shutil.rmtree, root, True)
-        t0 = time.perf_counter()
-        _FIXTURE.update(root=root, vocab=write_train_entry_fixture(root))
-        print(f"9 fixture: {sum(TRAIN_ENTRY_ROWS.values())} train rows and "
-              f"{TRAIN_ENTRY_IMAGES} valid images written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return _FIXTURE["root"], _FIXTURE["vocab"]
+    """(directory, vocab file) of ``write_train_entry_fixture`` (phases 9,
+    10d and 11a read it)."""
+    entry, vocab, _ = fixtures()
+    return entry, vocab
 
 
 def train_entry_argv(label, data, root, vocab):
@@ -3606,54 +3666,56 @@ def time_train(label, size, b, steps, tok, batch, *extra):
     return ms, peak, counts, runner
 
 
-def big_entry_argv(data, root, vocab, label):
+def big_entry_argv(data, root, vocab):
     """10d: the vit-b YAML through the entry point with BSGS at its batch of
     1024 in micro-batches of 128, 8 decode threads, the deterministic
     resize to 224 px (random ops drawn by 8 threads would not replay, and
-    the resume check replays step 3), no validation."""
+    the resume check replays step 3), no validation, the orbax backend."""
     return ["--cfg", ENTRY_YAML, "--vocab_file", vocab,
-            f"data.data_path={data}/", f"ckpt.dir={root}/{label}",
+            f"data.data_path={data}/", f"ckpt.dir={root}/run",
             "data.train_name=[synth]", "data.valid_name=[synth]",
             "data.enable_valid=False", "runner.name=clip_bsgs",
             f"data.batch_size={BIG_BATCH}", f"data.batch_size_train={BIG_MICRO}",
             "data.num_workers=8", f"data.train_steps={BIG_ENTRY_STEPS}",
             "epoch=1", f"ckpt.step_interval={BIG_ENTRY_CUT}",
             "log.interval_train=1", "transforms.train_transforms=[resize]",
-            "transforms.resize.size=224", *CUT_ARCH]
+            "transforms.resize.size=224", "ckpt.backend=orbax", *CUT_ARCH]
 
 
-def big_entry_run(label, argv, snapshot=None):
+def big_entry_run(label, argv):
     """``tasks.clip.train.main(argv)`` with the counts set to 0 just before
-    and read just after; with ``snapshot``, the run's checkpoint directory
-    copied there right after the checkpoint of step ``BIG_ENTRY_CUT`` (what
-    a run cut at that point leaves behind), the run going on. Returns
-    (runner, losses, counts, wall s)."""
-    from simseg_tpu_torch.core.train_hooks import CheckpointHook
+    and read just after. Returns (runner, losses, counts, wall s, times:
+    the run's last save's snapshot ms and write s, and its restore's s
+    if it restored)."""
+    from simseg_tpu_torch.core import train_hooks
     from simseg_tpu_torch.tasks.clip import train as entry
 
-    save = CheckpointHook.after_train_step
+    restore = train_hooks.load_checkpoint_orbax
+    times = {}
 
-    def save_then_copy(hook, runner):
-        save(hook, runner)
-        if runner.step == BIG_ENTRY_CUT:   # the run's directory: ckpt.dir/<exp>
-            shutil.copytree(runner.cfg.ckpt.dir, os.path.join(
-                snapshot, os.path.basename(runner.cfg.ckpt.dir)))
+    def timed_restore(*a, **k):
+        t0 = time.perf_counter()
+        out = restore(*a, **k)
+        torch.cuda.synchronize()
+        times["restore_s"] = time.perf_counter() - t0
+        return out
 
     timer = StepTimer()
-    stop = (unittest.mock.patch.object(CheckpointHook, "after_train_step",
-                                       save_then_copy)
-            if snapshot else contextlib.nullcontext())
     random.seed(TRAIN_ENTRY_SEED)
     np.random.seed(TRAIN_ENTRY_SEED)
     runner = None
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with timer.patch(), stop:
+    with timer.patch(), unittest.mock.patch.object(
+            train_hooks, "load_checkpoint_orbax", timed_restore):
         runner = entry.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    mgr = next(h for h in runner._hooks
+               if isinstance(h, train_hooks.CheckpointHook))._mgr
+    times.update(snapshot_ms=mgr.last_snapshot_s * 1e3, write_s=mgr.last_write_s)
     losses = [x.item() for x in timer.losses]
     steps = [round(a.elapsed_time(b), 1) for a, b in timer.events]
     print(f"10d {label}: main() in {wall:.3f} s, {len(losses)} steps of "
@@ -3661,34 +3723,78 @@ def big_entry_run(label, argv, snapshot=None):
           f"{[round(x, 5) for x in losses]}; launches {counts}", flush=True)
     if not losses or not all(np.isfinite(losses)):
         raise AssertionError(f"10d {label}: losses {losses}")
-    return runner, losses, counts, wall
+    return runner, losses, counts, wall, times
 
 
 def check_big_entry(data, root, vocab):
-    """10d: the entry point with ``runner.name=clip_bsgs`` at 1024 / 128:
-    finite losses; the run's step-2 checkpoint directory, as a run cut
-    there leaves it, resumed gives the uninterrupted run's parameters."""
-    whole, losses, counts, _ = big_entry_run(
-        "uninterrupted", big_entry_argv(data, root, vocab, "whole"),
-        snapshot=f"{root}/cut")
+    """10d: the entry point with ``runner.name=clip_bsgs`` at 1024 / 128
+    under the orbax backend: finite losses; the run's directory with its
+    last step taken away is what a run cut at step 2 leaves (step 2's
+    write drained while step 3 updated the weights in place), and resumed
+    gives the uninterrupted run's parameters; the resumed run's ``.pth``
+    export reads back bit-equal."""
+    from simseg_tpu_torch.checkpoint.native import complete_steps
+
+    argv = big_entry_argv(data, root, vocab)
+    whole, losses, counts, _, saved = big_entry_run("uninterrupted", argv)
     check_counts("10d (224 px takes no kernel)", counts, {})
     if len(losses) != BIG_ENTRY_STEPS:
         raise AssertionError(f"10d: {len(losses)} steps")
-    resumed, rest, _, _ = big_entry_run("resumed",
-                                        big_entry_argv(data, root, vocab, "cut"))
+    shutil.rmtree(os.path.join(whole.cfg.ckpt.dir, str(BIG_ENTRY_STEPS)))
+    if complete_steps(whole.cfg.ckpt.dir) != [BIG_ENTRY_CUT]:
+        raise AssertionError(f"10d: steps {complete_steps(whole.cfg.ckpt.dir)} "
+                             f"left, not [{BIG_ENTRY_CUT}]")
+    resumed, rest, _, _, loaded = big_entry_run("resumed", argv)
     same = all(torch.equal(a, b) for a, b in zip(
         whole.model.state_dict().values(), resumed.model.state_dict().values()))
     print(f"10d resumed at step {BIG_ENTRY_CUT}, ran {len(rest)} step(s) to step "
           f"{resumed.step}; step 3's loss {rest[-1]:.6f} vs {losses[-1]:.6f}; "
           f"parameters equal to the uninterrupted run's {same}", flush=True)
+    print(f"10d orbax backend ({card_line()}): the uninterrupted run's last "
+          f"save (step {BIG_ENTRY_STEPS}): blocking snapshot "
+          f"{saved['snapshot_ms']:.1f} ms, background write "
+          f"{saved['write_s']:.3f} s; the resumed run's restore "
+          f"{loaded['restore_s']:.3f} s", flush=True)
     if len(rest) != BIG_ENTRY_STEPS - BIG_ENTRY_CUT:
         raise AssertionError(f"10d: the resumed run ran {len(rest)} step(s), not "
                              f"from step {BIG_ENTRY_CUT}'s checkpoint")
     if resumed.step != BIG_ENTRY_STEPS or not same or rest[-1] != losses[-1]:
         raise AssertionError("10d: the resumed run differs from the "
                              "uninterrupted one")
-    del whole, resumed
+    del resumed
+    check_torch_export(whole, argv, root)
+    del whole
     torch.cuda.empty_cache()
+
+
+def check_torch_export(whole, argv, root):
+    """10d: ``tools/export_torch_checkpoint.main`` on the run's step
+    directories (the latest: the resumed run's end, equal to the
+    uninterrupted run's) writes the reference-layout ``.pth``;
+    ``load_clip_checkpoint`` (strict) into a fresh model reads every
+    tensor back bit-equal to the uninterrupted run's model."""
+    from simseg_tpu_torch.checkpoint.torch_bridge import load_clip_checkpoint
+    from simseg_tpu_torch.models.clip import build_clip_model
+    from simseg_tpu_torch.tools import export_torch_checkpoint
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "whole.pth")
+    overrides = [a for a in argv if "=" in a and not a.startswith("--")]
+    report = export_torch_checkpoint.main(
+        ["--cfg", ENTRY_YAML, "--ckpt_path", whole.cfg.ckpt.dir, "--out", out,
+         "--device", "cuda", *overrides])
+    model = build_clip_model(whole.cfg).cuda()
+    load_clip_checkpoint(out, model, strict=True)
+    want = whole.model.state_dict()
+    unequal = [k for k, v in model.state_dict().items()
+               if not torch.equal(v, want[k])]
+    print(f"10d export ({card_line()}): {len(report['exported'])} tensors "
+          f"written to a reference-layout .pth from the step directories and "
+          f"read back, {len(want) - len(unequal)}/{len(want)} bit-equal, in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if unequal or model.state_dict().keys() != want.keys():
+        raise AssertionError(f"10d: the exported .pth differs on {unequal[:5]}")
+    del model
 
 
 def run_big_batch():
@@ -4970,11 +5076,7 @@ def run_linear_probe(tokenizer=None, classes=None):
     with tempfile.TemporaryDirectory() as root:
         pth = os.path.join(root, "vit_b16_224.pth")
         torch.save({"state_dict": seeded_clip(8, 224).state_dict()}, pth)
-        t0 = time.perf_counter()
-        write_probe_fixture(os.path.join(root, "data"))
-        print(f"12a fixture: {PROBE_CLASSES} classes x {PROBE_TRAIN} + "
-              f"{PROBE_VAL} JPEGs in {time.perf_counter() - t0:.1f} s", flush=True)
-        probe_entry(os.path.join(root, "data"), pth, card)
+        probe_entry(fixtures()[2], pth, card)
         probe_big_batch(pth, card)
     check_cnn_towers(card)
     check_cnn_probe(card)
@@ -4987,7 +5089,7 @@ def run_linear_probe(tokenizer=None, classes=None):
 
 
 # -- phase 13: serving export ----------------------------------------------------
-SERVE_YAML = os.path.join("configs", "clip", "simseg.vit-b.yaml")
+SERVE_YAML = ENTRY_YAML
 SERVE_LIMIT = 600                         # seconds the loading process may take
 SERVE_DEVICES = ["cuda:0", "cuda:0"]      # (f): the split logic on one card
 # the artifacts: name -> (kind, batch, weights, overrides, batches run,
@@ -6348,6 +6450,89 @@ def native_decode_files(root):
     return base, vocab
 
 
+# Adam7: (first row, first column, row step, column step) of each pass
+ADAM7 = [(0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1)]
+
+
+def format_files():
+    """16c: one seeded 24 x 40 image in each format the port's readers do
+    not take, and a PNG and a 4:2:0 JPEG, as (name, bytes, the decoder
+    ``image_io.decoder_of`` must choose for the card)."""
+    import io
+    import struct
+    import zlib
+
+    from PIL import Image
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+    img = np.random.default_rng(21).integers(0, 256, (24, 40, 3), dtype=np.uint8)
+    out = []
+    for name, fmt, kw in (("gif", "GIF", {}), ("webp", "WEBP", {"lossless": True}),
+                          ("bmp", "BMP", {}), ("tiff", "TIFF", {}),
+                          ("png", "PNG", {}),
+                          ("jpeg420", "JPEG", {"subsampling": 2, "quality": 90})):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format=fmt, **kw)
+        route = {"png": "png", "jpeg420": "nvjpeg"}.get(name, "pil")
+        out.append((name, buf.getvalue(), route))
+    buf = io.BytesIO()
+    Image.fromarray(img[..., 0].astype(np.uint16) * 257).save(buf, format="PNG")
+    out.append(("png16", buf.getvalue(), "pil"))
+    grey = img[..., 1]
+    raw = b"".join(b"\x00" + row.tobytes() for r0, c0, dr, dc in ADAM7
+                   for row in grey[r0::dr, c0::dc] if row.size)
+    ihdr = struct.pack(">IIBBBBB", 40, 24, 8, 0, 0, 0, 1)
+    out.append(("interlaced", b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""), "pil"))
+    with open(os.path.join(TESTDATA, "sampling_411.jpg"), "rb") as f:
+        out.append(("jpeg411", f.read(), "pil"))
+    return out
+
+
+def check_decode_formats():
+    """16c: every file of ``format_files`` through ``decode_rgb(...,
+    "cuda")``: the route its header gives, PIL's pixels on the card for
+    the PIL route and the PNG, the 4:2:0 JPEG within phase 8's nvJPEG bar;
+    exactly one nvJPEG decode over them all."""
+    import io
+
+    from PIL import Image
+
+    from simseg_tpu_torch.data import image_io
+
+    t0 = time.perf_counter()
+    files = format_files()
+    before = image_io.NVJPEG_DECODES
+    for name, data, route in files:
+        if image_io.decoder_of(data, "cuda") != route:
+            raise AssertionError(f"16c: {name} routed to "
+                                 f"{image_io.decoder_of(data, 'cuda')}, not {route}")
+        with Image.open(io.BytesIO(data)) as im:
+            want = np.asarray(im.convert("RGB"))
+        got = image_io.decode_rgb(data, "cuda")
+        if got.device.type != "cuda":
+            raise AssertionError(f"16c: {name} decoded to {got.device}")
+        got = got.cpu().numpy()
+        if route == "nvjpeg":
+            near = float((np.abs(got.astype(np.int32) - want) <= 2).mean())
+            if near < NVJPEG_NEAR_BAR:
+                raise AssertionError(f"16c: nvJPEG {name} {near} within 2 levels")
+        elif not np.array_equal(got, want):
+            raise AssertionError(f"16c: {name} on the card differs from PIL's")
+    decodes = image_io.NVJPEG_DECODES - before
+    print(f"16c formats ({card_line()}): "
+          + ", ".join(f"{n} -> {r}" for n, _, r in files)
+          + f"; the PIL and PNG routes equal to PIL's pixels on the card, the "
+          f"4:2:0 JPEG within {NVJPEG_NEAR_BAR} (2 levels); nvJPEG decodes "
+          f"{decodes}; in {time.perf_counter() - t0:.3f} s", flush=True)
+    if decodes != 1:
+        raise AssertionError(f"16c: {decodes} nvJPEG decodes (want 1)")
+
+
 def run_native_decode():
     """16c: whether the native decode library built here (and if not, the
     compiler's first error line); on ``NATIVE_FILES`` generated files its PNG
@@ -6361,6 +6546,7 @@ def run_native_decode():
     from simseg_tpu_torch.data.tokenizer import WordPieceTokenizer
     from simseg_tpu_torch.data.transforms import build_transforms
 
+    check_decode_formats()
     t0 = time.perf_counter()
     built = native.available()
     print(f"16c native decode library: built {built} in "
@@ -6777,6 +6963,8 @@ def compare_grad_trees(trees) -> None:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--write-fixtures"]:   # host work alone: no card
+        return write_fixtures(sys.argv[2])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke needs one")
     if sys.argv[1:2] == ["--rank-worker"]:
@@ -6860,6 +7048,7 @@ def main() -> None:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("float32 matmuls must be full float32 (TF32 on)")
     t_run = time.perf_counter()
+    start_fixtures()
     crf_built = build_all(later=CRF_SOURCES)
 
     def phase_done(label, t_from):

@@ -8,6 +8,11 @@ but imports neither JAX nor anything of ``simseg_tpu``.
 Entry points take ``device=None``, which means CUDA: there is no silent CPU
 fallback. Only an explicit ``device="cpu"`` runs on the CPU, where every
 hand-written kernel is replaced by its plain PyTorch version.
+
+The public API is JAX's lazy table (``simseg_tpu/__init__.py:27-43``),
+each name mapped to the port's counterpart and imported on first use, so
+``import simseg_tpu_torch`` loads no submodule. JAX's ``TrainState`` has
+none: the port's state is the model and its ``core/optim.Optimizer``.
 """
 
 from __future__ import annotations
@@ -17,6 +22,39 @@ import os
 import torch
 
 __version__ = "0.1.0"
+
+# Lazy public API: a submodule loads on first use of one of its names.
+_PUBLIC = {
+    "cfg": ("simseg_tpu_torch.config", "cfg"),
+    "update_cfg": ("simseg_tpu_torch.config", "update_cfg"),
+    "AttrDict": ("simseg_tpu_torch.utils.collections", "AttrDict"),
+    "logger": ("simseg_tpu_torch.utils.logger", "logger"),
+    "ENV": ("simseg_tpu_torch.utils.context", "ENV"),
+    "CLIPModel": ("simseg_tpu_torch.models.clip", "CLIPModel"),
+    "build_clip_model": ("simseg_tpu_torch.models.clip", "build_clip_model"),
+    "PIPELINE": ("simseg_tpu_torch.models.clip", "PIPELINE"),
+    "DATALOADER": ("simseg_tpu_torch.data.datasets", "DATALOADER"),
+    "make_train_step": ("simseg_tpu_torch.engine.train_step",
+                        "make_train_step"),
+    "CLIPRunner": ("simseg_tpu_torch.core.runner", "CLIPRunner"),
+    "LinearProbRunner": ("simseg_tpu_torch.core.runner", "LinearProbRunner"),
+    "make_mesh": ("simseg_tpu_torch.parallel.mesh", "make_mesh"),
+    "load_clip_checkpoint": ("simseg_tpu_torch.checkpoint.torch_bridge",
+                             "load_clip_checkpoint"),
+}
+
+
+def __getattr__(name):
+    if name in _PUBLIC:
+        import importlib
+
+        module, attr = _PUBLIC[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module 'simseg_tpu_torch' has no attribute '{name}'")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_PUBLIC))
 
 
 def resolve_device(device=None) -> torch.device:

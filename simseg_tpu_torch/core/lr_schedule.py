@@ -11,29 +11,26 @@ from __future__ import annotations
 
 import math
 from bisect import bisect_right
-from typing import Callable, Dict, Sequence
+from typing import Callable, Sequence
+
+from simseg_tpu_torch.utils.registry import Registry
 
 Schedule = Callable[[int], float]
 
 # name -> schedule factory (the JAX package's ``LR`` registry)
-LR: Dict[str, Callable[..., Schedule]] = {}
-
-
-def _register(fn):
-    LR[fn.__name__] = fn
-    return fn
+LR = Registry("LR")
 
 
 def _warmup(step: float, num_warmup_steps: int) -> float:
     return float(step) / float(max(1.0, num_warmup_steps))
 
 
-@_register
+@LR.register
 def constant_schedule(init_lr: float, **_) -> Schedule:
     return lambda step: init_lr
 
 
-@_register
+@LR.register
 def constant_schedule_with_warmup(init_lr: float, num_warmup_steps: int, **_) -> Schedule:
     def fn(step):
         if step < num_warmup_steps:
@@ -42,7 +39,7 @@ def constant_schedule_with_warmup(init_lr: float, num_warmup_steps: int, **_) ->
     return fn
 
 
-@_register
+@LR.register
 def linear_schedule_with_warmup(
     init_lr: float, num_warmup_steps: int, num_training_steps: int, **_
 ) -> Schedule:
@@ -57,7 +54,7 @@ def linear_schedule_with_warmup(
     return fn
 
 
-@_register
+@LR.register
 def multi_step_schedule_with_warmup(
     init_lr: float, num_warmup_steps: int, milestone_steps: Sequence[int],
     gamma: float = 0.1, **_
@@ -71,7 +68,7 @@ def multi_step_schedule_with_warmup(
     return fn
 
 
-@_register
+@LR.register
 def cosine_schedule_with_warmup(
     init_lr: float, num_warmup_steps: int, num_training_steps: int,
     num_cycles: float = 0.5, **_
@@ -88,7 +85,7 @@ def cosine_schedule_with_warmup(
     return fn
 
 
-@_register
+@LR.register
 def cosine_schedule_with_warmup_min_lr_scale(
     init_lr: float, num_warmup_steps: int, num_training_steps: int,
     num_cycles: float = 0.5, min_lr_scale: float = 0.01, **_
@@ -114,9 +111,7 @@ def build_schedule(cfg, total_steps: int) -> Schedule:
     lr_cfg = cfg.optim.lr
     warmup = int(lr_cfg.warmup_proportion * total_steps)
     params = dict(lr_cfg.get("param", {}))
-    if lr_cfg.name not in LR:
-        raise KeyError(f"lr schedule '{lr_cfg.name}'; known: {sorted(LR)}")
-    return LR[lr_cfg.name](
+    return LR.get(lr_cfg.name)(
         init_lr=lr_cfg.init,
         num_warmup_steps=warmup,
         num_training_steps=total_steps,

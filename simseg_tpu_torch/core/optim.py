@@ -54,8 +54,10 @@ the guard see the whole gradient and every rank decides the same.
 ``state_dict`` gathers the moments whole (a collective: every rank calls
 it; ``keep`` False drops each as it is gathered, on a rank that does not
 write), the state a data-parallel run writes, and ``load_state_dict`` cuts a
-whole state to this rank's slices. LARS's per-tensor norms span the
-slices: it is refused on a sharded leg.
+whole state to this rank's slices. LARS's per-tensor trust ratios take the
+whole tensors' norms: each rank's part (shard or slice) adds its squares,
+counted once over the world, to one sum over the ranks (``LARS``), so a
+sharded leg updates each part as one process updates the whole tensor.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 from simseg_tpu_torch.checkpoint.convert import flax_param_path
-from simseg_tpu_torch.parallel.collectives import all_reduce_max
+from simseg_tpu_torch.parallel.collectives import all_reduce_max, all_reduce_sum
 from simseg_tpu_torch.parallel.mesh import host_group
 from simseg_tpu_torch.parallel.sharding import (gather_zero_slices, grad_sq_norm,
                                                 plan_of)
@@ -112,7 +114,15 @@ class LARS(torch.optim.Optimizer):
     4. trace = u + momentum · trace, p = p + trace (``trace``).
 
     The learning rate enters before the momentum: under a changing lr this
-    is not SGD-style LARS, whose trace holds lr-free updates."""
+    is not SGD-style LARS, whose trace holds lr-free updates.
+
+    On a sharded leg a tensor here may be a shard (TP, FSDP) or a ZeRO-1
+    slice. ``shard_sum`` (set by ``Optimizer``: a sum over the world) and
+    ``counted`` (per tensor, in the groups' order: whether this rank's part
+    counts, each element of the whole tensor once over the world) make the
+    norms of step 2 the whole tensors': |p|^2 and |u|^2 of each part, summed
+    over the ranks in one reduction, then the root, so that every rank
+    scales its part by the ratio one process computes from the whole."""
 
     def __init__(self, params, lr: float = 0.0, weight_decay: float = 0.0,
                  momentum: float = 0.9, trust_coefficient: float = 0.001
@@ -120,29 +130,56 @@ class LARS(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
                                       momentum=momentum,
                                       trust_coefficient=trust_coefficient))
+        self.shard_sum = None
+        self.counted: Optional[List[bool]] = None
+
+    @staticmethod
+    def _decayed(group, p) -> torch.Tensor:
+        u = p.grad.float()
+        if group["weight_decay"]:
+            u = u + group["weight_decay"] * p.float()
+        return u
+
+    def _whole_norms(self, items) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """(|p|, |u|) of each (index, group, p) of ``items`` over the whole
+        tensors: the counted parts' squares summed over the world."""
+        device = items[0][2].device
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        sq = []
+        for i, group, p in items:
+            if self.counted[i]:
+                sq.append(torch.stack([
+                    torch.linalg.vector_norm(p.float()) ** 2,
+                    torch.linalg.vector_norm(self._decayed(group, p)) ** 2]))
+            else:
+                sq.append(torch.stack([zero, zero]))
+        return list(torch.sqrt(self.shard_sum(torch.stack(sq))).unbind(0))
 
     @torch.no_grad()
     def step(self, closure=None):
-        for group in self.param_groups:
-            lr, wd = group["lr"], group["weight_decay"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                u = p.grad.float()
-                if wd:
-                    u = u + wd * p.float()
+        items = [(i, group, p) for i, (group, p) in enumerate(
+            (g, p) for g in self.param_groups for p in g["params"])
+            if p.grad is not None]
+        if not items:
+            return
+        norms = self._whole_norms(items) if self.counted is not None else None
+        for k, (_, group, p) in enumerate(items):
+            u = self._decayed(group, p)
+            if norms is None:
                 p_norm = torch.linalg.vector_norm(p.float())
                 u_norm = torch.linalg.vector_norm(u)
-                ratio = group["trust_coefficient"] * p_norm / u_norm
-                ratio = torch.where((p_norm == 0) | (u_norm == 0),
-                                    torch.ones_like(ratio), ratio)
-                u = -lr * (u * ratio)
-                state = self.state[p]
-                if "trace" not in state:
-                    state["trace"] = torch.zeros_like(u)
-                trace = state["trace"]
-                trace.mul_(group["momentum"]).add_(u)
-                p.add_(trace.to(p.dtype))
+            else:
+                p_norm, u_norm = norms[k]
+            ratio = group["trust_coefficient"] * p_norm / u_norm
+            ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                torch.ones_like(ratio), ratio)
+            u = -group["lr"] * (u * ratio)
+            state = self.state[p]
+            if "trace" not in state:
+                state["trace"] = torch.zeros_like(u)
+            trace = state["trace"]
+            trace.mul_(group["momentum"]).add_(u)
+            p.add_(trace.to(p.dtype))
 
 
 def _rule_pattern(rule: dict) -> str:
@@ -171,6 +208,7 @@ class Optimizer:
                  skip_nonfinite: int = 0, accum_steps: int = 1,
                  plan=None, zero: Sequence[tuple] = ()) -> None:
         named = list(named_params)
+        self.names: List[str] = [n for n, _ in named]
         self.params: List[torch.nn.Parameter] = [p for _, p in named]
         self.base = base
         self.max_norm = max_norm
@@ -194,6 +232,34 @@ class Optimizer:
                                                            self.specs)})
         self._base_specs = [of.get(id(t), (None, False))
                             for g in base.param_groups for t in g["params"]]
+        name_of = {id(p): n for n, p in named}
+        name_of.update({id(o): name_of[id(p)] for p, o, _ in self._zero})
+        self._base_names = [name_of[id(t)] for g in base.param_groups
+                            for t in g["params"]]
+        if isinstance(base, LARS) and plan is not None and (
+                self._sharded or self._zero):
+            base.shard_sum = all_reduce_sum
+            base.counted = [self.owns(spec, zero)
+                            for spec, zero in self._base_specs]
+
+    def base_entries(self):
+        """(name, tensor, spec, zero) of each parameter the base optimizer
+        steps, in its state's index order: ``tensor`` is the parameter, its
+        shard, or with ``zero`` the view of its ZeRO-1 slice."""
+        tensors = [t for g in self.base.param_groups for t in g["params"]]
+        return [(n, t, spec, zero) for n, t, (spec, zero) in
+                zip(self._base_names, tensors, self._base_specs)]
+
+    def owns(self, spec, zero: bool = False) -> bool:
+        """Whether this rank's part of a base parameter counts in a sum over
+        the world that takes each element of the whole tensor once: a
+        ZeRO-1 slice on every data rank of stage 0 and model index 0 (the
+        slices differ by data rank and nothing else), else
+        ``ShardPlan.owns``."""
+        if zero:
+            m = self.plan.mesh
+            return m.stage == 0 and m.model_rank == 0
+        return self.plan.owns(spec)
 
     def set_lr(self, lr: float) -> None:
         for group in self.base.param_groups:
@@ -329,6 +395,20 @@ class Optimizer:
         self.acc = None if acc is None else [
             a.to(p.device, p.dtype).clone() for a, p in zip(acc, self.params)]
 
+    def load_local_state(self, objects: dict, state: dict, acc) -> None:
+        """A state in this rank's layout (the orbax backend's read,
+        ``checkpoint/native.py``): ``state`` the base state's tensors by
+        index, ``objects`` its param groups, non-tensor entries by
+        parameter name and counters, ``acc`` the accumulation mean."""
+        for i, name in enumerate(self._base_names):
+            for k, v in objects["state"].get(name, {}).items():
+                state.setdefault(i, {})[k] = v
+        self.base.load_state_dict({"state": state,
+                                   "param_groups": objects["param_groups"]})
+        self.notfinite_count = int(objects["notfinite_count"])
+        self.mini_step = int(objects["mini_step"])
+        self.acc = acc if objects["acc"] else None
+
 
 def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(
@@ -348,10 +428,6 @@ def build_optimizer(cfg, model: torch.nn.Module,
 
     named = list(model.named_parameters())
     plan = plan_of(model)
-    if plan is not None and cls is LARS:
-        raise NotImplementedError(
-            "LARS's per-tensor trust ratios span the shards: it is not "
-            "ported on a sharded leg (dist.tp_size / fsdp / zero1)")
     by_label: Dict[str, List[torch.nn.Parameter]] = {}
     zero = []
     for name, p in named:

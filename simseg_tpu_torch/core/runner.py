@@ -48,9 +48,8 @@ gather groups (``make_mesh``), with MoE, ToMe, dropout or a CNN tower
 
 ``cfg.profile`` registers the ``ProfileHook`` and ``wandb.enable`` the
 ``WandbHook``, as JAX's runner does (``simseg_tpu/core/runner.py:171-174``).
-The one setting of a JAX feature the port has not ported yet,
-``ckpt.backend: orbax``, is refused by name where a runner builds its step
-(``refuse_unported``, ROADMAP item 11).
+``ckpt.backend`` picks the ``CheckpointHook``'s backend, msgpack or orbax
+(``checkpoint/native.py``).
 """
 
 from __future__ import annotations
@@ -83,17 +82,6 @@ from simseg_tpu_torch.utils.collections import AttrDict
 logger = logging.getLogger(__name__)
 
 _BATCH_KEYS = ("image", "input_ids", "attention_mask", "ignore_mask", "label")
-
-
-def refuse_unported(cfg) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP item for a setting
-    that JAX acts on and the port would otherwise ignore: ``ckpt.backend:
-    orbax`` (item 11)."""
-    backend = (cfg.get("ckpt", {}) or {}).get("backend", "msgpack")
-    if backend not in (None, "msgpack"):
-        raise NotImplementedError(
-            f"ckpt.backend={backend!r} is not ported yet (the port saves "
-            "msgpack checkpoints only): ROADMAP item 11")
 
 
 def refuse_bsgs_parallel(cfg) -> None:
@@ -428,7 +416,6 @@ class CLIPRunner(EpochRunner):
         cfg = self.cfg
         if cfg.runner.name not in ("clip", "clip_bsgs"):
             raise NotImplementedError(f"runner '{cfg.runner.name}'")
-        refuse_unported(cfg)
         for enc in ("image_encoder", "text_encoder"):
             arch = dict(cfg.model[enc].get("arch", {}) or {})
             if arch.get("quant", "none") not in (None, "", "none"):
@@ -568,7 +555,6 @@ class LinearProbRunner(EpochRunner):
             raise NotImplementedError(
                 "linear probing is data-parallel only (the encoder is "
                 "frozen and the classifier tiny) — use dist.tp_size=1")
-        refuse_unported(cfg)
         for key in ("sp", "zero1", "fsdp"):
             if cfg.dist.get(key, False):
                 # JAX's probe step ignores them as well

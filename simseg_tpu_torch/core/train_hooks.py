@@ -1,9 +1,9 @@
 """Training hooks: logging, checkpointing, preemption, retrieval
 validation, profiling and wandb (port of ``simseg_tpu/core/train_hooks.py``:
-``LogHook``, ``CheckpointHook`` with the native backend, ``PreemptionHook``,
-``RetrievalEvalHook``, ``ProfileHook``, ``LinearEvalHook`` and
-``WandbHook``; the orbax backend is not ported yet, ROADMAP queue 1 item
-11).
+``LogHook``, ``CheckpointHook`` with both backends of ``ckpt.backend`` —
+``msgpack`` (the default) and ``orbax``, on ``torch.distributed.checkpoint``
+(``checkpoint/native.py``) — ``PreemptionHook``, ``RetrievalEvalHook``,
+``ProfileHook``, ``LinearEvalHook`` and ``WandbHook``).
 
 Parity: LogHook, reference ``core/hooks/log.py:64-146`` — a train line per
 interval with the step's metrics and step time, validation progress;
@@ -30,7 +30,11 @@ import torch
 
 from simseg_tpu_torch.checkpoint.native import (dump_config_snapshot,
                                                 has_checkpoint, load_checkpoint,
-                                                load_params, save_checkpoint)
+                                                load_checkpoint_orbax,
+                                                load_params,
+                                                make_orbax_manager,
+                                                save_checkpoint,
+                                                save_checkpoint_orbax)
 from simseg_tpu_torch.core.hooks import Hook
 from simseg_tpu_torch.parallel.collectives import (all_reduce_max,
                                                    allgather_rows,
@@ -98,23 +102,46 @@ class LogHook(Hook):
 
 
 class CheckpointHook(Hook):
-    """Native checkpoints under ``cfg.ckpt.dir``: every
-    ``ckpt.step_interval`` steps as ``ckpt.filename``, and at each epoch's
-    end as ``epoch_NNN``; resumed from ``latest_ckpt`` before the run."""
+    """Checkpoints under ``cfg.ckpt.dir`` with the backend of
+    ``cfg.ckpt.backend``: ``msgpack`` (the default; every
+    ``ckpt.step_interval`` steps as ``ckpt.filename``, at each epoch's end
+    as ``epoch_NNN``, resumed from ``latest_ckpt``) or ``orbax`` (a step
+    directory a save, written in the background, the latest complete step
+    resumed; JAX ``train_hooks.py:117-149, 213-233``)."""
+
+    def _backend(self, runner) -> str:
+        return runner.cfg.ckpt.get("backend", "msgpack")
+
+    def _orbax(self, runner):
+        if not hasattr(self, "_mgr"):
+            self._mgr = make_orbax_manager(runner.cfg.ckpt.dir)
+        return self._mgr
+
+    def _resumed(self, runner, meta, how: str = "") -> None:
+        runner.epoch = int(meta.get("epoch", 0))
+        runner.step = int(meta.get("step", 0))
+        runner.inner_step = int(meta.get("inner_step", 0))
+        runner.state.wandb_id = meta.get("wandb_id")
+        logger.info(f"Auto-resumed{how} at epoch {runner.epoch}, step "
+                    f"{runner.step}")
 
     def before_run(self, runner) -> None:
         cfg = runner.cfg
         dump_config_snapshot(cfg.ckpt.dir, cfg)
+        if self._backend(runner) == "orbax":
+            mgr = self._orbax(runner)
+            if cfg.ckpt.auto_resume and mgr.latest_step() is not None:
+                meta = load_checkpoint_orbax(mgr, runner.model, runner.optimizer)
+                self._resumed(runner, meta, " (orbax)")
+                return
+            if cfg.ckpt.external_resume:
+                self._load_external(runner, cfg.ckpt.external_resume)
+            return
         if cfg.ckpt.auto_resume and has_checkpoint(cfg.ckpt.dir):
             try:
                 meta = load_checkpoint(cfg.ckpt.dir, runner.model,
                                        runner.optimizer)
-                runner.epoch = int(meta.get("epoch", 0))
-                runner.step = int(meta.get("step", 0))
-                runner.inner_step = int(meta.get("inner_step", 0))
-                runner.state.wandb_id = meta.get("wandb_id")
-                logger.info(f"Auto-resumed at epoch {runner.epoch}, step "
-                            f"{runner.step}")
+                self._resumed(runner, meta)
                 return
             except Exception:  # parity: the reference's fallback
                 logger.warning("Auto-resume failed; trying external",
@@ -145,8 +172,17 @@ class CheckpointHook(Hook):
                 "wandb_id": runner.state.get("wandb_id")}
 
     def _save(self, runner, name: str, meta) -> None:
-        save_checkpoint(runner.cfg.ckpt.dir, name, runner.model,
-                        runner.optimizer, meta)
+        if self._backend(runner) == "orbax":
+            save_checkpoint_orbax(self._orbax(runner), runner.step,
+                                  runner.model, runner.optimizer, meta)
+        else:
+            save_checkpoint(runner.cfg.ckpt.dir, name, runner.model,
+                            runner.optimizer, meta)
+
+    def wait(self) -> None:
+        """Joins an orbax-backend write in flight."""
+        if hasattr(self, "_mgr"):
+            self._mgr.wait_until_finished()
 
     def after_train_step(self, runner) -> None:
         interval = runner.cfg.ckpt.step_interval
@@ -158,6 +194,9 @@ class CheckpointHook(Hook):
         meta["epoch"] = runner.epoch + 1
         meta["inner_step"] = 0
         self._save(runner, f"epoch_{runner.epoch + 1:03d}", meta)
+
+    def after_run(self, runner) -> None:
+        self.wait()
 
 
 class PreemptionHook(Hook):
@@ -206,6 +245,7 @@ class PreemptionHook(Hook):
         for hook in runner._hooks:
             if isinstance(hook, CheckpointHook):
                 hook._save(runner, runner.cfg.ckpt.filename, hook._meta(runner))
+                hook.wait()   # the write ends before the process does
                 saved = True
         status = "written" if saved else "SKIPPED (no CheckpointHook)"
         logger.warning(f"Preemption checkpoint {status} at epoch "

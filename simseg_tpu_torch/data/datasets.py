@@ -15,7 +15,8 @@ and its label map at the raw size) and ``linear_prob/linear_dataset.py``
 (ImageNet's class-per-directory folders).
 
 Images are decoded by ``data/image_io.py`` (the port's PNG reader; PIL
-for a JPEG on the CPU, nvJPEG on the card). The seg loader transforms on
+for a JPEG on the CPU, nvJPEG on the card; PIL on the host for every file
+neither takes, as JAX reads every file). The seg loader transforms on
 its device, so a loader for the card yields ``image`` as a CUDA uint8
 tensor. The pair datasets decode and augment on the host (the train ops
 are PIL's, ``data/train_transforms.py``), as the JAX loader does, and
@@ -43,8 +44,13 @@ import torch
 
 from simseg_tpu_torch import resolve_device
 from simseg_tpu_torch.data.corruption import process_caption
-from simseg_tpu_torch.data.image_io import decode_rgb, image_size, read_png_array
+from simseg_tpu_torch.data.image_io import decode_rgb, image_size, read_label_array
 from simseg_tpu_torch.data.transforms import build_transforms
+from simseg_tpu_torch.utils.registry import Registry
+
+# loader factories by name (JAX ``DATALOADER``, ``simseg_tpu/data/
+# datasets.py:41``): ``clip``, ``seg`` and ``imagenet_local``
+DATALOADER = Registry("DATALOADER")
 
 
 def read_csv_columns(path: str) -> Dict[str, List[str]]:
@@ -203,7 +209,7 @@ class SegDataset:
         return os.path.join(self.label_path, label_name + ".png")
 
     def max_label_size(self) -> tuple:
-        """(max_h, max_w) over all GT label maps, from the PNG headers only;
+        """(max_h, max_w) over all GT label maps, from the file headers only;
         cached, since the split does not change."""
         if not hasattr(self, "_max_label_size"):
             mh = mw = 0
@@ -218,7 +224,7 @@ class SegDataset:
         with open(os.path.join(self.image_path, item + ".jpg"), "rb") as f:
             image = decode_rgb(f.read(), self.device)
         with open(self._label_file(item), "rb") as f:
-            label = read_png_array(f.read())
+            label = read_label_array(f.read())
         return {"image": self.transforms(image),
                 "mask_label": label.astype(np.int32)}
 
@@ -440,6 +446,7 @@ def build_seg_valid_loader(cfg, name: str, device=None) -> DataLoader:
                       shard_index=shard, shard_count=nshards)
 
 
+@DATALOADER.register(name="clip")
 def build_clip_dataloaders(cfg, tokenizer=None) -> Dict[str, Any]:
     """The CLIP task's loaders (parity: clip_dataset.py:237-253):
     {"train": [loader, ...], "train_dataset": [dataset, ...] or None,
@@ -503,6 +510,17 @@ def build_clip_dataloaders(cfg, tokenizer=None) -> Dict[str, Any]:
     return dict(train=train, train_dataset=train_datasets, val=val)
 
 
+@DATALOADER.register(name="seg")
+def build_seg_dataloaders(cfg, device=None) -> Dict[str, Any]:
+    """The seg task's val loaders, one per ``data.valid_name`` (JAX
+    ``build_seg_dataloaders``)."""
+    val = []
+    if cfg.data.enable_valid:
+        val = [build_seg_valid_loader(cfg, n, device) for n in cfg.data.valid_name]
+    return dict(val=val)
+
+
+@DATALOADER.register(name="imagenet_local")
 def build_imagenet_dataloaders(cfg) -> Dict[str, Any]:
     """The linear probe's loaders over ``<data_path>/{train,val}`` class
     folders (JAX ``build_imagenet_dataloaders``): the train loader shuffled,

@@ -1,25 +1,34 @@
-"""Image decoding without PIL on the card (counterpart of the PIL decode in
-``simseg_tpu/data/datasets.py:189, :197-198`` and of ``data/native.py``).
+"""Image decoding without PIL on the card where it can (counterpart of the
+PIL decode in ``simseg_tpu/data/datasets.py:95, 136, 189, 197-198, 225``
+and of ``data/native.py``).
 
 The format is sniffed from the file's first bytes, as PIL does, not from
-its name: a ``.jpg`` may hold PNG content.
+its name: a ``.jpg`` may hold PNG content. The decoder is chosen from the
+header, before any decode (``decoder_of``), never by catching an error:
 
-- **PNG** is read by the port's own reader (``zlib`` and numpy) on every
-  device: colour types L, P, RGB, LA and RGBA, bit depths 1/2/4/8, the
-  five row filters. ``read_png_array`` gives what ``np.asarray(Image.open(p))``
-  gives (palette indices for P, bool for 1-bit grey, 2- and 4-bit grey
-  scaled to 0-255); ``decode_rgb`` gives ``Image.open(p).convert("RGB")``
-  (the palette looked up, grey replicated, alpha dropped). Interlaced and
-  16-bit files raise.
+- **PNG** of 1/2/4/8 bits, not interlaced, is read by the port's own
+  reader (``zlib`` and numpy) on every device: colour types L, P, RGB, LA
+  and RGBA, the five row filters. ``read_png_array`` gives what
+  ``np.asarray(Image.open(p))`` gives (palette indices for P, bool for
+  1-bit grey, 2- and 4-bit grey scaled to 0-255); ``decode_rgb`` gives
+  ``Image.open(p).convert("RGB")`` (the palette looked up, grey
+  replicated, alpha dropped).
 - **JPEG** is decoded by PIL for a CPU caller (the library the JAX package
   decodes with) and by nvJPEG for a CUDA caller (``csrc/nvjpeg_decode.cu``,
   linked against the CUDA toolkit's ``libnvjpeg``, built at first use):
   nvJPEG's IDCT gives the component planes, and libjpeg's chroma
   upsampling and integer colour conversion (``libjpeg_upsample``,
   ``libjpeg_ycc_to_rgb``) finish them on the card, so only the IDCT's
-  rounding differs from PIL. The device the caller names chooses the
-  decoder; a CUDA decode never falls back to PIL. ``NVJPEG_DECODES``
-  counts the nvJPEG decodes.
+  rounding differs from PIL. nvJPEG takes the 8-bit Huffman JPEGs (SOF0-2)
+  of one component or of three YCbCr components at 4:4:4, 4:2:2 or 4:2:0,
+  read from the SOF segment's sampling factors. ``NVJPEG_DECODES`` counts
+  the nvJPEG decodes.
+- **Everything else** (GIF, WebP, BMP, TIFF, 16-bit or interlaced PNG,
+  4:1:1 or 4:4:0 JPEG, CMYK or RGB JPEG, ...) is decoded by PIL on
+  the host, as JAX decodes every file, and moved to the device asked for.
+
+A failure of the port's PNG reader or of nvJPEG on a file the header gave
+them raises; it is never handed to PIL.
 """
 
 from __future__ import annotations
@@ -38,8 +47,8 @@ import torch
 from simseg_tpu_torch import resolve_device
 from simseg_tpu_torch.ops import cuda_build
 
-__all__ = ["NVJPEG_DECODES", "decode_rgb", "image_format", "image_size",
-           "read_png_array"]
+__all__ = ["NVJPEG_DECODES", "decode_rgb", "decoder_of", "image_format",
+           "image_size", "read_label_array", "read_png_array"]
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8\xff"
@@ -102,14 +111,104 @@ def _header(ihdr: bytes) -> Tuple[int, int, int, int]:
     return w, h, depth, colour
 
 
+def _png_reader_takes(data: bytes) -> bool:
+    """Whether the port's PNG reader takes this PNG, from its IHDR: every
+    file but a 16-bit or an interlaced one (what the IHDR holds otherwise
+    is the reader's to check)."""
+    if data[12:16] != b"IHDR" or len(data) < 29:
+        return True
+    depth, interlace = data[24], data[28]
+    return depth != 16 and not interlace
+
+
+def _jpeg_frame(data: bytes):
+    """(SOF marker, sample precision, [(h, v) sampling factors of each
+    component], Adobe colour transform or None, [component IDs]) from the
+    JPEG's markers up to its first SOF segment; None when the header ends
+    first."""
+    pos, adobe = 2, None
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            return None
+        marker = data[pos + 1]
+        if marker == 0xFF:          # fill byte
+            pos += 1
+            continue
+        if marker == 0x01 or 0xD0 <= marker <= 0xD8:
+            pos += 2                # no length
+            continue
+        if marker in (0xD9, 0xDA):  # end of image / scan before any frame
+            return None
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        seg = data[pos + 4:pos + 2 + length]
+        if marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+            adobe = seg[11]
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            if len(seg) < 6:
+                return None
+            n = seg[5]
+            comps = [(seg[7 + 3 * i] >> 4, seg[7 + 3 * i] & 15)
+                     for i in range(n) if 8 + 3 * i < len(seg)]
+            ids = [seg[6 + 3 * i] for i in range(len(comps))]
+            return marker, seg[0], comps, adobe, ids
+        pos += 2 + length
+    return None
+
+
+# chroma upsampling factors (vertical, horizontal) the card path finishes
+_NVJPEG_SUBSAMPLING = ((1, 1), (1, 2), (2, 2))
+
+
+def _nvjpeg_takes(data: bytes) -> bool:
+    """Whether the card's JPEG path takes this JPEG, from its SOF segment:
+    baseline, extended or progressive Huffman at 8 bits, grey, or YCbCr
+    whose two chroma components share a sampling that is 4:4:4, 4:2:2 or
+    4:2:0 of the luma's. libjpeg (so PIL) reads three components as RGB,
+    not YCbCr, under an Adobe transform of 0 or, with no Adobe marker,
+    under the component IDs 'R', 'G', 'B': those go to PIL."""
+    frame = _jpeg_frame(data)
+    if frame is None:
+        return False
+    marker, precision, comps, adobe, ids = frame
+    if marker not in (0xC0, 0xC1, 0xC2) or precision != 8:
+        return False
+    if len(comps) == 1:
+        return True
+    if len(comps) != 3 or adobe == 0 or comps[1] != comps[2]:
+        return False   # adobe 0: RGB, not YCbCr
+    if adobe is None and ids == list(b"RGB"):
+        return False
+    (hy, vy), (hc, vc) = comps[0], comps[1]
+    if not hc or not vc or hy % hc or vy % vc:
+        return False
+    return (vy // vc, hy // hc) in _NVJPEG_SUBSAMPLING
+
+
+def decoder_of(data: bytes, device=None) -> str:
+    """Which decoder takes ``data`` for ``device`` (None: CUDA), from the
+    header alone: ``"png"`` (the port's reader), ``"nvjpeg"``, or ``"pil"``
+    (on the host, then moved to the device)."""
+    kind = image_format(data)
+    if kind == "png" and _png_reader_takes(data):
+        return "png"
+    cuda = device is None or torch.device(device).type == "cuda"
+    if kind == "jpeg" and cuda and _nvjpeg_takes(data):
+        return "nvjpeg"
+    return "pil"
+
+
 def image_size(path: str) -> Tuple[int, int]:
-    """(width, height) of a PNG file from its IHDR chunk alone."""
+    """(width, height) of an image file: a PNG's from its IHDR chunk alone,
+    any other file's from PIL's header read (JAX ``max_label_size``)."""
     with open(path, "rb") as f:
         head = f.read(len(PNG_MAGIC) + 8 + 13)
-    if not head.startswith(PNG_MAGIC) or head[12:16] != b"IHDR":
-        raise ValueError(f"{path}: not a PNG file")
-    w, h = struct.unpack(">II", head[16:24])
-    return w, h
+    if head.startswith(PNG_MAGIC) and head[12:16] == b"IHDR":
+        w, h = struct.unpack(">II", head[16:24])
+        return w, h
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return im.size
 
 
 def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
@@ -182,6 +281,18 @@ def _png(data: bytes):
     return rows.reshape(h, w, channels), depth, colour, palette
 
 
+def read_label_array(data: bytes) -> np.ndarray:
+    """A label file's array as ``np.asarray(Image.open(...))`` gives it (JAX
+    ``SegDataset``): the port's PNG reader for the PNGs it takes, PIL for
+    any other file (16-bit or interlaced PNG, another format)."""
+    if image_format(data) == "png" and _png_reader_takes(data):
+        return read_png_array(data)
+    from PIL import Image
+
+    with Image.open(BytesIO(data)) as im:
+        return np.asarray(im)
+
+
 def read_png_array(data: bytes) -> np.ndarray:
     """A PNG's pixels as ``np.asarray(Image.open(...))`` gives them:
     (H, W) for L, 1-bit grey (bool) and P (palette indices); (H, W, c) for
@@ -216,9 +327,9 @@ def _pil_rgb(data: bytes) -> np.ndarray:
     try:
         from PIL import Image
     except ImportError as err:
-        raise RuntimeError("decoding a JPEG on the CPU needs PIL, which is "
-                           "not installed; decode on the card (nvJPEG) "
-                           "instead") from err
+        raise RuntimeError("decoding this file needs PIL (a JPEG on the CPU, "
+                           "or a format the port's readers do not take), "
+                           "which is not installed") from err
     with Image.open(BytesIO(data)) as im:
         return np.array(im.convert("RGB"), dtype=np.uint8)
 
@@ -335,15 +446,13 @@ def _nvjpeg_rgb(data: bytes, device: torch.device) -> torch.Tensor:
 
 
 def decode_rgb(data: bytes, device=None) -> torch.Tensor:
-    """An encoded PNG or JPEG as (H, W, 3) uint8 RGB on ``device`` (None:
-    CUDA), equal to PIL's ``Image.open(...).convert("RGB")`` for PNG and,
-    for JPEG, PIL's own on the CPU and nvJPEG's on the card."""
+    """An encoded image as (H, W, 3) uint8 RGB on ``device`` (None: CUDA),
+    equal to PIL's ``Image.open(...).convert("RGB")``, through the decoder
+    ``decoder_of`` gives it (for a JPEG on the card nvJPEG's IDCT)."""
     device = resolve_device(device)
-    kind = image_format(data)
-    if kind == "png":
+    route = decoder_of(data, device)
+    if route == "png":
         return torch.from_numpy(_png_rgb(data)).to(device)
-    if kind == "jpeg":
-        if device.type == "cuda":
-            return _nvjpeg_rgb(data, device)
-        return torch.from_numpy(_pil_rgb(data))
-    raise ValueError("unsupported image format: neither PNG nor JPEG")
+    if route == "nvjpeg":
+        return _nvjpeg_rgb(data, device)
+    return torch.from_numpy(_pil_rgb(data)).to(device)

@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from simseg_tpu_torch.data.image_io import decode_rgb
-from simseg_tpu_torch.data.transforms import (native_decode_head, native_head,
-                                              read_bytes)
+from simseg_tpu_torch.data.transforms import (TRANSFORMS, native_decode_head,
+                                              native_head, read_bytes)
 
 try:
     from PIL import Image, ImageEnhance, ImageFilter, ImageOps
@@ -41,11 +41,13 @@ except ImportError as err:
 
 # -- geometry -------------------------------------------------------------------
 
+@TRANSFORMS.register
 def resize(cfg) -> Callable:
     size = cfg.transforms.resize.size
     return lambda img: img.resize((size, size), Image.BILINEAR)
 
 
+@TRANSFORMS.register
 def resize_bicubic(cfg) -> Callable:
     size = cfg.transforms.resize_bicubic.size
 
@@ -59,6 +61,7 @@ def resize_bicubic(cfg) -> Callable:
     return fn
 
 
+@TRANSFORMS.register
 def center_crop(cfg) -> Callable:
     size = cfg.transforms.center_crop.size
 
@@ -70,6 +73,7 @@ def center_crop(cfg) -> Callable:
     return fn
 
 
+@TRANSFORMS.register
 def random_crop(cfg) -> Callable:
     size = cfg.transforms.random_crop.size
 
@@ -83,12 +87,14 @@ def random_crop(cfg) -> Callable:
     return fn
 
 
+@TRANSFORMS.register
 def random_flip(cfg) -> Callable:
     return lambda img: (
         img.transpose(Image.FLIP_LEFT_RIGHT) if random.random() < 0.5 else img
     )
 
 
+@TRANSFORMS.register
 def random_resize_crop(cfg) -> Callable:
     size = cfg.transforms.random_resize_crop.size
     scale = tuple(cfg.transforms.random_resize_crop.scale)
@@ -124,6 +130,7 @@ def random_resize_crop(cfg) -> Callable:
 
 # -- colour ---------------------------------------------------------------------
 
+@TRANSFORMS.register
 def color_jitter(cfg) -> Callable:
     strength = float(cfg.transforms.color_jitter)
 
@@ -136,6 +143,7 @@ def color_jitter(cfg) -> Callable:
     return fn
 
 
+@TRANSFORMS.register
 def gaussian_blur(cfg) -> Callable:
     p = cfg.transforms.gaussian_blur.p
     rmin = cfg.transforms.gaussian_blur.radius_min
@@ -149,6 +157,7 @@ def gaussian_blur(cfg) -> Callable:
     return fn
 
 
+@TRANSFORMS.register
 def color_distortion(cfg) -> Callable:
     """SimCLR-style strong jitter, then grey with probability 0.2."""
     s = cfg.transforms.color_distortion.strength
@@ -263,16 +272,15 @@ class ImageNetPolicy:
         return apply_sub_policy(img, random.choice(IMAGENET_POLICY))
 
 
+@TRANSFORMS.register
 def autoaug(cfg) -> Callable:
     return ImageNetPolicy()
 
 
-TRAIN_OPS = {"resize": resize, "resize_bicubic": resize_bicubic,
-             "center_crop": center_crop, "random_crop": random_crop,
-             "random_flip": random_flip,
-             "random_resize_crop": random_resize_crop,
-             "color_jitter": color_jitter, "gaussian_blur": gaussian_blur,
-             "color_distortion": color_distortion, "autoaug": autoaug}
+# the built-in ops of the registry (a user's ``@TRANSFORMS.register`` op
+# may come before or after them)
+BUILTIN_OPS = frozenset(n for n in TRANSFORMS
+                        if TRANSFORMS.get(n).__module__ == __name__)
 
 
 # -- random erasing (after the conversion to an array) ---------------------------
@@ -330,12 +338,12 @@ class TrainPipeline:
 
     def __init__(self, cfg):
         self.names: List[str] = list(cfg.transforms.train_transforms)
-        unknown = [n for n in self.names if n not in TRAIN_OPS]
+        unknown = [n for n in self.names if n not in TRANSFORMS]
         if unknown:
             raise NotImplementedError(
                 f"train transforms {unknown}: the registered ops are "
-                f"{sorted(TRAIN_OPS)}")
-        self.ops: List[Callable] = [TRAIN_OPS[n](cfg) for n in self.names]
+                f"{sorted(TRANSFORMS)}")
+        self.ops: List[Callable] = [TRANSFORMS.get(n)(cfg) for n in self.names]
         self.erasing = None
         re_cfg = cfg.transforms.random_erasing
         if re_cfg.reprob > 0:

@@ -17,6 +17,15 @@ Images are (H, W, 3) uint8 tensors on any device. Train mode runs PIL on
 the host (``data/train_transforms.py``, imported only there), so the eval
 path needs no PIL.
 
+``TRANSFORMS`` is JAX's registry of ops by name (``simseg_tpu/data/
+transforms.py:29``): the train ops, which ``data/train_transforms.py``
+registers when it is imported, and any op a user registers with
+``@TRANSFORMS.register`` (a factory ``cfg -> op`` whose op takes and
+returns a PIL image, as JAX's do). The train pipeline looks
+every name up there; the eval pipeline takes its three tensor ops
+(``VALID_OPS``) and a user's op through PIL, and refuses the built-in
+random ops.
+
 The native decode fast path (JAX ``TransformPipeline._plan_native_head``,
 ``from_bytes`` and ``load``, :354-500): under ``data.native_decode`` (the
 default) both pipelines' ``load`` / ``from_bytes`` fold the leading
@@ -38,6 +47,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from simseg_tpu_torch.utils.registry import Registry
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -168,6 +179,39 @@ def center_crop(cfg) -> Callable[[torch.Tensor], torch.Tensor]:
 
 VALID_OPS = {"resize": resize, "resize_bicubic": resize_bicubic,
              "center_crop": center_crop}
+
+
+TRANSFORMS = Registry("TRANSFORMS")
+
+
+def _user_op(factory: Callable, cfg) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A registered PIL op on the eval path's tensors: the image to PIL and
+    back to (H, W, 3) uint8 on its device."""
+    from simseg_tpu_torch.data.train_transforms import to_pil
+
+    op = factory(cfg)
+
+    def fn(img):
+        out = np.array(op(to_pil(img)).convert("RGB"), dtype=np.uint8)
+        return torch.from_numpy(out).to(img.device)
+    return fn
+
+
+def valid_op(name: str, cfg) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The eval path's op of ``name``: one of ``VALID_OPS``, or a user's
+    registered op through PIL; the built-in random ops and unknown names
+    raise."""
+    if name in VALID_OPS:
+        return VALID_OPS[name](cfg)
+    # registers the built-in ops, so that they are known here
+    from simseg_tpu_torch.data.train_transforms import BUILTIN_OPS
+
+    if name in TRANSFORMS and name not in BUILTIN_OPS:
+        return _user_op(TRANSFORMS.get(name), cfg)
+    raise NotImplementedError(
+        f"valid transform {name!r}: the eval path has {sorted(VALID_OPS)} "
+        "(deterministic, PIL-free) and the ops a user registers in "
+        "TRANSFORMS; the random ops belong in train_transforms")
 
 
 def native_head(names: Sequence[str], cfg) -> Optional[Callable]:
@@ -303,13 +347,7 @@ class TransformPipeline:
                              "the train pipeline")
         self.names: Sequence[str] = list(cfg.transforms.valid_transforms)
         self.mode = mode
-        unknown = [n for n in self.names if n not in VALID_OPS]
-        if unknown:
-            raise NotImplementedError(
-                f"valid transforms {unknown}: the eval path has "
-                f"{sorted(VALID_OPS)} (deterministic, PIL-free); the random "
-                "ops belong in train_transforms")
-        self.ops: List[Callable] = [VALID_OPS[n](cfg) for n in self.names]
+        self.ops: List[Callable] = [valid_op(n, cfg) for n in self.names]
         self._head = native_head(self.names, cfg)
 
     def __call__(self, img: torch.Tensor, start: int = 0) -> torch.Tensor:

@@ -40,6 +40,10 @@ from simseg_tpu_torch.models.layers import number_dropout_sites
 from simseg_tpu_torch.models.projection import ComplexProjection, SimpleProjection
 from simseg_tpu_torch.models.vit import build_vit
 from simseg_tpu_torch.ops.pooling import avg_pool, l2_normalize, topk_pool
+from simseg_tpu_torch.utils.registry import Registry
+
+# model factories by name (JAX ``PIPELINE``, ``simseg_tpu/models/clip.py:33``)
+PIPELINE = Registry("PIPELINE")
 
 
 class _Wrapper(nn.Module):
@@ -231,6 +235,7 @@ class CLIPModel(nn.Module):
         return img, txt, self.temperature()
 
 
+@PIPELINE.register(name="clip")
 def build_clip_model(cfg, mesh=None) -> CLIPModel:
     """The CLIP model of a config tree (JAX ``build_clip_model``,
     ``simseg_tpu/models/clip.py:221-284``), float32 parameters, computing in

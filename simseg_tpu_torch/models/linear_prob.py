@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from simseg_tpu_torch.models.clip import _Wrapper
+from simseg_tpu_torch.models.clip import PIPELINE, _Wrapper
 from simseg_tpu_torch.models.layers import Linear
 from simseg_tpu_torch.ops.losses import label_smoothing_ce, soft_target_ce
 
@@ -110,6 +110,7 @@ def linear_prob_loss_fn(model, batch: Dict[str, torch.Tensor], key=None,
     return loss, {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}
 
 
+@PIPELINE.register(name="linear_prob")
 def build_linear_prob_model(cfg) -> LinearProbModel:
     """The probe of a config tree (JAX ``build_linear_prob_model``), float32
     parameters, computing in bf16 under ``dist.bf16``, with JAX's two

@@ -57,6 +57,7 @@ import logging
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -126,6 +127,33 @@ class ShardPlan:
 
     def zero_full(self, local: torch.Tensor, spec: ParamSpec) -> torch.Tensor:
         return gather_dim(local.detach(), spec.zero_dim, self.mesh.data_group)
+
+    def index(self, spec: ParamSpec, zero: bool = False):
+        """Where this rank's part lies in the whole tensor: per dim of the
+        whole (``spec.shape``), the whole indices of the part's positions,
+        in order (numpy int64), so that ``whole[np.ix_(*index)]`` is
+        ``local(whole, spec)``, or with ``zero`` ``zero_local(whole,
+        spec)``. A checkpoint writes and reads parts by these indices, no
+        rank gathering another's part."""
+        m = self.mesh
+        idx = [np.arange(n) for n in spec.shape]
+        if zero:
+            d = spec.zero_dim
+            size = spec.shape[d] // m.data_size
+            idx[d] = idx[d][m.data_rank * size:(m.data_rank + 1) * size]
+            return idx
+        if spec.tp_dim is not None:
+            d, c = spec.tp_dim, spec.tp_chunks
+            chunk = spec.shape[d] // c
+            part = chunk // m.tp
+            idx[d] = np.concatenate([np.arange(j * chunk + m.model_rank * part,
+                                               j * chunk + (m.model_rank + 1) * part)
+                                     for j in range(c)])
+        if spec.data_dim is not None:
+            d = spec.data_dim
+            size = len(idx[d]) // m.group_ranks
+            idx[d] = idx[d][m.rank_in_group * size:(m.rank_in_group + 1) * size]
+        return idx
 
     def owns(self, spec: Optional[ParamSpec]) -> bool:
         """Whether this rank counts its shard of the parameter once over the

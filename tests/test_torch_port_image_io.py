@@ -7,8 +7,10 @@ RGB, LA, RGBA), bit depths 1, 2, 4 and 8, and each row's filter drawn from
 the five PNG filters, so that every unfilter path runs. Bars: bit-equal
 to PIL for ``np.asarray(Image.open(f))`` (dtype, shape and values) and for
 ``.convert("RGB")``; header sizes equal to PIL's; interlaced and 16-bit
-files refused with a reason. The committed JPEG decodes on the CPU equal
-to the PIL pixels committed beside it.
+files refused by the reader with a reason, and routed to PIL by their
+header (``tests/test_torch_port_image_formats.py`` holds that route
+against JAX). The committed JPEG decodes on the CPU equal to the PIL
+pixels committed beside it.
 """
 
 import io
@@ -154,18 +156,28 @@ def test_pil_written_files_and_header_size(tmp_path):
 
 
 def test_interlaced_and_16_bit_files_raise():
+    """The port's reader refuses both with a reason; their IHDR sends them
+    to PIL before any decode, so ``decode_rgb`` never reaches that
+    refusal."""
     samples = np.zeros((4, 4), np.int64)
     interlaced = write_png(samples, 8, 0, [0] * 4, interlace=1)
     with pytest.raises(ValueError, match="interlaced"):
         image_io.read_png_array(interlaced)
     deep = write_png(samples, 8, 0, [0] * 4, file_depth=16)
     with pytest.raises(ValueError, match="16-bit"):
-        image_io.decode_rgb(deep, "cpu")
+        image_io.read_png_array(deep)
+    for data in (interlaced, deep):
+        assert image_io.decoder_of(data, "cpu") == "pil"
+    assert image_io.decoder_of(write_png(samples, 8, 0, [0] * 4), "cpu") == "png"
 
 
 def test_unknown_format_raises():
-    with pytest.raises(ValueError, match="neither PNG nor JPEG"):
-        image_io.decode_rgb(b"GIF89a" + bytes(20), "cpu")
+    """A file no reader can open raises PIL's error (it is PIL's to read,
+    as in JAX), a broken GIF included."""
+    for data in (b"GIF89a" + bytes(20), b"not an image at all"):
+        assert image_io.decoder_of(data, "cpu") == "pil"
+        with pytest.raises(OSError):
+            image_io.decode_rgb(data, "cpu")
 
 
 def test_committed_jpeg_decodes_as_pil_on_the_cpu():

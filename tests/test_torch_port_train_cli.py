@@ -15,6 +15,8 @@ within 1e-4 relative (float32 sums in another order, through three Adam
 steps); each validation's R@1/5/10 and RSUM within 1e-6.
 """
 
+import json
+import os
 import random
 import unittest.mock
 
@@ -37,6 +39,7 @@ from simseg_tpu.models.clip import build_clip_model as jax_build_clip_model
 from simseg_tpu.tasks.clip.config import task_cfg_init_fn as jax_task_cfg_init_fn
 from simseg_tpu.tasks.clip.config import update_clip_config as jax_update_clip_config
 from simseg_tpu_torch.checkpoint.convert import flax_params_to_state_dict
+from simseg_tpu_torch.checkpoint.native import complete_steps
 from simseg_tpu_torch.data.tokenizer import make_test_vocab
 from simseg_tpu_torch.tasks.clip import train as port_train
 from tests.test_torch_port_pair_data import WORDS, write_pair_set
@@ -211,31 +214,53 @@ def test_train_main_bsgs_matches_jax(tmp_path):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5, err_msg=key)
 
 
-# settings JAX acts on that the port has not ported: each refused by name,
-# with its ROADMAP item, where the runner builds its step (``wandb.enable``
-# and ``profile`` train: tests/test_torch_port_hooks.py)
-UNPORTED = {"ckpt.backend=orbax": "item 11"}
-
-
 @pytest.fixture(scope="module")
-def refusal_fixture(tmp_path_factory):
-    root = tmp_path_factory.mktemp("refusals")
+def pair_fixture(tmp_path_factory):
+    root = tmp_path_factory.mktemp("pairs")
     write_pair_set(root / "data", "pairs", 8, 0, seed=16)
     (root / "clip.yaml").write_text(CLIP_YAML)
     (root / "vocab.txt").write_text("\n".join(make_test_vocab(WORDS)) + "\n")
     return root
 
 
-@pytest.mark.parametrize("setting", list(UNPORTED))
-def test_train_main_refuses_unported_settings(refusal_fixture, setting):
-    root = refusal_fixture
+def test_train_main_trains_saves_and_resumes_with_the_orbax_backend(pair_fixture):
+    """``ckpt.backend=orbax`` (JAX's key and value): ``main(argv)`` over 24
+    pairs in batches of 8, ``ckpt.step_interval=2``. One epoch leaves the
+    complete step directories 2 (interval) and 3 (the epoch's end); a
+    second run of two epochs auto-resumes at step 3, saves steps 4 and 6
+    and saves step 6 again at the epoch's end (the later meta wins), and
+    keeps three steps; its parameters and AdamW moments are bit-equal to
+    an uninterrupted two-epoch run's."""
+    root = pair_fixture
+    if not (root / "data24").exists():
+        write_pair_set(root / "data24", "pairs", 24, 0, seed=21)
     argv = ["--cfg", str(root / "clip.yaml"), "--vocab_file",
             str(root / "vocab.txt"), "--device", "cpu",
-            f"data.data_path={root}/data/", f"ckpt.dir={root}/out",
-            "data.train_name=[pairs]", "data.enable_valid=False",
-            "data.native_decode=False", "data.train_steps=1"]
-    with pytest.raises(NotImplementedError, match=UNPORTED[setting]):
-        port_train.main(argv + [setting])
+            f"data.data_path={root}/data24/", "data.train_name=[pairs]",
+            "data.enable_valid=False", "data.native_decode=False",
+            "ckpt.backend=orbax", "ckpt.step_interval=2",
+            "optim.name=torch.optim.AdamW"]
+    cut = port_train.main(argv + [f"ckpt.dir={root}/orbax_cut", "epoch=1"])
+    directory = cut.cfg.ckpt.dir
+    assert cut.step == 3 and complete_steps(directory) == [2, 3]
+    with open(os.path.join(directory, "3", "meta.json")) as f:
+        assert json.load(f) == {"epoch": 1, "step": 3, "inner_step": 0,
+                                "wandb_id": None}
+    resumed = port_train.main(argv + [f"ckpt.dir={root}/orbax_cut", "epoch=2"])
+    assert resumed.step == 6 and complete_steps(directory) == [3, 4, 6]
+    with open(os.path.join(directory, "6", "meta.json")) as f:
+        assert json.load(f) == {"epoch": 2, "step": 6, "inner_step": 0,
+                                "wandb_id": None}
+    whole = port_train.main(argv + [f"ckpt.dir={root}/orbax_whole", "epoch=2"])
+    assert whole.step == 6
+    for (k, a), b in zip(whole.model.state_dict().items(),
+                         resumed.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    want = whole.optimizer.state_dict()["base"]["state"]
+    got = resumed.optimizer.state_dict()["base"]["state"]
+    for i, st in want.items():
+        for k, v in st.items():
+            assert torch.equal(got[i][k], v), (i, k)
 
 
 # the sharded legs, ported: main(argv) trains with each, over two gloo
@@ -274,12 +299,12 @@ if dist.get_rank() == 0:
 
 
 @pytest.fixture(scope="module")
-def sharded_runs(refusal_fixture, tmp_path_factory):
+def sharded_runs(pair_fixture, tmp_path_factory):
     import json
 
     from tests.test_torch_port_distributed import run_world
 
-    root = refusal_fixture
+    root = pair_fixture
     out = tmp_path_factory.mktemp("sharded")
     base = ["--cfg", str(root / "clip.yaml"), "--vocab_file",
             str(root / "vocab.txt"), "--device", "cpu",
@@ -300,10 +325,10 @@ def test_train_main_trains_with_sharded_setting(sharded_runs, setting):
     assert np.isfinite(run["loss"]) and np.isfinite(run["sum"])
 
 
-def test_train_main_sp_without_tp_raises_jax_value_error(refusal_fixture):
+def test_train_main_sp_without_tp_raises_jax_value_error(pair_fixture):
     """``dist.sp=True`` alone: JAX's ValueError (the token dim shards over
     the tensor-parallel axis)."""
-    root = refusal_fixture
+    root = pair_fixture
     argv = ["--cfg", str(root / "clip.yaml"), "--vocab_file",
             str(root / "vocab.txt"), "--device", "cpu",
             f"data.data_path={root}/data/", f"ckpt.dir={root}/sp",
@@ -367,12 +392,12 @@ if dist.get_rank() == 0:
 
 
 @pytest.fixture(scope="module")
-def parallel_runs(refusal_fixture, tmp_path_factory):
+def parallel_runs(pair_fixture, tmp_path_factory):
     import json
 
     from tests.test_torch_port_distributed import run_world
 
-    root = refusal_fixture
+    root = pair_fixture
     out = tmp_path_factory.mktemp("parallel")
     base = ["--cfg", str(root / "clip.yaml"), "--vocab_file",
             str(root / "vocab.txt"), "--device", "cpu",

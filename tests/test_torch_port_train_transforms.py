@@ -82,7 +82,7 @@ def _same_draws(seed, jax_fn, port_fn):
 def test_train_op_matches_jax(name, h, w, seed):
     jcfg, pcfg = _cfgs([])
     jax_op = jax_tf.TRANSFORMS.get(name)(jcfg)
-    port_op = tt.TRAIN_OPS[name](pcfg)
+    port_op = tt.TRANSFORMS.get(name)(pcfg)
     img = Image.fromarray(_image(seed, h, w))
     got, want = _same_draws(seed, lambda: jax_op(img), lambda: port_op(img))
     np.testing.assert_array_equal(got, want)
