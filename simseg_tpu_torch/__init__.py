@@ -11,7 +11,8 @@ hand-written kernel is replaced by its plain PyTorch version.
 
 The public API is JAX's lazy table (``simseg_tpu/__init__.py:27-43``),
 each name mapped to the port's counterpart and imported on first use, so
-``import simseg_tpu_torch`` loads no submodule. JAX's ``TrainState`` has
+``import simseg_tpu_torch`` loads no submodule; each subpackage does the
+same with its JAX ``__all__`` (``lazy_package``). JAX's ``TrainState`` has
 none: the port's state is the model and its ``core/optim.Optimizer``.
 """
 
@@ -44,17 +45,28 @@ _PUBLIC = {
 }
 
 
-def __getattr__(name):
-    if name in _PUBLIC:
-        import importlib
+def lazy_package(package: str, table: dict):
+    """The module-level ``__getattr__`` and ``__dir__`` of a package whose
+    public names (``table``: name -> (module, attribute)) load from their
+    submodules on first use, so importing the package imports none."""
 
-        module, attr = _PUBLIC[name]
-        return getattr(importlib.import_module(module), attr)
-    raise AttributeError(f"module 'simseg_tpu_torch' has no attribute '{name}'")
+    def __getattr__(name):
+        if name in table:
+            import importlib
+
+            module, attr = table[name]
+            return getattr(importlib.import_module(module), attr)
+        raise AttributeError(f"module {package!r} has no attribute {name!r}")
+
+    def __dir__():
+        import sys
+
+        return sorted(set(vars(sys.modules[package])) | set(table))
+
+    return __getattr__, __dir__
 
 
-def __dir__():
-    return sorted(list(globals()) + list(_PUBLIC))
+__getattr__, __dir__ = lazy_package(__name__, _PUBLIC)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -388,3 +388,15 @@ def normalize_images(images_u8: torch.Tensor,
     mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
     std = torch.tensor(std, dtype=torch.float32, device=x.device)
     return (x - mean) / std
+
+
+def denormalize_to_u8(images: torch.Tensor,
+                      mean: Sequence[float] = IMAGENET_MEAN,
+                      std: Sequence[float] = IMAGENET_STD) -> torch.Tensor:
+    """The inverse of ``normalize_images`` (reference
+    ``seg_evaluation.py:105``): float32 NHWC -> uint8, rounded half to
+    even as ``jnp.round``, clipped to 0..255."""
+    mean = torch.tensor(mean, dtype=torch.float32, device=images.device)
+    std = torch.tensor(std, dtype=torch.float32, device=images.device)
+    x = torch.round((images.float() * std + mean) * 255.0)
+    return torch.clamp(x, 0, 255).to(torch.uint8)

@@ -25,6 +25,7 @@ import torch.nn as nn
 from simseg_tpu_torch.models.clip import PIPELINE, _Wrapper
 from simseg_tpu_torch.models.layers import Linear
 from simseg_tpu_torch.ops.losses import label_smoothing_ce, soft_target_ce
+from simseg_tpu_torch.utils.metrics import top_k_ids
 
 
 class LinearProbModel(nn.Module):
@@ -81,12 +82,6 @@ class LinearProbModel(nn.Module):
         """(B, num_classes) float32 logits of ``batch["image"]`` (B, H, W, 3)."""
         return self.classifier(
             self.forward_image_feature(batch["image"], key)).float()
-
-
-def top_k_ids(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """The k largest entries' indices per row, ties to the lower index
-    (``jax.lax.top_k``'s order; a stable descending sort)."""
-    return torch.sort(logits, dim=-1, descending=True, stable=True)[1][:, :k]
 
 
 def linear_prob_loss_fn(model, batch: Dict[str, torch.Tensor], key=None,

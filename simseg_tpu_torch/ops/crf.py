@@ -1,5 +1,6 @@
-"""Mean-field dense CRF (port of ``simseg_tpu/ops/crf.py:_mean_field_binary``
-and ``dense_crf_batched_du``, with their lane routing).
+"""Mean-field dense CRF (port of ``simseg_tpu/ops/crf.py:_mean_field_binary``,
+``dense_crf_batched``, ``dense_crf_batched_du`` and ``dense_crf_binary``,
+with their lane routing).
 
 Parity: the reference refines each candidate class's similarity map with
 pydensecrf on the host (``tools/seg_evaluation.py:31-54``): 2-label
@@ -115,6 +116,23 @@ def _resolve_bilateral_impl(h: int, w: int, stride: int, on_cuda: bool) -> str:
     if fused_eligible(h, w, stride):
         return "fused"
     return "dense" if (h // stride) * (w // stride) <= 4096 else "stream"
+
+
+def dense_crf_batched(probs: torch.Tensor, rgb: torch.Tensor,
+                      **kwargs) -> torch.Tensor:
+    """Refine K binary probability maps per image: probs (B, K, H, W) in
+    [0, 1], rgb (B, H, W, 3) 0..255 -> (B, K, H, W) int32 masks, through
+    :func:`dense_crf_batched_du` (its keywords; on a CUDA tensor ``auto``
+    takes the kernel lanes)."""
+    p = torch.clamp(probs.float(), 0.0, 1.0)
+    du = torch.log(p + 1e-8) - torch.log(1.0 - p + 1e-8)
+    return dense_crf_batched_du(du, rgb, **kwargs)
+
+
+def dense_crf_binary(probs: torch.Tensor, rgb: torch.Tensor,
+                     **kwargs) -> torch.Tensor:
+    """One image: probs (K, H, W), rgb (H, W, 3) -> (K, H, W) int32 masks."""
+    return dense_crf_batched(probs[None], rgb[None], **kwargs)[0]
 
 
 def dense_crf_batched_du(
