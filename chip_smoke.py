@@ -15,6 +15,7 @@
     python3 chip_smoke.py --model-parallel-nccl             (14e over 4 cards)
     python3 chip_smoke.py --bf16-native                     (phases 1-2, 16a-c)
     python3 chip_smoke.py --seg-parity                      (phases 1-2 and 17)
+    python3 chip_smoke.py --attrib-tools                    (phases 1-2 and 18)
     python3 chip_smoke.py --write-fixtures DIR              (9-17's fixtures; no card)
 
 Phases (any failure raises, so the exit code is non-zero):
@@ -460,6 +461,24 @@ Phases (any failure raises, so the exit code is non-zero):
    the plain lane's. Prints each lane's pixel and noflip pixel
    disagreement, mIoU and noflip mIoU delta, largest class delta, flips,
    launches and seconds.
+18. the attribution tools (``simseg_tpu_torch/tools/benchmark_*.py``; the
+   full run runs them in this process while phase 14's and 15's worlds run,
+   where this one would only wait): ``bench_common.timed_secs`` over
+   ``torch.cuda._sleep`` within ``TIMER_BAND`` (0.8-1.25) of the host
+   clock around as many calls and a sync, and a planted fault that must
+   fall outside (the host clock without a sync); the mean-field kernel against its plain version
+   (>= 99.9% of masks) at the decode tool's ablations (0 iterations,
+   closing 1, both, strides 12 and 16) on phase 3's inputs at batch 4, 0
+   iterations with closing 1 equal to the unary's sign; then each tool's
+   ``main`` at a smoke size (``ATTRIB_ARGV``: batch 4, 2 iterations, 1
+   trial, a 32-image shard, 3 train steps): every lane line of JAX's tool
+   present with a finite positive number, the card's line in each output,
+   the decode tool's derived lines, the exact launches a call of rows 1
+   and 4 in the decode lanes (``ATTRIB_DECODE_WANT``: 4 bilateral launches
+   at stride 4 and in the pallas lanes, one mean-field launch in every
+   fused_eligible lane, none in the xla lanes), the MFU, traffic-floor,
+   donation and byte lines, the native decode's lane or the reason it has
+   none, the train pipeline's JSON keys.
 It then prints one JSON line of kernel numbers (``cli_launches``: the
 kernel's launches in phase 8's lane that takes it; ``train_entry_launches``:
 in phase 9's run B; ``bsgs_launches``: per BSGS step of phase 10 at 576 px,
@@ -471,16 +490,20 @@ for rows 2, 4 and 5; ``mp_launches``: each rank's in phase 14 (a), then
 (b); ``moe_launches``: phase 15a's 4 steps; ``pp_launches``: each rank's
 in 15c, 15d and 15d4; ``moe_seg_launches``: phase 15b's;
 ``parity_launches``: phase 17's lane (b) for row 1, (c) for row 2 and (a),
-(d)-(f) for row 1 in bf16), the
+(d)-(f) for row 1 in bf16; ``attrib_launches``: rows 1 and 4's over phase
+18's decode and components tools, warm-up and timed calls), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 import atexit
 import contextlib
 import csv
+import importlib
+import io
 import json
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -5943,11 +5966,13 @@ def mp_world(legs, backend="gloo"):
     return ranks
 
 
-def run_model_parallel():
+def run_model_parallel(beside=None):
     """Phases 14 and 15 (c, d): the attention kernels at the TP shape, then
     the legs in worlds of 2 and 4 gloo ranks on the card, phase 14's and
     phase 15's at once; returns the attention kernels' launches per rank in
-    14 (a) and (b), and in 15c, 15d and 15d4."""
+    14 (a) and (b), and in 15c, 15d and 15d4, and ``beside()``'s result.
+    ``beside`` runs in this process while the worlds run (the full run's
+    phase 18), where this one would only wait."""
     card = card_line()
     t_start = time.perf_counter()
     b = MP_LEGS["a"][2]
@@ -5956,6 +5981,7 @@ def run_model_parallel():
     torch.cuda.empty_cache()
     with ThreadPoolExecutor(len(MP_WORLDS)) as pool:
         jobs = [pool.submit(mp_world, legs) for legs in MP_WORLDS]
+        beside_result = beside() if beside else None
         ranks = {leg: res for legs, job in zip(MP_WORLDS, jobs)
                  for res in [job.result()] for leg in legs}
     for leg, (world, px, b, legs, micro) in {**MP_LEGS, **P15_LEGS}.items():
@@ -5984,7 +6010,7 @@ def run_model_parallel():
     pp = {k: [res[leg]["counts"][k] for leg in ("15c", "15d", "15d4")
               for res in ranks[leg]]
           for k in ("flash_attention", "flash_attention_bwd")}
-    return mp, pp
+    return mp, pp, beside_result
 
 
 def run_model_parallel_nccl():
@@ -6819,6 +6845,214 @@ def run_parity_lanes():
     return counts
 
 
+# -- phase 18: the attribution tools ----------------------------------------------
+
+# the tools' own flags at a smoke size: batch 4, 2 iterations, 1 trial (the
+# tools with a --trials flag), a 32-image shard, 3 train steps
+ATTRIB_ARGV = {
+    "benchmark_decode_attrib": ["--batch", "4", "--iters", "2", "--trials", "1"],
+    "benchmark_components": ["--batch", "4", "--iters", "2"],
+    "benchmark_train_attrib": ["--batch", "4", "--iters", "2"],
+    "benchmark_input_pipeline": ["--images", "32", "--batch_size", "4",
+                                 "--workers", "1,8"],
+    "benchmark_train_pipeline": ["--batch", "4", "--steps", "3", "--images",
+                                 "32", "--workers", "8"],
+}
+# launches a decode call of rows 1 and 4: the stream lane (N = 5184 at
+# stride 4; crf_backend "pallas") runs the degree and one product an
+# iteration, every fused_eligible lane one mean-field launch
+ATTRIB_DECODE_WANT = {
+    "decode_stride4": {"bilateral_matvec": 4},
+    "crf_only_xla": {}, "crf_only_pallas": {"bilateral_matvec": 4},
+    "seg_decode_pallas": {"bilateral_matvec": 4}, "seg_decode_xla": {},
+    "seg_end_to_end": {"crf_mean_field": 1},
+}
+# the fused kernel against its plain version at the decode tool's ablations:
+# (stride, iterations, closing) with phase 3's bar
+ATTRIB_ABLATIONS = ((8, 0, CLOSING), (8, ITERS, 1), (8, 0, 1), (12, ITERS, CLOSING),
+                    (16, ITERS, CLOSING))
+# timed_secs over torch.cuda._sleep against the host clock with a sync: the
+# host clock also counts the host's own delays (beside phase 14's worlds one
+# reference read 22.24 ms against the events' 20.05), the planted unsynced
+# timer reads 0.0004-0.0005 of it
+TIMER_BAND = (0.8, 1.25)
+TIMER_SLEEP_CYCLES = 40_000_000           # about 20 ms at the H100's clocks
+
+
+def tool_number(text, name):
+    """The number after ``name`` at the start of a line of the tool's
+    output (None where no line starts with it)."""
+    m = re.search(rf"^{re.escape(name)}\s+(\S+)", text, re.M)
+    return None if m is None else float(m.group(1))
+
+
+def check_finite_positive(label, values):
+    bad = {k: v for k, v in values.items()
+           if v is None or not np.isfinite(v) or v <= 0}
+    if bad:
+        raise AssertionError(f"18 {label}: lines missing or not finite "
+                             f"positive: {bad}")
+
+
+def run_tool(name):
+    """One tool's ``main`` at its smoke size in this process: (its result,
+    its output, the kernel launches of the run)."""
+    tool = importlib.import_module(f"simseg_tpu_torch.tools.{name}")
+    before, buf, t0 = read_counts(), io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = tool.main(ATTRIB_ARGV[name])
+    after = read_counts()
+    launches = {k: after[k] - v for k, v in before.items()
+                if after[k] != v and not k.startswith("lane_")}
+    text = buf.getvalue()
+    print(f"18 {name} {' '.join(ATTRIB_ARGV[name])} in "
+          f"{time.perf_counter() - t0:.1f} s, kernel launches {launches}:\n"
+          + "\n".join("   " + line for line in text.splitlines() if line),
+          flush=True)
+    if f"card: {card_line()}" not in text:
+        raise AssertionError(f"18 {name}: no card line in its output")
+    return result, text, launches
+
+
+def check_timer(timer, label):
+    """``timer`` (``timed_secs``'s signature) over ``torch.cuda._sleep``
+    against the host clock around as many calls and a sync (the lesser of
+    a reading before and one after); returns whether their ratio lies in
+    ``TIMER_BAND``."""
+    def sleep():
+        torch.cuda._sleep(TIMER_SLEEP_CYCLES)
+
+    iters = 4
+
+    def host_clock():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            sleep()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters
+
+    before = host_clock()
+    got = timer(sleep, (), iters=iters, trials=1)
+    want = min(before, host_clock())
+    ratio = got / want
+    print(f"18 timer {label}: {1e3 * got:.3f} ms a call against "
+          f"{1e3 * want:.3f} ms by the synced host clock ({ratio:.4f})",
+          flush=True)
+    return TIMER_BAND[0] <= ratio <= TIMER_BAND[1]
+
+
+def check_fused_ablations():
+    """The mean-field kernel against its plain version at the decode tool's
+    ablations (0 iterations, closing 1, strides 12 and 16) on phase 3's
+    decode-form inputs at batch 4; 0 iterations and closing 1 equal to the
+    unary's sign."""
+    from simseg_tpu_torch.ops import crf_fused
+
+    du, rgb = crf_inputs(4)
+    for stride, iters, ck in ATTRIB_ABLATIONS:
+        kw = dict(stride=stride, num_iters=iters, closing_ksize=ck)
+        got = crf_fused.mean_field_fused(du, rgb, **kw)
+        want = crf_fused.mean_field_fused_plain(du, rgb, **kw)
+        agree = (got == want).float().mean().item()
+        print(f"18 fused kernel at stride {stride}, {iters} iterations, "
+              f"closing {ck}: {agree:.6f} of masks equal to the plain version",
+              flush=True)
+        if agree < 0.999:
+            raise AssertionError(f"18: the fused kernel at {kw} agrees with "
+                                 f"its plain version on {agree:.6f} < 0.999")
+        if iters == 0 and ck == 1 and not torch.equal(got, (du > 0).float()):
+            raise AssertionError("18: 0 iterations and closing 1 are not the "
+                                 "unary's sign")
+
+
+def run_attrib_tools():
+    """Phase 18: the five attribution tools' ``main`` at smoke sizes, every
+    lane line JAX's tool prints present with a finite positive number, the
+    decode lanes' exact launches of rows 1 and 4, the fused kernel at the
+    ablations against its plain version, and ``timed_secs`` against a
+    planted host-clock timer. Returns the launches of rows 1 and 4 over the
+    tools' runs."""
+    from simseg_tpu_torch.data import native
+    from simseg_tpu_torch.tools import (bench_common, benchmark_components,
+                                        benchmark_decode_attrib,
+                                        benchmark_train_attrib)
+
+    t0 = time.perf_counter()
+    if not check_timer(bench_common.timed_secs, "timed_secs"):
+        raise AssertionError("18: timed_secs is off the synced host clock")
+    # planted fault: the host clock without a sync (timed_secs's CPU
+    # branch) measures the enqueue
+    if check_timer(lambda *a, **k: bench_common.timed_secs(*a, **k,
+                                                           device="cpu"),
+                   "planted fault (host clock, no sync)"):
+        raise AssertionError("18: the planted host-clock timer passes")
+    check_fused_ablations()
+    total = {}
+
+    rows, text, launches = run_tool("benchmark_decode_attrib")
+    names = ([n for n, _ in benchmark_decode_attrib.DECODE_VARIANTS]
+             + [f"crf_only_{j}" for j, _ in benchmark_decode_attrib.CRF_ONLY]
+             + ["closing7_only", "closing7_matmul_only"]
+             + [n for n, _ in benchmark_decode_attrib.MICRO_LANES])
+    check_finite_positive("decode", {n: tool_number(text, n) for n in names})
+    for line in ("mean-field 3 iters", "kernel build + rest",
+                 "closing (in-situ)"):
+        if tool_number(text, line) is None:
+            raise AssertionError(f"18 decode: no derived line '{line}'")
+    want = {n: ATTRIB_DECODE_WANT.get(n, {"crf_mean_field": 1})
+            for n in names[:len(benchmark_decode_attrib.DECODE_VARIANTS) + 2]}
+    got = {n: rows[n]["launches"] for n in want}
+    if got != want:
+        raise AssertionError(f"18 decode: launches a call {got}, want {want}")
+    total["decode"] = launches
+
+    _, text, launches = run_tool("benchmark_components")
+    check_finite_positive("components", {
+        n: tool_number(text, n) for n in benchmark_components.LANES})
+    if "train-step MFU" not in text:
+        raise AssertionError("18 components: no MFU line")
+    for name in ("seg_decode_pallas", "seg_decode_xla", "seg_end_to_end"):
+        if f"kernel launches a call {ATTRIB_DECODE_WANT[name]}" not in text:
+            raise AssertionError(f"18 components: {name}'s launches are not "
+                                 f"{ATTRIB_DECODE_WANT[name]}")
+    total["components"] = launches
+
+    results, text, _ = run_tool("benchmark_train_attrib")
+    check_finite_positive("train attribution", {
+        n: tool_number(text, n) for n in benchmark_train_attrib.PHASES})
+    for line in ("full_step_nodonate no eager PyTorch counterpart",
+                 "donation saves: not measured", "AdamW traffic",
+                 "ms floor at the card's", "bytes accessed not counted"):
+        if line not in text and not (line.startswith("ms floor")
+                                     and "no floor: " in text):
+            raise AssertionError(f"18 train attribution: no '{line}'")
+    check_finite_positive("train attribution", {
+        "tflop_counted": results["tflop_counted"]})
+
+    results, text, _ = run_tool("benchmark_input_pipeline")
+    check_finite_positive("input pipeline", results)
+    decoders = ("pil", "native") if native.available() else ("pil",)
+    if set(results) != {f"{d}_w{n}" for d in decoders for n in (1, 8)}:
+        raise AssertionError(f"18 input pipeline: lanes {sorted(results)}")
+    if len(decoders) == 1 and "the native library is unavailable" not in text:
+        raise AssertionError("18 input pipeline: the native lane is dropped "
+                             "without its reason")
+
+    out, text, _ = run_tool("benchmark_train_pipeline")
+    check_finite_positive("train pipeline", {**out["img_per_s"],
+                                             "ratio": out["real_over_synthetic"]})
+    if set(out) - {"card"} != {"batch", "steps", "img_per_s",
+                               "real_over_synthetic"} or \
+            set(out["img_per_s"]) != {"real_prefetch2", "real_prefetch0",
+                                      "synthetic"}:
+        raise AssertionError(f"18 train pipeline: keys {out}")
+    print(f"18 attribution tools in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {k: sum(t.get(k, 0) for t in total.values())
+            for k in ("crf_mean_field", "bilateral_matvec")}
+
+
 def build_all(later=()):
     """Builds the five kernels and the nvJPEG binding with one nvcc process
     each, all started together; waits for every source but those named in
@@ -7272,6 +7506,11 @@ def main() -> None:
         build_all()
         run_parity_lanes()
         return None
+    if sys.argv[1:2] == ["--attrib-tools"]:
+        print(f"card: {card_line()}", flush=True)
+        build_all()
+        run_attrib_tools()
+        return None
     if sys.argv[1:2] == ["--model-parallel-nccl"]:
         print(f"card: {card_line()}", flush=True)
         run_model_parallel_nccl()
@@ -7369,8 +7608,10 @@ def main() -> None:
         moe = run_moe_train(tmp)
     moe_seg = run_moe_seg(tokenizer, classes)
     t_phase = phase_done("15 (a, b) MoE towers", t_phase)
-    mp, pp = run_model_parallel()
-    phase_done("14 sharded state and 15 (c, d) EP and PP", t_phase)
+    torch.cuda.empty_cache()
+    mp, pp, attrib = run_model_parallel(beside=run_attrib_tools)
+    phase_done("14 sharded state and 15 (c, d) EP and PP, 18 beside their "
+               "worlds", t_phase)
 
     print(json.dumps({"kernels": [
         {"name": "crf_mean_field", "route": "cuda",
@@ -7382,7 +7623,8 @@ def main() -> None:
          "cnn_launches": cnn["crf_mean_field"],
          "serving_launches": serve["a"]["crf_mean_field"],
          "moe_seg_launches": moe_seg["crf_mean_field"],
-         "parity_launches": parity["b"]["crf_mean_field"], "library_ms": None,
+         "parity_launches": parity["b"]["crf_mean_field"],
+         "attrib_launches": attrib["crf_mean_field"], "library_ms": None,
          **crf},
         {"name": "flash_attention", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/flash_attention.cu",
@@ -7415,6 +7657,7 @@ def main() -> None:
          "cli_launches": entry["pallas"]["bilateral_matvec"],
          "dist_launches": [0] * DIST_WORLD,
          "serving_launches": serve["b_window"]["bilateral_matvec"],
+         "attrib_launches": attrib["bilateral_matvec"],
          **bilateral},
         {"name": "seg_decode_tail", "route": "cuda",
          "source": "simseg_tpu_torch/csrc/crf_mean_field.cu",

@@ -18,7 +18,8 @@ non-reentrant checkpoint. ``moe_experts`` / ``moe_every`` /
 ``moe_capacity`` make every ``moe_every``-th layer's FFN a top-1 MoE
 (``ops/moe.py``; JAX ``bert.py:57-62, :121-129``) that takes the attention
 mask as its ``token_mask``, its output dropped out and normalised as the
-dense FFN's. The HuggingFace AutoConfig lookup is not ported.
+dense FFN's. A tag outside the table resolves through a locally cached
+HuggingFace config (``_hf_config_arch``, JAX ``bert.py:207-229``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from simseg_tpu_torch.data.tokenizer import _hf_local
 from simseg_tpu_torch.models.layers import (Dropout, LayerNorm, gelu,
                                             number_dropout_sites,
                                             parse_remat_policy, remat_call)
@@ -221,16 +223,50 @@ BERT_CONFIGS = {
 }
 
 
+def _hf_config_arch(tag: str) -> Optional[dict]:
+    """A BERT-family architecture from a locally cached HuggingFace config
+    (``AutoConfig``, ``local_files_only``: never a download); None where
+    ``transformers`` or the cached config is missing, or the model is not a
+    BERT."""
+    if not _hf_local(tag):
+        return None
+    try:
+        from transformers import AutoConfig
+
+        hf = AutoConfig.from_pretrained(tag, local_files_only=True)
+    except (ImportError, OSError, ValueError):
+        # no transformers, no readable config, or a model type it lacks
+        return None
+    if getattr(hf, "model_type", "") != "bert":
+        return None
+    return dict(
+        vocab_size=hf.vocab_size,
+        hidden_dim=hf.hidden_size,
+        depth=hf.num_hidden_layers,
+        num_heads=hf.num_attention_heads,
+        intermediate_dim=hf.intermediate_size,
+        max_position=hf.max_position_embeddings,
+        type_vocab_size=hf.type_vocab_size,
+    )
+
+
 def resolve_bert_config(tag: str, arch: Optional[dict] = None) -> dict:
-    """Tag table -> ``arch`` overrides."""
-    spec = dict(BERT_CONFIGS.get(tag) or {})
+    """Tag table -> cached HF AutoConfig -> YAML ``model.text_encoder.arch``
+    overrides (JAX ``resolve_bert_config``)."""
+    spec = BERT_CONFIGS.get(tag)
+    if spec is None:
+        spec = _hf_config_arch(tag)
+    spec = dict(spec) if spec else {}
     if arch:
         spec.update({k: v for k, v in dict(arch).items() if v is not None})
     required = ("vocab_size", "hidden_dim", "depth", "num_heads",
                 "intermediate_dim")
     missing = [k for k in required if k not in spec]
     if missing:
-        raise KeyError(f"Unknown BERT tag '{tag}' and arch is missing {missing}")
+        raise KeyError(
+            f"Unknown BERT tag '{tag}' (not in the table, no cached HF "
+            f"config) and model.text_encoder.arch is missing {missing}"
+        )
     spec.setdefault("max_position", 512)
     spec.setdefault("type_vocab_size", 2)
     return spec

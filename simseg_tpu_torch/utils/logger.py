@@ -34,6 +34,22 @@ class _RootOnly(logging.Filter):
         return not getattr(record, "root_only", True) or ENV.rank == 0
 
 
+class _Stdout(logging.StreamHandler):
+    """Standard output as it is at each record, as JAX's ``print`` writes
+    it: a redirect or a capture made after the logger is made is followed."""
+
+    def __init__(self) -> None:
+        super().__init__(sys.stdout)
+
+    @property
+    def stream(self):
+        return sys.stdout
+
+    @stream.setter
+    def stream(self, value) -> None:
+        pass
+
+
 class Logger:
     def __init__(self, name: str = "simseg") -> None:
         self._logger = logging.getLogger(name)
@@ -41,7 +57,7 @@ class Logger:
         self._logger.setLevel(_LEVELS.get(
             os.environ.get("SIMSEG_LOG_LEVEL", "INFO").upper(), logging.INFO))
         if not self._logger.handlers:
-            self._add(logging.StreamHandler(sys.stdout))
+            self._add(_Stdout())
 
     @property
     def level(self) -> int:
